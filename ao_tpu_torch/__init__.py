@@ -10,7 +10,9 @@ for sm_90a (``ops/hopper``, sources in ``csrc``). Entry points run on
 __version__ = "0.1.0"
 
 from ao_tpu_torch.core.config import AOBaseConfig
-from ao_tpu_torch.quantization.configs import FqnToConfig, Int4WeightOnlyConfig
+from ao_tpu_torch.quantization.configs import (
+    FqnToConfig, Int4WeightOnlyConfig, Int8DynamicActivationInt4WeightConfig,
+)
 from ao_tpu_torch.quantization.primitives import MappingType, ZeroPointDomain, compute_error
 from ao_tpu_torch.quantization.qarrays.int4 import Int4Array
 from ao_tpu_torch.quantization.quantize import quantize_, quantize_params
@@ -23,6 +25,7 @@ __all__ = [
     "FqnToConfig",
     "Int4Array",
     "Int4WeightOnlyConfig",
+    "Int8DynamicActivationInt4WeightConfig",
     "MappingType",
     "ZeroPointDomain",
     "compute_error",

@@ -20,6 +20,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ao_tpu_torch.ops import kernels, linear
+from ao_tpu_torch.ops.act_quant import producer_quant_ok, silu_mul_quant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -264,11 +265,17 @@ def mlp(layer: Dict[str, Any], x: torch.Tensor, cfg=None) -> torch.Tensor:
     if "r4" in layer:
         raise NotImplementedError("SpinQuant's online Hadamard comes with the PTQ slice of the port")
     a, bq = linear(x, layer["w1"]), linear(x, layer["w3"])
-    # int4 weight-only w2 takes no producer-side activation quantization
-    # (producer_quant_ok is false for it in the reference), so this is the
-    # plain SwiGLU; W8A8/W4A8 weights come with a later slice
+    w2 = layer["w2"]
+    if producer_quant_ok(w2) and x.shape[-2] > 1:
+        # prefill with an int8-activation w2 (W4A8): the SwiGLU gate comes
+        # out as int8 qdata and per-token scales in one pass (K12,
+        # ops/hopper/fused_act.py), so the standalone quantize never
+        # re-reads it. Decode (S == 1) keeps the plain path, as the
+        # reference does: the activations are tiny, and w2's linear
+        # quantizes them per token before K3
+        return linear(silu_mul_quant(a, bq), w2)
     h = a * torch.sigmoid(a) * bq
-    return linear(h, layer["w2"])
+    return linear(h, w2)
 
 
 @torch.no_grad()

@@ -1,17 +1,28 @@
-"""K1: int4 weight-only matmul over the "magic" layout, on Hopper.
+"""The int4 matmul kernels of ``ao_tpu/ops/pallas/int4_matmul.py``, on Hopper.
 
-Counterpart of ``ao_tpu/ops/pallas/int4_matmul.py::int4_wo_magic_pallas``
-(kernel ``_magic_kernel``). The CUDA source is ``ao_tpu_torch/csrc/
-int4_matmul.cu``; its header says what bounds the kernel on the H100 and
-how the design meets it.
+* K1 ``int4_wo_magic``: int4 weight-only matmul over the "magic" layout
+  (``int4_wo_magic_pallas``, kernel ``_magic_kernel``); CUDA source
+  ``ao_tpu_torch/csrc/int4_matmul.cu``.
+* K3 ``int4_w4a8_matmul``: int8 activations times magic8 int4 weights on
+  the s8 tensor cores, f32 out (``int4_w4a8_matmul_pallas``, kernel
+  ``_w4a8_kernel``); CUDA source ``ao_tpu_torch/csrc/int4_w4a8.cu``.
+* K4 ``int4_magic8_requant_int8``: magic8 words to per-channel int8 for the
+  prefill int8 GEMM (``int4_magic8_requant_int8_pallas``, kernel
+  ``_requant_kernel``); same CUDA source as K3.
 
-``int4_wo_magic`` takes the container's fields and runs the kernel on a
-CUDA tensor or its plain PyTorch version, ``int4_wo_magic_plain``, on a CPU
-tensor. Both take the qparams in the reference wrapper's transport form (s
-and b2 = b + 8s in bf16, x in bf16). For bf16 tinygemm qparams (what
+The headers of the CUDA sources say what bounds each kernel on the H100 and
+how the design meets it. Each wrapper runs its kernel on a CUDA tensor and
+its plain PyTorch version (``*_plain``) on a CPU tensor, and raises
+ValueError on either for a shape the kernel does not take.
+
+K1 takes the qparams in the reference wrapper's transport form (s and
+b2 = b + 8s in bf16, x in bf16). For bf16 tinygemm qparams (what
 ``Int4WeightOnlyConfig`` makes) the kernel takes the scale and zero point as
 they are and forms b2 itself, with the same roundings, so a call on the
-main path runs no elementwise pass on the host's behalf.
+main path runs no elementwise pass on the host's behalf. K3 takes s and b
+of w = u*s + b in bf16; for bf16 tinygemm qparams (what
+``Int8DynamicActivationInt4WeightConfig`` makes) those are the scale and
+zero point themselves.
 """
 
 from __future__ import annotations
@@ -22,9 +33,10 @@ import torch
 
 from ao_tpu_torch.ops.hopper import build
 from ao_tpu_torch.quantization import primitives as P
-from ao_tpu_torch.quantization.qarrays.int4 import unpack_int4_magic
+from ao_tpu_torch.quantization.qarrays.int4 import unpack_int4_magic, unpack_int4_magic8
 
 _LIB = None
+_LIB_W4A8 = None
 
 
 def _lib():
@@ -36,6 +48,31 @@ def _lib():
         fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def _lib_w4a8():
+    global _LIB_W4A8
+    if _LIB_W4A8 is None:
+        lib = build.load("int4_w4a8")
+        lib.ao_int4_w4a8.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.ao_int4_w4a8.restype = ctypes.c_int
+        lib.ao_int4_magic8_requant.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        lib.ao_int4_magic8_requant.restype = ctypes.c_int
+        _LIB_W4A8 = lib
+    return _LIB_W4A8
+
+
+def _check_operands(kernel: str, dev, operands) -> None:
+    """Each (name, tensor, dtype, shape) must be a contiguous, 16-byte
+    aligned tensor of that dtype and shape on ``dev``."""
+    for name, t, dt, shape in operands:
+        if t.device != dev or t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(
+                f"{kernel}: {name} must be a contiguous {dt} {shape} on {dev}, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{kernel}: {name} must be 16-byte aligned")
 
 
 GROUP_SIZES = (16, 32, 64, 128)  # the kernel's compiled group sizes
@@ -55,9 +92,10 @@ def check_shapes(x: torch.Tensor, word: torch.Tensor, group_size: int) -> None:
                          f"and K={k} a multiple of 4g")
 
 
-def transport_qparams(scale, zp, zp_domain):
-    """(s, b2) in bf16 with q*s + b2 = the dequantized weight, q = u - 8
-    (the reference wrapper's int4_matmul.py:411-425)."""
+def affine_qparams(scale, zp, zp_domain):
+    """(s, b) in f32 with u*s + b = the dequantized weight, u the nibble
+    0..15, for either zero-point domain (the reference wrappers'
+    int4_matmul.py:411-425 and :572-582, and ops/linear.py:226-232)."""
     s = scale.to(torch.float32)
     if zp_domain is P.ZeroPointDomain.FLOAT:
         b = zp.to(torch.float32)
@@ -65,8 +103,13 @@ def transport_qparams(scale, zp, zp_domain):
         b = -8.0 * s
     else:
         b = -(8.0 + zp.to(torch.float32)) * s
-    b2 = b + 8.0 * s
-    return s.to(torch.bfloat16), b2.to(torch.bfloat16)
+    return s, b
+
+
+def transport_qparams(scale, zp, zp_domain):
+    """(s, b2) in bf16 with q*s + b2 = the dequantized weight, q = u - 8."""
+    s, b = affine_qparams(scale, zp, zp_domain)
+    return s.to(torch.bfloat16), (b + 8.0 * s).to(torch.bfloat16)
 
 
 def int4_wo_magic_plain(x, word, s, b2, group_size: int) -> torch.Tensor:
@@ -94,17 +137,22 @@ def _sm_count(dev: torch.device) -> int:
     return _SM_COUNT[idx]
 
 
+def _split_units(units: int, n_blocks: int, sm_count: int):
+    """(splits, units per split): split ``units`` whole K units until about
+    four 4-warp blocks per SM are in flight."""
+    splits = max(1, min(units, -(-4 * sm_count // n_blocks)))
+    per = -(-units // splits)
+    return -(-units // per), per
+
+
 def pick_splits(m: int, k: int, n: int, group_size: int, sm_count: int):
-    """(splits, super-groups per split) for the K split of a launch. Decode
-    (M <= 16) splits K until about four 4-warp blocks per SM are in flight;
-    larger M has blocks enough along M and N."""
+    """(splits, super-groups per split) for the K split of a K1 launch.
+    Decode (M <= 16) splits K until about four 4-warp blocks per SM are in
+    flight; larger M has blocks enough along M and N."""
     nsuper = k // (4 * group_size)
     if m > 16:
         return 1, nsuper
-    n_blocks = -(-n // 128)
-    splits = max(1, min(nsuper, -(-4 * sm_count // n_blocks)))
-    sps = -(-nsuper // splits)
-    return -(-nsuper // sps), sps
+    return _split_units(nsuper, -(-n // 128), sm_count)
 
 
 def _launch(x, word, s, b2, group_size: int, raw_zp: bool = False) -> torch.Tensor:
@@ -113,16 +161,11 @@ def _launch(x, word, s, b2, group_size: int, raw_zp: bool = False) -> torch.Tens
     dev = x.device
     m, k = x.shape
     n = word.shape[1]
-    for name, t, dt, shape in (("x", x, torch.bfloat16, (m, k)),
-                               ("word", word, torch.int32, (k // 8, n)),
-                               ("scale", s, torch.bfloat16, (k // group_size, n)),
-                               ("bias", b2, torch.bfloat16, (k // group_size, n))):
-        if t.device != dev or t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(
-                f"int4_wo_magic: {name} must be a contiguous {dt} {shape} on {dev}, "
-                f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"int4_wo_magic: {name} must be 16-byte aligned")
+    _check_operands("int4_wo_magic", dev, (
+        ("x", x, torch.bfloat16, (m, k)),
+        ("word", word, torch.int32, (k // 8, n)),
+        ("scale", s, torch.bfloat16, (k // group_size, n)),
+        ("bias", b2, torch.bfloat16, (k // group_size, n))))
     splits, sps = pick_splits(m, k, n, group_size, _sm_count(dev))
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     ws = torch.empty((splits, m, n), dtype=torch.float32, device=dev) if splits > 1 else None
@@ -165,3 +208,183 @@ def traffic(m: int, k: int, n: int, group_size: int):
     ng = k // group_size
     nbytes = m * k * 2 + k * n // 2 + 2 * ng * n * 2 + m * n * 2
     return nbytes, 2 * m * k * n
+
+
+# ---------------------------------------------------------------------------
+# K3: W4A8 matmul (int8 x, magic8 int4 W, f32 out)
+# ---------------------------------------------------------------------------
+
+W4A8_GROUP_SIZES = (32, 64, 128)  # K3's and K4's compiled group sizes
+
+
+def check_shapes_w4a8(xq: torch.Tensor, word: torch.Tensor, group_size: int) -> None:
+    """Raise ValueError for shapes K3 does not take: the reference's rule
+    (N % 128 == 0, K/g even, g % 8 == 0) and the compiled group sizes."""
+    if xq.ndim != 2 or word.ndim != 2:
+        raise ValueError("int4_w4a8_matmul takes 2-D xq (M, K) and words (K/8, N)")
+    k, (kw, n), g = xq.shape[1], word.shape, group_size
+    if k != 8 * kw:
+        raise ValueError(f"K mismatch {k} vs packed {kw}*8")
+    if g not in W4A8_GROUP_SIZES or n % 128 or k % (2 * g):
+        raise ValueError(f"N={n} must be a multiple of 128, g={g} one of {W4A8_GROUP_SIZES} "
+                         f"and K={k} a multiple of 2g")
+
+
+def w4a8_qparams(scale, zp, zp_domain):
+    """(s, b) of ``affine_qparams`` in bf16, K3's transport form."""
+    s, b = affine_qparams(scale, zp, zp_domain)
+    return s.to(torch.bfloat16), b.to(torch.bfloat16)
+
+
+def int4_w4a8_matmul_plain(xq, sx, word, s, b, group_size: int) -> torch.Tensor:
+    """K3's function in plain PyTorch, f32 (M, N): per group G,
+    acc += s[G] * dot(x_G, u_G) then acc += sum(x_G) * b[G], in f32 (the
+    dot of int8 and 0..15 values over a group is exact in f32), then
+    acc * sx."""
+    g = group_size
+    u = unpack_int4_magic8(word, g).to(torch.float32)
+    xf = xq.to(torch.float32)
+    m, k = xf.shape
+    acc = torch.zeros((m, word.shape[1]), dtype=torch.float32, device=xq.device)
+    for grp in range(k // g):
+        xg = xf[:, grp * g:(grp + 1) * g]
+        acc = acc + s[grp].to(torch.float32) * (xg @ u[grp * g:(grp + 1) * g])
+        acc = acc + xg.sum(dim=1, keepdim=True) * b[grp].to(torch.float32)
+    return acc * sx.reshape(m, 1).to(torch.float32)
+
+
+def _launch_w4a8(xq, sx, word, s, b, group_size: int) -> torch.Tensor:
+    dev = xq.device
+    m, k = xq.shape
+    n = word.shape[1]
+    ng = k // group_size
+    _check_operands("int4_w4a8_matmul", dev, (
+        ("xq", xq, torch.int8, (m, k)),
+        ("sx", sx, torch.float32, (m, 1)),
+        ("word", word, torch.int32, (k // 8, n)),
+        ("scale", s, torch.bfloat16, (ng, n)),
+        ("bias", b, torch.bfloat16, (ng, n))))
+    n_blocks = (n // 128) * (1 if m <= 16 else -(-m // 32))
+    splits, spp = _split_units(ng // 2, n_blocks, _sm_count(dev))
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    ws = torch.empty((splits, m, n), dtype=torch.float32, device=dev) if splits > 1 else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib_w4a8().ao_int4_w4a8(
+            xq.data_ptr(), sx.data_ptr(), word.data_ptr(), s.data_ptr(), b.data_ptr(),
+            out.data_ptr(), None if ws is None else ws.data_ptr(), m, k, n, group_size, splits,
+            spp, stream)
+    if err != 0:
+        raise RuntimeError(f"int4_w4a8_matmul kernel launch failed: CUDA error {err}")
+    int4_w4a8_matmul.launches += 1
+    return out
+
+
+def int4_w4a8_matmul(xq, sx, word, scale, zp, group_size: int, zp_domain) -> torch.Tensor:
+    """xq int8 (M, K), symmetric per token with f32 scale sx (M, 1); word
+    int32 (K/8, N) magic8 layout; scale/zp (K/g, N). Returns f32 (M, N),
+    already scaled by sx: the kernel on a CUDA tensor, its plain version on
+    a CPU tensor."""
+    check_shapes_w4a8(xq, word, group_size)
+    sx = sx.reshape(-1, 1).to(torch.float32)
+    if (zp_domain is P.ZeroPointDomain.FLOAT and scale.dtype == torch.bfloat16
+            and zp is not None and zp.dtype == torch.bfloat16):
+        s, b = scale, zp  # the transport form already: no host-side pass
+    else:
+        s, b = w4a8_qparams(scale, zp, zp_domain)
+    if xq.device.type == "cpu":
+        return int4_w4a8_matmul_plain(xq, sx, word, s, b, group_size)
+    if xq.device.type != "cuda":
+        raise ValueError(f"int4_w4a8_matmul runs on cuda or cpu tensors, not {xq.device}")
+    return _launch_w4a8(xq, sx, word, s, b, group_size)
+
+
+int4_w4a8_matmul.launches = 0  # kernel launches (not plain-version calls)
+
+
+def traffic_w4a8(m: int, k: int, n: int, group_size: int):
+    """(bytes, int8 operations) K3 needs: xq int8 and sx f32 read once,
+    words 0.5 B per weight, s and b bf16, the f32 output written once."""
+    ng = k // group_size
+    nbytes = m * k + m * 4 + k * n // 2 + 2 * ng * n * 2 + m * n * 4
+    return nbytes, 2 * m * k * n
+
+
+# ---------------------------------------------------------------------------
+# K4: magic8 -> per-channel int8 requantization (prefill W4A8 feeder)
+# ---------------------------------------------------------------------------
+
+
+def check_shapes_requant(word: torch.Tensor, group_size: int) -> None:
+    """Raise ValueError for shapes K4 does not take: 256 K rows and 64
+    columns per block, the compiled group sizes."""
+    if word.ndim != 2:
+        raise ValueError("int4_magic8_requant_int8 takes 2-D words (K/8, N)")
+    (kw, n), g = word.shape, group_size
+    if g not in W4A8_GROUP_SIZES or n % 64 or (8 * kw) % 256:
+        raise ValueError(f"N={n} must be a multiple of 64, K={8 * kw} of 256 and "
+                         f"g={g} one of {W4A8_GROUP_SIZES}")
+
+
+def requant_rows(scale, bias, s8):
+    """(a, b) = scale / s8 and bias / s8 per group in f32, as the reference
+    wrapper forms them (int4_matmul.py:705-707): one reciprocal, two
+    multiplies."""
+    inv = 1.0 / s8.to(torch.float32)
+    return ((scale.to(torch.float32) * inv).contiguous(),
+            (bias.to(torch.float32) * inv).contiguous())
+
+
+def int4_magic8_requant_int8_plain(word, a, b, group_size: int) -> torch.Tensor:
+    """K4's function in plain PyTorch: int8 (K, N) = clip(round(u*a + b),
+    -127, 127) with a and b of the row's group; the multiply and the add
+    are two roundings, as in the kernel."""
+    u = unpack_int4_magic8(word, group_size).to(torch.float32)
+    v = u * a.repeat_interleave(group_size, dim=0) + b.repeat_interleave(group_size, dim=0)
+    return torch.clamp(torch.round(v), -127, 127).to(torch.int8)
+
+
+def _launch_requant(word, a, b, group_size: int) -> torch.Tensor:
+    dev = word.device
+    kw, n = word.shape
+    k = 8 * kw
+    ng = k // group_size
+    _check_operands("int4_magic8_requant_int8", dev, (
+        ("word", word, torch.int32, (kw, n)),
+        ("a", a, torch.float32, (ng, n)),
+        ("b", b, torch.float32, (ng, n))))
+    out_t = torch.empty((n, k), dtype=torch.int8, device=dev)  # q8 transposed
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib_w4a8().ao_int4_magic8_requant(
+            word.data_ptr(), a.data_ptr(), b.data_ptr(), out_t.data_ptr(), k, n, group_size,
+            stream)
+    if err != 0:
+        raise RuntimeError(f"int4_magic8_requant_int8 kernel launch failed: CUDA error {err}")
+    int4_magic8_requant_int8.launches += 1
+    return out_t.t()
+
+
+def int4_magic8_requant_int8(word, scale, bias, s8, group_size: int) -> torch.Tensor:
+    """magic8 words (K/8, N) + per-group dequant params w = u*scale + bias
+    ((K/g, N) each) + per-channel int8 scale s8 (1, N) -> int8 (K, N) with
+    w ~ q8 * s8. On a CUDA tensor the kernel writes q8 column-major (the
+    (K, N) view of an (N, K) tensor), the layout torch._int_mm takes as its
+    B operand; on a CPU tensor the plain version returns it row-major."""
+    check_shapes_requant(word, group_size)
+    a, b = requant_rows(scale, bias, s8)
+    if word.device.type == "cpu":
+        return int4_magic8_requant_int8_plain(word, a, b, group_size)
+    if word.device.type != "cuda":
+        raise ValueError(f"int4_magic8_requant_int8 runs on cuda or cpu tensors, not {word.device}")
+    return _launch_requant(word, a, b, group_size)
+
+
+int4_magic8_requant_int8.launches = 0  # kernel launches (not plain-version calls)
+
+
+def traffic_requant(k: int, n: int, group_size: int):
+    """(bytes, operations) K4 needs: words 0.5 B per weight, a and b f32
+    per group, the int8 output written once; two f32 operations per weight."""
+    ng = k // group_size
+    return k * n // 2 + 2 * ng * n * 4 + k * n, 2 * k * n

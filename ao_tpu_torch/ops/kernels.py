@@ -1,6 +1,7 @@
 """Kernel backend selection + the plain PyTorch implementations of the hot ops.
 
-PyTorch port of the int4 weight-only part of ``ao_tpu/ops/kernels.py``.
+PyTorch port of the int4 weight-only and int8-activation parts of
+``ao_tpu/ops/kernels.py``.
 
 Backends:
   * "auto"  — the hand-written kernel (ops/hopper) wherever the reference
@@ -35,6 +36,12 @@ _BACKEND = "auto"
 # follows the same rule.
 INT4_KERNEL_MAX_M = 1024
 
+# W4A8 (int8 activations x int4 weights, ops/linear.py): above this M the
+# prefill route requantizes the int4 weight to per-channel int8 (K4) and
+# runs one int8 GEMM; at or below it the W4A8 matmul (K3) takes the call
+# (the reference's gate, ao_tpu/ops/linear.py:209).
+W4A8_REQUANT_ABOVE_M = 512
+
 
 def set_backend(name: str) -> None:
     global _BACKEND
@@ -64,6 +71,49 @@ def use_kernel(x: torch.Tensor) -> bool:
     if _BACKEND == "cuda" and x.device.type != "cuda":
         raise ValueError("backend 'cuda' runs the kernels on CUDA tensors only")
     return True
+
+
+# ---------------------------------------------------------------------------
+# int8 dynamic-activation x int8 weight
+# ---------------------------------------------------------------------------
+
+
+def int8_dynamic_matmul(qx, sx, zx, qw, sw, zw, wbs, out_dtype=torch.bfloat16):
+    """Integer matmul with int32 accumulation (ref: ao_tpu kernels.py:109).
+
+    y = (qx - zx) @ (qw - zw) * sx * sw
+      = [qx@qw - zx*colsum(qw) - rowsum(qx)*zw + K*zx*zw] * sx * sw
+
+    The per-channel, per-token core is ``torch._int_mm`` (int32 out), on the
+    card and on the CPU; on the card it needs M > 16 and K, N multiples of
+    8, and cuBLAS runs it as the "TN" int8 GEMM when ``qw`` is column-major
+    (what the requant kernel writes). Per-group weight scales fall back to
+    dequantize + f32 matmul, as the reference does.
+    """
+    m, k = qx.shape
+    n = qw.shape[-1]
+    per_channel_w = tuple(sw.shape) == (1, n) or sw.numel() == 1
+    per_token_x = tuple(sx.shape) == (m, 1) or sx.numel() == 1
+    if not (per_channel_w and per_token_x):
+        x_dq = P.dequantize_affine(
+            qx, (1, k) if tuple(sx.shape) == (m, 1) else (m, k), sx, zx,
+            output_dtype=torch.float32,
+        )
+        w_dq = P.dequantize_affine(qw, wbs, sw, zw, output_dtype=torch.float32)
+        return torch.matmul(x_dq, w_dq).to(out_dtype)
+
+    acc = torch._int_mm(qx, qw).to(torch.float32)
+    if zx is not None:
+        colsum_w = torch.sum(qw.to(torch.int32), dim=0, keepdim=True).to(torch.float32)
+        acc = acc - zx.reshape(m, 1).to(torch.float32) * colsum_w
+    if zw is not None:
+        rowsum_x = torch.sum(qx.to(torch.int32), dim=1, keepdim=True).to(torch.float32)
+        zw_f = zw.reshape(1, -1).to(torch.float32)
+        acc = acc - rowsum_x * zw_f
+        if zx is not None:
+            acc = acc + k * zx.reshape(m, 1).to(torch.float32) * zw_f
+    y = acc * sx.reshape(-1, 1).to(torch.float32) * sw.reshape(1, -1).to(torch.float32)
+    return y.to(out_dtype)
 
 
 # ---------------------------------------------------------------------------

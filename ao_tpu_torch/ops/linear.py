@@ -1,11 +1,13 @@
 """`ao_tpu_torch.ops.linear` — the single compute entry point for linears.
 
-PyTorch port of the plain linear and the weight-only int4 branch of
-``ao_tpu/ops/linear.py``. y = x @ W (+ b), with W either a plain tensor
-(K, N) or a QuantizedArray; each container's implementation consults
-:mod:`ao_tpu_torch.ops.kernels` for its backend. The activation-quantized
-int4 branches (W4A8) and the ``frozen_weight_ste`` backward come with later
-slices of the port; everything here runs under ``torch.no_grad``.
+PyTorch port of the plain linear and the int4 branch of
+``ao_tpu/ops/linear.py``: weight-only int4 and W4A8 (int8 dynamic
+activations x int4 weights). y = x @ W (+ b), with W either a plain tensor
+(K, N) or a QuantizedArray, and x a tensor or a producer-quantized
+``QuantizedActivation``; each container's implementation consults
+:mod:`ao_tpu_torch.ops.kernels` for its backend. The ``frozen_weight_ste``
+backward comes with a later slice of the port; everything here runs under
+``torch.no_grad``.
 """
 
 from __future__ import annotations
@@ -15,15 +17,23 @@ from typing import Optional
 import torch
 
 from ao_tpu_torch.ops import kernels
+from ao_tpu_torch.ops.act_quant import QuantizedActivation, quantize_activation
 from ao_tpu_torch.ops.dispatch import implements, lookup
+from ao_tpu_torch.ops.hopper.int4_matmul import (
+    affine_qparams, int4_magic8_requant_int8, int4_w4a8_matmul,
+)
 from ao_tpu_torch.quantization.qarrays.base import QuantizedArray
 from ao_tpu_torch.quantization.qarrays.int4 import Int4Array
 
 
-def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+def linear(x, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y[..., n] = sum_k x[..., k] * W[k, n] + b[n]."""
     if isinstance(w, QuantizedArray):
         return lookup("linear", type(w))(x, w, b)
+    if isinstance(x, QuantizedActivation):
+        # a producer-quantized activation meeting an unquantized weight
+        # (mixed FqnToConfig): dequantize it
+        x = (x.qdata.to(torch.float32) * x.scale).to(w.dtype)
     y = torch.matmul(x, w.to(x.dtype))
     if b is not None:
         y = y + b.to(y.dtype)
@@ -43,14 +53,61 @@ def _maybe_bias(y, b):
     return y if b is None else y + b.to(y.dtype)
 
 
+def _requant_scale(w: Int4Array):
+    """Per-group (s, b) of w = u*s + b in f32, and the per-channel int8
+    scale s8 (1, N) found analytically: |w| over a group's 16 grid points is
+    largest at an endpoint, max(|b|, |15s + b|), so no reduction over the
+    dequantized weight is needed (ref: ops/linear.py:226-235)."""
+    sg, bg = affine_qparams(w.scale, w.zero_point, w.zero_point_domain)
+    bound = torch.maximum(torch.abs(bg), torch.abs(15.0 * sg + bg))
+    s8 = torch.amax(bound, dim=0, keepdim=True) / 127.0
+    return sg, bg, torch.clamp_min(s8, 1e-12)
+
+
 @implements("linear", Int4Array)
-def _int4_linear(x: torch.Tensor, w: Int4Array, b):
+def _int4_linear(x, w: Int4Array, b):
+    pre_q = isinstance(x, QuantizedActivation)
+    if pre_q:
+        if w.act_pre_scale is not None:
+            raise ValueError(
+                "producer-quantized activation cannot apply this weight's "
+                "act_pre_scale (AWQ/SmoothQuant): quantize after scaling")
+        x2, lead = _flatten_batch(x.qdata)
+    else:
+        x2, lead = _flatten_batch(x)
+        if w.act_pre_scale is not None:
+            x2 = x2 * w.act_pre_scale.to(x2.dtype)
     if w.act_quant is not None:
-        raise NotImplementedError(
-            "int4 weights with activation quantization (W4A8) come with the next slice of the port")
-    x2, lead = _flatten_batch(x)
-    if w.act_pre_scale is not None:
-        x2 = x2 * w.act_pre_scale.to(x2.dtype)
+        if pre_q:
+            qx, sx, zx = x2, x.scale.reshape(-1, 1), None
+        else:
+            qx, sx, zx = quantize_activation(x2, w.act_quant)
+        if w.act_quant.dtype == "int8" and x2.shape[0] > kernels.W4A8_REQUANT_ABOVE_M:
+            # prefill W4A8: requantize the int4 weight to per-channel int8
+            # in one pass, then one int8 GEMM
+            sg, bg, s8 = _requant_scale(w)
+            if w.layout == "magic8" and kernels.use_kernel(x2):
+                qw8 = int4_magic8_requant_int8(w.qdata, sg, bg, s8, w.group_size)
+            else:
+                w_dq = w.dequantize(torch.float32)
+                qw8 = torch.clamp(torch.round(w_dq / s8), -127, 127).to(torch.int8)
+            y = kernels.int8_dynamic_matmul(qx, sx, zx, qw8, s8, None, (x2.shape[1], 1),
+                                            out_dtype=x.dtype)
+            return _unflatten_batch(_maybe_bias(y.to(x.dtype), b), lead)
+        if (w.act_quant.dtype == "int8" and zx is None and w.layout == "magic8"
+                and kernels.use_kernel(x2)):
+            # W4A8 proper: int8 activations x magic8 int4 planes on the s8
+            # tensor cores, exact integer dots, per-token scale in the epilogue
+            y = int4_w4a8_matmul(qx, sx, w.qdata, w.scale, w.zero_point, w.group_size,
+                                 w.zero_point_domain)
+            return _unflatten_batch(_maybe_bias(y.to(x.dtype), b), lead)
+        # q/dq fallback (the "torch" backend, asymmetric or other layouts):
+        # the activation is held to its quantized values, the dot runs the
+        # weight-only int4 path
+        x2 = qx.to(torch.float32) * sx
+        if zx is not None:
+            x2 = x2 - (zx * sx)
+        x2 = x2.to(x.dtype)
     y = kernels.int4_wo_matmul(
         x2, w.qdata, w.scale, w.zero_point, w.group_size, w.zero_point_domain,
         layout=w.layout,

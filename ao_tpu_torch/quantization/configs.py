@@ -1,8 +1,9 @@
 """Inference workflow configs — the user API surface.
 
-PyTorch port of the int4 weight-only part of ``ao_tpu/quantization/configs.py``
-(``Int4WeightOnlyConfig``, ``FqnToConfig``). Each config has a registered
-handler ``(weight, config) -> QuantizedArray``.
+PyTorch port of the int4 part of ``ao_tpu/quantization/configs.py``
+(``Int4WeightOnlyConfig``, ``Int8DynamicActivationInt4WeightConfig``,
+``FqnToConfig``). Each config has a registered handler
+``(weight, config) -> QuantizedArray``.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 from ao_tpu_torch.core.config import AOBaseConfig
 from ao_tpu_torch.core.registry import register_quantize_handler
 from ao_tpu_torch.quantization import primitives as P
+from ao_tpu_torch.quantization.qarrays.common import ActQuantSpec
 from ao_tpu_torch.quantization.qarrays.int4 import Int4Array
 
 
@@ -64,6 +66,28 @@ def _int4_wo_transform(weight: torch.Tensor, config: Int4WeightOnlyConfig):
             mapping_type=P.MappingType.ASYMMETRIC,
         )
     raise ValueError(algo)
+
+
+@dataclasses.dataclass
+class Int8DynamicActivationInt4WeightConfig(AOBaseConfig):
+    """int8 dynamic per-token activations x int4 groupwise weights (W4A8).
+    (ref: ao_tpu configs.py:137; the weights take the two-plane "magic8"
+    layout, whose planes feed the s8 tensor cores directly,
+    ops/hopper/int4_matmul.py)"""
+
+    group_size: int = 128
+    version: int = 1
+
+
+@register_quantize_handler(Int8DynamicActivationInt4WeightConfig)
+def _int8_int4_transform(weight: torch.Tensor, config: Int8DynamicActivationInt4WeightConfig):
+    if _skip_indivisible(weight, config.group_size, "Int8DynamicActivationInt4WeightConfig"):
+        return weight
+    return Int4Array.from_hp(
+        weight, group_size=config.group_size,
+        zero_point_domain=P.ZeroPointDomain.FLOAT,
+        act_quant=ActQuantSpec(dtype="int8", granularity="per_token", symmetric=True),
+    )
 
 
 @dataclasses.dataclass

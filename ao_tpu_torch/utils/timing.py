@@ -15,15 +15,22 @@ import torch
 L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
 
 
-def _kernel_spans(prof) -> List[float]:
-    """Durations (us) of every device activity a profile recorded, in the
-    order the device ran them."""
-    from torch.autograd import DeviceType
+ATTEMPTS = 3  # a profile whose device records came back incomplete is taken again
 
+_FLUSH_KERNELS = {}  # device index -> kernels one L2 flush launches
+
+
+def _device_spans(activities, run) -> List[float]:
+    """Durations (us) of the device activities a profile of ``run()``
+    recorded, in the order the device ran them (may be empty)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import profile
+
+    with profile(activities=activities) as prof:
+        run()
+        torch.cuda.synchronize()
     spans = [(e.time_range.start, e.time_range.elapsed_us())
              for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not spans:
-        raise RuntimeError("the profiler recorded no device activity")
     return [d for _, d in sorted(spans)]
 
 
@@ -38,30 +45,43 @@ def cuda_time_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3) -> 
     run, so ``fn`` finds its inputs in device memory and not in L2, as the
     decode loop does; a read, because a write would leave L2 full of dirty
     lines that ``fn`` would pay to write back. ``fn`` must launch the same
-    kernels on every call."""
+    kernels on every call.
+
+    The profiler now and then returns a profile's device records incomplete
+    (seen on the H100: a profile of one flush recorded no kernel), so the
+    flush's kernels are counted once per device, and a profile whose record
+    count is not a whole number of runs is taken again, up to ATTEMPTS
+    times, before this raises."""
     if not torch.cuda.is_available():
         raise RuntimeError("cuda_time_ms measures device time and needs a CUDA device")
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    dev = torch.cuda.current_device()
     scratch = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
     for _ in range(warmup):
         scratch.max()
         fn()
     torch.cuda.synchronize()
-    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=activities) as prof:
-        scratch.max()
-        torch.cuda.synchronize()
-    n_flush = len(_kernel_spans(prof))
-    with profile(activities=activities) as prof:
+
+    def runs():
         for _ in range(iters):
             scratch.max()
             fn()
-        torch.cuda.synchronize()
-    spans = _kernel_spans(prof)
-    per_run = len(spans) // iters
-    if per_run * iters != len(spans) or per_run <= n_flush:
-        raise RuntimeError(f"{len(spans)} device activities over {iters} runs of "
-                           f"{n_flush} flush + fn: fn does not launch the same kernels each run")
-    total_us = sum(d for i, d in enumerate(spans) if i % per_run >= n_flush)
-    return total_us / iters / 1e3
+
+    got = []
+    for _ in range(ATTEMPTS):
+        if dev not in _FLUSH_KERNELS:
+            got = _device_spans(activities, lambda: [scratch.max() for _ in range(4)])
+            if not got or len(got) % 4:
+                continue
+            _FLUSH_KERNELS[dev] = len(got) // 4
+        n_flush = _FLUSH_KERNELS[dev]
+        got = _device_spans(activities, runs)
+        per_run = len(got) // iters
+        if per_run * iters == len(got) and per_run > n_flush:
+            return sum(d for i, d in enumerate(got) if i % per_run >= n_flush) / iters / 1e3
+    raise RuntimeError(f"{len(got)} device activities over {iters} runs of "
+                       f"{_FLUSH_KERNELS.get(dev)} flush + fn in {ATTEMPTS} attempts: "
+                       f"fn does not launch the same kernels each run, or the profiler "
+                       f"records no device activity")

@@ -9,16 +9,21 @@ From the repo root, on a machine with a CUDA device and ``nvcc``:
 2. builds every hand-written kernel from ``ao_tpu_torch/csrc`` (one ``nvcc``
    per source, all started together) into ``ao_tpu_torch/_build/``;
 3. holds each kernel against its plain PyTorch version on the card at the
-   shapes the main path gives it, and times kernel, plain version, a library
-   yardstick, and the least time the card could take (the bound);
-4. drives the main path: Llama-3-8B widths with random weights from a seed,
-   ``quantize_(params, Int4WeightOnlyConfig(group_size=128))``, then greedy
-   ``generate`` at batch 8, a 128-token prompt and max_seq 256. It checks
-   that every kernel launch on the path went through the kernels (launch
-   counters), that the tokens are well formed, and that a two-layer cut of
-   the same model gives the plain route's logits; then times int4-WO and
-   bf16 tok/s on the same loop, and profiles a few decode steps of each
-   (host wall time, device busy time, the kernels that take it).
+   shapes the main paths give it, and times kernel, plain version, a library
+   yardstick where one PyTorch call computes the same function, and the
+   least time the card could take (the bound);
+4. drives the two main paths on Llama-3-8B widths with random weights from a
+   seed, each with greedy ``generate`` at batch 8, a 128-token prompt, 64
+   steps and max_seq 256: int4 weight-only
+   (``quantize_(params, Int4WeightOnlyConfig(group_size=128))``) and W4A8
+   (``quantize_(params, Int8DynamicActivationInt4WeightConfig(group_size=128))``).
+   For each it sets every launch counter to 0 just before the call and checks
+   the counts just after (every kernel of the path, exactly as the model
+   predicts), checks that the tokens are well formed, and that a two-layer
+   cut of the same model gives the plain route's logits; then times W4A8,
+   int4-WO and bf16 tok/s on the same loop, in turns, and profiles a few
+   decode steps of each (host wall time, device busy time, the kernels that
+   take it).
 
 Prints the kernel table as one JSON line and, as the last line,
 ``{"ok": true, "device": {...}}``. Any failed check makes it exit non-zero
@@ -36,13 +41,21 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and dense bf16 tensor FLOP/s
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s; dense bf16 and int8
+# tensor-core rates; f32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+INT8_OPS_PER_S = 1979e12
+F32_FLOPS_PER_S = 67e12
 
 K1_SQNR_DB = 45.0  # the JAX suite's bound for the int4 kernel (tests/test_pallas_interpret.py)
 K2_SQNR_DB = 40.0  # decode attention: f32 scores and softmax in both versions
+K3_SQNR_DB = 45.0  # the JAX suite's bound for the W4A8 kernel (tests/test_pallas_interpret.py)
+LSB_FRACTION = 0.01  # K4, K12: at most 1 LSB off on under 1 % of values (the JAX suite's bound)
+K12_SCALE_RTOL = 1e-6
 PATH_SQNR_DB = 30.0  # two-layer logits, kernel route against the plain route (see check_logits)
+W4A8_FLOOR_MARGIN_DB = 3.0  # W4A8 logits: within 3 dB of the plain route's own nudge floor
+W4A8_PATH_MIN_DB = 20.0  # ... and never below this
 
 DEV = "cuda"
 SEED = 0  # random weights and inputs are made from it
@@ -54,6 +67,10 @@ K1_SHAPES = [(m, k, n) for m in (BATCH, BATCH * PROMPT)
              for k, n in ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
                           (4096, 128256))]
 K1_REPORTED = (8, 4096, 14336)  # the decode shape that moves the most weight bytes per layer
+# every (K, N) of the W4A8 path: K3 at decode (M = B), K4 once per prefill linear
+W4A8_KN = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]
+KN_REPORTED = (4096, 14336)
+K12_SHAPE = (BATCH, PROMPT, 14336)  # the prefill SwiGLU gate
 K2_SHAPE = dict(b=8, h=32, hkv=8, d=128, t=256)
 K2_LENGTHS = [1, 256, 17, 64, 65, 128, 200, 255]  # ragged, with 1 and T
 
@@ -65,10 +82,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound(nbytes: int, flops: int):
+def bound(nbytes: int, ops: int, ops_per_s: float = BF16_FLOPS_PER_S):
     """(least ms for the work, "bytes" or "operations")."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -80,15 +97,23 @@ class Failures(list):
         return ok
 
 
-def kernel_row(name, shape, got, ref, sqnr, floor, ms, plain_ms, library_ms, nbytes, flops):
-    bound_ms, bound_by = bound(nbytes, flops)
+def kernel_row(name, shape, got, ref, check, ms, plain_ms, library_ms, nbytes, ops,
+               ops_per_s=BF16_FLOPS_PER_S):
+    bound_ms, bound_by = bound(nbytes, ops, ops_per_s)
     err = float((got.float() - ref.float()).abs().max())
-    print(f"{name} {shape}: sqnr {sqnr:.2f} dB (>= {floor}), max|err| {err:.3g}; "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
+    lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    print(f"{name} {shape}: {check}, max|err| {err:.3g}; "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib}, "
           f"bound {bound_ms * 1e3:.2f} us ({bound_by}) = {bound_ms / ms:.1%} of kernel time",
           flush=True)
     return dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by, sqnr_db=sqnr)
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def lsb_check(got, ref):
+    """(values more than 1 LSB off, share of values off at all)."""
+    d = (got.int() - ref.int()).abs()
+    return int((d > 1).sum()), float((d > 0).float().mean())
 
 
 def k1_phase(torch, fails, seed):
@@ -120,8 +145,9 @@ def k1_phase(torch, fails, seed):
         library_ms = cuda_time_ms(lambda: torch.matmul(x, w_dq), iters=10)
         del w_dq
         nbytes, flops = k1.traffic(m, k, n, GROUP)
-        rows[(m, k, n)] = kernel_row("K1 int4_wo_magic", f"M={m} K={k} N={n}", got, ref, sqnr,
-                                     K1_SQNR_DB, ms, plain_ms, library_ms, nbytes, flops)
+        rows[(m, k, n)] = kernel_row("K1 int4_wo_magic", f"M={m} K={k} N={n}", got, ref,
+                                     f"sqnr {sqnr:.2f} dB (>= {K1_SQNR_DB})", ms, plain_ms,
+                                     library_ms, nbytes, flops)
         del qa, x, s, b2, got, ref
         torch.cuda.empty_cache()
     return rows
@@ -157,16 +183,132 @@ def k2_phase(torch, fails, seed):
         qs, ks, vs, attn_mask=mask, scale=sm, enable_gqa=True), iters=50)
     nbytes, flops = k2.traffic((b, h, d), (b, t, hkv, d), K2_LENGTHS)
     return kernel_row("K2 decode_attention", f"B={b} H={h} Hkv={hkv} D={d} T={t}", got, ref,
-                      sqnr, K2_SQNR_DB, ms, plain_ms, library_ms, nbytes, flops)
+                      f"sqnr {sqnr:.2f} dB (>= {K2_SQNR_DB})", ms, plain_ms, library_ms, nbytes,
+                      flops)
 
 
-def check_logits(torch, fails, qparams, cfg, seed):
-    """A two-layer cut of the quantized model at full width: prefill of 16
-    tokens and one decode step through the kernel route, against the plain
-    route (dequantize + torch.matmul, masked einsum attention) on the same
-    inputs. The two differ by bf16 roundings (the kernel keeps qparams in
-    bf16 and sums in f32; the plain route rounds each dequantized weight to
-    bf16), which compound over the layers: 30 dB."""
+def w4a8_weight(torch, gen, k, n):
+    from ao_tpu_torch.quantization.configs import Int8DynamicActivationInt4WeightConfig
+    from ao_tpu_torch.quantization.quantize import quantize_
+
+    w = (torch.randn((k, n), generator=gen, device=DEV) * k ** -0.5).to(torch.bfloat16)
+    return quantize_({"w1": w}, Int8DynamicActivationInt4WeightConfig(group_size=GROUP))["w1"]
+
+
+def k3_phase(torch, fails, seed):
+    """K3 at the decode shapes (M = B): the activation quantized per token as
+    the linear does it, the weight's bf16 tinygemm qparams as they are."""
+    from ao_tpu_torch.ops.act_quant import quantize_activation
+    from ao_tpu_torch.ops.hopper import int4_matmul as k34
+    from ao_tpu_torch.quantization.primitives import compute_error
+    from ao_tpu_torch.utils.timing import cuda_time_ms
+
+    rows = {}
+    gen = torch.Generator(device=DEV).manual_seed(seed + 3)
+    for k, n in W4A8_KN:
+        qa = w4a8_weight(torch, gen, k, n)
+        x = torch.randn((BATCH, k), generator=gen, device=DEV).to(torch.bfloat16)
+        xq, sx, _ = quantize_activation(x, qa.act_quant)
+        got = k34.int4_w4a8_matmul(xq, sx, qa.qdata, qa.scale, qa.zero_point, GROUP,
+                                   qa.zero_point_domain)
+        s, b = k34.w4a8_qparams(qa.scale, qa.zero_point, qa.zero_point_domain)
+        ref = k34.int4_w4a8_matmul_plain(xq, sx, qa.qdata, s, b, GROUP)
+        torch.cuda.synchronize()
+        sqnr = float(compute_error(ref, got))
+        fails.check(bool(torch.isfinite(got).all()) and sqnr >= K3_SQNR_DB,
+                    f"K3 int4_w4a8_matmul {(BATCH, k, n)}: sqnr {sqnr:.2f} dB < {K3_SQNR_DB}")
+        ms = cuda_time_ms(lambda: k34._launch_w4a8(xq, sx, qa.qdata, qa.scale, qa.zero_point,
+                                                   GROUP), iters=20)
+        plain_ms = cuda_time_ms(lambda: k34.int4_w4a8_matmul_plain(xq, sx, qa.qdata, s, b, GROUP),
+                                iters=3, warmup=1)
+        w_dq = qa.dequantize(torch.bfloat16)
+        library_ms = cuda_time_ms(lambda: torch.matmul(x, w_dq), iters=10)
+        del w_dq
+        nbytes, ops = k34.traffic_w4a8(BATCH, k, n, GROUP)
+        rows[(k, n)] = kernel_row("K3 int4_w4a8_matmul", f"M={BATCH} K={k} N={n}", got, ref,
+                                  f"sqnr {sqnr:.2f} dB (>= {K3_SQNR_DB})", ms, plain_ms,
+                                  library_ms, nbytes, ops, INT8_OPS_PER_S)
+        del qa, x, xq, sx, s, b, got, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
+def k4_phase(torch, fails, seed):
+    """K4 at every (K, N) of the prefill, with the analytic per-channel
+    scale the linear computes; equal to its plain version, every difference
+    counted."""
+    from ao_tpu_torch.ops.hopper import int4_matmul as k34
+    from ao_tpu_torch.ops.linear import _requant_scale
+    from ao_tpu_torch.utils.timing import cuda_time_ms
+
+    rows = {}
+    gen = torch.Generator(device=DEV).manual_seed(seed + 4)
+    for k, n in W4A8_KN:
+        qa = w4a8_weight(torch, gen, k, n)
+        sg, bg, s8 = _requant_scale(qa)
+        got = k34.int4_magic8_requant_int8(qa.qdata, sg, bg, s8, GROUP)
+        a, b = k34.requant_rows(sg, bg, s8)
+        ref = k34.int4_magic8_requant_int8_plain(qa.qdata, a, b, GROUP)
+        torch.cuda.synchronize()
+        over, frac = lsb_check(got, ref)
+        fails.check(over == 0 and frac < LSB_FRACTION,
+                    f"K4 int4_magic8_requant_int8 {(k, n)}: {over} values > 1 LSB off, "
+                    f"{frac:.4%} off")
+        ms = cuda_time_ms(lambda: k34._launch_requant(qa.qdata, a, b, GROUP), iters=20)
+        plain_ms = cuda_time_ms(lambda: k34.int4_magic8_requant_int8_plain(qa.qdata, a, b, GROUP),
+                                iters=3, warmup=1)
+        nbytes, ops = k34.traffic_requant(k, n, GROUP)
+        rows[(k, n)] = kernel_row(
+            "K4 int4_magic8_requant_int8", f"K={k} N={n}", got, ref,
+            f"{frac:.6%} of values differ from the plain version ({over} by more than 1 LSB)",
+            ms, plain_ms, None, nbytes, ops, F32_FLOPS_PER_S)
+        del qa, sg, bg, s8, a, b, got, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
+def k12_phase(torch, fails, seed):
+    """K12 at the prefill SwiGLU gate: bf16 gate and up projections."""
+    from ao_tpu_torch.ops.hopper import fused_act as k12
+    from ao_tpu_torch.utils.timing import cuda_time_ms
+
+    gen = torch.Generator(device=DEV).manual_seed(seed + 5)
+    a = torch.randn(K12_SHAPE, generator=gen, device=DEV).to(torch.bfloat16)
+    b = torch.randn(K12_SHAPE, generator=gen, device=DEV).to(torch.bfloat16)
+    q, sc = k12.silu_mul_quant(a, b)
+    qr, sr = k12.silu_mul_quant_plain(a, b)
+    torch.cuda.synchronize()
+    over, frac = lsb_check(q, qr)
+    rel = float(((sc - sr).abs() / sr).max())
+    fails.check(over == 0 and frac < LSB_FRACTION and rel <= K12_SCALE_RTOL,
+                f"K12 silu_mul_quant {K12_SHAPE}: {over} values > 1 LSB off, {frac:.4%} off, "
+                f"scales within rtol {rel:.3g}")
+    ms = cuda_time_ms(lambda: k12._launch(a, b, "silu"), iters=20)
+    plain_ms = cuda_time_ms(lambda: k12.silu_mul_quant_plain(a, b), iters=5)
+    nbytes, ops = k12.traffic(K12_SHAPE)
+    return kernel_row("K12s silu_mul_quant", "B={} T={} D={}".format(*K12_SHAPE), q, qr,
+                      f"q: {frac:.6%} of values 1 LSB off ({over} more); scales rtol {rel:.3g}",
+                      ms, plain_ms, None, nbytes, ops, F32_FLOPS_PER_S)
+
+
+def check_logits(torch, fails, qparams, cfg, seed, tag, batch=2, prompt_len=16,
+                 floor_margin_db=None):
+    """A two-layer cut of the quantized model at full width: a prefill of
+    ``batch`` x ``prompt_len`` tokens and one decode step through the kernel
+    route, against the plain route (the "torch" backend: dequantize +
+    torch.matmul, or q/dq for W4A8, and masked einsum attention) on the same
+    inputs. The two differ by bf16 roundings (the kernels keep qparams in
+    bf16 and sum in f32; the plain route rounds each dequantized weight, and
+    for W4A8 each dequantized activation, to bf16), which compound over the
+    layers: 30 dB for int4-WO.
+
+    W4A8 quantizes every linear's input to int8 per token, and a quantizer
+    turns a difference at bf16's rounding level into whole-step flips, so two
+    correct routes drift apart as far as one route does from itself under a
+    nudge of one bf16 rounding. With ``floor_margin_db`` the check measures
+    that floor, the plain route against itself with its embedding table
+    scaled by (1 + 2^-8), and asks the kernel route to come within
+    ``floor_margin_db`` of it, and never below W4A8_PATH_MIN_DB."""
     from ao_tpu_torch.models import llama
     from ao_tpu_torch.ops import kernels
     from ao_tpu_torch.quantization.primitives import compute_error
@@ -174,28 +316,37 @@ def check_logits(torch, fails, qparams, cfg, seed):
     cut = dataclasses.replace(cfg, n_layers=2)
     params = dict(qparams, layers=qparams["layers"][:2])
     gen = torch.Generator(device=DEV).manual_seed(seed + 2)
-    toks = torch.randint(0, cfg.vocab_size, (2, 17), generator=gen, device=DEV,
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt_len + 1), generator=gen, device=DEV,
                          dtype=torch.int32)
 
-    def run():
-        caches = llama.init_kv_caches(cut, 2, 32, device=DEV)
-        pos = torch.arange(16, dtype=torch.int32, device=DEV).expand(2, 16)
-        l0, caches = llama.forward(params, toks[:, :16], cut, positions=pos, kv_caches=caches,
-                                   cache_index=0)
-        l1, _ = llama.forward(params, toks[:, 16:], cut,
-                              positions=torch.full((2, 1), 16, dtype=torch.int32, device=DEV),
-                              kv_caches=caches, cache_index=16)
+    def run(p):
+        caches = llama.init_kv_caches(cut, batch, prompt_len + 16, device=DEV)
+        pos = torch.arange(prompt_len, dtype=torch.int32, device=DEV).expand(batch, prompt_len)
+        l0, caches = llama.forward(p, toks[:, :prompt_len], cut, positions=pos,
+                                   kv_caches=caches, cache_index=0)
+        l1, _ = llama.forward(p, toks[:, prompt_len:], cut,
+                              positions=torch.full((batch, 1), prompt_len, dtype=torch.int32,
+                                                   device=DEV),
+                              kv_caches=caches, cache_index=prompt_len)
         return l0, l1
 
-    k0, k1_ = run()
+    got = run(params)
     with kernels.backend("torch"):
-        p0, p1 = run()
-    for tag, a, ref in (("prefill", k0, p0), ("decode", k1_, p1)):
-        sqnr = float(compute_error(ref, a))
-        print(f"two-layer {tag} logits, kernel route vs plain route: sqnr {sqnr:.2f} dB "
-              f"(>= {PATH_SQNR_DB})", flush=True)
-        fails.check(bool(torch.isfinite(a).all()) and sqnr >= PATH_SQNR_DB,
-                    f"two-layer {tag} logits: sqnr {sqnr:.2f} dB < {PATH_SQNR_DB}")
+        plain = run(params)
+        if floor_margin_db is not None:
+            emb = params["embed"]
+            nudged = run(dict(params, embed=(emb.float() * (1 + 2 ** -8)).to(emb.dtype)))
+    for i, step in enumerate(("prefill", "decode")):
+        sqnr = float(compute_error(plain[i], got[i]))
+        need, note = PATH_SQNR_DB, ""
+        if floor_margin_db is not None:
+            floor = float(compute_error(plain[i], nudged[i]))
+            need = max(W4A8_PATH_MIN_DB, floor - floor_margin_db)
+            note = f"; plain route vs itself nudged by 2^-8: {floor:.2f} dB"
+        print(f"{tag} two-layer {step} logits (B={batch}, prompt {prompt_len}), kernel route vs "
+              f"plain route: sqnr {sqnr:.2f} dB (>= {need:.2f}){note}", flush=True)
+        fails.check(bool(torch.isfinite(got[i]).all()) and sqnr >= need,
+                    f"{tag} two-layer {step} logits: sqnr {sqnr:.2f} dB < {need:.2f}")
 
 
 def generate_tok_per_s(torch, generate, runs, prompt, cfg, steps, rounds=3):
@@ -215,25 +366,46 @@ def generate_tok_per_s(torch, generate, runs, prompt, cfg, steps, rounds=3):
     return {tag: prompt.shape[0] * steps / sorted(ts)[len(ts) // 2] for tag, ts in times.items()}
 
 
-def profile_decode(torch, params, cfg, prompt, tag, steps=4):
-    """Where one eager decode step's time goes: host wall time per step
-    (host clock around ``steps`` steps ending in a synchronize), device busy
-    time per step and the kernels that take it (torch.profiler, CUDA
-    activity), and the prefill's wall time."""
+def device_time(prof, runs):
+    """(device busy ms per run, device ops per run, the five largest kernels
+    as (name, ms per run)) from a profile of ``runs`` runs."""
     from torch.autograd import DeviceType
+
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / runs
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return sum(by_name.values()), len(kernels) // runs, top
+
+
+def profile_decode(torch, params, cfg, prompt, tag, steps=4):
+    """Where the time of the prefill and of one eager decode step goes: host
+    wall time (host clock around work ending in a synchronize), device busy
+    time and the kernels that take it (torch.profiler, CUDA activity, in a
+    second run of the same work)."""
     from torch.profiler import ProfilerActivity, profile
 
     from ao_tpu_torch.models import llama
 
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     b, s = prompt.shape
-    caches = llama.init_kv_caches(cfg, b, MAX_SEQ, device=DEV)
+
+    def prefill():
+        caches = llama.init_kv_caches(cfg, b, MAX_SEQ, device=DEV)
+        logits, caches = llama.forward(params, prompt, cfg, positions=torch.arange(
+            s, dtype=torch.int32, device=DEV).expand(b, s), kv_caches=caches, cache_index=0)
+        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), caches
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, caches = llama.forward(params, prompt, cfg, positions=torch.arange(
-        s, dtype=torch.int32, device=DEV).expand(b, s), kv_caches=caches, cache_index=0)
-    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    tok, caches = prefill()
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=activities) as prof:
+        prefill()
+        torch.cuda.synchronize()
+    pre_busy, pre_ops, pre_top = device_time(prof, 1)
 
     def run(first):
         nonlocal tok
@@ -248,19 +420,18 @@ def profile_decode(torch, params, cfg, prompt, tag, steps=4):
     t0 = time.perf_counter()
     run(steps)
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities) as prof:
         run(2 * steps)
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
-    busy_ms = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    busy_ms, ops, top = device_time(prof, steps)
     print(f"{tag} decode step ({cfg.n_layers} layers, B={b}): host wall {wall_ms:.3f} ms/step, "
           f"device busy {busy_ms:.3f} ms/step ({busy_ms / wall_ms:.1%}), "
-          f"{len(kernels) // steps} device ops/step; prefill {prefill_ms:.1f} ms", flush=True)
+          f"{ops} device ops/step", flush=True)
     for name, ms in top:
         print(f"    {ms:.3f} ms/step  {name[:110]}", flush=True)
+    print(f"{tag} prefill (B={b}, prompt {s}): host wall {prefill_ms:.1f} ms, device busy "
+          f"{pre_busy:.3f} ms ({pre_busy / prefill_ms:.1%}), {pre_ops} device ops", flush=True)
+    for name, ms in pre_top:
+        print(f"    {ms:.3f} ms  {name[:110]}", flush=True)
 
 
 def main() -> int:
@@ -274,8 +445,10 @@ def main() -> int:
     from ao_tpu_torch.models import llama
     from ao_tpu_torch.ops.hopper import build
     from ao_tpu_torch.ops.hopper import decode_attention as k2
+    from ao_tpu_torch.ops.hopper import fused_act as k12
     from ao_tpu_torch.ops.hopper import int4_matmul as k1
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
@@ -296,41 +469,66 @@ def main() -> int:
     fails = Failures()
     k1_rows = k1_phase(torch, fails, SEED)
     k2_row = k2_phase(torch, fails, SEED)
+    k3_rows = k3_phase(torch, fails, SEED)
+    k4_rows = k4_phase(torch, fails, SEED)
+    k12_row = k12_phase(torch, fails, SEED)
 
-    # -- the main path: int4-WO Llama-3-8B widths, greedy generate
+    # -- the main paths: Llama-3-8B widths, int4-WO and W4A8, greedy generate
     cfg = llama.LLAMA3_8B
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     t0 = time.perf_counter()
     params = llama.init_params(cfg, gen, device=DEV)
     qparams = ao_tpu_torch.quantize_(params, ao_tpu_torch.Int4WeightOnlyConfig(group_size=GROUP))
+    wparams = ao_tpu_torch.quantize_(
+        params, ao_tpu_torch.Int8DynamicActivationInt4WeightConfig(group_size=GROUP))
     torch.cuda.synchronize()
     print(f"model: Llama-3-8B widths, {cfg.n_layers} layers, random weights (seed {SEED}); "
-          f"init + quantize_ {time.perf_counter() - t0:.1f} s", flush=True)
+          f"init + two quantize_ {time.perf_counter() - t0:.1f} s", flush=True)
     prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=DEV,
                            dtype=torch.int32)
 
-    k1.int4_wo_magic.launches = 0
-    k2.decode_attention.launches = 0
-    toks = ao_tpu_torch.generate(qparams, prompt, cfg, num_steps=STEPS, max_seq=MAX_SEQ)
-    torch.cuda.synchronize()
-    launches = {"int4_wo_magic": k1.int4_wo_magic.launches,
-                "decode_attention": k2.decode_attention.launches}
-    want = {"int4_wo_magic": (7 * cfg.n_layers + 1) * STEPS,
-            "decode_attention": cfg.n_layers * (STEPS - 1)}
-    print(f"main path launches: {launches} (want {want})", flush=True)
-    fails.check(launches == want, f"launch counts {launches} != {want}")
-    fails.check(toks.shape == (BATCH, STEPS) and toks.dtype == torch.int32
-                and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
-                f"tokens {tuple(toks.shape)} {toks.dtype} out of shape or range")
-    check_logits(torch, fails, qparams, cfg, SEED)
+    counters = {"int4_wo_magic": k1.int4_wo_magic, "decode_attention": k2.decode_attention,
+                "int4_w4a8_matmul": k1.int4_w4a8_matmul,
+                "int4_magic8_requant_int8": k1.int4_magic8_requant_int8,
+                "silu_mul_quant": k12.silu_mul_quant}
+    linears = 7 * cfg.n_layers + 1  # q, k, v, o, w1, w3, w2 per layer, and the lm_head
+    decode_attn = cfg.n_layers * (STEPS - 1)
+    launches = {}
+    for tag, qp, want in (
+            ("int4-WO", qparams, {"int4_wo_magic": linears * STEPS,
+                                  "decode_attention": decode_attn}),
+            ("W4A8", wparams, {"decode_attention": decode_attn,
+                               "int4_w4a8_matmul": linears * (STEPS - 1),
+                               "int4_magic8_requant_int8": linears,
+                               "silu_mul_quant": cfg.n_layers})):
+        want = {name: want.get(name, 0) for name in counters}
+        for c in counters.values():
+            c.launches = 0
+        toks = ao_tpu_torch.generate(qp, prompt, cfg, num_steps=STEPS, max_seq=MAX_SEQ)
+        torch.cuda.synchronize()
+        got = {name: c.launches for name, c in counters.items()}
+        launches[tag] = got
+        print(f"{tag} main path launches: {got} (want {want})", flush=True)
+        fails.check(got == want, f"{tag} launch counts {got} != {want}")
+        fails.check(toks.shape == (BATCH, STEPS) and toks.dtype == torch.int32
+                    and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+                    f"{tag} tokens {tuple(toks.shape)} {toks.dtype} out of shape or range")
+    check_logits(torch, fails, qparams, cfg, SEED, "int4-WO")
+    # 8 x 80 = 640 prefill rows > 512: the W4A8 cut runs K4, K12 and the
+    # int8 GEMM at prefill and K3 at decode
+    check_logits(torch, fails, wparams, cfg, SEED, "W4A8", batch=BATCH, prompt_len=80,
+                 floor_margin_db=W4A8_FLOOR_MARGIN_DB)
 
     tps = generate_tok_per_s(torch, ao_tpu_torch.generate,
-                             [("int4-WO", qparams), ("bf16", params)], prompt, cfg, STEPS)
+                             [("W4A8", wparams), ("int4-WO", qparams), ("bf16", params)],
+                             prompt, cfg, STEPS)
     print(f"generate (B={BATCH}, prompt {PROMPT}, {STEPS} steps, max_seq {MAX_SEQ}, "
-          f"{cfg.n_layers} layers) on {card}: int4-WO {tps['int4-WO']:.1f} tok/s, "
-          f"bf16 {tps['bf16']:.1f} tok/s, ratio {tps['int4-WO'] / tps['bf16']:.3f}", flush=True)
+          f"{cfg.n_layers} layers) on {card}: W4A8 {tps['W4A8']:.1f} tok/s, "
+          f"int4-WO {tps['int4-WO']:.1f} tok/s, bf16 {tps['bf16']:.1f} tok/s", flush=True)
+    profile_decode(torch, wparams, cfg, prompt, "W4A8")
     profile_decode(torch, qparams, cfg, prompt, "int4-WO")
     profile_decode(torch, params, cfg, prompt, "bf16")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
 
     if fails:
         print(f"chip_smoke: {len(fails)} check(s) failed:", file=sys.stderr)
@@ -338,17 +536,19 @@ def main() -> int:
             print(f"  {f}", file=sys.stderr)
         return 1
 
-    k1_row = k1_rows[K1_REPORTED]
-    entries = [
-        dict(name="int4_wo_magic", route="cuda", source="ao_tpu_torch/csrc/int4_matmul.cu",
-             replaces="ao_tpu/ops/pallas/int4_matmul.py:372",
-             launches=launches["int4_wo_magic"], **{k: k1_row[k] for k in (
-                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")}),
-        dict(name="decode_attention", route="cuda", source="ao_tpu_torch/csrc/decode_attention.cu",
-             replaces="ao_tpu/ops/pallas/decode_attention.py:234",
-             launches=launches["decode_attention"], **{k: k2_row[k] for k in (
-                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")}),
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+    rows = [
+        ("int4_wo_magic", "int4_matmul.cu", "int4_matmul.py:372", "int4-WO", k1_rows[K1_REPORTED]),
+        ("decode_attention", "decode_attention.cu", "decode_attention.py:234", "int4-WO", k2_row),
+        ("int4_w4a8_matmul", "int4_w4a8.cu", "int4_matmul.py:537", "W4A8", k3_rows[KN_REPORTED]),
+        ("int4_magic8_requant_int8", "int4_w4a8.cu", "int4_matmul.py:673", "W4A8",
+         k4_rows[KN_REPORTED]),
+        ("silu_mul_quant", "fused_act.cu", "fused_act.py:171", "W4A8", k12_row),
     ]
+    entries = [dict(name=name, route="cuda", source=f"ao_tpu_torch/csrc/{src}",
+                    replaces=f"ao_tpu/ops/pallas/{ref}", launches=launches[path][name],
+                    **{k: row[k] for k in keys})
+               for name, src, ref, path, row in rows]
     print(f"card: {card}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

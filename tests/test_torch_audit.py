@@ -41,9 +41,15 @@ def test_port_imports_no_jax(path):
 def test_port_has_the_slice_modules():
     rel = {str(p.relative_to(ROOT)) for p in _port_files()}
     for mod in ("ao_tpu_torch/quantization/primitives.py", "ao_tpu_torch/quantization/qarrays/int4.py",
+                "ao_tpu_torch/quantization/configs.py", "ao_tpu_torch/ops/act_quant.py",
+                "ao_tpu_torch/ops/kernels.py", "ao_tpu_torch/ops/linear.py",
                 "ao_tpu_torch/ops/hopper/int4_matmul.py", "ao_tpu_torch/ops/hopper/decode_attention.py",
+                "ao_tpu_torch/ops/hopper/fused_act.py",
                 "ao_tpu_torch/models/llama.py", "ao_tpu_torch/serving/decode.py",
                 "ao_tpu_torch/weights.py", "chip_smoke.py"):
         assert mod in rel, mod
-    for src in ("int4_matmul.cu", "decode_attention.cu"):
+    for src in ("int4_matmul.cu", "decode_attention.cu", "int4_w4a8.cu", "fused_act.cu"):
         assert (ROOT / "ao_tpu_torch" / "csrc" / src).exists()
+    from ao_tpu_torch.ops.hopper import build
+
+    assert set(build.SOURCES) == {p.stem for p in (ROOT / "ao_tpu_torch" / "csrc").glob("*.cu")}

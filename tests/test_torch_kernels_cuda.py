@@ -12,9 +12,13 @@ import torch
 
 import ao_tpu_torch
 from ao_tpu_torch.models import llama
+from ao_tpu_torch.ops import kernels
 from ao_tpu_torch.ops.hopper import decode_attention as k2
+from ao_tpu_torch.ops.hopper import fused_act as k12
 from ao_tpu_torch.ops.hopper import int4_matmul as k1
+from ao_tpu_torch.ops.linear import _requant_scale
 from ao_tpu_torch.quantization.primitives import ZeroPointDomain, compute_error
+from ao_tpu_torch.quantization.qarrays.common import ActQuantSpec
 from ao_tpu_torch.quantization.qarrays.int4 import Int4Array
 
 pytestmark = pytest.mark.cuda
@@ -104,8 +108,109 @@ def test_generate_goes_through_both_kernels(dev):
     assert k1.int4_wo_magic.launches == (7 * cfg.n_layers + 1) * 5
     assert k2.decode_attention.launches == cfg.n_layers * 4
     # the "torch" backend takes no kernel
-    from ao_tpu_torch.ops import kernels
-
     with kernels.backend("torch"):
         ao_tpu_torch.generate(qparams, prompt, cfg, num_steps=2, max_seq=16)
     assert k1.int4_wo_magic.launches == (7 * cfg.n_layers + 1) * 5
+
+
+W4A8_SPEC = ActQuantSpec(dtype="int8", granularity="per_token", symmetric=True)
+
+
+def _w4a8_weight(dev, k, n, g, domain, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w = (torch.randn((k, n), generator=gen, device=dev) * 0.05).to(torch.bfloat16)
+    zpd = ZeroPointDomain.FLOAT if domain == "tinygemm" else ZeroPointDomain.INT
+    qa = Int4Array.from_hp(w, group_size=g, zero_point_domain=zpd, act_quant=W4A8_SPEC)
+    assert qa.layout == "magic8"
+    return qa, gen
+
+
+@pytest.mark.parametrize("m,k,n,g,domain", [
+    (1, 512, 128, 32, "tinygemm"),
+    (8, 1024, 256, 128, "tinygemm"),
+    (8, 1024, 1024, 64, "minmax_int"),
+    (16, 512, 128, 32, "tinygemm"),      # two n8 tiles of batch rows
+    (40, 2048, 512, 128, "minmax_int"),  # 32-row blocks along M, a ragged edge
+    (200, 512, 256, 32, "tinygemm"),
+])
+def test_int4_w4a8_matches_plain(dev, m, k, n, g, domain):
+    from ao_tpu_torch.ops.act_quant import quantize_activation
+
+    qa, gen = _w4a8_weight(dev, k, n, g, domain, seed=m * 7 + n)
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    xq, sx, _ = quantize_activation(x, W4A8_SPEC)
+    before = k1.int4_w4a8_matmul.launches
+    got = k1.int4_w4a8_matmul(xq, sx, qa.qdata, qa.scale, qa.zero_point, g, qa.zero_point_domain)
+    torch.cuda.synchronize()
+    assert k1.int4_w4a8_matmul.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    s, b = k1.w4a8_qparams(qa.scale, qa.zero_point, qa.zero_point_domain)
+    ref = k1.int4_w4a8_matmul_plain(xq, sx, qa.qdata, s, b, g)
+    # exact integer dots in both; f32 sums of the groups in another order
+    sqnr = float(compute_error(ref, got))
+    assert sqnr >= 45, f"K3 vs plain: {sqnr:.2f} dB"
+
+
+@pytest.mark.parametrize("k,n,g", [(512, 256, 64), (1024, 1024, 128), (512, 128, 32),
+                                   (4096, 1024, 128)])
+def test_requant_matches_plain_and_feeds_int_mm(dev, k, n, g):
+    qa, gen = _w4a8_weight(dev, k, n, g, "tinygemm", seed=k + n)
+    sg, bg, s8 = _requant_scale(qa)
+    before = k1.int4_magic8_requant_int8.launches
+    got = k1.int4_magic8_requant_int8(qa.qdata, sg, bg, s8, g)
+    torch.cuda.synchronize()
+    assert k1.int4_magic8_requant_int8.launches == before + 1
+    assert got.dtype == torch.int8 and got.shape == (k, n) and got.stride() == (1, k)
+    a, b = k1.requant_rows(sg, bg, s8)
+    ref = k1.int4_magic8_requant_int8_plain(qa.qdata, a, b, g)
+    diff = (got.int() - ref.int()).abs()
+    # the same two f32 roundings per value: equal, bit for bit
+    assert int(diff.max()) == 0, f"K4 vs plain: {int((diff > 0).sum())} values differ"
+    xq = torch.randint(-127, 128, (32, k), generator=gen, device=dev, dtype=torch.int8)
+    # the column-major q8 is the B operand the int8 GEMM takes on the card
+    want = (xq.cpu().long() @ ref.cpu().long()).int()
+    assert torch.equal(torch._int_mm(xq, got).cpu(), want)
+
+
+@pytest.mark.parametrize("shape,act,dtype", [
+    ((1, 32, 256), "silu", torch.bfloat16),
+    ((2, 7, 1024), "gelu", torch.bfloat16),
+    ((8, 128, 14336), "silu", torch.bfloat16),
+    ((3, 5, 512), "silu", torch.float32),
+])
+def test_silu_mul_quant_matches_plain(dev, shape, act, dtype):
+    gen = torch.Generator(device=dev).manual_seed(shape[-1])
+    a = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    b = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    before = k12.silu_mul_quant.launches
+    q, s = k12.silu_mul_quant(a, b, act=act)
+    torch.cuda.synchronize()
+    assert k12.silu_mul_quant.launches == before + 1
+    assert q.dtype == torch.int8 and q.shape == shape and s.shape == shape[:2] + (1,)
+    qr, sr = k12.silu_mul_quant_plain(a, b, act=act)
+    d = (q.int() - qr.int()).abs()
+    frac = float((d > 0).float().mean())
+    # expf and the sigmoid's division round otherwise than PyTorch's
+    assert int(d.max()) <= 1 and frac < 0.01, f"K12 q: {frac:.4%} differ"
+    rel = float(((s - sr).abs() / sr).max())
+    assert rel <= 1e-6, f"K12 scales: max relative difference {rel:.3g}"
+
+
+def test_generate_w4a8_goes_through_its_kernels(dev):
+    cfg = llama.LlamaConfig(vocab_size=512, dim=512, n_layers=2, n_heads=4, n_kv_heads=2,
+                            ffn_dim=1024, tie_embeddings=False)
+    params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    wparams = ao_tpu_torch.quantize_(
+        params, ao_tpu_torch.Int8DynamicActivationInt4WeightConfig(group_size=32))
+    # B * S = 544 > 512: the prefill takes the requant route
+    prompt = torch.randint(0, cfg.vocab_size, (2, 272), device=dev, dtype=torch.int32)
+    counters = (k1.int4_wo_magic, k1.int4_w4a8_matmul, k1.int4_magic8_requant_int8,
+                k12.silu_mul_quant, k2.decode_attention)
+    for c in counters:
+        c.launches = 0
+    toks = ao_tpu_torch.generate(wparams, prompt, cfg, num_steps=5, max_seq=280)
+    torch.cuda.synchronize()
+    assert toks.shape == (2, 5) and toks.dtype == torch.int32
+    n_lin = 7 * cfg.n_layers + 1
+    assert [c.launches for c in counters] == [0, n_lin * 4, n_lin, cfg.n_layers,
+                                              cfg.n_layers * 4]
