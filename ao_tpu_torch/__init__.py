@@ -19,6 +19,7 @@ from ao_tpu_torch.quantization.quantize import quantize_, quantize_params
 from ao_tpu_torch.ops.linear import linear
 from ao_tpu_torch.models import llama
 from ao_tpu_torch.serving.decode import generate
+from ao_tpu_torch.serving.kvcache import QuantKVCache, init_quant_kv_caches
 
 __all__ = [
     "AOBaseConfig",
@@ -27,9 +28,11 @@ __all__ = [
     "Int4WeightOnlyConfig",
     "Int8DynamicActivationInt4WeightConfig",
     "MappingType",
+    "QuantKVCache",
     "ZeroPointDomain",
     "compute_error",
     "generate",
+    "init_quant_kv_caches",
     "linear",
     "llama",
     "quantize_",

@@ -4,11 +4,13 @@ PyTorch port of the dense branches of ``ao_tpu/models/llama.py``. Params
 are the reference's nested dicts of tensors (weights stored (in, out)), and
 every matmul goes through ``ao_tpu_torch.ops.linear``, so any leaf may be a
 QuantizedArray. The forward supports the full-sequence forward (prefill,
-eval) and single-step decode with an external bf16 KV cache.
+eval) and single-step decode with an external KV cache: bf16 tensors, or
+the quantized ``QuantKVCache`` pairs of ``serving/kvcache.py`` (int8, fp8,
+int4), each updated in place.
 
-The MoE FFN, the quantized and paged KV caches, per-slot cache indices,
-the quantized SDPA and the flash-attention prefill come with later slices
-of the port and raise NotImplementedError here.
+The MoE FFN, paged KV caches, per-slot cache indices, the quantized SDPA
+and the flash-attention prefill come with later slices of the port and
+raise NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -206,35 +208,53 @@ def attention(
 
     new_cache = None
     if kv_cache is not None:
-        ck, cv = kv_cache  # (B, T, kvh, hd) bf16
-        if not isinstance(ck, torch.Tensor):
-            raise NotImplementedError(
-                "quantized and paged KV caches come with later slices of the port")
+        from ao_tpu_torch.serving.kvcache import QuantKVCache
+
+        ck, cv = kv_cache  # (B, T, kvh, hd) bf16 tensors, or QuantKVCache
+        quant = isinstance(ck, QuantKVCache)
+        if not (quant or isinstance(ck, torch.Tensor)):
+            raise NotImplementedError("paged KV caches come with the serving slice of the port")
         idx = _scalar_index(cache_index)
-        if idx < 0 or idx + s > ck.shape[1]:
-            raise ValueError(f"cache window [{idx}, {idx + s}) outside the cache of {ck.shape[1]}")
-        # the cache is updated in place (slice assignment); the reference
-        # returns an updated copy, and forward returns the same tensors
-        ck[:, idx:idx + s] = k.to(ck.dtype)
-        cv[:, idx:idx + s] = v.to(cv.dtype)
+        # the cache is updated in place; the reference returns an updated
+        # copy, and forward returns the same objects
+        if quant:
+            ck.update(k, idx)
+            cv.update(v, idx)
+        else:
+            if idx < 0 or idx + s > ck.shape[1]:
+                raise ValueError(
+                    f"cache window [{idx}, {idx + s}) outside the cache of {ck.shape[1]}")
+            ck[:, idx:idx + s] = k.to(ck.dtype)
+            cv[:, idx:idx + s] = v.to(cv.dtype)
         new_cache = (ck, cv)
 
         if (s == 1 and hd % 128 == 0 and cfg.attn_softcap is None
                 and not cfg.force_xla_attention and x.device.type == "cuda"
                 and kernels.get_backend() != "torch"):
             # single-token decode: the flash-decoding kernel reads the cache
-            # in place (ops/hopper/decode_attention.py). The route is the
+            # in place (ops/hopper/decode_attention.py): K2 for bf16, K5
+            # (int8, in the reference's "i8" q-quantized form), K6 (fp8)
+            # or K7 (int4) for a quantized cache. The route is the
             # reference's; a shape inside it that the kernel does not take
-            # (head_dim other than 128, more than 8 query heads per kv head)
-            # makes the kernel's wrapper raise, as ops/kernels.py's int4
-            # route does, and the "torch" backend takes the einsum path
+            # (head_dim other than 128, more than 8 query heads per kv
+            # head) makes the kernel's wrapper raise, as ops/kernels.py's
+            # int4 route does, and the "torch" backend takes the einsum path
             from ao_tpu_torch.ops.hopper.decode_attention import decode_attention
 
             lengths = positions[:, 0] + 1
-            out = decode_attention(q[:, 0], ck, cv, lengths, sm_scale=sm_scale)
+            if quant:
+                out = decode_attention(q[:, 0], ck.qdata, cv.qdata, lengths,
+                                       k_scale=ck.scale, v_scale=cv.scale, sm_scale=sm_scale,
+                                       k_layout=ck.layout,
+                                       mode="i8" if ck.dtype_name == "int8" else None)
+            else:
+                out = decode_attention(q[:, 0], ck, cv, lengths, sm_scale=sm_scale)
             out = out.to(x.dtype).reshape(b, 1, h * hd)
             return linear(out, layer["wo"]), new_cache
-        k, v = ck.to(x.dtype), cv.to(x.dtype)
+        if quant:
+            k, v = ck.dequantize(x.dtype), cv.dequantize(x.dtype)
+        else:
+            k, v = ck.to(x.dtype), cv.to(x.dtype)
 
     # GQA: repeat kv heads
     if kvh != h:
@@ -305,8 +325,10 @@ def forward(
         mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=dev))[None, None]
         new_caches = None
     else:
-        # attend over cache positions <= current
-        t = kv_caches[0][0].shape[1]
+        # attend over cache positions <= current; a QuantKVCache's capacity
+        # comes from its scale rows
+        c0 = kv_caches[0][0]
+        t = c0.max_seq if hasattr(c0, "max_seq") else c0.shape[1]
         key_pos = torch.arange(t, dtype=torch.int32, device=dev)[None, None, None, :]
         mask = key_pos <= positions[:, None, :, None]
         new_caches = []

@@ -1,15 +1,27 @@
-"""K2: single-query decode attention over a bf16 tokens-layout cache, on Hopper.
+"""Single-query decode attention on Hopper: K2 over a bf16 cache, and K5,
+K6 and K7 over the quantized caches of ``serving/kvcache.py``.
 
-Counterpart of the bf16 "tokens" branch of
-``ao_tpu/ops/pallas/decode_attention.py::decode_attention`` (kernel
-``_tok_kernel``, mode "fp"). The CUDA source is ``ao_tpu_torch/csrc/
-decode_attention.cu``; its header says what bounds the kernel on the H100
-and how the split over T (flash-decoding) meets it.
+Counterparts of ``ao_tpu/ops/pallas/decode_attention.py::decode_attention``:
 
-``decode_attention`` runs the kernel on CUDA tensors and its plain PyTorch
-version, ``decode_attention_plain``, on CPU tensors. The quantized cache
-forms of the reference (kt, ktp, ck4, int4 and scaled tokens caches) come
-with the quantized-KV-cache slice of the port.
+* K2 (``decode_attention.cu``): the bf16 "tokens" branch, ``_tok_kernel`` in
+  mode "fp".
+* K5 (``decode_attention_quant.cu``, ``decode_attention_int8``): the int8
+  cache in the reference's "i8" semantics (``_kt_kernel``): q quantized to
+  int8 per (batch, kv-head group), exact int8 dots for the scores.
+* K6 (same source, ``decode_attention_fp8``): the fp8 e4m3 cache
+  (``_f8_kernel``, and the fp8 form of ``_tok_kernel`` "vec8"): bf16 q over
+  e4m3 K and V converted exactly in the kernel.
+* K7 (same source, ``decode_attention_int4``): the int4 cache
+  (``_ck4_kernel`` and ``_int4_kernel``) in the port's channel-packed
+  "ch4" layout.
+
+The CUDA sources' headers say what bounds each kernel on the H100 and how
+the split over T (flash-decoding) meets it. Every wrapper runs its kernel on
+CUDA tensors and its plain PyTorch version (``decode_attention_plain``,
+``decode_attention_quant_plain``) on CPU tensors, and counts its launches.
+``decode_attention`` dispatches on the cache's dtype and layout and on the
+mode the caller asks for. Still to port: the bf16-q "vec8" form over an
+int8 tokens cache (K2v), which raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -98,13 +110,22 @@ def _launch(q, k_cache, v_cache, lengths, sm_scale: float) -> torch.Tensor:
 
 
 def decode_attention(q, k_cache, v_cache, lengths, *, k_scale=None, v_scale=None,
-                     sm_scale=None, k_layout: str = "tokens") -> torch.Tensor:
-    """Single-step decode attention: q (B, H, D); k_cache/v_cache
-    (B, T, Hkv, D) bf16; lengths (B,) valid positions. Returns (B, H, D)
-    f32: the kernel on CUDA tensors, its plain version on CPU tensors."""
-    if k_scale is not None or v_scale is not None or k_layout != "tokens":
-        raise NotImplementedError(
-            "quantized KV caches come with the quantized-KV-cache slice of the port")
+                     sm_scale=None, k_layout: str = "tokens", mode=None) -> torch.Tensor:
+    """Single-step decode attention: q (B, H, D); lengths (B,) valid
+    positions. Returns (B, H, D) f32: the kernel on CUDA tensors, its plain
+    version on CPU tensors.
+
+    * bf16 cache, no scales: k_cache/v_cache (B, T, Hkv, D), K2.
+    * quantized cache (``serving/kvcache.py``), with k_scale/v_scale
+      (B, Hkv, T) f32: int8 "tokens" with ``mode="i8"`` (K5), fp8 e4m3
+      "tokens" (K6), int4 "ch4" (K7)."""
+    if k_scale is not None or v_scale is not None:
+        kind = _quant_kind(k_cache.dtype, k_layout, mode)
+        return _QUANT_WRAPPERS[kind](q, k_cache, k_scale, v_cache, v_scale, lengths,
+                                     sm_scale=sm_scale)
+    if k_layout != "tokens" or mode is not None:
+        raise ValueError(f"a cache without scales is the bf16 tokens form, got layout "
+                         f"{k_layout!r}, mode {mode!r}")
     b, h, d = q.shape
     if k_cache.ndim != 4 or k_cache.shape != v_cache.shape or k_cache.shape[0] != b \
             or k_cache.shape[3] != d:
@@ -133,4 +154,200 @@ def traffic(q_shape, cache_shape, lengths):
     t, hkv = cache_shape[1], cache_shape[2]
     valid = sum(min(max(int(x), 0), t) or t for x in lengths)
     nbytes = b * h * d * 2 + 2 * valid * hkv * d * 2 + b * 4 + b * h * d * 4
+    return nbytes, 4 * valid * h * d
+
+
+# ---------------------------------------------------------------------------
+# K5, K6, K7: quantized caches
+
+# what decode_attention_quant.cu takes (checked against the library when it
+# loads); known here so that the CPU refuses the same shapes as the card
+QUANT_HEAD_DIM = 128
+QUANT_MAX_GROUP = 8
+QUANT_CHUNK = 64
+
+_KIND_MODE = {"i8": 0, "f8": 1, "i4": 2}  # the kernel's mode argument
+_KIND_STORAGE = {"i8": torch.int8, "f8": torch.float8_e4m3fn, "i4": torch.int32}
+_KIND_NAME = {"i8": "int8 (K5)", "f8": "fp8 e4m3 (K6)", "i4": "int4 (K7)"}
+
+_QLIB = None
+
+
+def _qlib():
+    global _QLIB
+    if _QLIB is None:
+        lib = build.load("decode_attention_quant")
+        fn = lib.ao_decode_attention_quant
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        for name, want in (("ao_decode_attention_quant_chunk", QUANT_CHUNK),
+                           ("ao_decode_attention_quant_max_group", QUANT_MAX_GROUP),
+                           ("ao_decode_attention_quant_head_dim", QUANT_HEAD_DIM)):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
+            if getattr(lib, name)() != want:
+                raise RuntimeError(f"decode_attention_quant.cu: {name} is not {want}")
+        _QLIB = lib
+    return _QLIB
+
+
+def _quant_kind(dtype, layout: str, mode) -> str:
+    """Which kernel computes attention over a quantized cache of ``dtype`` in
+    ``layout`` for the caller's ``mode``."""
+    if layout == "ch4" and dtype == torch.int32:
+        return "i4"
+    if layout == "tokens" and dtype == torch.float8_e4m3fn:
+        return "f8"
+    if layout == "tokens" and dtype == torch.int8:
+        if mode == "i8":
+            return "i8"
+        raise NotImplementedError(
+            "the bf16-q form over an int8 tokens cache (the reference's \"vec8\", K2v) comes "
+            "with a later slice of the port; pass mode=\"i8\" for K5's int8-q form")
+    raise ValueError(f"no decode attention kernel for a {dtype} cache in layout {layout!r}")
+
+
+def _cache_values(qdata: torch.Tensor) -> torch.Tensor:
+    """The stored values of a quantized cache's qdata, unscaled, as f32
+    (B, T, Hkv, D): int8 integers, fp8 values, or int4 nibbles minus 8."""
+    if qdata.dtype == torch.int32:
+        from ao_tpu_torch.serving.kvcache import _unpack_channels
+
+        return (_unpack_channels(qdata) - 8).to(torch.float32)
+    return qdata.to(torch.float32)
+
+
+def decode_attention_quant_plain(kind: str, q, k, k_scale, v, v_scale, lengths,
+                                 sm_scale: float) -> torch.Tensor:
+    """K5 ("i8"), K6 ("f8") or K7 ("i4") in plain PyTorch, with the kernels'
+    roundings: q (B, H, D) rounded to bf16; for "i8" q quantized per
+    (batch, kv head) to int8, qs = max(amax, 1e-8) / 127, qi =
+    clip(round(q / qs), +-127), s = dot(qi, K) * ks * (qs * sm_scale) (the
+    integer dot is exact in f32); otherwise s = dot(q, K) * sm_scale * ks.
+    Masked to _NEG at positions >= lengths; p = exp(s - max);
+    out = sum bf16(p * vs) * V / max(sum p, 1e-30), f32 (B, H, D)."""
+    b, h, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    kf, vf = _cache_values(k), _cache_values(v)
+    qf = q.to(torch.bfloat16).to(torch.float32).reshape(b, hkv, g, d)
+    ks, vs = k_scale[:, :, None, :], v_scale[:, :, None, :]
+    if kind == "i8":
+        qs = qf.abs().amax(dim=(2, 3)).clamp_min(1e-8) / 127.0  # (B, Hkv)
+        qi = torch.round(qf / qs[..., None, None]).clamp_(-127, 127)
+        s = torch.einsum("bngd,btnd->bngt", qi, kf) * ks * (qs * sm_scale)[..., None, None]
+    else:
+        s = torch.einsum("bngd,btnd->bngt", qf, kf) * sm_scale * ks
+    mask = torch.arange(t, device=q.device)[None, :] < lengths.reshape(b, 1)
+    s = torch.where(mask[:, None, None, :], s, torch.full_like(s, _NEG))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    pv = (p * vs).to(torch.bfloat16).to(torch.float32)
+    acc = torch.einsum("bngt,btnd->bngd", pv, vf)
+    return (acc / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)).reshape(b, h, d)
+
+
+def _check_quant(kind, q, k, k_scale, v, v_scale, lengths):
+    """Raise ValueError for what the kernel does not take, on the card and
+    on the CPU alike; returns q as bf16 and lengths as int32 (B,)."""
+    name = f"decode_attention {_KIND_NAME[kind]}"
+    if q.ndim != 3 or k.ndim != 4:
+        raise ValueError(f"{name}: q must be (B, H, D) and the caches (B, T, Hkv, *), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}")
+    b, h, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    if d != QUANT_HEAD_DIM:
+        raise ValueError(f"{name}: the kernel takes head_dim {QUANT_HEAD_DIM}, got {d}")
+    if h % hkv or h // hkv > QUANT_MAX_GROUP:
+        raise ValueError(f"{name}: H={h} must be a multiple of Hkv={hkv} with at most "
+                         f"{QUANT_MAX_GROUP} query heads per kv head")
+    row = d // 8 if kind == "i4" else d
+    dev = q.device
+    for what, x, dt, shape in (("k_cache", k, _KIND_STORAGE[kind], (b, t, hkv, row)),
+                               ("v_cache", v, _KIND_STORAGE[kind], (b, t, hkv, row)),
+                               ("k_scale", k_scale, torch.float32, (b, hkv, t)),
+                               ("v_scale", v_scale, torch.float32, (b, hkv, t))):
+        if x is None or x.device != dev or x.dtype != dt or tuple(x.shape) != shape \
+                or not x.is_contiguous():
+            got = None if x is None else f"{x.dtype} {tuple(x.shape)} on {x.device}"
+            raise ValueError(f"{name}: {what} must be a contiguous {dt} {shape} on {dev}, "
+                             f"got {got}")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} must be 16-byte aligned")
+    if lengths.numel() != b:
+        raise ValueError(f"{name}: lengths must have B={b} entries, got {lengths.numel()}")
+    return q.to(torch.bfloat16).contiguous(), lengths.reshape(b).to(torch.int32).contiguous()
+
+
+def _quant_attention(kind, q, k, k_scale, v, v_scale, lengths, sm_scale):
+    q, lengths = _check_quant(kind, q, k, k_scale, v, v_scale, lengths)
+    sm_scale = float(sm_scale if sm_scale is not None else q.shape[-1] ** -0.5)
+    if q.device.type == "cpu":
+        return decode_attention_quant_plain(kind, q, k, k_scale, v, v_scale, lengths, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention runs on cuda or cpu tensors, not {q.device}")
+    return _launch_quant(kind, q, k, k_scale, v, v_scale, lengths, sm_scale)
+
+
+def _launch_quant(kind, q, k, k_scale, v, v_scale, lengths, sm_scale: float) -> torch.Tensor:
+    lib = _qlib()
+    dev = q.device
+    b, h, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    nsplit = -(-t // QUANT_CHUNK)
+    out = torch.empty((b, h, d), dtype=torch.float32, device=dev)
+    o_part = torch.empty((b, hkv, nsplit, g, d), dtype=torch.float32, device=dev)
+    m_part = torch.empty((b, hkv, nsplit, g), dtype=torch.float32, device=dev)
+    l_part = torch.empty((b, hkv, nsplit, g), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ao_decode_attention_quant(
+            _KIND_MODE[kind], q.data_ptr(), k.data_ptr(), k_scale.data_ptr(), v.data_ptr(),
+            v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(), o_part.data_ptr(),
+            m_part.data_ptr(), l_part.data_ptr(), b, h, hkv, t, nsplit, sm_scale, stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention {_KIND_NAME[kind]} kernel launch failed: "
+                           f"CUDA error {err}")
+    _QUANT_WRAPPERS[kind].launches += 1
+    return out
+
+
+def decode_attention_int8(q, k, k_scale, v, v_scale, lengths, *, sm_scale=None):
+    """K5: q (B, H, D) over an int8 "tokens" cache, k/v (B, T, Hkv, D) int8
+    with scales (B, Hkv, T) f32, in the reference's "i8" semantics (see
+    ``decode_attention_quant_plain``). Returns (B, H, D) f32."""
+    return _quant_attention("i8", q, k, k_scale, v, v_scale, lengths, sm_scale)
+
+
+def decode_attention_fp8(q, k, k_scale, v, v_scale, lengths, *, sm_scale=None):
+    """K6: q (B, H, D) over an fp8 e4m3 "tokens" cache, k/v (B, T, Hkv, D)
+    with scales (B, Hkv, T) f32. Returns (B, H, D) f32."""
+    return _quant_attention("f8", q, k, k_scale, v, v_scale, lengths, sm_scale)
+
+
+def decode_attention_int4(q, k, k_scale, v, v_scale, lengths, *, sm_scale=None):
+    """K7: q (B, H, D) over an int4 "ch4" cache, k/v (B, T, Hkv, D/8) int32
+    words of channel nibbles with scales (B, Hkv, T) f32. Returns (B, H, D)
+    f32."""
+    return _quant_attention("i4", q, k, k_scale, v, v_scale, lengths, sm_scale)
+
+
+_QUANT_WRAPPERS = {"i8": decode_attention_int8, "f8": decode_attention_fp8,
+                   "i4": decode_attention_int4}
+for _wrapper in _QUANT_WRAPPERS.values():
+    _wrapper.launches = 0  # kernel launches (not plain-version calls)
+
+
+def traffic_quant(kind: str, q_shape, cache_shape, lengths):
+    """(bytes, operations) of K5, K6 or K7 for these lengths: q (bf16), the K
+    and V rows of the valid positions (1 B per value, int4 half a byte) and
+    their two f32 scales read once, lengths read, the f32 output written
+    once; 4 operations per valid position, query head and channel (the
+    scores' and p.V's multiply-adds)."""
+    b, h, d = q_shape
+    t, hkv = cache_shape[1], cache_shape[2]
+    valid = sum(min(max(int(x), 0), t) or t for x in lengths)
+    row = d // 2 if kind == "i4" else d
+    nbytes = b * h * d * 2 + 2 * valid * hkv * (row + 4) + b * 4 + b * h * d * 4
     return nbytes, 4 * valid * h * d

@@ -2,10 +2,11 @@
 
 PyTorch port of ``ao_tpu/serving/decode.py::generate``. The reference runs
 the whole generation as one jitted program with ``lax.scan``; here a Python
-loop runs ``num_steps - 1`` decode steps with static shapes against a bf16
-cache updated in place. Capturing the step in a CUDA graph is later work,
-as are sampling (``temperature > 0``), quantized caches and the
-flash-attention prefill.
+loop runs ``num_steps - 1`` decode steps with static shapes against a cache
+updated in place: bf16, or with ``kv_quant`` ("int8", "float8_e4m3fn",
+"int4") the quantized caches of ``serving/kvcache.py``. Capturing the step
+in a CUDA graph is later work, as are sampling (``temperature > 0``) and
+the flash-attention prefill.
 """
 
 from __future__ import annotations
@@ -30,8 +31,6 @@ def generate(
 ) -> torch.Tensor:
     """Greedy generation on ``prompt``'s device; returns (B, num_steps)
     int32 tokens, the first one predicted by the prefill."""
-    if kv_quant:
-        raise NotImplementedError("quantized KV caches come with a later slice of the port")
     if temperature != 0.0:
         raise NotImplementedError("sampling comes with a later slice of the port")
     if use_flash:
@@ -41,7 +40,12 @@ def generate(
     if s + num_steps - 1 > max_seq:
         raise ValueError(f"prompt {s} + {num_steps - 1} steps do not fit max_seq={max_seq}")
     dev = prompt.device
-    caches = model.init_kv_caches(cfg, b, max_seq, device=dev)
+    if kv_quant:
+        from ao_tpu_torch.serving.kvcache import init_quant_kv_caches
+
+        caches = init_quant_kv_caches(cfg, b, max_seq, kv_quant, device=dev)
+    else:
+        caches = model.init_kv_caches(cfg, b, max_seq, device=dev)
 
     # prefill
     positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)

@@ -12,18 +12,22 @@ From the repo root, on a machine with a CUDA device and ``nvcc``:
    shapes the main paths give it, and times kernel, plain version, a library
    yardstick where one PyTorch call computes the same function, and the
    least time the card could take (the bound);
-4. drives the two main paths on Llama-3-8B widths with random weights from a
+   The decode attention kernels over the quantized caches (K5 int8, K6 fp8,
+   K7 int4) are also timed, with K2, at T = 4096, where the cache bytes set
+   the bound;
+4. drives the main paths on Llama-3-8B widths with random weights from a
    seed, each with greedy ``generate`` at batch 8, a 128-token prompt, 64
    steps and max_seq 256: int4 weight-only
-   (``quantize_(params, Int4WeightOnlyConfig(group_size=128))``) and W4A8
-   (``quantize_(params, Int8DynamicActivationInt4WeightConfig(group_size=128))``).
-   For each it sets every launch counter to 0 just before the call and checks
-   the counts just after (every kernel of the path, exactly as the model
-   predicts), checks that the tokens are well formed, and that a two-layer
-   cut of the same model gives the plain route's logits; then times W4A8,
-   int4-WO and bf16 tok/s on the same loop, in turns, and profiles a few
-   decode steps of each (host wall time, device busy time, the kernels that
-   take it).
+   (``quantize_(params, Int4WeightOnlyConfig(group_size=128))``), W4A8
+   (``quantize_(params, Int8DynamicActivationInt4WeightConfig(group_size=128))``)
+   and int4 weight-only over each quantized KV cache (``kv_quant`` "int8",
+   "float8_e4m3fn", "int4"). For each it sets every launch counter to 0 just
+   before the call and checks the counts just after (every kernel of the
+   path, exactly as the model predicts), checks that the tokens are well
+   formed, and that a two-layer cut of the same model gives the plain
+   route's logits; then times the tok/s of every path and of bf16 on the
+   same loop, in turns, and profiles the prefill and a few decode steps of
+   each (host wall time, device busy time, the kernels that take it).
 
 Prints the kernel table as one JSON line and, as the last line,
 ``{"ok": true, "device": {...}}``. Any failed check makes it exit non-zero
@@ -54,8 +58,11 @@ K3_SQNR_DB = 45.0  # the JAX suite's bound for the W4A8 kernel (tests/test_palla
 LSB_FRACTION = 0.01  # K4, K12: at most 1 LSB off on under 1 % of values (the JAX suite's bound)
 K12_SCALE_RTOL = 1e-6
 PATH_SQNR_DB = 30.0  # two-layer logits, kernel route against the plain route (see check_logits)
-W4A8_FLOOR_MARGIN_DB = 3.0  # W4A8 logits: within 3 dB of the plain route's own nudge floor
-W4A8_PATH_MIN_DB = 20.0  # ... and never below this
+# W4A8 and quantized caches: within 3 dB of the plain route's own nudge floor
+# where that is below PATH_SQNR_DB + 3 (see check_logits), and never below
+# PATH_MIN_DB
+FLOOR_MARGIN_DB = 3.0
+PATH_MIN_DB = 20.0
 
 DEV = "cuda"
 SEED = 0  # random weights and inputs are made from it
@@ -73,6 +80,14 @@ KN_REPORTED = (4096, 14336)
 K12_SHAPE = (BATCH, PROMPT, 14336)  # the prefill SwiGLU gate
 K2_SHAPE = dict(b=8, h=32, hkv=8, d=128, t=256)
 K2_LENGTHS = [1, 256, 17, 64, 65, 128, 200, 255]  # ragged, with 1 and T
+T_LONG = 4096  # every position valid: the cache bytes, not latency, set the bound
+KV_QUANT = ("int8", "float8_e4m3fn", "int4")
+# the decode attention kernel of each quantized cache: (wrapper, kind, K number)
+KV_KERNELS = {"int8": ("decode_attention_int8", "i8", "K5"),
+              "float8_e4m3fn": ("decode_attention_fp8", "f8", "K6"),
+              "int4": ("decode_attention_int4", "i4", "K7")}
+KV_TAG = {kv: f"int4-WO+{short}KV" for kv, short in
+          (("int8", "int8"), ("float8_e4m3fn", "fp8"), ("int4", "int4"))}
 
 
 def card_line() -> str:
@@ -153,38 +168,85 @@ def k1_phase(torch, fails, seed):
     return rows
 
 
-def k2_phase(torch, fails, seed):
+def sdpa_ms(torch, q, kc, vc, lengths, sm):
+    """The library yardstick of the decode attention kernels: one SDPA call
+    with GQA over bf16 (B, T, Hkv, D) caches (heads-major views) and the
+    length mask."""
     import torch.nn.functional as F
 
+    from ao_tpu_torch.utils.timing import cuda_time_ms
+
+    qs = q[:, :, None, :]
+    ks, vs = kc.transpose(1, 2), vc.transpose(1, 2)
+    t = kc.shape[1]
+    mask = (torch.arange(t, device=DEV)[None, :] < lengths[:, None])[:, None, None, :]
+    return cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask, scale=sm, enable_gqa=True), iters=50)
+
+
+def k2_phase(torch, fails, seed, t=None, lengths=None):
+    """K2 at the path's shape, or at ``t`` with ``lengths``."""
     from ao_tpu_torch.ops.hopper import decode_attention as k2
     from ao_tpu_torch.quantization.primitives import compute_error
     from ao_tpu_torch.utils.timing import cuda_time_ms
 
-    b, h, hkv, d, t = (K2_SHAPE[key] for key in ("b", "h", "hkv", "d", "t"))
+    b, h, hkv, d = (K2_SHAPE[key] for key in ("b", "h", "hkv", "d"))
+    t, lengths = t or K2_SHAPE["t"], lengths or K2_LENGTHS
     gen = torch.Generator(device=DEV).manual_seed(seed + 1)
     q = torch.randn((b, h, d), generator=gen, device=DEV).to(torch.bfloat16)
     kc = torch.randn((b, t, hkv, d), generator=gen, device=DEV).to(torch.bfloat16)
     vc = torch.randn((b, t, hkv, d), generator=gen, device=DEV).to(torch.bfloat16)
-    lengths = torch.tensor(K2_LENGTHS, dtype=torch.int32, device=DEV)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
     sm = d ** -0.5
-    got = k2.decode_attention(q, kc, vc, lengths, sm_scale=sm)
-    ref = k2.decode_attention_plain(q, kc, vc, lengths, sm)
+    got = k2.decode_attention(q, kc, vc, lens, sm_scale=sm)
+    ref = k2.decode_attention_plain(q, kc, vc, lens, sm)
     torch.cuda.synchronize()
     sqnr = float(compute_error(ref, got))
     fails.check(bool(torch.isfinite(got).all()) and sqnr >= K2_SQNR_DB,
-                f"K2 decode_attention: sqnr {sqnr:.2f} dB < {K2_SQNR_DB}")
-    ms = cuda_time_ms(lambda: k2._launch(q, kc, vc, lengths, sm), iters=50)
-    plain_ms = cuda_time_ms(lambda: k2.decode_attention_plain(q, kc, vc, lengths, sm), iters=10)
-    # yardstick: SDPA with GQA over the same cache (heads-major views) and mask
-    qs = q[:, :, None, :]
-    ks, vs = kc.transpose(1, 2), vc.transpose(1, 2)
-    mask = (torch.arange(t, device=DEV)[None, :] < lengths[:, None])[:, None, None, :]
-    library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, attn_mask=mask, scale=sm, enable_gqa=True), iters=50)
-    nbytes, flops = k2.traffic((b, h, d), (b, t, hkv, d), K2_LENGTHS)
+                f"K2 decode_attention T={t}: sqnr {sqnr:.2f} dB < {K2_SQNR_DB}")
+    ms = cuda_time_ms(lambda: k2._launch(q, kc, vc, lens, sm), iters=50)
+    plain_ms = cuda_time_ms(lambda: k2.decode_attention_plain(q, kc, vc, lens, sm), iters=10)
+    nbytes, flops = k2.traffic((b, h, d), (b, t, hkv, d), lengths)
     return kernel_row("K2 decode_attention", f"B={b} H={h} Hkv={hkv} D={d} T={t}", got, ref,
+                      f"sqnr {sqnr:.2f} dB (>= {K2_SQNR_DB})", ms, plain_ms,
+                      sdpa_ms(torch, q, kc, vc, lens, sm), nbytes, flops)
+
+
+def kv_phase(torch, fails, seed, dtype_name, t=None, lengths=None):
+    """K5, K6 or K7 at the path's shape (or at ``t`` with ``lengths``) over
+    caches written by ``QuantKVCache.update`` from random bf16 K and V; the
+    library yardstick runs SDPA over the same caches dequantized to bf16."""
+    from ao_tpu_torch.ops.hopper import decode_attention as da
+    from ao_tpu_torch.quantization.primitives import compute_error
+    from ao_tpu_torch.serving.kvcache import QuantKVCache
+    from ao_tpu_torch.utils.timing import cuda_time_ms
+
+    name, kind, knum = KV_KERNELS[dtype_name]
+    wrapper = getattr(da, name)
+    b, h, hkv, d = (K2_SHAPE[key] for key in ("b", "h", "hkv", "d"))
+    t, lengths = t or K2_SHAPE["t"], lengths or K2_LENGTHS
+    gen = torch.Generator(device=DEV).manual_seed(seed + 6)
+    q = torch.randn((b, h, d), generator=gen, device=DEV).to(torch.bfloat16)
+    ck, cv = (QuantKVCache.create(b, t, hkv, d, dtype_name, device=DEV).update(
+        torch.randn((b, t, hkv, d), generator=gen, device=DEV).to(torch.bfloat16), 0)
+        for _ in range(2))
+    args = (q, ck.qdata, ck.scale, cv.qdata, cv.scale,
+            torch.tensor(lengths, dtype=torch.int32, device=DEV))
+    sm = d ** -0.5
+    got = wrapper(*args, sm_scale=sm)
+    ref = da.decode_attention_quant_plain(kind, *args, sm)
+    torch.cuda.synchronize()
+    sqnr = float(compute_error(ref, got))
+    fails.check(bool(torch.isfinite(got).all()) and sqnr >= K2_SQNR_DB,
+                f"{knum} {name} T={t}: sqnr {sqnr:.2f} dB < {K2_SQNR_DB}")
+    ms = cuda_time_ms(lambda: da._launch_quant(kind, *args, sm), iters=50)
+    plain_ms = cuda_time_ms(lambda: da.decode_attention_quant_plain(kind, *args, sm), iters=10)
+    library_ms = sdpa_ms(torch, q, ck.dequantize(torch.bfloat16), cv.dequantize(torch.bfloat16),
+                         args[-1], sm)
+    nbytes, ops = da.traffic_quant(kind, (b, h, d), tuple(ck.qdata.shape), lengths)
+    return kernel_row(f"{knum} {name}", f"B={b} H={h} Hkv={hkv} D={d} T={t}", got, ref,
                       f"sqnr {sqnr:.2f} dB (>= {K2_SQNR_DB})", ms, plain_ms, library_ms, nbytes,
-                      flops)
+                      ops)
 
 
 def w4a8_weight(torch, gen, k, n):
@@ -291,8 +353,18 @@ def k12_phase(torch, fails, seed):
                       ms, plain_ms, None, nbytes, ops, F32_FLOPS_PER_S)
 
 
+def init_caches(cfg, batch, max_seq, kv_quant):
+    """Per-layer KV caches on the card: bf16, or quantized with ``kv_quant``."""
+    from ao_tpu_torch.models import llama
+    from ao_tpu_torch.serving.kvcache import init_quant_kv_caches
+
+    if kv_quant:
+        return init_quant_kv_caches(cfg, batch, max_seq, kv_quant, device=DEV)
+    return llama.init_kv_caches(cfg, batch, max_seq, device=DEV)
+
+
 def check_logits(torch, fails, qparams, cfg, seed, tag, batch=2, prompt_len=16,
-                 floor_margin_db=None):
+                 floor_margin_db=None, kv_quant=None):
     """A two-layer cut of the quantized model at full width: a prefill of
     ``batch`` x ``prompt_len`` tokens and one decode step through the kernel
     route, against the plain route (the "torch" backend: dequantize +
@@ -307,8 +379,16 @@ def check_logits(torch, fails, qparams, cfg, seed, tag, batch=2, prompt_len=16,
     correct routes drift apart as far as one route does from itself under a
     nudge of one bf16 rounding. With ``floor_margin_db`` the check measures
     that floor, the plain route against itself with its embedding table
-    scaled by (1 + 2^-8), and asks the kernel route to come within
-    ``floor_margin_db`` of it, and never below W4A8_PATH_MIN_DB."""
+    scaled by (1 + 2^-8), and asks the kernel route for 30 dB or, where the
+    floor is lower, to come within ``floor_margin_db`` of it, never below
+    PATH_MIN_DB.
+
+    With ``kv_quant`` both routes run over a quantized KV cache, whose
+    quantizer amplifies the routes' bf16 differences in K and V in the same
+    way. The decode step of the kernel route reads the cache with K5, K6 or
+    K7, so the check also holds its decode logits at 30 dB against the same
+    linears and cache with the masked einsum attention
+    (``force_xla_attention``): there the kernel is the only difference."""
     from ao_tpu_torch.models import llama
     from ao_tpu_torch.ops import kernels
     from ao_tpu_torch.quantization.primitives import compute_error
@@ -319,12 +399,12 @@ def check_logits(torch, fails, qparams, cfg, seed, tag, batch=2, prompt_len=16,
     toks = torch.randint(0, cfg.vocab_size, (batch, prompt_len + 1), generator=gen, device=DEV,
                          dtype=torch.int32)
 
-    def run(p):
-        caches = llama.init_kv_caches(cut, batch, prompt_len + 16, device=DEV)
+    def run(p, c=cut):
+        caches = init_caches(c, batch, prompt_len + 16, kv_quant)
         pos = torch.arange(prompt_len, dtype=torch.int32, device=DEV).expand(batch, prompt_len)
-        l0, caches = llama.forward(p, toks[:, :prompt_len], cut, positions=pos,
+        l0, caches = llama.forward(p, toks[:, :prompt_len], c, positions=pos,
                                    kv_caches=caches, cache_index=0)
-        l1, _ = llama.forward(p, toks[:, prompt_len:], cut,
+        l1, _ = llama.forward(p, toks[:, prompt_len:], c,
                               positions=torch.full((batch, 1), prompt_len, dtype=torch.int32,
                                                    device=DEV),
                               kv_caches=caches, cache_index=prompt_len)
@@ -341,26 +421,35 @@ def check_logits(torch, fails, qparams, cfg, seed, tag, batch=2, prompt_len=16,
         need, note = PATH_SQNR_DB, ""
         if floor_margin_db is not None:
             floor = float(compute_error(plain[i], nudged[i]))
-            need = max(W4A8_PATH_MIN_DB, floor - floor_margin_db)
+            need = min(PATH_SQNR_DB, max(PATH_MIN_DB, floor - floor_margin_db))
             note = f"; plain route vs itself nudged by 2^-8: {floor:.2f} dB"
         print(f"{tag} two-layer {step} logits (B={batch}, prompt {prompt_len}), kernel route vs "
               f"plain route: sqnr {sqnr:.2f} dB (>= {need:.2f}){note}", flush=True)
         fails.check(bool(torch.isfinite(got[i]).all()) and sqnr >= need,
                     f"{tag} two-layer {step} logits: sqnr {sqnr:.2f} dB < {need:.2f}")
+    if kv_quant:
+        einsum = run(params, dataclasses.replace(cut, force_xla_attention=True))
+        sqnr = float(compute_error(einsum[1], got[1]))
+        print(f"{tag} two-layer decode logits, the decode attention kernel vs the einsum "
+              f"attention on the same linears and cache: sqnr {sqnr:.2f} dB "
+              f"(>= {PATH_SQNR_DB})", flush=True)
+        fails.check(sqnr >= PATH_SQNR_DB,
+                    f"{tag} decode logits, kernel vs einsum attention: sqnr {sqnr:.2f} dB")
 
 
 def generate_tok_per_s(torch, generate, runs, prompt, cfg, steps, rounds=3):
-    """tok/s of greedy ``generate`` for each (tag, params) of ``runs``: host
-    clock around a whole call that ends in a synchronize, the runs taken in
-    turns for ``rounds`` rounds after one warm-up call each; the median."""
-    times = {tag: [] for tag, _ in runs}
-    for _, params in runs:
-        generate(params, prompt, cfg, num_steps=steps, max_seq=MAX_SEQ)
+    """tok/s of greedy ``generate`` for each (tag, params, kv_quant) of
+    ``runs``: host clock around a whole call that ends in a synchronize, the
+    runs taken in turns for ``rounds`` rounds after one warm-up call each;
+    the median."""
+    times = {tag: [] for tag, _, _ in runs}
+    for _, params, kv in runs:
+        generate(params, prompt, cfg, num_steps=steps, max_seq=MAX_SEQ, kv_quant=kv)
     for _ in range(rounds):
-        for tag, params in runs:
+        for tag, params, kv in runs:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            generate(params, prompt, cfg, num_steps=steps, max_seq=MAX_SEQ)
+            generate(params, prompt, cfg, num_steps=steps, max_seq=MAX_SEQ, kv_quant=kv)
             torch.cuda.synchronize()
             times[tag].append(time.perf_counter() - t0)
     return {tag: prompt.shape[0] * steps / sorted(ts)[len(ts) // 2] for tag, ts in times.items()}
@@ -379,7 +468,7 @@ def device_time(prof, runs):
     return sum(by_name.values()), len(kernels) // runs, top
 
 
-def profile_decode(torch, params, cfg, prompt, tag, steps=4):
+def profile_decode(torch, params, cfg, prompt, tag, steps=4, kv_quant=None):
     """Where the time of the prefill and of one eager decode step goes: host
     wall time (host clock around work ending in a synchronize), device busy
     time and the kernels that take it (torch.profiler, CUDA activity, in a
@@ -392,7 +481,7 @@ def profile_decode(torch, params, cfg, prompt, tag, steps=4):
     b, s = prompt.shape
 
     def prefill():
-        caches = llama.init_kv_caches(cfg, b, MAX_SEQ, device=DEV)
+        caches = init_caches(cfg, b, MAX_SEQ, kv_quant)
         logits, caches = llama.forward(params, prompt, cfg, positions=torch.arange(
             s, dtype=torch.int32, device=DEV).expand(b, s), kv_caches=caches, cache_index=0)
         return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), caches
@@ -469,6 +558,11 @@ def main() -> int:
     fails = Failures()
     k1_rows = k1_phase(torch, fails, SEED)
     k2_row = k2_phase(torch, fails, SEED)
+    kv_rows = {kv: kv_phase(torch, fails, SEED, kv) for kv in KV_QUANT}
+    long_lengths = [T_LONG] * K2_SHAPE["b"]
+    long_rows = {"bf16": k2_phase(torch, fails, SEED, t=T_LONG, lengths=long_lengths)}
+    long_rows.update({kv: kv_phase(torch, fails, SEED, kv, t=T_LONG, lengths=long_lengths)
+                      for kv in KV_QUANT})
     k3_rows = k3_phase(torch, fails, SEED)
     k4_rows = k4_phase(torch, fails, SEED)
     k12_row = k12_phase(torch, fails, SEED)
@@ -491,20 +585,24 @@ def main() -> int:
                 "int4_w4a8_matmul": k1.int4_w4a8_matmul,
                 "int4_magic8_requant_int8": k1.int4_magic8_requant_int8,
                 "silu_mul_quant": k12.silu_mul_quant}
+    counters.update({name: getattr(k2, name) for name, _, _ in KV_KERNELS.values()})
     linears = 7 * cfg.n_layers + 1  # q, k, v, o, w1, w3, w2 per layer, and the lm_head
     decode_attn = cfg.n_layers * (STEPS - 1)
     launches = {}
-    for tag, qp, want in (
-            ("int4-WO", qparams, {"int4_wo_magic": linears * STEPS,
-                                  "decode_attention": decode_attn}),
-            ("W4A8", wparams, {"decode_attention": decode_attn,
-                               "int4_w4a8_matmul": linears * (STEPS - 1),
-                               "int4_magic8_requant_int8": linears,
-                               "silu_mul_quant": cfg.n_layers})):
+    paths = [("int4-WO", qparams, None, {"int4_wo_magic": linears * STEPS,
+                                         "decode_attention": decode_attn}),
+             ("W4A8", wparams, None, {"decode_attention": decode_attn,
+                                      "int4_w4a8_matmul": linears * (STEPS - 1),
+                                      "int4_magic8_requant_int8": linears,
+                                      "silu_mul_quant": cfg.n_layers})]
+    paths += [(KV_TAG[kv], qparams, kv, {"int4_wo_magic": linears * STEPS,
+                                         KV_KERNELS[kv][0]: decode_attn}) for kv in KV_QUANT]
+    for tag, qp, kv, want in paths:
         want = {name: want.get(name, 0) for name in counters}
         for c in counters.values():
             c.launches = 0
-        toks = ao_tpu_torch.generate(qp, prompt, cfg, num_steps=STEPS, max_seq=MAX_SEQ)
+        toks = ao_tpu_torch.generate(qp, prompt, cfg, num_steps=STEPS, max_seq=MAX_SEQ,
+                                     kv_quant=kv)
         torch.cuda.synchronize()
         got = {name: c.launches for name, c in counters.items()}
         launches[tag] = got
@@ -517,17 +615,19 @@ def main() -> int:
     # 8 x 80 = 640 prefill rows > 512: the W4A8 cut runs K4, K12 and the
     # int8 GEMM at prefill and K3 at decode
     check_logits(torch, fails, wparams, cfg, SEED, "W4A8", batch=BATCH, prompt_len=80,
-                 floor_margin_db=W4A8_FLOOR_MARGIN_DB)
+                 floor_margin_db=FLOOR_MARGIN_DB)
+    for kv in KV_QUANT:
+        check_logits(torch, fails, qparams, cfg, SEED, KV_TAG[kv], kv_quant=kv,
+                     floor_margin_db=FLOOR_MARGIN_DB)
 
-    tps = generate_tok_per_s(torch, ao_tpu_torch.generate,
-                             [("W4A8", wparams), ("int4-WO", qparams), ("bf16", params)],
-                             prompt, cfg, STEPS)
+    runs = [("W4A8", wparams, None), ("int4-WO", qparams, None), ("bf16", params, None)]
+    runs += [(KV_TAG[kv], qparams, kv) for kv in KV_QUANT]
+    tps = generate_tok_per_s(torch, ao_tpu_torch.generate, runs, prompt, cfg, STEPS)
     print(f"generate (B={BATCH}, prompt {PROMPT}, {STEPS} steps, max_seq {MAX_SEQ}, "
-          f"{cfg.n_layers} layers) on {card}: W4A8 {tps['W4A8']:.1f} tok/s, "
-          f"int4-WO {tps['int4-WO']:.1f} tok/s, bf16 {tps['bf16']:.1f} tok/s", flush=True)
-    profile_decode(torch, wparams, cfg, prompt, "W4A8")
-    profile_decode(torch, qparams, cfg, prompt, "int4-WO")
-    profile_decode(torch, params, cfg, prompt, "bf16")
+          f"{cfg.n_layers} layers) on {card}: "
+          + ", ".join(f"{tag} {tps[tag]:.1f} tok/s" for tag, _, _ in runs), flush=True)
+    for tag, p, kv in runs:
+        profile_decode(torch, p, cfg, prompt, tag, kv_quant=kv)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
 
     if fails:
@@ -544,7 +644,13 @@ def main() -> int:
         ("int4_magic8_requant_int8", "int4_w4a8.cu", "int4_matmul.py:673", "W4A8",
          k4_rows[KN_REPORTED]),
         ("silu_mul_quant", "fused_act.cu", "fused_act.py:171", "W4A8", k12_row),
+        ("decode_attention", "decode_attention.cu", "decode_attention.py:234", "int4-WO",
+         long_rows["bf16"]),
     ]
+    for kv, ref in zip(KV_QUANT, ("decode_attention.py:138", "decode_attention.py:598",
+                                  "decode_attention.py:471")):
+        rows += [(KV_KERNELS[kv][0], "decode_attention_quant.cu", ref, KV_TAG[kv], row)
+                 for row in (kv_rows[kv], long_rows[kv])]
     entries = [dict(name=name, route="cuda", source=f"ao_tpu_torch/csrc/{src}",
                     replaces=f"ao_tpu/ops/pallas/{ref}", launches=launches[path][name],
                     **{k: row[k] for k in keys})

@@ -46,9 +46,11 @@ def test_port_has_the_slice_modules():
                 "ao_tpu_torch/ops/hopper/int4_matmul.py", "ao_tpu_torch/ops/hopper/decode_attention.py",
                 "ao_tpu_torch/ops/hopper/fused_act.py",
                 "ao_tpu_torch/models/llama.py", "ao_tpu_torch/serving/decode.py",
+                "ao_tpu_torch/serving/kvcache.py",
                 "ao_tpu_torch/weights.py", "chip_smoke.py"):
         assert mod in rel, mod
-    for src in ("int4_matmul.cu", "decode_attention.cu", "int4_w4a8.cu", "fused_act.cu"):
+    for src in ("int4_matmul.cu", "decode_attention.cu", "decode_attention_quant.cu",
+                "int4_w4a8.cu", "fused_act.cu"):
         assert (ROOT / "ao_tpu_torch" / "csrc" / src).exists()
     from ao_tpu_torch.ops.hopper import build
 

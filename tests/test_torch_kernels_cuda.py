@@ -20,6 +20,7 @@ from ao_tpu_torch.ops.linear import _requant_scale
 from ao_tpu_torch.quantization.primitives import ZeroPointDomain, compute_error
 from ao_tpu_torch.quantization.qarrays.common import ActQuantSpec
 from ao_tpu_torch.quantization.qarrays.int4 import Int4Array
+from ao_tpu_torch.serving.kvcache import QuantKVCache
 
 pytestmark = pytest.mark.cuda
 
@@ -92,6 +93,86 @@ def test_decode_attention_matches_plain(dev, b, h, hkv, t, lengths):
     # f32 scores, softmax and sums in both; the kernel merges per-chunk
     # partial softmaxes, the plain version takes one softmax over T
     assert got.dtype == torch.float32 and float(compute_error(ref, got)) >= 40
+
+
+QUANT_WRAPPERS = {"int8": (k2.decode_attention_int8, "i8"),
+                  "float8_e4m3fn": (k2.decode_attention_fp8, "f8"),
+                  "int4": (k2.decode_attention_int4, "i4")}
+
+
+def _quant_cache(dev, dtype_name, b, t, hkv, gen, scale=1.0):
+    x = torch.randn((b, t, hkv, 128), generator=gen, device=dev) * scale
+    return QuantKVCache.create(b, t, hkv, 128, dtype_name, device=dev).update(x, 0)
+
+
+@pytest.mark.parametrize("dtype_name", list(QUANT_WRAPPERS))
+@pytest.mark.parametrize("b,h,hkv,t,lengths", [
+    (2, 8, 2, 128, [128, 77]),
+    (3, 8, 1, 104, [1, 104, 64]),    # G = 8, T not a multiple of the chunk
+    (2, 4, 4, 192, [0, 65]),         # G = 1; length 0 masks every position
+    (8, 32, 8, 256, [1, 256, 17, 64, 65, 128, 200, 255]),
+])
+def test_decode_attention_quant_matches_plain(dev, dtype_name, b, h, hkv, t, lengths):
+    wrapper, kind = QUANT_WRAPPERS[dtype_name]
+    gen = torch.Generator(device=dev).manual_seed(b * 100 + t)
+    q = torch.randn((b, h, 128), generator=gen, device=dev).to(torch.bfloat16)
+    ck = _quant_cache(dev, dtype_name, b, t, hkv, gen, scale=2.0)
+    cv = _quant_cache(dev, dtype_name, b, t, hkv, gen)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    before = wrapper.launches
+    got = wrapper(q, ck.qdata, ck.scale, cv.qdata, cv.scale, lens)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    ref = k2.decode_attention_quant_plain(kind, q, ck.qdata, ck.scale, cv.qdata, cv.scale, lens,
+                                          128 ** -0.5)
+    # the same roundings (K5: the same int8 q, exact integer dots); the
+    # kernel merges per-chunk softmaxes, each with its own max at the bf16
+    # rounding of p * vs
+    sqnr = float(compute_error(ref, got))
+    assert got.dtype == torch.float32 and sqnr >= 40, f"{dtype_name}: {sqnr:.2f} dB"
+
+
+@pytest.mark.parametrize("dtype_name", list(QUANT_WRAPPERS))
+def test_decode_attention_quant_refuses_on_the_card(dev, dtype_name):
+    wrapper, _ = QUANT_WRAPPERS[dtype_name]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    ck = _quant_cache(dev, dtype_name, 2, 64, 2, gen)
+    q = torch.randn((2, 4, 128), generator=gen, device=dev)
+    lens = torch.tensor([3, 64], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="head_dim 128"):
+        wrapper(q[..., :64], ck.qdata, ck.scale, ck.qdata, ck.scale, lens)
+    with pytest.raises(ValueError, match="contiguous"):
+        wrapper(q, ck.qdata, ck.scale.transpose(1, 2).contiguous().transpose(1, 2), ck.qdata,
+                ck.scale, lens)
+
+
+def test_fp8_cast_matches_cpu(dev):
+    # the cache's fp8 quantize on the card gives the CPU's bits (the CPU's
+    # equal JAX's, tests/test_torch_kvcache.py)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    x = (torch.randn((1 << 20,), generator=gen) * 200).clamp(-448, 448)
+    x[:4] = torch.tensor([448.0, -448.0, 0.0, 2.0 ** -10])
+    got = x.to(dev).to(torch.float8_e4m3fn).view(torch.uint8).cpu()
+    assert torch.equal(got, x.to(torch.float8_e4m3fn).view(torch.uint8))
+
+
+@pytest.mark.parametrize("kv_quant", list(QUANT_WRAPPERS))
+def test_generate_kv_quant_goes_through_its_kernel(dev, kv_quant):
+    cfg = llama.LlamaConfig(vocab_size=512, dim=512, n_layers=2, n_heads=4, n_kv_heads=2,
+                            ffn_dim=1024, tie_embeddings=False)
+    params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    qparams = ao_tpu_torch.quantize_(params, ao_tpu_torch.Int4WeightOnlyConfig(group_size=32))
+    prompt = torch.randint(0, cfg.vocab_size, (2, 8), device=dev, dtype=torch.int32)
+    counters = [k1.int4_wo_magic, k2.decode_attention] + [w for w, _ in QUANT_WRAPPERS.values()]
+    for c in counters:
+        c.launches = 0
+    toks = ao_tpu_torch.generate(qparams, prompt, cfg, num_steps=5, max_seq=16, kv_quant=kv_quant)
+    torch.cuda.synchronize()
+    assert toks.shape == (2, 5) and toks.dtype == torch.int32
+    want = {id(c): 0 for c in counters}
+    want[id(k1.int4_wo_magic)] = (7 * cfg.n_layers + 1) * 5
+    want[id(QUANT_WRAPPERS[kv_quant][0])] = cfg.n_layers * 4
+    assert [c.launches for c in counters] == [want[id(c)] for c in counters]
 
 
 def test_generate_goes_through_both_kernels(dev):
