@@ -19,16 +19,23 @@ from ao_tpu_torch.quantization.quantize import quantize_, quantize_params
 from ao_tpu_torch.ops.linear import linear
 from ao_tpu_torch.models import llama
 from ao_tpu_torch.serving.decode import generate
+from ao_tpu_torch.serving.engine import Engine, Request, ServeConfig
 from ao_tpu_torch.serving.kvcache import QuantKVCache, init_quant_kv_caches
+from ao_tpu_torch.serving.paged import PageAllocator, PagedKVPool
 
 __all__ = [
     "AOBaseConfig",
+    "Engine",
     "FqnToConfig",
     "Int4Array",
     "Int4WeightOnlyConfig",
     "Int8DynamicActivationInt4WeightConfig",
     "MappingType",
+    "PageAllocator",
+    "PagedKVPool",
     "QuantKVCache",
+    "Request",
+    "ServeConfig",
     "ZeroPointDomain",
     "compute_error",
     "generate",

@@ -4,12 +4,14 @@ PyTorch port of the dense branches of ``ao_tpu/models/llama.py``. Params
 are the reference's nested dicts of tensors (weights stored (in, out)), and
 every matmul goes through ``ao_tpu_torch.ops.linear``, so any leaf may be a
 QuantizedArray. The forward supports the full-sequence forward (prefill,
-eval) and single-step decode with an external KV cache: bf16 tensors, or
-the quantized ``QuantKVCache`` pairs of ``serving/kvcache.py`` (int8, fp8,
-int4), each updated in place.
+eval) and decode with an external KV cache, updated in place: bf16 tensors
+at a scalar index or at a per-slot (vector) index, the quantized
+``QuantKVCache`` pairs of ``serving/kvcache.py`` (int8, fp8, int4) at a
+scalar index, or the bf16 ``PagedKVPool`` pages of ``serving/paged.py``
+with ``cache_index=(block_table, lengths)``. With ``use_flash`` the
+prefill's attention runs the flash-attention kernel (K8) on the card.
 
-The MoE FFN, paged KV caches, per-slot cache indices, the quantized SDPA
-and the flash-attention prefill come with later slices of the port and
+The MoE FFN and the quantized SDPA come with later slices of the port and
 raise NotImplementedError here.
 """
 
@@ -169,13 +171,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, freqs: torch.Tensor) ->
     return out.to(x.dtype)
 
 
-def _scalar_index(cache_index) -> int:
-    if isinstance(cache_index, torch.Tensor):
-        if cache_index.ndim != 0:
-            raise NotImplementedError(
-                "per-slot cache indices come with the serving slice of the port")
-        return int(cache_index)
-    return int(cache_index)
+def _flash_route(cfg: LlamaConfig, x: torch.Tensor, sq: int, sk: int) -> bool:
+    """Whether ``use_flash`` takes the flash-attention kernel: the
+    reference's gate (no softcap, default sm_scale, not
+    ``force_xla_attention``, and the shapes its kernel does not refuse,
+    ``flash_attention.py:135-138``) on a CUDA tensor outside the "torch"
+    backend. Outside it the einsum path runs, as after the reference's
+    UnsupportedShape."""
+    return (cfg.attn_softcap is None and cfg.sm_scale is None and not cfg.force_xla_attention
+            and cfg.head_dim % 128 == 0 and sk % 128 == 0 and sq >= 8
+            and sq % min(128, sq) == 0 and x.device.type == "cuda"
+            and kernels.get_backend() != "torch")
 
 
 def attention(
@@ -189,8 +195,6 @@ def attention(
     cache_index=None,
     use_flash: bool = False,
 ):
-    if use_flash:
-        raise NotImplementedError("flash-attention prefill comes with the attention slice of the port")
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
@@ -207,23 +211,50 @@ def attention(
     sm_scale = cfg.sm_scale if cfg.sm_scale is not None else hd ** -0.5
 
     new_cache = None
+    ck = cv = None
+    sk = s
     if kv_cache is not None:
         from ao_tpu_torch.serving.kvcache import QuantKVCache
+        from ao_tpu_torch.serving.paged import PagedKVPool
 
-        ck, cv = kv_cache  # (B, T, kvh, hd) bf16 tensors, or QuantKVCache
+        ck, cv = kv_cache  # (B, T, kvh, hd) bf16 tensors, QuantKVCache or PagedKVPool
+        if isinstance(ck, PagedKVPool):
+            # paged decode (S == 1): cache_index = (block_table, lengths),
+            # lengths the positions before this token
+            from ao_tpu_torch.serving.paged import paged_attention
+
+            if s != 1:
+                raise ValueError(f"paged caches take single-token decode steps, got S={s}")
+            block_table, lengths = cache_index
+            ck.append_token(k[:, 0], block_table, lengths)
+            cv.append_token(v[:, 0], block_table, lengths)
+            out = paged_attention(q[:, 0], ck, cv, block_table, lengths + 1,
+                                  sm_scale=hd ** -0.5)
+            out = out.to(x.dtype).reshape(b, 1, h * hd)
+            return linear(out, layer["wo"]), (ck, cv)
         quant = isinstance(ck, QuantKVCache)
         if not (quant or isinstance(ck, torch.Tensor)):
-            raise NotImplementedError("paged KV caches come with the serving slice of the port")
-        idx = _scalar_index(cache_index)
+            raise TypeError(f"unsupported KV cache {type(ck).__name__}")
         # the cache is updated in place; the reference returns an updated
         # copy, and forward returns the same objects
         if quant:
-            ck.update(k, idx)
-            cv.update(v, idx)
+            ck.update(k, cache_index)  # a per-slot (vector) index raises there
+            cv.update(v, cache_index)
+            sk = ck.max_seq
+        elif isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1:
+            # continuous batching: each row writes its S-token window at its
+            # own position, clamped at the last row
+            sk = ck.shape[1]
+            cols = (cache_index.long()[:, None]
+                    + torch.arange(s, device=ck.device)[None]).clamp_(max=sk - 1)
+            rows = torch.arange(b, device=ck.device)[:, None]
+            ck[rows, cols] = k.to(ck.dtype)
+            cv[rows, cols] = v.to(cv.dtype)
         else:
-            if idx < 0 or idx + s > ck.shape[1]:
-                raise ValueError(
-                    f"cache window [{idx}, {idx + s}) outside the cache of {ck.shape[1]}")
+            idx = int(cache_index)
+            sk = ck.shape[1]
+            if idx < 0 or idx + s > sk:
+                raise ValueError(f"cache window [{idx}, {idx + s}) outside the cache of {sk}")
             ck[:, idx:idx + s] = k.to(ck.dtype)
             cv[:, idx:idx + s] = v.to(cv.dtype)
         new_cache = (ck, cv)
@@ -232,13 +263,14 @@ def attention(
                 and not cfg.force_xla_attention and x.device.type == "cuda"
                 and kernels.get_backend() != "torch"):
             # single-token decode: the flash-decoding kernel reads the cache
-            # in place (ops/hopper/decode_attention.py): K2 for bf16, K5
-            # (int8, in the reference's "i8" q-quantized form), K6 (fp8)
-            # or K7 (int4) for a quantized cache. The route is the
-            # reference's; a shape inside it that the kernel does not take
-            # (head_dim other than 128, more than 8 query heads per kv
-            # head) makes the kernel's wrapper raise, as ops/kernels.py's
-            # int4 route does, and the "torch" backend takes the einsum path
+            # in place (ops/hopper/decode_attention.py) over each row's
+            # length: K2 for bf16, K5 (int8, in the reference's "i8"
+            # q-quantized form), K6 (fp8) or K7 (int4) for a quantized
+            # cache. The route is the reference's; a shape inside it that
+            # the kernel does not take (head_dim other than 128, more than
+            # 8 query heads per kv head) makes the kernel's wrapper raise,
+            # as ops/kernels.py's int4 route does, and the "torch" backend
+            # takes the einsum path
             from ao_tpu_torch.ops.hopper.decode_attention import decode_attention
 
             lengths = positions[:, 0] + 1
@@ -251,10 +283,28 @@ def attention(
                 out = decode_attention(q[:, 0], ck, cv, lengths, sm_scale=sm_scale)
             out = out.to(x.dtype).reshape(b, 1, h * hd)
             return linear(out, layer["wo"]), new_cache
-        if quant:
-            k, v = ck.dequantize(x.dtype), cv.dequantize(x.dtype)
+
+    if use_flash and _flash_route(cfg, x, s, sk):
+        # the prefill's attention: K8 reads the bf16 cache (or the fresh K
+        # and V) in place, causal and top-left aligned, valid when the
+        # query positions start at 0 as in the reference; a quantized cache
+        # goes through its dequantized values
+        from ao_tpu_torch.ops.hopper.flash_attention import flash_attention
+
+        if ck is None:
+            kf, vf = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        elif isinstance(ck, torch.Tensor):
+            kf, vf = ck, cv
         else:
+            kf, vf = ck.dequantize(torch.bfloat16), cv.dequantize(torch.bfloat16)
+        out = flash_attention(q, kf, vf, causal=True)
+        return linear(out.to(x.dtype).reshape(b, s, h * hd), layer["wo"]), new_cache
+
+    if ck is not None:
+        if isinstance(ck, torch.Tensor):
             k, v = ck.to(x.dtype), cv.to(x.dtype)
+        else:
+            k, v = ck.dequantize(x.dtype), cv.dequantize(x.dtype)
 
     # GQA: repeat kv heads
     if kvh != h:
@@ -325,12 +375,17 @@ def forward(
         mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=dev))[None, None]
         new_caches = None
     else:
-        # attend over cache positions <= current; a QuantKVCache's capacity
-        # comes from its scale rows
+        from ao_tpu_torch.serving.paged import PagedKVPool
+
         c0 = kv_caches[0][0]
-        t = c0.max_seq if hasattr(c0, "max_seq") else c0.shape[1]
-        key_pos = torch.arange(t, dtype=torch.int32, device=dev)[None, None, None, :]
-        mask = key_pos <= positions[:, None, :, None]
+        if isinstance(c0, PagedKVPool):
+            mask = None  # paged attention masks by each sequence's length
+        else:
+            # attend over cache positions <= current; a QuantKVCache's
+            # capacity comes from its scale rows
+            t = c0.max_seq if hasattr(c0, "max_seq") else c0.shape[1]
+            key_pos = torch.arange(t, dtype=torch.int32, device=dev)[None, None, None, :]
+            mask = key_pos <= positions[:, None, :, None]
         new_caches = []
 
     for i, layer in enumerate(params["layers"]):

@@ -20,8 +20,11 @@ the split over T (flash-decoding) meets it. Every wrapper runs its kernel on
 CUDA tensors and its plain PyTorch version (``decode_attention_plain``,
 ``decode_attention_quant_plain``) on CPU tensors, and counts its launches.
 ``decode_attention`` dispatches on the cache's dtype and layout and on the
-mode the caller asks for. Still to port: the bf16-q "vec8" form over an
-int8 tokens cache (K2v), which raises NotImplementedError.
+mode the caller asks for. ``lengths`` is per row, so K2 also serves the
+serving engine's slot layout, whose rows sit at their own positions; the
+paged layout's decode attention is K9 (``paged_attention.py``). Still to
+port: the bf16-q "vec8" form over an int8 or e5m2 tokens cache (K2v),
+which raises NotImplementedError.
 """
 
 from __future__ import annotations

@@ -1,0 +1,145 @@
+"""Flash attention for prefill on Hopper: K8.
+
+Counterpart of ``ao_tpu/ops/pallas/flash_attention.py::flash_attention``
+(``_kernel``), in the layout of the port's model: q (B, Sq, H, D) as the
+projections give it and K, V read in place from the (B, Sk, Hkv, D) bf16
+cache with grouped-query heads (query head n reads kv head n // G), where
+the reference takes (B, H, S, D) with K and V repeated over the G heads.
+The causal mask is the reference's, top-left aligned: query row i, counted
+from 0, sees cache rows 0..i, also when Sq < Sk.
+
+``flash_attention`` runs the kernel (``csrc/flash_attention.cu``, whose
+header says what bounds it) on CUDA tensors and its plain PyTorch version
+on CPU tensors, and counts its launches. q is taken in bf16, as every
+attention kernel of the port takes it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ao_tpu_torch.ops.hopper import build
+
+_MASK = -0.7 * float(torch.finfo(torch.float32).max)  # the reference's mask value
+
+# what flash_attention.cu takes, and its keys per tile of the online softmax,
+# which the plain version's roundings follow (checked against the library
+# when it loads)
+HEAD_DIM = 128
+BLOCK_K = 64
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = build.load("flash_attention")
+        fn = lib.ao_flash_attention
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
+                                                                     ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        for name, want in (("ao_flash_attention_head_dim", HEAD_DIM),
+                           ("ao_flash_attention_block_k", BLOCK_K)):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
+            if getattr(lib, name)() != want:
+                raise RuntimeError(f"flash_attention.cu: {name} is not {want}")
+        _LIB = lib
+    return _LIB
+
+
+def flash_attention_plain(q, k, v, causal: bool, sm_scale: float) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, to its roundings: q (B, Sq,
+    H, D) rounded to bf16; K, V (B, Sk, Hkv, D); f32 scores, masked to _MASK
+    where the key lies past the query row (top-left causal). Keys go in tiles
+    of BLOCK_K with a running row max m_j (the max over tiles 0..j); tile j
+    contributes bf16(exp(s - m_j)) . V and the f32 sum of exp(s - m_j), each
+    scaled by exp(m_j - m_last); out = the scaled products / the scaled
+    sums, bf16 (B, Sq, H, D)."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    nt = -(-sk // BLOCK_K)
+    qf = q.to(torch.bfloat16).to(torch.float32).reshape(b, sq, hkv, h // hkv, d)
+    s = torch.einsum("bqngd,bknd->bngqk", qf, k.to(torch.float32)) * sm_scale
+    if causal:
+        cols = torch.arange(sk, device=q.device)
+        rows = torch.arange(sq, device=q.device)
+        s = torch.where(cols[None, :] <= rows[:, None], s, torch.full_like(s, _MASK))
+    # keys past Sk (the last tile's tail) are no keys at all: exp(-inf) = 0
+    s = torch.nn.functional.pad(s, (0, nt * BLOCK_K - sk), value=-torch.inf)
+    s = s.reshape(*s.shape[:-1], nt, BLOCK_K)
+    m = torch.cummax(s.amax(dim=-1), dim=-1).values  # (B, Hkv, G, Sq, nt)
+    p = torch.exp(s - m[..., None])
+    w = torch.exp(m - m[..., -1:])
+    pw = (p.to(torch.bfloat16).to(torch.float32) * w[..., None]).flatten(-2)[..., :sk]
+    pv = torch.einsum("bngqk,bknd->bqngd", pw, v.to(torch.float32))
+    l = (p.sum(dim=-1) * w).sum(dim=-1)  # (B, Hkv, G, Sq)
+    out = pv / l.permute(0, 3, 1, 2)[..., None]
+    return out.reshape(b, sq, h, d).to(torch.bfloat16)
+
+
+def _check(q, k, v):
+    """Raise ValueError for what the kernel does not take, on the card and
+    on the CPU alike; returns q as a contiguous bf16 tensor."""
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: q must be (B, Sq, H, D) and K, V (B, Sk, Hkv, D), "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if d != HEAD_DIM:
+        raise ValueError(f"flash_attention: the kernel takes head_dim {HEAD_DIM}, got {d}")
+    if k.shape[0] != b or k.shape[3] != d or h % hkv or sq < 1 or sk < 1:
+        raise ValueError(f"flash_attention: K, V {tuple(k.shape)} do not fit q {tuple(q.shape)}")
+    for name, x in (("k", k), ("v", v)):
+        if x.device != q.device or x.dtype != torch.bfloat16 or not x.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be a contiguous bf16 tensor on "
+                             f"{q.device}, got {x.dtype} on {x.device}")
+    return q.to(torch.bfloat16).contiguous()
+
+
+def _launch(q, k, v, causal: bool, sm_scale: float) -> torch.Tensor:
+    lib = _lib()
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.ao_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                     b, sq, sk, h, hkv, sm_scale, int(causal), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
+    flash_attention.launches += 1
+    return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True, sm_scale=None) -> torch.Tensor:
+    """Prefill attention: q (B, Sq, H, D), K and V (B, Sk, Hkv, D) bf16 with
+    H a multiple of Hkv. Returns (B, Sq, H, D) bf16: the kernel on CUDA
+    tensors, its plain version on CPU tensors."""
+    q = _check(q, k, v)
+    sm_scale = float(sm_scale if sm_scale is not None else q.shape[-1] ** -0.5)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {q.device}")
+    return _launch(q, k, v, causal, sm_scale)
+
+
+flash_attention.launches = 0  # kernel launches (not plain-version calls)
+
+
+def traffic(q_shape, kv_shape, causal: bool = True):
+    """(bytes, flops) the function needs: q and the K and V rows it attends
+    to (bf16) read once, the bf16 output written once; 4 * D flops per
+    (query, key) pair the mask keeps, for every query head. Causally (top-left
+    aligned) row i keeps min(i + 1, Sk) keys, so only the first min(Sq, Sk)
+    cache rows are needed."""
+    b, sq, h, d = q_shape
+    sk, hkv = kv_shape[1], kv_shape[2]
+    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+    kv_rows = min(sq, sk) if causal else sk
+    nbytes = 2 * b * sq * h * d * 2 + 2 * b * kv_rows * hkv * d * 2
+    return nbytes, 4 * b * h * d * pairs

@@ -27,7 +27,8 @@ carried over):
   read-modify-write.
 
 ``update`` writes in place at a scalar index and returns the cache itself;
-per-slot (vector) indices and ``insert_slot`` come with the serving slice.
+per-slot (vector) indices and ``insert_slot``, which the serving engine's
+quantized KV needs, come with the engine's quantized-KV slice.
 """
 
 from __future__ import annotations
@@ -60,7 +61,7 @@ def _nibble_shifts(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
 
 def _per_slot(what: str):
     return NotImplementedError(
-        f"{what} (per-slot cache rows) comes with the serving slice of the port")
+        f"{what} (per-slot cache rows) comes with the engine's quantized-KV slice of the port")
 
 
 @dataclasses.dataclass(eq=False)

@@ -8,6 +8,7 @@ time is never a device time.
 
 from __future__ import annotations
 
+import sys
 from typing import Callable, List
 
 import torch
@@ -48,10 +49,14 @@ def cuda_time_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3) -> 
     kernels on every call.
 
     The profiler now and then returns a profile's device records incomplete
-    (seen on the H100: a profile of one flush recorded no kernel), so the
-    flush's kernels are counted once per device, and a profile whose record
-    count is not a whole number of runs is taken again, up to ATTEMPTS
-    times, before this raises."""
+    (seen on the H100: a profile of one flush recorded no kernel, and three
+    profiles in a row of ten flush + ``torch.matmul`` runs each held no whole
+    number of runs, 27 records in the last), so the flush's kernels are
+    counted once per device, and
+    a profile whose record count is not a whole number of runs is taken
+    again, up to ATTEMPTS times. If none comes back whole, the runs are
+    timed with CUDA events around ``fn`` instead (``_event_ms``), and a note
+    on stderr says so."""
     if not torch.cuda.is_available():
         raise RuntimeError("cuda_time_ms measures device time and needs a CUDA device")
     from torch.profiler import ProfilerActivity
@@ -81,7 +86,27 @@ def cuda_time_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3) -> 
         per_run = len(got) // iters
         if per_run * iters == len(got) and per_run > n_flush:
             return sum(d for i, d in enumerate(got) if i % per_run >= n_flush) / iters / 1e3
-    raise RuntimeError(f"{len(got)} device activities over {iters} runs of "
-                       f"{_FLUSH_KERNELS.get(dev)} flush + fn in {ATTEMPTS} attempts: "
-                       f"fn does not launch the same kernels each run, or the profiler "
-                       f"records no device activity")
+    print(f"cuda_time_ms: {len(got)} device records over {iters} runs of "
+          f"{_FLUSH_KERNELS.get(dev)} flush kernels + fn in each of {ATTEMPTS} profiles; "
+          f"timed with CUDA events instead", file=sys.stderr, flush=True)
+    return _event_ms(fn, scratch, iters)
+
+
+def _event_ms(fn: Callable[[], object], scratch: torch.Tensor, iters: int) -> float:
+    """Mean milliseconds between two CUDA events recorded around ``fn()``
+    after an L2 flush. The flush (a 256 MB read, about 0.1 ms) is queued
+    first, so the host enqueues ``fn``'s launches while the device is still
+    busy with it, and the span holds ``fn``'s kernels and the device's own
+    gaps between them, not the host's launch time, as long as the host
+    takes less than the flush to enqueue them."""
+    total = 0.0
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        scratch.max()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters

@@ -13,21 +13,32 @@ From the repo root, on a machine with a CUDA device and ``nvcc``:
    yardstick where one PyTorch call computes the same function, and the
    least time the card could take (the bound);
    The decode attention kernels over the quantized caches (K5 int8, K6 fp8,
-   K7 int4) are also timed, with K2, at T = 4096, where the cache bytes set
-   the bound;
+   K7 int4) are also timed, with K2 and the paged K9, at T = 4096, where
+   the cache bytes set the bound, and the flash prefill K8 at S = 2048;
 4. drives the main paths on Llama-3-8B widths with random weights from a
    seed, each with greedy ``generate`` at batch 8, a 128-token prompt, 64
    steps and max_seq 256: int4 weight-only
    (``quantize_(params, Int4WeightOnlyConfig(group_size=128))``), W4A8
    (``quantize_(params, Int8DynamicActivationInt4WeightConfig(group_size=128))``)
    and int4 weight-only over each quantized KV cache (``kv_quant`` "int8",
-   "float8_e4m3fn", "int4"). For each it sets every launch counter to 0 just
-   before the call and checks the counts just after (every kernel of the
-   path, exactly as the model predicts), checks that the tokens are well
+   "float8_e4m3fn", "int4"), and int4 weight-only with the flash-attention
+   prefill (``use_flash=True``). For each it sets every launch counter to 0
+   just before the call and checks the counts just after (every kernel of
+   the path, exactly as the model predicts), checks that the tokens are well
    formed, and that a two-layer cut of the same model gives the plain
    route's logits; then times the tok/s of every path and of bf16 on the
    same loop, in turns, and profiles the prefill and a few decode steps of
-   each (host wall time, device busy time, the kernels that take it).
+   each (host wall time, device busy time, the kernels that take it);
+5. serves the int4 weight-only model with ``Engine`` in both KV layouts
+   (slots, and pages of 128) on the same 16 requests, submitted at once to
+   8 slots: prompts of 32-900 tokens (bucketed prefills of 128 and 512,
+   chunked past 512), 16-64 new tokens, two of them sampled. Each run's
+   launch counts are checked exactly against the engine's own schedule (K8
+   per bucketed prefill, K1 per forward, K2 or K9 per decode step), every
+   request must finish with its tokens, and the run prints requests/s,
+   output tok/s, the mean time to first token and the profile of one
+   engine step. Two-layer logits of the flash prefill, a per-slot decode
+   step and a paged decode step are held to the plain route's.
 
 Prints the kernel table as one JSON line and, as the last line,
 ``{"ok": true, "device": {...}}``. Any failed check makes it exit non-zero
@@ -38,6 +49,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import random
+import statistics
 import subprocess
 import sys
 import time
@@ -68,9 +81,10 @@ DEV = "cuda"
 SEED = 0  # random weights and inputs are made from it
 GROUP = 128
 BATCH, PROMPT, MAX_SEQ, STEPS = 8, 128, 256, 64  # bench.py's generate
-# every (M, K, N) the main path gives K1: wq/wo, wk/wv, w1/w3, w2 and the
-# lm_head, at decode (M = B) and at prefill (M = B * prompt)
-K1_SHAPES = [(m, k, n) for m in (BATCH, BATCH * PROMPT)
+# every (M, K, N) the main paths give K1: wq/wo, wk/wv, w1/w3, w2 and the
+# lm_head, at decode (M = B), at generate's prefill (M = B * prompt) and at
+# the engine's prefills (M = 128 and 512: its buckets and its chunks)
+K1_SHAPES = [(m, k, n) for m in (BATCH, 128, 512, BATCH * PROMPT)
              for k, n in ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
                           (4096, 128256))]
 K1_REPORTED = (8, 4096, 14336)  # the decode shape that moves the most weight bytes per layer
@@ -88,6 +102,17 @@ KV_KERNELS = {"int8": ("decode_attention_int8", "i8", "K5"),
               "int4": ("decode_attention_int4", "i4", "K7")}
 KV_TAG = {kv: f"int4-WO+{short}KV" for kv, short in
           (("int8", "int8"), ("float8_e4m3fn", "fp8"), ("int4", "int4"))}
+K8_SQNR_DB = 40.0  # flash prefill: f32 scores and sums, bf16 p and out in both versions
+# (B, Sq, Sk) of K8: the engine's 128 and 512 buckets, a long prefill where
+# the operations set the bound, and generate(use_flash=True)
+K8_SHAPES = [(1, 128, 128), (1, 512, 512), (1, 2048, 2048), (BATCH, PROMPT, MAX_SEQ)]
+# the serving engine: Llama-3-8B int4-WO, 8 slots, max_seq 1024, pages of 128
+ENGINE_CFG = dict(max_batch=8, max_seq=1024, prefill_buckets=(128, 512), eos_id=-1)
+PAGE = 128
+N_REQUESTS = 16
+# K2 over the engine's slots and K9 over its pages: ragged lengths with 1
+# and a full last page
+ENGINE_LENGTHS = [1, 1024, 128, 129, 700, 64, 65, 1000]
 
 
 def card_line() -> str:
@@ -353,6 +378,258 @@ def k12_phase(torch, fails, seed):
                       ms, plain_ms, None, nbytes, ops, F32_FLOPS_PER_S)
 
 
+def k8_phase(torch, fails, seed, b, sq, sk):
+    """K8 at (B, Sq, Sk) with Llama-3-8B's heads; the library yardstick is
+    SDPA with is_causal and GQA on the same tensors, whose causal mask is
+    top-left aligned like the reference's (checked here where Sq < Sk)."""
+    import torch.nn.functional as F
+
+    from ao_tpu_torch.ops.hopper import flash_attention as k8
+    from ao_tpu_torch.quantization.primitives import compute_error
+    from ao_tpu_torch.utils.timing import cuda_time_ms
+
+    h, hkv, d = K2_SHAPE["h"], K2_SHAPE["hkv"], K2_SHAPE["d"]
+    gen = torch.Generator(device=DEV).manual_seed(seed + 8)
+    q = torch.randn((b, sq, h, d), generator=gen, device=DEV).to(torch.bfloat16)
+    kc = torch.randn((b, sk, hkv, d), generator=gen, device=DEV).to(torch.bfloat16)
+    vc = torch.randn((b, sk, hkv, d), generator=gen, device=DEV).to(torch.bfloat16)
+    sm = d ** -0.5
+    got = k8.flash_attention(q, kc, vc, causal=True)
+    ref = k8.flash_attention_plain(q, kc, vc, True, sm)
+    torch.cuda.synchronize()
+    sqnr = float(compute_error(ref.float(), got.float()))
+    fails.check(bool(torch.isfinite(got).all()) and sqnr >= K8_SQNR_DB,
+                f"K8 flash_attention {(b, sq, sk)}: sqnr {sqnr:.2f} dB < {K8_SQNR_DB}")
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q.transpose(1, 2), kc.transpose(1, 2),
+                                              vc.transpose(1, 2), is_causal=True,
+                                              enable_gqa=True)
+
+    if sq < sk:
+        lib = float(compute_error(ref.float(), sdpa().transpose(1, 2).float()))
+        print(f"K8 {(b, sq, sk)}: SDPA is_causal against the plain version: {lib:.2f} dB "
+              f"(top-left aligned if high)", flush=True)
+        fails.check(lib >= 30, f"SDPA is_causal is not top-left aligned at {(b, sq, sk)}")
+    ms = cuda_time_ms(lambda: k8._launch(q, kc, vc, True, sm), iters=20)
+    plain_ms = cuda_time_ms(lambda: k8.flash_attention_plain(q, kc, vc, True, sm), iters=3,
+                            warmup=1)
+    nbytes, flops = k8.traffic(tuple(q.shape), tuple(kc.shape))
+    return kernel_row("K8 flash_attention", f"B={b} Sq={sq} Sk={sk} H={h} Hkv={hkv} D={d}", got,
+                      ref, f"sqnr {sqnr:.2f} dB (>= {K8_SQNR_DB})", ms, plain_ms,
+                      cuda_time_ms(sdpa, iters=20), nbytes, flops)
+
+
+def k9_phase(torch, fails, seed, lengths, max_pages):
+    """K9 over bf16 pools of 128-row pages, each sequence's pages scattered
+    through a shuffled block table, entries past its pages 0 (the null
+    page); the library yardstick is SDPA over the same tokens gathered
+    beforehand into a dense cache (the gather not timed)."""
+    from ao_tpu_torch.ops.hopper import paged_attention as k9
+    from ao_tpu_torch.quantization.primitives import compute_error
+    from ao_tpu_torch.utils.timing import cuda_time_ms
+
+    b, h, hkv, d = (K2_SHAPE[key] for key in ("b", "h", "hkv", "d"))
+    n_pages = b * max_pages + 1
+    gen = torch.Generator(device=DEV).manual_seed(seed + 9)
+    q = torch.randn((b, h, d), generator=gen, device=DEV).to(torch.bfloat16)
+    kp = torch.randn((n_pages, PAGE, hkv, d), generator=gen, device=DEV).to(torch.bfloat16)
+    vp = torch.randn((n_pages, PAGE, hkv, d), generator=gen, device=DEV).to(torch.bfloat16)
+    order = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(seed)) + 1
+    table = order.reshape(b, max_pages).to(torch.int32)
+    for i, n in enumerate(lengths):
+        table[i, -(-n // PAGE):] = 0
+    table = table.to(DEV)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+    sm = d ** -0.5
+    got = k9.paged_decode_attention(q, kp, vp, table, lens)
+    ref = k9.paged_decode_attention_plain(q, kp, vp, table, lens, sm)
+    torch.cuda.synchronize()
+    sqnr = float(compute_error(ref, got))
+    t = max_pages * PAGE
+    fails.check(bool(torch.isfinite(got).all()) and sqnr >= K2_SQNR_DB,
+                f"K9 paged_decode_attention T={t}: sqnr {sqnr:.2f} dB < {K2_SQNR_DB}")
+    ms = cuda_time_ms(lambda: k9._launch(q, kp, vp, table, lens, sm), iters=50)
+    plain_ms = cuda_time_ms(lambda: k9.paged_decode_attention_plain(q, kp, vp, table, lens, sm),
+                            iters=10)
+    dense_k, dense_v = (pool[table.long()].reshape(b, t, hkv, d) for pool in (kp, vp))
+    nbytes, flops = k9.traffic((b, h, d), tuple(kp.shape), max_pages, lengths)
+    return kernel_row("K9 paged_decode_attention",
+                      f"B={b} H={h} Hkv={hkv} D={d} page_size={PAGE} T={t}", got, ref,
+                      f"sqnr {sqnr:.2f} dB (>= {K2_SQNR_DB})", ms, plain_ms,
+                      sdpa_ms(torch, q, dense_k, dense_v, lens, sm), nbytes, flops)
+
+
+def check_serving_logits(torch, fails, qparams, cfg, seed):
+    """Two-layer logits of the serving paths, kernel route against the plain
+    route (the "torch" backend), >= 30 dB: (a) a prefill with use_flash=True
+    over a cache longer than the prompt (K8), (c) then one decode step with a
+    per-slot cache_index whose positions differ by row (row 1 rewrites
+    position 77; K2 over each row's length), and (b) one paged decode step
+    (K9) after prefills written into scattered pages. No quantizer lies on
+    these paths, so the fixed bound applies."""
+    from ao_tpu_torch.models import llama
+    from ao_tpu_torch.ops import kernels
+    from ao_tpu_torch.quantization.primitives import compute_error
+    from ao_tpu_torch.serving.paged import PagedKVPool
+
+    cut = dataclasses.replace(cfg, n_layers=2)
+    params = dict(qparams, layers=qparams["layers"][:2])
+    gen = torch.Generator(device=DEV).manual_seed(seed + 7)
+    b, s, t = 2, PROMPT, MAX_SEQ
+    toks = torch.randint(0, cfg.vocab_size, (b, t), generator=gen, device=DEV, dtype=torch.int32)
+    rows = torch.arange(b, device=DEV)
+    slot_pos = torch.tensor([s, 77], dtype=torch.int32, device=DEV)
+    paged_len = torch.tensor([100, 200], dtype=torch.int32, device=DEV)
+    table = torch.tensor([[3, 1], [4, 2]], dtype=torch.int32, device=DEV)
+
+    def run():
+        caches = llama.init_kv_caches(cut, b, t, device=DEV)
+        prefill, caches = llama.forward(params, toks[:, :s], cut, kv_caches=caches,
+                                        cache_index=0, use_flash=True)
+        slot, _ = llama.forward(params, toks[rows, slot_pos.long()][:, None], cut,
+                                positions=slot_pos[:, None], kv_caches=caches,
+                                cache_index=slot_pos)
+        pools = [tuple(PagedKVPool.create(2 * b + 1, PAGE, cut.n_kv_heads, cut.head_dim,
+                                          device=DEV) for _ in range(2)) for _ in range(2)]
+        for i in range(b):
+            scratch = llama.init_kv_caches(cut, 1, t, device=DEV)
+            llama.forward(params, toks[i:i + 1], cut, kv_caches=scratch, cache_index=0,
+                          use_flash=True)
+            for (kp, vp), (sk, sv) in zip(pools, scratch):
+                kp.write_prompt(sk[0], table[i])
+                vp.write_prompt(sv[0], table[i])
+        paged, _ = llama.forward(params, toks[rows, paged_len.long()][:, None], cut,
+                                 positions=paged_len[:, None], kv_caches=pools,
+                                 cache_index=(table, paged_len))
+        return prefill, slot, paged
+
+    got = run()
+    with kernels.backend("torch"):
+        plain = run()
+    for what, g, p in zip(("flash prefill (a)", "per-slot decode step (c)",
+                           "paged decode step (b)"), got, plain):
+        sqnr = float(compute_error(p, g))
+        print(f"int4-WO two-layer {what} logits, kernel route vs plain route: sqnr "
+              f"{sqnr:.2f} dB (>= {PATH_SQNR_DB})", flush=True)
+        fails.check(bool(torch.isfinite(g).all()) and sqnr >= PATH_SQNR_DB,
+                    f"int4-WO two-layer {what} logits: sqnr {sqnr:.2f} dB")
+
+
+def engine_requests(seed, vocab):
+    """The engine runs' 16 requests, (prompt, max_new_tokens, sampling
+    overrides), from ``seed``: 12 prompts of 32-500 tokens, one of 128, one
+    of 512 and two of 600-900 (chunked prefills), 16-64 new tokens, two of
+    them sampled."""
+    import torch
+
+    rnd = random.Random(seed)
+    lengths = ([rnd.randint(32, 500) for _ in range(12)] + [128, 512]
+               + [rnd.randint(600, 900) for _ in range(2)])
+    rnd.shuffle(lengths)
+    sampled = set(rnd.sample(range(N_REQUESTS), 2))
+    gen = torch.Generator().manual_seed(seed)
+    return [(torch.randint(0, vocab, (n,), generator=gen).tolist(), rnd.randint(16, 64),
+             dict(temperature=0.8, top_k=50, top_p=0.95) if i in sampled else {})
+            for i, n in enumerate(lengths)]
+
+
+def engine_run(torch, fails, qparams, cfg, requests, counters, paged):
+    """Serve ``requests`` with the Engine in one layout: every counter set to
+    0 before and checked exactly after against the engine's own schedule,
+    every request finished with its tokens. Returns (launches, the finished
+    requests' tokens, metrics)."""
+    import ao_tpu_torch
+
+    tag = "engine-paged" if paged else "engine-slots"
+    layout = dict(kv_layout="paged", page_size=PAGE) if paged else {}
+    eng = ao_tpu_torch.Engine(qparams, cfg, ao_tpu_torch.ServeConfig(**ENGINE_CFG, **layout),
+                              device=DEV)
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for prompt, m, kw in requests:
+        eng.submit(prompt, m, **kw)
+    first = []  # time to each request's first token, in admission (= uid) order
+    while True:
+        st = eng.stats()
+        if not st["queued_requests"] and not st["active_slots"]:
+            break
+        eng.step()
+        now = time.perf_counter() - t0
+        first += [now] * (eng.stats()["prefills"] - len(first))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    done = eng.run(max_steps=0)
+    got = {name: c.launches for name, c in counters.items()}
+    st = eng.stats()
+    buckets = ENGINE_CFG["prefill_buckets"]
+    chunk = max(buckets)
+    per_bucket = {bk: sum(len(p) <= chunk and min(x for x in buckets if x >= len(p)) == bk
+                          for p, _, _ in requests) for bk in buckets}
+    n_bucketed = sum(per_bucket.values())
+    n_chunks = sum(-(-len(p) // chunk) for p, _, _ in requests if len(p) > chunk)
+    n_steps = st["steps"]  # every step of the loop ran a decode forward
+    linears = 7 * cfg.n_layers + 1
+    want = {name: 0 for name in counters}
+    want["flash_attention"] = cfg.n_layers * n_bucketed
+    want["int4_wo_magic"] = linears * (n_bucketed + n_chunks + n_steps)
+    want["paged_decode_attention" if paged else "decode_attention"] = cfg.n_layers * n_steps
+    print(f"{tag}: {n_bucketed} bucketed prefills (per bucket {per_bucket}), {n_chunks} prefill "
+          f"chunks, {n_steps} decode steps; launches {got} (want {want})", flush=True)
+    fails.check(got == want, f"{tag} launch counts {got} != {want}")
+    fails.check(st["prefills"] == len(requests) == len(done) == st["finished_requests"],
+                f"{tag}: {len(done)} of {len(requests)} requests finished ({st})")
+    tokens = {}
+    for r in done:
+        ok = (len(r.generated) == r.max_new_tokens and r.finish_reason == "length"
+              and all(0 <= x < cfg.vocab_size for x in r.generated))
+        fails.check(ok, f"{tag} request {r.uid}: {len(r.generated)} tokens of "
+                        f"{r.max_new_tokens}, finish {r.finish_reason}")
+        tokens[r.uid] = r.generated
+    n_tok = sum(len(g) for g in tokens.values())
+    metrics = dict(requests_per_s=len(requests) / wall, tok_per_s=n_tok / wall,
+                   mean_ttft_s=sum(first) / len(first), wall_s=wall, steps=n_steps)
+    print(f"{tag} (Llama-3-8B int4-WO, {cfg.n_layers} layers, {len(requests)} requests on "
+          f"{ENGINE_CFG['max_batch']} slots, max_seq {ENGINE_CFG['max_seq']}): {wall:.2f} s, "
+          f"{metrics['requests_per_s']:.3f} requests/s, {metrics['tok_per_s']:.1f} output tok/s, "
+          f"mean time to first token {metrics['mean_ttft_s']:.3f} s", flush=True)
+    profile_engine(torch, eng, cfg, tag)
+    return got, tokens, metrics
+
+
+def profile_engine(torch, eng, cfg, tag, steps=4):
+    """One engine step with all 8 slots decoding (128-token prompts, after
+    their admission): host wall time per step (host clock; each step ends in
+    its token read) and device busy time, ops and kernels per step
+    (torch.profiler, CUDA activity, over a second window)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator().manual_seed(SEED + 11)
+    for _ in range(ENGINE_CFG["max_batch"]):
+        eng.submit(torch.randint(0, cfg.vocab_size, (PROMPT,), generator=gen).tolist(), 16)
+    for _ in range(3):  # admission and two warm steps
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    busy_ms, ops, top = device_time(prof, steps)
+    print(f"{tag} step ({cfg.n_layers} layers, 8 slots decoding): host wall {wall_ms:.3f} "
+          f"ms/step, device busy {busy_ms:.3f} ms/step ({busy_ms / wall_ms:.1%}), "
+          f"{ops} device ops/step", flush=True)
+    for name, ms in top:
+        print(f"    {ms:.3f} ms/step  {name[:110]}", flush=True)
+    eng.run()
+
+
 def init_caches(cfg, batch, max_seq, kv_quant):
     """Per-layer KV caches on the card: bf16, or quantized with ``kv_quant``."""
     from ao_tpu_torch.models import llama
@@ -437,11 +714,11 @@ def check_logits(torch, fails, qparams, cfg, seed, tag, batch=2, prompt_len=16,
                     f"{tag} decode logits, kernel vs einsum attention: sqnr {sqnr:.2f} dB")
 
 
-def generate_tok_per_s(torch, generate, runs, prompt, cfg, steps, rounds=3):
+def generate_tok_per_s(torch, generate, runs, prompt, cfg, steps, rounds=2):
     """tok/s of greedy ``generate`` for each (tag, params, kv_quant) of
     ``runs``: host clock around a whole call that ends in a synchronize, the
     runs taken in turns for ``rounds`` rounds after one warm-up call each;
-    the median."""
+    the median (of two rounds, their mean)."""
     times = {tag: [] for tag, _, _ in runs}
     for _, params, kv in runs:
         generate(params, prompt, cfg, num_steps=steps, max_seq=MAX_SEQ, kv_quant=kv)
@@ -452,7 +729,7 @@ def generate_tok_per_s(torch, generate, runs, prompt, cfg, steps, rounds=3):
             generate(params, prompt, cfg, num_steps=steps, max_seq=MAX_SEQ, kv_quant=kv)
             torch.cuda.synchronize()
             times[tag].append(time.perf_counter() - t0)
-    return {tag: prompt.shape[0] * steps / sorted(ts)[len(ts) // 2] for tag, ts in times.items()}
+    return {tag: prompt.shape[0] * steps / statistics.median(ts) for tag, ts in times.items()}
 
 
 def device_time(prof, runs):
@@ -534,8 +811,10 @@ def main() -> int:
     from ao_tpu_torch.models import llama
     from ao_tpu_torch.ops.hopper import build
     from ao_tpu_torch.ops.hopper import decode_attention as k2
+    from ao_tpu_torch.ops.hopper import flash_attention as k8
     from ao_tpu_torch.ops.hopper import fused_act as k12
     from ao_tpu_torch.ops.hopper import int4_matmul as k1
+    from ao_tpu_torch.ops.hopper import paged_attention as k9
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -566,6 +845,10 @@ def main() -> int:
     k3_rows = k3_phase(torch, fails, SEED)
     k4_rows = k4_phase(torch, fails, SEED)
     k12_row = k12_phase(torch, fails, SEED)
+    k2_engine = k2_phase(torch, fails, SEED, t=ENGINE_CFG["max_seq"], lengths=ENGINE_LENGTHS)
+    k8_rows = {shape: k8_phase(torch, fails, SEED, *shape) for shape in K8_SHAPES}
+    k9_row = k9_phase(torch, fails, SEED, ENGINE_LENGTHS, ENGINE_CFG["max_seq"] // PAGE)
+    k9_long = k9_phase(torch, fails, SEED, [T_LONG] * K2_SHAPE["b"], T_LONG // PAGE)
 
     # -- the main paths: Llama-3-8B widths, int4-WO and W4A8, greedy generate
     cfg = llama.LLAMA3_8B
@@ -584,25 +867,30 @@ def main() -> int:
     counters = {"int4_wo_magic": k1.int4_wo_magic, "decode_attention": k2.decode_attention,
                 "int4_w4a8_matmul": k1.int4_w4a8_matmul,
                 "int4_magic8_requant_int8": k1.int4_magic8_requant_int8,
-                "silu_mul_quant": k12.silu_mul_quant}
+                "silu_mul_quant": k12.silu_mul_quant, "flash_attention": k8.flash_attention,
+                "paged_decode_attention": k9.paged_decode_attention}
     counters.update({name: getattr(k2, name) for name, _, _ in KV_KERNELS.values()})
     linears = 7 * cfg.n_layers + 1  # q, k, v, o, w1, w3, w2 per layer, and the lm_head
     decode_attn = cfg.n_layers * (STEPS - 1)
     launches = {}
-    paths = [("int4-WO", qparams, None, {"int4_wo_magic": linears * STEPS,
-                                         "decode_attention": decode_attn}),
-             ("W4A8", wparams, None, {"decode_attention": decode_attn,
-                                      "int4_w4a8_matmul": linears * (STEPS - 1),
-                                      "int4_magic8_requant_int8": linears,
-                                      "silu_mul_quant": cfg.n_layers})]
-    paths += [(KV_TAG[kv], qparams, kv, {"int4_wo_magic": linears * STEPS,
-                                         KV_KERNELS[kv][0]: decode_attn}) for kv in KV_QUANT]
-    for tag, qp, kv, want in paths:
+    paths = [("int4-WO", qparams, None, False, {"int4_wo_magic": linears * STEPS,
+                                                "decode_attention": decode_attn}),
+             ("W4A8", wparams, None, False, {"decode_attention": decode_attn,
+                                             "int4_w4a8_matmul": linears * (STEPS - 1),
+                                             "int4_magic8_requant_int8": linears,
+                                             "silu_mul_quant": cfg.n_layers})]
+    paths += [(KV_TAG[kv], qparams, kv, False, {"int4_wo_magic": linears * STEPS,
+                                                KV_KERNELS[kv][0]: decode_attn})
+              for kv in KV_QUANT]
+    paths.append(("int4-WO+flash", qparams, None, True, {"int4_wo_magic": linears * STEPS,
+                                                         "decode_attention": decode_attn,
+                                                         "flash_attention": cfg.n_layers}))
+    for tag, qp, kv, flash, want in paths:
         want = {name: want.get(name, 0) for name in counters}
         for c in counters.values():
             c.launches = 0
         toks = ao_tpu_torch.generate(qp, prompt, cfg, num_steps=STEPS, max_seq=MAX_SEQ,
-                                     kv_quant=kv)
+                                     kv_quant=kv, use_flash=flash)
         torch.cuda.synchronize()
         got = {name: c.launches for name, c in counters.items()}
         launches[tag] = got
@@ -619,6 +907,7 @@ def main() -> int:
     for kv in KV_QUANT:
         check_logits(torch, fails, qparams, cfg, SEED, KV_TAG[kv], kv_quant=kv,
                      floor_margin_db=FLOOR_MARGIN_DB)
+    check_serving_logits(torch, fails, qparams, cfg, SEED)
 
     runs = [("W4A8", wparams, None), ("int4-WO", qparams, None), ("bf16", params, None)]
     runs += [(KV_TAG[kv], qparams, kv) for kv in KV_QUANT]
@@ -628,6 +917,21 @@ def main() -> int:
           + ", ".join(f"{tag} {tps[tag]:.1f} tok/s" for tag, _, _ in runs), flush=True)
     for tag, p, kv in runs:
         profile_decode(torch, p, cfg, prompt, tag, kv_quant=kv)
+
+    # -- the serving engine: the same requests in both KV layouts
+    requests = engine_requests(SEED, cfg.vocab_size)
+    served = {}
+    for paged in (False, True):
+        tag = "engine-paged" if paged else "engine-slots"
+        launches[tag], served[tag], _ = engine_run(torch, fails, qparams, cfg, requests, counters,
+                                                   paged)
+    greedy = [uid for uid, (_, _, kw) in enumerate(requests) if not kw]
+    same = sum(a == b for uid in greedy
+               for a, b in zip(served["engine-slots"].get(uid, []),
+                               served["engine-paged"].get(uid, [])))
+    total = sum(len(served["engine-slots"].get(uid, [])) for uid in greedy)
+    print(f"engine: the two layouts agree on {same} of {total} greedy tokens "
+          f"({same / max(total, 1):.1%}; not judged: the routes round differently)", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
 
     if fails:
@@ -644,6 +948,8 @@ def main() -> int:
         ("int4_magic8_requant_int8", "int4_w4a8.cu", "int4_matmul.py:673", "W4A8",
          k4_rows[KN_REPORTED]),
         ("silu_mul_quant", "fused_act.cu", "fused_act.py:171", "W4A8", k12_row),
+        ("decode_attention", "decode_attention.cu", "decode_attention.py:234", "engine-slots",
+         k2_engine),
         ("decode_attention", "decode_attention.cu", "decode_attention.py:234", "int4-WO",
          long_rows["bf16"]),
     ]
@@ -651,6 +957,11 @@ def main() -> int:
                                   "decode_attention.py:471")):
         rows += [(KV_KERNELS[kv][0], "decode_attention_quant.cu", ref, KV_TAG[kv], row)
                  for row in (kv_rows[kv], long_rows[kv])]
+    rows += [("flash_attention", "flash_attention.cu", "flash_attention.py:94",
+              "int4-WO+flash" if shape[0] > 1 else "engine-slots", k8_rows[shape])
+             for shape in K8_SHAPES]
+    rows += [("paged_decode_attention", "paged_attention.cu", "paged_attention.py:189",
+              "engine-paged", row) for row in (k9_row, k9_long)]
     entries = [dict(name=name, route="cuda", source=f"ao_tpu_torch/csrc/{src}",
                     replaces=f"ao_tpu/ops/pallas/{ref}", launches=launches[path][name],
                     **{k: row[k] for k in keys})

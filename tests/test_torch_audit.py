@@ -44,13 +44,15 @@ def test_port_has_the_slice_modules():
                 "ao_tpu_torch/quantization/configs.py", "ao_tpu_torch/ops/act_quant.py",
                 "ao_tpu_torch/ops/kernels.py", "ao_tpu_torch/ops/linear.py",
                 "ao_tpu_torch/ops/hopper/int4_matmul.py", "ao_tpu_torch/ops/hopper/decode_attention.py",
-                "ao_tpu_torch/ops/hopper/fused_act.py",
+                "ao_tpu_torch/ops/hopper/fused_act.py", "ao_tpu_torch/ops/hopper/flash_attention.py",
+                "ao_tpu_torch/ops/hopper/paged_attention.py",
                 "ao_tpu_torch/models/llama.py", "ao_tpu_torch/serving/decode.py",
-                "ao_tpu_torch/serving/kvcache.py",
+                "ao_tpu_torch/serving/kvcache.py", "ao_tpu_torch/serving/sampling.py",
+                "ao_tpu_torch/serving/paged.py", "ao_tpu_torch/serving/engine.py",
                 "ao_tpu_torch/weights.py", "chip_smoke.py"):
         assert mod in rel, mod
     for src in ("int4_matmul.cu", "decode_attention.cu", "decode_attention_quant.cu",
-                "int4_w4a8.cu", "fused_act.cu"):
+                "int4_w4a8.cu", "fused_act.cu", "flash_attention.cu", "paged_attention.cu"):
         assert (ROOT / "ao_tpu_torch" / "csrc" / src).exists()
     from ao_tpu_torch.ops.hopper import build
 

@@ -128,12 +128,17 @@ def _two_step_logits(jp, tp, prompt, max_seq, kv_quant):
 def test_generate_checks():
     tp = jax_to_torch(jllama.init_params(jax.random.PRNGKey(2), JCFG))
     prompt = torch.zeros((1, S), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="sampling"):
-        ao_tpu_torch.generate(tp, prompt, TCFG, 2, MAX_SEQ, temperature=0.7)
-    # what a quantized cache still refuses: the flash-attention prefill, and
-    # an int4 cache whose max_seq does not hold whole words of 8 positions
-    with pytest.raises(NotImplementedError, match="flash"):
-        ao_tpu_torch.generate(tp, prompt, TCFG, 2, MAX_SEQ, kv_quant="int8", use_flash=True)
+    # sampling runs (serving/sampling.py); its tokens are the vocabulary's
+    toks = ao_tpu_torch.generate(tp, prompt, TCFG, 2, MAX_SEQ, temperature=0.7)
+    assert toks.dtype == torch.int32 and toks.shape == (1, 2)
+    assert bool(((toks >= 0) & (toks < TCFG.vocab_size)).all())
+    # the flash-attention prefill over a quantized cache runs; on the CPU it
+    # takes the einsum path, as the reference's does off the TPU
+    np.testing.assert_array_equal(
+        ao_tpu_torch.generate(tp, prompt, TCFG, 3, MAX_SEQ, kv_quant="int8", use_flash=True),
+        ao_tpu_torch.generate(tp, prompt, TCFG, 3, MAX_SEQ, kv_quant="int8"))
+    # what a quantized cache still refuses: an int4 cache whose max_seq
+    # does not hold whole words of 8 positions
     with pytest.raises(ValueError, match="max_seq % 8"):
         ao_tpu_torch.generate(tp, prompt, TCFG, 2, MAX_SEQ + 4, kv_quant="int4")
     with pytest.raises(ValueError, match="max_seq"):

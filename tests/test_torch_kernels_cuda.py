@@ -14,8 +14,10 @@ import ao_tpu_torch
 from ao_tpu_torch.models import llama
 from ao_tpu_torch.ops import kernels
 from ao_tpu_torch.ops.hopper import decode_attention as k2
+from ao_tpu_torch.ops.hopper import flash_attention as k8
 from ao_tpu_torch.ops.hopper import fused_act as k12
 from ao_tpu_torch.ops.hopper import int4_matmul as k1
+from ao_tpu_torch.ops.hopper import paged_attention as k9
 from ao_tpu_torch.ops.linear import _requant_scale
 from ao_tpu_torch.quantization.primitives import ZeroPointDomain, compute_error
 from ao_tpu_torch.quantization.qarrays.common import ActQuantSpec
@@ -295,3 +297,163 @@ def test_generate_w4a8_goes_through_its_kernels(dev):
     n_lin = 7 * cfg.n_layers + 1
     assert [c.launches for c in counters] == [0, n_lin * 4, n_lin, cfg.n_layers,
                                               cfg.n_layers * 4]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hkv,causal", [
+    (1, 128, 128, 4, 2, True),
+    (1, 128, 128, 4, 2, False),
+    (2, 128, 256, 4, 2, True),      # Sq < Sk: top-left aligned, the cache rows past Sq unseen
+    (2, 13, 128, 8, 8, True),       # a ragged query tile
+    (1, 200, 200, 4, 1, False),     # a ragged key tile
+    (8, 128, 256, 32, 8, True),     # generate(use_flash=True)
+    (1, 512, 512, 32, 8, True),     # the engine's largest bucket
+])
+def test_flash_attention_matches_plain(dev, b, sq, sk, h, hkv, causal):
+    gen = torch.Generator(device=dev).manual_seed(sq * 7 + sk)
+    q = torch.randn((b, sq, h, 128), generator=gen, device=dev).to(torch.bfloat16)
+    kc = torch.randn((b, sk, hkv, 128), generator=gen, device=dev).to(torch.bfloat16)
+    vc = torch.randn((b, sk, hkv, 128), generator=gen, device=dev).to(torch.bfloat16)
+    before = k8.flash_attention.launches
+    got = k8.flash_attention(q, kc, vc, causal=causal)
+    torch.cuda.synchronize()
+    assert k8.flash_attention.launches == before + 1
+    ref = k8.flash_attention_plain(q, kc, vc, causal, 128 ** -0.5)
+    # f32 scores and sums in both, bf16 p and output; the kernel rounds p
+    # against its running max per 64-key tile, the plain version against
+    # the row's max
+    sqnr = float(compute_error(ref.float(), got.float()))
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape and sqnr >= 40, f"{sqnr:.2f} dB"
+    if causal and sq < sk:
+        # rows past Sq of the cache never reach the output
+        vc[:, sq:] = float("nan")
+        again = k8.flash_attention(q, kc, vc, causal=True)
+        assert torch.equal(again, got)
+
+
+def test_flash_attention_refuses_on_the_card(dev):
+    q = torch.randn((1, 64, 4, 128), device=dev, dtype=torch.bfloat16)
+    kc = torch.randn((1, 128, 2, 128), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 128"):
+        k8.flash_attention(q[..., :64], kc[..., :64], kc[..., :64])
+    with pytest.raises(ValueError, match="bf16"):
+        k8.flash_attention(q, kc.float(), kc)
+
+
+def _paged_inputs(dev, gen, b, h, hkv, ps, max_pages, n_pages):
+    q = torch.randn((b, h, 128), generator=gen, device=dev).to(torch.bfloat16)
+    kp = torch.randn((n_pages, ps, hkv, 128), generator=gen, device=dev).to(torch.bfloat16)
+    vp = torch.randn((n_pages, ps, hkv, 128), generator=gen, device=dev).to(torch.bfloat16)
+    # every sequence's pages scattered over the pool, page 0 (null) unused
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(n_pages)) + 1
+    table = perm[:b * max_pages].reshape(b, max_pages).to(torch.int32).to(dev)
+    return q, kp, vp, table
+
+
+@pytest.mark.parametrize("b,h,hkv,ps,max_pages,lengths", [
+    (2, 4, 2, 128, 3, [300, 150]),
+    (8, 32, 8, 128, 8, [1, 1024, 128, 129, 700, 64, 65, 1000]),  # 1 and a full last page
+    (3, 8, 1, 8, 20, [1, 160, 77]),       # page_size 8, G = 8
+    (2, 4, 4, 24, 5, [0, 120]),           # page_size 24; length 0 gives 0
+])
+def test_paged_attention_matches_plain(dev, b, h, hkv, ps, max_pages, lengths):
+    gen = torch.Generator(device=dev).manual_seed(ps * 10 + max_pages)
+    q, kp, vp, table = _paged_inputs(dev, gen, b, h, hkv, ps, max_pages, b * max_pages + 3)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    # block-table entries past each sequence's pages are the null page 0,
+    # which holds NaN here: it must never be read as data
+    for i, n in enumerate(lengths):
+        table[i, -(-n // ps):] = 0
+    kp[0], vp[0] = float("nan"), float("nan")
+    before = k9.paged_decode_attention.launches
+    got = k9.paged_decode_attention(q, kp, vp, table, lens)
+    torch.cuda.synchronize()
+    assert k9.paged_decode_attention.launches == before + 1
+    ref = k9.paged_decode_attention_plain(q, kp, vp, table, lens, 128 ** -0.5)
+    assert bool(torch.isfinite(got).all())
+    # the same roundings; the kernel rounds p against its split's max
+    sqnr = float(compute_error(ref, got))
+    assert got.dtype == torch.float32 and sqnr >= 40, f"{sqnr:.2f} dB"
+    for i, n in enumerate(lengths):
+        if n <= 0:
+            assert float(got[i].abs().max()) == 0.0
+    # the same as K2 over the gathered dense cache
+    if all(n >= 1 for n in lengths):
+        t = max_pages * ps
+        dense_k = torch.nan_to_num(kp[table.long()].reshape(b, t, hkv, 128))
+        dense_v = torch.nan_to_num(vp[table.long()].reshape(b, t, hkv, 128))
+        k2_out = k2.decode_attention_plain(q, dense_k, dense_v, lens, 128 ** -0.5)
+        assert float(compute_error(k2_out, got)) >= 40
+
+
+def test_paged_attention_refuses_on_the_card(dev):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, kp, vp, table = _paged_inputs(dev, gen, 2, 4, 2, 16, 4, 9)
+    lens = torch.tensor([5, 60], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="head_dim 128"):
+        k9.paged_decode_attention(q[..., :64], kp[..., :64], vp[..., :64], table, lens)
+    with pytest.raises(ValueError, match="at most 8"):
+        k9.paged_decode_attention(q.repeat(1, 5, 1), kp[:, :, :1].contiguous(),
+                                  vp[:, :, :1].contiguous(), table, lens)
+
+
+def _small_int4_model(dev):
+    cfg = llama.LlamaConfig(vocab_size=512, dim=512, n_layers=2, n_heads=4, n_kv_heads=2,
+                            ffn_dim=1024, tie_embeddings=False)
+    params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    return cfg, ao_tpu_torch.quantize_(params, ao_tpu_torch.Int4WeightOnlyConfig(group_size=32))
+
+
+def test_generate_use_flash_goes_through_k8(dev):
+    cfg, qparams = _small_int4_model(dev)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 8), device=dev, dtype=torch.int32)
+    counters = (k1.int4_wo_magic, k2.decode_attention, k8.flash_attention,
+                k9.paged_decode_attention)
+    for c in counters:
+        c.launches = 0
+    # Sq = 8 rows against the cache's 128: the flash route (top-left causal)
+    toks = ao_tpu_torch.generate(qparams, prompt, cfg, num_steps=5, max_seq=128, use_flash=True)
+    torch.cuda.synchronize()
+    assert toks.shape == (2, 5) and toks.dtype == torch.int32
+    assert [c.launches for c in counters] == [(7 * cfg.n_layers + 1) * 5, cfg.n_layers * 4,
+                                              cfg.n_layers, 0]
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["slots", "paged"])
+def test_engine_goes_through_its_kernels(dev, paged):
+    cfg, qparams = _small_int4_model(dev)
+    layout = dict(kv_layout="paged", page_size=128) if paged else {}
+    eng = ao_tpu_torch.Engine(qparams, cfg, ao_tpu_torch.ServeConfig(
+        max_batch=2, max_seq=256, prefill_buckets=(128,), **layout))
+    gen = torch.Generator().manual_seed(1)
+    # two bucketed prefills and one of 200 tokens in two chunks of 128; more
+    # requests than slots
+    for n in (10, 20, 200):
+        eng.submit(torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist(), 4)
+    counters = (k1.int4_wo_magic, k2.decode_attention, k8.flash_attention,
+                k9.paged_decode_attention)
+    for c in counters:
+        c.launches = 0
+    done = eng.run()
+    torch.cuda.synchronize()
+    steps = eng.stats()["steps"]
+    assert [len(r.generated) for r in done] == [4, 4, 4]
+    decode = cfg.n_layers * steps
+    assert [c.launches for c in counters] == [(7 * cfg.n_layers + 1) * (2 + 2 + steps),
+                                              0 if paged else decode, cfg.n_layers * 2,
+                                              decode if paged else 0]
+
+
+def test_event_timing_agrees_with_the_profiler(dev):
+    """The CUDA-event timing that ``cuda_time_ms`` falls back to when the
+    profiler's records come back incomplete measures what the profiler does:
+    one 4096^3 bf16 matmul (about 0.1 ms) within a factor of 1.5."""
+    from ao_tpu_torch.utils import timing
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn((4096, 4096), generator=gen, device=dev).to(torch.bfloat16)
+    b = torch.randn((4096, 4096), generator=gen, device=dev).to(torch.bfloat16)
+    prof_ms = timing.cuda_time_ms(lambda: a @ b, iters=10)
+    scratch = torch.zeros(timing.L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    event_ms = timing._event_ms(lambda: a @ b, scratch, 10)
+    assert 0 < prof_ms and 0 < event_ms
+    assert prof_ms / 1.5 < event_ms < prof_ms * 1.5

@@ -73,9 +73,9 @@ def test_cache_checks():
     with pytest.raises(ValueError, match="KV cache dtype"):
         QuantKVCache.create(B, 64, HKV, D, "float8_e5m2", device="cpu")
     c = QuantKVCache.create(B, 16, HKV, D, "int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="serving slice"):
+    with pytest.raises(NotImplementedError, match="quantized-KV slice"):
         c.update(torch.zeros((B, 1, HKV, D)), torch.tensor([3, 4]))
-    with pytest.raises(NotImplementedError, match="serving slice"):
+    with pytest.raises(NotImplementedError, match="quantized-KV slice"):
         c.insert_slot(c, 0)
     with pytest.raises(ValueError, match="outside the cache"):
         c.update(torch.zeros((B, 2, HKV, D)), 15)

@@ -116,11 +116,19 @@ def test_unported_branches_raise():
     gen = torch.Generator().manual_seed(0)
     p = tllama.init_params(dataclasses.replace(TCFG, n_layers=1), gen, device="cpu")
     assert p["layers"][0]["attn"]["wq"].shape == (512, 512) and "lm_head" in p
-    caches = tllama.init_kv_caches(TCFG, B, T, device="cpu")
+    # a per-slot (vector) cache index runs over a bf16 cache and, for a
+    # QuantKVCache, still raises (the engine's quantized-KV slice)
+    cfg1 = dataclasses.replace(TCFG, n_layers=1)
+    caches = tllama.init_kv_caches(cfg1, B, T, device="cpu")
+    logits, _ = tllama.forward(p, torch.zeros((B, 1), dtype=torch.int32), cfg1,
+                               positions=torch.zeros((B, 1), dtype=torch.int32),
+                               kv_caches=caches, cache_index=torch.zeros(B, dtype=torch.int32))
+    assert logits.shape == (B, 1, TCFG.vocab_size) and bool(caches[0][0][:, 0].any())
+    qcaches = ao_tpu_torch.init_quant_kv_caches(cfg1, B, T, "int8", device="cpu")
     with pytest.raises(NotImplementedError, match="per-slot"):
-        tllama.forward(p, torch.zeros((B, 1), dtype=torch.int32),
-                       dataclasses.replace(TCFG, n_layers=1), positions=torch.zeros((B, 1)),
-                       kv_caches=caches[:1], cache_index=torch.zeros(B, dtype=torch.int32))
+        tllama.forward(p, torch.zeros((B, 1), dtype=torch.int32), cfg1,
+                       positions=torch.zeros((B, 1), dtype=torch.int32),
+                       kv_caches=qcaches, cache_index=torch.zeros(B, dtype=torch.int32))
     assert ao_tpu_torch.models.llama is tllama
 
 
@@ -132,3 +140,28 @@ def test_rope_llama3_scaling_matches():
     jf = jllama.rope_freqs(dataclasses.replace(JCFG, rope_scaling=rs))
     tf = tllama.rope_freqs(dataclasses.replace(TCFG, rope_scaling=rs), device="cpu")
     np.testing.assert_allclose(np.asarray(jf), tf.numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["f32", "int4"])
+def test_per_slot_decode_matches_jax(models, kind):
+    """A decode step whose rows write and attend at their own positions
+    (a vector ``cache_index``, the serving engine's slot layout) against
+    JAX's, after a prefill."""
+    jp, tp = models[kind]
+    toks = _tokens()
+    pos = np.array([S, 5], np.int32)  # row 1 rewrites position 5 and attends to 0..5
+    cur = toks[np.arange(B), pos][:, None]
+    caches = jllama.init_kv_caches(JCFG, B, T)
+    _, caches = jllama.forward(jp, jnp.asarray(toks[:, :S]), JCFG, kv_caches=caches,
+                               cache_index=0)
+    j1, _ = jllama.forward(jp, jnp.asarray(cur), JCFG, positions=jnp.asarray(pos[:, None]),
+                           kv_caches=caches, cache_index=jnp.asarray(pos))
+    # the plain route on both sides, as in test_forward_matches_jax_plain_paths
+    with tkernels.backend("torch"):
+        tcaches = tllama.init_kv_caches(TCFG, B, T, device="cpu")
+        _, tcaches = tllama.forward(tp, torch.from_numpy(toks[:, :S]), TCFG, kv_caches=tcaches,
+                                    cache_index=0)
+        t1, _ = tllama.forward(tp, torch.from_numpy(cur), TCFG,
+                               positions=torch.from_numpy(pos[:, None]), kv_caches=tcaches,
+                               cache_index=torch.from_numpy(pos))
+    assert _sqnr(np.asarray(j1), t1.numpy()) >= 60
