@@ -1,6 +1,6 @@
 // Single-query decode attention over quantized (B, T, Hkv, *) KV caches with
 // one f32 scale per (batch row, kv head, position), for Hopper (sm_90a).
-// One kernel template, three caches (ao_tpu_torch/serving/kvcache.py):
+// One kernel template, four kernels (ao_tpu_torch/serving/kvcache.py):
 //
 //   K5, mode kI8: int8 "tokens" cache, the reference's "i8" semantics.
 //       Replaces ao_tpu/ops/pallas/decode_attention.py::_kt_kernel in mode
@@ -20,8 +20,13 @@
 //       ks[t]. (w >> 4j) & 0x000F000F | 0x43004300 is bf16x2 128 + u of
 //       channels j and j + 4, as in the int4 weight kernel (int4_matmul.cu);
 //       subtracting 136 in bf16 is exact.
+//   K2v, modes kV8 and kE5: int8 or fp8 e5m2 "tokens" cache with bf16 q.
+//       Replaces _tok_kernel in mode "vec8" (launched by _tok_impl) for
+//       those two storage types (its e4m3 form is K6): s = dot_f32(q, K[t]) *
+//       sm_scale * ks[t], K converted exactly to bf16 (int8 by value, e5m2
+//       by the hardware's cvt to f16; every e5m2 value is a bf16 value).
 //
-// In all three, with q in bf16 and the mask at lengths[b]:
+// In all of them, with q in bf16 and the mask at lengths[b]:
 //   p = exp(s - max), pv = bf16(p * vs[t]), out = sum_t pv * V[t] /
 //   max(sum_t p, 1e-30) in f32, V converted exactly to bf16.
 //
@@ -34,10 +39,12 @@
 // coalesced loads (converted to bf16 on the way in, except K5's int8 K),
 // writes its unnormalised output with its max and sum, and a second pass
 // combines the splits; splits wholly at or past lengths[b] (lengths >= 1)
-// return at once. K5's scores are mma.sync.m16n8k32.s8 with the K rows as
-// the A operand (16 positions x 32 channels, row-major as stored) and qi^T
-// as B (G <= 8 heads padded to n = 8), the operand swap of K1 and K3; K6's
-// and K7's scores and every p.V are f32 FMAs, as in K2.
+// return at once, and inside the last one the rows at or past lengths[b]
+// and their scales are not loaded (a stored byte there, such as an fp8 NaN,
+// never reaches the output). K5's scores are mma.sync.m16n8k32.s8 with the
+// K rows as the A operand (16 positions x 32 channels, row-major as stored)
+// and qi^T as B (G <= 8 heads padded to n = 8), the operand swap of K1 and
+// K3; the other kernels' scores and every p.V are f32 FMAs, as in K2.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -56,7 +63,7 @@ constexpr int kPad = 8;     // bf16 row padding: 16-byte reads stay bank-conflic
 constexpr int kRow8 = kD + 16;  // int8 row stride (bytes): fragment reads conflict free
 constexpr float kNeg = -0.7f * 3.4028234663852886e38f;  // decode_attention.py:52
 
-enum Mode { kI8 = 0, kF8 = 1, kI4 = 2 };
+enum Mode { kI8 = 0, kF8 = 1, kI4 = 2, kV8 = 3, kE5 = 4 };
 
 __device__ __forceinline__ void mma_16832(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                           uint32_t b1) {
@@ -75,9 +82,10 @@ __device__ __forceinline__ __nv_bfloat162 bits_bf162(uint32_t x) {
   return *reinterpret_cast<__nv_bfloat162*>(&x);
 }
 
-__device__ __forceinline__ __nv_bfloat16 e4m3_to_bf16(uint8_t x) {
-  // e4m3 -> half -> float -> bf16: each step exact for every finite e4m3
-  const __half h(__nv_cvt_fp8_to_halfraw(static_cast<__nv_fp8_storage_t>(x), __NV_E4M3));
+template <__nv_fp8_interpretation_t KIND>
+__device__ __forceinline__ __nv_bfloat16 fp8_to_bf16(uint8_t x) {
+  // fp8 -> half -> float -> bf16: each step exact for every e4m3 and e5m2
+  const __half h(__nv_cvt_fp8_to_halfraw(static_cast<__nv_fp8_storage_t>(x), KIND));
   return __float2bfloat16_rn(__half2float(h));
 }
 
@@ -106,8 +114,9 @@ __device__ __forceinline__ void to_bf16(int4 raw, __nv_bfloat16* dst) {
     __align__(16) __nv_bfloat16 v[16];
 #pragma unroll
     for (int e = 0; e < 16; ++e)
-      v[e] = MODE == kF8 ? e4m3_to_bf16(b[e])
-                         : __float2bfloat16_rn((float)static_cast<int8_t>(b[e]));
+      v[e] = MODE == kF8   ? fp8_to_bf16<__NV_E4M3>(b[e])
+             : MODE == kE5 ? fp8_to_bf16<__NV_E5M2>(b[e])
+                           : __float2bfloat16_rn((float)static_cast<int8_t>(b[e]));
     *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(&v[0]);
     *reinterpret_cast<uint4*>(dst + 8) = *reinterpret_cast<const uint4*>(&v[8]);
   }
@@ -129,6 +138,7 @@ __global__ void __launch_bounds__(kThreads)
   const int t0 = sp * kChunk;
   if (L >= 1 && t0 >= L) return;
   const int tn = min(kChunk, T - t0);
+  const int tl = L >= 1 ? min(tn, L - t0) : tn;  // rows to load: none at or past L
 
   // K as bf16 (K6, K7) or, for K5, the same bytes as int8 rows of kRow8
   __shared__ __align__(16) __nv_bfloat16 ks[kChunk][kD + kPad];
@@ -152,15 +162,15 @@ __global__ void __launch_bounds__(kThreads)
   }
   const size_t srow = ((size_t)b * Hkv + kvh) * T + t0;
   for (int r = tid; r < kChunk; r += kThreads) {
-    ksc[r] = r < tn ? kscale[srow + r] : 0.f;
-    vsc[r] = r < tn ? vscale[srow + r] : 0.f;
+    ksc[r] = r < tl ? kscale[srow + r] : 0.f;
+    vsc[r] = r < tl ? vscale[srow + r] : 0.f;
   }
   const size_t row_stride = (size_t)Hkv * kRowBytes;
   const size_t base = ((size_t)b * T + t0) * row_stride + (size_t)kvh * kRowBytes;
   for (int i = tid; i < kChunk * (kRowBytes / 16); i += kThreads) {
     const int r = i / (kRowBytes / 16), c = i % (kRowBytes / 16);
     int4 kr = make_int4(0, 0, 0, 0), vr = make_int4(0, 0, 0, 0);
-    if (r < tn) {
+    if (r < tl) {
       kr = __ldg(reinterpret_cast<const int4*>(k + base + r * row_stride + c * 16));
       vr = __ldg(reinterpret_cast<const int4*>(v + base + r * row_stride + c * 16));
     }
@@ -308,8 +318,9 @@ extern "C" int ao_decode_attention_quant_chunk(void) { return kChunk; }
 extern "C" int ao_decode_attention_quant_max_group(void) { return kGMax; }
 extern "C" int ao_decode_attention_quant_head_dim(void) { return kD; }
 
-// mode 0 (K5, int8), 1 (K6, fp8 e4m3), 2 (K7, int4 "ch4"). q (B, H, D) bf16;
-// k, v (B, T, Hkv, D) int8 / e4m3 or (B, T, Hkv, D/8) int32; ks, vs
+// mode 0 (K5, int8), 1 (K6, fp8 e4m3), 2 (K7, int4 "ch4"), 3 (K2v, int8),
+// 4 (K2v, fp8 e5m2). q (B, H, D) bf16; k, v (B, T, Hkv, D) int8 / e4m3 /
+// e5m2 or (B, T, Hkv, D/8) int32; ks, vs
 // (B, Hkv, T) f32; lengths (B,) int32; out (B, H, D) f32; o_part
 // (B, Hkv, nsplit, G, D), m_part and l_part (B, Hkv, nsplit, G) f32 with
 // nsplit = ceil(T / chunk). Needs D == 128 and H / Hkv <= 8, 16-byte aligned
@@ -325,6 +336,8 @@ extern "C" int ao_decode_attention_quant(int mode, const void* q, const void* k,
   auto* kern = mode == kI8   ? quant_split_kernel<kI8>
                : mode == kF8 ? quant_split_kernel<kF8>
                : mode == kI4 ? quant_split_kernel<kI4>
+               : mode == kV8 ? quant_split_kernel<kV8>
+               : mode == kE5 ? quant_split_kernel<kE5>
                              : nullptr;
   if (kern == nullptr) return (int)cudaErrorInvalidValue;
   kern<<<grid1, kThreads, 0, st>>>(

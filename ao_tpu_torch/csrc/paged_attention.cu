@@ -1,35 +1,56 @@
-// Single-query decode attention over a paged bf16 KV pool, for Hopper (sm_90a).
+// Single-query decode attention over a paged KV pool, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel ao_tpu/ops/pallas/paged_attention.py::_make_kernel
-// in mode "fp" (launched by _impl from paged_decode_attention). The pools
-// are (P, page_size, Hkv, D) bf16; sequence b's position t lives in page
-// block_table[b, t / page_size] at row t % page_size. For each batch row b
-// and kv head, the G = H / Hkv query heads of its group share one K/V
-// stream:
+// (launched by _impl from paged_decode_attention) in its three modes, one
+// template here:
 //
-//   s[h, t] = (q[h] . K[t]) * sm_scale in f32, masked to _NEG where t >= lengths[b];
-//   out[h]  = sum_t bf16(p[h, t]) V[t] / max(sum_t p[h, t], 1e-30), f32,
+//   mode kFP, "fp": bf16 pools (P, page_size, Hkv, D);
+//   mode kI8 / kF8, "vec8": int8 or fp8 e4m3 pools (P, page_size, Hkv, D);
+//   mode kI4, "int4": int4 pools in the port's "ch4" form (P, page_size, Hkv,
+//       D/8) int32, 8 channel nibbles u at bits [4o, 4o + 4) of a word,
+//       value u - 8 (ao_tpu_torch/serving/paged.py);
 //
-// with p = exp(s - max) and bf16(p) rounded against the max of its split,
-// as the TPU kernel rounds it against its running max before p . V.
+// the quantized pools with one f32 scale per cached vector, (P, Hkv,
+// page_size). Sequence b's position t lives in page block_table[b, t /
+// page_size] at row t % page_size. For each batch row b and kv head, the
+// G = H / Hkv query heads of its group share one K/V stream:
 //
-// What bounds it on the H100: the K and V bytes of the valid positions
-// against 3.35 TB/s, as for K2 (decode_attention.cu), whose structure it
-// keeps. The TPU kernel's grid, (B, Hkv), carries one online softmax along a
-// sequence's pages and double-buffers their DMAs; that is 64 programs at
-// batch 8, far fewer than the card's 132 SMs. Here the positions split
-// (flash-decoding): grid (T / 64, Hkv, B) with T = max_pages * page_size,
-// each block owns 64 positions, reads each position's page id from the
-// block table, stages the K and V rows in shared memory with 16-byte
-// loads, and writes its unnormalised output with its max and sum; a second
-// pass combines the splits of each head. A split at or past lengths[b]
-// returns at once and the combine never reads it; inside the last split,
-// rows at or past lengths[b] are neither loaded nor weighted, so a
-// block-table entry past a sequence's pages (0, the null page) is never read
-// as data. Any page_size works: the page of every row is looked up.
+//   s[h, t] = (q[h] . K[t]) * sm_scale (* ks[t]) in f32, masked to _NEG where
+//             t >= lengths[b];
+//   out[h]  = sum_t bf16(p[h, t] (* vs[t])) V[t] / max(sum_t p[h, t], 1e-30), f32,
+//
+// with p = exp(s - max), rounded against the max of its split as the TPU
+// kernel rounds it against its running max before p . V. The stored values
+// become bf16 exactly on the way into shared memory (int8 by value, e4m3 by
+// the hardware's cvt to f16, int4 nibbles by the int4 weight kernels' bf16
+// bit trick, (w >> 4j) & 0x000F000F | 0x43004300 = bf16x2 128 + u of
+// channels j and j + 4), and the scales fold into each score row and each
+// probability column ("scale-commuted, no dequant multiplies", as the TPU
+// kernel does).
+//
+// What bounds it on the H100: the K and V bytes of the valid positions (2 B
+// per value for bf16, 1 B for int8 and fp8, half a byte for int4, plus two
+// f32 scales per position and kv head) against 3.35 TB/s, as for K2 and
+// K5-K7 (decode_attention*.cu), whose structure it keeps. The TPU kernel's
+// grid, (B, Hkv), carries one online softmax along a sequence's pages and
+// double-buffers their DMAs; that is 64 programs at batch 8, far fewer than
+// the card's 132 SMs. Here the positions split (flash-decoding): grid
+// (T / 64, Hkv, B) with T = max_pages * page_size, each block owns 64
+// positions, reads each position's page id from the block table, stages the
+// K and V rows in shared memory with 16-byte loads, and writes its
+// unnormalised output with its max and sum; a second pass combines the
+// splits of each head. A split at or past lengths[b] returns at once and the
+// combine never reads it; inside the last split, rows at or past lengths[b]
+// and their scales are neither loaded nor weighted, so a block-table entry
+// past a sequence's pages (0, the null page, where idle lanes write) is
+// never read as data, and no stored byte there (an e4m3 0x7F is NaN) reaches
+// the output. Any page_size works: the page of every row is looked up (the
+// TPU kernel needs page_size % 128 for quantized pools, for its lanes).
 // lengths <= 0 leaves every position masked and the output 0.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -43,14 +64,71 @@ constexpr int kThreads = 128;
 constexpr int kPad = 8;     // row padding (bf16): 16-byte reads stay bank-conflict free
 constexpr float kNeg = -0.7f * 3.4028234663852886e38f;  // paged_attention.py:34
 
+enum Mode { kFP = 0, kI8 = 1, kF8 = 2, kI4 = 3 };
+
+__device__ __forceinline__ uint32_t bf162_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+__device__ __forceinline__ __nv_bfloat162 bits_bf162(uint32_t x) {
+  return *reinterpret_cast<__nv_bfloat162*>(&x);
+}
+
+// 16 stored bytes of one row -> bf16 values at dst: 8 values for bf16, 16
+// for int8 and fp8, 32 for int4 (four words of 8 channels each); exact.
+template <int MODE>
+__device__ __forceinline__ void to_bf16(int4 raw, __nv_bfloat16* dst) {
+  if constexpr (MODE == kFP) {
+    *reinterpret_cast<int4*>(dst) = raw;
+  } else if constexpr (MODE == kI4) {
+    const uint32_t w[4] = {(uint32_t)raw.x, (uint32_t)raw.y, (uint32_t)raw.z, (uint32_t)raw.w};
+    const __nv_bfloat162 bias = __floats2bfloat162_rn(136.f, 136.f);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      __nv_bfloat162 p[4];  // p[j] = (channel j, channel j + 4) of word i
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        p[j] = __hsub2(bits_bf162(((w[i] >> (4 * j)) & 0x000F000Fu) | 0x43004300u), bias);
+      uint4 o;
+      o.x = bf162_bits(__lows2bfloat162(p[0], p[1]));
+      o.y = bf162_bits(__lows2bfloat162(p[2], p[3]));
+      o.z = bf162_bits(__highs2bfloat162(p[0], p[1]));
+      o.w = bf162_bits(__highs2bfloat162(p[2], p[3]));
+      *reinterpret_cast<uint4*>(dst + 8 * i) = o;
+    }
+  } else {
+    const uint8_t* b = reinterpret_cast<const uint8_t*>(&raw);
+    __align__(16) __nv_bfloat16 v[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      if constexpr (MODE == kF8) {
+        // e4m3 -> f16 in hardware -> f32 -> bf16, each step exact
+        const __half h(__nv_cvt_fp8_to_halfraw(static_cast<__nv_fp8_storage_t>(b[e]), __NV_E4M3));
+        v[e] = __float2bfloat16_rn(__half2float(h));
+      } else {
+        v[e] = __float2bfloat16_rn((float)static_cast<int8_t>(b[e]));
+      }
+    }
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(&v[0]);
+    *reinterpret_cast<uint4*>(dst + 8) = *reinterpret_cast<const uint4*>(&v[8]);
+  }
+}
+
+template <int MODE>
 __global__ void __launch_bounds__(kThreads)
     paged_attn_split_kernel(const __nv_bfloat16* __restrict__ q,
-                            const __nv_bfloat16* __restrict__ k_pages,
-                            const __nv_bfloat16* __restrict__ v_pages,
+                            const uint8_t* __restrict__ k_pages,
+                            const float* __restrict__ k_scale,
+                            const uint8_t* __restrict__ v_pages,
+                            const float* __restrict__ v_scale,
                             const int* __restrict__ table, const int* __restrict__ lengths,
                             float* __restrict__ o_part, float* __restrict__ m_part,
                             float* __restrict__ l_part, int page_size, int max_pages, int H,
                             int Hkv, int nsplit, float sm_scale) {
+  // stored bytes of one row, and values per 16 stored bytes
+  constexpr int kRowBytes = MODE == kFP ? 2 * kD : MODE == kI4 ? kD / 2 : kD;
+  constexpr int kVals = MODE == kFP ? 8 : MODE == kI4 ? 32 : 16;
+  constexpr bool kQuant = MODE != kFP;
   const int sp = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int G = H / Hkv;
   const int L = min(lengths[b], max_pages * page_size);
@@ -62,6 +140,7 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ __align__(16) __nv_bfloat16 vs[kChunk][kD + kPad];
   __shared__ float qs[kGMax][kD];
   __shared__ float ps[kGMax][kChunk];
+  __shared__ float ksc[kChunk], vsc[kChunk];
   __shared__ int page_row[kChunk];  // pool row of each valid position
 
   const int tid = threadIdx.x;
@@ -71,23 +150,34 @@ __global__ void __launch_bounds__(kThreads)
     const int gi = i / kD, d = i % kD;
     qs[gi][d] = __bfloat162float(q[((size_t)b * H + kvh * G + gi) * kD + d]);
   }
-  for (int r = tid; r < tn; r += kThreads) {
-    const int t = t0 + r;
-    page_row[r] = table[(size_t)b * max_pages + t / page_size] * page_size + t % page_size;
+  for (int r = tid; r < kChunk; r += kThreads) {
+    float kscl = 0.f, vscl = 0.f;
+    if (r < tn) {
+      const int t = t0 + r;
+      const int page = table[(size_t)b * max_pages + t / page_size], off = t % page_size;
+      page_row[r] = page * page_size + off;
+      if constexpr (kQuant) {
+        const size_t si = ((size_t)page * Hkv + kvh) * page_size + off;
+        kscl = k_scale[si];
+        vscl = v_scale[si];
+      }
+    }
+    ksc[r] = kscl;
+    vsc[r] = vscl;
   }
   __syncthreads();
 
-  const size_t row_stride = (size_t)Hkv * kD;
-  for (int i = tid; i < kChunk * (kD / 8); i += kThreads) {
-    const int r = i / (kD / 8), c = i % (kD / 8);
+  const size_t row_stride = (size_t)Hkv * kRowBytes;
+  for (int i = tid; i < kChunk * (kRowBytes / 16); i += kThreads) {
+    const int r = i / (kRowBytes / 16), c = i % (kRowBytes / 16);
     int4 kv = make_int4(0, 0, 0, 0), vv = make_int4(0, 0, 0, 0);
     if (r < tn) {
-      const size_t off = (size_t)page_row[r] * row_stride + (size_t)kvh * kD + c * 8;
+      const size_t off = (size_t)page_row[r] * row_stride + (size_t)kvh * kRowBytes + c * 16;
       kv = __ldg(reinterpret_cast<const int4*>(k_pages + off));
       vv = __ldg(reinterpret_cast<const int4*>(v_pages + off));
     }
-    *reinterpret_cast<int4*>(&ks[r][c * 8]) = kv;
-    *reinterpret_cast<int4*>(&vs[r][c * 8]) = vv;
+    to_bf16<MODE>(kv, &ks[r][c * kVals]);
+    to_bf16<MODE>(vv, &vs[r][c * kVals]);
   }
   __syncthreads();
 
@@ -106,11 +196,14 @@ __global__ void __launch_bounds__(kThreads)
         acc = fmaf(qs[gi][c * 8 + 2 * e + 1], f.y, acc);
       }
     }
-    ps[gi][r] = r < tn ? acc * sm_scale : kNeg;
+    float sc = acc * sm_scale;
+    if constexpr (kQuant) sc = sc * ksc[r];
+    ps[gi][r] = r < tn ? sc : kNeg;
   }
   __syncthreads();
 
-  // per-head max and sum over this block's positions; bf16(p) overwrites s
+  // per-head max and sum over this block's positions; bf16(p (* vs))
+  // overwrites s
   for (int gi = warp; gi < G; gi += kThreads / 32) {
     float mx = -INFINITY;
     for (int r = lane; r < kChunk; r += 32) mx = fmaxf(mx, ps[gi][r]);
@@ -119,7 +212,7 @@ __global__ void __launch_bounds__(kThreads)
     float sum = 0.f;
     for (int r = lane; r < kChunk; r += 32) {
       const float p = expf(ps[gi][r] - mx);
-      ps[gi][r] = __bfloat162float(__float2bfloat16(p));
+      ps[gi][r] = __bfloat162float(__float2bfloat16(kQuant ? p * vsc[r] : p));
       sum += p;
     }
 #pragma unroll
@@ -182,22 +275,33 @@ extern "C" int ao_paged_attention_chunk(void) { return kChunk; }
 extern "C" int ao_paged_attention_max_group(void) { return kGMax; }
 extern "C" int ao_paged_attention_head_dim(void) { return kD; }
 
-// q (B, H, D) bf16; k_pages, v_pages (P, page_size, Hkv, D) bf16; table
-// (B, max_pages) int32 page ids < P; lengths (B,) int32; out (B, H, D) f32;
-// o_part (B, Hkv, nsplit, G, D), m_part and l_part (B, Hkv, nsplit, G) f32
-// with nsplit = ceil(max_pages * page_size / chunk). Needs D == 128 and
-// H / Hkv <= 8; the Python wrapper checks them. Returns cudaGetLastError().
-extern "C" int ao_paged_attention(const void* q, const void* k_pages, const void* v_pages,
+// mode 0 ("fp", bf16), 1 (int8), 2 (fp8 e4m3), 3 (int4 "ch4"). q (B, H, D)
+// bf16; k_pages, v_pages (P, page_size, Hkv, D) bf16 / int8 / e4m3 or
+// (P, page_size, Hkv, D/8) int32; k_scale, v_scale (P, Hkv, page_size) f32
+// (unread in mode 0); table (B, max_pages) int32 page ids < P; lengths (B,)
+// int32; out (B, H, D) f32; o_part (B, Hkv, nsplit, G, D), m_part and
+// l_part (B, Hkv, nsplit, G) f32 with nsplit = ceil(max_pages * page_size /
+// chunk). Needs D == 128 and H / Hkv <= 8, 16-byte aligned pools; the
+// Python wrapper checks them. Returns cudaGetLastError().
+extern "C" int ao_paged_attention(int mode, const void* q, const void* k_pages,
+                                  const void* k_scale, const void* v_pages, const void* v_scale,
                                   const void* table, const void* lengths, void* out,
                                   void* o_part, void* m_part, void* l_part, int B, int H,
                                   int Hkv, int page_size, int max_pages, int nsplit,
                                   float sm_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
+  auto* kern = mode == kFP   ? paged_attn_split_kernel<kFP>
+               : mode == kI8 ? paged_attn_split_kernel<kI8>
+               : mode == kF8 ? paged_attn_split_kernel<kF8>
+               : mode == kI4 ? paged_attn_split_kernel<kI4>
+                             : nullptr;
+  if (kern == nullptr) return (int)cudaErrorInvalidValue;
   dim3 grid1(nsplit, Hkv, B);
-  paged_attn_split_kernel<<<grid1, kThreads, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_pages),
-      static_cast<const __nv_bfloat16*>(v_pages), static_cast<const int*>(table), len,
+  kern<<<grid1, kThreads, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const uint8_t*>(k_pages),
+      static_cast<const float*>(k_scale), static_cast<const uint8_t*>(v_pages),
+      static_cast<const float*>(v_scale), static_cast<const int*>(table), len,
       static_cast<float*>(o_part), static_cast<float*>(m_part), static_cast<float*>(l_part),
       page_size, max_pages, H, Hkv, nsplit, sm_scale);
   cudaError_t err = cudaGetLastError();

@@ -220,7 +220,9 @@ def attention(
         ck, cv = kv_cache  # (B, T, kvh, hd) bf16 tensors, QuantKVCache or PagedKVPool
         if isinstance(ck, PagedKVPool):
             # paged decode (S == 1): cache_index = (block_table, lengths),
-            # lengths the positions before this token
+            # lengths the positions before this token; a quantized pool
+            # quantizes the token as it appends it, and K9 runs in the
+            # pool's mode
             from ao_tpu_torch.serving.paged import paged_attention
 
             if s != 1:
@@ -238,7 +240,7 @@ def attention(
         # the cache is updated in place; the reference returns an updated
         # copy, and forward returns the same objects
         if quant:
-            ck.update(k, cache_index)  # a per-slot (vector) index raises there
+            ck.update(k, cache_index)  # scalar, or per-slot (B,) positions
             cv.update(v, cache_index)
             sk = ck.max_seq
         elif isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1:
@@ -265,7 +267,8 @@ def attention(
             # single-token decode: the flash-decoding kernel reads the cache
             # in place (ops/hopper/decode_attention.py) over each row's
             # length: K2 for bf16, K5 (int8, in the reference's "i8"
-            # q-quantized form), K6 (fp8) or K7 (int4) for a quantized
+            # q-quantized form, as its default int8 "kt" K cache), K6
+            # (fp8 e4m3), K7 (int4) or K2v (fp8 e5m2) for a quantized
             # cache. The route is the reference's; a shape inside it that
             # the kernel does not take (head_dim other than 128, more than
             # 8 query heads per kv head) makes the kernel's wrapper raise,

@@ -1,5 +1,5 @@
 """Single-query decode attention on Hopper: K2 over a bf16 cache, and K5,
-K6 and K7 over the quantized caches of ``serving/kvcache.py``.
+K6, K7 and K2v over the quantized caches of ``serving/kvcache.py``.
 
 Counterparts of ``ao_tpu/ops/pallas/decode_attention.py::decode_attention``:
 
@@ -14,6 +14,9 @@ Counterparts of ``ao_tpu/ops/pallas/decode_attention.py::decode_attention``:
 * K7 (same source, ``decode_attention_int4``): the int4 cache
   (``_ck4_kernel`` and ``_int4_kernel``) in the port's channel-packed
   "ch4" layout.
+* K2v (same source, ``decode_attention_vec8``): the bf16-q "vec8" form of
+  ``_tok_kernel`` over an int8 or fp8 e5m2 "tokens" cache, K6's function
+  over those storage types.
 
 The CUDA sources' headers say what bounds each kernel on the H100 and how
 the split over T (flash-decoding) meets it. Every wrapper runs its kernel on
@@ -22,9 +25,7 @@ CUDA tensors and its plain PyTorch version (``decode_attention_plain``,
 ``decode_attention`` dispatches on the cache's dtype and layout and on the
 mode the caller asks for. ``lengths`` is per row, so K2 also serves the
 serving engine's slot layout, whose rows sit at their own positions; the
-paged layout's decode attention is K9 (``paged_attention.py``). Still to
-port: the bf16-q "vec8" form over an int8 or e5m2 tokens cache (K2v),
-which raises NotImplementedError.
+paged layout's decode attention is K9 (``paged_attention.py``).
 """
 
 from __future__ import annotations
@@ -121,7 +122,8 @@ def decode_attention(q, k_cache, v_cache, lengths, *, k_scale=None, v_scale=None
     * bf16 cache, no scales: k_cache/v_cache (B, T, Hkv, D), K2.
     * quantized cache (``serving/kvcache.py``), with k_scale/v_scale
       (B, Hkv, T) f32: int8 "tokens" with ``mode="i8"`` (K5), fp8 e4m3
-      "tokens" (K6), int4 "ch4" (K7)."""
+      "tokens" (K6), int4 "ch4" (K7), int8 "tokens" without a mode or fp8
+      e5m2 "tokens" (K2v)."""
     if k_scale is not None or v_scale is not None:
         kind = _quant_kind(k_cache.dtype, k_layout, mode)
         return _QUANT_WRAPPERS[kind](q, k_cache, k_scale, v_cache, v_scale, lengths,
@@ -169,9 +171,11 @@ QUANT_HEAD_DIM = 128
 QUANT_MAX_GROUP = 8
 QUANT_CHUNK = 64
 
-_KIND_MODE = {"i8": 0, "f8": 1, "i4": 2}  # the kernel's mode argument
-_KIND_STORAGE = {"i8": torch.int8, "f8": torch.float8_e4m3fn, "i4": torch.int32}
-_KIND_NAME = {"i8": "int8 (K5)", "f8": "fp8 e4m3 (K6)", "i4": "int4 (K7)"}
+# the kernel's mode argument by kind and storage type (K2v has two)
+_KIND_MODE = {"i8": {torch.int8: 0}, "f8": {torch.float8_e4m3fn: 1}, "i4": {torch.int32: 2},
+              "v8": {torch.int8: 3, torch.float8_e5m2: 4}}
+_KIND_NAME = {"i8": "int8 (K5)", "f8": "fp8 e4m3 (K6)", "i4": "int4 (K7)",
+              "v8": "int8 / fp8 e5m2 bf16-q (K2v)"}
 
 _QLIB = None
 
@@ -203,39 +207,35 @@ def _quant_kind(dtype, layout: str, mode) -> str:
     if layout == "tokens" and dtype == torch.float8_e4m3fn:
         return "f8"
     if layout == "tokens" and dtype == torch.int8:
-        if mode == "i8":
-            return "i8"
-        raise NotImplementedError(
-            "the bf16-q form over an int8 tokens cache (the reference's \"vec8\", K2v) comes "
-            "with a later slice of the port; pass mode=\"i8\" for K5's int8-q form")
+        # mode="i8": q quantized to int8 (K5); otherwise the bf16-q form (K2v)
+        return "i8" if mode == "i8" else "v8"
+    if layout == "tokens" and dtype == torch.float8_e5m2:
+        return "v8"
     raise ValueError(f"no decode attention kernel for a {dtype} cache in layout {layout!r}")
-
-
-def _cache_values(qdata: torch.Tensor) -> torch.Tensor:
-    """The stored values of a quantized cache's qdata, unscaled, as f32
-    (B, T, Hkv, D): int8 integers, fp8 values, or int4 nibbles minus 8."""
-    if qdata.dtype == torch.int32:
-        from ao_tpu_torch.serving.kvcache import _unpack_channels
-
-        return (_unpack_channels(qdata) - 8).to(torch.float32)
-    return qdata.to(torch.float32)
 
 
 def decode_attention_quant_plain(kind: str, q, k, k_scale, v, v_scale, lengths,
                                  sm_scale: float) -> torch.Tensor:
-    """K5 ("i8"), K6 ("f8") or K7 ("i4") in plain PyTorch, with the kernels'
-    roundings: q (B, H, D) rounded to bf16; for "i8" q quantized per
-    (batch, kv head) to int8, qs = max(amax, 1e-8) / 127, qi =
+    """K5 ("i8"), K6 ("f8"), K7 ("i4") or K2v ("v8") in plain PyTorch, with
+    the kernels' roundings: q (B, H, D) rounded to bf16; for "i8" q
+    quantized per (batch, kv head) to int8, qs = max(amax, 1e-8) / 127, qi =
     clip(round(q / qs), +-127), s = dot(qi, K) * ks * (qs * sm_scale) (the
     integer dot is exact in f32); otherwise s = dot(q, K) * sm_scale * ks.
-    Masked to _NEG at positions >= lengths; p = exp(s - max);
+    Masked to _NEG at positions >= lengths (lengths >= 1), whose values and
+    scales are never read; p = exp(s - max);
     out = sum bf16(p * vs) * V / max(sum p, 1e-30), f32 (B, H, D)."""
+    from ao_tpu_torch.serving.kvcache import stored_values
+
     b, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     g = h // hkv
-    kf, vf = _cache_values(k), _cache_values(v)
+    lens = lengths.reshape(b, 1)
+    read = (torch.arange(t, device=q.device)[None, :] < lens) | (lens < 1)  # (B, T)
+    kf, vf = (torch.where(read[:, :, None, None], x, torch.zeros_like(x))
+              for x in (stored_values(k), stored_values(v)))
     qf = q.to(torch.bfloat16).to(torch.float32).reshape(b, hkv, g, d)
-    ks, vs = k_scale[:, :, None, :], v_scale[:, :, None, :]
+    ks, vs = (torch.where(read[:, None, :], x, torch.zeros_like(x))[:, :, None, :]
+              for x in (k_scale, v_scale))
     if kind == "i8":
         qs = qf.abs().amax(dim=(2, 3)).clamp_min(1e-8) / 127.0  # (B, Hkv)
         qi = torch.round(qf / qs[..., None, None]).clamp_(-127, 127)
@@ -266,8 +266,9 @@ def _check_quant(kind, q, k, k_scale, v, v_scale, lengths):
                          f"{QUANT_MAX_GROUP} query heads per kv head")
     row = d // 8 if kind == "i4" else d
     dev = q.device
-    for what, x, dt, shape in (("k_cache", k, _KIND_STORAGE[kind], (b, t, hkv, row)),
-                               ("v_cache", v, _KIND_STORAGE[kind], (b, t, hkv, row)),
+    storage = k.dtype if k.dtype in _KIND_MODE[kind] else next(iter(_KIND_MODE[kind]))
+    for what, x, dt, shape in (("k_cache", k, storage, (b, t, hkv, row)),
+                               ("v_cache", v, storage, (b, t, hkv, row)),
                                ("k_scale", k_scale, torch.float32, (b, hkv, t)),
                                ("v_scale", v_scale, torch.float32, (b, hkv, t))):
         if x is None or x.device != dev or x.dtype != dt or tuple(x.shape) != shape \
@@ -306,7 +307,7 @@ def _launch_quant(kind, q, k, k_scale, v, v_scale, lengths, sm_scale: float) -> 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ao_decode_attention_quant(
-            _KIND_MODE[kind], q.data_ptr(), k.data_ptr(), k_scale.data_ptr(), v.data_ptr(),
+            _KIND_MODE[kind][k.dtype], q.data_ptr(), k.data_ptr(), k_scale.data_ptr(), v.data_ptr(),
             v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(), o_part.data_ptr(),
             m_part.data_ptr(), l_part.data_ptr(), b, h, hkv, t, nsplit, sm_scale, stream)
     if err != 0:
@@ -336,14 +337,21 @@ def decode_attention_int4(q, k, k_scale, v, v_scale, lengths, *, sm_scale=None):
     return _quant_attention("i4", q, k, k_scale, v, v_scale, lengths, sm_scale)
 
 
+def decode_attention_vec8(q, k, k_scale, v, v_scale, lengths, *, sm_scale=None):
+    """K2v: q (B, H, D) in bf16 over an int8 or fp8 e5m2 "tokens" cache, k/v
+    (B, T, Hkv, D) with scales (B, Hkv, T) f32 (K6's function over those
+    storage types). Returns (B, H, D) f32."""
+    return _quant_attention("v8", q, k, k_scale, v, v_scale, lengths, sm_scale)
+
+
 _QUANT_WRAPPERS = {"i8": decode_attention_int8, "f8": decode_attention_fp8,
-                   "i4": decode_attention_int4}
+                   "i4": decode_attention_int4, "v8": decode_attention_vec8}
 for _wrapper in _QUANT_WRAPPERS.values():
     _wrapper.launches = 0  # kernel launches (not plain-version calls)
 
 
 def traffic_quant(kind: str, q_shape, cache_shape, lengths):
-    """(bytes, operations) of K5, K6 or K7 for these lengths: q (bf16), the K
+    """(bytes, operations) of K5, K6, K7 or K2v for these lengths: q (bf16), the K
     and V rows of the valid positions (1 B per value, int4 half a byte) and
     their two f32 scales read once, lengths read, the f32 output written
     once; 4 operations per valid position, query head and channel (the

@@ -5,8 +5,9 @@ PyTorch port of ``ao_tpu/serving/decode.py::generate``. The reference runs
 the whole generation as one jitted program with ``lax.scan``; here a Python
 loop runs ``num_steps - 1`` decode steps with static shapes against a cache
 updated in place: bf16, or with ``kv_quant`` ("int8", "float8_e4m3fn",
-"int4") the quantized caches of ``serving/kvcache.py``. With ``use_flash``
-the prefill's attention runs the flash-attention kernel (K8) on the card.
+"float8_e5m2", "int4") the quantized caches of ``serving/kvcache.py``. With
+``use_flash`` the prefill's attention runs the flash-attention kernel (K8)
+on the card.
 Sampling (``temperature > 0``, ``top_k``, ``top_p``) goes through
 ``serving/sampling.py``. Capturing the step in a CUDA graph is later work.
 """

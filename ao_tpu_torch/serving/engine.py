@@ -7,17 +7,26 @@ lengths padded to a bucket, or chunked past the largest), and every
 positions drive each row's cache writes and mask; inactive slots are
 masked lanes. The KV memory is per-slot contiguous ``max_seq`` caches
 (``kv_layout="slots"``) or a page pool with block tables
-(``kv_layout="paged"``, ``serving/paged.py``).
+(``kv_layout="paged"``, ``serving/paged.py``), in bf16 or, with
+``kv_quant``, quantized: int8, fp8 e4m3 or int4 in both layouts
+(``QuantKVCache`` slots, quantized page pools) and fp8 e5m2 in slots only.
+A quantized slot engine prefills into quantized scratch caches and copies
+them into its slot (``insert_slot``); a quantized paged engine prefills
+into bf16 scratch caches and quantizes them as it writes the pages, as the
+reference does, so its first token comes from bf16 attention and the two
+layouts' tokens differ.
 
 On the card every bucketed prefill's attention runs the flash-attention
-kernel (K8), every slot-layout decode step the decode-attention kernel (K2)
-over per-slot lengths, and every paged decode step the paged-attention
-kernel (K9). The reference's jitted programs are plain methods here that
-update the caches in place. Small per-slot state (positions, current
-tokens, active flags, sampling parameters, the block table) lives on the
-host in numpy; the slot layout keeps device mirrors of the tokens,
-positions and active flags between steps, and each step reads the picked
-tokens back once.
+kernel (K8; over a quantized scratch, its dequantized values), every
+slot-layout decode step a decode-attention kernel over per-slot lengths (K2
+for bf16, K5 / K6 / K7 / K2v for int8 / e4m3 / int4 / e5m2), and every
+paged decode step the paged-attention kernel K9 in the pool's mode ("fp",
+"vec8" for int8 and e4m3, "int4"). The reference's jitted programs are
+plain methods here that update the caches in place. Small per-slot state
+(positions, current tokens, active flags, sampling parameters, the block
+table) lives on the host in numpy; the slot layout keeps device mirrors of
+the tokens, positions and active flags between steps, and each step reads
+the picked tokens back once.
 
 Sampling draws from one ``torch.Generator`` per engine, seeded with
 ``ServeConfig.seed``, in turn; the reference folds a step counter into one
@@ -25,9 +34,9 @@ key per device program, so sampled tokens differ from JAX's (greedy ones do
 not).
 
 Still to port, each refused with NotImplementedError naming its slice: the
-quantized KV pools (``kv_quant``), the prefix cache, multi-step decode
-(``decode_steps_per_call > 1``), speculative decoding (``spec_draft``, a
-draft model), LoRA adapters, penalties, logprobs and logit bias.
+prefix cache, multi-step decode (``decode_steps_per_call > 1``),
+speculative decoding (``spec_draft``, a draft model), LoRA adapters,
+penalties, logprobs and logit bias.
 """
 
 from __future__ import annotations
@@ -41,10 +50,16 @@ import torch
 
 def _insert_tree(caches, scratch, slot: int) -> None:
     """Scratch (batch 1) prefill caches into slot ``slot`` of the pool, in
-    place: rows [0, scratch length) of every layer's K and V."""
-    for (pk, pv), (sk, sv) in zip(caches, scratch):
-        pk[slot, :sk.shape[1]] = sk[0]
-        pv[slot, :sv.shape[1]] = sv[0]
+    place: rows [0, scratch length) of every layer's K and V; a
+    ``QuantKVCache`` through its ``insert_slot``."""
+    from ao_tpu_torch.serving.kvcache import QuantKVCache
+
+    for pair, new in zip(caches, scratch):
+        for pool, sc in zip(pair, new):
+            if isinstance(pool, QuantKVCache):
+                pool.insert_slot(sc, slot)
+            else:
+                pool[slot, :sc.shape[1]] = sc[0]
 
 
 def _not_ported(what: str, slice_name: str) -> NotImplementedError:
@@ -55,7 +70,8 @@ def _not_ported(what: str, slice_name: str) -> NotImplementedError:
 class ServeConfig:
     max_batch: int = 8
     max_seq: int = 2048
-    kv_quant: Optional[str] = None  # None | "int8" | "float8_e4m3fn" | "int4" (not ported yet)
+    # None | "int8" | "float8_e4m3fn" | "int4" (slots or paged) | "float8_e5m2" (slots)
+    kv_quant: Optional[str] = None
     eos_id: int = -1  # -1: never stop on a token
     prefill_buckets: Tuple[int, ...] = (128, 512, 2048)
     # KV memory layout: "slots" (per-slot contiguous max_seq caches) or
@@ -108,8 +124,9 @@ class Engine:
                  draft_params: Any = None, draft_cfg: Any = None, device="cuda"):
         from ao_tpu_torch.models import resolve_model
 
-        if cfg.kv_quant:
-            raise _not_ported("the engine's quantized KV cache (kv_quant)", "quantized KV pool")
+        if cfg.kv_quant == "float8_e5m2" and cfg.kv_layout == "paged":
+            raise ValueError("kv_quant=\"float8_e5m2\" takes the slot layout only: page pools "
+                             "are bf16, int8, float8_e4m3fn or int4")
         if cfg.prefix_cache:
             raise _not_ported("the prefix cache", "engine features")
         if cfg.decode_steps_per_call > 1:
@@ -144,7 +161,8 @@ class Engine:
             n_pages = cfg.num_pages or (b * t // ps + 1)
             self.caches = [
                 tuple(PagedKVPool.create(n_pages, ps, model_cfg.n_kv_heads, model_cfg.head_dim,
-                                         device=self.device) for _ in range(2))
+                                         cfg.kv_quant or "bf16", device=self.device)
+                      for _ in range(2))
                 for _ in range(model_cfg.n_layers)
             ]
             self.allocator = PageAllocator(n_pages)
@@ -152,7 +170,7 @@ class Engine:
             self.block_table = torch.tensor(self._table_host, device=self.device)
             self._slot_pages: List[List[int]] = [[] for _ in range(b)]
         else:
-            self.caches = self.model.init_kv_caches(model_cfg, b, t, device=self.device)
+            self.caches = self._init_caches(b, t)
         # prefill scratch caches, one per length, reused: a prefill writes
         # every row a later read can reach (the bucket's whole window; a
         # chunked prompt's rows below its positions)
@@ -183,10 +201,19 @@ class Engine:
 
     # -- device work ----------------------------------------------------------
 
+    def _init_caches(self, batch: int, length: int) -> list:
+        """Per-layer slot caches: quantized with ``kv_quant`` in the slot
+        layout, bf16 otherwise (a paged engine's prefill scratch too)."""
+        if self.cfg.kv_quant and not self.paged:
+            from ao_tpu_torch.serving.kvcache import init_quant_kv_caches
+
+            return init_quant_kv_caches(self.model_cfg, batch, length, self.cfg.kv_quant,
+                                        device=self.device)
+        return self.model.init_kv_caches(self.model_cfg, batch, length, device=self.device)
+
     def _scratch_caches(self, length: int) -> list:
         if length not in self._scratch:
-            self._scratch[length] = self.model.init_kv_caches(self.model_cfg, 1, length,
-                                                              device=self.device)
+            self._scratch[length] = self._init_caches(1, length)
         return self._scratch[length]
 
     def _prefill_forward(self, prompt: torch.Tensor, plen: int):

@@ -26,9 +26,11 @@ carried over):
   the int4 weight kernels' decode, and a decode write is one row with no
   read-modify-write.
 
-``update`` writes in place at a scalar index and returns the cache itself;
-per-slot (vector) indices and ``insert_slot``, which the serving engine's
-quantized KV needs, come with the engine's quantized-KV slice.
+The fp8 e5m2 cache (qmax 57344) is stored like e4m3, in "tokens".
+
+``update`` writes in place, at a scalar index or at per-row (B,) indices
+(the serving engine's slots), and returns the cache itself;
+``insert_slot`` copies a batch-1 prefill cache into one row.
 """
 
 from __future__ import annotations
@@ -39,14 +41,14 @@ from typing import Tuple
 
 import torch
 
-# the cache dtypes a decode attention kernel serves (the reference's e5m2
-# cache runs the bf16-q "vec8" form, K2v, still to port)
-_QMAX = {"int8": 127.0, "float8_e4m3fn": 448.0, "int4": 7.0}
+# the cache dtypes a decode attention kernel serves
+_QMAX = {"int8": 127.0, "float8_e4m3fn": 448.0, "float8_e5m2": 57344.0, "int4": 7.0}
 
-_STORAGE = {"int8": torch.int8, "float8_e4m3fn": torch.float8_e4m3fn, "int4": torch.int32}
+_STORAGE = {"int8": torch.int8, "float8_e4m3fn": torch.float8_e4m3fn,
+            "float8_e5m2": torch.float8_e5m2, "int4": torch.int32}
 
 # the port's layout for each cache dtype
-_LAYOUTS = {"int8": "tokens", "float8_e4m3fn": "tokens", "int4": "ch4"}
+_LAYOUTS = {"int8": "tokens", "float8_e4m3fn": "tokens", "float8_e5m2": "tokens", "int4": "ch4"}
 
 # the reference's TPU layouts, which the port stores in _LAYOUTS instead
 _REFERENCE_LAYOUTS = ("kt", "ktp", "ptok", "ck4", "ptok4")
@@ -59,9 +61,35 @@ def _nibble_shifts(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     return torch.arange(0, 32, 4, dtype=dtype, device=device)
 
 
-def _per_slot(what: str):
-    return NotImplementedError(
-        f"{what} (per-slot cache rows) comes with the engine's quantized-KV slice of the port")
+def _clamped_cols(starts: torch.Tensor, s_tok: int, t: int):
+    """(rows, cols, keep) of per-row s-token windows at ``starts`` (B,),
+    the reference's deterministic clamp (``kvcache.py::_clamped_cols``):
+    positions past t-1 collapse onto t-1 and, among tokens that collide,
+    only the last is written (``keep``)."""
+    cols = (starts.long()[:, None]
+            + torch.arange(s_tok, device=starts.device)[None]).clamp_(max=t - 1)
+    keep = torch.ones_like(cols, dtype=torch.bool)
+    keep[:, :-1] = cols[:, 1:] != cols[:, :-1]
+    rows = torch.arange(cols.shape[0], device=starts.device)[:, None].expand_as(cols)
+    return rows, cols, keep
+
+
+def quantize_vectors(x: torch.Tensor, dtype_name: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (..., D) → (q, scale), one scale per D-vector, the reference's
+    ``quantize_values`` and its page pools' ``_quant`` bit for bit: q in
+    the storage type of ``dtype_name`` (int4: unsigned nibbles in int32),
+    scale (..., 1) f32."""
+    qmax = _QMAX[dtype_name]
+    xf = x.to(torch.float32)
+    scale = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / qmax
+    v = xf / scale
+    if dtype_name == "int8":
+        q = torch.round(v).clamp_(-127, 127).to(torch.int8)
+    elif dtype_name == "int4":
+        q = (torch.round(v).clamp_(-8, 7) + 8).to(torch.int32)
+    else:
+        q = v.clamp_(-qmax, qmax).to(_STORAGE[dtype_name])
+    return q, scale
 
 
 @dataclasses.dataclass(eq=False)
@@ -111,48 +139,51 @@ class QuantKVCache:
     def quantize_values(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """x (B, S, H, D) → (q, scale): q (B, S, H, D) in the storage type
         (int4: unsigned nibbles in int32), scale (B, S, H, 1) f32."""
-        qmax = _QMAX[self.dtype_name]
-        xf = x.to(torch.float32)
-        amax = xf.abs().amax(dim=-1, keepdim=True)
-        scale = amax.clamp_min(1e-8) / qmax
-        v = xf / scale
-        if self.dtype_name == "int8":
-            q = torch.round(v).clamp_(-127, 127).to(torch.int8)
-        elif self.dtype_name == "int4":
-            q = (torch.round(v).clamp_(-8, 7) + 8).to(torch.int32)
-        else:
-            q = v.clamp(-qmax, qmax).to(_STORAGE[self.dtype_name])
-        return q, scale
+        return quantize_vectors(x, self.dtype_name)
 
     def update(self, x: torch.Tensor, index) -> "QuantKVCache":
-        """Write x (B, S, H, D) at positions [index, index + S) of every
-        batch row, in place; returns the cache."""
-        if isinstance(index, torch.Tensor):
-            if index.ndim != 0:
-                raise _per_slot("a vector cache index")
-            index = int(index)
+        """Write x (B, S, H, D) in place at positions [index, index + S) of
+        every batch row, or, for a (B,) tensor ``index``, of row b at
+        [index[b], index[b] + S) with the reference's clamp at the last
+        position (``_clamped_cols``); returns the cache."""
+        q, scale = self.quantize_values(x)
+        if self.dtype_name == "int4":
+            q = _pack_channels(q)  # whole words: a write is a store, no read-modify-write
+        sh = scale[..., 0]  # (B, S, H)
+        if isinstance(index, torch.Tensor) and index.ndim == 1:
+            rows, cols, keep = _clamped_cols(index.to(self.qdata.device), x.shape[1],
+                                             self.max_seq)
+            if x.shape[1] > 1:  # drop the tokens a later one of their row overwrites
+                rows, cols, q, sh = rows[keep], cols[keep], q[keep], sh[keep]
+            self.qdata[rows, cols] = q
+            self.scale[rows, :, cols] = sh
+            return self
+        index = int(index)
         s = x.shape[1]
         if index < 0 or index + s > self.max_seq:
             raise ValueError(f"cache window [{index}, {index + s}) outside the cache of "
                              f"{self.max_seq}")
-        q, scale = self.quantize_values(x)
-        if self.dtype_name == "int4":
-            q = _pack_channels(q)
         self.qdata[:, index:index + s] = q
-        self.scale[:, :, index:index + s] = scale[..., 0].transpose(1, 2)
+        self.scale[:, :, index:index + s] = sh.transpose(1, 2)
         return self
 
-    def insert_slot(self, other: "QuantKVCache", slot) -> "QuantKVCache":
-        raise _per_slot("insert_slot")
+    def insert_slot(self, other: "QuantKVCache", slot: int) -> "QuantKVCache":
+        """Copy ``other``'s (batch 1) rows [0, other.max_seq) into batch row
+        ``slot``, in place (the engine's prefill: scratch to pool); returns
+        the cache. The two share the port's layout, so no translation."""
+        if (type(other) is not type(self) or other.dtype_name != self.dtype_name
+                or other.layout != self.layout):
+            raise ValueError(f"cannot insert a {other.dtype_name} {other.layout!r} cache into a "
+                             f"{self.dtype_name} {self.layout!r} one")
+        t = other.max_seq
+        self.qdata[slot, :t] = other.qdata[0]
+        self.scale[slot, :, :t] = other.scale[0]
+        return self
 
     def dequantize(self, out_dtype=torch.bfloat16) -> torch.Tensor:
         """→ (B, T, Hkv, D) values in ``out_dtype``."""
-        if self.dtype_name == "int4":
-            values = _unpack_channels(self.qdata) - 8
-        else:
-            values = self.qdata
         sc = self.scale.transpose(1, 2)[..., None]  # (B, T, H, 1)
-        return (values.to(torch.float32) * sc).to(out_dtype)
+        return (stored_values(self.qdata) * sc).to(out_dtype)
 
 
 def _pack_channels(u: torch.Tensor) -> torch.Tensor:
@@ -161,6 +192,15 @@ def _pack_channels(u: torch.Tensor) -> torch.Tensor:
     shifts = _nibble_shifts(u.device, torch.int64)
     words = (u.reshape(*u.shape[:-1], -1, 8).to(torch.int64) << shifts).sum(dim=-1)
     return words.to(torch.int32)  # the top nibble wraps into the sign bit
+
+
+def stored_values(qdata: torch.Tensor) -> torch.Tensor:
+    """The values a quantized cache or page pool stores, unscaled, as f32
+    (..., D): int8 integers and fp8 (or bf16) values as they are, int4 "ch4"
+    words (int32) as their nibbles minus 8."""
+    if qdata.dtype == torch.int32:
+        return (_unpack_channels(qdata) - 8).to(torch.float32)
+    return qdata.to(torch.float32)
 
 
 def _unpack_channels(words: torch.Tensor) -> torch.Tensor:

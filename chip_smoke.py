@@ -13,15 +13,18 @@ From the repo root, on a machine with a CUDA device and ``nvcc``:
    yardstick where one PyTorch call computes the same function, and the
    least time the card could take (the bound);
    The decode attention kernels over the quantized caches (K5 int8, K6 fp8,
-   K7 int4) are also timed, with K2 and the paged K9, at T = 4096, where
-   the cache bytes set the bound, and the flash prefill K8 at S = 2048;
+   K7 int4, K2v int8 and e5m2) are also timed, with K2 and the paged K9 in
+   its three modes (bf16; "vec8" over int8 and fp8 pools; int4), at T =
+   4096, where the cache bytes set the bound, and the flash prefill K8 at
+   S = 2048;
 4. drives the main paths on Llama-3-8B widths with random weights from a
    seed, each with greedy ``generate`` at batch 8, a 128-token prompt, 64
    steps and max_seq 256: int4 weight-only
    (``quantize_(params, Int4WeightOnlyConfig(group_size=128))``), W4A8
    (``quantize_(params, Int8DynamicActivationInt4WeightConfig(group_size=128))``)
    and int4 weight-only over each quantized KV cache (``kv_quant`` "int8",
-   "float8_e4m3fn", "int4"), and int4 weight-only with the flash-attention
+   "float8_e4m3fn", "int4", "float8_e5m2"), and int4 weight-only with the
+   flash-attention
    prefill (``use_flash=True``). For each it sets every launch counter to 0
    just before the call and checks the counts just after (every kernel of
    the path, exactly as the model predicts), checks that the tokens are well
@@ -30,15 +33,18 @@ From the repo root, on a machine with a CUDA device and ``nvcc``:
    same loop, in turns, and profiles the prefill and a few decode steps of
    each (host wall time, device busy time, the kernels that take it);
 5. serves the int4 weight-only model with ``Engine`` in both KV layouts
-   (slots, and pages of 128) on the same 16 requests, submitted at once to
-   8 slots: prompts of 32-900 tokens (bucketed prefills of 128 and 512,
-   chunked past 512), 16-64 new tokens, two of them sampled. Each run's
-   launch counts are checked exactly against the engine's own schedule (K8
-   per bucketed prefill, K1 per forward, K2 or K9 per decode step), every
-   request must finish with its tokens, and the run prints requests/s,
-   output tok/s, the mean time to first token and the profile of one
-   engine step. Two-layer logits of the flash prefill, a per-slot decode
-   step and a paged decode step are held to the plain route's.
+   (slots, and pages of 128), over a bf16 KV and over each quantized KV
+   (``kv_quant`` "int8", "float8_e4m3fn", "int4"), eight runs on the same
+   16 requests, submitted at once to 8 slots: prompts of 32-900 tokens
+   (bucketed prefills of 128 and 512, chunked past 512), 16-64 new tokens,
+   two of them sampled. Each run's launch counts are checked exactly
+   against the engine's own schedule (K8 per bucketed prefill, K1 per
+   forward, and per decode step and layer K2 / K5 / K6 / K7 over the slots
+   or K9 in the pool's mode), every request must finish with its tokens,
+   and the run prints requests/s, output tok/s, the mean time to first
+   token and the profile of one engine step. Two-layer logits of the flash
+   prefill, a per-slot decode step and a paged decode step are held to the
+   plain route's, over bf16 and over each quantized KV.
 
 Prints the kernel table as one JSON line and, as the last line,
 ``{"ok": true, "device": {...}}``. Any failed check makes it exit non-zero
@@ -95,13 +101,22 @@ K12_SHAPE = (BATCH, PROMPT, 14336)  # the prefill SwiGLU gate
 K2_SHAPE = dict(b=8, h=32, hkv=8, d=128, t=256)
 K2_LENGTHS = [1, 256, 17, 64, 65, 128, 200, 255]  # ragged, with 1 and T
 T_LONG = 4096  # every position valid: the cache bytes, not latency, set the bound
-KV_QUANT = ("int8", "float8_e4m3fn", "int4")
-# the decode attention kernel of each quantized cache: (wrapper, kind, K number)
+KV_QUANT = ("int8", "float8_e4m3fn", "int4")  # slots and pages
+KV_ALL = KV_QUANT + ("float8_e5m2",)  # generate and slots
+# the decode attention kernel of each quantized slot cache: (wrapper, kind,
+# K number); K2v's int8 form serves an int8 cache without mode="i8", which
+# no main path asks for
 KV_KERNELS = {"int8": ("decode_attention_int8", "i8", "K5"),
               "float8_e4m3fn": ("decode_attention_fp8", "f8", "K6"),
-              "int4": ("decode_attention_int4", "i4", "K7")}
-KV_TAG = {kv: f"int4-WO+{short}KV" for kv, short in
-          (("int8", "int8"), ("float8_e4m3fn", "fp8"), ("int4", "int4"))}
+              "int4": ("decode_attention_int4", "i4", "K7"),
+              "float8_e5m2": ("decode_attention_vec8", "v8", "K2v")}
+K2V_INT8 = ("decode_attention_vec8", "v8", "K2v")
+SHORT = {"int8": "int8", "float8_e4m3fn": "fp8", "int4": "int4", "float8_e5m2": "e5m2"}
+KV_TAG = {kv: f"int4-WO+{SHORT[kv]}KV" for kv in KV_ALL}
+# K9's wrapper for each pool dtype
+POOL_KERNELS = {None: "paged_decode_attention", "int8": "paged_decode_attention_vec8",
+                "float8_e4m3fn": "paged_decode_attention_vec8",
+                "int4": "paged_decode_attention_int4"}
 K8_SQNR_DB = 40.0  # flash prefill: f32 scores and sums, bf16 p and out in both versions
 # (B, Sq, Sk) of K8: the engine's 128 and 512 buckets, a long prefill where
 # the operations set the bound, and generate(use_flash=True)
@@ -237,16 +252,17 @@ def k2_phase(torch, fails, seed, t=None, lengths=None):
                       sdpa_ms(torch, q, kc, vc, lens, sm), nbytes, flops)
 
 
-def kv_phase(torch, fails, seed, dtype_name, t=None, lengths=None):
-    """K5, K6 or K7 at the path's shape (or at ``t`` with ``lengths``) over
-    caches written by ``QuantKVCache.update`` from random bf16 K and V; the
-    library yardstick runs SDPA over the same caches dequantized to bf16."""
+def kv_phase(torch, fails, seed, dtype_name, t=None, lengths=None, kernel=None):
+    """K5, K6, K7 or K2v (``kernel``, by default the cache's on the main
+    path) at the path's shape (or at ``t`` with ``lengths``) over caches
+    written by ``QuantKVCache.update`` from random bf16 K and V; the library
+    yardstick runs SDPA over the same caches dequantized to bf16."""
     from ao_tpu_torch.ops.hopper import decode_attention as da
     from ao_tpu_torch.quantization.primitives import compute_error
     from ao_tpu_torch.serving.kvcache import QuantKVCache
     from ao_tpu_torch.utils.timing import cuda_time_ms
 
-    name, kind, knum = KV_KERNELS[dtype_name]
+    name, kind, knum = kernel or KV_KERNELS[dtype_name]
     wrapper = getattr(da, name)
     b, h, hkv, d = (K2_SHAPE[key] for key in ("b", "h", "hkv", "d"))
     t, lengths = t or K2_SHAPE["t"], lengths or K2_LENGTHS
@@ -269,9 +285,9 @@ def kv_phase(torch, fails, seed, dtype_name, t=None, lengths=None):
     library_ms = sdpa_ms(torch, q, ck.dequantize(torch.bfloat16), cv.dequantize(torch.bfloat16),
                          args[-1], sm)
     nbytes, ops = da.traffic_quant(kind, (b, h, d), tuple(ck.qdata.shape), lengths)
-    return kernel_row(f"{knum} {name}", f"B={b} H={h} Hkv={hkv} D={d} T={t}", got, ref,
-                      f"sqnr {sqnr:.2f} dB (>= {K2_SQNR_DB})", ms, plain_ms, library_ms, nbytes,
-                      ops)
+    return kernel_row(f"{knum} {name}", f"B={b} H={h} Hkv={hkv} D={d} T={t} {dtype_name} cache",
+                      got, ref, f"sqnr {sqnr:.2f} dB (>= {K2_SQNR_DB})", ms, plain_ms, library_ms,
+                      nbytes, ops)
 
 
 def w4a8_weight(torch, gen, k, n):
@@ -420,21 +436,30 @@ def k8_phase(torch, fails, seed, b, sq, sk):
                       cuda_time_ms(sdpa, iters=20), nbytes, flops)
 
 
-def k9_phase(torch, fails, seed, lengths, max_pages):
-    """K9 over bf16 pools of 128-row pages, each sequence's pages scattered
-    through a shuffled block table, entries past its pages 0 (the null
-    page); the library yardstick is SDPA over the same tokens gathered
-    beforehand into a dense cache (the gather not timed)."""
+def k9_phase(torch, fails, seed, lengths, max_pages, dtype_name=None):
+    """K9 over pools of 128-row pages (bf16, or with ``dtype_name`` int8,
+    fp8 or int4 pages written by ``write_prompt`` from random bf16 values),
+    each sequence's pages scattered through a shuffled block table, entries
+    past its pages 0 (the null page); the library yardstick is SDPA over the
+    same tokens gathered (and dequantized) beforehand into a dense bf16
+    cache, the gather not timed."""
     from ao_tpu_torch.ops.hopper import paged_attention as k9
     from ao_tpu_torch.quantization.primitives import compute_error
+    from ao_tpu_torch.serving.paged import PagedKVPool
     from ao_tpu_torch.utils.timing import cuda_time_ms
 
     b, h, hkv, d = (K2_SHAPE[key] for key in ("b", "h", "hkv", "d"))
     n_pages = b * max_pages + 1
     gen = torch.Generator(device=DEV).manual_seed(seed + 9)
     q = torch.randn((b, h, d), generator=gen, device=DEV).to(torch.bfloat16)
-    kp = torch.randn((n_pages, PAGE, hkv, d), generator=gen, device=DEV).to(torch.bfloat16)
-    vp = torch.randn((n_pages, PAGE, hkv, d), generator=gen, device=DEV).to(torch.bfloat16)
+    pools = []
+    for _ in range(2):
+        pool = PagedKVPool.create(n_pages, PAGE, hkv, d, dtype_name or "bf16", device=DEV)
+        pool.write_prompt(torch.randn((n_pages * PAGE, hkv, d), generator=gen,
+                                      device=DEV).to(torch.bfloat16),
+                          torch.arange(n_pages, device=DEV))
+        pools.append(pool)
+    kp, vp = pools
     order = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(seed)) + 1
     table = order.reshape(b, max_pages).to(torch.int32)
     for i, n in enumerate(lengths):
@@ -442,37 +467,57 @@ def k9_phase(torch, fails, seed, lengths, max_pages):
     table = table.to(DEV)
     lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
     sm = d ** -0.5
-    got = k9.paged_decode_attention(q, kp, vp, table, lens)
-    ref = k9.paged_decode_attention_plain(q, kp, vp, table, lens, sm)
+    name = POOL_KERNELS[dtype_name]
+    wrapper = getattr(k9, name)
+    args = (q, kp.pages, kp.scale, vp.pages, vp.scale, table, lens)
+    got = (wrapper(*args) if dtype_name else
+           wrapper(q, kp.pages, vp.pages, table, lens))
+    ref = k9.paged_decode_attention_plain(q, kp.pages, vp.pages, table, lens, sm, kp.scale,
+                                          vp.scale)
     torch.cuda.synchronize()
     sqnr = float(compute_error(ref, got))
     t = max_pages * PAGE
     fails.check(bool(torch.isfinite(got).all()) and sqnr >= K2_SQNR_DB,
-                f"K9 paged_decode_attention T={t}: sqnr {sqnr:.2f} dB < {K2_SQNR_DB}")
-    ms = cuda_time_ms(lambda: k9._launch(q, kp, vp, table, lens, sm), iters=50)
-    plain_ms = cuda_time_ms(lambda: k9.paged_decode_attention_plain(q, kp, vp, table, lens, sm),
-                            iters=10)
-    dense_k, dense_v = (pool[table.long()].reshape(b, t, hkv, d) for pool in (kp, vp))
-    nbytes, flops = k9.traffic((b, h, d), tuple(kp.shape), max_pages, lengths)
-    return kernel_row("K9 paged_decode_attention",
-                      f"B={b} H={h} Hkv={hkv} D={d} page_size={PAGE} T={t}", got, ref,
+                f"K9 {name} {dtype_name or 'bf16'} T={t}: sqnr {sqnr:.2f} dB < {K2_SQNR_DB}")
+    ms = cuda_time_ms(lambda: k9._launch(*args, sm), iters=50)
+    plain_ms = cuda_time_ms(lambda: k9.paged_decode_attention_plain(
+        q, kp.pages, vp.pages, table, lens, sm, kp.scale, vp.scale), iters=10)
+    dense_k, dense_v = (pool.gather(table) for pool in (kp, vp))  # bf16 (B, T, Hkv, D)
+    nbytes, flops = k9.traffic((b, h, d), tuple(kp.pages.shape), max_pages, lengths,
+                               dtype_name or "bf16")
+    return kernel_row(f"K9 {name}",
+                      f"B={b} H={h} Hkv={hkv} D={d} page_size={PAGE} T={t} "
+                      f"{dtype_name or 'bf16'} pool", got, ref,
                       f"sqnr {sqnr:.2f} dB (>= {K2_SQNR_DB})", ms, plain_ms,
                       sdpa_ms(torch, q, dense_k, dense_v, lens, sm), nbytes, flops)
 
 
-def check_serving_logits(torch, fails, qparams, cfg, seed):
+def check_serving_logits(torch, fails, qparams, cfg, seed, kv_quant=None):
     """Two-layer logits of the serving paths, kernel route against the plain
-    route (the "torch" backend), >= 30 dB: (a) a prefill with use_flash=True
-    over a cache longer than the prompt (K8), (c) then one decode step with a
-    per-slot cache_index whose positions differ by row (row 1 rewrites
-    position 77; K2 over each row's length), and (b) one paged decode step
-    (K9) after prefills written into scattered pages. No quantizer lies on
-    these paths, so the fixed bound applies."""
+    route (the "torch" backend), each from its own prefill: (a) a prefill
+    with use_flash=True over a cache longer than the prompt (K8), (c) then
+    one decode step with a per-slot cache_index whose positions differ by
+    row (row 1 rewrites position 77; K2 over each row's length), and (b) one
+    paged decode step (K9) after prefills written into scattered pages. With
+    ``kv_quant`` the slot caches are ``QuantKVCache``s (K8 over their
+    values, K5 / K6 / K7 at the step) and the pools are quantized by
+    ``write_prompt`` from bf16 prefills, as the engine writes them (K9
+    "vec8" / "int4"). No quantizer lies on the bf16 paths, so the fixed 30
+    dB bound applies there; a cache's quantizer turns bf16-level
+    differences into whole steps, so with ``kv_quant`` the bound comes
+    within FLOOR_MARGIN_DB of the plain route's own nudge floor
+    (``check_logits``), and each decode kernel is also held at 30 dB to the
+    einsum attention (slots, ``force_xla_attention``) or the gather
+    reference (pages) on the same linears and the same cache."""
+    import copy
+    from unittest import mock
+
     from ao_tpu_torch.models import llama
     from ao_tpu_torch.ops import kernels
     from ao_tpu_torch.quantization.primitives import compute_error
-    from ao_tpu_torch.serving.paged import PagedKVPool
+    from ao_tpu_torch.serving import paged
 
+    tag = KV_TAG[kv_quant] if kv_quant else "int4-WO"
     cut = dataclasses.replace(cfg, n_layers=2)
     params = dict(qparams, layers=qparams["layers"][:2])
     gen = torch.Generator(device=DEV).manual_seed(seed + 7)
@@ -483,37 +528,67 @@ def check_serving_logits(torch, fails, qparams, cfg, seed):
     paged_len = torch.tensor([100, 200], dtype=torch.int32, device=DEV)
     table = torch.tensor([[3, 1], [4, 2]], dtype=torch.int32, device=DEV)
 
-    def run():
-        caches = llama.init_kv_caches(cut, b, t, device=DEV)
-        prefill, caches = llama.forward(params, toks[:, :s], cut, kv_caches=caches,
-                                        cache_index=0, use_flash=True)
-        slot, _ = llama.forward(params, toks[rows, slot_pos.long()][:, None], cut,
-                                positions=slot_pos[:, None], kv_caches=caches,
-                                cache_index=slot_pos)
-        pools = [tuple(PagedKVPool.create(2 * b + 1, PAGE, cut.n_kv_heads, cut.head_dim,
-                                          device=DEV) for _ in range(2)) for _ in range(2)]
+    def prefill(p):
+        caches = init_caches(cut, b, t, kv_quant)
+        logits, caches = llama.forward(p, toks[:, :s], cut, kv_caches=caches, cache_index=0,
+                                       use_flash=True)
+        pools = [tuple(paged.PagedKVPool.create(2 * b + 1, PAGE, cut.n_kv_heads, cut.head_dim,
+                                                kv_quant or "bf16", device=DEV)
+                       for _ in range(2)) for _ in range(2)]
         for i in range(b):
             scratch = llama.init_kv_caches(cut, 1, t, device=DEV)
-            llama.forward(params, toks[i:i + 1], cut, kv_caches=scratch, cache_index=0,
+            llama.forward(p, toks[i:i + 1], cut, kv_caches=scratch, cache_index=0,
                           use_flash=True)
             for (kp, vp), (sk, sv) in zip(pools, scratch):
                 kp.write_prompt(sk[0], table[i])
                 vp.write_prompt(sv[0], table[i])
-        paged, _ = llama.forward(params, toks[rows, paged_len.long()][:, None], cut,
-                                 positions=paged_len[:, None], kv_caches=pools,
-                                 cache_index=(table, paged_len))
-        return prefill, slot, paged
+        return logits, caches, pools
 
-    got = run()
+    def steps(p, caches, pools, c=cut):
+        slot, _ = llama.forward(p, toks[rows, slot_pos.long()][:, None], c,
+                                positions=slot_pos[:, None], kv_caches=caches,
+                                cache_index=slot_pos)
+        pg, _ = llama.forward(p, toks[rows, paged_len.long()][:, None], c,
+                              positions=paged_len[:, None], kv_caches=pools,
+                              cache_index=(table, paged_len))
+        return slot, pg
+
+    def run(p):
+        logits, caches, pools = prefill(p)
+        return (logits,) + steps(p, caches, pools)
+
+    logits, caches, pools = prefill(params)
+    same_cache = copy.deepcopy((caches, pools)) if kv_quant else None
+    got = (logits,) + steps(params, caches, pools)
     with kernels.backend("torch"):
-        plain = run()
-    for what, g, p in zip(("flash prefill (a)", "per-slot decode step (c)",
-                           "paged decode step (b)"), got, plain):
-        sqnr = float(compute_error(p, g))
-        print(f"int4-WO two-layer {what} logits, kernel route vs plain route: sqnr "
-              f"{sqnr:.2f} dB (>= {PATH_SQNR_DB})", flush=True)
-        fails.check(bool(torch.isfinite(g).all()) and sqnr >= PATH_SQNR_DB,
-                    f"int4-WO two-layer {what} logits: sqnr {sqnr:.2f} dB")
+        plain = run(params)
+        if kv_quant:
+            emb = params["embed"]
+            nudged = run(dict(params, embed=(emb.float() * (1 + 2 ** -8)).to(emb.dtype)))
+    for i, what in enumerate(("flash prefill (a)", "per-slot decode step (c)",
+                              "paged decode step (b)")):
+        sqnr = float(compute_error(plain[i], got[i]))
+        need, note = PATH_SQNR_DB, ""
+        if kv_quant:
+            floor = float(compute_error(plain[i], nudged[i]))
+            need = min(PATH_SQNR_DB, max(PATH_MIN_DB, floor - FLOOR_MARGIN_DB))
+            note = f"; plain route vs itself nudged by 2^-8: {floor:.2f} dB"
+        print(f"{tag} two-layer {what} logits, kernel route vs plain route: sqnr {sqnr:.2f} dB "
+              f"(>= {need:.2f}){note}", flush=True)
+        fails.check(bool(torch.isfinite(got[i]).all()) and sqnr >= need,
+                    f"{tag} two-layer {what} logits: sqnr {sqnr:.2f} dB < {need:.2f}")
+    if kv_quant:
+        with mock.patch.object(paged, "paged_attention", paged.paged_decode_attention_reference):
+            plain_attn = steps(params, *same_cache, c=dataclasses.replace(
+                cut, force_xla_attention=True))
+        for i, (what, ref) in enumerate((("per-slot decode step (c)", "einsum"),
+                                         ("paged decode step (b)", "gather"))):
+            sqnr = float(compute_error(plain_attn[i], got[i + 1]))
+            print(f"{tag} two-layer {what} logits, the decode kernel vs the {ref} attention on "
+                  f"the same linears and cache: sqnr {sqnr:.2f} dB (>= {PATH_SQNR_DB})",
+                  flush=True)
+            fails.check(sqnr >= PATH_SQNR_DB,
+                        f"{tag} {what} logits, kernel vs plain attention: sqnr {sqnr:.2f} dB")
 
 
 def engine_requests(seed, vocab):
@@ -534,17 +609,22 @@ def engine_requests(seed, vocab):
             for i, n in enumerate(lengths)]
 
 
-def engine_run(torch, fails, qparams, cfg, requests, counters, paged):
-    """Serve ``requests`` with the Engine in one layout: every counter set to
-    0 before and checked exactly after against the engine's own schedule,
-    every request finished with its tokens. Returns (launches, the finished
-    requests' tokens, metrics)."""
+def engine_tag(paged, kv_quant=None):
+    return ("engine-paged" if paged else "engine-slots") + (
+        f"-{SHORT[kv_quant]}KV" if kv_quant else "")
+
+
+def engine_run(torch, fails, qparams, cfg, requests, counters, paged, kv_quant=None):
+    """Serve ``requests`` with the Engine in one layout, over a bf16 or a
+    ``kv_quant`` KV: every counter set to 0 before and checked exactly after
+    against the engine's own schedule, every request finished with its
+    tokens. Returns (launches, the finished requests' tokens, metrics)."""
     import ao_tpu_torch
 
-    tag = "engine-paged" if paged else "engine-slots"
+    tag = engine_tag(paged, kv_quant)
     layout = dict(kv_layout="paged", page_size=PAGE) if paged else {}
-    eng = ao_tpu_torch.Engine(qparams, cfg, ao_tpu_torch.ServeConfig(**ENGINE_CFG, **layout),
-                              device=DEV)
+    eng = ao_tpu_torch.Engine(qparams, cfg, ao_tpu_torch.ServeConfig(
+        **ENGINE_CFG, **layout, kv_quant=kv_quant), device=DEV)
     for c in counters.values():
         c.launches = 0
     torch.cuda.synchronize()
@@ -575,7 +655,9 @@ def engine_run(torch, fails, qparams, cfg, requests, counters, paged):
     want = {name: 0 for name in counters}
     want["flash_attention"] = cfg.n_layers * n_bucketed
     want["int4_wo_magic"] = linears * (n_bucketed + n_chunks + n_steps)
-    want["paged_decode_attention" if paged else "decode_attention"] = cfg.n_layers * n_steps
+    decode = (POOL_KERNELS[kv_quant] if paged
+              else KV_KERNELS[kv_quant][0] if kv_quant else "decode_attention")
+    want[decode] = cfg.n_layers * n_steps
     print(f"{tag}: {n_bucketed} bucketed prefills (per bucket {per_bucket}), {n_chunks} prefill "
           f"chunks, {n_steps} decode steps; launches {got} (want {want})", flush=True)
     fails.check(got == want, f"{tag} launch counts {got} != {want}")
@@ -591,7 +673,8 @@ def engine_run(torch, fails, qparams, cfg, requests, counters, paged):
     n_tok = sum(len(g) for g in tokens.values())
     metrics = dict(requests_per_s=len(requests) / wall, tok_per_s=n_tok / wall,
                    mean_ttft_s=sum(first) / len(first), wall_s=wall, steps=n_steps)
-    print(f"{tag} (Llama-3-8B int4-WO, {cfg.n_layers} layers, {len(requests)} requests on "
+    print(f"{tag} (Llama-3-8B int4-WO, {kv_quant or 'bf16'} KV, {cfg.n_layers} layers, "
+          f"{len(requests)} requests on "
           f"{ENGINE_CFG['max_batch']} slots, max_seq {ENGINE_CFG['max_seq']}): {wall:.2f} s, "
           f"{metrics['requests_per_s']:.3f} requests/s, {metrics['tok_per_s']:.1f} output tok/s, "
           f"mean time to first token {metrics['mean_ttft_s']:.3f} s", flush=True)
@@ -837,18 +920,24 @@ def main() -> int:
     fails = Failures()
     k1_rows = k1_phase(torch, fails, SEED)
     k2_row = k2_phase(torch, fails, SEED)
-    kv_rows = {kv: kv_phase(torch, fails, SEED, kv) for kv in KV_QUANT}
     long_lengths = [T_LONG] * K2_SHAPE["b"]
+    kv_rows = {kv: kv_phase(torch, fails, SEED, kv) for kv in KV_ALL}
+    kv_rows["k2v-int8"] = kv_phase(torch, fails, SEED, "int8", kernel=K2V_INT8)
     long_rows = {"bf16": k2_phase(torch, fails, SEED, t=T_LONG, lengths=long_lengths)}
     long_rows.update({kv: kv_phase(torch, fails, SEED, kv, t=T_LONG, lengths=long_lengths)
-                      for kv in KV_QUANT})
+                      for kv in KV_ALL})
+    long_rows["k2v-int8"] = kv_phase(torch, fails, SEED, "int8", t=T_LONG,
+                                     lengths=long_lengths, kernel=K2V_INT8)
     k3_rows = k3_phase(torch, fails, SEED)
     k4_rows = k4_phase(torch, fails, SEED)
     k12_row = k12_phase(torch, fails, SEED)
     k2_engine = k2_phase(torch, fails, SEED, t=ENGINE_CFG["max_seq"], lengths=ENGINE_LENGTHS)
     k8_rows = {shape: k8_phase(torch, fails, SEED, *shape) for shape in K8_SHAPES}
-    k9_row = k9_phase(torch, fails, SEED, ENGINE_LENGTHS, ENGINE_CFG["max_seq"] // PAGE)
-    k9_long = k9_phase(torch, fails, SEED, [T_LONG] * K2_SHAPE["b"], T_LONG // PAGE)
+    # K9 in each mode at the engine's decode shape and at T = 4096
+    k9_rows = {kv: (k9_phase(torch, fails, SEED, ENGINE_LENGTHS, ENGINE_CFG["max_seq"] // PAGE,
+                             kv),
+                    k9_phase(torch, fails, SEED, long_lengths, T_LONG // PAGE, kv))
+               for kv in (None,) + KV_QUANT}
 
     # -- the main paths: Llama-3-8B widths, int4-WO and W4A8, greedy generate
     cfg = llama.LLAMA3_8B
@@ -868,7 +957,9 @@ def main() -> int:
                 "int4_w4a8_matmul": k1.int4_w4a8_matmul,
                 "int4_magic8_requant_int8": k1.int4_magic8_requant_int8,
                 "silu_mul_quant": k12.silu_mul_quant, "flash_attention": k8.flash_attention,
-                "paged_decode_attention": k9.paged_decode_attention}
+                "paged_decode_attention": k9.paged_decode_attention,
+                "paged_decode_attention_vec8": k9.paged_decode_attention_vec8,
+                "paged_decode_attention_int4": k9.paged_decode_attention_int4}
     counters.update({name: getattr(k2, name) for name, _, _ in KV_KERNELS.values()})
     linears = 7 * cfg.n_layers + 1  # q, k, v, o, w1, w3, w2 per layer, and the lm_head
     decode_attn = cfg.n_layers * (STEPS - 1)
@@ -881,7 +972,7 @@ def main() -> int:
                                              "silu_mul_quant": cfg.n_layers})]
     paths += [(KV_TAG[kv], qparams, kv, False, {"int4_wo_magic": linears * STEPS,
                                                 KV_KERNELS[kv][0]: decode_attn})
-              for kv in KV_QUANT]
+              for kv in KV_ALL]
     paths.append(("int4-WO+flash", qparams, None, True, {"int4_wo_magic": linears * STEPS,
                                                          "decode_attention": decode_attn,
                                                          "flash_attention": cfg.n_layers}))
@@ -904,13 +995,14 @@ def main() -> int:
     # int8 GEMM at prefill and K3 at decode
     check_logits(torch, fails, wparams, cfg, SEED, "W4A8", batch=BATCH, prompt_len=80,
                  floor_margin_db=FLOOR_MARGIN_DB)
-    for kv in KV_QUANT:
+    for kv in KV_ALL:
         check_logits(torch, fails, qparams, cfg, SEED, KV_TAG[kv], kv_quant=kv,
                      floor_margin_db=FLOOR_MARGIN_DB)
-    check_serving_logits(torch, fails, qparams, cfg, SEED)
+    for kv in (None,) + KV_QUANT:
+        check_serving_logits(torch, fails, qparams, cfg, SEED, kv)
 
     runs = [("W4A8", wparams, None), ("int4-WO", qparams, None), ("bf16", params, None)]
-    runs += [(KV_TAG[kv], qparams, kv) for kv in KV_QUANT]
+    runs += [(KV_TAG[kv], qparams, kv) for kv in KV_ALL]
     tps = generate_tok_per_s(torch, ao_tpu_torch.generate, runs, prompt, cfg, STEPS)
     print(f"generate (B={BATCH}, prompt {PROMPT}, {STEPS} steps, max_seq {MAX_SEQ}, "
           f"{cfg.n_layers} layers) on {card}: "
@@ -918,20 +1010,22 @@ def main() -> int:
     for tag, p, kv in runs:
         profile_decode(torch, p, cfg, prompt, tag, kv_quant=kv)
 
-    # -- the serving engine: the same requests in both KV layouts
+    # -- the serving engine: the same requests in both KV layouts, over a
+    # bf16 KV and over each quantized KV
     requests = engine_requests(SEED, cfg.vocab_size)
-    served = {}
-    for paged in (False, True):
-        tag = "engine-paged" if paged else "engine-slots"
-        launches[tag], served[tag], _ = engine_run(torch, fails, qparams, cfg, requests, counters,
-                                                   paged)
     greedy = [uid for uid, (_, _, kw) in enumerate(requests) if not kw]
-    same = sum(a == b for uid in greedy
-               for a, b in zip(served["engine-slots"].get(uid, []),
-                               served["engine-paged"].get(uid, [])))
-    total = sum(len(served["engine-slots"].get(uid, [])) for uid in greedy)
-    print(f"engine: the two layouts agree on {same} of {total} greedy tokens "
-          f"({same / max(total, 1):.1%}; not judged: the routes round differently)", flush=True)
+    for kv in (None,) + KV_QUANT:
+        served = {}
+        for paged in (False, True):
+            tag = engine_tag(paged, kv)
+            launches[tag], served[paged], _ = engine_run(torch, fails, qparams, cfg, requests,
+                                                         counters, paged, kv)
+        same = sum(a == b for uid in greedy
+                   for a, b in zip(served[False].get(uid, []), served[True].get(uid, [])))
+        total = sum(len(served[False].get(uid, [])) for uid in greedy)
+        print(f"engine, {kv or 'bf16'} KV: the two layouts agree on {same} of {total} greedy "
+              f"tokens ({same / max(total, 1):.1%}; not judged: the routes round differently)",
+              flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
 
     if fails:
@@ -953,15 +1047,18 @@ def main() -> int:
         ("decode_attention", "decode_attention.cu", "decode_attention.py:234", "int4-WO",
          long_rows["bf16"]),
     ]
-    for kv, ref in zip(KV_QUANT, ("decode_attention.py:138", "decode_attention.py:598",
-                                  "decode_attention.py:471")):
+    for kv, ref in zip(KV_ALL, ("decode_attention.py:138", "decode_attention.py:598",
+                                "decode_attention.py:471", "decode_attention.py:234")):
         rows += [(KV_KERNELS[kv][0], "decode_attention_quant.cu", ref, KV_TAG[kv], row)
                  for row in (kv_rows[kv], long_rows[kv])]
+    # K2v's int8 form: the same kernel as its e5m2 form, whose path it counts
+    rows += [("decode_attention_vec8", "decode_attention_quant.cu", "decode_attention.py:234",
+              KV_TAG["float8_e5m2"], row) for row in (kv_rows["k2v-int8"], long_rows["k2v-int8"])]
     rows += [("flash_attention", "flash_attention.cu", "flash_attention.py:94",
               "int4-WO+flash" if shape[0] > 1 else "engine-slots", k8_rows[shape])
              for shape in K8_SHAPES]
-    rows += [("paged_decode_attention", "paged_attention.cu", "paged_attention.py:189",
-              "engine-paged", row) for row in (k9_row, k9_long)]
+    rows += [(POOL_KERNELS[kv], "paged_attention.cu", "paged_attention.py:189",
+              engine_tag(True, kv), row) for kv in (None,) + KV_QUANT for row in k9_rows[kv]]
     entries = [dict(name=name, route="cuda", source=f"ao_tpu_torch/csrc/{src}",
                     replaces=f"ao_tpu/ops/pallas/{ref}", launches=launches[path][name],
                     **{k: row[k] for k in keys})

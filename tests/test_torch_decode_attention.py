@@ -79,8 +79,9 @@ def test_wrapper_checks_and_counter():
     qt, kt, vt = torch_from_np(q), torch_from_np(k), torch_from_np(v)
     lengths = torch.tensor([5, 6], dtype=torch.int32)
     # scales over an int8 tokens cache without mode="i8" ask for the bf16-q
-    # form (the reference's "vec8", K2v), still to port
-    with pytest.raises(NotImplementedError, match="K2v"):
+    # form (the reference's "vec8", K2v), whose wrapper refuses scales that
+    # are not (B, Hkv, T)
+    with pytest.raises(ValueError, match="K2v.*k_scale must be"):
         k2.decode_attention(qt, kt.to(torch.int8), vt.to(torch.int8), lengths,
                             k_scale=torch.ones(1), v_scale=torch.ones(1))
     with pytest.raises(ValueError, match="not a multiple"):

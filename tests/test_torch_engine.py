@@ -5,8 +5,9 @@ bucket (8,) and max_seq 64: the greedy tokens of every request, their
 finish reasons and ``stats()`` equal JAX's, under the default backend and
 the "torch" one. The scenario has more requests than slots, staggered
 submission, prompts longer than the bucket (chunked prefill), an eos stop,
-a stop sequence and two cancellations. The JAX engines run their XLA path
-on the CPU, once per module.
+a stop sequence and two cancellations. The same scenario runs over the
+quantized KV caches (``kv_quant``) in f32 in both layouts. The JAX engines
+run their XLA path on the CPU, once per module.
 """
 
 import jax
@@ -129,6 +130,91 @@ def test_engine_matches_jax(runs, kind, paged, backend):
     assert "length" in reasons.values()
 
 
+KV_QUANT = [("int8", False), ("int8", True), ("float8_e4m3fn", False),
+            ("float8_e4m3fn", True), ("int4", False), ("int4", True), ("float8_e5m2", False)]
+# the cases whose greedy tokens may leave JAX's at a near-tie (see below)
+KV_NEAR_TIE = {("int4", True)}
+KV_LOGITS_DB = 40.0  # logits up to the first differing token (int4 paged: 45.8 dB)
+NEAR_TIE = 0.1  # JAX's logit gap at a flip, as a share of the std of its logits row (0.04)
+
+
+@pytest.fixture(scope="module")
+def kv_runs(runs):
+    """Per (kv_quant, layout): JAX's results of the f32 engine over that
+    quantized KV cache, with the f32 run's stop settings, and the logits of
+    its every pick (recorded from inside its jitted programs)."""
+    jp = jllama.init_params(jax.random.PRNGKey(0), JCFG)
+    _, _, eos, stop, _ = runs["f32", False]
+    out = {}
+    for kv, paged in KV_QUANT:
+        eng = JEngine(jp, JCFG, JServeConfig(MAX_BATCH, MAX_SEQ, kv_quant=kv, eos_id=eos,
+                                             prefill_buckets=BUCKETS, **_layout(paged)))
+        picks, pick2 = [], eng._pick2
+
+        def record(logits, *args, _picks=picks, _pick2=pick2, **kw):
+            jax.debug.callback(lambda x: _picks.append(np.asarray(x)), logits, ordered=True)
+            return _pick2(logits, *args, **kw)
+
+        eng._pick2 = record
+        out[kv, paged] = _drive(eng, stop=stop), picks
+    return out
+
+
+@pytest.mark.parametrize("backend", ["auto", "torch"])
+@pytest.mark.parametrize("kv_quant,paged", KV_QUANT,
+                         ids=[f"{kv}-{'paged' if p else 'slots'}" for kv, p in KV_QUANT])
+def test_engine_kv_quant_matches_jax(runs, kv_runs, kv_quant, paged, backend):
+    """The quantized KV in each layout: a slot engine prefills into a
+    quantized scratch cache and copies it into its slot, a paged engine
+    prefills into a bf16 scratch and quantizes it into its pages, as JAX's
+    do; so the port is held to JAX per layout.
+
+    The logits of every pick, on the rows that decode, are JAX's within
+    KV_LOGITS_DB up to the first token that differs. Where none differs
+    (every case but int4 paged), the greedy tokens, finish reasons and
+    stats() are JAX's. The port quantizes as the reference's code reads,
+    amax / qmax (bit for bit with JAX outside jit, test_torch_paged.py);
+    JAX's jitted engine computes amax * (1 / qmax), a scale one ulp off,
+    and an int4 cache turns such ulps into whole steps: on int4 pages a
+    token flips at a near-tie (JAX's two logits 0.04 std apart), and the
+    engines part from there. A flip elsewhere, or not at a near-tie,
+    fails."""
+    tp, _, eos, stop, _ = runs["f32", False]
+    (want, want_stats), jax_picks = kv_runs[kv_quant, paged]
+    with tkernels.backend(backend):
+        eng = Engine(tp, TCFG, ServeConfig(MAX_BATCH, MAX_SEQ, kv_quant=kv_quant, eos_id=eos,
+                                           prefill_buckets=BUCKETS, **_layout(paged)),
+                     device="cpu")
+        picks, pick = [], eng._pick
+
+        def record(logits, samp):
+            rows = eng.active.copy() if logits.shape[0] > 1 else np.ones(1, bool)
+            picks.append((logits.float().numpy().copy(), rows))
+            return pick(logits, samp)
+
+        eng._pick = record
+        got, stats = _drive(eng, stop=stop)
+    assert len(picks) >= len(want) and len(jax_picks) >= len(want)
+    err = ref = 0.0
+    flip = None
+    for i, (j, (t, rows)) in enumerate(zip(jax_picks, picks)):
+        j, t = j[rows], t[rows]  # idle lanes decode garbage in both
+        err, ref = err + float(((j - t) ** 2).sum()), ref + float((j ** 2).sum())
+        a, b = j.argmax(-1), t.argmax(-1)
+        if (a != b).any():
+            r = int(np.nonzero(a != b)[0][0])
+            flip = (i, float(j[r, a[r]] - j[r, b[r]]) / float(j[r].std()))
+            break
+    assert 10 * np.log10(ref / max(err, 1e-30)) >= KV_LOGITS_DB
+    if flip is None:
+        assert got == want
+        assert stats == want_stats
+        assert {reason for _, _, reason in got} >= {"cancelled", "length"}
+    else:
+        assert (kv_quant, paged) in KV_NEAR_TIE, f"token flip at pick {flip[0]}"
+        assert flip[1] <= NEAR_TIE, f"not a near-tie: gap {flip[1]:.3f} std"
+
+
 @pytest.mark.parametrize("kind", ["f32", "int4"])
 def test_slot_and_paged_engines_agree(runs, kind):
     tp, _, eos, stop, _ = runs[kind, False]
@@ -194,13 +280,21 @@ def test_engine_checks():
         return Engine(tp, TCFG, ServeConfig(MAX_BATCH, MAX_SEQ, prefill_buckets=BUCKETS, **kw),
                       device="cpu")
 
-    for kw, what in (({"kv_quant": "int8"}, "kv_quant"), ({"prefix_cache": True}, "prefix"),
+    for kw, what in (({"prefix_cache": True}, "prefix"),
                      ({"decode_steps_per_call": 2}, "multi-step"),
                      ({"spec_draft": 2}, "speculative"), ({"penalties": True}, "penalties"),
-                     ({"logprobs": 2}, "logprob"),
-                     ({"kv_quant": "int4", "kv_layout": "paged", "page_size": 8}, "kv_quant")):
+                     ({"logprobs": 2}, "logprob")):
         with pytest.raises(NotImplementedError, match=what):
             engine(**kw)
+    # the quantized KV in both layouts; e5m2 only in slots (the reference
+    # fails later, on a KeyError in its page pool)
+    assert engine(kv_quant="int8").caches[0][0].dtype_name == "int8"
+    assert engine(kv_quant="int4", kv_layout="paged", page_size=8).caches[0][0].dtype_name \
+        == "int4"
+    with pytest.raises(ValueError, match="slot layout only"):
+        engine(kv_quant="float8_e5m2", kv_layout="paged", page_size=8)
+    with pytest.raises(ValueError, match="KV cache dtype"):
+        engine(kv_quant="float16")
     with pytest.raises(NotImplementedError, match="LoRA"):
         Engine(tp, TCFG, ServeConfig(), lora_adapters={"a": {}}, device="cpu")
     with pytest.raises(ValueError, match="penalties=True"):

@@ -100,6 +100,7 @@ def test_decode_attention_matches_plain(dev, b, h, hkv, t, lengths):
 QUANT_WRAPPERS = {"int8": (k2.decode_attention_int8, "i8"),
                   "float8_e4m3fn": (k2.decode_attention_fp8, "f8"),
                   "int4": (k2.decode_attention_int4, "i4")}
+K2V_DTYPES = ("int8", "float8_e5m2")
 
 
 def _quant_cache(dev, dtype_name, b, t, hkv, gen, scale=1.0):
@@ -148,6 +149,53 @@ def test_decode_attention_quant_refuses_on_the_card(dev, dtype_name):
                 ck.scale, lens)
 
 
+@pytest.mark.parametrize("dtype_name", K2V_DTYPES)
+@pytest.mark.parametrize("b,h,hkv,t,lengths", [
+    (2, 8, 2, 128, [128, 77]),
+    (3, 8, 1, 104, [1, 104, 64]),    # G = 8, T not a multiple of the chunk
+    (2, 4, 4, 192, [0, 65]),         # G = 1; length 0 attends over every position
+    (8, 32, 8, 256, [1, 256, 17, 64, 65, 128, 200, 255]),
+])
+def test_k2v_matches_plain(dev, dtype_name, b, h, hkv, t, lengths):
+    """K2v over int8 and e5m2 tokens caches: >= 40 dB against its plain
+    version; NaN bytes and scales at or past lengths change no output bit."""
+    gen = torch.Generator(device=dev).manual_seed(b * 100 + t + 7)
+    q = torch.randn((b, h, 128), generator=gen, device=dev).to(torch.bfloat16)
+    ck = _quant_cache(dev, dtype_name, b, t, hkv, gen, scale=2.0)
+    cv = _quant_cache(dev, dtype_name, b, t, hkv, gen)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    before = k2.decode_attention_vec8.launches
+    got = k2.decode_attention(q, ck.qdata, cv.qdata, lens, k_scale=ck.scale, v_scale=cv.scale)
+    torch.cuda.synchronize()
+    assert k2.decode_attention_vec8.launches == before + 1
+    ref = k2.decode_attention_quant_plain("v8", q, ck.qdata, ck.scale, cv.qdata, cv.scale, lens,
+                                          128 ** -0.5)
+    sqnr = float(compute_error(ref, got))
+    assert got.dtype == torch.float32 and sqnr >= 40, f"{dtype_name}: {sqnr:.2f} dB"
+    for i, n in enumerate(lengths):
+        if n >= 1:
+            for c in (ck, cv):
+                c.qdata.view(torch.uint8)[i, n:] = 0x7F  # e5m2 NaN
+                c.scale[i, :, n:] = float("nan")
+    again = k2.decode_attention_vec8(q, ck.qdata, ck.scale, cv.qdata, cv.scale, lens)
+    torch.cuda.synchronize()
+    assert k2.decode_attention_vec8.launches == before + 2
+    assert torch.equal(again, got)
+
+
+def test_k2v_refuses_on_the_card(dev):
+    gen = torch.Generator(device=dev).manual_seed(2)
+    ck = _quant_cache(dev, "float8_e5m2", 2, 64, 2, gen)
+    q = torch.randn((2, 4, 128), generator=gen, device=dev)
+    lens = torch.tensor([3, 64], dtype=torch.int32, device=dev)
+    before = k2.decode_attention_vec8.launches
+    with pytest.raises(ValueError, match="head_dim 128"):
+        k2.decode_attention_vec8(q[..., :64], ck.qdata, ck.scale, ck.qdata, ck.scale, lens)
+    with pytest.raises(ValueError, match="v_cache must be"):
+        k2.decode_attention_vec8(q, ck.qdata, ck.scale, ck.qdata.view(torch.int8), ck.scale, lens)
+    assert k2.decode_attention_vec8.launches == before
+
+
 def test_fp8_cast_matches_cpu(dev):
     # the cache's fp8 quantize on the card gives the CPU's bits (the CPU's
     # equal JAX's, tests/test_torch_kvcache.py)
@@ -156,16 +204,21 @@ def test_fp8_cast_matches_cpu(dev):
     x[:4] = torch.tensor([448.0, -448.0, 0.0, 2.0 ** -10])
     got = x.to(dev).to(torch.float8_e4m3fn).view(torch.uint8).cpu()
     assert torch.equal(got, x.to(torch.float8_e4m3fn).view(torch.uint8))
+    # and e5m2's
+    y = x * 128
+    got = y.to(dev).to(torch.float8_e5m2).view(torch.uint8).cpu()
+    assert torch.equal(got, y.to(torch.float8_e5m2).view(torch.uint8))
 
 
-@pytest.mark.parametrize("kv_quant", list(QUANT_WRAPPERS))
+@pytest.mark.parametrize("kv_quant", list(QUANT_WRAPPERS) + ["float8_e5m2"])
 def test_generate_kv_quant_goes_through_its_kernel(dev, kv_quant):
     cfg = llama.LlamaConfig(vocab_size=512, dim=512, n_layers=2, n_heads=4, n_kv_heads=2,
                             ffn_dim=1024, tie_embeddings=False)
     params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     qparams = ao_tpu_torch.quantize_(params, ao_tpu_torch.Int4WeightOnlyConfig(group_size=32))
     prompt = torch.randint(0, cfg.vocab_size, (2, 8), device=dev, dtype=torch.int32)
-    counters = [k1.int4_wo_magic, k2.decode_attention] + [w for w, _ in QUANT_WRAPPERS.values()]
+    counters = [k1.int4_wo_magic, k2.decode_attention, k2.decode_attention_vec8] + [
+        w for w, _ in QUANT_WRAPPERS.values()]
     for c in counters:
         c.launches = 0
     toks = ao_tpu_torch.generate(qparams, prompt, cfg, num_steps=5, max_seq=16, kv_quant=kv_quant)
@@ -173,7 +226,9 @@ def test_generate_kv_quant_goes_through_its_kernel(dev, kv_quant):
     assert toks.shape == (2, 5) and toks.dtype == torch.int32
     want = {id(c): 0 for c in counters}
     want[id(k1.int4_wo_magic)] = (7 * cfg.n_layers + 1) * 5
-    want[id(QUANT_WRAPPERS[kv_quant][0])] = cfg.n_layers * 4
+    kernel = QUANT_WRAPPERS[kv_quant][0] if kv_quant in QUANT_WRAPPERS \
+        else k2.decode_attention_vec8
+    want[id(kernel)] = cfg.n_layers * 4
     assert [c.launches for c in counters] == [want[id(c)] for c in counters]
 
 
@@ -385,6 +440,89 @@ def test_paged_attention_matches_plain(dev, b, h, hkv, ps, max_pages, lengths):
         assert float(compute_error(k2_out, got)) >= 40
 
 
+QUANT_POOLS = {"int8": k9.paged_decode_attention_vec8,
+               "float8_e4m3fn": k9.paged_decode_attention_vec8,
+               "int4": k9.paged_decode_attention_int4}
+
+
+@pytest.mark.parametrize("dtype_name", list(QUANT_POOLS))
+@pytest.mark.parametrize("b,h,hkv,ps,max_pages,lengths", [
+    (2, 4, 2, 128, 3, [300, 150]),
+    (8, 32, 8, 128, 8, [1, 1024, 128, 129, 700, 64, 65, 1000]),  # 1 and a full last page
+    (3, 8, 1, 8, 20, [1, 160, 77]),       # page_size 8 (the reference's kernel: % 128), G = 8
+    (2, 4, 4, 24, 5, [0, 120]),           # page_size 24; length 0 gives 0
+])
+def test_paged_attention_quant_matches_plain(dev, dtype_name, b, h, hkv, ps, max_pages,
+                                             lengths):
+    """K9 "vec8" (int8, fp8) and "int4" over pools written by write_prompt,
+    pages shuffled, the null page and every row past lengths NaN (0x7F
+    bytes, NaN scales): >= 40 dB against the plain version, finite, and the
+    same bits as before the NaN went in."""
+    from ao_tpu_torch.serving.paged import PagedKVPool
+
+    wrapper = QUANT_POOLS[dtype_name]
+    gen = torch.Generator(device=dev).manual_seed(ps * 10 + max_pages + 1)
+    n_pages = b * max_pages + 3
+    q = torch.randn((b, h, 128), generator=gen, device=dev).to(torch.bfloat16)
+    pools = []
+    for scale in (2.0, 1.0):
+        pool = PagedKVPool.create(n_pages, ps, hkv, 128, dtype_name, device=dev)
+        pool.write_prompt(torch.randn((n_pages * ps, hkv, 128), generator=gen, device=dev) * scale,
+                          torch.arange(n_pages, device=dev))
+        pools.append(pool)
+    kp, vp = pools
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(n_pages)) + 1
+    table = perm[:b * max_pages].reshape(b, max_pages).to(torch.int32).to(dev)
+    for i, n in enumerate(lengths):
+        table[i, -(-n // ps):] = 0
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    args = (q, kp.pages, kp.scale, vp.pages, vp.scale, table, lens)
+    before = wrapper.launches
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    ref = k9.paged_decode_attention_plain(q, kp.pages, vp.pages, table, lens, 128 ** -0.5,
+                                          kp.scale, vp.scale)
+    assert bool(torch.isfinite(got).all())
+    sqnr = float(compute_error(ref, got))
+    assert got.dtype == torch.float32 and sqnr >= 40, f"{dtype_name}: {sqnr:.2f} dB"
+    for i, n in enumerate(lengths):
+        if n <= 0:
+            assert float(got[i].abs().max()) == 0.0
+    # NaN in the null page and past every length, in the pages and scales
+    for pool in (kp, vp):
+        raw = pool.pages.view(torch.uint8)
+        raw[0], pool.scale[0] = 0x7F, float("nan")
+        for i, n in enumerate(lengths):
+            pos = torch.arange(max(n, 0), -(-n // ps) * ps, device=dev)  # the last page's tail
+            page, off = table[i, pos // ps].long(), pos % ps
+            raw[page, off] = 0x7F
+            pool.scale[page, :, off] = float("nan")
+    again = wrapper(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    assert torch.equal(again, got)
+
+
+def test_paged_attention_quant_refuses_on_the_card(dev):
+    from ao_tpu_torch.serving.paged import PagedKVPool
+
+    kp = PagedKVPool.create(9, 16, 2, 128, "int4", device=dev)
+    q = torch.randn((2, 4, 128), device=dev, dtype=torch.bfloat16)
+    table = torch.ones((2, 4), dtype=torch.int32, device=dev)
+    lens = torch.tensor([5, 60], dtype=torch.int32, device=dev)
+    before = k9.paged_decode_attention_int4.launches
+    with pytest.raises(ValueError, match="head_dim 128"):
+        k9.paged_decode_attention_int4(q[..., :64], kp.pages, kp.scale, kp.pages, kp.scale,
+                                       table, lens)
+    with pytest.raises(ValueError, match="k_scale must be"):
+        k9.paged_decode_attention_int4(q, kp.pages, kp.scale.transpose(1, 2).contiguous(),
+                                       kp.pages, kp.scale, table, lens)
+    with pytest.raises(ValueError, match="k_pages must be"):
+        k9.paged_decode_attention_vec8(q, kp.pages, kp.scale, kp.pages, kp.scale, table, lens)
+    assert k9.paged_decode_attention_int4.launches == before
+
+
 def test_paged_attention_refuses_on_the_card(dev):
     gen = torch.Generator(device=dev).manual_seed(3)
     q, kp, vp, table = _paged_inputs(dev, gen, 2, 4, 2, 16, 4, 9)
@@ -416,6 +554,40 @@ def test_generate_use_flash_goes_through_k8(dev):
     assert toks.shape == (2, 5) and toks.dtype == torch.int32
     assert [c.launches for c in counters] == [(7 * cfg.n_layers + 1) * 5, cfg.n_layers * 4,
                                               cfg.n_layers, 0]
+
+
+@pytest.mark.parametrize("kv_quant,paged", [
+    ("int8", False), ("float8_e4m3fn", False), ("int4", False), ("float8_e5m2", False),
+    ("int8", True), ("float8_e4m3fn", True), ("int4", True)])
+def test_engine_kv_quant_goes_through_its_kernels(dev, kv_quant, paged):
+    """The quantized KV engine's schedule: K8 per bucketed prefill (over the
+    quantized scratch's values in slots, the bf16 scratch in pages), K1 per
+    forward, and per decode step and layer K5 / K6 / K7 / K2v (slots) or K9
+    "vec8" / "int4" (pages)."""
+    cfg, qparams = _small_int4_model(dev)
+    layout = dict(kv_layout="paged", page_size=128) if paged else {}
+    eng = ao_tpu_torch.Engine(qparams, cfg, ao_tpu_torch.ServeConfig(
+        max_batch=2, max_seq=256, prefill_buckets=(128,), kv_quant=kv_quant, **layout))
+    gen = torch.Generator().manual_seed(1)
+    for n in (10, 20, 200):
+        eng.submit(torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist(), 4)
+    counters = {"k1": k1.int4_wo_magic, "k8": k8.flash_attention,
+                "k5": k2.decode_attention_int8, "k6": k2.decode_attention_fp8,
+                "k7": k2.decode_attention_int4, "k2v": k2.decode_attention_vec8,
+                "k2": k2.decode_attention, "k9": k9.paged_decode_attention,
+                "k9v": k9.paged_decode_attention_vec8, "k9i": k9.paged_decode_attention_int4}
+    for c in counters.values():
+        c.launches = 0
+    done = eng.run()
+    torch.cuda.synchronize()
+    steps = eng.stats()["steps"]
+    assert [len(r.generated) for r in done] == [4, 4, 4]
+    decode = {"int8": "k9v", "float8_e4m3fn": "k9v", "int4": "k9i"}[kv_quant] if paged else \
+        {"int8": "k5", "float8_e4m3fn": "k6", "int4": "k7", "float8_e5m2": "k2v"}[kv_quant]
+    want = {name: 0 for name in counters}
+    want.update(k1=(7 * cfg.n_layers + 1) * (2 + 2 + steps), k8=cfg.n_layers * 2)
+    want[decode] = cfg.n_layers * steps
+    assert {name: c.launches for name, c in counters.items()} == want
 
 
 @pytest.mark.parametrize("paged", [False, True], ids=["slots", "paged"])

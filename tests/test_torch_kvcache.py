@@ -1,5 +1,5 @@
 """The quantized KV cache (``serving/kvcache.py``) and the plain versions of
-K5, K6 and K7 against the JAX package, on the same numpy inputs.
+K5, K6, K7 and K2v against the JAX package, on the same numpy inputs.
 
 The port stores its caches in layouts of its own ("tokens" for int8 and
 fp8, "ch4" for int4), so the caches are compared through
@@ -29,6 +29,7 @@ from ao_tpu_torch.serving.kvcache import QuantKVCache, init_quant_kv_caches
 from torch_port_helpers import torch_from_np, torch_to_numpy
 
 KV_DTYPES = ("int8", "float8_e4m3fn", "int4")
+CACHE_DTYPES = KV_DTYPES + ("float8_e5m2",)  # e5m2: slot caches only, through K2v
 B, HKV, D = 2, 2, 128
 
 
@@ -39,8 +40,17 @@ def _windows(rng, prefill):
             (prefill + 1, rng.standard_normal((B, 1, HKV, D)).astype(np.float32) * 0.01)]
 
 
+def _assert_values_equal(jcache, tcache):
+    for out in (jnp.float32, jnp.bfloat16):
+        want = np.asarray(jcache.dequantize(out))
+        got = torch_to_numpy(tcache.dequantize(getattr(torch, jnp.dtype(out).name)))
+        # equal values: an unwritten int4 position is (0 - 8) * 0 = -0.0
+        # here and +0.0 where the reference pads with u = 8
+        np.testing.assert_array_equal(got.astype(np.float32), want.astype(np.float32))
+
+
 @pytest.mark.parametrize("max_seq", [64, 40])  # with a parity/plane window, and without
-@pytest.mark.parametrize("dtype_name", KV_DTYPES)
+@pytest.mark.parametrize("dtype_name", CACHE_DTYPES)
 def test_cache_equals_jax(dtype_name, max_seq):
     cfg = jllama.LlamaConfig(n_layers=1, n_heads=HKV, n_kv_heads=HKV, dim=HKV * D)
     rng = np.random.default_rng(max_seq)
@@ -55,12 +65,55 @@ def test_cache_equals_jax(dtype_name, max_seq):
             jcache = jcache.update(jnp.asarray(x), index)
             assert tcache.update(torch.from_numpy(x), index) is tcache
         assert tcache.max_seq == jcache.max_seq == max_seq
-        for out in (jnp.float32, jnp.bfloat16):
-            want = np.asarray(jcache.dequantize(out))
-            got = torch_to_numpy(tcache.dequantize(getattr(torch, jnp.dtype(out).name)))
-            # equal values: an unwritten int4 position is (0 - 8) * 0 = -0.0
-            # here and +0.0 where the reference pads with u = 8
-            np.testing.assert_array_equal(got.astype(np.float32), want.astype(np.float32))
+        _assert_values_equal(jcache, tcache)
+
+
+# per-slot windows: (start of each row, S); S = 3 at 62 and 63 straddles the
+# end of a 64-row cache, so the clamp's collisions show
+VECTOR_WINDOWS = {1: [[9, 63], [10, 0], [63, 20]], 3: [[62, 9], [5, 63], [0, 61]]}
+
+
+@pytest.mark.parametrize("s_tok", [1, 3])
+@pytest.mark.parametrize("max_seq", [64, 40])
+@pytest.mark.parametrize("dtype_name", CACHE_DTYPES)
+def test_vector_update_equals_jax(dtype_name, max_seq, s_tok):
+    """Per-slot (B,) indices: each row's window at its own position, past
+    the last row clamped onto it with only the last colliding token kept,
+    as the reference's ``_clamped_cols``; scales at the same columns."""
+    cfg = jllama.LlamaConfig(n_layers=1, n_heads=HKV, n_kv_heads=HKV, dim=HKV * D)
+    rng = np.random.default_rng(100 * max_seq + s_tok)
+    for jcache in jax_init_caches(cfg, B, max_seq, dtype_name)[0]:
+        tcache = QuantKVCache.create(B, max_seq, HKV, D, dtype_name, device="cpu")
+        x = rng.standard_normal((B, 9, HKV, D)).astype(np.float32)
+        jcache = jcache.update(jnp.asarray(x), 0)
+        tcache.update(torch.from_numpy(x), 0)
+        for starts in VECTOR_WINDOWS[s_tok]:
+            starts = np.minimum(np.array(starts, np.int32), max_seq - 1)
+            x = rng.standard_normal((B, s_tok, HKV, D)).astype(np.float32) * 2
+            jcache = jcache.update(jnp.asarray(x), jnp.asarray(starts))
+            assert tcache.update(torch.from_numpy(x), torch.from_numpy(starts)) is tcache
+        _assert_values_equal(jcache, tcache)
+
+
+@pytest.mark.parametrize("dtype_name", CACHE_DTYPES)
+def test_insert_slot_equals_jax(dtype_name):
+    """A batch-1 prefill cache copied into one slot of the pool: rows [0,
+    16) of slot 1, the other rows and slots untouched."""
+    cfg = jllama.LlamaConfig(n_layers=1, n_heads=HKV, n_kv_heads=HKV, dim=HKV * D)
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal((3, 64, HKV, D)).astype(np.float32)
+    p = rng.standard_normal((1, 16, HKV, D)).astype(np.float32) * 4
+    jpools = jax_init_caches(cfg, 3, 64, dtype_name)[0]
+    jscratch = jax_init_caches(cfg, 1, 16, dtype_name)[0]
+    for jpool, jscr in zip(jpools, jscratch):
+        tpool = QuantKVCache.create(3, 64, HKV, D, dtype_name, device="cpu")
+        tscr = QuantKVCache.create(1, 16, HKV, D, dtype_name, device="cpu")
+        jpool = jpool.update(jnp.asarray(x), 0).insert_slot(jscr.update(jnp.asarray(p), 0), 1)
+        tpool.update(torch.from_numpy(x), 0)
+        assert tpool.insert_slot(tscr.update(torch.from_numpy(p), 0), 1) is tpool
+        _assert_values_equal(jpool, tpool)
+        np.testing.assert_array_equal(tpool.dequantize(torch.float32)[1, :16].numpy(),
+                                      tscr.dequantize(torch.float32)[0].numpy())
 
 
 def test_cache_checks():
@@ -71,12 +124,16 @@ def test_cache_checks():
     with pytest.raises(ValueError, match="max_seq % 8"):
         QuantKVCache.create(B, 44, HKV, D, "int4", device="cpu")
     with pytest.raises(ValueError, match="KV cache dtype"):
-        QuantKVCache.create(B, 64, HKV, D, "float8_e5m2", device="cpu")
+        QuantKVCache.create(B, 64, HKV, D, "float16", device="cpu")
+    assert QuantKVCache.create(B, 64, HKV, D, "float8_e5m2", device="cpu").qdata.dtype \
+        == torch.float8_e5m2
     c = QuantKVCache.create(B, 16, HKV, D, "int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="quantized-KV slice"):
-        c.update(torch.zeros((B, 1, HKV, D)), torch.tensor([3, 4]))
-    with pytest.raises(NotImplementedError, match="quantized-KV slice"):
-        c.insert_slot(c, 0)
+    # a vector index writes each row at its own position
+    assert c.update(torch.ones((B, 1, HKV, D)), torch.tensor([3, 4])) is c
+    assert c.scale[0, :, 3].tolist() == c.scale[1, :, 4].tolist() == [float(torch.tensor(1 / 127))] * HKV
+    assert not c.scale[0, :, 4].any() and not c.scale[1, :, 3].any()
+    with pytest.raises(ValueError, match="cannot insert"):
+        c.insert_slot(QuantKVCache.create(1, 8, HKV, D, "float8_e4m3fn", device="cpu"), 0)
     with pytest.raises(ValueError, match="outside the cache"):
         c.update(torch.zeros((B, 2, HKV, D)), 15)
     cfg = jllama.LlamaConfig(n_layers=3, n_heads=4, n_kv_heads=HKV, dim=4 * D)
@@ -192,11 +249,72 @@ def test_dispatch_refuses_what_it_does_not_take():
     q, k, v = _inputs(14)
     tk, tv = _port_caches("int8", k, v)
     args = (torch_from_np(q), tk.qdata, tv.qdata, torch.from_numpy(LENGTHS))
-    # an int8 tokens cache without mode="i8" asks for the bf16-q form (K2v)
-    with pytest.raises(NotImplementedError, match="vec8"):
-        da.decode_attention(*args, k_scale=tk.scale, v_scale=tv.scale)
+    # an int8 tokens cache without mode="i8" takes the bf16-q form (K2v)
+    got = da.decode_attention(*args, k_scale=tk.scale, v_scale=tv.scale)
+    k5 = da.decode_attention(*args, k_scale=tk.scale, v_scale=tv.scale, mode="i8")
+    assert torch.equal(got, da.decode_attention_vec8(args[0], tk.qdata, tk.scale, tv.qdata,
+                                                     tv.scale, args[3]))
+    assert not torch.equal(got, k5)
+    # K2v takes int8 and e5m2, the same storage type for K and V
+    with pytest.raises(ValueError, match="v_cache must be"):
+        da.decode_attention_vec8(args[0], tk.qdata, tk.scale, tv.qdata.view(torch.float8_e5m2),
+                                 tv.scale, args[3])
     # the reference's layout names are not the port's
     with pytest.raises(ValueError, match="no decode attention kernel"):
         da.decode_attention(*args, k_scale=tk.scale, v_scale=tv.scale, k_layout="kt", mode="i8")
     with pytest.raises(ValueError, match="bf16 tokens form"):
         da.decode_attention(*args, k_layout="ch4")
+
+
+# -- K2v: the bf16-q "vec8" form over int8 and e5m2 tokens caches ------------
+
+K2V_DTYPES = ("int8", "float8_e5m2")
+K2V_F64_DB = 30.0  # the JAX suite's bound for the e4m3 form (K6): bf16 q, bf16(p * vs)
+
+
+@pytest.mark.parametrize("dtype_name", K2V_DTYPES)
+def test_k2v_plain_matches_pallas_interpret(dtype_name):
+    """K2v's plain version against the Pallas ``_tok_kernel`` in mode "vec8"
+    (``decode_attention`` over tokens caches with scales), in interpret
+    mode, and against an f64 attention over the dequantized cache."""
+    q, k, v = _inputs(15)
+    ck, cv = (JaxCache.create(B, T, HKV, D, dtype_name, layout="tokens").update(jnp.asarray(x), 0)
+              for x in (k, v))
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax_decode_attention(q, ck.qdata, cv.qdata, jnp.asarray(LENGTHS), k_scale=ck.scale,
+                                   v_scale=cv.scale, sm_scale=D ** -0.5,
+                                   k_layout="tokens").block_until_ready()
+    tk, tv = _port_caches(dtype_name, k, v)
+    before = da.decode_attention_vec8.launches
+    got = da.decode_attention(torch_from_np(q), tk.qdata, tv.qdata, torch.from_numpy(LENGTHS),
+                              k_scale=tk.scale, v_scale=tv.scale, sm_scale=D ** -0.5,
+                              k_layout=tk.layout)
+    assert got.dtype == torch.float32 and got.shape == (B, H, D)
+    assert da.decode_attention_vec8.launches == before  # the CPU runs no kernel
+    # the same function: one softmax over T against the kernel's online one
+    # (another max at each bf16 rounding of p * vs), f32 sums in another order
+    assert _sqnr(np.asarray(ref), got) >= 40
+    f64 = _f64_attention(np.asarray(q.astype(jnp.float32)), tk.dequantize(torch.float32).numpy(),
+                         tv.dequantize(torch.float32).numpy(), LENGTHS, D ** -0.5)
+    assert _sqnr(f64, got) >= K2V_F64_DB
+
+
+@pytest.mark.parametrize("dtype_name", K2V_DTYPES)
+def test_k2v_plain_never_reads_past_lengths(dtype_name):
+    """NaN (an fp8 0x7F, an int8 -1 scale NaN) at positions at or past
+    lengths changes no output bit of the plain version."""
+    q, k, v = _inputs(16)
+    tk, tv = _port_caches(dtype_name, k, v)
+    qt, lengths = torch_from_np(q), torch.from_numpy(LENGTHS)
+    got = da.decode_attention_vec8(qt, tk.qdata, tk.scale, tv.qdata, tv.scale, lengths)
+    n = int(LENGTHS[1])
+    for c in (tk, tv):
+        if dtype_name != "int8":
+            c.qdata.view(torch.uint8)[1, n:] = 0x7F
+        c.scale[1, :, n:] = float("nan")
+    again = da.decode_attention_vec8(qt, tk.qdata, tk.scale, tv.qdata, tv.scale, lengths)
+    assert torch.equal(again, got)
+    nbytes, ops = da.traffic_quant("v8", (B, H, D), tuple(tk.qdata.shape), LENGTHS)
+    valid = int(LENGTHS.sum())
+    assert nbytes == B * H * D * 2 + 2 * valid * HKV * (D + 4) + B * 4 + B * H * D * 4
+    assert ops == 4 * valid * H * D

@@ -116,8 +116,8 @@ def test_unported_branches_raise():
     gen = torch.Generator().manual_seed(0)
     p = tllama.init_params(dataclasses.replace(TCFG, n_layers=1), gen, device="cpu")
     assert p["layers"][0]["attn"]["wq"].shape == (512, 512) and "lm_head" in p
-    # a per-slot (vector) cache index runs over a bf16 cache and, for a
-    # QuantKVCache, still raises (the engine's quantized-KV slice)
+    # a per-slot (vector) cache index runs over a bf16 cache and over a
+    # QuantKVCache, each row writing at its own position
     cfg1 = dataclasses.replace(TCFG, n_layers=1)
     caches = tllama.init_kv_caches(cfg1, B, T, device="cpu")
     logits, _ = tllama.forward(p, torch.zeros((B, 1), dtype=torch.int32), cfg1,
@@ -125,10 +125,12 @@ def test_unported_branches_raise():
                                kv_caches=caches, cache_index=torch.zeros(B, dtype=torch.int32))
     assert logits.shape == (B, 1, TCFG.vocab_size) and bool(caches[0][0][:, 0].any())
     qcaches = ao_tpu_torch.init_quant_kv_caches(cfg1, B, T, "int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="per-slot"):
-        tllama.forward(p, torch.zeros((B, 1), dtype=torch.int32), cfg1,
-                       positions=torch.zeros((B, 1), dtype=torch.int32),
-                       kv_caches=qcaches, cache_index=torch.zeros(B, dtype=torch.int32))
+    pos = torch.arange(B, dtype=torch.int32)
+    qlogits, _ = tllama.forward(p, torch.zeros((B, 1), dtype=torch.int32), cfg1,
+                                positions=pos[:, None], kv_caches=qcaches, cache_index=pos)
+    assert qlogits.shape == (B, 1, TCFG.vocab_size)
+    written = qcaches[0][0].scale.amax(dim=1) > 0  # (B, T)
+    assert written.sum() == B and all(bool(written[i, i]) for i in range(B))
     assert ao_tpu_torch.models.llama is tllama
 
 
