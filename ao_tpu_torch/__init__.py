@@ -11,10 +11,19 @@ __version__ = "0.1.0"
 
 from ao_tpu_torch.core.config import AOBaseConfig
 from ao_tpu_torch.quantization.configs import (
-    FqnToConfig, Int4WeightOnlyConfig, Int8DynamicActivationInt4WeightConfig,
+    Float8DynamicActivationFloat8WeightConfig, Float8DynamicActivationInt4WeightConfig,
+    Float8StaticActivationFloat8WeightConfig, Float8WeightOnlyConfig, FqnToConfig,
+    Int4WeightOnlyConfig, Int8DynamicActivationInt4WeightConfig,
+    Int8DynamicActivationInt8WeightConfig, Int8StaticActivationInt8WeightConfig,
+    Int8WeightOnlyConfig,
+)
+from ao_tpu_torch.quantization.granularity import (
+    PerAxis, PerBlock, PerGroup, PerRow, PerTensor, PerToken,
 )
 from ao_tpu_torch.quantization.primitives import MappingType, ZeroPointDomain, compute_error
+from ao_tpu_torch.quantization.qarrays.float8 import Float8Array
 from ao_tpu_torch.quantization.qarrays.int4 import Int4Array
+from ao_tpu_torch.quantization.qarrays.int8 import Int8Array
 from ao_tpu_torch.quantization.quantize import quantize_, quantize_params
 from ao_tpu_torch.ops.linear import linear
 from ao_tpu_torch.models import llama
@@ -26,13 +35,28 @@ from ao_tpu_torch.serving.paged import PageAllocator, PagedKVPool
 __all__ = [
     "AOBaseConfig",
     "Engine",
+    "Float8Array",
+    "Float8DynamicActivationFloat8WeightConfig",
+    "Float8DynamicActivationInt4WeightConfig",
+    "Float8StaticActivationFloat8WeightConfig",
+    "Float8WeightOnlyConfig",
     "FqnToConfig",
     "Int4Array",
     "Int4WeightOnlyConfig",
+    "Int8Array",
     "Int8DynamicActivationInt4WeightConfig",
+    "Int8DynamicActivationInt8WeightConfig",
+    "Int8StaticActivationInt8WeightConfig",
+    "Int8WeightOnlyConfig",
     "MappingType",
     "PageAllocator",
     "PagedKVPool",
+    "PerAxis",
+    "PerBlock",
+    "PerGroup",
+    "PerRow",
+    "PerTensor",
+    "PerToken",
     "QuantKVCache",
     "Request",
     "ServeConfig",

@@ -25,6 +25,8 @@ import torch
 
 from ao_tpu_torch.ops import kernels, linear
 from ao_tpu_torch.ops.act_quant import producer_quant_ok, silu_mul_quant
+from ao_tpu_torch.ops.hopper import decode_attention as k2
+from ao_tpu_torch.ops.hopper import flash_attention as k8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,11 +177,13 @@ def _flash_route(cfg: LlamaConfig, x: torch.Tensor, sq: int, sk: int) -> bool:
     """Whether ``use_flash`` takes the flash-attention kernel: the
     reference's gate (no softcap, default sm_scale, not
     ``force_xla_attention``, and the shapes its kernel does not refuse,
-    ``flash_attention.py:135-138``) on a CUDA tensor outside the "torch"
+    ``flash_attention.py:135-138``), narrowed to the head_dim K8 takes
+    (``flash_attention.takes``), on a CUDA tensor outside the "torch"
     backend. Outside it the einsum path runs, as after the reference's
     UnsupportedShape."""
     return (cfg.attn_softcap is None and cfg.sm_scale is None and not cfg.force_xla_attention
-            and cfg.head_dim % 128 == 0 and sk % 128 == 0 and sq >= 8
+            and k8.takes(cfg.head_dim, cfg.n_heads // cfg.n_kv_heads)
+            and sk % 128 == 0 and sq >= 8
             and sq % min(128, sq) == 0 and x.device.type == "cuda"
             and kernels.get_backend() != "torch")
 
@@ -261,7 +265,7 @@ def attention(
             cv[:, idx:idx + s] = v.to(cv.dtype)
         new_cache = (ck, cv)
 
-        if (s == 1 and hd % 128 == 0 and cfg.attn_softcap is None
+        if (s == 1 and k2.takes(hd, h // kvh) and cfg.attn_softcap is None
                 and not cfg.force_xla_attention and x.device.type == "cuda"
                 and kernels.get_backend() != "torch"):
             # single-token decode: the flash-decoding kernel reads the cache
@@ -269,21 +273,18 @@ def attention(
             # length: K2 for bf16, K5 (int8, in the reference's "i8"
             # q-quantized form, as its default int8 "kt" K cache), K6
             # (fp8 e4m3), K7 (int4) or K2v (fp8 e5m2) for a quantized
-            # cache. The route is the reference's; a shape inside it that
-            # the kernel does not take (head_dim other than 128, more than
-            # 8 query heads per kv head) makes the kernel's wrapper raise,
-            # as ops/kernels.py's int4 route does, and the "torch" backend
-            # takes the einsum path
-            from ao_tpu_torch.ops.hopper.decode_attention import decode_attention
-
+            # cache. The route is the reference's, narrowed to the shapes
+            # the kernels take (``decode_attention.takes``: head_dim 128,
+            # at most 8 query heads per kv head); the rest take the einsum
+            # path below, as after the reference's UnsupportedShape
             lengths = positions[:, 0] + 1
             if quant:
-                out = decode_attention(q[:, 0], ck.qdata, cv.qdata, lengths,
-                                       k_scale=ck.scale, v_scale=cv.scale, sm_scale=sm_scale,
-                                       k_layout=ck.layout,
-                                       mode="i8" if ck.dtype_name == "int8" else None)
+                out = k2.decode_attention(q[:, 0], ck.qdata, cv.qdata, lengths,
+                                          k_scale=ck.scale, v_scale=cv.scale, sm_scale=sm_scale,
+                                          k_layout=ck.layout,
+                                          mode="i8" if ck.dtype_name == "int8" else None)
             else:
-                out = decode_attention(q[:, 0], ck, cv, lengths, sm_scale=sm_scale)
+                out = k2.decode_attention(q[:, 0], ck, cv, lengths, sm_scale=sm_scale)
             out = out.to(x.dtype).reshape(b, 1, h * hd)
             return linear(out, layer["wo"]), new_cache
 
@@ -292,15 +293,13 @@ def attention(
         # and V) in place, causal and top-left aligned, valid when the
         # query positions start at 0 as in the reference; a quantized cache
         # goes through its dequantized values
-        from ao_tpu_torch.ops.hopper.flash_attention import flash_attention
-
         if ck is None:
             kf, vf = k.to(torch.bfloat16), v.to(torch.bfloat16)
         elif isinstance(ck, torch.Tensor):
             kf, vf = ck, cv
         else:
             kf, vf = ck.dequantize(torch.bfloat16), cv.dequantize(torch.bfloat16)
-        out = flash_attention(q, kf, vf, causal=True)
+        out = k8.flash_attention(q, kf, vf, causal=True)
         return linear(out.to(x.dtype).reshape(b, s, h * hd), layer["wo"]), new_cache
 
     if ck is not None:

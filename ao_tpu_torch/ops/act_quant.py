@@ -1,13 +1,13 @@
 """Dynamic activation quantization (on the fly, inside the forward).
 
-PyTorch port of the int8 part of ``ao_tpu/ops/act_quant.py``: the per-token
-quantize of an activation before an int8-activation linear, and producer-side
+PyTorch port of ``ao_tpu/ops/act_quant.py`` without its DiT and SAM
+producers: the quantize of an activation before an int8- or fp8-activation
+linear (per token, per tensor, or per group of the last dim), and producer-side
 quantization (``silu_mul_quant``), which emits the gated-MLP activation as
 int8 qdata and per-token scales so that the high-precision activation never
 goes to device memory. The producer kernels are in ``ops/hopper/fused_act.py``.
-fp8 activation specs come with the fp8 slice of the port; the GELU and
-LayerNorm producers (``gelu_quant``, ``norm_modulate_quant``) with the DiT and
-SAM models.
+The GELU and LayerNorm producers (``gelu_quant``, ``norm_modulate_quant``)
+come with the DiT and SAM models.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import torch
 
 from ao_tpu_torch.quantization import primitives as P
 from ao_tpu_torch.quantization.qarrays.base import qarray_dataclass
-from ao_tpu_torch.quantization.qarrays.common import ActQuantSpec
+from ao_tpu_torch.quantization.qarrays.common import ActQuantSpec, canon_dtype
 
 
 @qarray_dataclass
@@ -104,10 +104,13 @@ def quantize_activation(
     x: torch.Tensor, spec: ActQuantSpec
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Returns (q, scale, zero_point); the scale keeps the rank, reduced
-    over each block. Bit-identical to the reference's int8 path."""
+    over each block. Bit-identical to the reference (ref: ao_tpu
+    act_quant.py:141); fp8 has no zero point."""
     bs = act_block_size(tuple(x.shape), spec)
     if spec.dtype.startswith("float8"):
-        raise NotImplementedError("fp8 activation quantization comes with the fp8 slice of the port")
+        dt = canon_dtype(spec.dtype)
+        scale = P.choose_scale_float8(x, bs, dt, value_lb=spec.value_lb, value_ub=spec.value_ub)
+        return P.quantize_float8(x, bs, scale, dt), scale, None
     if spec.dtype == "int8":
         mt = P.MappingType.SYMMETRIC if spec.symmetric else P.MappingType.ASYMMETRIC
         scale, zp = P.choose_qparams_affine(x, mt, bs, target_dtype="int8")

@@ -38,6 +38,31 @@ from ao_tpu_torch.ops.hopper import build
 
 _NEG = -0.7 * float(torch.finfo(torch.float32).max)  # the reference's mask value
 
+# what decode_attention.cu (K2) and decode_attention_quant.cu (K5-K7, K2v)
+# take, and their positions per split (checked against each library when it
+# loads); known here so that the routes and the CPU refuse the same shapes
+# as the card
+HEAD_DIM = 128
+MAX_GROUP = 8
+CHUNK = 64
+
+
+def takes(head_dim: int, group: int) -> bool:
+    """Whether the decode attention kernels take this head_dim and this many
+    query heads per kv head. The single-token decode route of
+    ``models/llama.py`` and the wrappers' own checks both ask it."""
+    return head_dim == HEAD_DIM and 1 <= group <= MAX_GROUP
+
+
+def _check_library(lib, source: str, prefix: str) -> None:
+    for name, want in ((f"{prefix}_chunk", CHUNK), (f"{prefix}_max_group", MAX_GROUP),
+                       (f"{prefix}_head_dim", HEAD_DIM)):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
+        if getattr(lib, name)() != want:
+            raise RuntimeError(f"{source}: {name} is not {want}")
+
+
 _LIB = None
 
 
@@ -49,10 +74,7 @@ def _lib():
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float,
                                                                      ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        for name in ("ao_decode_attention_chunk", "ao_decode_attention_max_group",
-                     "ao_decode_attention_head_dim"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = ctypes.c_int
+        _check_library(lib, "decode_attention.cu", "ao_decode_attention")
         _LIB = lib
     return _LIB
 
@@ -79,12 +101,11 @@ def _launch(q, k_cache, v_cache, lengths, sm_scale: float) -> torch.Tensor:
     dev = q.device
     b, h, d = q.shape
     t, hkv = k_cache.shape[1], k_cache.shape[2]
-    if d != lib.ao_decode_attention_head_dim():
-        raise ValueError(f"decode_attention kernel takes head_dim "
-                         f"{lib.ao_decode_attention_head_dim()}, got {d}")
-    if h // hkv > lib.ao_decode_attention_max_group():
-        raise ValueError(f"decode_attention kernel takes at most "
-                         f"{lib.ao_decode_attention_max_group()} query heads per kv head")
+    if d != HEAD_DIM:
+        raise ValueError(f"decode_attention kernel takes head_dim {HEAD_DIM}, got {d}")
+    if not takes(d, h // hkv):
+        raise ValueError(f"decode_attention kernel takes at most {MAX_GROUP} query heads per "
+                         f"kv head, got {h // hkv}")
     for name, x, dt, shape in (("q", q, torch.bfloat16, (b, h, d)),
                                ("k_cache", k_cache, torch.bfloat16, (b, t, hkv, d)),
                                ("v_cache", v_cache, torch.bfloat16, (b, t, hkv, d)),
@@ -96,7 +117,7 @@ def _launch(q, k_cache, v_cache, lengths, sm_scale: float) -> torch.Tensor:
         if x.data_ptr() % 16:
             raise ValueError(f"decode_attention: {name} must be 16-byte aligned")
     g = h // hkv
-    nsplit = -(-t // lib.ao_decode_attention_chunk())
+    nsplit = -(-t // CHUNK)
     out = torch.empty((b, h, d), dtype=torch.float32, device=dev)
     o_part = torch.empty((b, hkv, nsplit, g, d), dtype=torch.float32, device=dev)
     m_part = torch.empty((b, hkv, nsplit, g), dtype=torch.float32, device=dev)
@@ -165,12 +186,6 @@ def traffic(q_shape, cache_shape, lengths):
 # ---------------------------------------------------------------------------
 # K5, K6, K7: quantized caches
 
-# what decode_attention_quant.cu takes (checked against the library when it
-# loads); known here so that the CPU refuses the same shapes as the card
-QUANT_HEAD_DIM = 128
-QUANT_MAX_GROUP = 8
-QUANT_CHUNK = 64
-
 # the kernel's mode argument by kind and storage type (K2v has two)
 _KIND_MODE = {"i8": {torch.int8: 0}, "f8": {torch.float8_e4m3fn: 1}, "i4": {torch.int32: 2},
               "v8": {torch.int8: 3, torch.float8_e5m2: 4}}
@@ -188,13 +203,7 @@ def _qlib():
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        for name, want in (("ao_decode_attention_quant_chunk", QUANT_CHUNK),
-                           ("ao_decode_attention_quant_max_group", QUANT_MAX_GROUP),
-                           ("ao_decode_attention_quant_head_dim", QUANT_HEAD_DIM)):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = ctypes.c_int
-            if getattr(lib, name)() != want:
-                raise RuntimeError(f"decode_attention_quant.cu: {name} is not {want}")
+        _check_library(lib, "decode_attention_quant.cu", "ao_decode_attention_quant")
         _QLIB = lib
     return _QLIB
 
@@ -216,19 +225,24 @@ def _quant_kind(dtype, layout: str, mode) -> str:
 
 def decode_attention_quant_plain(kind: str, q, k, k_scale, v, v_scale, lengths,
                                  sm_scale: float) -> torch.Tensor:
-    """K5 ("i8"), K6 ("f8"), K7 ("i4") or K2v ("v8") in plain PyTorch, with
-    the kernels' roundings: q (B, H, D) rounded to bf16; for "i8" q
-    quantized per (batch, kv head) to int8, qs = max(amax, 1e-8) / 127, qi =
+    """K5 ("i8"), K6 ("f8"), K7 ("i4") or K2v ("v8") in plain PyTorch, to the
+    kernels' roundings: q (B, H, D) rounded to bf16; for "i8" q quantized
+    per (batch, kv head) to int8, qs = max(amax, 1e-8) / 127, qi =
     clip(round(q / qs), +-127), s = dot(qi, K) * ks * (qs * sm_scale) (the
     integer dot is exact in f32); otherwise s = dot(q, K) * sm_scale * ks.
     Masked to _NEG at positions >= lengths (lengths >= 1), whose values and
-    scales are never read; p = exp(s - max);
-    out = sum bf16(p * vs) * V / max(sum p, 1e-30), f32 (B, H, D)."""
+    scales are never read. Positions go in splits of CHUNK, as in the
+    kernels: a split that starts below lengths[b] (every split, for
+    lengths <= 0) gives sum bf16(exp(s - m_split) * vs) * V and the f32 sum
+    of exp(s - m_split), each scaled by exp(m_split - the max over those
+    splits); out = the scaled products / max(the scaled sums, 1e-30), f32
+    (B, H, D)."""
     from ao_tpu_torch.serving.kvcache import stored_values
 
     b, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     g = h // hkv
+    nsplit = -(-t // CHUNK)
     lens = lengths.reshape(b, 1)
     read = (torch.arange(t, device=q.device)[None, :] < lens) | (lens < 1)  # (B, T)
     kf, vf = (torch.where(read[:, :, None, None], x, torch.zeros_like(x))
@@ -242,12 +256,24 @@ def decode_attention_quant_plain(kind: str, q, k, k_scale, v, v_scale, lengths,
         s = torch.einsum("bngd,btnd->bngt", qi, kf) * ks * (qs * sm_scale)[..., None, None]
     else:
         s = torch.einsum("bngd,btnd->bngt", qf, kf) * sm_scale * ks
-    mask = torch.arange(t, device=q.device)[None, :] < lengths.reshape(b, 1)
+    mask = torch.arange(t, device=q.device)[None, :] < lens
     s = torch.where(mask[:, None, None, :], s, torch.full_like(s, _NEG))
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    pv = (p * vs).to(torch.bfloat16).to(torch.float32)
-    acc = torch.einsum("bngt,btnd->bngd", pv, vf)
-    return (acc / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)).reshape(b, h, d)
+    # the last split's positions past T do not exist: p = 0 there
+    pad = nsplit * CHUNK - t
+    s = torch.nn.functional.pad(s, (0, pad), value=-torch.inf).reshape(b, hkv, g, nsplit, CHUNK)
+    m = s.amax(dim=-1)  # (B, Hkv, G, nsplit)
+    p = torch.exp(s - m[..., None])
+    # the splits the kernels run: those starting below the length, or all
+    ran = (torch.arange(nsplit, device=q.device) * CHUNK)[None, :] < lens
+    ran = (ran | (lens < 1))[:, None, None, :]
+    top = torch.where(ran, m, torch.full_like(m, -torch.inf)).amax(dim=-1, keepdim=True)
+    w = torch.where(ran, torch.exp(m - top), torch.zeros_like(m))
+    pv = (p.flatten(-2)[..., :t] * vs).to(torch.bfloat16).to(torch.float32)
+    pv = torch.nn.functional.pad(pv, (0, pad)).reshape(b, hkv, g, nsplit, CHUNK)
+    pw = (pv * w[..., None]).flatten(-2)[..., :t]
+    acc = torch.einsum("bngt,btnd->bngd", pw, vf)
+    l = (p.sum(dim=-1) * w).sum(dim=-1, keepdim=True)
+    return (acc / l.clamp_min(1e-30)).reshape(b, h, d)
 
 
 def _check_quant(kind, q, k, k_scale, v, v_scale, lengths):
@@ -259,11 +285,11 @@ def _check_quant(kind, q, k, k_scale, v, v_scale, lengths):
                          f"{tuple(q.shape)}, {tuple(k.shape)}")
     b, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
-    if d != QUANT_HEAD_DIM:
-        raise ValueError(f"{name}: the kernel takes head_dim {QUANT_HEAD_DIM}, got {d}")
-    if h % hkv or h // hkv > QUANT_MAX_GROUP:
+    if d != HEAD_DIM:
+        raise ValueError(f"{name}: the kernel takes head_dim {HEAD_DIM}, got {d}")
+    if h % hkv or not takes(d, h // hkv):
         raise ValueError(f"{name}: H={h} must be a multiple of Hkv={hkv} with at most "
-                         f"{QUANT_MAX_GROUP} query heads per kv head")
+                         f"{MAX_GROUP} query heads per kv head")
     row = d // 8 if kind == "i4" else d
     dev = q.device
     storage = k.dtype if k.dtype in _KIND_MODE[kind] else next(iter(_KIND_MODE[kind]))
@@ -299,7 +325,7 @@ def _launch_quant(kind, q, k, k_scale, v, v_scale, lengths, sm_scale: float) -> 
     b, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     g = h // hkv
-    nsplit = -(-t // QUANT_CHUNK)
+    nsplit = -(-t // CHUNK)
     out = torch.empty((b, h, d), dtype=torch.float32, device=dev)
     o_part = torch.empty((b, hkv, nsplit, g, d), dtype=torch.float32, device=dev)
     m_part = torch.empty((b, hkv, nsplit, g), dtype=torch.float32, device=dev)

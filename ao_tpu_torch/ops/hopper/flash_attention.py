@@ -30,6 +30,14 @@ _MASK = -0.7 * float(torch.finfo(torch.float32).max)  # the reference's mask val
 HEAD_DIM = 128
 BLOCK_K = 64
 
+
+def takes(head_dim: int, group: int) -> bool:
+    """Whether K8 takes this head_dim and this many query heads per kv head
+    (any group). The ``use_flash`` route of ``models/llama.py`` and the
+    wrapper's own check both ask it."""
+    return head_dim == HEAD_DIM and group >= 1
+
+
 _LIB = None
 
 
@@ -89,10 +97,10 @@ def _check(q, k, v):
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    if d != HEAD_DIM:
-        raise ValueError(f"flash_attention: the kernel takes head_dim {HEAD_DIM}, got {d}")
     if k.shape[0] != b or k.shape[3] != d or h % hkv or sq < 1 or sk < 1:
         raise ValueError(f"flash_attention: K, V {tuple(k.shape)} do not fit q {tuple(q.shape)}")
+    if not takes(d, h // hkv):
+        raise ValueError(f"flash_attention: the kernel takes head_dim {HEAD_DIM}, got {d}")
     for name, x in (("k", k), ("v", v)):
         if x.device != q.device or x.dtype != torch.bfloat16 or not x.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be a contiguous bf16 tensor on "

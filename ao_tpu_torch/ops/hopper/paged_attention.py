@@ -34,6 +34,14 @@ HEAD_DIM = 128
 MAX_GROUP = 8
 CHUNK = 64
 
+
+def takes(head_dim: int, group: int) -> bool:
+    """Whether K9 takes this head_dim and this many query heads per kv head.
+    The paged decode route of ``serving/paged.py`` and the wrappers' own
+    checks both ask it."""
+    return head_dim == HEAD_DIM and 1 <= group <= MAX_GROUP
+
+
 _LIB = None
 
 
@@ -130,7 +138,7 @@ def _check(mode, q, k_pages, k_scale, v_pages, v_scale, block_table, lengths):
     n_pages, ps, hkv = k_pages.shape[:3]
     if d != HEAD_DIM:
         raise ValueError(f"{name}: the kernel takes head_dim {HEAD_DIM}, got {d}")
-    if h % hkv or h // hkv > MAX_GROUP:
+    if h % hkv or not takes(d, h // hkv):
         raise ValueError(f"{name}: H={h} must be a multiple of Hkv={hkv} with at most "
                          f"{MAX_GROUP} query heads per kv head")
     dev = q.device

@@ -1,7 +1,7 @@
 """Kernel backend selection + the plain PyTorch implementations of the hot ops.
 
-PyTorch port of the int4 weight-only and int8-activation parts of
-``ao_tpu/ops/kernels.py``.
+PyTorch port of ``ao_tpu/ops/kernels.py`` for int8 (weight-only and
+dynamic-activation), int4 weight-only and float8 weights.
 
 Backends:
   * "auto"  — the hand-written kernel (ops/hopper) wherever the reference
@@ -42,6 +42,15 @@ INT4_KERNEL_MAX_M = 1024
 # (the reference's gate, ao_tpu/ops/linear.py:209).
 W4A8_REQUANT_ABOVE_M = 512
 
+# Largest M the int8 weight-only kernel K10 takes (the reference's gate,
+# ao_tpu/ops/kernels.py:82); above it one torch.matmul over the int8 weight
+# cast to x's dtype, the reference's XLA path.
+INT8_KERNEL_MAX_M = 1024
+
+# torch._int_mm on the card takes M > 16 only: smaller M is padded with rows
+# of zeros up to this many (a multiple of 8)
+INT_MM_MIN_ROWS = 32
+
 
 def set_backend(name: str) -> None:
     global _BACKEND
@@ -73,6 +82,35 @@ def use_kernel(x: torch.Tensor) -> bool:
     return True
 
 
+def _is_col_major(w: torch.Tensor) -> bool:
+    return w.ndim == 2 and w.t().is_contiguous()
+
+
+# ---------------------------------------------------------------------------
+# int8 weight-only
+# ---------------------------------------------------------------------------
+
+
+def int8_wo_matmul(x, qw, sw, zw, wbs):
+    """x (M, K) hp; qw int8 (K, N); sw the rank-preserved scale
+    (ref: ao_tpu kernels.py:77). A symmetric per-output-column weight takes
+    K10 at M <= 1024 within its limits (2-D x, K and N multiples of 128,
+    the column-major weight ``Int8Array`` stores); otherwise the scale
+    applies after one matmul over the weight cast to x's dtype. Other
+    granularities dequantize, then one matmul."""
+    from ao_tpu_torch.ops.hopper import int8_matmul as k10
+
+    k, n = qw.shape[-2], qw.shape[-1]
+    if zw is None and tuple(sw.shape) == (1, n):
+        if (x.ndim == 2 and x.shape[0] <= INT8_KERNEL_MAX_M and k10.takes(k, n)
+                and _is_col_major(qw) and use_kernel(x)):
+            return k10.int8_wo_matmul(x, qw, sw)
+        y = torch.matmul(x, qw.to(x.dtype))
+        return y * sw.reshape(1, n).to(y.dtype)
+    w_dq = P.dequantize_affine(qw, wbs, sw, zw, output_dtype=x.dtype)
+    return torch.matmul(x, w_dq)
+
+
 # ---------------------------------------------------------------------------
 # int8 dynamic-activation x int8 weight
 # ---------------------------------------------------------------------------
@@ -87,8 +125,9 @@ def int8_dynamic_matmul(qx, sx, zx, qw, sw, zw, wbs, out_dtype=torch.bfloat16):
     The per-channel, per-token core is ``torch._int_mm`` (int32 out), on the
     card and on the CPU; on the card it needs M > 16 and K, N multiples of
     8, and cuBLAS runs it as the "TN" int8 GEMM when ``qw`` is column-major
-    (what the requant kernel writes). Per-group weight scales fall back to
-    dequantize + f32 matmul, as the reference does.
+    (what the requant kernel writes and ``Int8Array`` stores). Per-group
+    weight scales fall back to dequantize + f32 matmul, as the reference
+    does.
     """
     m, k = qx.shape
     n = qw.shape[-1]
@@ -102,16 +141,24 @@ def int8_dynamic_matmul(qx, sx, zx, qw, sw, zw, wbs, out_dtype=torch.bfloat16):
         w_dq = P.dequantize_affine(qw, wbs, sw, zw, output_dtype=torch.float32)
         return torch.matmul(x_dq, w_dq).to(out_dtype)
 
-    acc = torch._int_mm(qx, qw).to(torch.float32)
+    if qx.device.type == "cuda" and m <= 16:
+        # decode (M = batch): pad with zero rows to the M > 16 that
+        # torch._int_mm takes on the card; the zero rows are sliced off
+        pad = torch.zeros((INT_MM_MIN_ROWS - m, k), dtype=qx.dtype, device=qx.device)
+        acc = torch._int_mm(torch.cat([qx, pad]), qw)[:m].to(torch.float32)
+    else:
+        acc = torch._int_mm(qx, qw).to(torch.float32)
     if zx is not None:
         colsum_w = torch.sum(qw.to(torch.int32), dim=0, keepdim=True).to(torch.float32)
-        acc = acc - zx.reshape(m, 1).to(torch.float32) * colsum_w
+        # zx is per token (M, 1) or a static per-tensor (1, 1); the
+        # reference's reshape(m, 1) refuses the latter (ROADMAP Queue 3)
+        acc = acc - zx.reshape(-1, 1).to(torch.float32) * colsum_w
     if zw is not None:
         rowsum_x = torch.sum(qx.to(torch.int32), dim=1, keepdim=True).to(torch.float32)
         zw_f = zw.reshape(1, -1).to(torch.float32)
         acc = acc - rowsum_x * zw_f
         if zx is not None:
-            acc = acc + k * zx.reshape(m, 1).to(torch.float32) * zw_f
+            acc = acc + k * zx.reshape(-1, 1).to(torch.float32) * zw_f
     y = acc * sx.reshape(-1, 1).to(torch.float32) * sw.reshape(1, -1).to(torch.float32)
     return y.to(out_dtype)
 
@@ -154,3 +201,64 @@ def _int4_wo_matmul_torch(x, packed, scale, zp, group_size, zp_domain, layout):
     else:
         w_dq = P.dequantize_affine(u, bs, scale, zp, output_dtype=x.dtype)
     return torch.matmul(x, w_dq)
+
+
+# ---------------------------------------------------------------------------
+# float8
+# ---------------------------------------------------------------------------
+
+
+def fp8_wo_matmul(x, qw, sw, wbs):
+    """fp8 weight-only: dequantize to x's dtype, then one matmul
+    (ref: ao_tpu kernels.py:278)."""
+    w_dq = P.dequantize_float8(qw, wbs, sw, output_dtype=x.dtype)
+    return torch.matmul(x, w_dq)
+
+
+def _scaled_mm_takes(qx, qw) -> bool:
+    """What ``torch._scaled_mm`` takes with rowwise scales: CUDA tensors
+    (PyTorch 2.11's CPU build takes per-tensor scales only), e4m3 operands
+    (cuBLAS has no e5m2 x e5m2 product), K and N multiples of 16, qx
+    row-major and qw column-major."""
+    k, n = qw.shape
+    return (qx.device.type == "cuda" and qx.dtype == qw.dtype == torch.float8_e4m3fn
+            and k % 16 == 0 and n % 16 == 0 and qx.is_contiguous() and _is_col_major(qw))
+
+
+def fp8_dynamic_matmul(qx, sx, qw, sw, wbs, out_dtype=torch.bfloat16):
+    """fp8 activations x fp8 weights (ref: ao_tpu kernels.py:282).
+
+    * rowwise scales (sx (M, 1) or (1, 1), sw (1, N) or (1, 1)): on the
+      card one ``torch._scaled_mm`` with f32 accumulation and bf16 out (the
+      reference's ``dot_general`` outside any Pallas kernel), a single scale
+      on one side only broadcast to rowwise; on the CPU, and for operands
+      it does not take (e5m2), the same product in f32 with the same
+      epilogue, as the reference computes it;
+    * DeepSeek blockwise scales (sx (M, K/128), sw (K/128, N/128)): the
+      kernel K17 (``ops/hopper/fp8_matmul.py``) within its limits, outside
+      the "torch" backend; on the card "auto" takes it, as the H100 has fp8
+      tensor cores (the reference's "auto" keeps its kernel opt-in on TPUs
+      without them, ao_tpu/ops/kernels.py:14-18);
+    * otherwise the emulated path: dequantize both sides in f32, one matmul.
+    """
+    from ao_tpu_torch.ops.hopper import fp8_matmul as k17
+
+    m, k = qx.shape
+    n = qw.shape[-1]
+    rowwise = tuple(sx.shape) in ((m, 1), (1, 1)) and tuple(sw.shape) in ((1, n), (1, 1))
+    if rowwise:
+        sxf, swf = sx.to(torch.float32), sw.to(torch.float32)
+        if not _scaled_mm_takes(qx, qw):
+            acc = torch.matmul(qx.to(torch.float32), qw.to(torch.float32))
+            return (acc * sxf.reshape(-1, 1) * swf.reshape(1, -1)).to(out_dtype)
+        if sxf.numel() != 1 or swf.numel() != 1:
+            sxf = sxf.reshape(-1, 1).expand(m, 1).contiguous()
+            swf = swf.reshape(1, -1).expand(1, n).contiguous()
+        y = torch._scaled_mm(qx, qw, scale_a=sxf, scale_b=swf, out_dtype=torch.bfloat16)
+        return y.to(out_dtype)
+    if use_kernel(qx) and k17.takes(qx, sx, qw, sw):
+        return k17.fp8_blockwise_matmul(qx, sx, qw, sw).to(out_dtype)
+    xbs = tuple(qx.shape[i] // sx.shape[i] for i in range(qx.ndim))
+    x_dq = P.dequantize_float8(qx, xbs, sx, output_dtype=torch.float32)
+    w_dq = P.dequantize_float8(qw, wbs, sw, output_dtype=torch.float32)
+    return torch.matmul(x_dq, w_dq).to(out_dtype)

@@ -1,8 +1,10 @@
 """`ao_tpu_torch.ops.linear` — the single compute entry point for linears.
 
-PyTorch port of the plain linear and the int4 branch of
-``ao_tpu/ops/linear.py``: weight-only int4 and W4A8 (int8 dynamic
-activations x int4 weights). y = x @ W (+ b), with W either a plain tensor
+PyTorch port of the plain linear and the int8, int4 and float8 branches of
+``ao_tpu/ops/linear.py``: int8 weight-only, dynamic and static int8
+activations (W8A8); int4 weight-only, W4A8 (int8 dynamic activations x int4
+weights) and fp8 activations x int4 weights; fp8 weight-only, dynamic and
+static fp8 activations. y = x @ W (+ b), with W either a plain tensor
 (K, N) or a QuantizedArray, and x a tensor or a producer-quantized
 ``QuantizedActivation``; each container's implementation consults
 :mod:`ao_tpu_torch.ops.kernels` for its backend. The ``frozen_weight_ste``
@@ -22,8 +24,11 @@ from ao_tpu_torch.ops.dispatch import implements, lookup
 from ao_tpu_torch.ops.hopper.int4_matmul import (
     affine_qparams, int4_magic8_requant_int8, int4_w4a8_matmul,
 )
+from ao_tpu_torch.quantization import primitives as P
 from ao_tpu_torch.quantization.qarrays.base import QuantizedArray
+from ao_tpu_torch.quantization.qarrays.float8 import Float8Array
 from ao_tpu_torch.quantization.qarrays.int4 import Int4Array
+from ao_tpu_torch.quantization.qarrays.int8 import Int8Array
 
 
 def linear(x, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -51,6 +56,62 @@ def _unflatten_batch(y: torch.Tensor, lead):
 
 def _maybe_bias(y, b):
     return y if b is None else y + b.to(y.dtype)
+
+
+@implements("linear", Int8Array)
+def _int8_linear(x, w: Int8Array, b):
+    """(ref: ao_tpu ops/linear.py:132) Weight-only: ``int8_wo_matmul`` (K10).
+    With an activation spec or a static activation scale: the int8
+    activation (quantized here, or by its producer, as the SwiGLU gate of a
+    W8A8 MLP's prefill is by K12s) into ``int8_dynamic_matmul``."""
+    if isinstance(x, QuantizedActivation):
+        if w.act_pre_scale is not None:
+            raise ValueError(
+                "producer-quantized activation cannot apply this weight's "
+                "act_pre_scale (AWQ/SmoothQuant): quantize after scaling")
+        qx, lead = _flatten_batch(x.qdata)
+        y = kernels.int8_dynamic_matmul(qx, x.scale.reshape(-1, 1), None, w.qdata, w.scale,
+                                        w.zero_point, w.block_size, out_dtype=torch.bfloat16)
+        return _unflatten_batch(_maybe_bias(y, b), lead)
+    x2, lead = _flatten_batch(x)
+    if w.act_pre_scale is not None:
+        x2 = x2 * w.act_pre_scale.to(x2.dtype)
+    if w.act_quant is None and w.act_scale is None:
+        y = kernels.int8_wo_matmul(x2, w.qdata, w.scale, w.zero_point, w.block_size)
+    else:
+        if w.act_scale is not None:
+            # static (calibrated) per-tensor activation scale
+            sx = w.act_scale.reshape(1, 1)
+            zx = None if w.act_zero_point is None else w.act_zero_point.reshape(1, 1)
+            qx = P.quantize_affine(x2, tuple(x2.shape), sx, zx, -128, 127, torch.int8)
+        else:
+            qx, sx, zx = quantize_activation(x2, w.act_quant)
+        y = kernels.int8_dynamic_matmul(qx, sx, zx, w.qdata, w.scale, w.zero_point,
+                                        w.block_size, out_dtype=x.dtype)
+    return _unflatten_batch(_maybe_bias(y.to(x.dtype), b), lead)
+
+
+@implements("linear", Float8Array)
+def _float8_linear(x, w: Float8Array, b):
+    """(ref: ao_tpu ops/linear.py:296) Weight-only: dequantize + matmul.
+    With a static activation scale, or a dynamic activation spec: the fp8
+    activation into ``fp8_dynamic_matmul`` (``torch._scaled_mm`` rowwise,
+    K17 blockwise)."""
+    x2, lead = _flatten_batch(x)
+    if w.act_pre_scale is not None:
+        x2 = x2 * w.act_pre_scale.to(x2.dtype)
+    if w.act_scale is not None:
+        # static (calibrated) per-tensor activation scale; the reference
+        # clips at e4m3's 448 whatever the weight's fp8 type
+        sx = w.act_scale.reshape(1, 1).to(torch.float32)
+        qx = torch.clamp(x2.to(torch.float32) / sx, -448.0, 448.0).to(w.qdata.dtype)
+        y = kernels.fp8_dynamic_matmul(qx, sx, w.qdata, w.scale, w.block_size, out_dtype=x.dtype)
+    elif w.act_quant is None:
+        y = kernels.fp8_wo_matmul(x2, w.qdata, w.scale, w.block_size)
+    else:
+        qx, sx, _ = quantize_activation(x2, w.act_quant)
+        y = kernels.fp8_dynamic_matmul(qx, sx, w.qdata, w.scale, w.block_size, out_dtype=x.dtype)
+    return _unflatten_batch(_maybe_bias(y.to(x.dtype), b), lead)
 
 
 def _requant_scale(w: Int4Array):
@@ -101,9 +162,9 @@ def _int4_linear(x, w: Int4Array, b):
             y = int4_w4a8_matmul(qx, sx, w.qdata, w.scale, w.zero_point, w.group_size,
                                  w.zero_point_domain)
             return _unflatten_batch(_maybe_bias(y.to(x.dtype), b), lead)
-        # q/dq fallback (the "torch" backend, asymmetric or other layouts):
-        # the activation is held to its quantized values, the dot runs the
-        # weight-only int4 path
+        # q/dq fallback (fp8 activations, the "torch" backend, asymmetric or
+        # other layouts): the activation is held to its quantized values, the
+        # dot runs the weight-only int4 path
         x2 = qx.to(torch.float32) * sx
         if zx is not None:
             x2 = x2 - (zx * sx)

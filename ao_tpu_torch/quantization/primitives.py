@@ -1,7 +1,10 @@
-"""Affine quantization primitives — functional and blockwise, on tensors.
+"""Affine and float8 quantization primitives — functional and blockwise, on
+tensors.
 
-PyTorch port of the integer subset of ``ao_tpu/quantization/primitives.py``
-(min/max affine and the tinygemm float-zero-point variant). Every function
+PyTorch port of the integer and float8 subsets of
+``ao_tpu/quantization/primitives.py`` (min/max affine, the tinygemm
+float-zero-point variant, and the float8 scale / quantize / dequantize).
+Every function
 keeps the reference's order of float32 operations, so qparams and quantized
 values are bit-identical to the JAX package's: ``torch.round`` and
 ``jnp.round`` both round half to even.
@@ -53,6 +56,11 @@ _DTYPE_RANGES = {
     "int32": (-(2**31), 2**31 - 1),
 }
 
+_FLOAT8_MAX = {
+    "float8_e4m3fn": 448.0,
+    "float8_e5m2": 57344.0,
+}
+
 EPS = 1.1920928955078125e-07  # float32 machine eps, torch.finfo(torch.float32).eps
 
 
@@ -63,6 +71,15 @@ def dtype_range(dtype) -> Tuple[int, int]:
     if name in _DTYPE_RANGES:
         return _DTYPE_RANGES[name]
     raise ValueError(f"no integer range for dtype {name}")
+
+
+def float_dtype_max(dtype) -> float:
+    """Largest finite value of a float dtype (a torch dtype or its name):
+    448 for e4m3fn, 57344 for e5m2. (ref: ao_tpu primitives.py:77)"""
+    name = dtype if isinstance(dtype, str) else str(dtype).removeprefix("torch.")
+    if name in _FLOAT8_MAX:
+        return _FLOAT8_MAX[name]
+    return float(torch.finfo(getattr(torch, name)).max)
 
 
 # ---------------------------------------------------------------------------
@@ -84,6 +101,11 @@ def blocked_shape(shape: Sequence[int], block_size: Sequence[int]) -> Tuple[int,
     for s, b in zip(shape, block_size):
         out.extend((s // b, b))
     return tuple(out)
+
+
+def scale_shape(shape: Sequence[int], block_size: Sequence[int]) -> Tuple[int, ...]:
+    """The rank-preserved shape of one qparam per block."""
+    return tuple(s // b for s, b in zip(shape, block_size))
 
 
 def to_blocks(x: torch.Tensor, block_size: Sequence[int]) -> torch.Tensor:
@@ -284,6 +306,61 @@ def dequantize_affine_tinygemm(
         return v * s.to(torch.float32) + zp.to(torch.float32)
 
     out = apply_blockwise(q, block_size, _dq, scale, zero_point)
+    return out.to(output_dtype)
+
+
+# ---------------------------------------------------------------------------
+# float8
+# ---------------------------------------------------------------------------
+
+
+def _float8_torch_dtype(dtype) -> torch.dtype:
+    return getattr(torch, dtype) if isinstance(dtype, str) else dtype
+
+
+def choose_scale_float8(
+    x: torch.Tensor,
+    block_size: Sequence[int],
+    float8_dtype=torch.float8_e4m3fn,
+    value_lb: Optional[float] = None,
+    value_ub: Optional[float] = None,
+) -> torch.Tensor:
+    """scale = max(amax, eps) / max_pos per block, with optional lower and
+    upper clamps on amax. (ref: ao_tpu primitives.py:324)"""
+    amax = block_reduce(x.to(torch.float32), block_size, "absmax")
+    if value_lb is not None:
+        amax = torch.clamp_min(amax, value_lb)
+    if value_ub is not None:
+        amax = torch.clamp_max(amax, value_ub)
+    return torch.clamp_min(amax, EPS) / float_dtype_max(float8_dtype)
+
+
+def quantize_float8(
+    x: torch.Tensor, block_size: Sequence[int], scale: torch.Tensor,
+    float8_dtype=torch.float8_e4m3fn,
+) -> torch.Tensor:
+    """clip(x / scale, +-max_pos) cast to the float8 type (round to nearest
+    even, as JAX's cast). (ref: ao_tpu primitives.py:342)"""
+    max_pos = float_dtype_max(float8_dtype)
+
+    def _q(xb, s):
+        v = xb.to(torch.float32) / s.to(torch.float32)
+        return torch.clamp(v, -max_pos, max_pos)
+
+    out = apply_blockwise(x, block_size, _q, scale)
+    return out.to(_float8_torch_dtype(float8_dtype))
+
+
+def dequantize_float8(
+    q: torch.Tensor, block_size: Sequence[int], scale: torch.Tensor,
+    output_dtype=torch.float32,
+) -> torch.Tensor:
+    """q * scale in f32, cast to ``output_dtype``. (ref: ao_tpu primitives.py:358)"""
+
+    def _dq(qb, s):
+        return qb.to(torch.float32) * s.to(torch.float32)
+
+    out = apply_blockwise(q, block_size, _dq, scale)
     return out.to(output_dtype)
 
 

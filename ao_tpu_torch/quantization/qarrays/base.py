@@ -36,6 +36,10 @@ def meta(**kwargs):
 class QuantizedArray:
     """Base for all quantized array containers (not a dataclass itself)."""
 
+    # qdata kept column-major (``common.col_major``) by from_hp and by
+    # ``weights.params_from_numpy``
+    QDATA_COL_MAJOR = False
+
     # -- to be provided by subclasses -------------------------------------
     def dequantize(self, output_dtype=torch.bfloat16) -> torch.Tensor:
         raise NotImplementedError

@@ -162,20 +162,20 @@ def paged_decode_attention_reference(q: torch.Tensor, k_pool: PagedKVPool, v_poo
 
 def paged_attention(q, k_pool: PagedKVPool, v_pool: PagedKVPool, block_table, lengths,
                     sm_scale=None) -> torch.Tensor:
-    """Dispatching entry: K9 in the pool's mode on CUDA tensors, inside the
-    reference's route (head_dim % 128 == 0, page_size % 8 == 0, H a
-    multiple of Hkv) and outside the "torch" backend; the reference's
-    gather path elsewhere. The reference also needs page_size % 128 for a
-    quantized pool (a TPU lane rule); K9 takes every page_size % 8 == 0. A
-    shape inside the route that K9 does not take makes its wrapper raise."""
+    """Dispatching entry: K9 in the pool's mode on CUDA tensors outside the
+    "torch" backend, for the shapes K9 takes (H a multiple of Hkv,
+    ``paged_attention.takes``: head_dim 128 and at most 8 query heads per
+    kv head; page_size % 8 == 0); the reference's gather path elsewhere, as
+    after the reference's UnsupportedShape. The reference also needs
+    page_size % 128 for a quantized pool (a TPU lane rule); K9 takes every
+    page_size % 8 == 0."""
     from ao_tpu_torch.ops import kernels
+    from ao_tpu_torch.ops.hopper import paged_attention as k9
 
     b, h, d = q.shape
     hkv, ps = k_pool.pages.shape[2], k_pool.page_size
     if (q.device.type == "cuda" and kernels.get_backend() != "torch"
-            and d % 128 == 0 and ps % 8 == 0 and h % hkv == 0):
-        from ao_tpu_torch.ops.hopper import paged_attention as k9
-
+            and ps % 8 == 0 and h % hkv == 0 and k9.takes(d, h // hkv)):
         if k_pool.scale is None:
             return k9.paged_decode_attention(q, k_pool.pages, v_pool.pages, block_table, lengths,
                                              sm_scale=sm_scale)

@@ -1,10 +1,13 @@
 """Carry params across from the JAX package, bit for bit.
 
 ``params_from_numpy(tree, device)`` takes the JAX package's params tree as
-numpy: plain leaves are ``np.ndarray`` (bf16 arrives as the ``ml_dtypes``
-bfloat16 dtype that ``np.asarray`` gives a bf16 ``jax.Array``), and each
-quantized container arrives as
+numpy: plain leaves are ``np.ndarray`` (bf16 and fp8 arrive as the
+``ml_dtypes`` bfloat16, float8_e4m3fn and float8_e5m2 dtypes that
+``np.asarray`` gives those ``jax.Array``s), and each quantized container
+arrives as
 ``{"__qarray__": "Int4Array", **data_fields as np.ndarray, **meta_fields}``.
+An ``Int8Array``'s or ``Float8Array``'s qdata is stored column-major, as
+their ``from_hp`` stores it (same values, same logical shape).
 The conversion from ``jax.Array`` to numpy happens on the caller's side;
 this module imports no JAX.
 """
@@ -20,14 +23,21 @@ import torch
 
 from ao_tpu_torch.quantization import primitives as P
 from ao_tpu_torch.quantization.qarrays.base import get_qarray_class
-from ao_tpu_torch.quantization.qarrays.common import ActQuantSpec
+from ao_tpu_torch.quantization.qarrays.common import ActQuantSpec, col_major
+
+# dtypes that travel as their raw bits: (numpy view, torch dtype)
+_BITS = {"bfloat16": (np.int16, torch.bfloat16),
+         "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+         "float8_e5m2": (np.uint8, torch.float8_e5m2)}
 
 
 def tensor_from_numpy(a: np.ndarray, device="cuda") -> torch.Tensor:
-    """Exact copy of ``a`` on ``device``; bf16 travels as its 16 raw bits."""
+    """Exact copy of ``a`` on ``device``; bf16 and fp8 travel as their raw
+    bits."""
     a = np.array(a, order="C", copy=True)  # writable, owned by the tensor
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    if a.dtype.name in _BITS:
+        view, dtype = _BITS[a.dtype.name]
+        return torch.from_numpy(a.view(view)).view(dtype).to(device)
     return torch.from_numpy(a).to(device)
 
 
@@ -59,6 +69,8 @@ def params_from_numpy(tree: Any, device="cuda") -> Any:
                 kwargs[f.name] = _meta_value(f.name, v)
             else:
                 kwargs[f.name] = None if v is None else tensor_from_numpy(np.asarray(v), device)
+        if cls.QDATA_COL_MAJOR:
+            kwargs["qdata"] = col_major(kwargs["qdata"])
         return cls(**kwargs)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}

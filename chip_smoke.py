@@ -15,17 +15,27 @@ From the repo root, on a machine with a CUDA device and ``nvcc``:
    The decode attention kernels over the quantized caches (K5 int8, K6 fp8,
    K7 int4, K2v int8 and e5m2) are also timed, with K2 and the paged K9 in
    its three modes (bf16; "vec8" over int8 and fp8 pools; int4), at T =
-   4096, where the cache bytes set the bound, and the flash prefill K8 at
-   S = 2048;
+   4096, where the cache bytes set the bound, K5-K7 at the slot engine's
+   decode shape, and the flash prefill K8 at S = 2048; the int8 weight-only
+   K10 and the fp8 blockwise K17 at M = 8 and 1024 over every Llama-3-8B
+   width. Then two tiny models whose attention shapes no attention kernel
+   takes (head_dim 256; 16 query heads per kv head) decode through
+   generate, a flash-route prefill and a paged step against the "torch"
+   backend, with the kernels launched only where their ``takes`` allows;
 4. drives the main paths on Llama-3-8B widths with random weights from a
    seed, each with greedy ``generate`` at batch 8, a 128-token prompt, 64
    steps and max_seq 256: int4 weight-only
    (``quantize_(params, Int4WeightOnlyConfig(group_size=128))``), W4A8
    (``quantize_(params, Int8DynamicActivationInt4WeightConfig(group_size=128))``)
    and int4 weight-only over each quantized KV cache (``kv_quant`` "int8",
-   "float8_e4m3fn", "int4", "float8_e5m2"), and int4 weight-only with the
-   flash-attention
-   prefill (``use_flash=True``). For each it sets every launch counter to 0
+   "float8_e4m3fn", "int4", "float8_e5m2"), int4 weight-only with the
+   flash-attention prefill (``use_flash=True``), and, one quantized model
+   on the card at a time, int8 weight-only (``Int8WeightOnlyConfig()``:
+   K10), W8A8 (``Int8DynamicActivationInt8WeightConfig()``: torch._int_mm,
+   K12s at prefill), fp8 rowwise
+   (``Float8DynamicActivationFloat8WeightConfig()``: torch._scaled_mm) and
+   fp8 blockwise (``granularity=PerBlock((128, 128))``: K17), each timed
+   over one round. For each it sets every launch counter to 0
    just before the call and checks the counts just after (every kernel of
    the path, exactly as the model predicts), checks that the tokens are well
    formed, and that a two-layer cut of the same model gives the plain
@@ -64,11 +74,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s; dense bf16 and int8
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s; dense bf16, int8 and fp8
 # tensor-core rates; f32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
 INT8_OPS_PER_S = 1979e12
+FP8_FLOPS_PER_S = 1979e12
 F32_FLOPS_PER_S = 67e12
 
 K1_SQNR_DB = 45.0  # the JAX suite's bound for the int4 kernel (tests/test_pallas_interpret.py)
@@ -76,6 +87,8 @@ K2_SQNR_DB = 40.0  # decode attention: f32 scores and softmax in both versions
 K3_SQNR_DB = 45.0  # the JAX suite's bound for the W4A8 kernel (tests/test_pallas_interpret.py)
 LSB_FRACTION = 0.01  # K4, K12: at most 1 LSB off on under 1 % of values (the JAX suite's bound)
 K12_SCALE_RTOL = 1e-6
+K10_SQNR_DB = 45.0  # the JAX suite's bound for the int8 kernel (tests/test_pallas_interpret.py)
+K17_SQNR_DB = 30.0  # the JAX suite's bound for the fp8 blockwise kernel, strictly above
 PATH_SQNR_DB = 30.0  # two-layer logits, kernel route against the plain route (see check_logits)
 # W4A8 and quantized caches: within 3 dB of the plain route's own nudge floor
 # where that is below PATH_SQNR_DB + 3 (see check_logits), and never below
@@ -94,9 +107,21 @@ K1_SHAPES = [(m, k, n) for m in (BATCH, 128, 512, BATCH * PROMPT)
              for k, n in ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
                           (4096, 128256))]
 K1_REPORTED = (8, 4096, 14336)  # the decode shape that moves the most weight bytes per layer
-# every (K, N) of the W4A8 path: K3 at decode (M = B), K4 once per prefill linear
-W4A8_KN = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]
+# every (K, N) of Llama-3-8B's linears: wq/wo, wk/wv, w1/w3, w2, lm_head; the
+# W4A8 path gives them to K3 at decode (M = B) and to K4 once per prefill
+LLAMA_KN = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]
+W4A8_KN = LLAMA_KN
 KN_REPORTED = (4096, 14336)
+# K10 (int8-WO) and K17 (fp8 blockwise) at decode (M = B) and at generate's
+# prefill (M = B * prompt) over every Llama width
+WEIGHT_SHAPES = [(m, k, n) for m in (BATCH, BATCH * PROMPT) for k, n in LLAMA_KN]
+WEIGHT_REPORTED = ((BATCH, 4096, 14336), (BATCH * PROMPT, 4096, 4096))
+# the int8 and fp8 weight paths of generate, all over a bf16 KV (K2); their
+# configs in weight_config
+WEIGHT_PATHS = ("int8-WO", "W8A8", "fp8-row", "fp8-block")
+# F1: two tiny models whose attention shapes no attention kernel takes
+F1_CONFIGS = {"head_dim256": dict(n_heads=4, n_kv_heads=2, qk_head_dim=256),
+              "group16": dict(n_heads=16, n_kv_heads=1, qk_head_dim=128)}
 K12_SHAPE = (BATCH, PROMPT, 14336)  # the prefill SwiGLU gate
 K2_SHAPE = dict(b=8, h=32, hkv=8, d=128, t=256)
 K2_LENGTHS = [1, 256, 17, 64, 65, 128, 200, 255]  # ragged, with 1 and T
@@ -392,6 +417,215 @@ def k12_phase(torch, fails, seed):
     return kernel_row("K12s silu_mul_quant", "B={} T={} D={}".format(*K12_SHAPE), q, qr,
                       f"q: {frac:.6%} of values 1 LSB off ({over} more); scales rtol {rel:.3g}",
                       ms, plain_ms, None, nbytes, ops, F32_FLOPS_PER_S)
+
+
+def k10_phase(torch, fails, seed):
+    """K10 at every (M, K, N) of the int8-WO path: a random bf16 weight
+    quantized per output column, as Int8WeightOnlyConfig does."""
+    from ao_tpu_torch.ops.hopper import int8_matmul as k10
+    from ao_tpu_torch.quantization.primitives import compute_error
+    from ao_tpu_torch.quantization.qarrays.int8 import Int8Array
+    from ao_tpu_torch.utils.timing import cuda_time_ms
+
+    rows = {}
+    gen = torch.Generator(device=DEV).manual_seed(seed + 12)
+    for m, k, n in WEIGHT_SHAPES:
+        w = (torch.randn((k, n), generator=gen, device=DEV) * k ** -0.5).to(torch.bfloat16)
+        qa = Int8Array.from_hp(w, (k, 1))
+        del w
+        x = torch.randn((m, k), generator=gen, device=DEV).to(torch.bfloat16)
+        got = k10.int8_wo_matmul(x, qa.qdata, qa.scale)
+        ref = k10.int8_wo_matmul_plain(x, qa.qdata, qa.scale)
+        torch.cuda.synchronize()
+        sqnr = float(compute_error(ref, got))
+        fails.check(bool(torch.isfinite(got).all()) and sqnr >= K10_SQNR_DB,
+                    f"K10 int8_wo_matmul {(m, k, n)}: sqnr {sqnr:.2f} dB < {K10_SQNR_DB}")
+        ms = cuda_time_ms(lambda: k10._launch(x, qa.qdata, qa.scale), iters=20)
+        plain_ms = cuda_time_ms(lambda: k10.int8_wo_matmul_plain(x, qa.qdata, qa.scale),
+                                iters=3, warmup=1)
+        w_dq = qa.dequantize(torch.bfloat16)
+        library_ms = cuda_time_ms(lambda: torch.matmul(x, w_dq), iters=10)
+        del w_dq
+        nbytes, flops = k10.traffic(m, k, n)
+        rows[(m, k, n)] = kernel_row("K10 int8_wo_matmul", f"M={m} K={k} N={n}", got, ref,
+                                     f"sqnr {sqnr:.2f} dB (>= {K10_SQNR_DB})", ms, plain_ms,
+                                     library_ms, nbytes, flops)
+        del qa, x, got, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
+def scaled_mm_blockwise(torch, qx, sx, qw, sw, ref):
+    """The library yardstick of K17: (callable, what it is). One
+    ``torch._scaled_mm`` with 1 x 128 and 128 x 128 f32 block scales where
+    the installed PyTorch takes them (scales as given, or K-block-major) and
+    its result agrees with the plain version at the kernel's bound; else
+    bf16 ``torch.matmul`` on the dequantized operands."""
+    from ao_tpu_torch.quantization.primitives import compute_error
+
+    for a, b, how in ((sx, sw, "scales row-major"),
+                      (sx.t().contiguous().t(), sw.t().contiguous().t(), "scales K-block-major")):
+        try:
+            y = torch._scaled_mm(qx, qw, scale_a=a, scale_b=b, out_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+        except (RuntimeError, ValueError, TypeError) as e:
+            print(f"  torch._scaled_mm blockwise ({how}) refused: {str(e).splitlines()[0][:160]}",
+                  flush=True)
+            continue
+        sqnr = float(compute_error(ref, y))
+        if sqnr > K17_SQNR_DB:
+            return (lambda: torch._scaled_mm(qx, qw, scale_a=a, scale_b=b,
+                                             out_dtype=torch.bfloat16),
+                    f"torch._scaled_mm blockwise ({how}; {sqnr:.1f} dB vs the plain version)")
+        print(f"  torch._scaled_mm blockwise ({how}) disagrees: {sqnr:.2f} dB", flush=True)
+    x_dq = (qx.to(torch.float32) * sx.repeat_interleave(128, dim=1)).to(torch.bfloat16)
+    w_dq = (qw.to(torch.float32) * sw.repeat_interleave(128, dim=0).repeat_interleave(
+        128, dim=1)).to(torch.bfloat16)
+    return (lambda: torch.matmul(x_dq, w_dq),
+            "bf16 torch.matmul on the dequantized operands")
+
+
+def k17_phase(torch, fails, seed):
+    """K17 at every (M, K, N) of the fp8-block path: a random bf16 weight in
+    128 x 128 blocks and an activation quantized per 1 x 128 block, as
+    Float8DynamicActivationFloat8WeightConfig(PerBlock((128, 128))) does."""
+    from ao_tpu_torch.ops.act_quant import quantize_activation
+    from ao_tpu_torch.ops.hopper import fp8_matmul as k17
+    from ao_tpu_torch.quantization.primitives import compute_error
+    from ao_tpu_torch.quantization.qarrays.common import ActQuantSpec
+    from ao_tpu_torch.quantization.qarrays.float8 import Float8Array
+    from ao_tpu_torch.utils.timing import cuda_time_ms
+
+    rows = {}
+    spec = ActQuantSpec(dtype="float8_e4m3fn", granularity="per_group:128")
+    gen = torch.Generator(device=DEV).manual_seed(seed + 13)
+    for m, k, n in WEIGHT_SHAPES:
+        w = (torch.randn((k, n), generator=gen, device=DEV) * k ** -0.5).to(torch.bfloat16)
+        qa = Float8Array.from_hp(w, (128, 128))
+        del w
+        x = torch.randn((m, k), generator=gen, device=DEV).to(torch.bfloat16)
+        qx, sx, _ = quantize_activation(x, spec)
+        got = k17.fp8_blockwise_matmul(qx, sx, qa.qdata, qa.scale)
+        ref = k17.fp8_blockwise_matmul_plain(qx, sx, qa.qdata, qa.scale)
+        torch.cuda.synchronize()
+        sqnr = float(compute_error(ref, got))
+        fails.check(bool(torch.isfinite(got).all()) and sqnr > K17_SQNR_DB,
+                    f"K17 fp8_blockwise_matmul {(m, k, n)}: sqnr {sqnr:.2f} dB <= {K17_SQNR_DB}")
+        ms = cuda_time_ms(lambda: k17._launch(qx, sx, qa.qdata, qa.scale), iters=20)
+        plain_ms = cuda_time_ms(lambda: k17.fp8_blockwise_matmul_plain(qx, sx, qa.qdata,
+                                                                       qa.scale),
+                                iters=2, warmup=1)
+        lib_fn, lib_what = scaled_mm_blockwise(torch, qx, sx, qa.qdata, qa.scale, ref)
+        library_ms = cuda_time_ms(lib_fn, iters=10)
+        print(f"  K17 {(m, k, n)} library yardstick: {lib_what}", flush=True)
+        nbytes, flops = k17.traffic(m, k, n)
+        rows[(m, k, n)] = kernel_row("K17 fp8_blockwise_matmul", f"M={m} K={k} N={n}", got, ref,
+                                     f"sqnr {sqnr:.2f} dB (> {K17_SQNR_DB})", ms, plain_ms,
+                                     library_ms, nbytes, flops, FP8_FLOPS_PER_S)
+        del qa, x, qx, sx, got, ref, lib_fn
+        torch.cuda.empty_cache()
+    return rows
+
+
+def f1_phase(torch, fails, counters):
+    """F1: two tiny bf16 models whose attention shapes the kernels do not
+    take (head_dim 256; 16 query heads per kv head) decode on the card
+    through generate (bf16 and int8 KV), a flash-route prefill and a paged
+    decode step. Their greedy tokens equal the "torch" backend's (the same
+    einsum attention, no kernel in between); the flash prefill (K8 takes
+    the 16-head group, not head_dim 256) and the paged step's logits are
+    held to the "torch" backend's at 30 dB; the attention kernels launch
+    only where they take the shape."""
+    import ao_tpu_torch
+    from ao_tpu_torch.models import llama
+    from ao_tpu_torch.ops import kernels
+    from ao_tpu_torch.quantization.primitives import compute_error
+    from ao_tpu_torch.serving.paged import PagedKVPool
+
+    for name, kw in F1_CONFIGS.items():
+        cfg = llama.LlamaConfig(vocab_size=512, dim=512, n_layers=2, ffn_dim=1024,
+                                tie_embeddings=False, **kw)
+        params = llama.init_params(cfg, torch.Generator(device=DEV).manual_seed(SEED),
+                                   device=DEV)
+        prompt = torch.randint(0, cfg.vocab_size, (2, 16), device=DEV, dtype=torch.int32,
+                               generator=torch.Generator(device=DEV).manual_seed(SEED + 1))
+        for c in counters.values():
+            c.launches = 0
+        for kv in (None, "int8"):
+            got = ao_tpu_torch.generate(params, prompt, cfg, num_steps=8, max_seq=32,
+                                        kv_quant=kv)
+            with kernels.backend("torch"):
+                want = ao_tpu_torch.generate(params, prompt, cfg, num_steps=8, max_seq=32,
+                                             kv_quant=kv)
+            same = bool(torch.equal(got, want))
+            print(f"F1 {name} (head_dim {cfg.head_dim}, {cfg.n_heads // cfg.n_kv_heads} query "
+                  f"heads per kv head), generate over {kv or 'bf16'} KV: tokens equal to the "
+                  f"torch backend's: {same}", flush=True)
+            fails.check(same, f"F1 {name} {kv or 'bf16'} KV: generate differs from torch's")
+
+        def flash_and_paged():
+            caches = llama.init_kv_caches(cfg, 2, 128, device=DEV)
+            pre, caches = llama.forward(params, prompt, cfg, kv_caches=caches, cache_index=0,
+                                        use_flash=True)
+            pools = [tuple(PagedKVPool.create(5, 16, cfg.n_kv_heads, cfg.head_dim, "bf16",
+                                              device=DEV) for _ in range(2))
+                     for _ in range(cfg.n_layers)]
+            table = torch.tensor([[1, 3], [2, 4]], dtype=torch.int32, device=DEV)
+            for (kp, vp), (ck, cv) in zip(pools, caches):
+                for i in range(2):
+                    kp.write_prompt(ck[i, :32], table[i])
+                    vp.write_prompt(cv[i, :32], table[i])
+            lens = torch.full((2,), 16, dtype=torch.int32, device=DEV)
+            step, _ = llama.forward(params, prompt[:, -1:], cfg, positions=lens[:, None],
+                                    kv_caches=pools, cache_index=(table, lens))
+            return pre, step
+
+        got = flash_and_paged()
+        with kernels.backend("torch"):
+            want = flash_and_paged()
+        for what, g, w in zip(("flash-route prefill", "paged decode step"), got, want):
+            sqnr = float(compute_error(w, g))
+            print(f"F1 {name} {what} logits vs the torch backend: sqnr {sqnr:.2f} dB "
+                  f"(>= {PATH_SQNR_DB})", flush=True)
+            fails.check(bool(torch.isfinite(g).all()) and sqnr >= PATH_SQNR_DB,
+                        f"F1 {name} {what}: sqnr {sqnr:.2f} dB")
+        launched = {k: c.launches for k, c in counters.items() if c.launches}
+        want = {"flash_attention": cfg.n_layers} if name == "group16" else {}
+        print(f"F1 {name}: kernel launches {launched} (want {want})", flush=True)
+        fails.check(launched == want, f"F1 {name}: launches {launched} != {want}")
+
+
+def linear_scratch(torch, fails, tag, qw):
+    """One linear of the path's quantized (K, N) weight at decode (M = B):
+    the device memory it allocates beyond its output must stay below a
+    quarter of the weight's bytes, so no kernel copies or dequantizes the
+    weight per call (the GEMMs read the column-major qdata as stored). The
+    decode step's kernels are in ``profile_decode``'s lines."""
+    from ao_tpu_torch.ops.linear import linear
+
+    k, n = qw.shape
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 14)
+    x = torch.randn((BATCH, k), generator=gen, device=DEV).to(torch.bfloat16)
+    linear(x, qw)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    y = linear(x, qw)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base - y.numel() * y.element_size()
+    print(f"{tag} one linear M={BATCH} K={k} N={n}: scratch beyond the output "
+          f"{extra / 2 ** 20:.2f} MiB (weight {k * n / 2 ** 20:.1f} MiB)", flush=True)
+    fails.check(extra < k * n // 4,
+                f"{tag} linear M={BATCH}: {extra} bytes of scratch, a copy of the weight?")
+
+
+def weight_config(ao_tpu_torch, tag):
+    """The quantization config of an int8 or fp8 weight path."""
+    return {"int8-WO": ao_tpu_torch.Int8WeightOnlyConfig(),
+            "W8A8": ao_tpu_torch.Int8DynamicActivationInt8WeightConfig(),
+            "fp8-row": ao_tpu_torch.Float8DynamicActivationFloat8WeightConfig(),
+            "fp8-block": ao_tpu_torch.Float8DynamicActivationFloat8WeightConfig(
+                granularity=ao_tpu_torch.PerBlock((128, 128)))}[tag]
 
 
 def k8_phase(torch, fails, seed, b, sq, sk):
@@ -895,8 +1129,10 @@ def main() -> int:
     from ao_tpu_torch.ops.hopper import build
     from ao_tpu_torch.ops.hopper import decode_attention as k2
     from ao_tpu_torch.ops.hopper import flash_attention as k8
+    from ao_tpu_torch.ops.hopper import fp8_matmul as k17
     from ao_tpu_torch.ops.hopper import fused_act as k12
     from ao_tpu_torch.ops.hopper import int4_matmul as k1
+    from ao_tpu_torch.ops.hopper import int8_matmul as k10
     from ao_tpu_torch.ops.hopper import paged_attention as k9
 
     t_start = time.perf_counter()
@@ -938,6 +1174,11 @@ def main() -> int:
                              kv),
                     k9_phase(torch, fails, SEED, long_lengths, T_LONG // PAGE, kv))
                for kv in (None,) + KV_QUANT}
+    # K5-K7 at the slot engine's decode shape, where they launch
+    engine_kv_rows = {kv: kv_phase(torch, fails, SEED, kv, t=ENGINE_CFG["max_seq"],
+                                   lengths=ENGINE_LENGTHS) for kv in KV_QUANT}
+    k10_rows = k10_phase(torch, fails, SEED)
+    k17_rows = k17_phase(torch, fails, SEED)
 
     # -- the main paths: Llama-3-8B widths, int4-WO and W4A8, greedy generate
     cfg = llama.LLAMA3_8B
@@ -961,6 +1202,9 @@ def main() -> int:
                 "paged_decode_attention_vec8": k9.paged_decode_attention_vec8,
                 "paged_decode_attention_int4": k9.paged_decode_attention_int4}
     counters.update({name: getattr(k2, name) for name, _, _ in KV_KERNELS.values()})
+    counters.update({"int8_wo_matmul": k10.int8_wo_matmul,
+                     "fp8_blockwise_matmul": k17.fp8_blockwise_matmul})
+    f1_phase(torch, fails, counters)
     linears = 7 * cfg.n_layers + 1  # q, k, v, o, w1, w3, w2 per layer, and the lm_head
     decode_attn = cfg.n_layers * (STEPS - 1)
     launches = {}
@@ -1010,6 +1254,49 @@ def main() -> int:
     for tag, p, kv in runs:
         profile_decode(torch, p, cfg, prompt, tag, kv_quant=kv)
 
+    # -- the int8 and fp8 weight paths, one quantized model on the card at a
+    # time: launch counts, tokens, two-layer logits, tok/s over one round and
+    # a profile each, beside the bf16 and int4-WO numbers above
+    del wparams
+    torch.cuda.empty_cache()
+    weight_want = {"int8-WO": {"int8_wo_matmul": linears * STEPS},
+                   "W8A8": {"silu_mul_quant": cfg.n_layers}, "fp8-row": {},
+                   "fp8-block": {"fp8_blockwise_matmul": linears * STEPS}}
+    for tag in WEIGHT_PATHS:
+        t0 = time.perf_counter()
+        pw = ao_tpu_torch.quantize_(params, weight_config(ao_tpu_torch, tag))
+        torch.cuda.synchronize()
+        print(f"{tag}: quantize_ {time.perf_counter() - t0:.1f} s", flush=True)
+        want = {name: 0 for name in counters}
+        want.update(weight_want[tag], decode_attention=decode_attn)
+        for c in counters.values():
+            c.launches = 0
+        toks = ao_tpu_torch.generate(pw, prompt, cfg, num_steps=STEPS, max_seq=MAX_SEQ)
+        torch.cuda.synchronize()
+        got = {name: c.launches for name, c in counters.items()}
+        launches[tag] = got
+        print(f"{tag} main path launches: {got} (want {want})", flush=True)
+        fails.check(got == want, f"{tag} launch counts {got} != {want}")
+        fails.check(toks.shape == (BATCH, STEPS) and toks.dtype == torch.int32
+                    and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+                    f"{tag} tokens {tuple(toks.shape)} {toks.dtype} out of shape or range")
+        if tag == "int8-WO":
+            check_logits(torch, fails, pw, cfg, SEED, tag)
+        else:
+            # an activation quantizer on every linear: the calibrated bound;
+            # 8 x 80 = 640 prefill rows run W8A8's SwiGLU gate through K12s
+            check_logits(torch, fails, pw, cfg, SEED, tag, batch=BATCH, prompt_len=80,
+                         floor_margin_db=FLOOR_MARGIN_DB)
+        tps.update(generate_tok_per_s(torch, ao_tpu_torch.generate, [(tag, pw, None)], prompt,
+                                      cfg, STEPS, rounds=1))
+        print(f"{tag} generate (B={BATCH}, prompt {PROMPT}, {STEPS} steps, one round) on "
+              f"{card}: {tps[tag]:.1f} tok/s (int4-WO {tps['int4-WO']:.1f}, bf16 "
+              f"{tps['bf16']:.1f} in this call)", flush=True)
+        profile_decode(torch, pw, cfg, prompt, tag)
+        linear_scratch(torch, fails, tag, pw["layers"][0]["mlp"]["w1"])
+        del pw, toks
+        torch.cuda.empty_cache()
+
     # -- the serving engine: the same requests in both KV layouts, over a
     # bf16 KV and over each quantized KV
     requests = engine_requests(SEED, cfg.vocab_size)
@@ -1057,6 +1344,14 @@ def main() -> int:
     rows += [("flash_attention", "flash_attention.cu", "flash_attention.py:94",
               "int4-WO+flash" if shape[0] > 1 else "engine-slots", k8_rows[shape])
              for shape in K8_SHAPES]
+    rows += [(KV_KERNELS[kv][0], "decode_attention_quant.cu", ref, engine_tag(False, kv),
+              engine_kv_rows[kv])
+             for kv, ref in zip(KV_QUANT, ("decode_attention.py:138", "decode_attention.py:598",
+                                           "decode_attention.py:471"))]
+    rows += [("int8_wo_matmul", "int8_matmul.cu", "int8_matmul.py:70", "int8-WO", k10_rows[shape])
+             for shape in WEIGHT_REPORTED]
+    rows += [("fp8_blockwise_matmul", "fp8_matmul.cu", "fp8_matmul.py:80", "fp8-block",
+              k17_rows[shape]) for shape in WEIGHT_REPORTED]
     rows += [(POOL_KERNELS[kv], "paged_attention.cu", "paged_attention.py:189",
               engine_tag(True, kv), row) for kv in (None,) + KV_QUANT for row in k9_rows[kv]]
     entries = [dict(name=name, route="cuda", source=f"ao_tpu_torch/csrc/{src}",

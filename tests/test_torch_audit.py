@@ -41,6 +41,10 @@ def test_port_imports_no_jax(path):
 def test_port_has_the_slice_modules():
     rel = {str(p.relative_to(ROOT)) for p in _port_files()}
     for mod in ("ao_tpu_torch/quantization/primitives.py", "ao_tpu_torch/quantization/qarrays/int4.py",
+                "ao_tpu_torch/quantization/granularity.py",
+                "ao_tpu_torch/quantization/qarrays/int8.py",
+                "ao_tpu_torch/quantization/qarrays/float8.py",
+                "ao_tpu_torch/ops/hopper/int8_matmul.py", "ao_tpu_torch/ops/hopper/fp8_matmul.py",
                 "ao_tpu_torch/quantization/configs.py", "ao_tpu_torch/ops/act_quant.py",
                 "ao_tpu_torch/ops/kernels.py", "ao_tpu_torch/ops/linear.py",
                 "ao_tpu_torch/ops/hopper/int4_matmul.py", "ao_tpu_torch/ops/hopper/decode_attention.py",
@@ -52,7 +56,8 @@ def test_port_has_the_slice_modules():
                 "ao_tpu_torch/weights.py", "chip_smoke.py"):
         assert mod in rel, mod
     for src in ("int4_matmul.cu", "decode_attention.cu", "decode_attention_quant.cu",
-                "int4_w4a8.cu", "fused_act.cu", "flash_attention.cu", "paged_attention.cu"):
+                "int4_w4a8.cu", "fused_act.cu", "flash_attention.cu", "paged_attention.cu",
+                "int8_matmul.cu", "fp8_matmul.cu"):
         assert (ROOT / "ao_tpu_torch" / "csrc" / src).exists()
     from ao_tpu_torch.ops.hopper import build
 

@@ -15,8 +15,10 @@ from ao_tpu_torch.models import llama
 from ao_tpu_torch.ops import kernels
 from ao_tpu_torch.ops.hopper import decode_attention as k2
 from ao_tpu_torch.ops.hopper import flash_attention as k8
+from ao_tpu_torch.ops.hopper import fp8_matmul as k17
 from ao_tpu_torch.ops.hopper import fused_act as k12
 from ao_tpu_torch.ops.hopper import int4_matmul as k1
+from ao_tpu_torch.ops.hopper import int8_matmul as k10
 from ao_tpu_torch.ops.hopper import paged_attention as k9
 from ao_tpu_torch.ops.linear import _requant_scale
 from ao_tpu_torch.quantization.primitives import ZeroPointDomain, compute_error
@@ -629,3 +631,243 @@ def test_event_timing_agrees_with_the_profiler(dev):
     event_ms = timing._event_ms(lambda: a @ b, scratch, 10)
     assert 0 < prof_ms and 0 < event_ms
     assert prof_ms / 1.5 < event_ms < prof_ms * 1.5
+
+
+# ---------------------------------------------------------------------------
+# K10 and K17: int8 and fp8 weights
+
+
+def _int8_weight(dev, k, n, seed):
+    from ao_tpu_torch.quantization.qarrays.int8 import Int8Array
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w = (torch.randn((k, n), generator=gen, device=dev) * 0.05).to(torch.bfloat16)
+    return Int8Array.from_hp(w, (k, 1)), gen
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (1, 256, 128),
+    (8, 4096, 1024),    # split K over 32 units
+    (8, 512, 384),
+    (13, 1024, 256),    # two n8 tiles of batch rows, a ragged edge
+    (17, 512, 256),     # the tile kernel, one ragged 64-row block
+    (200, 1024, 512),
+    (1024, 1024, 384),  # prefill-sized M
+])
+def test_int8_wo_matmul_matches_plain(dev, m, k, n):
+    qa, gen = _int8_weight(dev, k, n, seed=m * 7 + n)
+    assert qa.qdata.stride() == (1, k)  # stored column-major
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    before = k10.int8_wo_matmul.launches
+    got = k10.int8_wo_matmul(x, qa.qdata, qa.scale)
+    torch.cuda.synchronize()
+    assert k10.int8_wo_matmul.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    ref = k10.int8_wo_matmul_plain(x, qa.qdata, qa.scale)
+    # exact products, f32 sums in another order, bf16 out: the JAX suite's
+    # bound for the int8 kernel
+    sqnr = float(compute_error(ref, got))
+    assert sqnr >= 45, f"K10 vs plain: {sqnr:.2f} dB"
+
+
+def test_int8_wo_matmul_refuses_on_the_card(dev):
+    qa, _ = _int8_weight(dev, 512, 256, seed=1)
+    x = torch.randn((8, 512), device=dev, dtype=torch.bfloat16)
+    before = k10.int8_wo_matmul.launches
+    with pytest.raises(ValueError, match="multiples of 128"):
+        k10.int8_wo_matmul(x[:, :448], qa.qdata[:448], qa.scale)
+    with pytest.raises(ValueError, match="column-major"):
+        k10.int8_wo_matmul(x, qa.qdata.contiguous(), qa.scale)
+    with pytest.raises(ValueError, match="per-column"):
+        k10.int8_wo_matmul(x, qa.qdata, qa.scale[:, :128])
+    assert k10.int8_wo_matmul.launches == before
+
+
+def _fp8_block_operands(dev, m, k, n, seed):
+    from ao_tpu_torch.ops.act_quant import quantize_activation
+    from ao_tpu_torch.quantization.qarrays.float8 import Float8Array
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w = (torch.randn((k, n), generator=gen, device=dev) * 0.05).to(torch.bfloat16)
+    qa = Float8Array.from_hp(w, (128, 128))
+    x = (torch.randn((m, k), generator=gen, device=dev) * 3).to(torch.bfloat16)
+    qx, sx, _ = quantize_activation(x, ActQuantSpec(dtype="float8_e4m3fn",
+                                                    granularity="per_group:128"))
+    return qx, sx, qa
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (1, 256, 128),
+    (8, 4096, 1024),    # split K over 32 k-blocks
+    (8, 512, 384),
+    (13, 1024, 256),    # two n8 tiles of batch rows
+    (17, 512, 256),     # the tile kernel, a ragged 32-row block
+    (100, 1024, 512),
+    (1024, 512, 256),   # prefill-sized M
+])
+def test_fp8_blockwise_matches_plain(dev, m, k, n):
+    qx, sx, qa = _fp8_block_operands(dev, m, k, n, seed=m * 3 + n)
+    assert qa.qdata.stride() == (1, k) and sx.shape == (m, k // 128)
+    before = k17.fp8_blockwise_matmul.launches
+    got = k17.fp8_blockwise_matmul(qx, sx, qa.qdata, qa.scale)
+    torch.cuda.synchronize()
+    assert k17.fp8_blockwise_matmul.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    ref = k17.fp8_blockwise_matmul_plain(qx, sx, qa.qdata, qa.scale)
+    # exact fp8 products and the same per-block promotion; f32 sums in
+    # another order, bf16 out (the JAX suite's bound is > 30 dB)
+    sqnr = float(compute_error(ref, got))
+    assert sqnr > 30, f"K17 vs plain: {sqnr:.2f} dB"
+
+
+def test_fp8_blockwise_refuses_on_the_card(dev):
+    qx, sx, qa = _fp8_block_operands(dev, 8, 512, 256, seed=2)
+    before = k17.fp8_blockwise_matmul.launches
+    with pytest.raises(ValueError, match="e4m3"):
+        k17.fp8_blockwise_matmul(qx.view(torch.float8_e5m2), sx, qa.qdata, qa.scale)
+    with pytest.raises(ValueError, match="sw"):
+        k17.fp8_blockwise_matmul(qx, sx, qa.qdata, qa.scale[:, :1])
+    with pytest.raises(ValueError, match="column-major"):
+        k17.fp8_blockwise_matmul(qx, sx, qa.qdata.contiguous(), qa.scale)
+    assert k17.fp8_blockwise_matmul.launches == before
+
+
+@pytest.mark.parametrize("m", [8, 40])
+def test_scaled_mm_rowwise_and_int_mm_at_decode(dev, m):
+    """The library GEMMs of the W8A8 and fp8 rowwise routes at decode (M = 8)
+    and above: torch._scaled_mm with per-token and per-column scales over
+    the column-major weight, and torch._int_mm with zero rows padded below
+    M = 17, each equal to the same route on the CPU up to bf16 rounding
+    (int8: exactly)."""
+    from ao_tpu_torch.ops.act_quant import quantize_activation
+    from ao_tpu_torch.quantization.qarrays.float8 import Float8Array
+
+    gen = torch.Generator(device=dev).manual_seed(m)
+    k, n = 512, 384
+    w = torch.randn((k, n), generator=gen, device=dev) * 0.05
+    x = torch.randn((m, k), generator=gen, device=dev)
+    qa = Float8Array.from_hp(w, (k, 1))
+    qx, sx, _ = quantize_activation(x, ActQuantSpec(dtype="float8_e4m3fn"))
+    got = kernels.fp8_dynamic_matmul(qx, sx, qa.qdata, qa.scale, qa.block_size)
+    ref = kernels.fp8_dynamic_matmul(qx.cpu(), sx.cpu(), qa.qdata.cpu(), qa.scale.cpu(),
+                                     qa.block_size)
+    assert got.dtype == torch.bfloat16 and float(compute_error(ref, got.cpu())) >= 45
+    q8 = ao_tpu_torch.quantize_({"w1": w}, ao_tpu_torch.Int8DynamicActivationInt8WeightConfig())
+    q8 = q8["w1"]
+    xq, sx8, _ = quantize_activation(x, q8.act_quant)
+    got = kernels.int8_dynamic_matmul(xq, sx8, None, q8.qdata, q8.scale, None, q8.block_size,
+                                      out_dtype=torch.float32)
+    ref = kernels.int8_dynamic_matmul(xq.cpu(), sx8.cpu(), None, q8.qdata.cpu(),
+                                      q8.scale.cpu(), None, q8.block_size,
+                                      out_dtype=torch.float32)
+    assert torch.equal(got.cpu(), ref)
+
+
+INT8_FP8_CONFIGS = {
+    "int8-WO": lambda: ao_tpu_torch.Int8WeightOnlyConfig(),
+    "W8A8": lambda: ao_tpu_torch.Int8DynamicActivationInt8WeightConfig(),
+    "fp8-row": lambda: ao_tpu_torch.Float8DynamicActivationFloat8WeightConfig(),
+    "fp8-block": lambda: ao_tpu_torch.Float8DynamicActivationFloat8WeightConfig(
+        granularity=ao_tpu_torch.PerBlock((128, 128))),
+}
+
+
+@pytest.mark.parametrize("name", list(INT8_FP8_CONFIGS))
+def test_generate_int8_fp8_go_through_their_kernels(dev, name):
+    """int8-WO: K10 on every linear of every forward (M <= 1024); W8A8: the
+    library int8 GEMM, K12s for each prefill SwiGLU gate; fp8 rowwise: the
+    library fp8 GEMM; fp8 blockwise: K17 on every linear. K2 at every
+    decode step; the "torch" backend's tokens on the same weights."""
+    cfg = llama.LlamaConfig(vocab_size=512, dim=512, n_layers=2, n_heads=4, n_kv_heads=2,
+                            ffn_dim=1024, tie_embeddings=False)
+    params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    qparams = ao_tpu_torch.quantize_(params, INT8_FP8_CONFIGS[name]())
+    prompt = torch.randint(0, cfg.vocab_size, (2, 8), device=dev, dtype=torch.int32)
+    counters = {"k10": k10.int8_wo_matmul, "k17": k17.fp8_blockwise_matmul,
+                "k12": k12.silu_mul_quant, "k2": k2.decode_attention, "k1": k1.int4_wo_magic}
+    for c in counters.values():
+        c.launches = 0
+    toks = ao_tpu_torch.generate(qparams, prompt, cfg, num_steps=5, max_seq=16)
+    torch.cuda.synchronize()
+    assert toks.shape == (2, 5) and toks.dtype == torch.int32
+    n_lin = 7 * cfg.n_layers + 1
+    want = dict(k10=0, k17=0, k12=0, k2=cfg.n_layers * 4, k1=0)
+    want.update({"int8-WO": dict(k10=n_lin * 5), "W8A8": dict(k12=cfg.n_layers),
+                 "fp8-row": {}, "fp8-block": dict(k17=n_lin * 5)}[name])
+    assert {key: c.launches for key, c in counters.items()} == want
+    logits, _ = llama.forward(qparams, prompt, cfg)
+    with kernels.backend("torch"):
+        plain, _ = llama.forward(qparams, prompt, cfg)
+    # bf16-level route differences; past an activation quantizer (W8A8, fp8)
+    # they turn into whole steps, so the bound there is chip_smoke.py's
+    # floor for such routes
+    need = 30 if name == "int8-WO" else 20
+    assert float(compute_error(plain, logits)) >= need
+
+
+# ---------------------------------------------------------------------------
+# F1: attention shapes outside the kernels take the einsum and gather paths
+
+F1_CONFIGS = {
+    "head_dim256": dict(n_heads=4, n_kv_heads=2, qk_head_dim=256),
+    "group16": dict(n_heads=16, n_kv_heads=1, qk_head_dim=128),
+}
+
+
+@pytest.mark.parametrize("name", list(F1_CONFIGS))
+def test_f1_shapes_outside_the_kernels_decode_like_torch(dev, name):
+    """A head_dim 256 model and one with 16 query heads per kv head decode on
+    the card through generate (bf16 and int8 KV) and a paged decode step,
+    with no decode attention kernel launched, and match the "torch" backend:
+    equal greedy tokens, and paged-step logits at >= 30 dB. A flash-route
+    prefill takes K8 for the 16-head group (K8 takes any group) and the
+    einsum path for head_dim 256, at >= 30 dB."""
+    from ao_tpu_torch.serving.paged import PagedKVPool
+
+    cfg = llama.LlamaConfig(vocab_size=512, dim=512, n_layers=2, ffn_dim=1024,
+                            tie_embeddings=False, **F1_CONFIGS[name])
+    params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 16), device=dev, dtype=torch.int32)
+    attn = (k2.decode_attention, k2.decode_attention_int8, k9.paged_decode_attention,
+            k8.flash_attention)
+    for c in attn:
+        c.launches = 0
+    for kv in (None, "int8"):
+        got = ao_tpu_torch.generate(params, prompt, cfg, num_steps=6, max_seq=32, kv_quant=kv)
+        with kernels.backend("torch"):
+            want = ao_tpu_torch.generate(params, prompt, cfg, num_steps=6, max_seq=32,
+                                         kv_quant=kv)
+        assert torch.equal(got, want), f"{name}, {kv or 'bf16'} KV"
+
+    def paged_step():
+        pools = [tuple(PagedKVPool.create(5, 16, cfg.n_kv_heads, cfg.head_dim, "bf16",
+                                          device=dev) for _ in range(2))
+                 for _ in range(cfg.n_layers)]
+        table = torch.tensor([[1, 3], [2, 4]], dtype=torch.int32, device=dev)
+        for i in range(2):
+            scratch = llama.init_kv_caches(cfg, 1, 32, device=dev)
+            llama.forward(params, prompt[i:i + 1], cfg, kv_caches=scratch, cache_index=0)
+            for (kp, vp), (sk, sv) in zip(pools, scratch):
+                kp.write_prompt(sk[0, :32], table[i])
+                vp.write_prompt(sv[0, :32], table[i])
+        lens = torch.full((2,), 16, dtype=torch.int32, device=dev)
+        logits, _ = llama.forward(params, prompt[:, -1:], cfg, positions=lens[:, None],
+                                  kv_caches=pools, cache_index=(table, lens))
+        return logits
+
+    got = paged_step()
+    with kernels.backend("torch"):
+        want = paged_step()
+    assert float(compute_error(want, got)) >= 30
+    assert [c.launches for c in attn] == [0, 0, 0, 0]
+
+    def flash_prefill():
+        caches = llama.init_kv_caches(cfg, 2, 128, device=dev)
+        return llama.forward(params, prompt, cfg, kv_caches=caches, cache_index=0,
+                             use_flash=True)[0]
+
+    got = flash_prefill()
+    with kernels.backend("torch"):
+        want = flash_prefill()
+    assert float(compute_error(want, got)) >= 30
+    assert k8.flash_attention.launches == (cfg.n_layers if name == "group16" else 0)

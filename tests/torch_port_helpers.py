@@ -36,11 +36,15 @@ def jax_to_torch(tree):
 
 
 def torch_to_numpy(t: torch.Tensor) -> np.ndarray:
-    """Exact numpy copy of a CPU tensor (bf16 as ml_dtypes bfloat16)."""
-    if t.dtype == torch.bfloat16:
-        import ml_dtypes
+    """Exact numpy copy of a CPU tensor in C order (bf16 and fp8 as their
+    ml_dtypes types)."""
+    import ml_dtypes
 
+    t = t.contiguous()
+    if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    if t.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+        return t.view(torch.uint8).numpy().view(getattr(ml_dtypes, str(t.dtype)[6:]))
     return t.numpy()
 
 
