@@ -15,7 +15,11 @@ from ao_tpu_torch.quantization.configs import (
     Float8StaticActivationFloat8WeightConfig, Float8WeightOnlyConfig, FqnToConfig,
     Int4WeightOnlyConfig, Int8DynamicActivationInt4WeightConfig,
     Int8DynamicActivationInt8WeightConfig, Int8StaticActivationInt8WeightConfig,
-    Int8WeightOnlyConfig,
+    Int8WeightOnlyConfig, NF4WeightOnlyConfig,
+)
+from ao_tpu_torch.prototype.mx import (
+    MXDynamicActivationMXWeightConfig, MXWeightOnlyConfig,
+    NVFP4DynamicActivationNVFP4WeightConfig, NVFP4WeightOnlyConfig,
 )
 from ao_tpu_torch.quantization.granularity import (
     PerAxis, PerBlock, PerGroup, PerRow, PerTensor, PerToken,
@@ -24,6 +28,9 @@ from ao_tpu_torch.quantization.primitives import MappingType, ZeroPointDomain, c
 from ao_tpu_torch.quantization.qarrays.float8 import Float8Array
 from ao_tpu_torch.quantization.qarrays.int4 import Int4Array
 from ao_tpu_torch.quantization.qarrays.int8 import Int8Array
+from ao_tpu_torch.quantization.qarrays.mx import MXArray
+from ao_tpu_torch.quantization.qarrays.nf4 import NF4Array
+from ao_tpu_torch.quantization.qarrays.nvfp4 import NVFP4Array
 from ao_tpu_torch.quantization.quantize import quantize_, quantize_params
 from ao_tpu_torch.ops.linear import linear
 from ao_tpu_torch.models import llama
@@ -48,7 +55,15 @@ __all__ = [
     "Int8DynamicActivationInt8WeightConfig",
     "Int8StaticActivationInt8WeightConfig",
     "Int8WeightOnlyConfig",
+    "MXArray",
+    "MXDynamicActivationMXWeightConfig",
+    "MXWeightOnlyConfig",
     "MappingType",
+    "NF4Array",
+    "NF4WeightOnlyConfig",
+    "NVFP4Array",
+    "NVFP4DynamicActivationNVFP4WeightConfig",
+    "NVFP4WeightOnlyConfig",
     "PageAllocator",
     "PagedKVPool",
     "PerAxis",

@@ -50,7 +50,9 @@ def producer_quant_ok(w) -> bool:
     (AWQ/SmoothQuant pre-scales multiply the activation before it is
     quantized, which the producer kernels do not do)."""
     aq = getattr(w, "act_quant", None)
-    return (aq is not None and aq.dtype == "int8" and aq.symmetric
+    # an NVFP4Array's act_quant is a flag, not a spec: the reference reads
+    # its .dtype and raises (ROADMAP Queue 3)
+    return (isinstance(aq, ActQuantSpec) and aq.dtype == "int8" and aq.symmetric
             and aq.granularity == "per_token"
             and getattr(w, "act_pre_scale", None) is None)
 

@@ -1,7 +1,10 @@
 """Kernel backend selection + the plain PyTorch implementations of the hot ops.
 
 PyTorch port of ``ao_tpu/ops/kernels.py`` for int8 (weight-only and
-dynamic-activation), int4 weight-only and float8 weights.
+dynamic-activation), int4 weight-only and float8 weights, and the routes of
+the 4-bit float and codebook weights that the reference takes in
+``ao_tpu/ops/linear.py`` (MXFP4 and NVFP4 through K14, 16-entry LUTs such as
+NF4 through K15).
 
 Backends:
   * "auto"  — the hand-written kernel (ops/hopper) wherever the reference
@@ -46,6 +49,12 @@ W4A8_REQUANT_ABOVE_M = 512
 # ao_tpu/ops/kernels.py:82); above it one torch.matmul over the int8 weight
 # cast to x's dtype, the reference's XLA path.
 INT8_KERNEL_MAX_M = 1024
+
+# Largest M the fp4 kernel K14 and the LUT kernel K15 take (the reference's
+# gates, ao_tpu/ops/linear.py:351,388,440); above it, and for shapes their
+# ``takes`` refuses, dequantize + one torch.matmul, as the reference does.
+FP4_KERNEL_MAX_M = 1024
+LUT4_KERNEL_MAX_M = 1024
 
 # torch._int_mm on the card takes M > 16 only: smaller M is padded with rows
 # of zeros up to this many (a multiple of 8)
@@ -262,3 +271,54 @@ def fp8_dynamic_matmul(qx, sx, qw, sw, wbs, out_dtype=torch.bfloat16):
     x_dq = P.dequantize_float8(qx, xbs, sx, output_dtype=torch.float32)
     w_dq = P.dequantize_float8(qw, wbs, sw, output_dtype=torch.float32)
     return torch.matmul(x_dq, w_dq).to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# fp4 (MXFP4, NVFP4) and 16-entry LUT (NF4) weight-only
+# ---------------------------------------------------------------------------
+
+
+def mxfp4_wo_matmul(x, w):
+    """x (M, K) @ an MXArray w (ref: ao_tpu/ops/linear.py:350-364): K14
+    takes an e2m1 weight in the fp4-magic layout at M <= 1024 within its
+    ``takes``; any other element type, layout or shape dequantizes to x's
+    dtype, then one matmul. Returns bf16 from K14, x.dtype otherwise."""
+    from ao_tpu_torch.ops.hopper import fp4_matmul as k14
+
+    k, n = w.shape[-2], w.shape[-1]
+    if (w.elem_dtype == "float4_e2m1fn" and w.layout == "magic" and x.ndim == 2
+            and x.shape[0] <= FP4_KERNEL_MAX_M and k14.takes(k, n) and use_kernel(x)):
+        return k14.mxfp4_wo_matmul(x, w.qdata, w.scale)
+    return torch.matmul(x, w.dequantize(x.dtype))
+
+
+def nvfp4_wo_matmul(x, w):
+    """x (M, K) @ an NVFP4Array w (ref: ao_tpu/ops/linear.py:388-403): K14
+    takes a fp4-magic weight at M <= 1024 within its ``takes`` (raw e4m3
+    scales, as an older checkpoint may hold them, are packed to pair-words
+    first, as the reference's wrapper does); otherwise dequantize to x's
+    dtype, then one matmul."""
+    from ao_tpu_torch.ops.hopper import fp4_matmul as k14
+    from ao_tpu_torch.quantization.qarrays.fp4 import pack_nvfp4_scale_pairs
+
+    k, n = w.shape[-2], w.shape[-1]
+    if (w.layout == "magic" and x.ndim == 2 and x.shape[0] <= FP4_KERNEL_MAX_M
+            and k14.takes(k, n) and use_kernel(x)):
+        sw = w.scale if w.scale.dtype == torch.int32 else pack_nvfp4_scale_pairs(w.scale)
+        return k14.nvfp4_wo_matmul(x, w.qdata, sw, w.per_tensor_scale)
+    return torch.matmul(x, w.dequantize(x.dtype))
+
+
+def lut4_wo_matmul(x, word, scalers, codebook, group_size):
+    """x (M, K) @ (codebook[codes] * scalers) over magic-layout code words
+    (K/8, N) (ref: ao_tpu/ops/linear.py:435-453): K15 at M <= 1024 within
+    its ``takes``. Returns the (M, N) bf16 product, or None where the
+    kernel does not take the call (the caller dequantizes and multiplies)."""
+    from ao_tpu_torch.ops.hopper import lut4_matmul as k15
+
+    k, n = 8 * word.shape[0], word.shape[1]
+    n_luts = 0 if codebook.ndim == 1 else codebook.shape[0]
+    if (x.ndim != 2 or x.shape[0] > LUT4_KERNEL_MAX_M
+            or not k15.takes(k, n, group_size, n_luts) or not use_kernel(x)):
+        return None
+    return k15.lut4_wo_magic(x, word, scalers, codebook, group_size)

@@ -1,10 +1,12 @@
 """`ao_tpu_torch.ops.linear` — the single compute entry point for linears.
 
-PyTorch port of the plain linear and the int8, int4 and float8 branches of
-``ao_tpu/ops/linear.py``: int8 weight-only, dynamic and static int8
-activations (W8A8); int4 weight-only, W4A8 (int8 dynamic activations x int4
-weights) and fp8 activations x int4 weights; fp8 weight-only, dynamic and
-static fp8 activations. y = x @ W (+ b), with W either a plain tensor
+PyTorch port of the plain linear and the int8, int4, float8, MX, NVFP4 and
+NF4 branches of ``ao_tpu/ops/linear.py``: int8 weight-only, dynamic and
+static int8 activations (W8A8); int4 weight-only, W4A8 (int8 dynamic
+activations x int4 weights) and fp8 activations x int4 weights; fp8
+weight-only, dynamic and static fp8 activations; MX weights (fp4 through
+K14) with optional dynamic MX activations; NVFP4 weights (K14) with
+optional dynamic NVFP4 activations; NF4 weights (K15). y = x @ W (+ b), with W either a plain tensor
 (K, N) or a QuantizedArray, and x a tensor or a producer-quantized
 ``QuantizedActivation``; each container's implementation consults
 :mod:`ao_tpu_torch.ops.kernels` for its backend. The ``frozen_weight_ste``
@@ -28,7 +30,11 @@ from ao_tpu_torch.quantization import primitives as P
 from ao_tpu_torch.quantization.qarrays.base import QuantizedArray
 from ao_tpu_torch.quantization.qarrays.float8 import Float8Array
 from ao_tpu_torch.quantization.qarrays.int4 import Int4Array
+from ao_tpu_torch.quantization.qarrays.fp4 import decode_fp4_e2m1
 from ao_tpu_torch.quantization.qarrays.int8 import Int8Array
+from ao_tpu_torch.quantization.qarrays.mx import MX_BLOCK, MXArray, e8m0_decode, to_mx
+from ao_tpu_torch.quantization.qarrays.nf4 import NF4_CODEBOOK, NF4Array
+from ao_tpu_torch.quantization.qarrays.nvfp4 import NVFP4_BLOCK, NVFP4Array, nvfp4_quantize
 
 
 def linear(x, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -173,4 +179,86 @@ def _int4_linear(x, w: Int4Array, b):
         x2, w.qdata, w.scale, w.zero_point, w.group_size, w.zero_point_domain,
         layout=w.layout,
     )
+    return _unflatten_batch(_maybe_bias(y.to(x.dtype), b), lead)
+
+
+# ---------------------------------------------------------------------------
+# MX (MXFP8 / MXFP6 / MXFP4) and NVFP4
+# ---------------------------------------------------------------------------
+
+
+@implements("linear", MXArray)
+def _mx_linear(x, w: MXArray, b):
+    """(ref: ao_tpu ops/linear.py:326) With an activation element type the
+    activation is fake-quantized to MX along K (block 32) first; then
+    ``kernels.mxfp4_wo_matmul`` (K14 for a fp4-magic weight)."""
+    x2, lead = _flatten_batch(x)
+    if w.act_elem_dtype is not None:
+        bs = (1, MX_BLOCK)
+        qx, sx = to_mx(x2, bs, w.act_elem_dtype, w.scale_mode)
+        if w.act_elem_dtype == "float4_e2m1fn":
+            vx = decode_fp4_e2m1(qx, torch.float32)
+        else:
+            vx = qx.to(torch.float32)
+        x2 = P.apply_blockwise(vx, bs, lambda v, s: v * s, e8m0_decode(sx)).to(x.dtype)
+    y = kernels.mxfp4_wo_matmul(x2, w)
+    return _unflatten_batch(_maybe_bias(y.to(x.dtype), b), lead)
+
+
+@implements("linear", NVFP4Array)
+def _nvfp4_linear(x, w: NVFP4Array, b):
+    """(ref: ao_tpu ops/linear.py:372) With ``act_quant`` the activation is
+    fake-quantized to NVFP4 along K (block 16, its own per-tensor scale or
+    the calibrated one) first; then ``kernels.nvfp4_wo_matmul`` (K14)."""
+    x2, lead = _flatten_batch(x)
+    if w.act_quant:
+        bs = (1, NVFP4_BLOCK)
+        codes, bscale, pts = nvfp4_quantize(x2, bs, per_tensor=True,
+                                            fixed_per_tensor_scale=w.act_per_tensor_scale)
+        total = bscale.to(torch.float32)
+        if pts is not None:
+            total = total * pts
+        x2 = P.apply_blockwise(decode_fp4_e2m1(codes, torch.float32), bs, lambda v, s: v * s,
+                               total).to(x.dtype)
+    y = kernels.nvfp4_wo_matmul(x2, w)
+    return _unflatten_batch(_maybe_bias(y.to(x.dtype), b), lead)
+
+
+# ---------------------------------------------------------------------------
+# NF4 and other 16-entry codebooks
+# ---------------------------------------------------------------------------
+
+_NF4_LUT = {}  # device -> the NF4 codebook in bf16, as K15 reads it
+
+
+def _nf4_lut(device: torch.device) -> torch.Tensor:
+    lut = _NF4_LUT.get(device)
+    if lut is None:
+        lut = _NF4_LUT[device] = NF4_CODEBOOK.to(device).to(torch.bfloat16)
+    return lut
+
+
+def try_lut4_linear(x2, word, scalers, codebook, group_size):
+    """The fused-LUT route of the magic-layout 16-entry-codebook containers
+    (ref: ao_tpu ops/linear.py:435): 2- and 3-bit codebooks are padded to 16
+    entries (their codes never reach the pad). Returns the (M, N) bf16
+    product, or None where K15 does not take the call (the caller
+    dequantizes and multiplies)."""
+    cb = torch.as_tensor(codebook, device=x2.device)
+    if cb.shape[-1] < 16:
+        cb = torch.nn.functional.pad(cb, (0, 16 - cb.shape[-1]))
+    return kernels.lut4_wo_matmul(x2, word, scalers, cb, group_size)
+
+
+@implements("linear", NF4Array)
+def _nf4_linear(x, w: NF4Array, b):
+    """(ref: ao_tpu ops/linear.py:456) A magic-layout weight goes through
+    the LUT kernel K15 with the scalers dequantized from int8 (per call, as
+    the reference does); otherwise dequantize + one matmul."""
+    x2, lead = _flatten_batch(x)
+    if w.layout == "magic":
+        y = try_lut4_linear(x2, w.qdata, w._scalers(), _nf4_lut(x2.device), w.block_size[0])
+        if y is not None:
+            return _unflatten_batch(_maybe_bias(y.to(x.dtype), b), lead)
+    y = torch.matmul(x2, w.dequantize(x2.dtype))
     return _unflatten_batch(_maybe_bias(y.to(x.dtype), b), lead)

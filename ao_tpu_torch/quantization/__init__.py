@@ -3,7 +3,7 @@ from ao_tpu_torch.quantization.configs import (
     Float8StaticActivationFloat8WeightConfig, Float8WeightOnlyConfig, FqnToConfig,
     Int4WeightOnlyConfig, Int8DynamicActivationInt4WeightConfig,
     Int8DynamicActivationInt8WeightConfig, Int8StaticActivationInt8WeightConfig,
-    Int8WeightOnlyConfig,
+    Int8WeightOnlyConfig, NF4WeightOnlyConfig,
 )
 from ao_tpu_torch.quantization.granularity import (
     Granularity, PerAxis, PerBlock, PerGroup, PerRow, PerTensor, PerToken, get_block_size,
@@ -12,6 +12,9 @@ from ao_tpu_torch.quantization.primitives import MappingType, ZeroPointDomain, c
 from ao_tpu_torch.quantization.qarrays.float8 import Float8Array
 from ao_tpu_torch.quantization.qarrays.int4 import Int4Array
 from ao_tpu_torch.quantization.qarrays.int8 import Int8Array
+from ao_tpu_torch.quantization.qarrays.mx import MXArray
+from ao_tpu_torch.quantization.qarrays.nf4 import NF4Array
+from ao_tpu_torch.quantization.qarrays.nvfp4 import NVFP4Array
 from ao_tpu_torch.quantization.quantize import default_filter, quantize_, quantize_params
 
 __all__ = [
@@ -29,7 +32,15 @@ __all__ = [
     "Int8DynamicActivationInt8WeightConfig",
     "Int8StaticActivationInt8WeightConfig",
     "Int8WeightOnlyConfig",
+    "MXArray",
+    "MXDynamicActivationMXWeightConfig",
+    "MXWeightOnlyConfig",
     "MappingType",
+    "NF4Array",
+    "NF4WeightOnlyConfig",
+    "NVFP4Array",
+    "NVFP4DynamicActivationNVFP4WeightConfig",
+    "NVFP4WeightOnlyConfig",
     "PerAxis",
     "PerBlock",
     "PerGroup",
@@ -43,3 +54,10 @@ __all__ = [
     "quantize_",
     "quantize_params",
 ]
+
+# the MX and NVFP4 configs (imported last: prototype.mx imports the
+# containers above)
+from ao_tpu_torch.prototype.mx import (  # noqa: E402
+    MXDynamicActivationMXWeightConfig, MXWeightOnlyConfig,
+    NVFP4DynamicActivationNVFP4WeightConfig, NVFP4WeightOnlyConfig,
+)

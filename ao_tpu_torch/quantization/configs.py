@@ -3,8 +3,9 @@
 PyTorch port of ``ao_tpu/quantization/configs.py`` up to ``FqnToConfig``:
 int4 weight-only, W4A8 and fp8-activation int4; int8 weight-only, dynamic
 and static int8 activations; fp8 weight-only, dynamic fp8 activations
-(PerRow, PerTensor, PerBlock) and static fp8 activations. Each config has a
-registered handler ``(weight, config) -> QuantizedArray``.
+(PerRow, PerTensor, PerBlock) and static fp8 activations; NF4 weight-only.
+Each config has a registered handler ``(weight, config) -> QuantizedArray``.
+The MX and NVFP4 configs are in ``ao_tpu_torch/prototype/mx.py``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from ao_tpu_torch.quantization.qarrays.common import ActQuantSpec, canon_dtype
 from ao_tpu_torch.quantization.qarrays.float8 import Float8Array
 from ao_tpu_torch.quantization.qarrays.int4 import Int4Array
 from ao_tpu_torch.quantization.qarrays.int8 import Int8Array
+from ao_tpu_torch.quantization.qarrays.nf4 import NF4Array
 
 
 def _weight_block_size(shape, granularity: Optional[Granularity]) -> Tuple[int, ...]:
@@ -275,6 +277,20 @@ def _fp8_static_transform(weight: torch.Tensor,
         weight, bs, canon_dtype(config.float8_dtype),
         act_scale=torch.tensor(config.act_scale, dtype=torch.float32, device=weight.device),
     )
+
+
+@dataclasses.dataclass
+class NF4WeightOnlyConfig(AOBaseConfig):
+    """4-bit NormalFloat (QLoRA). (ref: ao_tpu configs.py:391)"""
+
+    block_size: int = 64
+    scaler_block_size: int = 256
+    version: int = 1
+
+
+@register_quantize_handler(NF4WeightOnlyConfig)
+def _nf4_transform(weight: torch.Tensor, config: NF4WeightOnlyConfig):
+    return NF4Array.from_hp(weight, config.block_size, config.scaler_block_size)
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,11 @@ numpy: plain leaves are ``np.ndarray`` (bf16 and fp8 arrive as the
 arrives as
 ``{"__qarray__": "Int4Array", **data_fields as np.ndarray, **meta_fields}``.
 An ``Int8Array``'s or ``Float8Array``'s qdata is stored column-major, as
-their ``from_hp`` stores it (same values, same logical shape).
+their ``from_hp`` stores it (same values, same logical shape). The 4-bit
+float and codebook containers carry as they are: ``MXArray``'s e8m0 bytes
+as uint8, ``NVFP4Array``'s scale pair-words as int32 (raw e4m3 in the
+split-half layout), ``NF4Array``'s int8 quantized scalers with their f32
+factors and mean.
 The conversion from ``jax.Array`` to numpy happens on the caller's side;
 this module imports no JAX.
 """
@@ -46,7 +50,8 @@ def _meta_value(name: str, v: Any) -> Any:
         if isinstance(v, P.ZeroPointDomain):
             return v
         return P.ZeroPointDomain(v.value if isinstance(v, enum.Enum) else v)
-    if name == "act_quant" and v is not None and not isinstance(v, ActQuantSpec):
+    # an ActQuantSpec, or NVFP4Array's flag
+    if name == "act_quant" and v is not None and not isinstance(v, (ActQuantSpec, bool)):
         fields = v if isinstance(v, dict) else dataclasses.asdict(v)
         return ActQuantSpec(**fields)
     if isinstance(v, list):

@@ -17,8 +17,9 @@ From the repo root, on a machine with a CUDA device and ``nvcc``:
    its three modes (bf16; "vec8" over int8 and fp8 pools; int4), at T =
    4096, where the cache bytes set the bound, K5-K7 at the slot engine's
    decode shape, and the flash prefill K8 at S = 2048; the int8 weight-only
-   K10 and the fp8 blockwise K17 at M = 8 and 1024 over every Llama-3-8B
-   width. Then two tiny models whose attention shapes no attention kernel
+   K10, the fp8 blockwise K17, the fp4 K14 (MXFP4 and NVFP4) and the NF4
+   LUT kernel K15 at M = 8 and 1024 over every Llama-3-8B width. Then two
+   tiny models whose attention shapes no attention kernel
    takes (head_dim 256; 16 query heads per kv head) decode through
    generate, a flash-route prefill and a paged step against the "torch"
    backend, with the kernels launched only where their ``takes`` allows;
@@ -34,10 +35,14 @@ From the repo root, on a machine with a CUDA device and ``nvcc``:
    K10), W8A8 (``Int8DynamicActivationInt8WeightConfig()``: torch._int_mm,
    K12s at prefill), fp8 rowwise
    (``Float8DynamicActivationFloat8WeightConfig()``: torch._scaled_mm) and
-   fp8 blockwise (``granularity=PerBlock((128, 128))``: K17), each timed
-   over one round. For each it sets every launch counter to 0
-   just before the call and checks the counts just after (every kernel of
-   the path, exactly as the model predicts), checks that the tokens are well
+   fp8 blockwise (``granularity=PerBlock((128, 128))``: K17), MXFP4
+   (``MXWeightOnlyConfig(elem_dtype="float4_e2m1fn")``: K14), NVFP4
+   (``NVFP4WeightOnlyConfig()`` and, with dynamic fp4 activations,
+   ``NVFP4DynamicActivationNVFP4WeightConfig()``: K14) and NF4
+   (``NF4WeightOnlyConfig()``: K15), each timed over its launch-count
+   call. For each it sets every launch counter to 0 just before the call
+   and checks the counts just after (every kernel of the path, exactly as
+   the model predicts), checks that the tokens are well
    formed, and that a two-layer cut of the same model gives the plain
    route's logits; then times the tok/s of every path and of bf16 on the
    same loop, in turns, and profiles the prefill and a few decode steps of
@@ -63,6 +68,7 @@ without that line; so does a machine without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import random
@@ -89,6 +95,11 @@ LSB_FRACTION = 0.01  # K4, K12: at most 1 LSB off on under 1 % of values (the JA
 K12_SCALE_RTOL = 1e-6
 K10_SQNR_DB = 45.0  # the JAX suite's bound for the int8 kernel (tests/test_pallas_interpret.py)
 K17_SQNR_DB = 30.0  # the JAX suite's bound for the fp8 blockwise kernel, strictly above
+# K14 and K15 against their plain versions, strictly above: the JAX suite's
+# bounds for its MXFP4, NVFP4 and NF4 kernels (tests/test_pallas_interpret.py)
+K14_SQNR_DB = {"mx": 60.0, "nv": 35.0}
+K15_SQNR_DB = 40.0
+NF4_GROUP = 64  # NF4WeightOnlyConfig's block size
 PATH_SQNR_DB = 30.0  # two-layer logits, kernel route against the plain route (see check_logits)
 # W4A8 and quantized caches: within 3 dB of the plain route's own nudge floor
 # where that is below PATH_SQNR_DB + 3 (see check_logits), and never below
@@ -116,9 +127,10 @@ KN_REPORTED = (4096, 14336)
 # prefill (M = B * prompt) over every Llama width
 WEIGHT_SHAPES = [(m, k, n) for m in (BATCH, BATCH * PROMPT) for k, n in LLAMA_KN]
 WEIGHT_REPORTED = ((BATCH, 4096, 14336), (BATCH * PROMPT, 4096, 4096))
-# the int8 and fp8 weight paths of generate, all over a bf16 KV (K2); their
-# configs in weight_config
-WEIGHT_PATHS = ("int8-WO", "W8A8", "fp8-row", "fp8-block")
+# the int8, fp8, 4-bit float and NF4 weight paths of generate, all over a
+# bf16 KV (K2); their configs in weight_config
+WEIGHT_PATHS = ("int8-WO", "W8A8", "fp8-row", "fp8-block",
+                "MXFP4-WO", "NVFP4-WO", "NVFP4-dyn", "NF4-WO")
 # F1: two tiny models whose attention shapes no attention kernel takes
 F1_CONFIGS = {"head_dim256": dict(n_heads=4, n_kv_heads=2, qk_head_dim=256),
               "group16": dict(n_heads=16, n_kv_heads=1, qk_head_dim=128)}
@@ -527,6 +539,96 @@ def k17_phase(torch, fails, seed):
     return rows
 
 
+def k14_phase(torch, fails, seed, kind):
+    """K14 at every (M, K, N) of the MXFP4 ("mx") or NVFP4 ("nv") path: a
+    random bf16 weight quantized as MXWeightOnlyConfig(float4_e2m1fn) or
+    NVFP4WeightOnlyConfig do; the library yardstick is bf16 torch.matmul on
+    the dequantized weight."""
+    from ao_tpu_torch.ops.hopper import fp4_matmul as k14
+    from ao_tpu_torch.quantization.primitives import compute_error
+    from ao_tpu_torch.quantization.qarrays.mx import MXArray
+    from ao_tpu_torch.quantization.qarrays.nvfp4 import NVFP4Array
+    from ao_tpu_torch.utils.timing import cuda_time_ms
+
+    rows = {}
+    name = "mxfp4_wo_matmul" if kind == "mx" else "nvfp4_wo_matmul"
+    need = K14_SQNR_DB[kind]
+    gen = torch.Generator(device=DEV).manual_seed(seed + (15 if kind == "mx" else 16))
+    for m, k, n in WEIGHT_SHAPES:
+        w = (torch.randn((k, n), generator=gen, device=DEV) * k ** -0.5).to(torch.bfloat16)
+        qa = (MXArray.from_hp(w, elem_dtype="float4_e2m1fn") if kind == "mx"
+              else NVFP4Array.from_hp(w))
+        del w
+        x = torch.randn((m, k), generator=gen, device=DEV).to(torch.bfloat16)
+        if kind == "mx":
+            args = (qa.qdata, qa.scale)
+            launch = (k14.MX, x, qa.qdata, qa.scale, None, name)
+            got = k14.mxfp4_wo_matmul(x, *args)
+            plain = lambda: k14.mxfp4_wo_matmul_plain(x, *args)  # noqa: E731
+        else:
+            args = (qa.qdata, qa.scale, qa.per_tensor_scale)
+            launch = (k14.NV, x, qa.qdata, qa.scale, qa.per_tensor_scale, name)
+            got = k14.nvfp4_wo_matmul(x, *args)
+            plain = lambda: k14.nvfp4_wo_matmul_plain(x, *args)  # noqa: E731
+        ref = plain()
+        torch.cuda.synchronize()
+        sqnr = float(compute_error(ref, got))
+        fails.check(bool(torch.isfinite(got).all()) and sqnr > need,
+                    f"K14 {name} {(m, k, n)}: sqnr {sqnr:.2f} dB <= {need}")
+        ms = cuda_time_ms(lambda: k14._launch(*launch), iters=20)
+        plain_ms = cuda_time_ms(plain, iters=2, warmup=1)
+        w_dq = qa.dequantize(torch.bfloat16)
+        library_ms = cuda_time_ms(lambda: torch.matmul(x, w_dq), iters=10)
+        del w_dq
+        nbytes, flops = k14.traffic(m, k, n, k14.MX if kind == "mx" else k14.NV)
+        rows[(m, k, n)] = kernel_row(f"K14 {name}", f"M={m} K={k} N={n}", got, ref,
+                                     f"sqnr {sqnr:.2f} dB (> {need})", ms, plain_ms,
+                                     library_ms, nbytes, flops)
+        del qa, x, got, ref, args, launch
+        torch.cuda.empty_cache()
+    return rows
+
+
+def k15_phase(torch, fails, seed):
+    """K15 at every (M, K, N) of the NF4 path: a random bf16 weight quantized
+    as NF4WeightOnlyConfig does (block 64, scaler block 256), its scalers
+    dequantized from int8 as the linear does, the NF4 codebook shared; the
+    library yardstick is bf16 torch.matmul on the dequantized weight."""
+    from ao_tpu_torch.ops.hopper import lut4_matmul as k15
+    from ao_tpu_torch.quantization.primitives import compute_error
+    from ao_tpu_torch.quantization.qarrays.nf4 import NF4_CODEBOOK, NF4Array
+    from ao_tpu_torch.utils.timing import cuda_time_ms
+
+    rows = {}
+    lut = NF4_CODEBOOK.to(DEV).to(torch.bfloat16)
+    gen = torch.Generator(device=DEV).manual_seed(seed + 17)
+    for m, k, n in WEIGHT_SHAPES:
+        w = (torch.randn((k, n), generator=gen, device=DEV) * k ** -0.5).to(torch.bfloat16)
+        qa = NF4Array.from_hp(w, NF4_GROUP)
+        del w
+        x = torch.randn((m, k), generator=gen, device=DEV).to(torch.bfloat16)
+        sc = qa._scalers()
+        got = k15.lut4_wo_magic(x, qa.qdata, sc, lut, NF4_GROUP)
+        ref = k15.lut4_wo_magic_plain(x, qa.qdata, sc, lut, NF4_GROUP)
+        torch.cuda.synchronize()
+        sqnr = float(compute_error(ref, got))
+        fails.check(bool(torch.isfinite(got).all()) and sqnr > K15_SQNR_DB,
+                    f"K15 lut4_wo_magic {(m, k, n)}: sqnr {sqnr:.2f} dB <= {K15_SQNR_DB}")
+        ms = cuda_time_ms(lambda: k15._launch(x, qa.qdata, sc, lut, NF4_GROUP), iters=20)
+        plain_ms = cuda_time_ms(lambda: k15.lut4_wo_magic_plain(x, qa.qdata, sc, lut, NF4_GROUP),
+                                iters=2, warmup=1)
+        w_dq = qa.dequantize(torch.bfloat16)
+        library_ms = cuda_time_ms(lambda: torch.matmul(x, w_dq), iters=10)
+        del w_dq
+        nbytes, flops = k15.traffic(m, k, n, NF4_GROUP)
+        rows[(m, k, n)] = kernel_row("K15 lut4_wo_magic", f"M={m} K={k} N={n}", got, ref,
+                                     f"sqnr {sqnr:.2f} dB (> {K15_SQNR_DB})", ms, plain_ms,
+                                     library_ms, nbytes, flops)
+        del qa, x, sc, got, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
 def f1_phase(torch, fails, counters):
     """F1: two tiny bf16 models whose attention shapes the kernels do not
     take (head_dim 256; 16 query heads per kv head) decode on the card
@@ -620,12 +722,16 @@ def linear_scratch(torch, fails, tag, qw):
 
 
 def weight_config(ao_tpu_torch, tag):
-    """The quantization config of an int8 or fp8 weight path."""
+    """The quantization config of a weight path of WEIGHT_PATHS."""
     return {"int8-WO": ao_tpu_torch.Int8WeightOnlyConfig(),
             "W8A8": ao_tpu_torch.Int8DynamicActivationInt8WeightConfig(),
             "fp8-row": ao_tpu_torch.Float8DynamicActivationFloat8WeightConfig(),
             "fp8-block": ao_tpu_torch.Float8DynamicActivationFloat8WeightConfig(
-                granularity=ao_tpu_torch.PerBlock((128, 128)))}[tag]
+                granularity=ao_tpu_torch.PerBlock((128, 128))),
+            "MXFP4-WO": ao_tpu_torch.MXWeightOnlyConfig(elem_dtype="float4_e2m1fn"),
+            "NVFP4-WO": ao_tpu_torch.NVFP4WeightOnlyConfig(),
+            "NVFP4-dyn": ao_tpu_torch.NVFP4DynamicActivationNVFP4WeightConfig(),
+            "NF4-WO": ao_tpu_torch.NF4WeightOnlyConfig()}[tag]
 
 
 def k8_phase(torch, fails, seed, b, sq, sk):
@@ -957,8 +1063,27 @@ def init_caches(cfg, batch, max_seq, kv_quant):
     return llama.init_kv_caches(cfg, batch, max_seq, device=DEV)
 
 
+@contextlib.contextmanager
+def k14_as_plain():
+    """K14's wrappers run their plain versions on the card: the kernel route
+    with its quantizers and roundings, the kernel itself the only
+    difference."""
+    from ao_tpu_torch.ops.hopper import fp4_matmul as k14
+
+    def plain(kind, x, word, scale, pts, name):
+        if kind == k14.MX:
+            return k14.mxfp4_wo_matmul_plain(x, word, scale)
+        return k14.nvfp4_wo_matmul_plain(x, word, scale, pts)
+
+    saved, k14._launch = k14._launch, plain
+    try:
+        yield
+    finally:
+        k14._launch = saved
+
+
 def check_logits(torch, fails, qparams, cfg, seed, tag, batch=2, prompt_len=16,
-                 floor_margin_db=None, kv_quant=None):
+                 floor_margin_db=None, kv_quant=None, min_db=PATH_MIN_DB, isolate=None):
     """A two-layer cut of the quantized model at full width: a prefill of
     ``batch`` x ``prompt_len`` tokens and one decode step through the kernel
     route, against the plain route (the "torch" backend: dequantize +
@@ -982,7 +1107,15 @@ def check_logits(torch, fails, qparams, cfg, seed, tag, batch=2, prompt_len=16,
     way. The decode step of the kernel route reads the cache with K5, K6 or
     K7, so the check also holds its decode logits at 30 dB against the same
     linears and cache with the masked einsum attention
-    (``force_xla_attention``): there the kernel is the only difference."""
+    (``force_xla_attention``): there the kernel is the only difference.
+
+    ``min_db`` replaces PATH_MIN_DB where the quantizer is coarser than int8
+    or fp8 (NVFP4's fp4 activations, whose floor lies near 10 dB); there
+    ``isolate``, a context in which the kernels run their plain versions on
+    the card, gives the same route with the kernel as the only difference.
+    Even that difference (f32 sums in another order, a bf16 rounding
+    flipped here and there) crosses fp4 steps, so it is held to the same
+    calibrated bound and printed beside it."""
     from ao_tpu_torch.models import llama
     from ao_tpu_torch.ops import kernels
     from ao_tpu_torch.quantization.primitives import compute_error
@@ -1010,17 +1143,28 @@ def check_logits(torch, fails, qparams, cfg, seed, tag, batch=2, prompt_len=16,
         if floor_margin_db is not None:
             emb = params["embed"]
             nudged = run(dict(params, embed=(emb.float() * (1 + 2 ** -8)).to(emb.dtype)))
+    needs = []
     for i, step in enumerate(("prefill", "decode")):
         sqnr = float(compute_error(plain[i], got[i]))
         need, note = PATH_SQNR_DB, ""
         if floor_margin_db is not None:
             floor = float(compute_error(plain[i], nudged[i]))
-            need = min(PATH_SQNR_DB, max(PATH_MIN_DB, floor - floor_margin_db))
+            need = min(PATH_SQNR_DB, max(min_db, floor - floor_margin_db))
             note = f"; plain route vs itself nudged by 2^-8: {floor:.2f} dB"
         print(f"{tag} two-layer {step} logits (B={batch}, prompt {prompt_len}), kernel route vs "
               f"plain route: sqnr {sqnr:.2f} dB (>= {need:.2f}){note}", flush=True)
         fails.check(bool(torch.isfinite(got[i]).all()) and sqnr >= need,
                     f"{tag} two-layer {step} logits: sqnr {sqnr:.2f} dB < {need:.2f}")
+        needs.append(need)
+    if isolate is not None:
+        with isolate():
+            plain_kernels = run(params)
+        for i, step in enumerate(("prefill", "decode")):
+            sqnr = float(compute_error(plain_kernels[i], got[i]))
+            print(f"{tag} two-layer {step} logits, the kernels vs their plain versions in the "
+                  f"same route: sqnr {sqnr:.2f} dB (>= {needs[i]:.2f})", flush=True)
+            fails.check(sqnr >= needs[i],
+                        f"{tag} {step} logits, kernels vs plain versions: sqnr {sqnr:.2f} dB")
     if kv_quant:
         einsum = run(params, dataclasses.replace(cut, force_xla_attention=True))
         sqnr = float(compute_error(einsum[1], got[1]))
@@ -1129,10 +1273,12 @@ def main() -> int:
     from ao_tpu_torch.ops.hopper import build
     from ao_tpu_torch.ops.hopper import decode_attention as k2
     from ao_tpu_torch.ops.hopper import flash_attention as k8
+    from ao_tpu_torch.ops.hopper import fp4_matmul as k14
     from ao_tpu_torch.ops.hopper import fp8_matmul as k17
     from ao_tpu_torch.ops.hopper import fused_act as k12
     from ao_tpu_torch.ops.hopper import int4_matmul as k1
     from ao_tpu_torch.ops.hopper import int8_matmul as k10
+    from ao_tpu_torch.ops.hopper import lut4_matmul as k15
     from ao_tpu_torch.ops.hopper import paged_attention as k9
 
     t_start = time.perf_counter()
@@ -1179,6 +1325,8 @@ def main() -> int:
                                    lengths=ENGINE_LENGTHS) for kv in KV_QUANT}
     k10_rows = k10_phase(torch, fails, SEED)
     k17_rows = k17_phase(torch, fails, SEED)
+    k14_rows = {kind: k14_phase(torch, fails, SEED, kind) for kind in ("mx", "nv")}
+    k15_rows = k15_phase(torch, fails, SEED)
 
     # -- the main paths: Llama-3-8B widths, int4-WO and W4A8, greedy generate
     cfg = llama.LLAMA3_8B
@@ -1203,7 +1351,10 @@ def main() -> int:
                 "paged_decode_attention_int4": k9.paged_decode_attention_int4}
     counters.update({name: getattr(k2, name) for name, _, _ in KV_KERNELS.values()})
     counters.update({"int8_wo_matmul": k10.int8_wo_matmul,
-                     "fp8_blockwise_matmul": k17.fp8_blockwise_matmul})
+                     "fp8_blockwise_matmul": k17.fp8_blockwise_matmul,
+                     "mxfp4_wo_matmul": k14.mxfp4_wo_matmul,
+                     "nvfp4_wo_matmul": k14.nvfp4_wo_matmul,
+                     "lut4_wo_magic": k15.lut4_wo_magic})
     f1_phase(torch, fails, counters)
     linears = 7 * cfg.n_layers + 1  # q, k, v, o, w1, w3, w2 per layer, and the lm_head
     decode_attn = cfg.n_layers * (STEPS - 1)
@@ -1254,14 +1405,19 @@ def main() -> int:
     for tag, p, kv in runs:
         profile_decode(torch, p, cfg, prompt, tag, kv_quant=kv)
 
-    # -- the int8 and fp8 weight paths, one quantized model on the card at a
-    # time: launch counts, tokens, two-layer logits, tok/s over one round and
-    # a profile each, beside the bf16 and int4-WO numbers above
+    # -- the int8, fp8, 4-bit float and NF4 weight paths, one quantized model
+    # on the card at a time: launch counts and tok/s of one call, tokens,
+    # two-layer logits and a profile each, beside the bf16 and int4-WO
+    # numbers above
     del wparams
     torch.cuda.empty_cache()
     weight_want = {"int8-WO": {"int8_wo_matmul": linears * STEPS},
                    "W8A8": {"silu_mul_quant": cfg.n_layers}, "fp8-row": {},
-                   "fp8-block": {"fp8_blockwise_matmul": linears * STEPS}}
+                   "fp8-block": {"fp8_blockwise_matmul": linears * STEPS},
+                   "MXFP4-WO": {"mxfp4_wo_matmul": linears * STEPS},
+                   "NVFP4-WO": {"nvfp4_wo_matmul": linears * STEPS},
+                   "NVFP4-dyn": {"nvfp4_wo_matmul": linears * STEPS},
+                   "NF4-WO": {"lut4_wo_magic": linears * STEPS}}
     for tag in WEIGHT_PATHS:
         t0 = time.perf_counter()
         pw = ao_tpu_torch.quantize_(params, weight_config(ao_tpu_torch, tag))
@@ -1271,8 +1427,12 @@ def main() -> int:
         want.update(weight_want[tag], decode_attention=decode_attn)
         for c in counters.values():
             c.launches = 0
+        t0 = time.perf_counter()
         toks = ao_tpu_torch.generate(pw, prompt, cfg, num_steps=STEPS, max_seq=MAX_SEQ)
         torch.cuda.synchronize()
+        # tok/s of this call, the model's first: host clock around a call
+        # ending in a synchronize, one-time costs (first launches) included
+        tps[tag] = BATCH * STEPS / (time.perf_counter() - t0)
         got = {name: c.launches for name, c in counters.items()}
         launches[tag] = got
         print(f"{tag} main path launches: {got} (want {want})", flush=True)
@@ -1280,17 +1440,19 @@ def main() -> int:
         fails.check(toks.shape == (BATCH, STEPS) and toks.dtype == torch.int32
                     and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
                     f"{tag} tokens {tuple(toks.shape)} {toks.dtype} out of shape or range")
-        if tag == "int8-WO":
+        if tag in ("int8-WO", "MXFP4-WO", "NVFP4-WO", "NF4-WO"):
             check_logits(torch, fails, pw, cfg, SEED, tag)
+        elif tag == "NVFP4-dyn":
+            # fp4 activations: no absolute floor, the kernels held alone
+            check_logits(torch, fails, pw, cfg, SEED, tag, batch=BATCH, prompt_len=80,
+                         floor_margin_db=FLOOR_MARGIN_DB, min_db=0.0, isolate=k14_as_plain)
         else:
             # an activation quantizer on every linear: the calibrated bound;
             # 8 x 80 = 640 prefill rows run W8A8's SwiGLU gate through K12s
             check_logits(torch, fails, pw, cfg, SEED, tag, batch=BATCH, prompt_len=80,
                          floor_margin_db=FLOOR_MARGIN_DB)
-        tps.update(generate_tok_per_s(torch, ao_tpu_torch.generate, [(tag, pw, None)], prompt,
-                                      cfg, STEPS, rounds=1))
-        print(f"{tag} generate (B={BATCH}, prompt {PROMPT}, {STEPS} steps, one round) on "
-              f"{card}: {tps[tag]:.1f} tok/s (int4-WO {tps['int4-WO']:.1f}, bf16 "
+        print(f"{tag} generate (B={BATCH}, prompt {PROMPT}, {STEPS} steps, the launch-count "
+              f"call) on {card}: {tps[tag]:.1f} tok/s (int4-WO {tps['int4-WO']:.1f}, bf16 "
               f"{tps['bf16']:.1f} in this call)", flush=True)
         profile_decode(torch, pw, cfg, prompt, tag)
         linear_scratch(torch, fails, tag, pw["layers"][0]["mlp"]["w1"])
@@ -1352,6 +1514,12 @@ def main() -> int:
              for shape in WEIGHT_REPORTED]
     rows += [("fp8_blockwise_matmul", "fp8_matmul.cu", "fp8_matmul.py:80", "fp8-block",
               k17_rows[shape]) for shape in WEIGHT_REPORTED]
+    rows += [(name, "fp4_matmul.cu", "fp4_matmul.py:197", tag, k14_rows[kind][shape])
+             for name, kind, tag in (("mxfp4_wo_matmul", "mx", "MXFP4-WO"),
+                                     ("nvfp4_wo_matmul", "nv", "NVFP4-WO"))
+             for shape in WEIGHT_REPORTED]
+    rows += [("lut4_wo_magic", "lut4_matmul.cu", "lut4_matmul.py:186", "NF4-WO", k15_rows[shape])
+             for shape in WEIGHT_REPORTED]
     rows += [(POOL_KERNELS[kv], "paged_attention.cu", "paged_attention.py:189",
               engine_tag(True, kv), row) for kv in (None,) + KV_QUANT for row in k9_rows[kv]]
     entries = [dict(name=name, route="cuda", source=f"ao_tpu_torch/csrc/{src}",

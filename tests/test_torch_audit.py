@@ -44,6 +44,11 @@ def test_port_has_the_slice_modules():
                 "ao_tpu_torch/quantization/granularity.py",
                 "ao_tpu_torch/quantization/qarrays/int8.py",
                 "ao_tpu_torch/quantization/qarrays/float8.py",
+                "ao_tpu_torch/quantization/qarrays/fp4.py",
+                "ao_tpu_torch/quantization/qarrays/fp6.py", "ao_tpu_torch/quantization/qarrays/mx.py",
+                "ao_tpu_torch/quantization/qarrays/nvfp4.py",
+                "ao_tpu_torch/quantization/qarrays/nf4.py", "ao_tpu_torch/prototype/mx.py",
+                "ao_tpu_torch/ops/hopper/fp4_matmul.py", "ao_tpu_torch/ops/hopper/lut4_matmul.py",
                 "ao_tpu_torch/ops/hopper/int8_matmul.py", "ao_tpu_torch/ops/hopper/fp8_matmul.py",
                 "ao_tpu_torch/quantization/configs.py", "ao_tpu_torch/ops/act_quant.py",
                 "ao_tpu_torch/ops/kernels.py", "ao_tpu_torch/ops/linear.py",
@@ -57,7 +62,7 @@ def test_port_has_the_slice_modules():
         assert mod in rel, mod
     for src in ("int4_matmul.cu", "decode_attention.cu", "decode_attention_quant.cu",
                 "int4_w4a8.cu", "fused_act.cu", "flash_attention.cu", "paged_attention.cu",
-                "int8_matmul.cu", "fp8_matmul.cu"):
+                "int8_matmul.cu", "fp8_matmul.cu", "fp4_matmul.cu", "lut4_matmul.cu"):
         assert (ROOT / "ao_tpu_torch" / "csrc" / src).exists()
     from ao_tpu_torch.ops.hopper import build
 

@@ -871,3 +871,200 @@ def test_f1_shapes_outside_the_kernels_decode_like_torch(dev, name):
         want = flash_prefill()
     assert float(compute_error(want, got)) >= 30
     assert k8.flash_attention.launches == (cfg.n_layers if name == "group16" else 0)
+
+
+# ---------------------------------------------------------------------------
+# K14 (MXFP4, NVFP4) and K15 (16-entry LUT) weight-only matmuls
+
+FP4_SHAPES = [
+    (1, 256, 128),
+    (8, 4096, 1024),    # split K over 16 units
+    (8, 512, 384),
+    (13, 1024, 256),    # two n8 tiles of batch rows, a ragged edge
+    (17, 512, 256),     # the tile kernel, a ragged 64-row block
+    (100, 1024, 512),
+    (1024, 1024, 384),  # prefill-sized M
+]
+
+
+def _fp4_weight(dev, kind, k, n, seed):
+    """A random bf16 weight with two columns of zeros (all-zero blocks) and
+    one column 3e-5 of the rest (for NVFP4: subnormal e4m3 block scales)."""
+    from ao_tpu_torch.quantization.qarrays.mx import MXArray
+    from ao_tpu_torch.quantization.qarrays.nvfp4 import NVFP4Array
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn((k, n), generator=gen, device=dev) * 0.05
+    w[:, 3] = 0.0
+    w[:, n - 1] = 0.0
+    w[:, 5] *= 3e-5
+    w = w.to(torch.bfloat16)
+    qa = (MXArray.from_hp(w, elem_dtype="float4_e2m1fn") if kind == "mx"
+          else NVFP4Array.from_hp(w))
+    assert qa.layout == "magic"
+    return qa, gen
+
+
+def _fp4_call(k14, kind, x, qa, plain=False):
+    if kind == "mx":
+        fn = k14.mxfp4_wo_matmul_plain if plain else k14.mxfp4_wo_matmul
+        return fn(x, qa.qdata, qa.scale)
+    fn = k14.nvfp4_wo_matmul_plain if plain else k14.nvfp4_wo_matmul
+    return fn(x, qa.qdata, qa.scale, qa.per_tensor_scale)
+
+
+@pytest.mark.parametrize("kind", ["mx", "nv"])
+@pytest.mark.parametrize("m,k,n", FP4_SHAPES)
+def test_fp4_wo_matmul_matches_plain(dev, kind, m, k, n):
+    from ao_tpu_torch.ops.hopper import fp4_matmul as k14
+
+    qa, gen = _fp4_weight(dev, kind, k, n, seed=m * 5 + n)
+    if kind == "nv":
+        sub = qa.block_scale_e4m3()[:, 5].view(torch.uint8)
+        subnormal = ((sub & 0x78) == 0) & ((sub & 0x07) != 0)
+        assert float(subnormal.float().mean()) > 0.5, "column 5 should have subnormal scales"
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    counter = k14.mxfp4_wo_matmul if kind == "mx" else k14.nvfp4_wo_matmul
+    before = counter.launches
+    got = _fp4_call(k14, kind, x, qa)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    ref = _fp4_call(k14, kind, x, qa, plain=True)
+    # the same exact bf16 weights, f32 sums in another order, one bf16
+    # rounding (NVFP4: two, around the per-tensor scale): the JAX suite's
+    # bounds, MXFP4 > 60 dB, NVFP4 > 35 dB
+    need = 60 if kind == "mx" else 35
+    sqnr = float(compute_error(ref, got))
+    assert sqnr > need, f"K14 {kind} vs plain: {sqnr:.2f} dB"
+    # zero blocks give exact zeros, not the denormal residue of the TPU's
+    # zero-code construction
+    assert bool((got[:, 3] == 0).all()) and bool((got[:, n - 1] == 0).all())
+    # the column of subnormal scales on its own (NVFP4) or tiny powers of two
+    # (MX): decoded exactly, it agrees with the plain version
+    col = float(compute_error(ref[:, 5].float(), got[:, 5].float()))
+    assert col > need, f"K14 {kind} column 5 vs plain: {col:.2f} dB"
+
+
+def test_fp4_wo_matmul_refuses_on_the_card(dev):
+    from ao_tpu_torch.ops.hopper import fp4_matmul as k14
+
+    qa, _ = _fp4_weight(dev, "mx", 512, 256, seed=3)
+    x = torch.randn((8, 512), device=dev, dtype=torch.bfloat16)
+    before = k14.mxfp4_wo_matmul.launches
+    with pytest.raises(ValueError, match="multiple of 256"):
+        k14.mxfp4_wo_matmul(x[:, :384], qa.qdata[:48], qa.scale[:12])
+    with pytest.raises(ValueError, match="scales"):
+        k14.mxfp4_wo_matmul(x, qa.qdata, qa.scale.to(torch.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        k14.mxfp4_wo_matmul(x, qa.qdata.t().contiguous().t(), qa.scale)
+    assert k14.mxfp4_wo_matmul.launches == before
+
+
+def _lut4_operands(dev, k, n, g, n_luts, seed):
+    from ao_tpu_torch.quantization.qarrays.int4 import pack_int4_magic
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    codes = torch.randint(0, 16, (k, n), generator=gen, device=dev, dtype=torch.int32)
+    codes[:, 2] = 7  # the NF4 codebook's 0.0: an exact zero column
+    word = pack_int4_magic(codes.to(torch.uint8), g)
+    scalers = torch.rand((k // g, n), generator=gen, device=dev) * 0.1 + 0.01
+    if n_luts == 0:
+        from ao_tpu_torch.quantization.qarrays.nf4 import NF4_CODEBOOK
+
+        cb = NF4_CODEBOOK.to(dev)
+    else:
+        cb = torch.randn((n_luts, 16), generator=gen, device=dev)
+        cb[:, 7] = 0.0
+    return word, scalers, cb, gen
+
+
+@pytest.mark.parametrize("n_luts", [0, 4], ids=["shared", "per-row-block"])
+@pytest.mark.parametrize("m,k,n,g", [
+    (1, 256, 128, 64),
+    (8, 4096, 1024, 64),    # split K over 16 super-groups
+    (8, 1024, 1056, 64),    # N a multiple of 32, not of 128
+    (13, 1024, 256, 32),
+    (17, 512, 256, 64),     # the tile kernel
+    (200, 1024, 512, 128),
+    (1024, 1024, 384, 16),  # prefill-sized M
+])
+def test_lut4_wo_magic_matches_plain(dev, n_luts, m, k, n, g):
+    from ao_tpu_torch.ops.hopper import lut4_matmul as k15
+
+    word, scalers, cb, gen = _lut4_operands(dev, k, n, g, n_luts, seed=m * 3 + n + g)
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    before = k15.lut4_wo_magic.launches
+    got = k15.lut4_wo_magic(x, word, scalers, cb, g)
+    torch.cuda.synchronize()
+    assert k15.lut4_wo_magic.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    ref = k15.lut4_wo_magic_plain(x, word, scalers, cb, g)
+    # the bf16 codebook entries exactly, f32 sums in another order, bf16
+    # out: the JAX suite's bound for NF4 is > 40 dB
+    sqnr = float(compute_error(ref, got))
+    assert sqnr > 40, f"K15 vs plain: {sqnr:.2f} dB"
+    assert bool((got[:, 2] == 0).all())
+
+
+def test_lut4_wo_magic_refuses_on_the_card(dev):
+    from ao_tpu_torch.ops.hopper import lut4_matmul as k15
+
+    word, scalers, cb, _ = _lut4_operands(dev, 512, 256, 64, 0, seed=4)
+    x = torch.randn((8, 512), device=dev, dtype=torch.bfloat16)
+    before = k15.lut4_wo_magic.launches
+    with pytest.raises(ValueError, match="one of"):
+        k15.lut4_wo_magic(x, word, scalers, cb, 48)
+    with pytest.raises(ValueError, match="codebooks"):
+        k15.lut4_wo_magic(x, word, scalers, torch.zeros((3, 16), device=dev), 64)
+    with pytest.raises(ValueError, match="scalers"):
+        k15.lut4_wo_magic(x, word, scalers[:4], cb, 64)
+    assert k15.lut4_wo_magic.launches == before
+
+
+FP4_NF4_CONFIGS = {
+    "MXFP4-WO": (lambda: ao_tpu_torch.MXWeightOnlyConfig(elem_dtype="float4_e2m1fn"), "k14mx"),
+    "NVFP4-WO": (lambda: ao_tpu_torch.NVFP4WeightOnlyConfig(), "k14nv"),
+    "NVFP4-dyn": (lambda: ao_tpu_torch.NVFP4DynamicActivationNVFP4WeightConfig(), "k14nv"),
+    "NF4-WO": (lambda: ao_tpu_torch.NF4WeightOnlyConfig(), "k15"),
+}
+
+
+@pytest.mark.parametrize("name", list(FP4_NF4_CONFIGS))
+def test_generate_fp4_nf4_go_through_their_kernels(dev, name):
+    """Every linear of every forward (M <= 1024) through K14 or K15, K2 at
+    every decode step; the logits near the "torch" backend's on the same
+    weights."""
+    from ao_tpu_torch.ops.hopper import fp4_matmul as k14
+    from ao_tpu_torch.ops.hopper import lut4_matmul as k15
+
+    cfg = llama.LlamaConfig(vocab_size=512, dim=512, n_layers=2, n_heads=4, n_kv_heads=2,
+                            ffn_dim=1024, tie_embeddings=False)
+    params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    make, kernel = FP4_NF4_CONFIGS[name]
+    qparams = ao_tpu_torch.quantize_(params, make())
+    prompt = torch.randint(0, cfg.vocab_size, (2, 8), device=dev, dtype=torch.int32)
+    counters = {"k14mx": k14.mxfp4_wo_matmul, "k14nv": k14.nvfp4_wo_matmul,
+                "k15": k15.lut4_wo_magic, "k2": k2.decode_attention, "k1": k1.int4_wo_magic}
+    for c in counters.values():
+        c.launches = 0
+    toks = ao_tpu_torch.generate(qparams, prompt, cfg, num_steps=5, max_seq=16)
+    torch.cuda.synchronize()
+    assert toks.shape == (2, 5) and toks.dtype == torch.int32
+    want = dict(k14mx=0, k14nv=0, k15=0, k2=cfg.n_layers * 4, k1=0)
+    want[kernel] = (7 * cfg.n_layers + 1) * 5
+    assert {key: c.launches for key, c in counters.items()} == want
+    logits, _ = llama.forward(qparams, prompt, cfg)
+    with kernels.backend("torch"):
+        plain, _ = llama.forward(qparams, prompt, cfg)
+        emb = qparams["embed"]
+        nudged, _ = llama.forward(dict(qparams, embed=(emb.float() * (1 + 2 ** -8)).to(emb.dtype)),
+                                  prompt, cfg)
+    # bf16-level route differences; past NVFP4-dyn's fp4 activation
+    # quantizer they turn into whole steps, so there the bound is
+    # chip_smoke.py's: within 3 dB of the plain route's own floor under a
+    # nudge of one bf16 rounding
+    need = 30.0
+    if name == "NVFP4-dyn":
+        need = min(need, float(compute_error(plain, nudged)) - 3.0)
+    assert float(compute_error(plain, logits)) >= need
