@@ -33,7 +33,7 @@ from ao_tpu_torch.quantization.qarrays.nf4 import NF4Array
 from ao_tpu_torch.quantization.qarrays.nvfp4 import NVFP4Array
 from ao_tpu_torch.quantization.quantize import quantize_, quantize_params
 from ao_tpu_torch.ops.linear import linear
-from ao_tpu_torch.models import llama
+from ao_tpu_torch.models import llama, sam, vit
 from ao_tpu_torch.serving.decode import generate
 from ao_tpu_torch.serving.engine import Engine, Request, ServeConfig
 from ao_tpu_torch.serving.kvcache import QuantKVCache, init_quant_kv_caches
@@ -83,4 +83,6 @@ __all__ = [
     "llama",
     "quantize_",
     "quantize_params",
+    "sam",
+    "vit",
 ]

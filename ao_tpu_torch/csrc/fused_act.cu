@@ -1,7 +1,8 @@
-// Gated-MLP activation with per-token int8 quantization in the producer, for
-// Hopper (sm_90a).
+// Producer-side per-token int8 quantization, for Hopper (sm_90a): K12s (the
+// gated-MLP activation, first below), K12g (tanh-GELU) and K12n (LayerNorm
+// with a modulation), each with its note.
 //
-// Replaces the TPU kernel ao_tpu/ops/pallas/fused_act.py::
+// K12s replaces the TPU kernel ao_tpu/ops/pallas/fused_act.py::
 // _silu_mul_quant_kernel (launched by _silu_mul_quant_impl, public entry
 // silu_mul_quant_pallas). For each row of a and b (D values):
 //
@@ -127,5 +128,197 @@ extern "C" int ao_silu_mul_quant(const void* a, const void* b, void* q, void* sc
   else
     err = act ? launch<__nv_bfloat16, 1>(a, b, q, scale, rows, D, st)
               : launch<__nv_bfloat16, 0>(a, b, q, scale, rows, D, st);
+  return (int)err;
+}
+
+// ---------------------------------------------------------------------------
+// K12g and K12n.
+//
+// K12g replaces ao_tpu/ops/pallas/fused_act.py::_gelu_quant_kernel (public
+// entry gelu_quant_pallas): y = tanh-GELU(x) in f32 per row, then the row
+// quantize above. K12n replaces _ln_mod_quant_kernel (public entry
+// norm_modulate_quant_pallas): for row t of batch row b,
+//
+//   mu = mean(x); var = mean((x - mu)^2); y = (x - mu) * rsqrt(var + eps);
+//   y = y * (1 + smod[b]) + shift[b]; then the row quantize,
+//
+// all in f32 (rsqrt as 1 / sqrt, each step one IEEE rounding, as the plain
+// version). The modulation rows are read with a batch stride, 0 when one
+// row serves every batch row (SAM's LayerNorm affine), so no broadcast is
+// materialized. Bytes bound both, as K12s: 2 B read (bf16) and 1 B written
+// per value; one block of 256 threads per row keeps the row in f32 in
+// dynamic shared memory (4*D bytes) across the reductions (two for K12n's
+// moments, one amax).
+
+namespace {
+
+__device__ __forceinline__ float block_sum(float v, float* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  __syncthreads();  // red may still be read by a previous reduction
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = red[0];
+#pragma unroll
+  for (int w = 1; w < kThreads / 32; ++w) t += red[w];
+  return t;
+}
+
+__device__ __forceinline__ float block_max(float v, float* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = red[0];
+#pragma unroll
+  for (int w = 1; w < kThreads / 32; ++w) t = fmaxf(t, red[w]);
+  return t;
+}
+
+// q = clip(round_half_even(y / scale), -127, 127) for a row held in ys.
+__device__ __forceinline__ void quant_row(const float* ys, float amax, int8_t* qr, float* scale,
+                                          int D) {
+  const float sc = __fdiv_rn(fmaxf(amax, 1e-8f), 127.f);
+  for (int c = threadIdx.x; c < D / 8; c += kThreads) {
+    uint32_t packed[2] = {0u, 0u};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float v = fminf(fmaxf(rintf(__fdiv_rn(ys[8 * c + i], sc)), -127.f), 127.f);
+      packed[i >> 2] |= ((uint32_t)(int)v & 0xFFu) << (8 * (i & 3));
+    }
+    *reinterpret_cast<uint2*>(qr + 8 * c) = make_uint2(packed[0], packed[1]);
+  }
+  if (threadIdx.x == 0) *scale = sc;
+}
+
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+
+// grid (rows), 256 threads, dynamic shared memory 4*D bytes.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    gelu_quant_kernel(const T* __restrict__ y, int8_t* __restrict__ q, float* __restrict__ scale,
+                      int D) {
+  extern __shared__ float ys[];
+  __shared__ float red[kThreads / 32];
+  const size_t row = blockIdx.x;
+  float amax = 0.f;
+  for (int c = threadIdx.x; c < D / 8; c += kThreads) {
+    float v[8];
+    load8(y + row * D + 8 * c, v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float g = gate<1>(v[i]);
+      ys[8 * c + i] = g;
+      amax = fmaxf(amax, fabsf(g));
+    }
+  }
+  amax = block_max(amax, red);
+  quant_row(ys, amax, q + row * D, scale + row, D);
+}
+
+// grid (B * T rows), 256 threads, dynamic shared memory 4*D bytes; the
+// modulation row of row r is shift / smod + (r / T) * mod_stride.
+template <typename T, typename M>
+__global__ void __launch_bounds__(kThreads)
+    norm_modulate_quant_kernel(const T* __restrict__ h, const M* __restrict__ shift,
+                               const M* __restrict__ smod, int mod_stride, int8_t* __restrict__ q,
+                               float* __restrict__ scale, int T_, int D, float eps) {
+  extern __shared__ float ys[];
+  __shared__ float red[kThreads / 32];
+  const size_t row = blockIdx.x;
+  const M* sh = shift + (size_t)(row / T_) * mod_stride;
+  const M* sm = smod + (size_t)(row / T_) * mod_stride;
+  float sum = 0.f;
+  for (int c = threadIdx.x; c < D / 8; c += kThreads) {
+    float v[8];
+    load8(h + row * D + 8 * c, v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      ys[8 * c + i] = v[i];
+      sum += v[i];
+    }
+  }
+  const float mu = __fdiv_rn(block_sum(sum, red), (float)D);
+  float sq = 0.f;
+  for (int i = threadIdx.x; i < D; i += kThreads) {
+    const float d = ys[i] - mu;
+    sq = __fmaf_rn(d, d, sq);
+  }
+  const float var = __fdiv_rn(block_sum(sq, red), (float)D);
+  const float rs = __fdiv_rn(1.f, __fsqrt_rn(var + eps));
+  float amax = 0.f;
+  for (int i = threadIdx.x; i < D; i += kThreads) {
+    const float yn = __fmul_rn(__fsub_rn(ys[i], mu), rs);
+    const float v = __fadd_rn(__fmul_rn(yn, __fadd_rn(1.f, to_f32(sm[i]))), to_f32(sh[i]));
+    ys[i] = v;
+    amax = fmaxf(amax, fabsf(v));
+  }
+  amax = block_max(amax, red);
+  quant_row(ys, amax, q + row * D, scale + row, D);
+}
+
+template <typename K>
+cudaError_t set_smem(K* kern, size_t smem) {
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <typename T>
+cudaError_t launch_gelu(const void* y, void* q, void* scale, int rows, int D, cudaStream_t st) {
+  const size_t smem = (size_t)D * sizeof(float);
+  auto* kern = gelu_quant_kernel<T>;
+  cudaError_t err = set_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<rows, kThreads, smem, st>>>(static_cast<const T*>(y), static_cast<int8_t*>(q),
+                                     static_cast<float*>(scale), D);
+  return cudaGetLastError();
+}
+
+template <typename T, typename M>
+cudaError_t launch_norm(const void* h, const void* shift, const void* smod, int mod_stride,
+                        void* q, void* scale, int rows, int T_, int D, float eps,
+                        cudaStream_t st) {
+  const size_t smem = (size_t)D * sizeof(float);
+  auto* kern = norm_modulate_quant_kernel<T, M>;
+  cudaError_t err = set_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<rows, kThreads, smem, st>>>(static_cast<const T*>(h), static_cast<const M*>(shift),
+                                     static_cast<const M*>(smod), mod_stride,
+                                     static_cast<int8_t*>(q), static_cast<float*>(scale), T_, D,
+                                     eps);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// y (rows, D) bf16 (is_f32 == 0) or f32; q (rows, D) int8; scale (rows,) f32.
+// Needs D % 128 == 0, 4*D bytes of shared memory and 16-byte aligned rows;
+// the Python wrapper checks them. Returns cudaGetLastError() after the launch.
+extern "C" int ao_gelu_quant(const void* y, void* q, void* scale, int rows, int D, int is_f32,
+                             void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(is_f32 ? launch_gelu<float>(y, q, scale, rows, D, st)
+                      : launch_gelu<__nv_bfloat16>(y, q, scale, rows, D, st));
+}
+
+// h (B*T, D) bf16 or f32 (h_f32); shift, smod rows of D values, bf16 or f32
+// (mod_f32), batch row b's at b * mod_stride; q (B*T, D) int8; scale (B*T,)
+// f32. The same needs as ao_gelu_quant. Returns cudaGetLastError().
+extern "C" int ao_norm_modulate_quant(const void* h, const void* shift, const void* smod,
+                                      int mod_stride, void* q, void* scale, int rows, int T,
+                                      int D, float eps, int h_f32, int mod_f32, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (h_f32)
+    err = mod_f32 ? launch_norm<float, float>(h, shift, smod, mod_stride, q, scale, rows, T, D,
+                                              eps, st)
+                  : launch_norm<float, __nv_bfloat16>(h, shift, smod, mod_stride, q, scale, rows,
+                                                      T, D, eps, st);
+  else
+    err = mod_f32 ? launch_norm<__nv_bfloat16, float>(h, shift, smod, mod_stride, q, scale, rows,
+                                                      T, D, eps, st)
+                  : launch_norm<__nv_bfloat16, __nv_bfloat16>(h, shift, smod, mod_stride, q,
+                                                              scale, rows, T, D, eps, st);
   return (int)err;
 }

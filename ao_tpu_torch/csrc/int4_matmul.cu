@@ -1,6 +1,8 @@
-// Int4 weight-only matmul over the "magic" int32 layout, for Hopper (sm_90a).
+// Int4 weight-only matmuls for Hopper (sm_90a): K1 over the "magic" int32
+// layout (below, first) and K11 over the uint8 split-half layout (at the end
+// of the file, with its own note).
 //
-// Replaces the TPU kernel ao_tpu/ops/pallas/int4_matmul.py::_magic_kernel
+// K1 replaces the TPU kernel ao_tpu/ops/pallas/int4_matmul.py::_magic_kernel
 // (launched by _int4_wo_magic_impl, public entry int4_wo_magic_pallas).
 //
 //   y[m, n] = sum_k x[m, k] * (q[k, n] * s[G, n] + b2[G, n]),  G = k / g,
@@ -437,5 +439,165 @@ extern "C" int ao_int4_wo_magic(const void* x_, const void* word_, const void* s
   if (err != cudaSuccess || ws == nullptr) return (int)err;
   const size_t mn = (size_t)M * N;
   int4_wo_reduce_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(ws, out, mn, splits);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K11: int4 weight-only matmul over the uint8 split-half layout.
+//
+// Replaces the TPU kernels ao_tpu/ops/pallas/int4_matmul.py::_kernel and
+// _kernel_twoplane (launched by _int4_wo_matmul_impl, public entry
+// int4_wo_matmul_pallas). W is uint8 (K/2, N): within each group of g rows,
+// byte j holds row j in its low nibble and row j + g/2 in its high nibble.
+// With u the nibble 0..15,
+//
+//   y[m, n] = sum_k x[m, k] * bf16(u[k, n] * s[G, n] + b[G, n]),  G = k / g,
+//
+// each weight dequantized in f32 (a multiply, then an add: two roundings, as
+// the plain version) and rounded to bf16, as the TPU kernel does; bf16 x
+// bf16 products on the tensor cores, f32 sums, bf16 out. s and b come in f32
+// (the reference wrapper's normalization: b = zp for a float zero point,
+// -(8 + zp) * s for an int one), or, for bf16 tinygemm qparams, as the bf16
+// scale and zero point themselves, converted exactly in the kernel.
+//
+// What bounds it on the H100: at ViT-B's M = 788 the operations (2 M K N
+// against 989 TFLOP/s); at small M the weight bytes. A simple first kernel,
+// K1's tile shape: a block of four warps computes 64 rows x 128 columns,
+// each warp 64 x 32 (4 m16 x 4 n8 tiles of mma.sync m16n8k16). Each step
+// takes 16 byte rows of one group, i.e. 16 low-nibble rows and the 16
+// high-nibble rows g/2 further on: the threads decode the 2 KB of bytes to a
+// bf16 B tile of 32 K rows in shared memory (K-contiguous per column, so a
+// fragment register is one 32-bit load), and the matching two 16-column
+// slices of x go to shared memory beside it, read as A fragments by
+// ldmatrix. One buffer, no cp.async pipeline, no wgmma: speed is later work.
+
+namespace {
+
+constexpr int kHalvesRow = 40;  // 32 K values + 8 of padding (bf16): 80-byte rows
+
+template <int RAW>
+__global__ void __launch_bounds__(128)
+    int4_wo_halves_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
+                          const void* __restrict__ s_, const void* __restrict__ b_,
+                          __nv_bfloat16* __restrict__ out, int M, int K, int N, int G) {
+  __shared__ __align__(16) __nv_bfloat16 xs[64][kHalvesRow];   // [row][lo 0..15 | hi 16..31]
+  __shared__ __align__(16) __nv_bfloat16 ws[128][kHalvesRow];  // [column][lo | hi K rows]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int n0 = blockIdx.x * 128, m0 = blockIdx.y * 64;
+  const int chunks = G / 32;  // steps per group: 16 byte rows each
+  const int steps = (K / G) * chunks;
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][i][e] = 0.f;
+
+  // the weight bytes this thread decodes: byte rows 2*rp and 2*rp + 1 of a
+  // step, columns n0 + 8*cc .. + 7
+  const int rp = threadIdx.x >> 4, cc = threadIdx.x & 15;
+  const int ncol = n0 + 8 * cc;
+
+  for (int st = 0; st < steps; ++st) {
+    const int grp = st / chunks, c = st % chunks;
+    const int lo0 = grp * G + 16 * c, hi0 = lo0 + G / 2;
+    const int p0 = grp * (G / 2) + 16 * c;
+    __syncthreads();  // the previous step's tiles are consumed
+    for (int i = threadIdx.x; i < 64 * 4; i += 128) {
+      const int r = i >> 2, q = i & 3;
+      const int col = (q < 2 ? lo0 : hi0) + 8 * (q & 1);
+      int4 v = make_int4(0, 0, 0, 0);
+      if (m0 + r < M) v = ld_16(x + (size_t)(m0 + r) * K + col);
+      *reinterpret_cast<int4*>(&xs[r][8 * q]) = v;
+    }
+    {
+      const uint8_t* wrow = w + (size_t)(p0 + 2 * rp) * N + ncol;
+      const uint2 w0 = __ldg(reinterpret_cast<const uint2*>(wrow));
+      const uint2 w1 = __ldg(reinterpret_cast<const uint2*>(wrow + N));
+      float sc[8], bc[8];
+      const size_t qoff = (size_t)grp * N + ncol;
+      if (RAW) {
+        const int4 sv = ld_16(static_cast<const __nv_bfloat16*>(s_) + qoff);
+        const int4 bv = ld_16(static_cast<const __nv_bfloat16*>(b_) + qoff);
+        const __nv_bfloat16* sh = reinterpret_cast<const __nv_bfloat16*>(&sv);
+        const __nv_bfloat16* bh = reinterpret_cast<const __nv_bfloat16*>(&bv);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) sc[j] = __bfloat162float(sh[j]), bc[j] = __bfloat162float(bh[j]);
+      } else {
+        const float* sp = static_cast<const float*>(s_) + qoff;
+        const float* bp = static_cast<const float*>(b_) + qoff;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) sc[j] = __ldg(sp + j), bc[j] = __ldg(bp + j);
+      }
+      const uint8_t* b0 = reinterpret_cast<const uint8_t*>(&w0);
+      const uint8_t* b1 = reinterpret_cast<const uint8_t*>(&w1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float l0 = __fadd_rn(__fmul_rn((float)(b0[j] & 15), sc[j]), bc[j]);
+        const float l1 = __fadd_rn(__fmul_rn((float)(b1[j] & 15), sc[j]), bc[j]);
+        const float h0 = __fadd_rn(__fmul_rn((float)(b0[j] >> 4), sc[j]), bc[j]);
+        const float h1 = __fadd_rn(__fmul_rn((float)(b1[j] >> 4), sc[j]), bc[j]);
+        *reinterpret_cast<uint32_t*>(&ws[8 * cc + j][2 * rp]) = pack_bf16x2(l0, l1);
+        *reinterpret_cast<uint32_t*>(&ws[8 * cc + j][16 + 2 * rp]) = pack_bf16x2(h0, h1);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // the low-nibble rows, then the high ones
+      uint32_t bfr[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const __nv_bfloat16* col = &ws[32 * warp + 8 * i + gid][16 * h + 2 * tig];
+        bfr[i][0] = *reinterpret_cast<const uint32_t*>(col);
+        bfr[i][1] = *reinterpret_cast<const uint32_t*>(col + 8);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        uint32_t a[4];
+        ldmatrix_x4(a, &xs[mt * 16 + (lane & 15)][16 * h + 8 * (lane >> 4)]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mma_16816(acc[mt][i], a, bfr[i][0], bfr[i][1]);
+      }
+    }
+  }
+
+  // C fragment of n8 tile i: rows gid (c0, c1) and gid + 8 (c2, c3), columns
+  // 2*tig and 2*tig + 1
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int col = n0 + 32 * warp + 8 * i + 2 * tig;
+      const int r = m0 + mt * 16 + gid;
+      if (r < M)
+        *reinterpret_cast<uint32_t*>(out + (size_t)r * N + col) =
+            pack_bf16x2(acc[mt][i][0], acc[mt][i][1]);
+      if (r + 8 < M)
+        *reinterpret_cast<uint32_t*>(out + (size_t)(r + 8) * N + col) =
+            pack_bf16x2(acc[mt][i][2], acc[mt][i][3]);
+    }
+}
+
+}  // namespace
+
+// x (M, K) bf16; w (K/2, N) uint8 split-half; s, b (K/g, N): f32 (raw == 0) or
+// the bf16 tinygemm scale and zero point (raw != 0); out (M, N) bf16. Needs
+// g % 32 == 0, K % g == 0, N % 128 == 0 and 16-byte aligned rows; the Python
+// wrapper checks them. Returns cudaGetLastError() after the launch.
+extern "C" int ao_int4_wo_halves(const void* x, const void* w, const void* s, const void* b,
+                                 void* out, int M, int K, int N, int G, int raw, void* stream) {
+  if (G % 32 || K % G || N % 128) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  dim3 grid(N / 128, (M + 63) / 64);
+  const auto* xp = static_cast<const __nv_bfloat16*>(x);
+  const auto* wp = static_cast<const uint8_t*>(w);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  if (raw)
+    int4_wo_halves_kernel<1><<<grid, 128, 0, st>>>(xp, wp, s, b, op, M, K, N, G);
+  else
+    int4_wo_halves_kernel<0><<<grid, 128, 0, st>>>(xp, wp, s, b, op, M, K, N, G);
   return (int)cudaGetLastError();
 }

@@ -4,7 +4,9 @@ PyTorch port of ``ao_tpu/models/__init__.py``. Generic infrastructure (the
 decode loop, later the serving engine and eval) needs
 ``forward(params, tokens, cfg, positions=, kv_caches=, cache_index=)`` and
 ``init_kv_caches(cfg, batch, max_seq)``; the registry maps config types to
-the modules that provide them. Llama is the only family ported so far.
+the modules that provide them. Llama is the only such family ported so far;
+the vision models ``vit`` (ViT) and ``sam`` (SAM) have their own forwards
+and are exported here beside it.
 """
 
 from typing import Any, Dict, Type
@@ -31,3 +33,8 @@ def resolve_model(cfg: Any):
         f"no model registered for config {type(cfg).__name__}; call "
         "ao_tpu_torch.models.register_model(type(cfg), module)"
     )
+
+
+from ao_tpu_torch.models import llama, sam, vit  # noqa: E402
+
+__all__ = ["llama", "register_model", "resolve_model", "sam", "vit"]

@@ -1,13 +1,12 @@
 """Dynamic activation quantization (on the fly, inside the forward).
 
-PyTorch port of ``ao_tpu/ops/act_quant.py`` without its DiT and SAM
-producers: the quantize of an activation before an int8- or fp8-activation
-linear (per token, per tensor, or per group of the last dim), and producer-side
-quantization (``silu_mul_quant``), which emits the gated-MLP activation as
-int8 qdata and per-token scales so that the high-precision activation never
-goes to device memory. The producer kernels are in ``ops/hopper/fused_act.py``.
-The GELU and LayerNorm producers (``gelu_quant``, ``norm_modulate_quant``)
-come with the DiT and SAM models.
+PyTorch port of ``ao_tpu/ops/act_quant.py``: the quantize of an activation
+before an int8- or fp8-activation linear (per token, per tensor, or per group
+of the last dim), and producer-side quantization (``silu_mul_quant``,
+``gelu_quant``, ``norm_modulate_quant``), which emits the gated-MLP, GELU or
+LayerNorm output as int8 qdata and per-token scales so that the
+high-precision activation never goes to device memory. The producer kernels
+are in ``ops/hopper/fused_act.py``.
 """
 
 from __future__ import annotations
@@ -82,12 +81,34 @@ def silu_mul_quant(a, b, act: str = "silu") -> QuantizedActivation:
 
 
 def gelu_quant(y) -> QuantizedActivation:
-    raise NotImplementedError("gelu_quant comes with the DiT/SAM models slice of the port")
+    """tanh-GELU + per-token int8 quantize in one pass: the kernel K12g
+    (``ops/hopper/fused_act.py``) where the reference takes its Pallas
+    kernel and ``fused_act.takes`` allows, else the plain version (the
+    reference's XLA form)."""
+    from ao_tpu_torch.ops import kernels
+    from ao_tpu_torch.ops.hopper import fused_act
+
+    if fused_act.takes(tuple(y.shape)) and kernels.use_kernel(y):
+        q, s = fused_act.gelu_quant(y)
+    else:
+        q, s = fused_act.gelu_quant_plain(y)
+    return QuantizedActivation(qdata=q, scale=s)
 
 
 def norm_modulate_quant(h, shift, smod, eps) -> QuantizedActivation:
-    raise NotImplementedError(
-        "norm_modulate_quant comes with the DiT/SAM models slice of the port")
+    """LayerNorm (no affine) + modulate (y * (1 + smod) + shift, per batch
+    row) + per-token int8 quantize in one pass: the kernel K12n where the
+    reference takes its Pallas kernel and ``fused_act.takes`` allows, else
+    the plain version (the reference's XLA form). h (B, T, D); shift, smod
+    (B, D)."""
+    from ao_tpu_torch.ops import kernels
+    from ao_tpu_torch.ops.hopper import fused_act
+
+    if fused_act.takes(tuple(h.shape)) and kernels.use_kernel(h):
+        q, s = fused_act.norm_modulate_quant(h, shift, smod, eps)
+    else:
+        q, s = fused_act.norm_modulate_quant_plain(h, shift, smod, eps)
+    return QuantizedActivation(qdata=q, scale=s)
 
 
 def act_block_size(shape, spec: ActQuantSpec):

@@ -1,14 +1,20 @@
-"""K12 (SwiGLU part): gated-MLP activation + per-token int8 quantize, on Hopper.
+"""K12: producer-side per-token int8 quantize kernels, on Hopper.
 
-Counterpart of ``ao_tpu/ops/pallas/fused_act.py::silu_mul_quant_pallas``
-(kernel ``_silu_mul_quant_kernel``). The CUDA source is ``ao_tpu_torch/csrc/
-fused_act.cu``; its header says what bounds the kernel on the H100 and how
-the design meets it. The file's other kernels (``gelu_quant_pallas``,
-``norm_modulate_quant_pallas``) are not ported yet.
+Counterparts of ``ao_tpu/ops/pallas/fused_act.py``:
 
-``silu_mul_quant`` runs the kernel on CUDA tensors and its plain PyTorch
-version, ``silu_mul_quant_plain``, on CPU tensors, and raises ValueError on
-either for a shape the kernel does not take.
+* K12s ``silu_mul_quant``: gated-MLP activation (``silu_mul_quant_pallas``,
+  kernel ``_silu_mul_quant_kernel``);
+* K12g ``gelu_quant``: tanh-GELU (``gelu_quant_pallas``, kernel
+  ``_gelu_quant_kernel``);
+* K12n ``norm_modulate_quant``: LayerNorm with no affine, then
+  y * (1 + smod) + shift per batch row (``norm_modulate_quant_pallas``,
+  kernel ``_ln_mod_quant_kernel``).
+
+The CUDA source is ``ao_tpu_torch/csrc/fused_act.cu``; its notes say what
+bounds the kernels on the H100 and how the design meets it. Each wrapper
+runs its kernel on CUDA tensors and its plain PyTorch version (``*_plain``)
+on CPU tensors, and raises ValueError on either for a shape the kernel does
+not take; ``takes`` says which shapes those are.
 """
 
 from __future__ import annotations
@@ -33,6 +39,13 @@ def _lib():
         lib.ao_silu_mul_quant.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         lib.ao_silu_mul_quant.restype = ctypes.c_int
+        lib.ao_gelu_quant.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        lib.ao_gelu_quant.restype = ctypes.c_int
+        lib.ao_norm_modulate_quant.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [
+            ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 2 + [
+            ctypes.c_void_p]
+        lib.ao_norm_modulate_quant.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -108,3 +121,146 @@ def traffic(shape):
     bb, t, d = shape
     rows = bb * t
     return rows * d * 5 + rows * 4, 8 * rows * d
+
+
+# ---------------------------------------------------------------------------
+# K12g and K12n
+# ---------------------------------------------------------------------------
+
+_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def takes(shape) -> bool:
+    """Whether K12g and K12n take an input of ``shape``: (B, T, D) with
+    D % 128 == 0 (the reference's rule) and D <= MAX_D (the row in shared
+    memory)."""
+    return len(shape) == 3 and shape[-1] % 128 == 0 and shape[-1] <= MAX_D
+
+
+def _check_input(name: str, x: torch.Tensor) -> None:
+    if not takes(tuple(x.shape)):
+        raise ValueError(f"{name} takes (B, T, D) with D a multiple of 128 and at most {MAX_D}, "
+                         f"got {tuple(x.shape)}")
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"{name} takes bf16 or f32, got {x.dtype}")
+
+
+def gelu_quant_plain(y):
+    """K12g's function in plain PyTorch: tanh-GELU in f32, then the per-row
+    int8 quantize. Returns (q int8, scale f32 (..., 1))."""
+    return _row_quant(torch.nn.functional.gelu(y.to(torch.float32), approximate="tanh"))
+
+
+def _launch_gelu(y):
+    dev = y.device
+    if not y.is_contiguous() or y.data_ptr() % 16:
+        raise ValueError("gelu_quant: y must be contiguous and 16-byte aligned")
+    b, t, d = y.shape
+    q = torch.empty((b, t, d), dtype=torch.int8, device=dev)
+    scale = torch.empty((b, t, 1), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib().ao_gelu_quant(y.data_ptr(), q.data_ptr(), scale.data_ptr(), b * t, d,
+                                   int(y.dtype == torch.float32), stream)
+    if err != 0:
+        raise RuntimeError(f"gelu_quant kernel launch failed: CUDA error {err}")
+    gelu_quant.launches += 1
+    return q, scale
+
+
+def gelu_quant(y):
+    """tanh-GELU + per-token int8 quantize. y (B, T, D) bf16 or f32. Returns
+    (q int8 (B, T, D), scale f32 (B, T, 1)): the kernel on a CUDA tensor,
+    its plain version on a CPU tensor."""
+    _check_input("gelu_quant", y)
+    if y.device.type == "cpu":
+        return gelu_quant_plain(y)
+    if y.device.type != "cuda":
+        raise ValueError(f"gelu_quant runs on cuda or cpu tensors, not {y.device}")
+    return _launch_gelu(y)
+
+
+gelu_quant.launches = 0  # kernel launches (not plain-version calls)
+
+
+def norm_modulate_quant_plain(h, shift, smod, eps: float):
+    """K12n's function in plain PyTorch, the reference's XLA form: LayerNorm
+    (no affine) in f32, then y * (1 + smod[b]) + shift[b], then the per-row
+    int8 quantize. h (B, T, D); shift, smod (B, D). Returns (q int8,
+    scale f32 (B, T, 1))."""
+    xf = h.to(torch.float32)
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * (1.0 + smod[:, None, :].to(torch.float32)) + shift[:, None, :].to(torch.float32)
+    return _row_quant(y)
+
+
+def _mod_rows(name: str, m: torch.Tensor, b: int, d: int) -> int:
+    """The batch stride of a (B, D) modulation with contiguous rows (0 for
+    one row broadcast over the batch)."""
+    if tuple(m.shape) != (b, d) or m.stride(1) != 1 or m.dtype not in _DTYPES:
+        raise ValueError(f"norm_modulate_quant: {name} must be ({b}, {d}) bf16 or f32 with "
+                         f"contiguous rows, got {m.dtype} {tuple(m.shape)} strides {m.stride()}")
+    return m.stride(0)
+
+
+def _launch_norm(h, shift, smod, eps: float):
+    dev = h.device
+    b, t, d = h.shape
+    if not h.is_contiguous() or h.data_ptr() % 16:
+        raise ValueError("norm_modulate_quant: h must be contiguous and 16-byte aligned")
+    if shift.dtype != smod.dtype:
+        smod = smod.to(shift.dtype)
+    stride = _mod_rows("shift", shift, b, d)
+    if _mod_rows("smod", smod, b, d) != stride:
+        shift, smod = shift.contiguous(), smod.contiguous()
+        stride = d
+    for name, m in (("shift", shift), ("smod", smod)):
+        if m.device != dev:
+            raise ValueError(f"norm_modulate_quant: {name} must be on {dev}")
+    q = torch.empty((b, t, d), dtype=torch.int8, device=dev)
+    scale = torch.empty((b, t, 1), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib().ao_norm_modulate_quant(
+            h.data_ptr(), shift.data_ptr(), smod.data_ptr(), stride, q.data_ptr(),
+            scale.data_ptr(), b * t, t, d, float(eps), int(h.dtype == torch.float32),
+            int(shift.dtype == torch.float32), stream)
+    if err != 0:
+        raise RuntimeError(f"norm_modulate_quant kernel launch failed: CUDA error {err}")
+    norm_modulate_quant.launches += 1
+    return q, scale
+
+
+def norm_modulate_quant(h, shift, smod, eps: float):
+    """LayerNorm (no affine) + modulate + per-token int8 quantize. h (B, T,
+    D) bf16 or f32; shift, smod (B, D) (a broadcast row, stride 0, is read
+    as it is). Returns (q int8 (B, T, D), scale f32 (B, T, 1)): the kernel
+    on CUDA tensors, its plain version on CPU tensors."""
+    _check_input("norm_modulate_quant", h)
+    if h.device.type == "cpu":
+        return norm_modulate_quant_plain(h, shift, smod, eps)
+    if h.device.type != "cuda":
+        raise ValueError(f"norm_modulate_quant runs on cuda or cpu tensors, not {h.device}")
+    return _launch_norm(h, shift, smod, eps)
+
+
+norm_modulate_quant.launches = 0  # kernel launches (not plain-version calls)
+
+
+def traffic_gelu(shape):
+    """(bytes, operations) of K12g on bf16 input: y read once, q and one f32
+    scale per row written once; about 12 f32 operations per value (the
+    tanh-GELU, |y|, max, division, round, clip)."""
+    b, t, d = shape
+    return b * t * d * 3 + b * t * 4, 12 * b * t * d
+
+
+def traffic_norm(shape, mod_rows: int):
+    """(bytes, operations) of K12n on bf16 input and modulation: h read once,
+    the ``mod_rows`` distinct rows of shift and smod (1 for a row broadcast
+    over the batch) read once, q and one f32 scale per row written once;
+    about 12 f32 operations per value."""
+    b, t, d = shape
+    return b * t * d * 3 + b * t * 4 + 2 * mod_rows * d * 2, 12 * b * t * d

@@ -9,6 +9,10 @@
 * K4 ``int4_magic8_requant_int8``: magic8 words to per-channel int8 for the
   prefill int8 GEMM (``int4_magic8_requant_int8_pallas``, kernel
   ``_requant_kernel``); same CUDA source as K3.
+* K11 ``int4_wo_matmul``: int4 weight-only matmul over the uint8 split-half
+  layout (``int4_wo_matmul_pallas``, kernels ``_kernel`` and
+  ``_kernel_twoplane``); same CUDA source as K1. ``takes_halves`` says which
+  shapes it takes.
 
 The headers of the CUDA sources say what bounds each kernel on the H100 and
 how the design meets it. Each wrapper runs its kernel on a CUDA tensor and
@@ -33,7 +37,9 @@ import torch
 
 from ao_tpu_torch.ops.hopper import build
 from ao_tpu_torch.quantization import primitives as P
-from ao_tpu_torch.quantization.qarrays.int4 import unpack_int4_magic, unpack_int4_magic8
+from ao_tpu_torch.quantization.qarrays.int4 import (
+    unpack_int4, unpack_int4_magic, unpack_int4_magic8,
+)
 
 _LIB = None
 _LIB_W4A8 = None
@@ -46,6 +52,9 @@ def _lib():
         fn = lib.ao_int4_wo_magic
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.ao_int4_wo_halves.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        lib.ao_int4_wo_halves.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -388,3 +397,86 @@ def traffic_requant(k: int, n: int, group_size: int):
     per group, the int8 output written once; two f32 operations per weight."""
     ng = k // group_size
     return k * n // 2 + 2 * ng * n * 4 + k * n, 2 * k * n
+
+
+# ---------------------------------------------------------------------------
+# K11: int4 weight-only matmul over the uint8 split-half layout
+# ---------------------------------------------------------------------------
+
+
+def takes_halves(k: int, n: int, group_size: int) -> bool:
+    """Whether K11 takes a split-half (K/2, N) weight: the reference
+    wrapper's rule (N % 128 == 0, K/2 a multiple of g/2) and the kernel's
+    16 byte rows per step (g % 32 == 0). ``kernels.int4_wo_matmul`` asks it
+    before the call; the wrapper's own check asks it too."""
+    g = group_size
+    return g >= 32 and g % 32 == 0 and k % g == 0 and n % 128 == 0
+
+
+def int4_wo_matmul_plain(x, packed, s, b, group_size: int) -> torch.Tensor:
+    """K11's function in plain PyTorch, f32 (M, N): each weight
+    bf16(u * s + b) (a multiply and an add in f32, two roundings), then x
+    in bf16 times those weights with f32 sums."""
+    g = group_size
+    u = unpack_int4(packed, g, axis=-2).to(torch.float32)
+    rep = lambda t: t.to(torch.float32).repeat_interleave(g, dim=0)  # noqa: E731
+    w = (u * rep(s) + rep(b)).to(torch.bfloat16)
+    return x.to(torch.bfloat16).to(torch.float32) @ w.to(torch.float32)
+
+
+def _launch_halves(x, packed, s, b, group_size: int, raw: bool) -> torch.Tensor:
+    """Launch K11 on CUDA tensors; ``s`` and ``b`` are the bf16 tinygemm
+    scale and zero point when ``raw``, else f32."""
+    dev = x.device
+    m, k = x.shape
+    n = packed.shape[1]
+    qdt = torch.bfloat16 if raw else torch.float32
+    _check_operands("int4_wo_matmul", dev, (
+        ("x", x, torch.bfloat16, (m, k)),
+        ("packed", packed, torch.uint8, (k // 2, n)),
+        ("scale", s, qdt, (k // group_size, n)),
+        ("bias", b, qdt, (k // group_size, n))))
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib().ao_int4_wo_halves(x.data_ptr(), packed.data_ptr(), s.data_ptr(),
+                                       b.data_ptr(), out.data_ptr(), m, k, n, group_size,
+                                       int(raw), stream)
+    if err != 0:
+        raise RuntimeError(f"int4_wo_matmul kernel launch failed: CUDA error {err}")
+    int4_wo_matmul.launches += 1
+    return out
+
+
+def int4_wo_matmul(x, packed, scale, zp, group_size: int, zp_domain) -> torch.Tensor:
+    """x (M, K); packed uint8 (K/2, N) split-half layout; scale/zp (K/g, N).
+    Returns (M, N) bf16: K11 on a CUDA tensor, its plain version on a CPU
+    tensor; ValueError on either for a shape the kernel does not take."""
+    if x.ndim != 2 or packed.ndim != 2:
+        raise ValueError("int4_wo_matmul takes 2-D x (M, K) and packed bytes (K/2, N)")
+    k, (kp, n) = x.shape[1], packed.shape
+    if k != 2 * kp or not takes_halves(k, n, group_size):
+        raise ValueError(f"int4_wo_matmul takes K = 2 * K/2 ({k} vs {kp}), N % 128 == 0 "
+                         f"(N={n}), g % 32 == 0 and K % g == 0 (g={group_size})")
+    x = x.to(torch.bfloat16)
+    if x.device.type == "cpu":
+        s, b = affine_qparams(scale, zp, zp_domain)
+        return int4_wo_matmul_plain(x, packed, s, b, group_size).to(torch.bfloat16)
+    if x.device.type != "cuda":
+        raise ValueError(f"int4_wo_matmul runs on cuda or cpu tensors, not {x.device}")
+    if (zp_domain is P.ZeroPointDomain.FLOAT and scale.dtype == torch.bfloat16
+            and zp is not None and zp.dtype == torch.bfloat16):
+        return _launch_halves(x, packed, scale, zp, group_size, raw=True)
+    s, b = affine_qparams(scale, zp, zp_domain)
+    return _launch_halves(x, packed, s.contiguous(), b.contiguous(), group_size, raw=False)
+
+
+int4_wo_matmul.launches = 0  # kernel launches (not plain-version calls)
+
+
+def traffic_halves(m: int, k: int, n: int, group_size: int):
+    """(bytes, flops) K11 needs on the main path: x bf16 read once, the
+    weight 0.5 B per value, scale and zero point bf16, the bf16 output
+    written once; 2 M K N flops."""
+    ng = k // group_size
+    return m * k * 2 + k * n // 2 + 2 * ng * n * 2 + m * n * 2, 2 * m * k * n

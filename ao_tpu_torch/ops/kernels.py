@@ -29,14 +29,15 @@ from ao_tpu_torch.quantization import primitives as P
 _BACKENDS = ("auto", "cuda", "torch")
 _BACKEND = "auto"
 
-# Largest M the int4 kernel takes (ao_tpu/ops/kernels.py:179): above it the
+# Largest M the int4 kernels take (ao_tpu/ops/kernels.py:179): above it the
 # plain path dequantizes once and calls torch.matmul, as the reference
-# leaves that case to XLA. This gate and the layout are the whole route
-# rule, decided before the call: a magic-layout weight whose shape the
-# kernel does not take (int4_matmul.check_shapes) makes the kernel's
-# wrapper raise, on the card and on the CPU alike, and the caller picks
-# the "torch" backend for it. The decode-attention route in models/llama.py
-# follows the same rule.
+# leaves that case to XLA. For the magic layout (K1) this gate and the
+# layout are the whole route rule, decided before the call: a magic-layout
+# weight whose shape the kernel does not take (int4_matmul.check_shapes)
+# makes the kernel's wrapper raise, on the card and on the CPU alike, and
+# the caller picks the "torch" backend for it. A split-half weight takes K11
+# where ``int4_matmul.takes_halves`` allows (the reference falls back from
+# its kernel on the same shapes) and dequantize + matmul elsewhere.
 INT4_KERNEL_MAX_M = 1024
 
 # W4A8 (int8 activations x int4 weights, ops/linear.py): above this M the
@@ -57,7 +58,7 @@ FP4_KERNEL_MAX_M = 1024
 LUT4_KERNEL_MAX_M = 1024
 
 # torch._int_mm on the card takes M > 16 only: smaller M is padded with rows
-# of zeros up to this many (a multiple of 8)
+# of zeros up to this many (a multiple of 8); K and N go up to multiples of 8
 INT_MM_MIN_ROWS = 32
 
 
@@ -125,6 +126,25 @@ def int8_wo_matmul(x, qw, sw, zw, wbs):
 # ---------------------------------------------------------------------------
 
 
+def _int_mm(qx, qw):
+    """``torch._int_mm`` (int32 out) within the card's limits: M > 16 and K,
+    N multiples of 8. On the card, rows, K and columns of zeros pad the
+    operands up to them (a decode step's M = batch, SAM's 4-wide IoU head)
+    and are sliced off; the sums are exact either way."""
+    m, k = qx.shape
+    n = qw.shape[1]
+    if qx.device.type != "cuda":
+        return torch._int_mm(qx, qw)
+    pm = INT_MM_MIN_ROWS - m if m <= 16 else 0
+    pk, pn = -k % 8, -n % 8
+    if pm or pk:
+        qx = torch.nn.functional.pad(qx, (0, pk, 0, pm))
+    if pk or pn:  # padded through its transpose: column-major, as Int8Array keeps it
+        qw = torch.nn.functional.pad(qw.t(), (0, pk, 0, pn)).t()
+    y = torch._int_mm(qx, qw)
+    return y[:m, :n] if (pm or pn) else y
+
+
 def int8_dynamic_matmul(qx, sx, zx, qw, sw, zw, wbs, out_dtype=torch.bfloat16):
     """Integer matmul with int32 accumulation (ref: ao_tpu kernels.py:109).
 
@@ -133,7 +153,8 @@ def int8_dynamic_matmul(qx, sx, zx, qw, sw, zw, wbs, out_dtype=torch.bfloat16):
 
     The per-channel, per-token core is ``torch._int_mm`` (int32 out), on the
     card and on the CPU; on the card it needs M > 16 and K, N multiples of
-    8, and cuBLAS runs it as the "TN" int8 GEMM when ``qw`` is column-major
+    8 (``_int_mm`` pads to them), and cuBLAS runs it as the "TN" int8 GEMM
+    when ``qw`` is column-major
     (what the requant kernel writes and ``Int8Array`` stores). Per-group
     weight scales fall back to dequantize + f32 matmul, as the reference
     does.
@@ -150,13 +171,7 @@ def int8_dynamic_matmul(qx, sx, zx, qw, sw, zw, wbs, out_dtype=torch.bfloat16):
         w_dq = P.dequantize_affine(qw, wbs, sw, zw, output_dtype=torch.float32)
         return torch.matmul(x_dq, w_dq).to(out_dtype)
 
-    if qx.device.type == "cuda" and m <= 16:
-        # decode (M = batch): pad with zero rows to the M > 16 that
-        # torch._int_mm takes on the card; the zero rows are sliced off
-        pad = torch.zeros((INT_MM_MIN_ROWS - m, k), dtype=qx.dtype, device=qx.device)
-        acc = torch._int_mm(torch.cat([qx, pad]), qw)[:m].to(torch.float32)
-    else:
-        acc = torch._int_mm(qx, qw).to(torch.float32)
+    acc = _int_mm(qx, qw).to(torch.float32)
     if zx is not None:
         colsum_w = torch.sum(qw.to(torch.int32), dim=0, keepdim=True).to(torch.float32)
         # zx is per token (M, 1) or a static per-tensor (1, 1); the
@@ -180,7 +195,7 @@ def int8_dynamic_matmul(qx, sx, zx, qw, sw, zw, wbs, out_dtype=torch.bfloat16):
 def int4_wo_matmul(x, packed, scale, zp, group_size, zp_domain, layout=None):
     """x (M, K); packed uint8 (K/2, N) split-half layout or int32 (K/8, N)
     magic/magic8 layout; scale/zp (K/g, N). Returns (M, N): bf16 from the
-    kernel route, x.dtype from the plain route."""
+    kernel routes (K1 magic, K11 split-half), x.dtype from the plain route."""
     if layout is None:
         layout = "magic" if packed.dtype == torch.int32 else "halves"
     from ao_tpu_torch.ops.hopper import int4_matmul as k1
@@ -188,6 +203,11 @@ def int4_wo_matmul(x, packed, scale, zp, group_size, zp_domain, layout=None):
     if (layout == "magic" and packed.ndim == 2 and x.shape[0] <= INT4_KERNEL_MAX_M
             and use_kernel(x)):
         return k1.int4_wo_magic(x, packed, scale, zp, group_size, zp_domain)
+    if (layout == "halves" and packed.ndim == 2 and x.ndim == 2
+            and x.shape[0] <= INT4_KERNEL_MAX_M
+            and k1.takes_halves(x.shape[1], packed.shape[1], group_size) and use_kernel(x)):
+        # K11: the split-half layout (K/g % 4 != 0, as ViT-B's dim 768 has)
+        return k1.int4_wo_matmul(x, packed, scale, zp, group_size, zp_domain)
     return _int4_wo_matmul_torch(x, packed, scale, zp, group_size, zp_domain, layout)
 
 

@@ -18,7 +18,12 @@ From the repo root, on a machine with a CUDA device and ``nvcc``:
    4096, where the cache bytes set the bound, K5-K7 at the slot engine's
    decode shape, and the flash prefill K8 at S = 2048; the int8 weight-only
    K10, the fp8 blockwise K17, the fp4 K14 (MXFP4 and NVFP4) and the NF4
-   LUT kernel K15 at M = 8 and 1024 over every Llama-3-8B width. Then two
+   LUT kernel K15 at M = 8 and 1024 over every Llama-3-8B width; the vision
+   slice's kernels at its paths' shapes: the int4 split-half matmul K11 at
+   ViT-B's M = 788 rows, the LayerNorm-modulate and GELU producer quantize
+   K12n and K12g at SAM-B's windowed and global rows, and the windowed
+   attention with the decomposed rel-pos bias K16 at SAM-B's windows (side
+   14) and global layers (side 64). Then two
    tiny models whose attention shapes no attention kernel
    takes (head_dim 256; 16 query heads per kv head) decode through
    generate, a flash-route prefill and a paged step against the "torch"
@@ -40,7 +45,9 @@ From the repo root, on a machine with a CUDA device and ``nvcc``:
    (``NVFP4WeightOnlyConfig()`` and, with dynamic fp4 activations,
    ``NVFP4DynamicActivationNVFP4WeightConfig()``: K14) and NF4
    (``NF4WeightOnlyConfig()``: K15), each timed over its launch-count
-   call. For each it sets every launch counter to 0 just before the call
+   call; the four quantized-KV paths and these eight weight paths run the
+   first 8 of the 32 layers (``CUT_LAYERS``), beside int4-WO and bf16 at
+   the same depth. For each it sets every launch counter to 0 just before the call
    and checks the counts just after (every kernel of the path, exactly as
    the model predicts), checks that the tokens are well
    formed, and that a two-layer cut of the same model gives the plain
@@ -59,9 +66,18 @@ From the repo root, on a machine with a CUDA device and ``nvcc``:
    and the run prints requests/s, output tok/s, the mean time to first
    token and the profile of one engine step. Two-layer logits of the flash
    prefill, a per-slot decode step and a paged decode step are held to the
-   plain route's, over bf16 and over each quantized KV.
+   plain route's, over bf16 and over each quantized KV;
+6. drives the vision models at full width with random weights from the
+   seed: SAM-B (12 layers, 4 images of 1024^2, 2 point prompts each, the
+   rel-pos tables filled) through ``sam.forward`` under
+   ``Int8DynamicActivationInt8WeightConfig()`` (K16, K12n, K12g,
+   torch._int_mm) and in bf16 (K16), and ViT-B/16 (12 layers, batch 4 at
+   224^2) through ``vit.forward`` under
+   ``Int4WeightOnlyConfig(group_size=128)`` (K11, K1) and in bf16; launch
+   counts exact, masks, IoU and logits held to the "torch" backend's, and
+   images/s with a profile of one forward each.
 
-Prints the kernel table as one JSON line and, as the last line,
+Each phase prints its seconds. Prints the kernel table as one JSON line and, as the last line,
 ``{"ok": true, "device": {...}}``. Any failed check makes it exit non-zero
 without that line; so does a machine without a CUDA device.
 """
@@ -158,6 +174,29 @@ K8_SQNR_DB = 40.0  # flash prefill: f32 scores and sums, bf16 p and out in both 
 # (B, Sq, Sk) of K8: the engine's 128 and 512 buckets, a long prefill where
 # the operations set the bound, and generate(use_flash=True)
 K8_SHAPES = [(1, 128, 128), (1, 512, 512), (1, 2048, 2048), (BATCH, PROMPT, MAX_SEQ)]
+# the quantized-KV and the int8 / fp8 / 4-bit float / NF4 weight paths of
+# generate run this many layers of Llama-3-8B (full widths); int4-WO, W4A8,
+# bf16, int4-WO + flash and the engine runs keep all 32
+CUT_LAYERS = 8
+# the vision slice: SAM-B (4 images of 1024^2, 2 point prompts each) under
+# W8A8 and in bf16, ViT-B/16 (batch 4 at 224^2) under int4-WO and in bf16
+SAM_BATCH, SAM_POINTS, VIT_BATCH = 4, 2, 4
+VISION_PATHS = ("SAM-B W8A8", "SAM-B bf16", "ViT-B/16 int4-WO", "ViT-B/16 bf16")
+REL_POS_SCALE = 0.3  # the rel-pos terms come out about this large (the JAX suite's scale)
+# the JAX suite's bounds for the split-half kernel (tests/test_pallas_interpret.py)
+# and for the windowed attention kernel (tests/test_pallas_tpu.py)
+K11_SQNR_DB = 45.0
+K16_SQNR_DB = 35.0
+# K12n's moments are summed in another order than the plain version's: its
+# scales move by a few ulps of f32 (K12g's and K12s's by none)
+K12N_SCALE_RTOL = 1e-5
+# K11 at ViT-B's M = 4 x 197 over its 768-wide inputs; K12n / K12g at SAM-B's
+# windowed (100 windows of 196) and global (4 x 4096) rows; K16 at its
+# windowed (G = 100, side 14) and global (G = 4, side 64) layers
+K11_SHAPES = [(VIT_BATCH * 197, 768, 768), (VIT_BATCH * 197, 768, 3072)]
+K12N_SHAPES = [(100, 196, 768), (SAM_BATCH, 4096, 768)]
+K12G_SHAPES = [(100, 196, 3072), (SAM_BATCH, 4096, 3072)]
+K16_SHAPES = [(100, 14), (SAM_BATCH, 64)]
 # the serving engine: Llama-3-8B int4-WO, 8 slots, max_seq 1024, pages of 128
 ENGINE_CFG = dict(max_batch=8, max_seq=1024, prefill_buckets=(128, 512), eos_id=-1)
 PAGE = 128
@@ -172,6 +211,14 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Print the seconds a phase of the run took (host clock)."""
+    t0 = time.perf_counter()
+    yield
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def bound(nbytes: int, ops: int, ops_per_s: float = BF16_FLOPS_PER_S):
@@ -627,6 +674,133 @@ def k15_phase(torch, fails, seed):
         del qa, x, sc, got, ref
         torch.cuda.empty_cache()
     return rows
+
+
+def k11_phase(torch, fails, seed):
+    """K11 at ViT-B's (M, K, N): a random bf16 weight quantized as
+    Int4WeightOnlyConfig(group_size=128) does, which at K = 768 (6 groups)
+    packs the split-half layout; the library yardstick is bf16 torch.matmul
+    on the dequantized weight."""
+    from ao_tpu_torch.ops.hopper import int4_matmul as k1
+    from ao_tpu_torch.quantization.primitives import compute_error
+    from ao_tpu_torch.quantization.qarrays.int4 import Int4Array
+    from ao_tpu_torch.utils.timing import cuda_time_ms
+
+    rows = {}
+    gen = torch.Generator(device=DEV).manual_seed(seed + 21)
+    for m, k, n in K11_SHAPES:
+        w = (torch.randn((k, n), generator=gen, device=DEV) * k ** -0.5).to(torch.bfloat16)
+        qa = Int4Array.from_hp(w, group_size=GROUP)
+        fails.check(qa.layout == "halves", f"K11 {(k, n)}: layout {qa.layout}, not split-half")
+        x = torch.randn((m, k), generator=gen, device=DEV).to(torch.bfloat16)
+        s, b = k1.affine_qparams(qa.scale, qa.zero_point, qa.zero_point_domain)
+        got = k1.int4_wo_matmul(x, qa.qdata, qa.scale, qa.zero_point, GROUP, qa.zero_point_domain)
+        ref = k1.int4_wo_matmul_plain(x, qa.qdata, s, b, GROUP)
+        torch.cuda.synchronize()
+        sqnr = float(compute_error(ref, got))
+        fails.check(bool(torch.isfinite(got).all()) and sqnr >= K11_SQNR_DB,
+                    f"K11 int4_wo_matmul {(m, k, n)}: sqnr {sqnr:.2f} dB < {K11_SQNR_DB}")
+        # the launch as the main path makes it: bf16 tinygemm qparams as they are
+        ms = cuda_time_ms(lambda: k1._launch_halves(x, qa.qdata, qa.scale, qa.zero_point, GROUP,
+                                                    raw=True), iters=20)
+        plain_ms = cuda_time_ms(lambda: k1.int4_wo_matmul_plain(x, qa.qdata, s, b, GROUP),
+                                iters=5, warmup=1)
+        w_dq = qa.dequantize(torch.bfloat16)
+        library_ms = cuda_time_ms(lambda: torch.matmul(x, w_dq), iters=20)
+        nbytes, flops = k1.traffic_halves(m, k, n, GROUP)
+        rows[(m, k, n)] = kernel_row("K11 int4_wo_matmul", f"M={m} K={k} N={n}", got, ref,
+                                     f"sqnr {sqnr:.2f} dB (>= {K11_SQNR_DB})", ms, plain_ms,
+                                     library_ms, nbytes, flops)
+    return rows
+
+
+def k12v_phase(torch, fails, seed, kind, shape):
+    """K12n ("norm") or K12g ("gelu") at SAM-B's rows: bf16 inputs; K12n's
+    modulation is SAM's LayerNorm affine, one row (smod = scale - 1, shift =
+    bias) broadcast over the windows. Codes at most 1 LSB off on under 1 %;
+    no single library call computes either function."""
+    from ao_tpu_torch.ops.hopper import fused_act as k12
+    from ao_tpu_torch.utils.timing import cuda_time_ms
+
+    b, t, d = shape
+    gen = torch.Generator(device=DEV).manual_seed(seed + 22 + t)
+    x = (torch.randn(shape, generator=gen, device=DEV) * 2 + 0.5).to(torch.bfloat16)
+    if kind == "norm":
+        shift = (torch.randn((1, d), generator=gen, device=DEV) * 0.1).to(torch.bfloat16)
+        smod = (torch.randn((1, d), generator=gen, device=DEV) * 0.1).to(torch.bfloat16)
+        args = (x, shift.expand(b, d), smod.expand(b, d), 1e-6)
+        name, wrapper, plain, launch = ("K12n norm_modulate_quant", k12.norm_modulate_quant,
+                                        k12.norm_modulate_quant_plain, k12._launch_norm)
+        nbytes, ops = k12.traffic_norm(shape, 1)
+        rtol = K12N_SCALE_RTOL
+    else:
+        args = (x,)
+        name, wrapper, plain, launch = ("K12g gelu_quant", k12.gelu_quant, k12.gelu_quant_plain,
+                                        k12._launch_gelu)
+        nbytes, ops = k12.traffic_gelu(shape)
+        rtol = K12_SCALE_RTOL
+    q, sc = wrapper(*args)
+    qr, sr = plain(*args)
+    torch.cuda.synchronize()
+    over, frac = lsb_check(q, qr)
+    rel = float(((sc - sr).abs() / sr).max())
+    fails.check(over == 0 and frac < LSB_FRACTION and rel <= rtol,
+                f"{name} {shape}: {over} values > 1 LSB off, {frac:.4%} off, scales within "
+                f"rtol {rel:.3g} (<= {rtol})")
+    ms = cuda_time_ms(lambda: launch(*args), iters=20)
+    plain_ms = cuda_time_ms(lambda: plain(*args), iters=5, warmup=1)
+    return kernel_row(name, "B={} T={} D={}".format(*shape), q, qr,
+                      f"q: {frac:.6%} of values 1 LSB off ({over} more); scales rtol {rel:.3g}",
+                      ms, plain_ms, None, nbytes, ops, F32_FLOPS_PER_S)
+
+
+def k16_phase(torch, fails, seed, g, side):
+    """K16 at SAM-B's windowed (G = 100, side 14) or global (G = 4, side 64)
+    attention: 12 heads of 64, bf16 q, k, v and rel terms about REL_POS_SCALE
+    large (a kernel that dropped them would fail). The library yardstick is
+    segment-anything-fast's form: SDPA with the bias materialized as a bf16
+    float attn_mask (G, nh, T, T), built outside the timing."""
+    import torch.nn.functional as F
+
+    from ao_tpu_torch.ops.hopper import window_attention as k16
+    from ao_tpu_torch.quantization.primitives import compute_error
+    from ao_tpu_torch.utils.timing import cuda_time_ms
+
+    nh, hd, t = 12, 64, side * side
+    gen = torch.Generator(device=DEV).manual_seed(seed + 23 + side)
+    q, k, v = (torch.randn((g, t, nh, hd), generator=gen, device=DEV).to(torch.bfloat16)
+               for _ in range(3))
+    rh, rw = ((torch.randn((g, nh, t, side), generator=gen, device=DEV) * REL_POS_SCALE)
+              .to(torch.bfloat16) for _ in range(2))
+    sm = hd ** -0.5
+    got = k16.window_bias_attention(q, k, v, rh, rw, side=side, scale=sm)
+    ref = k16.window_bias_attention_plain(q, k, v, rh, rw, side, sm)
+    torch.cuda.synchronize()
+    sqnr = float(compute_error(ref.float(), got.float()))
+    nobias = float(compute_error(k16.window_bias_attention_plain(q, k, v, 0 * rh, 0 * rw, side,
+                                                                 sm).float(), got.float()))
+    fails.check(bool(torch.isfinite(got).all()) and sqnr >= K16_SQNR_DB and nobias < 30,
+                f"K16 window_bias_attention G={g} side={side}: sqnr {sqnr:.2f} dB "
+                f"(>= {K16_SQNR_DB}); without the bias {nobias:.2f} dB (< 30)")
+    ms = cuda_time_ms(lambda: k16._launch(q, k, v, rh, rw, side, sm), iters=10)
+    plain_ms = cuda_time_ms(lambda: k16.window_bias_attention_plain(q, k, v, rh, rw, side, sm),
+                            iters=2, warmup=1)
+    cols = torch.arange(t, device=DEV)
+    bias = (rh.float()[..., cols // side] + rw.float()[..., cols % side]).to(torch.bfloat16)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias, scale=sm)
+    lib_db = float(compute_error(ref.float(), lib.transpose(1, 2).reshape(g, t, nh * hd).float()))
+    print(f"K16 G={g} side={side}: SDPA with the bias as a float mask against the plain version: "
+          f"{lib_db:.2f} dB", flush=True)
+    library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias,
+                                                                     scale=sm), iters=10)
+    del bias, lib
+    nbytes, flops = k16.traffic(g, t, nh, hd, side)
+    row = kernel_row("K16 window_bias_attention", f"G={g} T={t} side={side} nh={nh} hd={hd}",
+                     got, ref, f"sqnr {sqnr:.2f} dB (>= {K16_SQNR_DB}); without the bias "
+                     f"{nobias:.2f} dB", ms, plain_ms, library_ms, nbytes, flops)
+    torch.cuda.empty_cache()
+    return row
 
 
 def f1_phase(torch, fails, counters):
@@ -1175,16 +1349,16 @@ def check_logits(torch, fails, qparams, cfg, seed, tag, batch=2, prompt_len=16,
                     f"{tag} decode logits, kernel vs einsum attention: sqnr {sqnr:.2f} dB")
 
 
-def generate_tok_per_s(torch, generate, runs, prompt, cfg, steps, rounds=2):
-    """tok/s of greedy ``generate`` for each (tag, params, kv_quant) of
+def generate_tok_per_s(torch, generate, runs, prompt, steps, rounds=2):
+    """tok/s of greedy ``generate`` for each (tag, params, kv_quant, cfg) of
     ``runs``: host clock around a whole call that ends in a synchronize, the
     runs taken in turns for ``rounds`` rounds after one warm-up call each;
     the median (of two rounds, their mean)."""
-    times = {tag: [] for tag, _, _ in runs}
-    for _, params, kv in runs:
+    times = {tag: [] for tag, *_ in runs}
+    for _, params, kv, cfg in runs:
         generate(params, prompt, cfg, num_steps=steps, max_seq=MAX_SEQ, kv_quant=kv)
     for _ in range(rounds):
-        for tag, params, kv in runs:
+        for tag, params, kv, cfg in runs:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             generate(params, prompt, cfg, num_steps=steps, max_seq=MAX_SEQ, kv_quant=kv)
@@ -1261,6 +1435,195 @@ def profile_decode(torch, params, cfg, prompt, tag, steps=4, kv_quant=None):
         print(f"    {ms:.3f} ms  {name[:110]}", flush=True)
 
 
+def fill_rel_pos(torch, params, gen):
+    """SAM's init zeroes the rel-pos tables (the ViTDet default), so a
+    kernel that dropped the bias would pass every check: fill them from the
+    seed, scaled so that the rel terms come out about REL_POS_SCALE large."""
+    for lp in params["layers"]:
+        for key in ("rel_pos_h", "rel_pos_w"):
+            tab = lp["attn"][key]
+            lp["attn"][key] = (torch.randn(tab.shape, generator=gen, device=DEV)
+                               * REL_POS_SCALE * tab.shape[-1] ** -0.5).to(tab.dtype)
+    return params
+
+
+@contextlib.contextmanager
+def vision_as_plain():
+    """K16's, K12n's and K12g's wrappers run their plain versions on the
+    card: the same route with its quantizers, the kernels the only
+    difference."""
+    from ao_tpu_torch.ops.hopper import fused_act as k12
+    from ao_tpu_torch.ops.hopper import window_attention as k16
+
+    saved = (k16._launch, k12._launch_norm, k12._launch_gelu)
+    k16._launch = lambda q, k, v, rh, rw, side, scale: k16.window_bias_attention_plain(
+        q, k, v, rh, rw, side, scale)
+    k12._launch_norm = k12.norm_modulate_quant_plain
+    k12._launch_gelu = k12.gelu_quant_plain
+    try:
+        yield
+    finally:
+        k16._launch, k12._launch_norm, k12._launch_gelu = saved
+
+
+def profile_forward(torch, tag, run, n_images, rounds=3):
+    """images/s of ``run`` (host clock around a call ending in a
+    synchronize; the median of ``rounds`` calls after the launch-count
+    call), and the device busy share, ops and top kernels of one profiled
+    call. Returns images/s."""
+    from torch.profiler import ProfilerActivity, profile
+
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    wall_ms = statistics.median(times) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    busy_ms, ops, top = device_time(prof, 1)
+    ips = n_images / wall_ms * 1e3
+    print(f"{tag} forward ({n_images} images): {ips:.2f} images/s, host wall {wall_ms:.3f} ms, "
+          f"device busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}), {ops} device ops", flush=True)
+    for name, ms in top:
+        print(f"    {ms:.3f} ms  {name[:110]}", flush=True)
+    return ips
+
+
+def sam_paths(torch, fails, counters, launches, ips):
+    """SAM-B at full width (12 layers, image 1024, windows of 14, global
+    layers 2, 5, 8, 11; rel-pos tables filled), random weights from the
+    seed: 4 images with 2 point prompts each through ``sam.forward``, under
+    W8A8 (``Int8DynamicActivationInt8WeightConfig()``: torch._int_mm for
+    the linears, K12n and K12g in the MLPs and before the global layers'
+    q, k, v, K16 for the attention) and in bf16 (K16). Launch counts exact;
+    masks and IoU against the "torch" backend: 30 dB in bf16; under W8A8,
+    where the int8 activation quantizers turn bf16-level differences into
+    whole steps, within FLOOR_MARGIN_DB of the plain route's own floor under
+    a nudge of the images by (1 + 2^-8) (30 dB where the floor is higher),
+    and where that floor is under 23 dB the kernels are also held against
+    their plain versions inside the same route at that bound."""
+    import ao_tpu_torch
+    from ao_tpu_torch.models import sam
+    from ao_tpu_torch.ops import kernels
+    from ao_tpu_torch.quantization.primitives import compute_error
+
+    cfg = sam.SAM_B
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 30)
+    params = fill_rel_pos(torch, sam.init_params(cfg, gen, device=DEV), gen)
+    images = torch.randn((SAM_BATCH, cfg.image_size, cfg.image_size, 3), generator=gen,
+                         device=DEV)
+    coords = torch.rand((SAM_BATCH, SAM_POINTS, 2), generator=gen, device=DEV) * cfg.image_size
+    labels = torch.tensor([[1, 0]] * SAM_BATCH, dtype=torch.int32, device=DEV)
+    n_glb = len(cfg.global_attn_layers)
+    n_win = cfg.n_layers - n_glb
+    for tag in ("SAM-B W8A8", "SAM-B bf16"):
+        w8a8 = tag.endswith("W8A8")
+        p = (ao_tpu_torch.quantize_(params, ao_tpu_torch.Int8DynamicActivationInt8WeightConfig())
+             if w8a8 else params)
+        want = {name: 0 for name in counters}
+        want["window_bias_attention"] = cfg.n_layers
+        if w8a8:
+            want["norm_modulate_quant"] = 2 * n_glb + n_win
+            want["gelu_quant"] = cfg.n_layers
+
+        def run(imgs=images, p=p):
+            return sam.forward(p, imgs, coords, labels, cfg)
+
+        for c in counters.values():
+            c.launches = 0
+        got = run()
+        torch.cuda.synchronize()
+        launches[tag] = {name: c.launches for name, c in counters.items()}
+        print(f"{tag} launches: {launches[tag]} (want {want})", flush=True)
+        fails.check(launches[tag] == want, f"{tag} launch counts {launches[tag]} != {want}")
+        g4 = 4 * cfg.grid
+        fails.check(tuple(got[0].shape) == (SAM_BATCH, cfg.n_mask_tokens, g4, g4)
+                    and tuple(got[1].shape) == (SAM_BATCH, cfg.n_mask_tokens)
+                    and all(bool(torch.isfinite(x).all()) for x in got),
+                    f"{tag}: masks {tuple(got[0].shape)}, iou {tuple(got[1].shape)} not finite "
+                    f"or out of shape")
+        with kernels.backend("torch"):
+            plain = run()
+            nudged = run(images * (1 + 2 ** -8)) if w8a8 else None
+        needs = []
+        for i, what in enumerate(("masks", "IoU")):
+            sqnr = float(compute_error(plain[i], got[i]))
+            need, note = PATH_SQNR_DB, ""
+            if w8a8:
+                floor = float(compute_error(plain[i], nudged[i]))
+                need = min(PATH_SQNR_DB, floor - FLOOR_MARGIN_DB)
+                note = f"; plain route vs itself with the images nudged by 2^-8: {floor:.2f} dB"
+            needs.append(need)
+            print(f"{tag} {what}, kernel route vs plain route: sqnr {sqnr:.2f} dB "
+                  f"(>= {need:.2f}){note}", flush=True)
+            fails.check(sqnr >= need, f"{tag} {what}: sqnr {sqnr:.2f} dB < {need:.2f}")
+        if w8a8 and min(needs) < PATH_SQNR_DB - 7:  # a floor under 23 dB
+            with vision_as_plain():
+                alone = run()
+            for i, what in enumerate(("masks", "IoU")):
+                sqnr = float(compute_error(alone[i], got[i]))
+                print(f"{tag} {what}, the kernels vs their plain versions in the same route: "
+                      f"sqnr {sqnr:.2f} dB (>= {needs[i]:.2f})", flush=True)
+                fails.check(sqnr >= needs[i], f"{tag} {what}, kernels vs plain versions: "
+                                              f"sqnr {sqnr:.2f} dB")
+        del plain, nudged, got
+        torch.cuda.empty_cache()
+        ips[tag] = profile_forward(torch, tag, run, SAM_BATCH)
+        del p
+        torch.cuda.empty_cache()
+
+
+def vit_paths(torch, fails, counters, launches, ips):
+    """ViT-B/16 at full width (12 layers), random weights from the seed,
+    batch 4 at 224^2 (M = 788 rows per linear) through ``vit.forward``:
+    under ``Int4WeightOnlyConfig(group_size=128)`` (K11 for wq, wk, wv, wo
+    and w1, whose 768-wide inputs have 6 groups: the split-half layout; K1
+    for w2, 24 groups: magic; the 1000-class head, N % 128 != 0, dequantized)
+    and in bf16 (no kernel). Launch counts exact; int4-WO logits against the
+    "torch" backend at 30 dB."""
+    import ao_tpu_torch
+    from ao_tpu_torch.models import vit
+    from ao_tpu_torch.ops import kernels
+    from ao_tpu_torch.quantization.primitives import compute_error
+
+    cfg = vit.VIT_B16
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 31)
+    params = vit.init_params(cfg, gen, device=DEV)
+    images = torch.randn((VIT_BATCH, cfg.image_size, cfg.image_size, 3), generator=gen,
+                         device=DEV)
+    qparams = ao_tpu_torch.quantize_(params, ao_tpu_torch.Int4WeightOnlyConfig(group_size=GROUP))
+    for tag, p in (("ViT-B/16 int4-WO", qparams), ("ViT-B/16 bf16", params)):
+        want = {name: 0 for name in counters}
+        if p is qparams:
+            want["int4_wo_matmul"] = 5 * cfg.n_layers
+            want["int4_wo_magic"] = cfg.n_layers
+
+        def run(p=p):
+            return vit.forward(p, images, cfg)
+
+        for c in counters.values():
+            c.launches = 0
+        got = run()
+        torch.cuda.synchronize()
+        launches[tag] = {name: c.launches for name, c in counters.items()}
+        print(f"{tag} launches: {launches[tag]} (want {want})", flush=True)
+        fails.check(launches[tag] == want, f"{tag} launch counts {launches[tag]} != {want}")
+        fails.check(tuple(got.shape) == (VIT_BATCH, cfg.n_classes) and got.dtype == torch.float32
+                    and bool(torch.isfinite(got).all()),
+                    f"{tag}: logits {tuple(got.shape)} {got.dtype} not finite or out of shape")
+        with kernels.backend("torch"):
+            plain = run()
+        sqnr = float(compute_error(plain, got))
+        print(f"{tag} logits, kernel route vs plain route: sqnr {sqnr:.2f} dB "
+              f"(>= {PATH_SQNR_DB})", flush=True)
+        fails.check(sqnr >= PATH_SQNR_DB, f"{tag} logits: sqnr {sqnr:.2f} dB < {PATH_SQNR_DB}")
+        ips[tag] = profile_forward(torch, tag, run, VIT_BATCH)
+
+
 def main() -> int:
     import torch
 
@@ -1280,6 +1643,7 @@ def main() -> int:
     from ao_tpu_torch.ops.hopper import int8_matmul as k10
     from ao_tpu_torch.ops.hopper import lut4_matmul as k15
     from ao_tpu_torch.ops.hopper import paged_attention as k9
+    from ao_tpu_torch.ops.hopper import window_attention as k16
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1289,56 +1653,68 @@ def main() -> int:
     print(f"device: {kind}; nvidia-smi name, power.limit: {card}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
 
-    t0 = time.perf_counter()
-    logs = build.build()
-    print(f"build: {time.perf_counter() - t0:.1f} s, nvcc sm_90a, "
-          f"{len(logs)} of {len(build.SOURCES)} sources compiled into "
-          f"{build.BUILD_DIR.relative_to(ROOT)}", flush=True)
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"  {name}: {line.split(':', 1)[-1].strip()}")
+    with phase("build"):
+        logs = build.build()
+        print(f"build: nvcc sm_90a, {len(logs)} of {len(build.SOURCES)} sources compiled into "
+              f"{build.BUILD_DIR.relative_to(ROOT)}", flush=True)
+        for name, log in logs.items():
+            for line in log.splitlines():
+                if "Used" in line or "spill" in line:
+                    print(f"  {name}: {line.split(':', 1)[-1].strip()}")
 
     fails = Failures()
-    k1_rows = k1_phase(torch, fails, SEED)
-    k2_row = k2_phase(torch, fails, SEED)
     long_lengths = [T_LONG] * K2_SHAPE["b"]
-    kv_rows = {kv: kv_phase(torch, fails, SEED, kv) for kv in KV_ALL}
-    kv_rows["k2v-int8"] = kv_phase(torch, fails, SEED, "int8", kernel=K2V_INT8)
-    long_rows = {"bf16": k2_phase(torch, fails, SEED, t=T_LONG, lengths=long_lengths)}
-    long_rows.update({kv: kv_phase(torch, fails, SEED, kv, t=T_LONG, lengths=long_lengths)
-                      for kv in KV_ALL})
-    long_rows["k2v-int8"] = kv_phase(torch, fails, SEED, "int8", t=T_LONG,
-                                     lengths=long_lengths, kernel=K2V_INT8)
-    k3_rows = k3_phase(torch, fails, SEED)
-    k4_rows = k4_phase(torch, fails, SEED)
-    k12_row = k12_phase(torch, fails, SEED)
-    k2_engine = k2_phase(torch, fails, SEED, t=ENGINE_CFG["max_seq"], lengths=ENGINE_LENGTHS)
-    k8_rows = {shape: k8_phase(torch, fails, SEED, *shape) for shape in K8_SHAPES}
-    # K9 in each mode at the engine's decode shape and at T = 4096
-    k9_rows = {kv: (k9_phase(torch, fails, SEED, ENGINE_LENGTHS, ENGINE_CFG["max_seq"] // PAGE,
-                             kv),
-                    k9_phase(torch, fails, SEED, long_lengths, T_LONG // PAGE, kv))
-               for kv in (None,) + KV_QUANT}
-    # K5-K7 at the slot engine's decode shape, where they launch
-    engine_kv_rows = {kv: kv_phase(torch, fails, SEED, kv, t=ENGINE_CFG["max_seq"],
-                                   lengths=ENGINE_LENGTHS) for kv in KV_QUANT}
-    k10_rows = k10_phase(torch, fails, SEED)
-    k17_rows = k17_phase(torch, fails, SEED)
-    k14_rows = {kind: k14_phase(torch, fails, SEED, kind) for kind in ("mx", "nv")}
-    k15_rows = k15_phase(torch, fails, SEED)
+    with phase("kernels K1-K10, K12s, K14, K15, K17"):
+        k1_rows = k1_phase(torch, fails, SEED)
+        k2_row = k2_phase(torch, fails, SEED)
+        kv_rows = {kv: kv_phase(torch, fails, SEED, kv) for kv in KV_ALL}
+        kv_rows["k2v-int8"] = kv_phase(torch, fails, SEED, "int8", kernel=K2V_INT8)
+        long_rows = {"bf16": k2_phase(torch, fails, SEED, t=T_LONG, lengths=long_lengths)}
+        long_rows.update({kv: kv_phase(torch, fails, SEED, kv, t=T_LONG, lengths=long_lengths)
+                          for kv in KV_ALL})
+        long_rows["k2v-int8"] = kv_phase(torch, fails, SEED, "int8", t=T_LONG,
+                                         lengths=long_lengths, kernel=K2V_INT8)
+        k3_rows = k3_phase(torch, fails, SEED)
+        k4_rows = k4_phase(torch, fails, SEED)
+        k12_row = k12_phase(torch, fails, SEED)
+        k2_engine = k2_phase(torch, fails, SEED, t=ENGINE_CFG["max_seq"],
+                             lengths=ENGINE_LENGTHS)
+        k8_rows = {shape: k8_phase(torch, fails, SEED, *shape) for shape in K8_SHAPES}
+        # K9 in each mode at the engine's decode shape and at T = 4096
+        k9_rows = {kv: (k9_phase(torch, fails, SEED, ENGINE_LENGTHS,
+                                 ENGINE_CFG["max_seq"] // PAGE, kv),
+                        k9_phase(torch, fails, SEED, long_lengths, T_LONG // PAGE, kv))
+                   for kv in (None,) + KV_QUANT}
+        # K5-K7 at the slot engine's decode shape, where they launch
+        engine_kv_rows = {kv: kv_phase(torch, fails, SEED, kv, t=ENGINE_CFG["max_seq"],
+                                       lengths=ENGINE_LENGTHS) for kv in KV_QUANT}
+        k10_rows = k10_phase(torch, fails, SEED)
+        k17_rows = k17_phase(torch, fails, SEED)
+        k14_rows = {kind: k14_phase(torch, fails, SEED, kind) for kind in ("mx", "nv")}
+        k15_rows = k15_phase(torch, fails, SEED)
+    with phase("kernels K11, K12n, K12g, K16"):
+        k11_rows = k11_phase(torch, fails, SEED)
+        k12n_rows = {shape: k12v_phase(torch, fails, SEED, "norm", shape) for shape in K12N_SHAPES}
+        k12g_rows = {shape: k12v_phase(torch, fails, SEED, "gelu", shape) for shape in K12G_SHAPES}
+        k16_rows = {shape: k16_phase(torch, fails, SEED, *shape) for shape in K16_SHAPES}
 
     # -- the main paths: Llama-3-8B widths, int4-WO and W4A8, greedy generate
     cfg = llama.LLAMA3_8B
+    cut = dataclasses.replace(cfg, n_layers=CUT_LAYERS)
     gen = torch.Generator(device=DEV).manual_seed(SEED)
-    t0 = time.perf_counter()
-    params = llama.init_params(cfg, gen, device=DEV)
-    qparams = ao_tpu_torch.quantize_(params, ao_tpu_torch.Int4WeightOnlyConfig(group_size=GROUP))
-    wparams = ao_tpu_torch.quantize_(
-        params, ao_tpu_torch.Int8DynamicActivationInt4WeightConfig(group_size=GROUP))
-    torch.cuda.synchronize()
-    print(f"model: Llama-3-8B widths, {cfg.n_layers} layers, random weights (seed {SEED}); "
-          f"init + two quantize_ {time.perf_counter() - t0:.1f} s", flush=True)
+    with phase("init and quantize_"):
+        params = llama.init_params(cfg, gen, device=DEV)
+        qparams = ao_tpu_torch.quantize_(params,
+                                         ao_tpu_torch.Int4WeightOnlyConfig(group_size=GROUP))
+        wparams = ao_tpu_torch.quantize_(
+            params, ao_tpu_torch.Int8DynamicActivationInt4WeightConfig(group_size=GROUP))
+        torch.cuda.synchronize()
+        print(f"model: Llama-3-8B widths, {cfg.n_layers} layers, random weights (seed {SEED})",
+              flush=True)
+    # the first CUT_LAYERS layers of the same models, with the same embedding
+    # and lm_head, for the quantized-KV and the other weight paths
+    params_cut = dict(params, layers=params["layers"][:CUT_LAYERS])
+    qparams_cut = dict(qparams, layers=qparams["layers"][:CUT_LAYERS])
     prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=DEV,
                            dtype=torch.int32)
 
@@ -1354,127 +1730,160 @@ def main() -> int:
                      "fp8_blockwise_matmul": k17.fp8_blockwise_matmul,
                      "mxfp4_wo_matmul": k14.mxfp4_wo_matmul,
                      "nvfp4_wo_matmul": k14.nvfp4_wo_matmul,
-                     "lut4_wo_magic": k15.lut4_wo_magic})
-    f1_phase(torch, fails, counters)
-    linears = 7 * cfg.n_layers + 1  # q, k, v, o, w1, w3, w2 per layer, and the lm_head
-    decode_attn = cfg.n_layers * (STEPS - 1)
+                     "lut4_wo_magic": k15.lut4_wo_magic,
+                     "int4_wo_matmul": k1.int4_wo_matmul,
+                     "norm_modulate_quant": k12.norm_modulate_quant,
+                     "gelu_quant": k12.gelu_quant,
+                     "window_bias_attention": k16.window_bias_attention})
+    with phase("F1"):
+        f1_phase(torch, fails, counters)
+
+    def linears(c):  # q, k, v, o, w1, w3, w2 per layer, and the lm_head
+        return 7 * c.n_layers + 1
+
+    def decode_attn(c):
+        return c.n_layers * (STEPS - 1)
+
     launches = {}
-    paths = [("int4-WO", qparams, None, False, {"int4_wo_magic": linears * STEPS,
-                                                "decode_attention": decode_attn}),
-             ("W4A8", wparams, None, False, {"decode_attention": decode_attn,
-                                             "int4_w4a8_matmul": linears * (STEPS - 1),
-                                             "int4_magic8_requant_int8": linears,
-                                             "silu_mul_quant": cfg.n_layers})]
-    paths += [(KV_TAG[kv], qparams, kv, False, {"int4_wo_magic": linears * STEPS,
-                                                KV_KERNELS[kv][0]: decode_attn})
+    paths = [("int4-WO", qparams, None, False, cfg,
+              {"int4_wo_magic": linears(cfg) * STEPS, "decode_attention": decode_attn(cfg)}),
+             ("W4A8", wparams, None, False, cfg,
+              {"decode_attention": decode_attn(cfg),
+               "int4_w4a8_matmul": linears(cfg) * (STEPS - 1),
+               "int4_magic8_requant_int8": linears(cfg), "silu_mul_quant": cfg.n_layers})]
+    paths += [(KV_TAG[kv], qparams_cut, kv, False, cut,
+               {"int4_wo_magic": linears(cut) * STEPS, KV_KERNELS[kv][0]: decode_attn(cut)})
               for kv in KV_ALL]
-    paths.append(("int4-WO+flash", qparams, None, True, {"int4_wo_magic": linears * STEPS,
-                                                         "decode_attention": decode_attn,
-                                                         "flash_attention": cfg.n_layers}))
-    for tag, qp, kv, flash, want in paths:
-        want = {name: want.get(name, 0) for name in counters}
-        for c in counters.values():
-            c.launches = 0
-        toks = ao_tpu_torch.generate(qp, prompt, cfg, num_steps=STEPS, max_seq=MAX_SEQ,
-                                     kv_quant=kv, use_flash=flash)
-        torch.cuda.synchronize()
-        got = {name: c.launches for name, c in counters.items()}
-        launches[tag] = got
-        print(f"{tag} main path launches: {got} (want {want})", flush=True)
-        fails.check(got == want, f"{tag} launch counts {got} != {want}")
-        fails.check(toks.shape == (BATCH, STEPS) and toks.dtype == torch.int32
-                    and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
-                    f"{tag} tokens {tuple(toks.shape)} {toks.dtype} out of shape or range")
-    check_logits(torch, fails, qparams, cfg, SEED, "int4-WO")
-    # 8 x 80 = 640 prefill rows > 512: the W4A8 cut runs K4, K12 and the
-    # int8 GEMM at prefill and K3 at decode
-    check_logits(torch, fails, wparams, cfg, SEED, "W4A8", batch=BATCH, prompt_len=80,
-                 floor_margin_db=FLOOR_MARGIN_DB)
-    for kv in KV_ALL:
-        check_logits(torch, fails, qparams, cfg, SEED, KV_TAG[kv], kv_quant=kv,
+    paths.append(("int4-WO+flash", qparams, None, True, cfg,
+                  {"int4_wo_magic": linears(cfg) * STEPS, "decode_attention": decode_attn(cfg),
+                   "flash_attention": cfg.n_layers}))
+    with phase("generate launch counts (int4-WO, W4A8, +flash: 32 layers; KV: 8)"):
+        for tag, qp, kv, flash, c, want in paths:
+            want = {name: want.get(name, 0) for name in counters}
+            for ctr in counters.values():
+                ctr.launches = 0
+            toks = ao_tpu_torch.generate(qp, prompt, c, num_steps=STEPS, max_seq=MAX_SEQ,
+                                         kv_quant=kv, use_flash=flash)
+            torch.cuda.synchronize()
+            got = {name: ctr.launches for name, ctr in counters.items()}
+            launches[tag] = got
+            print(f"{tag} ({c.n_layers} layers) main path launches: {got} (want {want})",
+                  flush=True)
+            fails.check(got == want, f"{tag} launch counts {got} != {want}")
+            fails.check(toks.shape == (BATCH, STEPS) and toks.dtype == torch.int32
+                        and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+                        f"{tag} tokens {tuple(toks.shape)} {toks.dtype} out of shape or range")
+    with phase("two-layer logits checks"):
+        check_logits(torch, fails, qparams, cfg, SEED, "int4-WO")
+        # 8 x 80 = 640 prefill rows > 512: the W4A8 cut runs K4, K12 and the
+        # int8 GEMM at prefill and K3 at decode
+        check_logits(torch, fails, wparams, cfg, SEED, "W4A8", batch=BATCH, prompt_len=80,
                      floor_margin_db=FLOOR_MARGIN_DB)
-    for kv in (None,) + KV_QUANT:
-        check_serving_logits(torch, fails, qparams, cfg, SEED, kv)
+        for kv in KV_ALL:
+            check_logits(torch, fails, qparams, cfg, SEED, KV_TAG[kv], kv_quant=kv,
+                         floor_margin_db=FLOOR_MARGIN_DB)
+        for kv in (None,) + KV_QUANT:
+            check_serving_logits(torch, fails, qparams, cfg, SEED, kv)
 
-    runs = [("W4A8", wparams, None), ("int4-WO", qparams, None), ("bf16", params, None)]
-    runs += [(KV_TAG[kv], qparams, kv) for kv in KV_ALL]
-    tps = generate_tok_per_s(torch, ao_tpu_torch.generate, runs, prompt, cfg, STEPS)
-    print(f"generate (B={BATCH}, prompt {PROMPT}, {STEPS} steps, max_seq {MAX_SEQ}, "
-          f"{cfg.n_layers} layers) on {card}: "
-          + ", ".join(f"{tag} {tps[tag]:.1f} tok/s" for tag, _, _ in runs), flush=True)
-    for tag, p, kv in runs:
-        profile_decode(torch, p, cfg, prompt, tag, kv_quant=kv)
+    cut_tag = f"/{CUT_LAYERS}L"
+    runs = [("W4A8", wparams, None, cfg), ("int4-WO", qparams, None, cfg),
+            ("bf16", params, None, cfg), ("int4-WO" + cut_tag, qparams_cut, None, cut),
+            ("bf16" + cut_tag, params_cut, None, cut)]
+    runs += [(KV_TAG[kv], qparams_cut, kv, cut) for kv in KV_ALL]
+    with phase("generate tok/s and profiles"):
+        tps = generate_tok_per_s(torch, ao_tpu_torch.generate, runs, prompt, STEPS)
+        print(f"generate (B={BATCH}, prompt {PROMPT}, {STEPS} steps, max_seq {MAX_SEQ}; "
+              f"{cfg.n_layers} layers, {CUT_LAYERS} where marked {cut_tag} and for the KV paths) "
+              f"on {card}: " + ", ".join(f"{tag} {tps[tag]:.1f} tok/s" for tag, *_ in runs),
+              flush=True)
+        for tag, p, kv, c in runs:
+            if not tag.endswith(cut_tag):
+                profile_decode(torch, p, c, prompt, tag, kv_quant=kv)
 
-    # -- the int8, fp8, 4-bit float and NF4 weight paths, one quantized model
-    # on the card at a time: launch counts and tok/s of one call, tokens,
-    # two-layer logits and a profile each, beside the bf16 and int4-WO
-    # numbers above
+    # -- the int8, fp8, 4-bit float and NF4 weight paths at CUT_LAYERS layers,
+    # one quantized model on the card at a time: launch counts and tok/s of
+    # one call, tokens, two-layer logits and a profile each, beside the
+    # int4-WO and bf16 numbers of the same depth above
     del wparams
     torch.cuda.empty_cache()
-    weight_want = {"int8-WO": {"int8_wo_matmul": linears * STEPS},
-                   "W8A8": {"silu_mul_quant": cfg.n_layers}, "fp8-row": {},
-                   "fp8-block": {"fp8_blockwise_matmul": linears * STEPS},
-                   "MXFP4-WO": {"mxfp4_wo_matmul": linears * STEPS},
-                   "NVFP4-WO": {"nvfp4_wo_matmul": linears * STEPS},
-                   "NVFP4-dyn": {"nvfp4_wo_matmul": linears * STEPS},
-                   "NF4-WO": {"lut4_wo_magic": linears * STEPS}}
+    weight_want = {"int8-WO": {"int8_wo_matmul": linears(cut) * STEPS},
+                   "W8A8": {"silu_mul_quant": cut.n_layers}, "fp8-row": {},
+                   "fp8-block": {"fp8_blockwise_matmul": linears(cut) * STEPS},
+                   "MXFP4-WO": {"mxfp4_wo_matmul": linears(cut) * STEPS},
+                   "NVFP4-WO": {"nvfp4_wo_matmul": linears(cut) * STEPS},
+                   "NVFP4-dyn": {"nvfp4_wo_matmul": linears(cut) * STEPS},
+                   "NF4-WO": {"lut4_wo_magic": linears(cut) * STEPS}}
     for tag in WEIGHT_PATHS:
-        t0 = time.perf_counter()
-        pw = ao_tpu_torch.quantize_(params, weight_config(ao_tpu_torch, tag))
-        torch.cuda.synchronize()
-        print(f"{tag}: quantize_ {time.perf_counter() - t0:.1f} s", flush=True)
-        want = {name: 0 for name in counters}
-        want.update(weight_want[tag], decode_attention=decode_attn)
-        for c in counters.values():
-            c.launches = 0
-        t0 = time.perf_counter()
-        toks = ao_tpu_torch.generate(pw, prompt, cfg, num_steps=STEPS, max_seq=MAX_SEQ)
-        torch.cuda.synchronize()
-        # tok/s of this call, the model's first: host clock around a call
-        # ending in a synchronize, one-time costs (first launches) included
-        tps[tag] = BATCH * STEPS / (time.perf_counter() - t0)
-        got = {name: c.launches for name, c in counters.items()}
-        launches[tag] = got
-        print(f"{tag} main path launches: {got} (want {want})", flush=True)
-        fails.check(got == want, f"{tag} launch counts {got} != {want}")
-        fails.check(toks.shape == (BATCH, STEPS) and toks.dtype == torch.int32
-                    and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
-                    f"{tag} tokens {tuple(toks.shape)} {toks.dtype} out of shape or range")
-        if tag in ("int8-WO", "MXFP4-WO", "NVFP4-WO", "NF4-WO"):
-            check_logits(torch, fails, pw, cfg, SEED, tag)
-        elif tag == "NVFP4-dyn":
-            # fp4 activations: no absolute floor, the kernels held alone
-            check_logits(torch, fails, pw, cfg, SEED, tag, batch=BATCH, prompt_len=80,
-                         floor_margin_db=FLOOR_MARGIN_DB, min_db=0.0, isolate=k14_as_plain)
-        else:
-            # an activation quantizer on every linear: the calibrated bound;
-            # 8 x 80 = 640 prefill rows run W8A8's SwiGLU gate through K12s
-            check_logits(torch, fails, pw, cfg, SEED, tag, batch=BATCH, prompt_len=80,
-                         floor_margin_db=FLOOR_MARGIN_DB)
-        print(f"{tag} generate (B={BATCH}, prompt {PROMPT}, {STEPS} steps, the launch-count "
-              f"call) on {card}: {tps[tag]:.1f} tok/s (int4-WO {tps['int4-WO']:.1f}, bf16 "
-              f"{tps['bf16']:.1f} in this call)", flush=True)
-        profile_decode(torch, pw, cfg, prompt, tag)
-        linear_scratch(torch, fails, tag, pw["layers"][0]["mlp"]["w1"])
-        del pw, toks
-        torch.cuda.empty_cache()
+        with phase(f"{tag} ({CUT_LAYERS} layers)"):
+            pw = ao_tpu_torch.quantize_(params_cut, weight_config(ao_tpu_torch, tag))
+            torch.cuda.synchronize()
+            want = {name: 0 for name in counters}
+            want.update(weight_want[tag], decode_attention=decode_attn(cut))
+            for ctr in counters.values():
+                ctr.launches = 0
+            t0 = time.perf_counter()
+            toks = ao_tpu_torch.generate(pw, prompt, cut, num_steps=STEPS, max_seq=MAX_SEQ)
+            torch.cuda.synchronize()
+            # tok/s of this call, the model's first: host clock around a call
+            # ending in a synchronize, one-time costs (first launches) included
+            tps[tag] = BATCH * STEPS / (time.perf_counter() - t0)
+            got = {name: ctr.launches for name, ctr in counters.items()}
+            launches[tag] = got
+            print(f"{tag} ({CUT_LAYERS} layers) main path launches: {got} (want {want})",
+                  flush=True)
+            fails.check(got == want, f"{tag} launch counts {got} != {want}")
+            fails.check(toks.shape == (BATCH, STEPS) and toks.dtype == torch.int32
+                        and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+                        f"{tag} tokens {tuple(toks.shape)} {toks.dtype} out of shape or range")
+            if tag in ("int8-WO", "MXFP4-WO", "NVFP4-WO", "NF4-WO"):
+                check_logits(torch, fails, pw, cut, SEED, tag)
+            elif tag == "NVFP4-dyn":
+                # fp4 activations: no absolute floor, the kernels held alone
+                check_logits(torch, fails, pw, cut, SEED, tag, batch=BATCH, prompt_len=80,
+                             floor_margin_db=FLOOR_MARGIN_DB, min_db=0.0, isolate=k14_as_plain)
+            else:
+                # an activation quantizer on every linear: the calibrated
+                # bound; 8 x 80 = 640 prefill rows run W8A8's SwiGLU gate
+                # through K12s
+                check_logits(torch, fails, pw, cut, SEED, tag, batch=BATCH, prompt_len=80,
+                             floor_margin_db=FLOOR_MARGIN_DB)
+            print(f"{tag} generate ({CUT_LAYERS} layers, B={BATCH}, prompt {PROMPT}, {STEPS} "
+                  f"steps, the launch-count call) on {card}: {tps[tag]:.1f} tok/s (int4-WO"
+                  f"{cut_tag} {tps['int4-WO' + cut_tag]:.1f}, bf16{cut_tag} "
+                  f"{tps['bf16' + cut_tag]:.1f} in this call)", flush=True)
+            profile_decode(torch, pw, cut, prompt, tag)
+            linear_scratch(torch, fails, tag, pw["layers"][0]["mlp"]["w1"])
+            del pw, toks
+            torch.cuda.empty_cache()
 
     # -- the serving engine: the same requests in both KV layouts, over a
     # bf16 KV and over each quantized KV
     requests = engine_requests(SEED, cfg.vocab_size)
     greedy = [uid for uid, (_, _, kw) in enumerate(requests) if not kw]
-    for kv in (None,) + KV_QUANT:
-        served = {}
-        for paged in (False, True):
-            tag = engine_tag(paged, kv)
-            launches[tag], served[paged], _ = engine_run(torch, fails, qparams, cfg, requests,
-                                                         counters, paged, kv)
-        same = sum(a == b for uid in greedy
-                   for a, b in zip(served[False].get(uid, []), served[True].get(uid, [])))
-        total = sum(len(served[False].get(uid, [])) for uid in greedy)
-        print(f"engine, {kv or 'bf16'} KV: the two layouts agree on {same} of {total} greedy "
-              f"tokens ({same / max(total, 1):.1%}; not judged: the routes round differently)",
-              flush=True)
+    with phase("engine runs"):
+        for kv in (None,) + KV_QUANT:
+            served = {}
+            for paged in (False, True):
+                tag = engine_tag(paged, kv)
+                launches[tag], served[paged], _ = engine_run(torch, fails, qparams, cfg,
+                                                             requests, counters, paged, kv)
+            same = sum(a == b for uid in greedy
+                       for a, b in zip(served[False].get(uid, []), served[True].get(uid, [])))
+            total = sum(len(served[False].get(uid, [])) for uid in greedy)
+            print(f"engine, {kv or 'bf16'} KV: the two layouts agree on {same} of {total} "
+                  f"greedy tokens ({same / max(total, 1):.1%}; not judged: the routes round "
+                  f"differently)", flush=True)
+    del params, qparams, params_cut, qparams_cut
+    torch.cuda.empty_cache()
+
+    # -- the vision slice: SAM-B (W8A8, bf16) and ViT-B/16 (int4-WO, bf16)
+    ips = {}
+    with phase("SAM-B paths"):
+        sam_paths(torch, fails, counters, launches, ips)
+    with phase("ViT-B/16 paths"):
+        vit_paths(torch, fails, counters, launches, ips)
+    print(f"vision forwards on {card}: " + ", ".join(f"{tag} {ips[tag]:.2f} images/s"
+                                                     for tag in VISION_PATHS), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
 
     if fails:
@@ -1522,6 +1931,14 @@ def main() -> int:
              for shape in WEIGHT_REPORTED]
     rows += [(POOL_KERNELS[kv], "paged_attention.cu", "paged_attention.py:189",
               engine_tag(True, kv), row) for kv in (None,) + KV_QUANT for row in k9_rows[kv]]
+    rows += [("int4_wo_matmul", "int4_matmul.cu", "int4_matmul.py:222", "ViT-B/16 int4-WO",
+              k11_rows[shape]) for shape in K11_SHAPES]
+    rows += [("norm_modulate_quant", "fused_act.cu", "fused_act.py:56", "SAM-B W8A8",
+              k12n_rows[shape]) for shape in K12N_SHAPES]
+    rows += [("gelu_quant", "fused_act.cu", "fused_act.py:122", "SAM-B W8A8", k12g_rows[shape])
+             for shape in K12G_SHAPES]
+    rows += [("window_bias_attention", "window_attention.cu", "window_attention.py:126",
+              "SAM-B W8A8", k16_rows[shape]) for shape in K16_SHAPES]
     entries = [dict(name=name, route="cuda", source=f"ao_tpu_torch/csrc/{src}",
                     replaces=f"ao_tpu/ops/pallas/{ref}", launches=launches[path][name],
                     **{k: row[k] for k in keys})

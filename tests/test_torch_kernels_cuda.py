@@ -1068,3 +1068,221 @@ def test_generate_fp4_nf4_go_through_their_kernels(dev, name):
     if name == "NVFP4-dyn":
         need = min(need, float(compute_error(plain, nudged)) - 3.0)
     assert float(compute_error(plain, logits)) >= need
+
+
+# ---------------------------------------------------------------------------
+# The vision slice: K11, K12n, K12g, K16 and the SAM / ViT routes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m,k,n,g,domain", [
+    (8, 768, 768, 128, "tinygemm"),
+    (788, 768, 3072, 128, "tinygemm"),  # ViT-B's w1 at batch 4
+    (100, 256, 128, 32, "minmax_int"),  # the f32 (s, b) transport
+    (1, 384, 256, 64, "tinygemm"),
+    (70, 192, 384, 64, "tinygemm"),     # M across two row blocks, a ragged edge
+])
+def test_int4_wo_halves_matches_plain(dev, m, k, n, g, domain):
+    gen = torch.Generator(device=dev).manual_seed(m + n)
+    w = (torch.randn((k, n), generator=gen, device=dev) * 0.05).to(torch.bfloat16)
+    zpd = ZeroPointDomain.FLOAT if domain == "tinygemm" else ZeroPointDomain.INT
+    qa = Int4Array.from_hp(w, group_size=g, zero_point_domain=zpd, layout="halves")
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    before = k1.int4_wo_matmul.launches
+    got = k1.int4_wo_matmul(x, qa.qdata, qa.scale, qa.zero_point, g, qa.zero_point_domain)
+    torch.cuda.synchronize()
+    assert k1.int4_wo_matmul.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    s, b = k1.affine_qparams(qa.scale, qa.zero_point, qa.zero_point_domain)
+    ref = k1.int4_wo_matmul_plain(x, qa.qdata, s, b, g)
+    # the same bf16 weights, f32 sums in another order, bf16 output: the JAX
+    # suite's bound for the kernel
+    assert float(compute_error(ref, got)) >= 45
+
+
+def test_int4_wo_halves_refuses_on_the_card(dev):
+    qa = Int4Array.from_hp(torch.randn((384, 256), device=dev), group_size=128, layout="halves")
+    x = torch.randn((8, 384), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="N % 128"):
+        k1.int4_wo_matmul(x, qa.qdata[:, :200], qa.scale[:, :200], qa.zero_point[:, :200], 128,
+                          qa.zero_point_domain)
+    with pytest.raises(ValueError, match="contiguous"):
+        k1.int4_wo_matmul(x, qa.qdata.t().contiguous().t(), qa.scale, qa.zero_point, 128,
+                          qa.zero_point_domain)
+    # the route asks takes_halves first: the 1000-wide head takes dequantize + matmul
+    head = Int4Array.from_hp(torch.randn((768, 1000), device=dev), group_size=128)
+    assert head.layout == "halves"
+    before = k1.int4_wo_matmul.launches
+    y = ao_tpu_torch.linear(torch.randn((4, 768), device=dev, dtype=torch.bfloat16), head)
+    assert y.shape == (4, 1000) and k1.int4_wo_matmul.launches == before
+
+
+def _lsb_ok(got, ref):
+    d = (got.int() - ref.int()).abs()
+    return int((d > 1).sum()) == 0 and float((d > 0).float().mean()) < 0.01
+
+
+@pytest.mark.parametrize("shape,dtype,broadcast", [
+    ((10, 196, 768), torch.bfloat16, True),   # SAM-B's windowed MLP LN, its affine as a row
+    ((2, 1024, 768), torch.bfloat16, False),  # a global layer's rows, a row per batch row
+    ((2, 100, 256), torch.float32, False),
+])
+def test_norm_modulate_quant_matches_plain(dev, shape, dtype, broadcast):
+    b, t, d = shape
+    gen = torch.Generator(device=dev).manual_seed(t)
+    h = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(dtype)
+    rows = 1 if broadcast else b
+    shift = (torch.randn((rows, d), generator=gen, device=dev) * 0.1).to(dtype).expand(b, d)
+    smod = (torch.randn((rows, d), generator=gen, device=dev) * 0.1).to(dtype).expand(b, d)
+    before = k12.norm_modulate_quant.launches
+    q, s = k12.norm_modulate_quant(h, shift, smod, 1e-6)
+    torch.cuda.synchronize()
+    assert k12.norm_modulate_quant.launches == before + 1
+    qr, sr = k12.norm_modulate_quant_plain(h, shift, smod, 1e-6)
+    assert q.shape == shape and s.shape == (b, t, 1)
+    # moments summed in another order: at most 1 LSB on under 1 % of codes
+    assert _lsb_ok(q, qr)
+    assert float(((s - sr).abs() / sr).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((10, 196, 3072), torch.bfloat16),  # SAM-B's windowed MLP
+    ((2, 1024, 3072), torch.bfloat16),
+    ((3, 50, 128), torch.float32),
+])
+def test_gelu_quant_matches_plain(dev, shape, dtype):
+    gen = torch.Generator(device=dev).manual_seed(shape[1])
+    y = (torch.randn(shape, generator=gen, device=dev) * 2).to(dtype)
+    before = k12.gelu_quant.launches
+    q, s = k12.gelu_quant(y)
+    torch.cuda.synchronize()
+    assert k12.gelu_quant.launches == before + 1
+    qr, sr = k12.gelu_quant_plain(y)
+    # tanhf against torch's tanh: at most 1 LSB on under 1 % of codes
+    assert _lsb_ok(q, qr)
+    assert float(((s - sr).abs() / sr).max()) <= 1e-5
+
+
+def test_producers_refuse_on_the_card(dev):
+    h = torch.randn((2, 8, 96), device=dev)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        k12.gelu_quant(h)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        k12.norm_modulate_quant(h, h[:, 0], h[:, 0], 1e-6)
+    h = torch.randn((2, 8, 128), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        k12.gelu_quant(h.transpose(0, 1).contiguous().transpose(0, 1))
+
+
+@pytest.mark.parametrize("g,side,nh,pad_rows", [
+    (10, 14, 12, 0),   # SAM-B's windows
+    (4, 14, 12, 40),   # padded windows: their last rows' k and v are those of zeros
+    (1, 64, 12, 0),    # a global layer at image 1024 (T = 4096)
+    (3, 5, 2, 0),      # T = 25: one ragged key tile
+    (2, 32, 4, 0),
+])
+def test_window_attention_matches_plain(dev, g, side, nh, pad_rows):
+    from ao_tpu_torch.ops.hopper import window_attention as k16
+
+    t, hd = side * side, 64
+    gen = torch.Generator(device=dev).manual_seed(g * 100 + side)
+    q, k, v = (torch.randn((g, t, nh, hd), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    if pad_rows:
+        k[:, -pad_rows:] = 0
+        v[:, -pad_rows:] = 0
+    rh, rw = (torch.randn((g, nh, t, side), generator=gen, device=dev) * 0.3 for _ in range(2))
+    before = k16.window_bias_attention.launches
+    got = k16.window_bias_attention(q, k, v, rh, rw, side=side, scale=hd ** -0.5)
+    torch.cuda.synchronize()
+    assert k16.window_bias_attention.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (g, t, nh * hd)
+    ref = k16.window_bias_attention_plain(q, k, v, rh, rw, side, hd ** -0.5)
+    # the JAX suite's bound for the kernel (tests/test_pallas_tpu.py)
+    assert float(compute_error(ref.float(), got.float())) >= 35
+    nobias = k16.window_bias_attention_plain(q, k, v, 0 * rh, 0 * rw, side, hd ** -0.5)
+    assert float(compute_error(nobias.float(), got.float())) < 30  # the bias is applied
+
+
+def test_window_attention_refuses_on_the_card(dev):
+    from ao_tpu_torch.ops.hopper import window_attention as k16
+
+    q = torch.zeros((1, 16, 2, 32), device=dev, dtype=torch.bfloat16)
+    r = torch.zeros((1, 2, 16, 4), device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        k16.window_bias_attention(q, q, q, r, r, side=4, scale=1.0)
+    q = torch.zeros((1, 65 * 65, 1, 64), device=dev, dtype=torch.bfloat16)
+    r = torch.zeros((1, 1, 65 * 65, 65), device=dev)
+    with pytest.raises(ValueError, match="side"):
+        k16.window_bias_attention(q, q, q, r, r, side=65, scale=1.0)
+
+
+def _fill_rel_pos(params, gen, scale=0.3):
+    """SAM's init zeroes the rel-pos tables; fill them so that a dropped
+    bias shows (the terms come out about ``scale`` large)."""
+    for lp in params["layers"]:
+        for key in ("rel_pos_h", "rel_pos_w"):
+            tab = lp["attn"][key]
+            lp["attn"][key] = (torch.randn(tab.shape, generator=gen, device=tab.device)
+                               * scale * tab.shape[-1] ** -0.5).to(tab.dtype)
+    return params
+
+
+def test_sam_w8a8_two_layers_go_through_their_kernels(dev):
+    """A 2-layer SAM at SAM-B's widths (one windowed, one global layer,
+    image 448: 2 x 2 windows of 14 and a 28 x 28 global grid) under W8A8:
+    K16 per encoder layer, K12n per MLP and before the global layer's q, k,
+    v, K12g per MLP; masks and IoU near the "torch" backend's."""
+    import dataclasses
+
+    from ao_tpu_torch.models import sam
+    from ao_tpu_torch.ops.hopper import window_attention as k16
+
+    cfg = dataclasses.replace(sam.SAM_B, image_size=448, n_layers=2, global_attn_layers=(1,))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = _fill_rel_pos(sam.init_params(cfg, gen, device=dev), gen)
+    qparams = ao_tpu_torch.quantize_(params, ao_tpu_torch.Int8DynamicActivationInt8WeightConfig())
+    images = torch.randn((2, 448, 448, 3), generator=gen, device=dev)
+    coords = torch.rand((2, 2, 2), generator=gen, device=dev) * 448
+    labels = torch.tensor([[1, 0], [1, 1]], dtype=torch.int32, device=dev)
+    counters = {"k16": k16.window_bias_attention, "k12n": k12.norm_modulate_quant,
+                "k12g": k12.gelu_quant}
+    for c in counters.values():
+        c.launches = 0
+    masks, iou = sam.forward(qparams, images, coords, labels, cfg)
+    torch.cuda.synchronize()
+    assert {key: c.launches for key, c in counters.items()} == dict(k16=2, k12n=3, k12g=2)
+    assert masks.shape == (2, 4, 112, 112) and iou.shape == (2, 4)
+    assert bool(torch.isfinite(masks).all()) and bool(torch.isfinite(iou).all())
+    with kernels.backend("torch"):
+        plain = sam.forward(qparams, images, coords, labels, cfg)
+        nudged = sam.forward(qparams, images * (1 + 2 ** -8), coords, labels, cfg)
+    for got, want, nud in zip((masks, iou), plain, nudged):
+        # past the int8 activation quantizers: within 3 dB of the plain
+        # route's own floor under a nudge of one bf16 rounding of the images
+        need = min(30.0, float(compute_error(want, nud)) - 3.0)
+        assert float(compute_error(want, got)) >= need
+
+
+def test_vit_int4_two_layers_go_through_their_kernels(dev):
+    """A 2-layer ViT-B under int4-WO (group 128): K11 for wq, wk, wv, wo and
+    w1 (768 wide: 6 groups, the split-half layout), K1 for w2 (24 groups,
+    magic), the 1000-class head dequantized; logits near the "torch"
+    backend's."""
+    import dataclasses
+
+    from ao_tpu_torch.models import vit
+
+    cfg = dataclasses.replace(vit.VIT_B16, n_layers=2)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = vit.init_params(cfg, gen, device=dev)
+    qparams = ao_tpu_torch.quantize_(params, ao_tpu_torch.Int4WeightOnlyConfig(group_size=128))
+    images = torch.randn((2, 224, 224, 3), generator=gen, device=dev)
+    k1.int4_wo_matmul.launches = k1.int4_wo_magic.launches = 0
+    logits = vit.forward(qparams, images, cfg)
+    torch.cuda.synchronize()
+    assert (k1.int4_wo_matmul.launches, k1.int4_wo_magic.launches) == (10, 2)
+    assert logits.shape == (2, 1000) and logits.dtype == torch.float32
+    with kernels.backend("torch"):
+        plain = vit.forward(qparams, images, cfg)
+    assert float(compute_error(plain, logits)) >= 30

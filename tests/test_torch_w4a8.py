@@ -220,10 +220,11 @@ def test_quantized_activation_and_guards():
     # tests/test_torch_int8_fp8.py); they have no zero point
     q8, s8, z8 = tact.quantize_activation(a, TSpec(dtype="float8_e4m3fn"))
     assert q8.dtype == torch.float8_e4m3fn and s8.shape == (1, 4, 1) and z8 is None
-    with pytest.raises(NotImplementedError, match="slice"):
-        tact.gelu_quant(a)
-    with pytest.raises(NotImplementedError, match="slice"):
-        tact.norm_modulate_quant(a, a[:, 0], a[:, 0], 1e-6)
+    # the GELU and LayerNorm producers run (against JAX in
+    # tests/test_torch_vision.py): per-token int8 and an f32 scale per row
+    for qa in (tact.gelu_quant(a), tact.norm_modulate_quant(a, a[:, 0], a[:, 0], 1e-6)):
+        assert qa.qdata.dtype == torch.int8 and qa.qdata.shape == (1, 4, 256)
+        assert qa.scale.dtype == torch.float32 and qa.scale.shape == (1, 4, 1)
 
 
 def test_kernel_shape_rules():
