@@ -51,56 +51,9 @@
 //    The warp walks the four planes of a super-group one after the other
 //    and re-reads its words from L1. No wgmma or TMA yet.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "int4_tiles.cuh"
 
 namespace {
-
-constexpr uint32_t kOnes = 0x3F803F80u;  // bf16x2 (1.0, 1.0)
-
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Plane j of a magic word as bf16x2 (q_low, q_high), q = u - 8, exact.
-__device__ __forceinline__ uint32_t plane_q(uint32_t w, int j) {
-  uint32_t v = ((w >> (4 * j)) & 0x000F000Fu) | 0x43004300u;  // 128 + u
-  __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&v);
-  h = __hsub2(h, __floats2bfloat162_rn(136.f, 136.f));
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ float pair_sum(uint32_t a) {
-  __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&a);
-  return __low2float(h) + __high2float(h);
-}
-
-__device__ __forceinline__ uint32_t ld_x2(const __nv_bfloat16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-
-__device__ __forceinline__ int4 ld_16(const void* p) {
-  return __ldg(reinterpret_cast<const int4*>(p));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// b2 in f32 from its bf16 transport, or from the tinygemm zero point:
-// bf16(zp + 8s), where 8s is exact, so one fused rounding is the reference's
-// f32 add before its bf16 cast.
-__device__ __forceinline__ float bias_of(float s, __nv_bfloat16 b, int raw_zp) {
-  const float v = __bfloat162float(b);
-  return raw_zp ? __bfloat162float(__float2bfloat16_rn(__fmaf_rn(8.f, s, v))) : v;
-}
 
 // 16 bytes global -> shared, zero-filled when !valid.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
@@ -125,13 +78,10 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const void* smem) 
                : "r"(p));
 }
 
-// Decode kernel (M <= 16, g = 16*KS, NT = ceil(M/8)). The operands swap
-// roles: the weight tile is the A operand, 16 columns of N as the rows of an
-// m16 tile, and x^T the B operand, the batch rows as the columns of an n8
-// tile. The warp owns 32 columns, nb + 4*gid + i for i = 0..3, in two m16
-// tiles: tile p holds in its rows 0..7 the columns nb + 4*gid + 2p and in
-// rows 8..15 the columns nb + 4*gid + 2p + 1. grid (ceil(N/128), 1,
-// splits), 128 threads; split z covers super-groups [z*sps, (z+1)*sps).
+// Decode kernel (M <= 16, g = 16*KS, NT = ceil(M/8)): the swapped operands
+// and the warp's 32 columns of int4_tiles.cuh, its magic_gemv_accumulate
+// over the block's split. grid (ceil(N/128), 1, splits), 128 threads; split
+// z covers super-groups [z*sps, (z+1)*sps).
 template <int KS, int NT>
 __global__ void __launch_bounds__(128)
     int4_wo_magic_gemv_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ word,
@@ -154,82 +104,8 @@ __global__ void __launch_bounds__(128)
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[p][nt][e] = 0.f;
-
-  for (int t = blockIdx.z * sps; t < t_end; ++t) {
-    const int32_t* wbase = word + (size_t)t * (G / 2) * N + col;
-    int4 w[2 * KS];
-    uint2 sv[4], bv[4];
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      w[2 * ks] = ld_16(wbase + (size_t)(8 * ks + tig) * N);
-      w[2 * ks + 1] = ld_16(wbase + (size_t)(8 * ks + 4 + tig) * N);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const size_t qoff = (size_t)(4 * t + j) * N + col;
-      sv[j] = __ldg(reinterpret_cast<const uint2*>(s + qoff));
-      bv[j] = __ldg(reinterpret_cast<const uint2*>(b2 + qoff));
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float tmp[2][NT][4], xs[NT];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        xs[nt] = 0.f;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) tmp[0][nt][e] = tmp[1][nt][e] = 0.f;
-      }
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        const int k0 = (4 * t + j) * G + 16 * ks + 2 * tig;
-        uint32_t b[NT][2];
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int r = gid + 8 * nt;
-          b[nt][0] = r < M ? ld_x2(x + (size_t)r * K + k0) : 0u;
-          b[nt][1] = r < M ? ld_x2(x + (size_t)r * K + k0 + 8) : 0u;
-          xs[nt] += pair_sum(b[nt][0]) + pair_sum(b[nt][1]);
-        }
-        const int4& w0 = w[2 * ks];
-        const int4& w1 = w[2 * ks + 1];
-        const uint32_t a0[4] = {plane_q(w0.x, j), plane_q(w0.y, j), plane_q(w1.x, j),
-                                plane_q(w1.y, j)};
-        const uint32_t a1[4] = {plane_q(w0.z, j), plane_q(w0.w, j), plane_q(w1.z, j),
-                                plane_q(w1.w, j)};
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          mma_16816(tmp[0][nt], a0, b[nt][0], b[nt][1]);
-          mma_16816(tmp[1][nt], a1, b[nt][0], b[nt][1]);
-        }
-      }
-      // Fold the group. C fragment e of tile p: column 2p + (e >> 1), batch
-      // row 2*tig + (e & 1) (+ 8nt). Row sums of x: complete them over the
-      // quad, then fetch rows 2*tig and 2*tig + 1 from their quads.
-      const __nv_bfloat16* sh = reinterpret_cast<const __nv_bfloat16*>(&sv[j]);
-      const __nv_bfloat16* bh = reinterpret_cast<const __nv_bfloat16*>(&bv[j]);
-      float sc[4], bc[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sc[e] = __bfloat162float(sh[e]);
-        bc[e] = bias_of(sc[e], bh[e], raw_zp);
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        float v = xs[nt];
-        v += __shfl_xor_sync(0xffffffffu, v, 1);
-        v += __shfl_xor_sync(0xffffffffu, v, 2);
-        const float xr[2] = {__shfl_sync(0xffffffffu, v, 8 * tig),
-                             __shfl_sync(0xffffffffu, v, 8 * tig + 4)};
-#pragma unroll
-        for (int p = 0; p < 2; ++p)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int c = 2 * p + (e >> 1);
-            acc[p][nt][e] = fmaf(xr[e & 1], bc[c], fmaf(sc[c], tmp[p][nt][e], acc[p][nt][e]));
-          }
-      }
-    }
-  }
+  magic_gemv_accumulate<KS, NT>(acc, x, M, K, N, word, s, b2, blockIdx.z * sps, t_end, col,
+                                raw_zp);
 
   // the thread's outputs: batch rows 2*tig + h (+ 8nt), columns col .. col + 3
 #pragma unroll

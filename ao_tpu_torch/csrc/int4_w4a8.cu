@@ -60,44 +60,16 @@
 // through shared memory (rows padded to 65 words: no bank conflicts on
 // either side) and writes 4-byte words coalesced along K.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "int4_tiles.cuh"
 
 namespace {
 
-constexpr uint32_t kLoNib = 0x0F0F0F0Fu;
-constexpr uint32_t kOnes8 = 0x01010101u;  // four int8 ones
-
-__device__ __forceinline__ void mma_16832(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ int4 ld_16(const void* p) {
-  return __ldg(reinterpret_cast<const int4*>(p));
-}
-
-__device__ __forceinline__ uint32_t ld_4(const int8_t* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-
-// Plane h (0 = A, 1 = B) of a magic8 word: four int8 values 0..15.
-__device__ __forceinline__ uint32_t plane(uint32_t w, int h) {
-  return (h ? (w >> 4) : w) & kLoNib;
-}
-
-// K3 (M rows of x, g = 32*KS, NT n8 tiles of batch rows per block). grid
-// (N/128, ceil(M/(8*NT)), splits), 128 threads. Warp w owns the columns
-// nb = (4*blockIdx.x + w)*32 .. + 31 in two m16 tiles: tile p holds in its
-// rows 0..7 the columns nb + 4*gid + 2p and in rows 8..15 the columns
-// nb + 4*gid + 2p + 1, so the thread's 16-byte word loads (columns
-// nb + 4*gid .. + 3) are its A fragments. Split z covers group pairs
+// K3 (M rows of x, g = 32*KS, NT n8 tiles of batch rows per block): the
+// swapped operands and the warp's 32 columns of int4_tiles.cuh, its
+// w4a8_gemv_accumulate over the block's rows and split. grid (N/128,
+// ceil(M/(8*NT)), splits), 128 threads. Split z covers group pairs
 // [z*spp, (z+1)*spp).
 template <int KS, int NT>
 __global__ void __launch_bounds__(128)
@@ -105,7 +77,7 @@ __global__ void __launch_bounds__(128)
                           const int32_t* __restrict__ word, const __nv_bfloat16* __restrict__ s,
                           const __nv_bfloat16* __restrict__ b, float* __restrict__ out,
                           float* __restrict__ ws, int M, int K, int N, int spp) {
-  constexpr int G = 32 * KS, WR = G / 4;  // word rows per group pair
+  constexpr int G = 32 * KS;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
   const int nb = (blockIdx.x * 4 + warp) * 32;
@@ -113,8 +85,6 @@ __global__ void __launch_bounds__(128)
   const int m0 = blockIdx.y * 8 * NT;
   const int npairs = K / (2 * G);
   const int t_end = min((int)(blockIdx.z + 1) * spp, npairs);
-  const uint32_t ones[4] = {kOnes8, kOnes8, kOnes8, kOnes8};
-
   float acc[2][NT][4];
 #pragma unroll
   for (int p = 0; p < 2; ++p)
@@ -122,69 +92,8 @@ __global__ void __launch_bounds__(128)
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[p][nt][e] = 0.f;
-
-  for (int t = blockIdx.z * spp; t < t_end; ++t) {
-    const int32_t* wbase = word + (size_t)t * WR * N + col;
-    int4 w[2 * KS];
-    uint2 sv[2], bv[2];
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      w[2 * ks] = ld_16(wbase + (size_t)(8 * ks + tig) * N);
-      w[2 * ks + 1] = ld_16(wbase + (size_t)(8 * ks + 4 + tig) * N);
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const size_t qoff = (size_t)(2 * t + h) * N + col;
-      sv[h] = __ldg(reinterpret_cast<const uint2*>(s + qoff));
-      bv[h] = __ldg(reinterpret_cast<const uint2*>(b + qoff));
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      int tmp[2][NT][4], xs[NT][4];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) tmp[0][nt][e] = tmp[1][nt][e] = xs[nt][e] = 0;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        const int k0 = (2 * t + h) * G + 32 * ks + 4 * tig;
-        const int4& w0 = w[2 * ks];
-        const int4& w1 = w[2 * ks + 1];
-        const uint32_t a0[4] = {plane(w0.x, h), plane(w0.y, h), plane(w1.x, h), plane(w1.y, h)};
-        const uint32_t a1[4] = {plane(w0.z, h), plane(w0.w, h), plane(w1.z, h), plane(w1.w, h)};
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int r = m0 + 8 * nt + gid;
-          const uint32_t b0 = r < M ? ld_4(x + (size_t)r * K + k0) : 0u;
-          const uint32_t b1 = r < M ? ld_4(x + (size_t)r * K + k0 + 16) : 0u;
-          mma_16832(tmp[0][nt], a0, b0, b1);
-          mma_16832(tmp[1][nt], a1, b0, b1);
-          mma_16832(xs[nt], ones, b0, b1);
-        }
-      }
-      // Fold the group. C fragment e of tile p: column col + 2p + (e >> 1),
-      // batch row 2*tig + (e & 1) (+ 8nt); xs holds the row sums of x over
-      // the group in the same places (every row of the ones tile is alike).
-      const __nv_bfloat16* sh = reinterpret_cast<const __nv_bfloat16*>(&sv[h]);
-      const __nv_bfloat16* bh = reinterpret_cast<const __nv_bfloat16*>(&bv[h]);
-      float sc[4], bc[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        sc[c] = __bfloat162float(sh[c]);
-        bc[c] = __bfloat162float(bh[c]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int p = 0; p < 2; ++p)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int c = 2 * p + (e >> 1);
-            acc[p][nt][e] = fmaf((float)xs[nt][e & 1], bc[c],
-                                 fmaf(sc[c], (float)tmp[p][nt][e], acc[p][nt][e]));
-          }
-    }
-  }
+  w4a8_gemv_accumulate<KS, NT>(acc, x + (size_t)m0 * K, M - m0, K, N, word, s, b,
+                               blockIdx.z * spp, t_end, col);
 
   // the thread's outputs: batch rows m0 + 2*tig + hh (+ 8nt), columns col .. col + 3
 #pragma unroll

@@ -9,10 +9,13 @@ at a scalar index or at a per-slot (vector) index, the quantized
 ``QuantKVCache`` pairs of ``serving/kvcache.py`` (int8, fp8, int4) at a
 scalar index, or the bf16 ``PagedKVPool`` pages of ``serving/paged.py``
 with ``cache_index=(block_table, lengths)``. With ``use_flash`` the
-prefill's attention runs the flash-attention kernel (K8) on the card.
+prefill's attention runs the flash-attention kernel (K8) on the card. With
+``n_experts > 0`` the MLP is the top-k routed expert FFN of ``ao_tpu_torch.moe``
+(the Mixtral / Qwen3-MoE family), int4 experts through the grouped kernel
+K13.
 
-The MoE FFN and the quantized SDPA come with later slices of the port and
-raise NotImplementedError here.
+The quantized SDPA and SpinQuant's online Hadamard come with later slices
+of the port and raise NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ao_tpu_torch.moe.layer import MoEConfig, init_moe_params, moe_forward
 from ao_tpu_torch.ops import kernels, linear
 from ao_tpu_torch.ops.act_quant import producer_quant_ok, silu_mul_quant
 from ao_tpu_torch.ops.hopper import decode_attention as k2
@@ -71,24 +75,31 @@ LLAMA_TINY = LlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4,
 
 
 def _check_supported(cfg: LlamaConfig) -> None:
-    if cfg.n_experts > 0:
-        raise NotImplementedError("the MoE FFN comes with the MoE slice of the port")
     if cfg.sdpa != "bf16":
         raise NotImplementedError("quantized SDPA comes with the attention slice of the port")
 
 
-def init_params(cfg: LlamaConfig, generator: torch.Generator, device="cuda") -> Dict[str, Any]:
-    """Random params from ``generator`` (which must live on ``device``),
-    with the reference's shapes, scales and keys. The numbers differ from
-    ``jax.random``'s; tests carry the reference's params across with
-    ``ao_tpu_torch.weights.params_from_numpy``."""
+def _moe_config(cfg: LlamaConfig) -> MoEConfig:
+    return MoEConfig(dim=cfg.dim, ffn_dim=cfg.ffn_dim, n_experts=cfg.n_experts,
+                     top_k=cfg.top_k_experts, norm_topk=cfg.norm_topk_experts)
+
+
+def _normal(generator: torch.Generator, device, *shape) -> torch.Tensor:
+    return torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+
+
+def _dense(generator: torch.Generator, device, dtype, fan_in: int, fan_out: int) -> torch.Tensor:
+    return (_normal(generator, device, fan_in, fan_out) * (fan_in ** -0.5)).to(dtype)
+
+
+def init_layer(cfg: LlamaConfig, generator: torch.Generator, device="cuda") -> Dict[str, Any]:
+    """One decoder layer's random params from ``generator``, as
+    ``init_params`` makes each of them (a caller can build a deep model one
+    layer at a time, quantizing each before the next)."""
     _check_supported(cfg)
 
-    def normal(*shape):
-        return torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
-
     def dense(fan_in, fan_out):
-        return (normal(fan_in, fan_out) * (fan_in ** -0.5)).to(cfg.dtype)
+        return _dense(generator, device, cfg.dtype, fan_in, fan_out)
 
     def ones(n):
         return torch.ones((n,), dtype=cfg.dtype, device=device)
@@ -97,38 +108,49 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator, device="cuda") -> 
         return torch.zeros((n,), dtype=cfg.dtype, device=device)
 
     d, hd = cfg.dim, cfg.head_dim
-    layers = []
-    for _ in range(cfg.n_layers):
-        attn = {
-            "wq": dense(d, cfg.n_heads * hd),
-            "wk": dense(d, cfg.n_kv_heads * hd),
-            "wv": dense(d, cfg.n_kv_heads * hd),
-            "wo": dense(cfg.n_heads * hd, d),
+    attn = {
+        "wq": dense(d, cfg.n_heads * hd),
+        "wk": dense(d, cfg.n_kv_heads * hd),
+        "wv": dense(d, cfg.n_kv_heads * hd),
+        "wo": dense(cfg.n_heads * hd, d),
+    }
+    if cfg.qkv_bias:
+        attn["bq"] = zeros(cfg.n_heads * hd)
+        attn["bk"] = zeros(cfg.n_kv_heads * hd)
+        attn["bv"] = zeros(cfg.n_kv_heads * hd)
+    if cfg.qk_norm:
+        attn["q_norm"] = ones(hd)
+        attn["k_norm"] = ones(hd)
+    if cfg.n_experts > 0:
+        # every MoE param, the router too, drawn in f32 and cast to
+        # cfg.dtype, as in the reference
+        mlp_params = init_moe_params(generator, _moe_config(cfg), device=device,
+                                     dtype=cfg.dtype)
+    else:
+        mlp_params = {
+            "w1": dense(d, cfg.ffn_dim),   # gate
+            "w3": dense(d, cfg.ffn_dim),   # up
+            "w2": dense(cfg.ffn_dim, d),   # down
         }
-        if cfg.qkv_bias:
-            attn["bq"] = zeros(cfg.n_heads * hd)
-            attn["bk"] = zeros(cfg.n_kv_heads * hd)
-            attn["bv"] = zeros(cfg.n_kv_heads * hd)
-        if cfg.qk_norm:
-            attn["q_norm"] = ones(hd)
-            attn["k_norm"] = ones(hd)
-        layers.append({
-            "attn": attn,
-            "mlp": {
-                "w1": dense(d, cfg.ffn_dim),   # gate
-                "w3": dense(d, cfg.ffn_dim),   # up
-                "w2": dense(cfg.ffn_dim, d),   # down
-            },
-            "ln1": ones(d),
-            "ln2": ones(d),
-        })
+    return {"attn": attn, "mlp": mlp_params, "ln1": ones(d), "ln2": ones(d)}
+
+
+def init_params(cfg: LlamaConfig, generator: torch.Generator, device="cuda") -> Dict[str, Any]:
+    """Random params from ``generator`` (which must live on ``device``),
+    with the reference's shapes, scales and keys (an MoE layer's ``router``
+    (D, E), ``w_gate`` / ``w_up`` (E, D, F) and ``w_down`` (E, F, D)). The
+    numbers differ from ``jax.random``'s; tests carry the reference's params
+    across with ``ao_tpu_torch.weights.params_from_numpy``."""
+    _check_supported(cfg)
+    d = cfg.dim
+    layers = [init_layer(cfg, generator, device) for _ in range(cfg.n_layers)]
     params = {
-        "embed": normal(cfg.vocab_size, d).to(cfg.dtype) * 0.02,
+        "embed": _normal(generator, device, cfg.vocab_size, d).to(cfg.dtype) * 0.02,
         "layers": layers,
-        "norm": ones(d),
+        "norm": torch.ones((d,), dtype=cfg.dtype, device=device),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense(d, cfg.vocab_size)
+        params["lm_head"] = _dense(generator, device, cfg.dtype, d, cfg.vocab_size)
     return params
 
 
@@ -332,8 +354,8 @@ def attention(
 
 
 def mlp(layer: Dict[str, Any], x: torch.Tensor, cfg=None) -> torch.Tensor:
-    if "router" in layer:
-        raise NotImplementedError("the MoE FFN comes with the MoE slice of the port")
+    if "router" in layer:  # MoE FFN (Mixtral-style)
+        return moe_forward(layer, x, _moe_config(cfg))
     if "r4" in layer:
         raise NotImplementedError("SpinQuant's online Hadamard comes with the PTQ slice of the port")
     a, bq = linear(x, layer["w1"]), linear(x, layer["w3"])

@@ -3,9 +3,10 @@
 Each source in ``ao_tpu_torch/csrc`` is compiled by ``nvcc`` for sm_90a
 into a shared library with a plain C interface, loaded with ``ctypes``.
 Builds happen at first use, into ``ao_tpu_torch/_build/`` (listed in
-``.gitignore``), keyed by a hash of the source and the flags, so a changed
-source is rebuilt and an unchanged one is loaded as it is. ``build`` starts
-one ``nvcc`` per source, all at once.
+``.gitignore``), keyed by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so a changed source or header is rebuilt
+and an unchanged one is loaded as it is. ``build`` starts one ``nvcc`` per
+source, all at once.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ CSRC_DIR = PKG_ROOT / "csrc"
 BUILD_DIR = PKG_ROOT / "_build"
 SOURCES = ("int4_matmul", "decode_attention", "decode_attention_quant", "int4_w4a8",
            "fused_act", "flash_attention", "paged_attention", "int8_matmul", "fp8_matmul",
-           "fp4_matmul", "lut4_matmul", "window_attention")
+           "fp4_matmul", "lut4_matmul", "window_attention", "grouped_matmul")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -44,7 +45,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library of ``csrc/<name>.cu``, named by a hash of the source, the
+    headers of ``csrc`` (which a source may include) and the flags."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

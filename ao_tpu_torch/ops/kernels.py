@@ -57,6 +57,12 @@ INT8_KERNEL_MAX_M = 1024
 FP4_KERNEL_MAX_M = 1024
 LUT4_KERNEL_MAX_M = 1024
 
+# Largest row count T the MoE grouped kernel K13 takes (the reference's gate,
+# ao_tpu/moe/grouped.py:200): at or below it an int4 "magic" or "magic8"
+# expert stack goes to K13 where ``grouped_matmul.takes`` allows, above it
+# (prefill) the experts are dequantized for one ragged dot.
+GROUPED_KERNEL_MAX_T = 256
+
 # torch._int_mm on the card takes M > 16 only: smaller M is padded with rows
 # of zeros up to this many (a multiple of 8); K and N go up to multiples of 8
 INT_MM_MIN_ROWS = 32

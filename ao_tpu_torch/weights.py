@@ -7,7 +7,9 @@ numpy: plain leaves are ``np.ndarray`` (bf16 and fp8 arrive as the
 arrives as
 ``{"__qarray__": "Int4Array", **data_fields as np.ndarray, **meta_fields}``.
 An ``Int8Array``'s or ``Float8Array``'s qdata is stored column-major, as
-their ``from_hp`` stores it (same values, same logical shape). The 4-bit
+their ``from_hp`` stores it (same values, same logical shape; an MoE
+expert stack (E, K, N) each expert column-major). An ``Int4Array``'s
+"magic" and "magic8" words, 2-D or (E, K/8, N), carry as they are. The 4-bit
 float and codebook containers carry as they are: ``MXArray``'s e8m0 bytes
 as uint8, ``NVFP4Array``'s scale pair-words as int32 (raw e4m3 in the
 split-half layout), ``NF4Array``'s int8 quantized scalers with their f32

@@ -23,7 +23,8 @@ From the repo root, on a machine with a CUDA device and ``nvcc``:
    ViT-B's M = 788 rows, the LayerNorm-modulate and GELU producer quantize
    K12n and K12g at SAM-B's windowed and global rows, and the windowed
    attention with the decomposed rel-pos bias K16 at SAM-B's windows (side
-   14) and global layers (side 64). Then two
+   14) and global layers (side 64); the MoE grouped int4 kernel K13 (magic
+   and W4A8) at Mixtral's shapes. Then two
    tiny models whose attention shapes no attention kernel
    takes (head_dim 256; 16 query heads per kv head) decode through
    generate, a flash-route prefill and a paged step against the "torch"
@@ -75,15 +76,37 @@ From the repo root, on a machine with a CUDA device and ``nvcc``:
    224^2) through ``vit.forward`` under
    ``Int4WeightOnlyConfig(group_size=128)`` (K11, K1) and in bf16; launch
    counts exact, masks, IoU and logits held to the "torch" backend's, and
-   images/s with a profile of one forward each.
+   images/s with a profile of one forward each;
+7. drives the MoE FFN at Mixtral-8x7B's published widths (8 experts, top-2;
+   random weights from the seed, built and quantized one layer at a time):
+   greedy ``generate`` under int4-WO at 32 layers (K13 magic for every
+   expert stack at decode, the ragged fallback at the 2048-row prefill),
+   W4A8 and bf16 at 8, with exact launch counts, two-layer logits against
+   the plain route with the router's decisions pinned to the plain route's,
+   K13 alone against its plain version in the same route, a decode-shape MoE
+   FFN under CUDA's sync debug mode, tok/s and profiles, then one slot
+   ``Engine`` run over the 32-layer int4-WO model (K13 at decode and in the
+   128-token bucket). K13 itself is held to its plain version in both forms
+   at Mixtral's decode rows (16) over both expert widths, in the magic form
+   also at the engine bucket's 256 rows over both widths (w4a8 at 256 rows
+   of 4096x14336 too, which no path launches), with one routing of every
+   row onto one expert.
 
 Each phase prints its seconds. Prints the kernel table as one JSON line and, as the last line,
 ``{"ok": true, "device": {...}}``. Any failed check makes it exit non-zero
 without that line; so does a machine without a CUDA device.
+
+    python3 chip_smoke.py --kernels K1,K3,K13
+
+builds, then runs only the named kernels' phases (K1, K3, K13) and prints
+their rows as JSON, with no result line. A copy of this script run in
+another checkout times that checkout's kernels, so two trees' kernels can
+be set side by side on one card in one run.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import json
@@ -204,6 +227,29 @@ N_REQUESTS = 16
 # K2 over the engine's slots and K9 over its pages: ragged lengths with 1
 # and a full last page
 ENGINE_LENGTHS = [1, 1024, 128, 129, 700, 64, 65, 1000]
+# the MoE slice: Mixtral-8x7B's published widths (mistralai/Mixtral-8x7B-v0.1,
+# config.json), random weights from SEED; built one layer at a time (its 32
+# bf16 layers, 93 GB, do not fit the card)
+MIXTRAL = dict(vocab_size=32000, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+               ffn_dim=14336, norm_eps=1e-5, rope_theta=1e6, tie_embeddings=False,
+               n_experts=8, top_k_experts=2)
+# W4A8 and bf16 Mixtral run the first MOE_CUT layers of the same model, beside
+# int4-WO at 32 layers and at MOE_CUT
+MOE_CUT = 8
+# K13 (E = 8) where the main paths launch it: (form, T rows, K, N, path). A
+# decode step puts 8 tokens x top-2 = 16 rows through w_gate / w_up (4096 x
+# 14336) and w_down (14336 x 4096) in both forms; the slot engine's 128-token
+# bucket puts 256 rows through the same widths in the magic form. The w4a8
+# form is also held at 256 rows, where no path launches it (path None: no
+# W4A8 engine runs)
+K13_SHAPES = [(form, t, k, n, path)
+              for form, t, path in (("magic", 16, "Mixtral int4-WO"),
+                                    ("magic", 256, "Mixtral engine-slots"),
+                                    ("w4a8", 16, f"Mixtral W4A8/{MOE_CUT}L"))
+              for k, n in ((4096, 14336), (14336, 4096))] + [("w4a8", 256, 4096, 14336, None)]
+K13_SQNR_DB = 45.0  # the JAX suite's bound for its grouped kernels (tests/test_pallas_interpret.py)
+K13_FORMS = {"magic": ("int4_grouped_magic", "grouped_matmul.py:149"),
+             "w4a8": ("int4_grouped_w4a8", "grouped_matmul.py:294")}
 
 
 def card_line() -> str:
@@ -803,6 +849,118 @@ def k16_phase(torch, fails, seed, g, side):
     return row
 
 
+def k13_phase(torch, fails, seed, n_experts=8):
+    """K13 against its plain version at each (form, T, K, N) of K13_SHAPES,
+    over a seeded top-2 routing of random tokens through the MoE layer's
+    ``dispatch``, and (a check only, at the first shape) every row on one
+    expert with the others empty. Times the kernel as the main path launches
+    it (bf16 tinygemm qparams as they are), the plain version, and one
+    ``torch._grouped_mm`` over the dequantized bf16 stack with the same
+    offsets; the bound counts the experts that own a row. The row of each
+    shape is the top-2 routing's."""
+    from ao_tpu_torch.moe.layer import dispatch
+    from ao_tpu_torch.ops.act_quant import quantize_activation
+    from ao_tpu_torch.ops.hopper import grouped_matmul as k13
+    from ao_tpu_torch.ops.hopper import int4_matmul as k1
+    from ao_tpu_torch.quantization.primitives import compute_error
+    from ao_tpu_torch.quantization.qarrays.common import ActQuantSpec
+    from ao_tpu_torch.quantization.qarrays.int4 import Int4Array
+    from ao_tpu_torch.utils.timing import cuda_time_ms
+
+    spec = ActQuantSpec(dtype="int8", granularity="per_token", symmetric=True)
+    rows = {}
+    gen = torch.Generator(device=DEV).manual_seed(seed + 13)
+    shapes = list(dict.fromkeys((t, k, n) for _, t, k, n, _ in K13_SHAPES))
+    for i, (t, k, n) in enumerate(shapes):
+        forms = {form: path for form, *shape, path in K13_SHAPES if tuple(shape) == (t, k, n)}
+        w = torch.randn((n_experts, k, n), generator=gen, device=DEV,
+                        dtype=torch.bfloat16) * k ** -0.5
+        stacks = {form: Int4Array.from_hp(w, group_size=GROUP,
+                                          **({"act_quant": spec} if form == "w4a8" else {}))
+                  for form in forms}
+        tokens = torch.randn((t // 2, k), generator=gen, device=DEV).to(torch.bfloat16)
+        logits = torch.randn((t // 2, n_experts), generator=gen, device=DEV)
+        x, _, gs = dispatch(tokens, torch.topk(logits, 2, dim=-1).indices, n_experts)
+        one = torch.zeros(n_experts, dtype=torch.int32, device=DEV)
+        one[n_experts // 2] = t
+        routings = [("top-2", gs)] + ([("one expert", one)] if i == 0 else [])
+        active = int((gs > 0).sum())
+        xq, sx, _ = quantize_activation(x, spec)
+        sx = sx.reshape(-1, 1).to(torch.float32)
+        del w
+        w_dq = stacks["magic"].dequantize(torch.bfloat16)  # every shape has the magic form
+        offs = torch.cumsum(gs, 0, dtype=torch.int32)
+        library_ms = cuda_time_ms(lambda: torch._grouped_mm(x, w_dq, offs=offs), iters=10)
+        del w_dq
+        for form, qa in stacks.items():
+            if form == "magic":
+                s, b = k1.transport_qparams(qa.scale, qa.zero_point, qa.zero_point_domain)
+                run = lambda g: k13.int4_grouped_magic(  # noqa: E731
+                    x, qa.qdata, qa.scale, qa.zero_point, g, GROUP, qa.zero_point_domain)
+                plain = lambda g: k13.int4_grouped_magic_plain(  # noqa: E731
+                    x, qa.qdata, s, b, g, GROUP)
+                launch = lambda: k13._launch_magic(  # noqa: E731
+                    x, qa.qdata, qa.scale, qa.zero_point, gs, GROUP, raw_zp=True)
+            else:
+                s, b = qa.scale, qa.zero_point  # bf16 tinygemm: K3's transport form
+                run = lambda g: k13.int4_grouped_w4a8(  # noqa: E731
+                    xq, sx, qa.qdata, qa.scale, qa.zero_point, g, GROUP, qa.zero_point_domain)
+                plain = lambda g: k13.int4_grouped_w4a8_plain(  # noqa: E731
+                    xq, sx, qa.qdata, s, b, g, GROUP)
+                launch = lambda: k13._launch_w4a8(  # noqa: E731
+                    xq, sx, qa.qdata, s, b, gs, GROUP)
+            results = []
+            for what, g in routings:
+                got, ref = run(g), plain(g)
+                torch.cuda.synchronize()
+                sqnr = float(compute_error(ref, got))
+                nonzero = bool(got.float().abs().amax(dim=1).gt(0).all()
+                               and ref.abs().amax(dim=1).gt(0).all())
+                fails.check(bool(torch.isfinite(got).all()) and nonzero and sqnr >= K13_SQNR_DB,
+                            f"K13 {form} T={t} K={k} N={n} ({what}): sqnr {sqnr:.2f} dB < "
+                            f"{K13_SQNR_DB} or a zero row")
+                print(f"K13 {form} T={t} K={k} N={n}, {what} routing (group sizes "
+                      f"{g.tolist()}): sqnr {sqnr:.2f} dB (>= {K13_SQNR_DB})", flush=True)
+                results.append((got, ref, sqnr))
+            got, ref, sqnr = results[0]  # the top-2 routing, which the times are of
+            ms = cuda_time_ms(launch, iters=20)
+            plain_ms = cuda_time_ms(lambda: plain(gs), iters=2, warmup=1)
+            nbytes, ops = k13.traffic(t, k, n, GROUP, active, w4a8=form == "w4a8")
+            rows[(form, t, k, n)] = kernel_row(
+                f"K13 {K13_FORMS[form][0]}", f"T={t} E={n_experts} K={k} N={n}", got, ref,
+                f"sqnr {sqnr:.2f} dB (>= {K13_SQNR_DB}), {active} experts own a row"
+                + ("" if forms[form] else ", on no main path"), ms,
+                plain_ms, library_ms, nbytes, ops,
+                INT8_OPS_PER_S if form == "w4a8" else BF16_FLOPS_PER_S)
+            del results, got, ref
+        del stacks, x, xq, tokens
+        torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def k13_as_plain():
+    """K13's wrappers run their plain versions on the card: the same route,
+    its quantizers and its routing, the kernel the only difference."""
+    import torch
+
+    from ao_tpu_torch.ops.hopper import grouped_matmul as k13
+    from ao_tpu_torch.ops.hopper import int4_matmul as k1
+    from ao_tpu_torch.quantization.primitives import ZeroPointDomain
+
+    def magic(x, word3, s3, b23, gs, g, raw_zp):
+        if raw_zp:
+            s3, b23 = k1.transport_qparams(s3, b23, ZeroPointDomain.FLOAT)
+        return k13.int4_grouped_magic_plain(x, word3, s3, b23, gs, g).to(torch.bfloat16)
+
+    saved = (k13._launch_magic, k13._launch_w4a8)
+    k13._launch_magic, k13._launch_w4a8 = magic, k13.int4_grouped_w4a8_plain
+    try:
+        yield
+    finally:
+        k13._launch_magic, k13._launch_w4a8 = saved
+
+
 def f1_phase(torch, fails, counters):
     """F1: two tiny bf16 models whose attention shapes the kernels do not
     take (head_dim 256; 16 query heads per kv head) decode on the card
@@ -1134,8 +1292,10 @@ def engine_run(torch, fails, qparams, cfg, requests, counters, paged, kv_quant=N
     against the engine's own schedule, every request finished with its
     tokens. Returns (launches, the finished requests' tokens, metrics)."""
     import ao_tpu_torch
+    from ao_tpu_torch.ops import kernels
 
-    tag = engine_tag(paged, kv_quant)
+    model = "Mixtral-8x7B" if cfg.n_experts else "Llama-3-8B"
+    tag = ("Mixtral " if cfg.n_experts else "") + engine_tag(paged, kv_quant)
     layout = dict(kv_layout="paged", page_size=PAGE) if paged else {}
     eng = ao_tpu_torch.Engine(qparams, cfg, ao_tpu_torch.ServeConfig(
         **ENGINE_CFG, **layout, kv_quant=kv_quant), device=DEV)
@@ -1165,10 +1325,18 @@ def engine_run(torch, fails, qparams, cfg, requests, counters, paged, kv_quant=N
     n_bucketed = sum(per_bucket.values())
     n_chunks = sum(-(-len(p) // chunk) for p, _, _ in requests if len(p) > chunk)
     n_steps = st["steps"]  # every step of the loop ran a decode forward
-    linears = 7 * cfg.n_layers + 1
+    # an MoE layer's four attention linears take K1, its experts K13
+    linears = (4 if cfg.n_experts else 7) * cfg.n_layers + 1
     want = {name: 0 for name in counters}
     want["flash_attention"] = cfg.n_layers * n_bucketed
     want["int4_wo_magic"] = linears * (n_bucketed + n_chunks + n_steps)
+    if cfg.n_experts:
+        # K13 for w_gate, w_up and w_down at every decode step (8 slots x
+        # top-k rows) and in the bucketed prefills whose rows fit its gate;
+        # the larger bucket and the chunks take the ragged fallback
+        fits = sum(n for bk, n in per_bucket.items()
+                   if bk * cfg.top_k_experts <= kernels.GROUPED_KERNEL_MAX_T)
+        want["int4_grouped_magic"] = 3 * cfg.n_layers * (n_steps + fits)
     decode = (POOL_KERNELS[kv_quant] if paged
               else KV_KERNELS[kv_quant][0] if kv_quant else "decode_attention")
     want[decode] = cfg.n_layers * n_steps
@@ -1187,7 +1355,7 @@ def engine_run(torch, fails, qparams, cfg, requests, counters, paged, kv_quant=N
     n_tok = sum(len(g) for g in tokens.values())
     metrics = dict(requests_per_s=len(requests) / wall, tok_per_s=n_tok / wall,
                    mean_ttft_s=sum(first) / len(first), wall_s=wall, steps=n_steps)
-    print(f"{tag} (Llama-3-8B int4-WO, {kv_quant or 'bf16'} KV, {cfg.n_layers} layers, "
+    print(f"{tag} ({model} int4-WO, {kv_quant or 'bf16'} KV, {cfg.n_layers} layers, "
           f"{len(requests)} requests on "
           f"{ENGINE_CFG['max_batch']} slots, max_seq {ENGINE_CFG['max_seq']}): {wall:.2f} s, "
           f"{metrics['requests_per_s']:.3f} requests/s, {metrics['tok_per_s']:.1f} output tok/s, "
@@ -1256,6 +1424,64 @@ def k14_as_plain():
         k14._launch = saved
 
 
+class RoutePin:
+    """Pins an MoE model's expert choices: ``record`` keeps the top-k
+    experts of every ``route`` call of one run (the plain route),
+    ``replay(what)`` makes a later run take them in the same order, weighted
+    by its own router probabilities, and prints on how many token decisions
+    its own top-k would have differed, and at what gap between the k-th and
+    (k+1)-th expert probability."""
+
+    def __init__(self):
+        self.routes = []
+
+    @contextlib.contextmanager
+    def _patched(self, fn):
+        from ao_tpu_torch.moe import layer
+
+        orig = layer.route
+        layer.route = lambda x2, w, cfg: fn(orig, x2, w, cfg)
+        try:
+            yield
+        finally:
+            layer.route = orig
+
+    def record(self):
+        def keep(orig, x2, w, cfg):
+            out = orig(x2, w, cfg)
+            self.routes.append(out)
+            return out
+
+        return self._patched(keep)
+
+    @contextlib.contextmanager
+    def replay(self, what):
+        import torch
+
+        calls, moved, total, gaps = iter(self.routes), 0, 0, []
+
+        def pinned(orig, x2, w, cfg):
+            nonlocal moved, total
+            topi = next(calls)[1]
+            own = orig(x2, w, cfg)[1]
+            diff = (own.sort(dim=-1).values != topi.sort(dim=-1).values).any(dim=-1)
+            probs = torch.softmax(x2.float() @ w.float(), dim=-1)
+            top = torch.topk(probs, cfg.top_k + 1, dim=-1).values
+            gaps.append((top[:, -2] - top[:, -1])[diff])
+            moved, total = moved + int(diff.sum()), total + diff.numel()
+            topw = probs.gather(-1, topi.long())
+            if cfg.norm_topk:
+                topw = topw / torch.sum(topw, dim=-1, keepdim=True)
+            return topw, topi
+
+        with self._patched(pinned):
+            yield
+        gap = float(torch.cat(gaps).max()) if moved else 0.0
+        print(f"  {what}: its own router would route {moved} of {total} token decisions "
+              f"otherwise than the plain route (largest top-k gap among them {gap:.2e}); "
+              f"pinned to the plain route's", flush=True)
+
+
 def check_logits(torch, fails, qparams, cfg, seed, tag, batch=2, prompt_len=16,
                  floor_margin_db=None, kv_quant=None, min_db=PATH_MIN_DB, isolate=None):
     """A two-layer cut of the quantized model at full width: a prefill of
@@ -1289,7 +1515,14 @@ def check_logits(torch, fails, qparams, cfg, seed, tag, batch=2, prompt_len=16,
     the card, gives the same route with the kernel as the only difference.
     Even that difference (f32 sums in another order, a bf16 rounding
     flipped here and there) crosses fp4 steps, so it is held to the same
-    calibrated bound and printed beside it."""
+    calibrated bound and printed beside it.
+
+    For an MoE model (``cfg.n_experts``) every run takes the plain route's
+    expert choices (``RoutePin``): the router is plain torch on both routes,
+    and its top-k, a discrete decision like a quantizer's, moves a token to
+    another expert where its k-th and (k+1)-th probabilities nearly tie (a
+    gap of 1.3e-4 on the int4-WO cut's prefill); how often each run's own
+    router would have chosen otherwise is printed."""
     from ao_tpu_torch.models import llama
     from ao_tpu_torch.ops import kernels
     from ao_tpu_torch.quantization.primitives import compute_error
@@ -1311,12 +1544,17 @@ def check_logits(torch, fails, qparams, cfg, seed, tag, batch=2, prompt_len=16,
                               kv_caches=caches, cache_index=prompt_len)
         return l0, l1
 
-    got = run(params)
+    pin = RoutePin() if cfg.n_experts else None
+    replay = pin.replay if pin else (lambda what: contextlib.nullcontext())
     with kernels.backend("torch"):
-        plain = run(params)
+        with pin.record() if pin else contextlib.nullcontext():
+            plain = run(params)
         if floor_margin_db is not None:
             emb = params["embed"]
-            nudged = run(dict(params, embed=(emb.float() * (1 + 2 ** -8)).to(emb.dtype)))
+            with replay("the plain route nudged by 2^-8"):
+                nudged = run(dict(params, embed=(emb.float() * (1 + 2 ** -8)).to(emb.dtype)))
+    with replay("the kernel route"):
+        got = run(params)
     needs = []
     for i, step in enumerate(("prefill", "decode")):
         sqnr = float(compute_error(plain[i], got[i]))
@@ -1331,7 +1569,7 @@ def check_logits(torch, fails, qparams, cfg, seed, tag, batch=2, prompt_len=16,
                     f"{tag} two-layer {step} logits: sqnr {sqnr:.2f} dB < {need:.2f}")
         needs.append(need)
     if isolate is not None:
-        with isolate():
+        with isolate(), replay("the kernels' plain versions"):
             plain_kernels = run(params)
         for i, step in enumerate(("prefill", "decode")):
             sqnr = float(compute_error(plain_kernels[i], got[i]))
@@ -1340,7 +1578,8 @@ def check_logits(torch, fails, qparams, cfg, seed, tag, batch=2, prompt_len=16,
             fails.check(sqnr >= needs[i],
                         f"{tag} {step} logits, kernels vs plain versions: sqnr {sqnr:.2f} dB")
     if kv_quant:
-        einsum = run(params, dataclasses.replace(cut, force_xla_attention=True))
+        with replay("the einsum attention"):
+            einsum = run(params, dataclasses.replace(cut, force_xla_attention=True))
         sqnr = float(compute_error(einsum[1], got[1]))
         print(f"{tag} two-layer decode logits, the decode attention kernel vs the einsum "
               f"attention on the same linears and cache: sqnr {sqnr:.2f} dB "
@@ -1624,34 +1863,173 @@ def vit_paths(torch, fails, counters, launches, ips):
         ips[tag] = profile_forward(torch, tag, run, VIT_BATCH)
 
 
-def main() -> int:
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor of a params tree (a quantized container's
+    ``nbytes``: its data fields)."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT))
+    from ao_tpu_torch.quantization.qarrays.base import QuantizedArray
+
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    if isinstance(tree, QuantizedArray):
+        return tree.nbytes
+    return tree.numel() * tree.element_size() if isinstance(tree, torch.Tensor) else 0
+
+
+def mixtral_models(torch):
+    """Mixtral-8x7B at its published widths with random weights from SEED,
+    built one layer at a time: each bf16 layer is drawn, quantized with
+    int4-WO (kept for all 32 layers) and, for the first MOE_CUT layers, with
+    W4A8 and kept in bf16 too, so the cuts are one model. The embedding
+    (bf16) is shared; the lm_head is quantized as each config quantizes it.
+    Returns (cfg, {"int4-WO", "W4A8", "bf16": params})."""
     import ao_tpu_torch
     from ao_tpu_torch.models import llama
-    from ao_tpu_torch.ops.hopper import build
-    from ao_tpu_torch.ops.hopper import decode_attention as k2
-    from ao_tpu_torch.ops.hopper import flash_attention as k8
-    from ao_tpu_torch.ops.hopper import fp4_matmul as k14
-    from ao_tpu_torch.ops.hopper import fp8_matmul as k17
-    from ao_tpu_torch.ops.hopper import fused_act as k12
-    from ao_tpu_torch.ops.hopper import int4_matmul as k1
-    from ao_tpu_torch.ops.hopper import int8_matmul as k10
-    from ao_tpu_torch.ops.hopper import lut4_matmul as k15
-    from ao_tpu_torch.ops.hopper import paged_attention as k9
-    from ao_tpu_torch.ops.hopper import window_attention as k16
 
-    t_start = time.perf_counter()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    kind = torch.cuda.get_device_name(0)
-    card = card_line()
-    print(f"device: {kind}; nvidia-smi name, power.limit: {card}; torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}", flush=True)
+    cfg = llama.LlamaConfig(**MIXTRAL)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    top = llama.init_params(dataclasses.replace(cfg, n_layers=0), gen, device=DEV)
+    configs = {"int4-WO": ao_tpu_torch.Int4WeightOnlyConfig(group_size=GROUP),
+               "W4A8": ao_tpu_torch.Int8DynamicActivationInt4WeightConfig(group_size=GROUP)}
+    models = {tag: ao_tpu_torch.quantize_(top, c) for tag, c in configs.items()}
+    models["bf16"] = dict(top)
+    for m in models.values():
+        m["layers"] = []
+    for i in range(cfg.n_layers):
+        layer = llama.init_layer(cfg, gen, device=DEV)
+        models["int4-WO"]["layers"].append(ao_tpu_torch.quantize_(layer, configs["int4-WO"]))
+        if i < MOE_CUT:
+            models["W4A8"]["layers"].append(ao_tpu_torch.quantize_(layer, configs["W4A8"]))
+            models["bf16"]["layers"].append(layer)
+        del layer
+    torch.cuda.synchronize()
+    return cfg, models
+
+
+def mixtral_paths(torch, fails, counters, launches, tps, card):
+    """The MoE slice's main paths on Mixtral-8x7B widths: greedy
+    ``generate`` at batch 8, prompt 128, 64 steps under int4-WO (32 layers:
+    K13 magic at decode, the ragged fallback at the 2048-row prefill, K1 for
+    the attention linears and the lm_head), W4A8 (8 layers: K13 w4a8 at
+    decode, K3 / K4 for the linears) and bf16 (8 layers: the ragged dot),
+    with exact launch counts; two-layer logits against the plain route; a
+    decode-shape MoE FFN under CUDA's sync debug mode; tok/s and profiles;
+    then the slot Engine over the 32-layer int4-WO model. Prints the
+    phases' peak device memory."""
+    import ao_tpu_torch
+    from ao_tpu_torch.models import llama
+    from ao_tpu_torch.moe.layer import moe_forward
+
+    torch.cuda.reset_peak_memory_stats()
+    with phase("Mixtral init and quantize_ (layer by layer)"):
+        cfg, models = mixtral_models(torch)
+        print(f"model: Mixtral-8x7B widths (mistralai/Mixtral-8x7B-v0.1 config.json), random "
+              f"weights (seed {SEED}): int4-WO {cfg.n_layers} layers "
+              f"{tree_bytes(models['int4-WO']) / 1e9:.2f} GB, W4A8 {MOE_CUT} layers "
+              f"{tree_bytes(models['W4A8']) / 1e9:.2f} GB, bf16 {MOE_CUT} layers "
+              f"{tree_bytes(models['bf16']) / 1e9:.2f} GB (the bf16 embedding "
+              f"{tree_bytes(models['bf16']['embed']) / 1e9:.2f} GB shared); device memory "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated", flush=True)
+    cut = dataclasses.replace(cfg, n_layers=MOE_CUT)
+    q_cut = dict(models["int4-WO"], layers=models["int4-WO"]["layers"][:MOE_CUT])
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=DEV,
+                           dtype=torch.int32)
+
+    def want_of(tag, c):
+        n, decode = c.n_layers, c.n_layers * (STEPS - 1)
+        linears = 4 * n + 1  # wq, wk, wv, wo per layer, and the lm_head
+        if tag.startswith("Mixtral int4-WO"):
+            return {"int4_wo_magic": linears * STEPS, "decode_attention": decode,
+                    "int4_grouped_magic": 3 * decode}
+        if tag.startswith("Mixtral W4A8"):  # the 1024-row prefill requantizes (K4)
+            return {"int4_w4a8_matmul": linears * (STEPS - 1),
+                    "int4_magic8_requant_int8": linears, "decode_attention": decode,
+                    "int4_grouped_w4a8": 3 * decode}
+        return {"decode_attention": decode}
+
+    paths = [("Mixtral int4-WO", models["int4-WO"], cfg),
+             (f"Mixtral W4A8/{MOE_CUT}L", models["W4A8"], cut),
+             (f"Mixtral bf16/{MOE_CUT}L", models["bf16"], cut)]
+    with phase(f"Mixtral generate launch counts (int4-WO: {cfg.n_layers} layers; W4A8, "
+               f"bf16: {MOE_CUT})"):
+        for tag, params, c in paths:
+            want = {name: 0 for name in counters}
+            want.update(want_of(tag, c))
+            for ctr in counters.values():
+                ctr.launches = 0
+            toks = ao_tpu_torch.generate(params, prompt, c, num_steps=STEPS, max_seq=MAX_SEQ)
+            torch.cuda.synchronize()
+            got = {name: ctr.launches for name, ctr in counters.items()}
+            launches[tag] = got
+            print(f"{tag} ({c.n_layers} layers) main path launches: {got} (want {want})",
+                  flush=True)
+            fails.check(got == want, f"{tag} launch counts {got} != {want}")
+            fails.check(toks.shape == (BATCH, STEPS) and toks.dtype == torch.int32
+                        and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+                        f"{tag} tokens {tuple(toks.shape)} {toks.dtype} out of shape or range")
+    with phase("Mixtral two-layer logits and sync checks"):
+        # the router's top-2 is a discrete decision: a bf16-level difference
+        # moves a token to another expert at a near tie, so each run takes
+        # the plain route's routing, and K13 is also held alone against its
+        # plain version in the same route; 2 x 16 prefill rows take K13
+        check_logits(torch, fails, models["int4-WO"], cfg, SEED, "Mixtral int4-WO",
+                     isolate=k13_as_plain)
+        # 8 x 80 rows: K4 for the attention linears and the ragged fallback
+        # for the experts at the prefill, K3 and K13 at the decode step
+        check_logits(torch, fails, models["W4A8"], cut, SEED, "Mixtral W4A8", batch=BATCH,
+                     prompt_len=80, floor_margin_db=FLOOR_MARGIN_DB, isolate=k13_as_plain)
+        mcfg = llama._moe_config(cfg)
+        x = torch.randn((BATCH, 1, cfg.dim), generator=gen, device=DEV).to(torch.bfloat16)
+        for tag, params in models.items():
+            moe_forward(params["layers"][0]["mlp"], x, mcfg)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                y = moe_forward(params["layers"][0]["mlp"], x, mcfg)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            fails.check(y.shape == x.shape and bool(torch.isfinite(y).all()),
+                        f"Mixtral {tag} MoE FFN under the sync check: {tuple(y.shape)}")
+            print(f"Mixtral {tag} MoE FFN at the decode shape ({BATCH} tokens, top-2) ran under "
+                  f"torch.cuda.set_sync_debug_mode('error'): no host sync", flush=True)
+
+    cut_tag = f"/{MOE_CUT}L"
+    runs = [("Mixtral int4-WO", models["int4-WO"], None, cfg),
+            ("Mixtral int4-WO" + cut_tag, q_cut, None, cut),
+            ("Mixtral W4A8" + cut_tag, models["W4A8"], None, cut),
+            ("Mixtral bf16" + cut_tag, models["bf16"], None, cut)]
+    with phase("Mixtral generate tok/s and profiles"):
+        tps.update(generate_tok_per_s(torch, ao_tpu_torch.generate, runs, prompt, STEPS))
+        print(f"Mixtral generate (B={BATCH}, prompt {PROMPT}, {STEPS} steps, max_seq {MAX_SEQ}; "
+              f"{cfg.n_layers} layers, {MOE_CUT} where marked {cut_tag}) on {card}: "
+              + ", ".join(f"{tag} {tps[tag]:.1f} tok/s" for tag, *_ in runs)
+              + f"; int4-WO / bf16 at {MOE_CUT} layers: "
+              f"{tps['Mixtral int4-WO' + cut_tag] / tps['Mixtral bf16' + cut_tag]:.2f}x",
+              flush=True)
+        for tag, params, kv, c in runs:
+            if tag != "Mixtral int4-WO" + cut_tag:
+                profile_decode(torch, params, c, prompt, tag, kv_quant=kv)
+    del runs, q_cut
+    models = {"int4-WO": models["int4-WO"]}
+    torch.cuda.empty_cache()
+    with phase("Mixtral engine run (slots, bf16 KV)"):
+        requests = engine_requests(SEED, cfg.vocab_size)
+        launches["Mixtral engine-slots"], _, _ = engine_run(
+            torch, fails, models["int4-WO"], cfg, requests, counters, False)
+    print(f"Mixtral phases: peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"(torch.cuda.max_memory_allocated) on {card}", flush=True)
+    del models
+    torch.cuda.empty_cache()
+
+
+def build_all():
+    """Build every source, printing ptxas's register and spill lines."""
+    from ao_tpu_torch.ops.hopper import build
 
     with phase("build"):
         logs = build.build()
@@ -1661,6 +2039,62 @@ def main() -> int:
             for line in log.splitlines():
                 if "Used" in line or "spill" in line:
                     print(f"  {name}: {line.split(':', 1)[-1].strip()}")
+
+
+def kernels_only(torch, names) -> int:
+    """Build, then run only the phases of ``names`` (of K1, K3, K13) and
+    print each one's rows as one JSON line."""
+    phases = {"K1": k1_phase, "K3": k3_phase, "K13": k13_phase}
+    if not set(names) <= set(phases):
+        print(f"chip_smoke: --kernels takes {', '.join(phases)}", file=sys.stderr)
+        return 2
+    print(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}",
+          flush=True)
+    build_all()
+    fails = Failures()
+    for name in names:
+        with phase(f"kernel {name}"):
+            rows = phases[name](torch, fails, SEED)
+        print(json.dumps({name: list(rows.values())}), flush=True)
+    return 1 if fails else 0
+
+
+def main() -> int:
+    import torch
+
+    parser = argparse.ArgumentParser(description="Smoke run of ao_tpu_torch on one NVIDIA GPU.")
+    parser.add_argument("--kernels", type=lambda v: v.split(","),
+                        help="only these kernels' phases, of K1, K3, K13 (comma-separated)")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.kernels:
+        return kernels_only(torch, args.kernels)
+    import ao_tpu_torch
+    from ao_tpu_torch.models import llama
+    from ao_tpu_torch.ops.hopper import decode_attention as k2
+    from ao_tpu_torch.ops.hopper import flash_attention as k8
+    from ao_tpu_torch.ops.hopper import fp4_matmul as k14
+    from ao_tpu_torch.ops.hopper import fp8_matmul as k17
+    from ao_tpu_torch.ops.hopper import fused_act as k12
+    from ao_tpu_torch.ops.hopper import grouped_matmul as k13
+    from ao_tpu_torch.ops.hopper import int4_matmul as k1
+    from ao_tpu_torch.ops.hopper import int8_matmul as k10
+    from ao_tpu_torch.ops.hopper import lut4_matmul as k15
+    from ao_tpu_torch.ops.hopper import paged_attention as k9
+    from ao_tpu_torch.ops.hopper import window_attention as k16
+
+    t_start = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    card = card_line()
+    print(f"device: {kind}; nvidia-smi name, power.limit: {card}; torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}", flush=True)
+
+    build_all()
 
     fails = Failures()
     long_lengths = [T_LONG] * K2_SHAPE["b"]
@@ -1697,6 +2131,8 @@ def main() -> int:
         k12n_rows = {shape: k12v_phase(torch, fails, SEED, "norm", shape) for shape in K12N_SHAPES}
         k12g_rows = {shape: k12v_phase(torch, fails, SEED, "gelu", shape) for shape in K12G_SHAPES}
         k16_rows = {shape: k16_phase(torch, fails, SEED, *shape) for shape in K16_SHAPES}
+    with phase("kernel K13"):
+        k13_rows = k13_phase(torch, fails, SEED)
 
     # -- the main paths: Llama-3-8B widths, int4-WO and W4A8, greedy generate
     cfg = llama.LLAMA3_8B
@@ -1734,7 +2170,9 @@ def main() -> int:
                      "int4_wo_matmul": k1.int4_wo_matmul,
                      "norm_modulate_quant": k12.norm_modulate_quant,
                      "gelu_quant": k12.gelu_quant,
-                     "window_bias_attention": k16.window_bias_attention})
+                     "window_bias_attention": k16.window_bias_attention,
+                     "int4_grouped_magic": k13.int4_grouped_magic,
+                     "int4_grouped_w4a8": k13.int4_grouped_w4a8})
     with phase("F1"):
         f1_phase(torch, fails, counters)
 
@@ -1873,7 +2311,7 @@ def main() -> int:
             print(f"engine, {kv or 'bf16'} KV: the two layouts agree on {same} of {total} "
                   f"greedy tokens ({same / max(total, 1):.1%}; not judged: the routes round "
                   f"differently)", flush=True)
-    del params, qparams, params_cut, qparams_cut
+    del params, qparams, params_cut, qparams_cut, paths, runs  # the lists hold the models too
     torch.cuda.empty_cache()
 
     # -- the vision slice: SAM-B (W8A8, bf16) and ViT-B/16 (int4-WO, bf16)
@@ -1884,6 +2322,9 @@ def main() -> int:
         vit_paths(torch, fails, counters, launches, ips)
     print(f"vision forwards on {card}: " + ", ".join(f"{tag} {ips[tag]:.2f} images/s"
                                                      for tag in VISION_PATHS), flush=True)
+
+    # -- the MoE slice: Mixtral-8x7B widths, int4-WO, W4A8 and bf16 experts
+    mixtral_paths(torch, fails, counters, launches, tps, card)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
 
     if fails:
@@ -1939,8 +2380,11 @@ def main() -> int:
              for shape in K12G_SHAPES]
     rows += [("window_bias_attention", "window_attention.cu", "window_attention.py:126",
               "SAM-B W8A8", k16_rows[shape]) for shape in K16_SHAPES]
+    rows += [(K13_FORMS[form][0], "grouped_matmul.cu", K13_FORMS[form][1], path,
+              k13_rows[(form, t, k, n)]) for form, t, k, n, path in K13_SHAPES]
     entries = [dict(name=name, route="cuda", source=f"ao_tpu_torch/csrc/{src}",
-                    replaces=f"ao_tpu/ops/pallas/{ref}", launches=launches[path][name],
+                    replaces=f"ao_tpu/ops/pallas/{ref}",
+                    launches=launches[path][name] if path else 0,
                     **{k: row[k] for k in keys})
                for name, src, ref, path, row in rows]
     print(f"card: {card}")

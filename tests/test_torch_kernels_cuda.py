@@ -1286,3 +1286,210 @@ def test_vit_int4_two_layers_go_through_their_kernels(dev):
     with kernels.backend("torch"):
         plain = vit.forward(qparams, images, cfg)
     assert float(compute_error(plain, logits)) >= 30
+
+
+# ---------------------------------------------------------------------------
+# K13: the MoE grouped int4 kernels
+# ---------------------------------------------------------------------------
+
+
+def _routing(dev, kind, t, e, gen):
+    """Group sizes (E,) int32 summing to T: a top-2 routing of T/2 random
+    tokens ("top2"), every row to one expert and the others empty ("one"),
+    or rows spread with an empty expert in the middle ("gap")."""
+    if kind == "top2":
+        logits = torch.randn((t // 2, e), generator=gen, device=dev)
+        idx = torch.topk(logits, 2, dim=-1).indices.reshape(-1)
+        return torch.zeros(e, dtype=torch.int32, device=dev).scatter_add_(
+            0, idx, torch.ones_like(idx, dtype=torch.int32))
+    gs = torch.zeros(e, dtype=torch.int32, device=dev)
+    if kind == "one":
+        gs[e // 2] = t
+    else:
+        gs[0], gs[e - 1] = t // 2, t - t // 2
+    return gs
+
+
+def _grouped_weight(dev, e, k, n, g, domain, act_quant, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w = (torch.randn((e, k, n), generator=gen, device=dev) * 0.05).to(torch.bfloat16)
+    zpd = ZeroPointDomain.FLOAT if domain == "tinygemm" else ZeroPointDomain.INT
+    return Int4Array.from_hp(w, group_size=g, zero_point_domain=zpd, act_quant=act_quant), gen
+
+
+GROUPED_CASES = [
+    (16, 8, 512, 256, 128, "tinygemm", "top2"),   # Mixtral's decode rows at small width
+    (16, 8, 512, 256, 128, "tinygemm", "one"),    # every row in one expert, the rest empty
+    (8, 4, 256, 128, 32, "minmax_int", "gap"),    # 8-row tiles, an int zero point
+    (256, 8, 1024, 384, 64, "tinygemm", "top2"),  # the engine's 128-token bucket: 32-row chunks
+    (256, 8, 512, 128, 128, "tinygemm", "one"),   # 256 rows of one expert: eight chunks
+]
+
+
+@pytest.mark.parametrize("t,e,k,n,g,domain,routing", GROUPED_CASES)
+def test_grouped_magic_matches_plain(dev, t, e, k, n, g, domain, routing):
+    from ao_tpu_torch.ops.hopper import grouped_matmul as k13
+
+    qa, gen = _grouped_weight(dev, e, k, n, g, domain, None, seed=t + n + g)
+    assert qa.layout == "magic"
+    x = torch.randn((t, k), generator=gen, device=dev).to(torch.bfloat16)
+    gs = _routing(dev, routing, t, e, gen)
+    before = k13.int4_grouped_magic.launches
+    got = k13.int4_grouped_magic(x, qa.qdata, qa.scale, qa.zero_point, gs, g,
+                                 qa.zero_point_domain)
+    torch.cuda.synchronize()
+    assert k13.int4_grouped_magic.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (t, n)
+    s, b2 = k1.transport_qparams(qa.scale, qa.zero_point, qa.zero_point_domain)
+    ref = k13.int4_grouped_magic_plain(x, qa.qdata, s, b2, gs, g)
+    assert bool(ref.abs().amax(dim=1).gt(0).all()) and bool(got.abs().amax(dim=1).gt(0).all())
+    # K1's arithmetic per expert, f32 sums in another order, bf16 out: the
+    # JAX suite's bound for the grouped kernel
+    sqnr = float(compute_error(ref, got))
+    assert sqnr >= 45, f"K13 magic vs plain: {sqnr:.2f} dB"
+
+
+@pytest.mark.parametrize("t,e,k,n,g,domain,routing", GROUPED_CASES)
+def test_grouped_w4a8_matches_plain(dev, t, e, k, n, g, domain, routing):
+    from ao_tpu_torch.ops.act_quant import quantize_activation
+    from ao_tpu_torch.ops.hopper import grouped_matmul as k13
+
+    g = max(g, 32)  # K3's compiled group sizes start at 32
+    qa, gen = _grouped_weight(dev, e, k, n, g, domain, W4A8_SPEC, seed=t + n + g)
+    assert qa.layout == "magic8"
+    x = torch.randn((t, k), generator=gen, device=dev).to(torch.bfloat16)
+    xq, sx, _ = quantize_activation(x, W4A8_SPEC)
+    gs = _routing(dev, routing, t, e, gen)
+    before = k13.int4_grouped_w4a8.launches
+    got = k13.int4_grouped_w4a8(xq, sx, qa.qdata, qa.scale, qa.zero_point, gs, g,
+                                qa.zero_point_domain)
+    torch.cuda.synchronize()
+    assert k13.int4_grouped_w4a8.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (t, n)
+    s, b = k1.w4a8_qparams(qa.scale, qa.zero_point, qa.zero_point_domain)
+    ref = k13.int4_grouped_w4a8_plain(xq, sx, qa.qdata, s, b, gs, g)
+    assert bool(ref.abs().amax(dim=1).gt(0).all()) and bool(got.abs().amax(dim=1).gt(0).all())
+    # the same int8 activations on both sides: exact integer dots, f32 sums
+    # of the groups in another order
+    sqnr = float(compute_error(ref, got))
+    assert sqnr >= 45, f"K13 w4a8 vs plain: {sqnr:.2f} dB"
+
+
+def test_grouped_refuses_on_the_card(dev):
+    from ao_tpu_torch.ops.hopper import grouped_matmul as k13
+
+    qa, gen = _grouped_weight(dev, 2, 256, 96, 32, "tinygemm", None, seed=1)  # N % 128 != 0
+    x = torch.randn((4, 256), generator=gen, device=dev).to(torch.bfloat16)
+    gs = torch.tensor([2, 2], dtype=torch.int32, device=dev)
+    assert not k13.takes(256, 96, 32, "magic")
+    with pytest.raises(ValueError, match="does not take"):
+        k13.int4_grouped_magic(x, qa.qdata, qa.scale, qa.zero_point, gs, 32,
+                               qa.zero_point_domain)
+    # the grouped matmul takes the ragged fallback for it instead
+    from ao_tpu_torch.moe import grouped_matmul
+
+    before = k13.int4_grouped_magic.launches
+    y = grouped_matmul(x, qa, gs)
+    assert k13.int4_grouped_magic.launches == before and y.shape == (4, 96)
+
+
+def _moe_llama(dev, config):
+    cfg = llama.LlamaConfig(vocab_size=512, dim=512, n_layers=2, n_heads=4, n_kv_heads=4,
+                            ffn_dim=1024, tie_embeddings=False, n_experts=4, top_k_experts=2)
+    params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    return cfg, ao_tpu_torch.quantize_(params, config)
+
+
+@pytest.mark.parametrize("name", ["int4-WO", "W4A8"])
+def test_moe_generate_goes_through_k13(dev, name):
+    """A 2-layer MoE llama (4 experts, top-2) under int4-WO or W4A8: K13 for
+    w_gate, w_up and w_down at every decode step (T = 2 x 2 rows), the ragged
+    fallback at the prefill (T = 2 x 80 x 2 = 320 > 256), K1 or K3 / K4 for
+    the attention linears and the lm_head; the prefill's and one decode
+    step's logits near the "torch" backend's."""
+    from ao_tpu_torch.moe import layer as moe_layer
+    from ao_tpu_torch.ops.hopper import grouped_matmul as k13
+
+    config = (ao_tpu_torch.Int4WeightOnlyConfig(group_size=32) if name == "int4-WO" else
+              ao_tpu_torch.Int8DynamicActivationInt4WeightConfig(group_size=32))
+    cfg, qparams = _moe_llama(dev, config)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 80), device=dev, dtype=torch.int32)
+    counters = (k13.int4_grouped_magic, k13.int4_grouped_w4a8, k1.int4_wo_magic,
+                k1.int4_w4a8_matmul, k1.int4_magic8_requant_int8, k2.decode_attention)
+    for c in counters:
+        c.launches = 0
+    toks = ao_tpu_torch.generate(qparams, prompt, cfg, num_steps=5, max_seq=96)
+    torch.cuda.synchronize()
+    assert toks.shape == (2, 5) and toks.dtype == torch.int32
+    n_lin, n_exp, steps = 4 * cfg.n_layers + 1, 3 * cfg.n_layers, 5
+    if name == "int4-WO":
+        want = [n_exp * (steps - 1), 0, n_lin * steps, 0, 0, cfg.n_layers * (steps - 1)]
+    else:  # 160 prefill rows <= 512: K3 at the prefill too
+        want = [0, n_exp * (steps - 1), 0, n_lin * steps, 0, cfg.n_layers * (steps - 1)]
+    assert [c.launches for c in counters] == want
+
+    def two_steps(p):  # the prefill, then one decode step (K13) over its cache
+        caches = llama.init_kv_caches(cfg, 2, 96, device=dev)
+        l0, caches = llama.forward(p, prompt, cfg, kv_caches=caches, cache_index=0)
+        l1, _ = llama.forward(p, toks[:, :1], cfg,
+                              positions=torch.full((2, 1), 80, dtype=torch.int32, device=dev),
+                              kv_caches=caches, cache_index=80)
+        return l0, l1
+
+    # the router's top-2 is a discrete decision that a bf16-level difference
+    # can flip at a near tie, so every run takes the plain route's experts,
+    # weighted by its own router probabilities (as chip_smoke.py's RoutePin)
+    route, routes = moe_layer.route, []
+
+    def record(x2, w, mcfg):
+        out = route(x2, w, mcfg)
+        routes.append(out[1])
+        return out
+
+    def replay(calls):
+        def pinned(x2, w, mcfg):
+            topi = next(calls)
+            topw = torch.softmax(x2.float() @ w.float(), dim=-1).gather(-1, topi.long())
+            return topw / topw.sum(dim=-1, keepdim=True) if mcfg.norm_topk else topw, topi
+        return pinned
+
+    emb = qparams["embed"]
+    try:
+        with kernels.backend("torch"):
+            moe_layer.route = record
+            plain = two_steps(qparams)
+            moe_layer.route = replay(iter(routes))
+            nudged = two_steps(dict(qparams, embed=(emb.float() * (1 + 2 ** -8)).to(emb.dtype)))
+        moe_layer.route = replay(iter(routes))
+        got = two_steps(qparams)
+    finally:
+        moe_layer.route = route
+    for want_logits, nud, logits in zip(plain, nudged, got):
+        # W4A8's int8 activation quantizers turn bf16-level route differences
+        # into whole steps: there the bound is within 3 dB of the plain
+        # route's own floor under a nudge of one bf16 rounding
+        need = 30.0
+        if name == "W4A8":
+            need = min(need, float(compute_error(want_logits, nud)) - 3.0)
+        assert bool(torch.isfinite(logits).all())
+        assert float(compute_error(want_logits, logits)) >= need
+
+
+def test_moe_decode_forward_never_syncs(dev):
+    """The MoE FFN at a decode shape (8 tokens, top-2) reads nothing on the
+    host, with int4 experts (K13) and with bf16 experts (the ragged dot)."""
+    from ao_tpu_torch.moe.layer import moe_forward
+
+    cfg, qparams = _moe_llama(dev, ao_tpu_torch.Int4WeightOnlyConfig(group_size=32))
+    plain = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    x = torch.randn((8, 1, cfg.dim), device=dev).to(torch.bfloat16)
+    mcfg = llama._moe_config(cfg)
+    for layer in (qparams["layers"][0]["mlp"], plain["layers"][0]["mlp"]):
+        moe_forward(layer, x, mcfg)  # first calls may load the kernel library
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y = moe_forward(layer, x, mcfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert y.shape == x.shape and bool(torch.isfinite(y).all())

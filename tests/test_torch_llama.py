@@ -111,8 +111,15 @@ def test_forward_without_cache_and_decode_consistency(models):
 def test_unported_branches_raise():
     import dataclasses
 
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tllama.init_params(dataclasses.replace(TCFG, n_experts=4), torch.Generator(), "cpu")
+    # the MoE FFN is ported: the reference's keys and shapes, the router
+    # drawn in f32 and cast to the model's dtype (f32 here)
+    moe = tllama.init_params(dataclasses.replace(TCFG, n_layers=1, n_experts=4),
+                             torch.Generator().manual_seed(0), "cpu")["layers"][0]["mlp"]
+    assert {k: (tuple(v.shape), v.dtype) for k, v in moe.items()} == {
+        "router": ((512, 4), torch.float32), "w_gate": ((4, 512, 1024), torch.float32),
+        "w_up": ((4, 512, 1024), torch.float32), "w_down": ((4, 1024, 512), torch.float32)}
+    with pytest.raises(NotImplementedError, match="quantized SDPA"):
+        tllama.init_params(dataclasses.replace(TCFG, sdpa="int8"), torch.Generator(), "cpu")
     gen = torch.Generator().manual_seed(0)
     p = tllama.init_params(dataclasses.replace(TCFG, n_layers=1), gen, device="cpu")
     assert p["layers"][0]["attn"]["wq"].shape == (512, 512) and "lm_head" in p
