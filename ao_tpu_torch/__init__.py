@@ -38,9 +38,15 @@ from ao_tpu_torch.serving.decode import generate
 from ao_tpu_torch.serving.engine import Engine, Request, ServeConfig
 from ao_tpu_torch.serving.kvcache import QuantKVCache, init_quant_kv_caches
 from ao_tpu_torch.serving.paged import PageAllocator, PagedKVPool
+from ao_tpu_torch.sparsity import (
+    BlockSparseArray, BlockSparseWeightConfig, SemiSparseWeightConfig, Sparse24Array,
+    Sparse24Int4Array, Sparse24Int4WeightConfig, WandaSparseConfig, sparsify_,
+)
 
 __all__ = [
     "AOBaseConfig",
+    "BlockSparseArray",
+    "BlockSparseWeightConfig",
     "Engine",
     "Float8Array",
     "Float8DynamicActivationFloat8WeightConfig",
@@ -74,7 +80,12 @@ __all__ = [
     "PerToken",
     "QuantKVCache",
     "Request",
+    "SemiSparseWeightConfig",
     "ServeConfig",
+    "Sparse24Array",
+    "Sparse24Int4Array",
+    "Sparse24Int4WeightConfig",
+    "WandaSparseConfig",
     "ZeroPointDomain",
     "compute_error",
     "generate",
@@ -84,5 +95,6 @@ __all__ = [
     "quantize_",
     "quantize_params",
     "sam",
+    "sparsify_",
     "vit",
 ]

@@ -2,9 +2,9 @@
 
 PyTorch port of ``ao_tpu/ops/kernels.py`` for int8 (weight-only and
 dynamic-activation), int4 weight-only and float8 weights, and the routes of
-the 4-bit float and codebook weights that the reference takes in
-``ao_tpu/ops/linear.py`` (MXFP4 and NVFP4 through K14, 16-entry LUTs such as
-NF4 through K15).
+the 4-bit float, codebook and block-sparse weights that the reference takes
+in ``ao_tpu/ops/linear.py`` (MXFP4 and NVFP4 through K14, 16-entry LUTs such
+as NF4 through K15, BSR through K18).
 
 Backends:
   * "auto"  — the hand-written kernel (ops/hopper) wherever the reference
@@ -348,3 +348,23 @@ def lut4_wo_matmul(x, word, scalers, codebook, group_size):
             or not k15.takes(k, n, group_size, n_luts) or not use_kernel(x)):
         return None
     return k15.lut4_wo_magic(x, word, scalers, codebook, group_size)
+
+
+# ---------------------------------------------------------------------------
+# block-sparse (BSR)
+# ---------------------------------------------------------------------------
+
+
+def bsr_matmul(x2, w):
+    """x2 (M, K) @ a BlockSparseArray w (ref: ao_tpu/ops/linear.py:501-522).
+    On a CUDA tensor outside "torch", K18 at any M where
+    ``bsr_matmul.takes`` allows (bf16 out), as the H100 is the kind of chip
+    the reference keeps its kernel for; on a CPU tensor, under "torch" and
+    for block sizes K18 refuses, the ragged route
+    (``BlockSparseArray.matmul``, x.dtype out), the reference's "auto"."""
+    from ao_tpu_torch.ops.hopper import bsr_matmul as k18
+
+    k, n = w.shape
+    if use_kernel(x2) and x2.device.type == "cuda" and k18.takes(w.blocksize, k, n):
+        return k18.bsr_matmul(x2, w)
+    return w.matmul(x2)

@@ -1,7 +1,8 @@
 """`ao_tpu_torch.ops.linear` — the single compute entry point for linears.
 
 PyTorch port of the plain linear and the int8, int4, float8, MX, NVFP4 and
-NF4 branches of ``ao_tpu/ops/linear.py``: int8 weight-only, dynamic and
+NF4 branches of ``ao_tpu/ops/linear.py``, and its sparse ones (2:4, 2:4
+with int4 values, block-sparse through K18): int8 weight-only, dynamic and
 static int8 activations (W8A8); int4 weight-only, W4A8 (int8 dynamic
 activations x int4 weights) and fp8 activations x int4 weights; fp8
 weight-only, dynamic and static fp8 activations; MX weights (fp4 through
@@ -35,6 +36,8 @@ from ao_tpu_torch.quantization.qarrays.int8 import Int8Array
 from ao_tpu_torch.quantization.qarrays.mx import MX_BLOCK, MXArray, e8m0_decode, to_mx
 from ao_tpu_torch.quantization.qarrays.nf4 import NF4_CODEBOOK, NF4Array
 from ao_tpu_torch.quantization.qarrays.nvfp4 import NVFP4_BLOCK, NVFP4Array, nvfp4_quantize
+from ao_tpu_torch.sparsity.blocksparse import BlockSparseArray
+from ao_tpu_torch.sparsity.sparse24 import Sparse24Array, Sparse24Int4Array
 
 
 def linear(x, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -261,4 +264,34 @@ def _nf4_linear(x, w: NF4Array, b):
         if y is not None:
             return _unflatten_batch(_maybe_bias(y.to(x.dtype), b), lead)
     y = torch.matmul(x2, w.dequantize(x2.dtype))
+    return _unflatten_batch(_maybe_bias(y.to(x.dtype), b), lead)
+
+
+# ---------------------------------------------------------------------------
+# Sparse
+# ---------------------------------------------------------------------------
+
+
+@implements("linear", Sparse24Int4Array)
+def _sparse24_int4_linear(x, w: Sparse24Int4Array, b):
+    """(ref: ao_tpu ops/linear.py:483) Dequantize and decompress, then one
+    matmul, as the reference does (its TPU has no sparse matrix unit)."""
+    y = x @ w.dequantize(x.dtype)
+    return y if b is None else y + b
+
+
+@implements("linear", Sparse24Array)
+def _sparse24_linear(x, w: Sparse24Array, b):
+    """(ref: ao_tpu ops/linear.py:493) Decompress, then one matmul."""
+    x2, lead = _flatten_batch(x)
+    y = torch.matmul(x2, w.dequantize(x2.dtype))
+    return _unflatten_batch(_maybe_bias(y.to(x.dtype), b), lead)
+
+
+@implements("linear", BlockSparseArray)
+def _blocksparse_linear(x, w: BlockSparseArray, b):
+    """(ref: ao_tpu ops/linear.py:501) ``kernels.bsr_matmul``: K18 on the
+    card, the ragged route elsewhere."""
+    x2, lead = _flatten_batch(x)
+    y = kernels.bsr_matmul(x2, w)
     return _unflatten_batch(_maybe_bias(y.to(x.dtype), b), lead)

@@ -31,9 +31,10 @@ def path_to_fqn(path: Sequence[Any]) -> str:
 
 def default_filter(fqn: str, leaf: Any) -> bool:
     if isinstance(leaf, QuantizedArray):
-        # already quantized -> skip (the reference's transitional training
-        # wrappers, which do reach the handler, are not ported yet)
-        return False
+        # already quantized -> skip, except a calibration wrapper, whose
+        # convert step must reach the handler (the reference's transitional
+        # training wrappers come with the training slice)
+        return type(leaf).__name__ == "ObservedArray"
     if not isinstance(leaf, torch.Tensor):
         return False
     if leaf.ndim not in (2, 3):

@@ -13,7 +13,12 @@ expert stack (E, K, N) each expert column-major). An ``Int4Array``'s
 float and codebook containers carry as they are: ``MXArray``'s e8m0 bytes
 as uint8, ``NVFP4Array``'s scale pair-words as int32 (raw e4m3 in the
 split-half layout), ``NF4Array``'s int8 quantized scalers with their f32
-factors and mean.
+factors and mean. The sparse containers carry as they are:
+``BlockSparseArray``'s values and int32 block indices, ``Sparse24Array``'s
+values and uint8 metadata, ``Sparse24Int4Array``'s packed codes, metadata
+and bf16 qparams. An ``ObservedArray`` is calibration state (a Python
+accumulator of activation statistics), not a weight: it is refused, and a
+tree is carried before ``observe`` or after ``convert``.
 The conversion from ``jax.Array`` to numpy happens on the caller's side;
 this module imports no JAX.
 """
@@ -66,6 +71,9 @@ def params_from_numpy(tree: Any, device="cuda") -> Any:
     if isinstance(tree, np.ndarray):
         return tensor_from_numpy(tree, device)
     if isinstance(tree, dict) and "__qarray__" in tree:
+        if tree["__qarray__"] == "ObservedArray":
+            raise ValueError("an ObservedArray is calibration state and is not carried: "
+                             "carry the tree before observe or after convert")
         cls = get_qarray_class(tree["__qarray__"])
         kwargs = {}
         for f in dataclasses.fields(cls):

@@ -90,15 +90,29 @@ From the repo root, on a machine with a CUDA device and ``nvcc``:
    at Mixtral's decode rows (16) over both expert widths, in the magic form
    also at the engine bucket's 256 rows over both widths (w4a8 at 256 rows
    of 4096x14336 too, which no path launches), with one routing of every
-   row onto one expert.
+   row onto one expert;
+8. drives the sparsity slice at ViT-L/16's full width (24 layers, batch 16
+   at 224^2: 3152 rows per linear; random weights from the seed) through
+   ``vit.forward``: block-sparse MLPs
+   (``sparsify_(params, BlockSparseWeightConfig(blocksize=64,
+   keep_fraction=0.1), <the 48 mlp.w1 / mlp.w2>)``: K18, 48 launches), 2:4
+   (``SemiSparseWeightConfig()``), 2:4 with int4 values
+   (``Sparse24Int4WeightConfig(group_size=128)``) and bf16, with exact
+   launch counts, BSR logits against the "torch" backend, 2:4 logits against
+   the dense forward on the dequantized weights, images/s of the four timed
+   in turns and a profile each. K18 itself is held to its plain version at ViT-L's w1 / w2 at b =
+   64, keep 0.1 and b = 128, keep 0.5, at the JAX suite's two shapes and on
+   a fully dense BSR weight, and timed beside cuBLAS on the dequantized
+   weight and ``torch.sparse``'s BSR product, with the host cost of one
+   linear call through each route at ViT-L's shapes.
 
 Each phase prints its seconds. Prints the kernel table as one JSON line and, as the last line,
 ``{"ok": true, "device": {...}}``. Any failed check makes it exit non-zero
 without that line; so does a machine without a CUDA device.
 
-    python3 chip_smoke.py --kernels K1,K3,K13
+    python3 chip_smoke.py --kernels K1,K3,K13,K18
 
-builds, then runs only the named kernels' phases (K1, K3, K13) and prints
+builds, then runs only the named kernels' phases (K1, K3, K13, K18) and prints
 their rows as JSON, with no result line. A copy of this script run in
 another checkout times that checkout's kernels, so two trees' kernels can
 be set side by side on one card in one run.
@@ -248,6 +262,24 @@ K13_SHAPES = [(form, t, k, n, path)
                                     ("w4a8", 16, f"Mixtral W4A8/{MOE_CUT}L"))
               for k, n in ((4096, 14336), (14336, 4096))] + [("w4a8", 256, 4096, 14336, None)]
 K13_SQNR_DB = 45.0  # the JAX suite's bound for its grouped kernels (tests/test_pallas_interpret.py)
+# the sparsity slice: ViT-L/16 at batch 16 (M = 16 x 197 = 3152 rows per
+# linear) with block-sparse MLPs (K18), 2:4, 2:4 with int4 values, and bf16
+VITL_BATCH = 16
+VITL_ROUNDS = 6  # timed forwards of each path, in turns
+M_VITL = VITL_BATCH * 197
+SPARSE_PATHS = ("ViT-L/16 BSR", "ViT-L/16 2:4", "ViT-L/16 2:4-int4", "ViT-L/16 bf16")
+BSR_BLOCK, BSR_KEEP = 64, 0.1  # BlockSparseWeightConfig's default block, 10 % of the blocks
+K18_SQNR_DB = 45.0  # K1's bound: both versions sum in f32 and round once
+SPARSE_EXACT_DB = 60.0  # 2:4 against the dense forward on the dequantized weights
+# K18 (M, K, N, b, keep, path): ViT-L's w1 / w2 as the BSR path gives them,
+# the same at b = 128 and half the blocks, the JAX suite's two shapes
+# (tests/test_pallas_tpu.py:212-236) and a fully dense BSR weight (keep
+# None on a dense weight: every block), the worst case
+K18_SHAPES = [(M_VITL, 1024, 4096, BSR_BLOCK, BSR_KEEP, "ViT-L/16 BSR"),
+              (M_VITL, 4096, 1024, BSR_BLOCK, BSR_KEEP, "ViT-L/16 BSR"),
+              (M_VITL, 1024, 4096, 128, 0.5, None), (M_VITL, 4096, 1024, 128, 0.5, None),
+              (64, 1024, 1024, 128, 0.25, None), (1, 512, 640, 128, 0.5, None),
+              (M_VITL, 1024, 4096, 64, None, None)]
 K13_FORMS = {"magic": ("int4_grouped_magic", "grouped_matmul.py:149"),
              "w4a8": ("int4_grouped_w4a8", "grouped_matmul.py:294")}
 
@@ -1705,21 +1737,24 @@ def vision_as_plain():
         k16._launch, k12._launch_norm, k12._launch_gelu = saved
 
 
-def profile_forward(torch, tag, run, n_images, rounds=3):
+def forward_ms(torch, run) -> float:
+    """Host milliseconds of one call of ``run`` ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def profile_forward(torch, tag, run, n_images, rounds=3, wall_ms=None):
     """images/s of ``run`` (host clock around a call ending in a
     synchronize; the median of ``rounds`` calls after the launch-count
-    call), and the device busy share, ops and top kernels of one profiled
-    call. Returns images/s."""
+    call, or ``wall_ms`` where the caller timed it), and the device busy
+    share, ops and top kernels of one profiled call. Returns images/s."""
     from torch.profiler import ProfilerActivity, profile
 
-    times = []
-    for _ in range(rounds):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    wall_ms = statistics.median(times) * 1e3
+    if wall_ms is None:
+        wall_ms = statistics.median(forward_ms(torch, run) for _ in range(rounds))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
@@ -1861,6 +1896,177 @@ def vit_paths(torch, fails, counters, launches, ips):
               f"(>= {PATH_SQNR_DB})", flush=True)
         fails.check(sqnr >= PATH_SQNR_DB, f"{tag} logits: sqnr {sqnr:.2f} dB < {PATH_SQNR_DB}")
         ips[tag] = profile_forward(torch, tag, run, VIT_BATCH)
+
+
+def torch_bsr_ms(torch, x, w_dq, b, got):
+    """``torch.sparse``'s BSR x dense product on the same function (the
+    weight's transpose in BSR times x's transpose): (ms, note), or (None,
+    the error) where it raises on the card."""
+    from ao_tpu_torch.utils.timing import cuda_time_ms
+
+    try:
+        wt = w_dq.t().contiguous().to_sparse_bsr((b, b))
+        xt = x.t().contiguous()
+        y = (wt @ xt).t()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, TypeError, ValueError) as e:
+        return None, f"raises {type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    err = float((y.float() - got.float()).abs().max())
+    return cuda_time_ms(lambda: wt @ xt, iters=10), f"max|err| vs K18 {err:.3g}"
+
+
+def host_us(torch, fn, n=50) -> float:
+    """Host microseconds per call of ``fn`` over ``n`` calls enqueued back
+    to back (a synchronize before and none inside: the Python and launch
+    cost, as long as the device keeps up)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def k18_phase(torch, fails, seed):
+    """K18 at K18_SHAPES: a random bf16 weight made block-sparse as
+    ``BlockSparseWeightConfig`` does; the library yardstick is bf16
+    torch.matmul on the dequantized weight (``torch.sparse``'s BSR product
+    printed beside it). At the main path's shapes it also prints the host
+    cost of one ``linear`` call through K18 and through cuBLAS on the
+    dense weight."""
+    from ao_tpu_torch.ops.hopper import bsr_matmul as k18
+    from ao_tpu_torch.ops.linear import linear
+    from ao_tpu_torch.quantization.primitives import compute_error
+    from ao_tpu_torch.sparsity.blocksparse import BlockSparseArray
+    from ao_tpu_torch.utils.timing import cuda_time_ms
+
+    rows = {}
+    gen = torch.Generator(device=DEV).manual_seed(seed + 40)
+    for m, k, n, b, keep, path in K18_SHAPES:
+        w = (torch.randn((k, n), generator=gen, device=DEV) * k ** -0.5).to(torch.bfloat16)
+        bw = BlockSparseArray.from_hp(w, b, keep)
+        x = torch.randn((m, k), generator=gen, device=DEV).to(torch.bfloat16)
+        got = k18.bsr_matmul(x, bw)
+        ref = k18.bsr_matmul_plain(x, bw)
+        torch.cuda.synchronize()
+        sqnr = float(compute_error(ref, got))
+        shape = f"M={m} K={k} N={n} b={b} keep={keep} nnz={bw.nnz_blocks}"
+        fails.check(bool(torch.isfinite(got).all()) and sqnr >= K18_SQNR_DB,
+                    f"K18 bsr_matmul {shape}: sqnr {sqnr:.2f} dB < {K18_SQNR_DB}")
+        ms = cuda_time_ms(lambda: k18._launch(x, bw), iters=20)
+        plain_ms = cuda_time_ms(lambda: k18.bsr_matmul_plain(x, bw), iters=5, warmup=1)
+        w_dq = bw.dequantize(torch.bfloat16)
+        library_ms = cuda_time_ms(lambda: torch.matmul(x, w_dq), iters=20)
+        sparse_ms, note = torch_bsr_ms(torch, x, w_dq, b, got)
+        sparse = "not timed" if sparse_ms is None else f"{sparse_ms:.4f} ms"
+        print(f"K18 {shape}: torch.sparse BSR x dense (bf16) {sparse}, {note}", flush=True)
+        if path is not None:
+            x3 = x.reshape(VITL_BATCH, -1, k)
+            print(f"K18 {shape}: host per linear call, K18 {host_us(torch, lambda: linear(x3, bw)):.1f}"
+                  f" us, cuBLAS on the dense weight {host_us(torch, lambda: linear(x3, w_dq)):.1f} us",
+                  flush=True)
+        nbytes, flops = k18.traffic(m, k, n, b, bw.nnz_blocks)
+        rows[(m, k, n, b, keep)] = kernel_row(
+            "K18 bsr_matmul", shape, got, ref, f"sqnr {sqnr:.2f} dB (>= {K18_SQNR_DB})", ms,
+            plain_ms, library_ms, nbytes, flops)
+    return rows
+
+
+def vitl_sparse_paths(torch, fails, counters, launches, ips):
+    """ViT-L/16 at full width (24 layers), random weights from the seed,
+    batch 16 at 224^2 (M = 3152 rows per linear) through ``vit.forward``:
+    block-sparse MLPs (BlockSparseWeightConfig(blocksize=64,
+    keep_fraction=0.1) on the 48 mlp.w1 / mlp.w2; K18 each), 2:4
+    (SemiSparseWeightConfig(), default filter: dequantize + torch.matmul),
+    2:4 with int4 values (Sparse24Int4WeightConfig(group_size=128)) and
+    bf16. Launch counts exact; BSR logits against the "torch" backend (the
+    ragged route) at 30 dB; 2:4 logits against the dense forward on the
+    dequantized weights, equal or at 60 dB. The four forwards are then timed
+    in turns (VITL_ROUNDS rounds, the order reversed every other round, as
+    the host's clock drifts between phases), images/s from each one's
+    median, and profiled once each."""
+    import ao_tpu_torch
+    from ao_tpu_torch.models import vit
+    from ao_tpu_torch.ops import kernels
+    from ao_tpu_torch.quantization.primitives import compute_error
+    from ao_tpu_torch.quantization.qarrays.base import QuantizedArray
+
+    cfg = vit.VIT_L16
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 32)
+    params = vit.init_params(cfg, gen, device=DEV)
+    images = torch.randn((VITL_BATCH, cfg.image_size, cfg.image_size, 3), generator=gen,
+                         device=DEV)
+
+    def mlp_only(fqn, leaf):
+        return fqn.endswith(("mlp.w1", "mlp.w2"))
+
+    def dequantized(tree):
+        if isinstance(tree, QuantizedArray):
+            return tree.dequantize()
+        if isinstance(tree, dict):
+            return {k: dequantized(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [dequantized(v) for v in tree]
+        return tree
+
+    configs = {"ViT-L/16 BSR": (ao_tpu_torch.BlockSparseWeightConfig(BSR_BLOCK, BSR_KEEP),
+                                mlp_only),
+               "ViT-L/16 2:4": (ao_tpu_torch.SemiSparseWeightConfig(), None),
+               "ViT-L/16 2:4-int4": (ao_tpu_torch.Sparse24Int4WeightConfig(group_size=GROUP),
+                                     None)}
+    runs = {}
+    for tag in SPARSE_PATHS:
+        with phase(tag):
+            p = params
+            if tag in configs:
+                p = ao_tpu_torch.sparsify_(params, *configs[tag])
+                torch.cuda.synchronize()
+            want = {name: 0 for name in counters}
+            if tag == "ViT-L/16 BSR":
+                want["bsr_matmul"] = 2 * cfg.n_layers
+
+            def run(p=p):
+                return vit.forward(p, images, cfg)
+
+            for c in counters.values():
+                c.launches = 0
+            got = run()
+            torch.cuda.synchronize()
+            launches[tag] = {name: c.launches for name, c in counters.items()}
+            print(f"{tag} launches: {launches[tag]} (want {want})", flush=True)
+            fails.check(launches[tag] == want, f"{tag} launch counts {launches[tag]} != {want}")
+            fails.check(tuple(got.shape) == (VITL_BATCH, cfg.n_classes)
+                        and got.dtype == torch.float32 and bool(torch.isfinite(got).all()),
+                        f"{tag}: logits {tuple(got.shape)} {got.dtype} not finite or out of shape")
+            if tag == "ViT-L/16 BSR":
+                with kernels.backend("torch"):
+                    plain = run()
+                sqnr = float(compute_error(plain, got))
+                print(f"{tag} logits, K18 route vs the ragged route: sqnr {sqnr:.2f} dB "
+                      f"(>= {PATH_SQNR_DB})", flush=True)
+                fails.check(sqnr >= PATH_SQNR_DB, f"{tag} logits: sqnr {sqnr:.2f} dB")
+            elif tag in configs:
+                dense = run(dequantized(p))
+                same = bool(torch.equal(dense, got))
+                sqnr = float(compute_error(dense, got))
+                print(f"{tag} logits vs the dense forward on the dequantized weights: "
+                      f"{'equal' if same else 'not equal'}, sqnr {sqnr:.2f} dB "
+                      f"(equal or >= {SPARSE_EXACT_DB})", flush=True)
+                fails.check(same or sqnr >= SPARSE_EXACT_DB, f"{tag} logits: sqnr {sqnr:.2f} dB")
+            runs[tag] = run
+            del got
+            torch.cuda.empty_cache()
+    walls = {tag: [] for tag in SPARSE_PATHS}
+    for r in range(VITL_ROUNDS):
+        for tag in (SPARSE_PATHS if r % 2 == 0 else SPARSE_PATHS[::-1]):
+            walls[tag].append(forward_ms(torch, runs[tag]))
+    for tag in SPARSE_PATHS:
+        print(f"{tag} host wall per forward in turns (ms): "
+              + ", ".join(f"{t:.3f}" for t in walls[tag]), flush=True)
+        ips[tag] = profile_forward(torch, tag, runs[tag], VITL_BATCH,
+                                   wall_ms=statistics.median(walls[tag]))
 
 
 def tree_bytes(tree) -> int:
@@ -2042,9 +2248,9 @@ def build_all():
 
 
 def kernels_only(torch, names) -> int:
-    """Build, then run only the phases of ``names`` (of K1, K3, K13) and
-    print each one's rows as one JSON line."""
-    phases = {"K1": k1_phase, "K3": k3_phase, "K13": k13_phase}
+    """Build, then run only the phases of ``names`` (of K1, K3, K13, K18)
+    and print each one's rows as one JSON line."""
+    phases = {"K1": k1_phase, "K3": k3_phase, "K13": k13_phase, "K18": k18_phase}
     if not set(names) <= set(phases):
         print(f"chip_smoke: --kernels takes {', '.join(phases)}", file=sys.stderr)
         return 2
@@ -2064,7 +2270,7 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description="Smoke run of ao_tpu_torch on one NVIDIA GPU.")
     parser.add_argument("--kernels", type=lambda v: v.split(","),
-                        help="only these kernels' phases, of K1, K3, K13 (comma-separated)")
+                        help="only these kernels' phases, of K1, K3, K13, K18 (comma-separated)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
@@ -2076,6 +2282,7 @@ def main() -> int:
         return kernels_only(torch, args.kernels)
     import ao_tpu_torch
     from ao_tpu_torch.models import llama
+    from ao_tpu_torch.ops.hopper import bsr_matmul as k18
     from ao_tpu_torch.ops.hopper import decode_attention as k2
     from ao_tpu_torch.ops.hopper import flash_attention as k8
     from ao_tpu_torch.ops.hopper import fp4_matmul as k14
@@ -2133,6 +2340,8 @@ def main() -> int:
         k16_rows = {shape: k16_phase(torch, fails, SEED, *shape) for shape in K16_SHAPES}
     with phase("kernel K13"):
         k13_rows = k13_phase(torch, fails, SEED)
+    with phase("kernel K18"):
+        k18_rows = k18_phase(torch, fails, SEED)
 
     # -- the main paths: Llama-3-8B widths, int4-WO and W4A8, greedy generate
     cfg = llama.LLAMA3_8B
@@ -2172,7 +2381,8 @@ def main() -> int:
                      "gelu_quant": k12.gelu_quant,
                      "window_bias_attention": k16.window_bias_attention,
                      "int4_grouped_magic": k13.int4_grouped_magic,
-                     "int4_grouped_w4a8": k13.int4_grouped_w4a8})
+                     "int4_grouped_w4a8": k13.int4_grouped_w4a8,
+                     "bsr_matmul": k18.bsr_matmul})
     with phase("F1"):
         f1_phase(torch, fails, counters)
 
@@ -2323,6 +2533,12 @@ def main() -> int:
     print(f"vision forwards on {card}: " + ", ".join(f"{tag} {ips[tag]:.2f} images/s"
                                                      for tag in VISION_PATHS), flush=True)
 
+    # -- the sparsity slice: ViT-L/16 with BSR MLPs (K18), 2:4, 2:4-int4, bf16
+    with phase("ViT-L/16 sparse paths"):
+        vitl_sparse_paths(torch, fails, counters, launches, ips)
+    print(f"ViT-L/16 forwards (batch {VITL_BATCH}) on {card}: "
+          + ", ".join(f"{tag} {ips[tag]:.2f} images/s" for tag in SPARSE_PATHS), flush=True)
+
     # -- the MoE slice: Mixtral-8x7B widths, int4-WO, W4A8 and bf16 experts
     mixtral_paths(torch, fails, counters, launches, tps, card)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
@@ -2382,6 +2598,8 @@ def main() -> int:
               "SAM-B W8A8", k16_rows[shape]) for shape in K16_SHAPES]
     rows += [(K13_FORMS[form][0], "grouped_matmul.cu", K13_FORMS[form][1], path,
               k13_rows[(form, t, k, n)]) for form, t, k, n, path in K13_SHAPES]
+    rows += [("bsr_matmul", "bsr_matmul.cu", "bsr_matmul.py:25", sh[5], k18_rows[sh[:5]])
+             for sh in K18_SHAPES]
     entries = [dict(name=name, route="cuda", source=f"ao_tpu_torch/csrc/{src}",
                     replaces=f"ao_tpu/ops/pallas/{ref}",
                     launches=launches[path][name] if path else 0,

@@ -1493,3 +1493,86 @@ def test_moe_decode_forward_never_syncs(dev):
         finally:
             torch.cuda.set_sync_debug_mode(0)
         assert y.shape == x.shape and bool(torch.isfinite(y).all())
+
+
+# ---------------------------------------------------------------------------
+# K18: the block-sparse (BSR) matmul
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m,k,n,b,keep", [
+    (3152, 1024, 4096, 64, 0.1),   # ViT-L's w1 at the BSR path's config
+    (3152, 4096, 1024, 64, 0.1),   # its w2
+    (3152, 1024, 4096, 128, 0.5),
+    (64, 1024, 1024, 128, 0.25),   # the JAX suite's shapes
+    (1, 512, 640, 128, 0.5),
+    (200, 1024, 4096, 64, None),   # every block of a dense weight
+    (13, 256, 384, 32, 0.4),       # b = 32, a ragged M tile
+    (65, 512, 256, 64, 0.01),      # one live block: the other columns are padding
+])
+def test_bsr_matmul_matches_plain(dev, m, k, n, b, keep):
+    from ao_tpu_torch.ops.hopper import bsr_matmul as k18
+    from ao_tpu_torch.sparsity.blocksparse import BlockSparseArray
+
+    gen = torch.Generator(device=dev).manual_seed(m + n + b)
+    w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(torch.bfloat16)
+    bw = BlockSparseArray.from_hp(w, b, keep)
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    before = k18.bsr_matmul.launches
+    got = k18.bsr_matmul(x, bw)
+    torch.cuda.synchronize()
+    assert k18.bsr_matmul.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    ref = k18.bsr_matmul_plain(x, bw)
+    # both sum the block products in f32 and round once: K1's bound
+    assert float(compute_error(ref, got)) >= 45
+    # the columns that hold only a padding block come out exactly zero
+    dq = bw.dequantize(torch.float32)
+    empty = dq.reshape(k, n // b, b).abs().sum((0, 2)) == 0
+    assert bool((got.reshape(m, n // b, b)[:, empty] == 0).all())
+
+
+def test_bsr_matmul_f32_container_and_refusals(dev):
+    from ao_tpu_torch.ops.hopper import bsr_matmul as k18
+    from ao_tpu_torch.sparsity.blocksparse import BlockSparseArray
+
+    w = torch.randn((256, 256), device=dev)
+    x = torch.randn((8, 256), device=dev)
+    bw32 = BlockSparseArray.from_hp(w, 64, 0.5, dequant_dtype="float32")
+    got = k18.bsr_matmul(x, bw32)  # x and the values cast to bf16, as the reference does
+    assert float(compute_error(k18.bsr_matmul_plain(x, bw32), got)) >= 45
+    b16 = BlockSparseArray.from_hp(w, 16)
+    with pytest.raises(ValueError, match="blocksize"):
+        k18.bsr_matmul(x, b16)
+    # the route asks ``takes`` before the call: b = 16 takes the ragged route
+    before = k18.bsr_matmul.launches
+    y = ao_tpu_torch.linear(x, b16)
+    assert k18.bsr_matmul.launches == before and y.dtype == torch.float32
+    assert float(compute_error(x @ b16.dequantize(torch.float32), y)) >= 100
+    with pytest.raises(ValueError, match="2-D x"):
+        k18.bsr_matmul(x[:, :128], bw32)
+
+
+def test_vit_l_bsr_two_layers_go_through_k18(dev):
+    """A 2-layer ViT-L/16 with block-sparse MLPs (b = 64, 10 % of the
+    blocks): one K18 launch per MLP linear; logits near the ragged route's."""
+    import dataclasses
+
+    from ao_tpu_torch.models import vit
+    from ao_tpu_torch.ops.hopper import bsr_matmul as k18
+
+    cfg = dataclasses.replace(vit.VIT_L16, n_layers=2)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = vit.init_params(cfg, gen, device=dev)
+    sp = ao_tpu_torch.sparsify_(params, ao_tpu_torch.BlockSparseWeightConfig(64, 0.1),
+                                lambda fqn, leaf: fqn.endswith(("mlp.w1", "mlp.w2")))
+    images = torch.randn((2, 224, 224, 3), generator=gen, device=dev)
+    k18.bsr_matmul.launches = 0
+    logits = vit.forward(sp, images, cfg)
+    torch.cuda.synchronize()
+    assert k18.bsr_matmul.launches == 4
+    assert logits.shape == (2, 1000) and logits.dtype == torch.float32
+    with kernels.backend("torch"):
+        plain = vit.forward(sp, images, cfg)
+    assert k18.bsr_matmul.launches == 4
+    assert float(compute_error(plain, logits)) >= 30
