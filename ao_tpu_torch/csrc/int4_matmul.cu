@@ -52,6 +52,7 @@
 //    and re-reads its words from L1. No wgmma or TMA yet.
 
 #include "int4_tiles.cuh"
+#include "mixed_gemm.cuh"
 
 namespace {
 
@@ -337,143 +338,159 @@ extern "C" int ao_int4_wo_magic(const void* x_, const void* word_, const void* s
 // scale and zero point themselves, converted exactly in the kernel.
 //
 // What bounds it on the H100: at ViT-B's M = 788 the operations (2 M K N
-// against 989 TFLOP/s); at small M the weight bytes. A simple first kernel,
-// K1's tile shape: a block of four warps computes 64 rows x 128 columns,
-// each warp 64 x 32 (4 m16 x 4 n8 tiles of mma.sync m16n8k16). Each step
-// takes 16 byte rows of one group, i.e. 16 low-nibble rows and the 16
-// high-nibble rows g/2 further on: the threads decode the 2 KB of bytes to a
-// bf16 B tile of 32 K rows in shared memory (K-contiguous per column, so a
-// fragment register is one 32-bit load), and the matching two 16-column
-// slices of x go to shared memory beside it, read as A fragments by
-// ldmatrix. One buffer, no cp.async pipeline, no wgmma: speed is later work.
+// against 989 TFLOP/s, under a microsecond), so in practice the latency of
+// its K / 64 stages, the f32 decode (a multiply, an add and a conversion per
+// weight) and how many SMs have work; at small M the weight bytes. The first
+// version (one shared buffer, synchronous loads and a decode between two
+// barriers per 32 K values, mma.sync, 78 CTAs at N = 768) took 10x
+// cuBLAS's time. It now runs on the shared wgmma mainloop (mixed_gemm.cuh,
+// HalvesOp below): a stage is 32 byte rows of one group (two groups at g =
+// 32), i.e. their low-nibble rows and the high-nibble rows g/2 further on,
+// cp.async'd into the ring with the group's scale and zero point rows and
+// the matching x columns; each thread decodes the bytes of its wgmma
+// A-fragment registers, bf16(u*s + b) in f32, once per CTA; the tiles (BM,
+// BN) and a split of K come from int4_matmul.pick_tiles_halves (the tuned
+// tile cache first, then a heuristic measured on ViT-B's shapes).
 
 namespace {
 
-constexpr int kHalvesRow = 40;  // 32 K values + 8 of padding (bf16): 80-byte rows
-
+// Stage s is byte rows 32s .. 32s + 31, in runs of R = 32 (g/2 % 32 == 0) or
+// 16 byte rows of one group each; run r's low-nibble rows are the stage's K
+// values 2Rr .. 2Rr + R - 1, its high-nibble rows the next R. A ragged last
+// stage (K/2 % 32 == 16) reads zeros past K/2. The slot holds the bytes
+// [32][BN + 16] (rows padded by 16 bytes, so the byte rows a warp reads at
+// once fall in different banks), then s and b of the groups of byte rows
+// 32s and 32s + 16: [s, b][2][BN], f32 or (RAW) bf16.
 template <int RAW>
-__global__ void __launch_bounds__(128)
-    int4_wo_halves_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
-                          const void* __restrict__ s_, const void* __restrict__ b_,
-                          __nv_bfloat16* __restrict__ out, int M, int K, int N, int G) {
-  __shared__ __align__(16) __nv_bfloat16 xs[64][kHalvesRow];   // [row][lo 0..15 | hi 16..31]
-  __shared__ __align__(16) __nv_bfloat16 ws[128][kHalvesRow];  // [column][lo | hi K rows]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int n0 = blockIdx.x * 128, m0 = blockIdx.y * 64;
-  const int chunks = G / 32;  // steps per group: 16 byte rows each
-  const int steps = (K / G) * chunks;
+struct HalvesOp {
+  struct Args {
+    const uint8_t* w;
+    const void* s;
+    const void* b;
+    int G;
+  };
+  static constexpr int kQBytes = RAW ? 2 : 4;
 
-  float acc[4][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][i][e] = 0.f;
+  template <int BN>
+  __host__ __device__ static constexpr int raw_bytes() {
+    return 32 * (BN + 16) + 4 * BN * kQBytes;
+  }
 
-  // the weight bytes this thread decodes: byte rows 2*rp and 2*rp + 1 of a
-  // step, columns n0 + 8*cc .. + 7
-  const int rp = threadIdx.x >> 4, cc = threadIdx.x & 15;
-  const int ncol = n0 + 8 * cc;
+  __device__ static int run_shift(int gh) { return gh % 32 == 0 ? 5 : 4; }  // log2 R
 
-  for (int st = 0; st < steps; ++st) {
-    const int grp = st / chunks, c = st % chunks;
-    const int lo0 = grp * G + 16 * c, hi0 = lo0 + G / 2;
-    const int p0 = grp * (G / 2) + 16 * c;
-    __syncthreads();  // the previous step's tiles are consumed
-    for (int i = threadIdx.x; i < 64 * 4; i += 128) {
-      const int r = i >> 2, q = i & 3;
-      const int col = (q < 2 ? lo0 : hi0) + 8 * (q & 1);
-      int4 v = make_int4(0, 0, 0, 0);
-      if (m0 + r < M) v = ld_16(x + (size_t)(m0 + r) * K + col);
-      *reinterpret_cast<int4*>(&xs[r][8 * q]) = v;
+  __device__ static int x_col(const Args& a, const mg::Problem& pb, int s, int c, bool& valid) {
+    const int gh = a.G / 2, rs = run_shift(gh);
+    const int run = c >> (rs - 2), cc = c & ((1 << (rs - 2)) - 1);  // R / 4 chunks a run
+    const int p = 32 * s + (run << rs);
+    valid = p < pb.K / 2;
+    const int half = cc >> (rs - 3), off = 8 * (cc & ((1 << (rs - 3)) - 1));
+    return (p / gh) * a.G + half * gh + p % gh + off;
+  }
+
+  template <int BN, int NT>
+  __device__ static void load_raw(const Args& a, const mg::Problem& pb, uint8_t* raw, int s,
+                                  int n0, int tid) {
+    const int kp = pb.K / 2, gh = a.G / 2;
+    constexpr int CH = BN / 16;  // 16-byte chunks of a byte row
+    mg::for_chunks<32 * CH, NT>(tid, [&](int e) {
+      const int r = e / CH, cc = e % CH;
+      const int p = 32 * s + r;
+      const bool valid = p < kp;
+      mg::cp_async16(raw + r * (BN + 16) + 16 * cc,
+                     valid ? a.w + (size_t)p * pb.N + n0 + 16 * cc : a.w, valid);
+    });
+    constexpr int QCH = BN * kQBytes / 16;  // 16-byte chunks of a qparam row
+    uint8_t* q = raw + 32 * (BN + 16);
+    mg::for_chunks<4 * QCH, NT>(tid, [&](int e) {
+      const int which = e / (2 * QCH), h = (e / QCH) & 1, cc = e % QCH;
+      const int p = 32 * s + 16 * h;
+      const bool valid = p < kp;
+      const uint8_t* src = static_cast<const uint8_t*>(which ? a.b : a.s);
+      mg::cp_async16(q + (2 * which + h) * BN * kQBytes + 16 * cc,
+                     valid ? src + ((size_t)(p / gh) * pb.N + n0) * kQBytes + 16 * cc : src,
+                     valid);
+    });
+  }
+
+  __device__ static float qparam(const uint8_t* q, int i) {
+    if (RAW) return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(q)[i]);
+    return reinterpret_cast<const float*>(q)[i];
+  }
+
+  // u (0..15) -> bf16(u*s + b) with f32's two roundings; u as f32 through
+  // the bits of 2^23 + u, exactly.
+  __device__ static float dq(uint32_t u, float s, float b) {
+    const float uf = __uint_as_float(0x4B000000u | u) - 8388608.f;
+    return __fadd_rn(__fmul_rn(uf, s), b);
+  }
+
+  // The thread's fragments take, for columns cl and cl + 8, the bytes of
+  // rows 8q + 2 tig and 8q + 2 tig + 1 (q = 0..3): pair q's low nibbles are
+  // the K values 2 tig, 2 tig + 1 (a0, a1) or 2 tig + 8, + 9 (a2, a3) of a
+  // k16 step of low-nibble rows, its high nibbles the same of a step of
+  // high-nibble rows. R = 32: steps lo(q0, q1), lo(q2, q3), hi(q0, q1),
+  // hi(q2, q3); R = 16: lo(q0, q1), hi(q0, q1), lo(q2, q3), hi(q2, q3).
+  template <int BN>
+  __device__ static void decode_a(const Args& a, const uint8_t* raw, int, int cl, int lane,
+                                  uint32_t (&frag)[4][4]) {
+    const int tig = lane & 3;
+    const uint8_t* q = raw + 32 * (BN + 16);
+    uint32_t lo[4][2], hi[4][2];  // [pair q][column]
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int n = cl + 8 * c;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float sc = qparam(q + h * BN * kQBytes, n);
+        const float bc = qparam(q + (2 + h) * BN * kQBytes, n);
+#pragma unroll
+        for (int pq = 2 * h; pq < 2 * h + 2; ++pq) {
+          const uint8_t* row = raw + (8 * pq + 2 * tig) * (BN + 16) + n;
+          const uint32_t u0 = row[0], u1 = row[BN + 16];
+          lo[pq][c] = pack_bf16x2(dq(u0 & 15u, sc, bc), dq(u1 & 15u, sc, bc));
+          hi[pq][c] = pack_bf16x2(dq(u0 >> 4, sc, bc), dq(u1 >> 4, sc, bc));
+        }
+      }
     }
-    {
-      const uint8_t* wrow = w + (size_t)(p0 + 2 * rp) * N + ncol;
-      const uint2 w0 = __ldg(reinterpret_cast<const uint2*>(wrow));
-      const uint2 w1 = __ldg(reinterpret_cast<const uint2*>(wrow + N));
-      float sc[8], bc[8];
-      const size_t qoff = (size_t)grp * N + ncol;
-      if (RAW) {
-        const int4 sv = ld_16(static_cast<const __nv_bfloat16*>(s_) + qoff);
-        const int4 bv = ld_16(static_cast<const __nv_bfloat16*>(b_) + qoff);
-        const __nv_bfloat16* sh = reinterpret_cast<const __nv_bfloat16*>(&sv);
-        const __nv_bfloat16* bh = reinterpret_cast<const __nv_bfloat16*>(&bv);
+    const bool r32 = run_shift(a.G / 2) == 5;  // steps 1 and 2 swap between the two
 #pragma unroll
-        for (int j = 0; j < 8; ++j) sc[j] = __bfloat162float(sh[j]), bc[j] = __bfloat162float(bh[j]);
-      } else {
-        const float* sp = static_cast<const float*>(s_) + qoff;
-        const float* bp = static_cast<const float*>(b_) + qoff;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) sc[j] = __ldg(sp + j), bc[j] = __ldg(bp + j);
-      }
-      const uint8_t* b0 = reinterpret_cast<const uint8_t*>(&w0);
-      const uint8_t* b1 = reinterpret_cast<const uint8_t*>(&w1);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float l0 = __fadd_rn(__fmul_rn((float)(b0[j] & 15), sc[j]), bc[j]);
-        const float l1 = __fadd_rn(__fmul_rn((float)(b1[j] & 15), sc[j]), bc[j]);
-        const float h0 = __fadd_rn(__fmul_rn((float)(b0[j] >> 4), sc[j]), bc[j]);
-        const float h1 = __fadd_rn(__fmul_rn((float)(b1[j] >> 4), sc[j]), bc[j]);
-        *reinterpret_cast<uint32_t*>(&ws[8 * cc + j][2 * rp]) = pack_bf16x2(l0, l1);
-        *reinterpret_cast<uint32_t*>(&ws[8 * cc + j][16 + 2 * rp]) = pack_bf16x2(h0, h1);
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {  // the low-nibble rows, then the high ones
-      uint32_t bfr[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const __nv_bfloat16* col = &ws[32 * warp + 8 * i + gid][16 * h + 2 * tig];
-        bfr[i][0] = *reinterpret_cast<const uint32_t*>(col);
-        bfr[i][1] = *reinterpret_cast<const uint32_t*>(col + 8);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        uint32_t a[4];
-        ldmatrix_x4(a, &xs[mt * 16 + (lane & 15)][16 * h + 8 * (lane >> 4)]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) mma_16816(acc[mt][i], a, bfr[i][0], bfr[i][1]);
-      }
+    for (int c = 0; c < 2; ++c) {
+      frag[0][c] = lo[0][c];
+      frag[0][2 + c] = lo[1][c];
+      frag[1][c] = r32 ? lo[2][c] : hi[0][c];
+      frag[1][2 + c] = r32 ? lo[3][c] : hi[1][c];
+      frag[2][c] = r32 ? hi[0][c] : lo[2][c];
+      frag[2][2 + c] = r32 ? hi[1][c] : lo[3][c];
+      frag[3][c] = hi[2][c];
+      frag[3][2 + c] = hi[3][c];
     }
   }
 
-  // C fragment of n8 tile i: rows gid (c0, c1) and gid + 8 (c2, c3), columns
-  // 2*tig and 2*tig + 1
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int col = n0 + 32 * warp + 8 * i + 2 * tig;
-      const int r = m0 + mt * 16 + gid;
-      if (r < M)
-        *reinterpret_cast<uint32_t*>(out + (size_t)r * N + col) =
-            pack_bf16x2(acc[mt][i][0], acc[mt][i][1]);
-      if (r + 8 < M)
-        *reinterpret_cast<uint32_t*>(out + (size_t)(r + 8) * N + col) =
-            pack_bf16x2(acc[mt][i][2], acc[mt][i][3]);
-    }
-}
+  __device__ static float finish(const Args&, float acc) { return acc; }
+};
 
 }  // namespace
 
 // x (M, K) bf16; w (K/2, N) uint8 split-half; s, b (K/g, N): f32 (raw == 0) or
-// the bf16 tinygemm scale and zero point (raw != 0); out (M, N) bf16. Needs
-// g % 32 == 0, K % g == 0, N % 128 == 0 and 16-byte aligned rows; the Python
-// wrapper checks them. Returns cudaGetLastError() after the launch.
+// the bf16 tinygemm scale and zero point (raw != 0); out (M, N) bf16. Tiles
+// (bm, bn) from int4_matmul.pick_tiles_halves, ``per`` stages of 32 byte
+// rows a split, ws (splits, M, N) f32 when splits > 1. Needs g % 32 == 0,
+// K % g == 0, N % bn == 0 and 16-byte aligned rows; the Python wrapper
+// checks them. Returns cudaGetLastError() after the launches.
 extern "C" int ao_int4_wo_halves(const void* x, const void* w, const void* s, const void* b,
-                                 void* out, int M, int K, int N, int G, int raw, void* stream) {
+                                 void* out, void* ws_, int M, int K, int N, int G, int raw,
+                                 int bm, int bn, int splits, int per, void* stream) {
   if (G % 32 || K % G || N % 128) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid(N / 128, (M + 63) / 64);
-  const auto* xp = static_cast<const __nv_bfloat16*>(x);
-  const auto* wp = static_cast<const uint8_t*>(w);
+  float* ws = splits > 1 ? static_cast<float*>(ws_) : nullptr;
   auto* op = static_cast<__nv_bfloat16*>(out);
-  if (raw)
-    int4_wo_halves_kernel<1><<<grid, 128, 0, st>>>(xp, wp, s, b, op, M, K, N, G);
-  else
-    int4_wo_halves_kernel<0><<<grid, 128, 0, st>>>(xp, wp, s, b, op, M, K, N, G);
+  const mg::Problem pb{static_cast<const __nv_bfloat16*>(x), op, ws, M, K, N, per,
+                       (K / 2 + 31) / 32};
+  const auto* wp = static_cast<const uint8_t*>(w);
+  cudaError_t err = raw ? mg::launch<HalvesOp<1>>(pb, {wp, s, b, G}, bm, bn, splits, st)
+                        : mg::launch<HalvesOp<0>>(pb, {wp, s, b, G}, bm, bn, splits, st);
+  if (err != cudaSuccess || ws == nullptr) return (int)err;
+  const size_t mn = (size_t)M * N;
+  int4_wo_reduce_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(ws, op, mn, splits);
   return (int)cudaGetLastError();
 }

@@ -8,14 +8,17 @@ on Hopper.
   scale pair-words (K/32, N) int32, then the f32 per-tensor scale on the
   bf16 output (``nvfp4_wo_matmul_pallas``, kernel ``_nv_kernel``).
 
-One CUDA source, ``ao_tpu_torch/csrc/fp4_matmul.cu``, whose header says what
-bounds it on the H100 and how the design meets it. Each wrapper runs the
+One CUDA source, ``ao_tpu_torch/csrc/fp4_matmul.cu`` (its prefill form on the
+shared wgmma mainloop of ``csrc/mixed_gemm.cuh``), whose header says what
+bounds it on the H100 and how the design meets it; ``pick_tiles`` chooses
+its tiles and K split. Each wrapper runs the
 kernel on a CUDA tensor and its plain PyTorch version (``*_plain``) on a CPU
 tensor, and raises ValueError on either for a shape the kernel does not
 take (``takes``). The plain versions decode the codes and scales to the
 values ``dequantize()`` uses, run one bf16 ``torch.matmul`` and, for NVFP4,
 multiply its bf16 output by the per-tensor scale in f32, as the reference
-path does.
+path does. ``fp4_decode_mirror`` repeats the kernel's integer decode of codes
+and scale bytes in PyTorch, so a CPU test can hold it to the plain decode.
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ from ao_tpu_torch.quantization.qarrays.mx import e8m0_decode
 K_UNIT = 256  # K per unit of the kernel: four planes of 64 rows
 N_BLOCK = 128  # columns per block
 MX, NV = 0, 1  # the kernel's two kinds
+GEMV_MAX_M = 16  # the decode kernel's rows; above them the mainloop's tiles
+K_STAGE = 64  # K values per stage of the mainloop (8 word rows)
 
 _LIB = None
 
@@ -42,7 +47,7 @@ def _lib():
     global _LIB
     if _LIB is None:
         lib = build.load("fp4_matmul")
-        lib.ao_fp4_wo.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        lib.ao_fp4_wo.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p]
         lib.ao_fp4_wo.restype = ctypes.c_int
         if (lib.ao_fp4_k_unit(), lib.ao_fp4_n_block()) != (K_UNIT, N_BLOCK):
@@ -98,12 +103,59 @@ def nvfp4_wo_matmul_plain(x, word, scale_words, per_tensor_scale) -> torch.Tenso
     return (y.to(torch.float32) * per_tensor_scale.to(torch.float32)).to(torch.bfloat16)
 
 
-def pick_splits(m: int, k: int, n: int, sm_count: int):
-    """(splits, units per split): decode (M <= 16) splits K by whole units
-    until about four 4-warp blocks per SM are in flight."""
-    if m > 16:
-        return 1, k // K_UNIT
-    return _split_units(k // K_UNIT, n // N_BLOCK, sm_count)
+def fp4_decode_mirror(codes: torch.Tensor, scale_bytes: torch.Tensor, kind: int) -> torch.Tensor:
+    """The kernel's decode of stored fp4-magic codes (em field 0 and 1
+    swapped, 0..15) times their block scale bytes (e8m0 for MX, e4m3fn for
+    NV), broadcast against each other, in bf16: the integer steps of
+    ``fp4_pair`` and ``mx_scale2`` / ``nv_scale_pair`` (csrc/fp4_matmul.cu)
+    on one half of a bf16x2, then the bf16 product mul.rn.bf16x2 computes
+    (exact, so any correct rounding gives it)."""
+    t = codes.to(torch.int32)
+    z = t & 7
+    v = z * 64 + (0x3F00 if kind == MX else 0x7B00)
+    keep = torch.where((((z ^ 1) + 0x7F) & 0x80) != 0, 0xFFFF, 0)  # prmt's sign replicate
+    bits = (v & keep) | ((t << 12) & 0x8000)
+    b = scale_bytes.to(torch.int32)
+    if kind == MX:
+        sbits = torch.where(b == 0, 0x0040, b << 7)
+    else:
+        m = b & 0x7F
+        nan = torch.where(((m + 1) & 0x80) != 0, 0x7FC0, 0)  # prmt's sign replicate
+        sbits = (m << 4) | ((b & 0x80) << 8) | nan
+
+    def as_bf16(u):
+        return (u - ((u & 0x8000) << 1)).to(torch.int16).view(torch.bfloat16)
+
+    return as_bf16(bits) * as_bf16(sbits)
+
+
+def ctas_per_sm(bm: int) -> int:
+    """CTAs of the mainloop an SM holds at once: one at BM = 256 (128
+    accumulators a thread), two below (128 registers a thread)."""
+    return 1 if bm == 256 else 2
+
+
+def pick_tiles(m: int, k: int, n: int, sm_count: int):
+    """(bm, bn, splits, per): the tiles and K split for (M, K, N). M <= 16
+    takes the decode kernel (bm 16, bn 128), whose split of K by whole units
+    of 256 (``per`` units a split) aims at about four 4-warp blocks per SM.
+    Larger M takes the wgmma mainloop: BM = 64 rows of x up to M = 64, 128
+    up to 512, 256 above (measured fastest at M = 1024 on the H100), by BN =
+    128 weight columns, and splits K by whole stages of 64 (``per`` stages a
+    split) until the CTAs fill three quarters of the card's CTA slots (a
+    split costs a second pass), as far as K's stages allow."""
+    if m <= GEMV_MAX_M:
+        splits, ups = _split_units(k // K_UNIT, n // N_BLOCK, sm_count)
+        return GEMV_MAX_M, N_BLOCK, splits, ups
+    bm, bn = (64 if m <= 64 else 128 if m <= 512 else 256), 128
+    stages = k // K_STAGE
+    ctas = -(-m // bm) * (n // bn)
+    want = -(-3 * sm_count * ctas_per_sm(bm) // 4)
+    need = -(-want // ctas)  # splits that fill the card
+    per = -(-stages // need)  # balanced splits, unless rounding leaves too few
+    if -(-stages // per) < need:
+        per = max(1, stages // need)
+    return bm, bn, -(-stages // per), per
 
 
 def _launch(kind: int, x, word, scale, pts, name: str) -> torch.Tensor:
@@ -115,15 +167,15 @@ def _launch(kind: int, x, word, scale, pts, name: str) -> torch.Tensor:
     if pts is not None:
         operands.append(("per_tensor_scale", pts, torch.float32, ()))
     _check_operands(name, dev, operands)
-    splits, ups = pick_splits(m, k, n, _sm_count(dev))
+    bm, bn, splits, per = pick_tiles(m, k, n, _sm_count(dev))
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     ws = torch.empty((splits, m, n), dtype=torch.float32, device=dev) if splits > 1 else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().ao_fp4_wo(kind, x.data_ptr(), word.data_ptr(), scale.data_ptr(),
                                None if pts is None else pts.data_ptr(), out.data_ptr(),
-                               None if ws is None else ws.data_ptr(), m, k, n, splits, ups,
-                               stream)
+                               None if ws is None else ws.data_ptr(), m, k, n, bm, bn, splits,
+                               per, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return out

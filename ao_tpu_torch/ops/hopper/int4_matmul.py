@@ -11,8 +11,10 @@
   ``_requant_kernel``); same CUDA source as K3.
 * K11 ``int4_wo_matmul``: int4 weight-only matmul over the uint8 split-half
   layout (``int4_wo_matmul_pallas``, kernels ``_kernel`` and
-  ``_kernel_twoplane``); same CUDA source as K1. ``takes_halves`` says which
-  shapes it takes.
+  ``_kernel_twoplane``); same CUDA source as K1, on the shared wgmma
+  mainloop of ``csrc/mixed_gemm.cuh``. ``takes_halves`` says which shapes it
+  takes; ``pick_tiles_halves`` chooses its tiles, the tuned tile cache
+  (``ops/hopper/autotune.py``) first.
 
 The headers of the CUDA sources say what bounds each kernel on the H100 and
 how the design meets it. Each wrapper runs its kernel on a CUDA tensor and
@@ -32,6 +34,7 @@ zero point themselves.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -52,7 +55,7 @@ def _lib():
         fn = lib.ao_int4_wo_magic
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.ao_int4_wo_halves.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        lib.ao_int4_wo_halves.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
             ctypes.c_void_p]
         lib.ao_int4_wo_halves.restype = ctypes.c_int
         _LIB = lib
@@ -424,9 +427,70 @@ def int4_wo_matmul_plain(x, packed, s, b, group_size: int) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32) @ w.to(torch.float32)
 
 
-def _launch_halves(x, packed, s, b, group_size: int, raw: bool) -> torch.Tensor:
+# K11's tiles (BM, BN) on the mainloop (csrc/mixed_gemm.cuh::launch), and the
+# K splits the tile cache's candidates may take
+HALVES_TILES = ((128, 128), (64, 128), (128, 64), (64, 64), (256, 128))
+HALVES_SPLITS = (1, 2, 3, 4, 6, 8)
+HALVES_STAGE_BYTES = 32  # byte rows (64 K values) per stage
+
+
+def halves_stages(k: int) -> int:
+    """K11's stages of 32 byte rows over K/2 (a ragged last one at K/2 %
+    32 == 16)."""
+    return -(-(k // 2) // HALVES_STAGE_BYTES)
+
+
+def launched_splits(k: int, splits: int) -> int:
+    """The splits a K11 launch runs when asked for ``splits``: whole stages
+    each, ceil(stages / splits) a split, so possibly fewer."""
+    stages = halves_stages(k)
+    return -(-stages // -(-stages // splits))
+
+
+@functools.lru_cache(maxsize=None)
+def candidate_tiles_halves(m: int, k: int, n: int, group_size: int):
+    """Every (bm, bn, splits) K11 takes at this shape: the mainloop's tiles
+    whose BN divides N, and each of HALVES_SPLITS up to K's stages; the
+    tile cache's tuner times them and the picker takes a cached entry only
+    if it is one of them."""
+    if not takes_halves(k, n, group_size):
+        return ()
+    stages = halves_stages(k)
+    return tuple((bm, bn, sp) for bm, bn in HALVES_TILES if n % bn == 0
+                 for sp in HALVES_SPLITS if sp <= stages)
+
+
+def pick_tiles_halves(m: int, k: int, n: int, group_size: int, sm_count: int):
+    """(bm, bn, splits) for a K11 launch. A tuned entry of the tile cache
+    (``autotune.lookup_tuned("int4_wo_matmul", m, k, n, g)``) comes first,
+    if ``candidate_tiles_halves`` lists it, as the reference's ``_pick_tiles``
+    does. Otherwise (128, 128), then (64, 128), whichever first puts at
+    least half as many CTAs as SMs in flight unsplit: K11's K is short (768
+    at ViT-B, 12 stages), so a fat CTA that runs its stages back to back
+    beats twice as many thin ones (on the H100 ``autotune_int4`` keeps
+    these tiles at both of ViT-B's shapes; PERF.md). Else (64, 128)
+    with the fewest of HALVES_SPLITS that reach it, or the most K's stages
+    allow."""
+    from ao_tpu_torch.ops.hopper.autotune import lookup_tuned
+
+    cands = candidate_tiles_halves(m, k, n, group_size)
+    tuned = lookup_tuned("int4_wo_matmul", m, k, n, group_size)
+    if tuned is not None and tuple(tuned) in cands:
+        return tuple(tuned)
+    want = -(-sm_count // 2)
+    for bm in (128, 64):
+        if -(-m // bm) * (n // 128) >= want:
+            return bm, 128, 1
+    ctas = -(-m // 64) * (n // 128)
+    splits = [sp for bm, bn, sp in cands if (bm, bn) == (64, 128)]
+    return 64, 128, next((sp for sp in splits if ctas * launched_splits(k, sp) >= want),
+                         splits[-1])
+
+
+def _launch_halves(x, packed, s, b, group_size: int, raw: bool, tiles=None) -> torch.Tensor:
     """Launch K11 on CUDA tensors; ``s`` and ``b`` are the bf16 tinygemm
-    scale and zero point when ``raw``, else f32."""
+    scale and zero point when ``raw``, else f32. ``tiles`` (bm, bn, splits),
+    one of ``candidate_tiles_halves``, overrides ``pick_tiles_halves``."""
     dev = x.device
     m, k = x.shape
     n = packed.shape[1]
@@ -436,12 +500,21 @@ def _launch_halves(x, packed, s, b, group_size: int, raw: bool) -> torch.Tensor:
         ("packed", packed, torch.uint8, (k // 2, n)),
         ("scale", s, qdt, (k // group_size, n)),
         ("bias", b, qdt, (k // group_size, n))))
+    if tiles is None:
+        tiles = pick_tiles_halves(m, k, n, group_size, _sm_count(dev))
+    elif tuple(tiles) not in candidate_tiles_halves(m, k, n, group_size):
+        raise ValueError(f"int4_wo_matmul: tiles {tiles} are not K11's at {(m, k, n)}")
+    bm, bn, splits = tiles
+    per = -(-halves_stages(k) // splits)
+    splits = launched_splits(k, splits)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    ws = torch.empty((splits, m, n), dtype=torch.float32, device=dev) if splits > 1 else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().ao_int4_wo_halves(x.data_ptr(), packed.data_ptr(), s.data_ptr(),
-                                       b.data_ptr(), out.data_ptr(), m, k, n, group_size,
-                                       int(raw), stream)
+                                       b.data_ptr(), out.data_ptr(),
+                                       None if ws is None else ws.data_ptr(), m, k, n,
+                                       group_size, int(raw), bm, bn, splits, per, stream)
     if err != 0:
         raise RuntimeError(f"int4_wo_matmul kernel launch failed: CUDA error {err}")
     int4_wo_matmul.launches += 1

@@ -20,7 +20,9 @@ From the repo root, on a machine with a CUDA device and ``nvcc``:
    K10, the fp8 blockwise K17, the fp4 K14 (MXFP4 and NVFP4) and the NF4
    LUT kernel K15 at M = 8 and 1024 over every Llama-3-8B width; the vision
    slice's kernels at its paths' shapes: the int4 split-half matmul K11 at
-   ViT-B's M = 788 rows, the LayerNorm-modulate and GELU producer quantize
+   ViT-B's M = 788 rows (with ``autotune_int4``'s winners at both shapes,
+   tuned into a temporary tile cache, beside the heuristic's tiles and
+   times), the LayerNorm-modulate and GELU producer quantize
    K12n and K12g at SAM-B's windowed and global rows, and the windowed
    attention with the decomposed rel-pos bias K16 at SAM-B's windows (side
    14) and global layers (side 64); the MoE grouped int4 kernel K13 (magic
@@ -110,12 +112,14 @@ Each phase prints its seconds. Prints the kernel table as one JSON line and, as 
 ``{"ok": true, "device": {...}}``. Any failed check makes it exit non-zero
 without that line; so does a machine without a CUDA device.
 
-    python3 chip_smoke.py --kernels K1,K3,K13,K18
+    python3 chip_smoke.py --kernels K1,K3,K11,K13,K14,K18
 
-builds, then runs only the named kernels' phases (K1, K3, K13, K18) and prints
-their rows as JSON, with no result line. A copy of this script run in
-another checkout times that checkout's kernels, so two trees' kernels can
-be set side by side on one card in one run.
+builds, then runs only the named kernels' phases (K1, K3, K11, K13, K14,
+K18) and prints their rows as JSON, with no result line. A copy of this
+script run in another checkout times that checkout's kernels, so two trees'
+kernels can be set side by side on one card in one run (a checkout whose
+own script predates a kernel's name here takes a copy of this one: the
+phases call only the wrappers' ``_launch*``, plain versions and ``traffic*``).
 """
 
 from __future__ import annotations
@@ -2247,10 +2251,59 @@ def build_all():
                     print(f"  {name}: {line.split(':', 1)[-1].strip()}")
 
 
+def k14_both(torch, fails, seed):
+    """K14's rows in both forms, keyed (kind, M, K, N), each row naming its
+    kind."""
+    return {(kind,) + shape: dict(row, kind=kind) for kind in ("mx", "nv")
+            for shape, row in k14_phase(torch, fails, seed, kind).items()}
+
+
+def k11_tile_cache(torch, card):
+    """autotune_int4 at ViT-B's two K11 shapes into a temporary tile cache,
+    printed beside the heuristic's tiles and time; the cache is removed and
+    the process's cache state restored, so the paths below take the
+    heuristic's tiles, as the kernel rows above did."""
+    import os
+    import shutil
+    import tempfile
+
+    from ao_tpu_torch.ops.hopper import autotune
+    from ao_tpu_torch.ops.hopper import int4_matmul as k1
+    from ao_tpu_torch.utils.timing import cuda_time_ms
+
+    tmp = tempfile.mkdtemp(prefix="ao_tpu_tiles_")
+    prev = os.environ.get("AO_TPU_NATIVE_CACHE")
+    os.environ["AO_TPU_NATIVE_CACHE"] = tmp
+    autotune._CACHE = None
+    try:
+        dev = torch.device(DEV, torch.cuda.current_device())
+        for m, k, n in K11_SHAPES:
+            heur = k1.pick_tiles_halves(m, k, n, GROUP, k1._sm_count(dev))
+            best, best_us = autotune.autotune_int4(m, k, n, GROUP, iters=20)
+            tuned = k1.pick_tiles_halves(m, k, n, GROUP, k1._sm_count(dev))
+            x = torch.randn((m, k), device=DEV).to(torch.bfloat16)
+            packed = torch.randint(0, 256, (k // 2, n), device=DEV, dtype=torch.int32).to(
+                torch.uint8)
+            s = torch.full((k // GROUP, n), 0.01, device=DEV, dtype=torch.bfloat16)
+            heur_us = 1e3 * cuda_time_ms(lambda: k1._launch_halves(x, packed, s, -8 * s, GROUP,
+                                                                   True, heur), iters=20)
+            print(f"K11 tile cache (M={m} K={k} N={n}, g {GROUP}) on {card}: autotune_int4 "
+                  f"winner (bm, bn, splits) {best} {best_us:.2f} us, the picker now takes "
+                  f"{tuned}; heuristic {heur} {heur_us:.2f} us", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if prev is None:
+            os.environ.pop("AO_TPU_NATIVE_CACHE", None)
+        else:
+            os.environ["AO_TPU_NATIVE_CACHE"] = prev
+        autotune._CACHE = None
+
+
 def kernels_only(torch, names) -> int:
-    """Build, then run only the phases of ``names`` (of K1, K3, K13, K18)
-    and print each one's rows as one JSON line."""
-    phases = {"K1": k1_phase, "K3": k3_phase, "K13": k13_phase, "K18": k18_phase}
+    """Build, then run only the phases of ``names`` (of K1, K3, K11, K13,
+    K14, K18) and print each one's rows as one JSON line."""
+    phases = {"K1": k1_phase, "K3": k3_phase, "K11": k11_phase, "K13": k13_phase,
+              "K14": k14_both, "K18": k18_phase}
     if not set(names) <= set(phases):
         print(f"chip_smoke: --kernels takes {', '.join(phases)}", file=sys.stderr)
         return 2
@@ -2270,7 +2323,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description="Smoke run of ao_tpu_torch on one NVIDIA GPU.")
     parser.add_argument("--kernels", type=lambda v: v.split(","),
-                        help="only these kernels' phases, of K1, K3, K13, K18 (comma-separated)")
+                        help="only these kernels' phases, of K1, K3, K11, K13, K14, K18 "
+                             "(comma-separated)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
@@ -2335,6 +2389,7 @@ def main() -> int:
         k15_rows = k15_phase(torch, fails, SEED)
     with phase("kernels K11, K12n, K12g, K16"):
         k11_rows = k11_phase(torch, fails, SEED)
+        k11_tile_cache(torch, card)
         k12n_rows = {shape: k12v_phase(torch, fails, SEED, "norm", shape) for shape in K12N_SHAPES}
         k12g_rows = {shape: k12v_phase(torch, fails, SEED, "gelu", shape) for shape in K12G_SHAPES}
         k16_rows = {shape: k16_phase(torch, fails, SEED, *shape) for shape in K16_SHAPES}

@@ -885,6 +885,10 @@ FP4_SHAPES = [
     (100, 1024, 512),
     (1024, 1024, 384),  # prefill-sized M
 ]
+# the mainloop's tile edges: ragged 64- and 128-row tiles against one to 24
+# column tiles, a K of one 256-row unit, and the K split at M = 1024
+FP4_SHAPES += [(m, 512, n) for m in (17, 100, 788, 1024) for n in (128, 384, 1024, 3072)]
+FP4_SHAPES += [(100, 256, 384), (1024, 4096, 1024)]
 
 
 def _fp4_weight(dev, kind, k, n, seed):
@@ -944,6 +948,42 @@ def test_fp4_wo_matmul_matches_plain(dev, kind, m, k, n):
     # (MX): decoded exactly, it agrees with the plain version
     col = float(compute_error(ref[:, 5].float(), got[:, 5].float()))
     assert col > need, f"K14 {kind} column 5 vs plain: {col:.2f} dB"
+
+
+@pytest.mark.parametrize("kind", ["mx", "nv"])
+@pytest.mark.parametrize("m", [8, 256], ids=["decode", "mainloop"])
+def test_fp4_decode_every_code_and_scale_byte(dev, kind, m):
+    """Column n of a (256, 256) weight has scale byte n in every block, its
+    rows cycle through all 16 codes, and x is the identity's first m rows:
+    out[r, n] is the decoded weight at (r, n), exactly, bf16 subnormals
+    (MX bytes 0 and 1) included. A column with a weight that decodes to inf
+    or NaN (MX bytes 253-255, NV 0x7F and 0xFF) is NaN (0 x inf in the
+    sums)."""
+    from ao_tpu_torch.ops.hopper import fp4_matmul as k14
+    from ao_tpu_torch.quantization.qarrays.fp4 import (
+        decode_fp4_e2m1, pack_fp4_magic, pack_nvfp4_scale_pairs)
+    from ao_tpu_torch.quantization.qarrays.mx import e8m0_decode
+
+    k = n = 256
+    codes = ((torch.arange(k)[:, None] * 7 + torch.arange(n)[None, :]) % 16).to(torch.uint8)
+    word = pack_fp4_magic(codes).to(dev)
+    byte = torch.arange(n, dtype=torch.uint8)
+    x = torch.eye(k, dtype=torch.bfloat16, device=dev)[:m].contiguous()
+    if kind == "mx":
+        scale = byte[None, :].expand(k // 32, n).contiguous().to(dev)
+        got = k14.mxfp4_wo_matmul(x, word, scale)
+        s = e8m0_decode(byte)
+    else:
+        e4m3 = byte[None, :].expand(k // 16, n).contiguous().view(torch.float8_e4m3fn)
+        scale = pack_nvfp4_scale_pairs(e4m3).to(dev)
+        got = k14.nvfp4_wo_matmul(x, word, scale)
+        s = byte.view(torch.float8_e4m3fn).to(torch.float32)
+    torch.cuda.synchronize()
+    want = (decode_fp4_e2m1(codes) * s[None, :]).to(torch.bfloat16).to(dev)
+    nan_cols = ~torch.isfinite(want).all(dim=0)
+    want = want[:m]
+    assert bool(got[:, nan_cols].isnan().all())
+    assert torch.equal(got[:, ~nan_cols], want[:, ~nan_cols])
 
 
 def test_fp4_wo_matmul_refuses_on_the_card(dev):
@@ -1075,13 +1115,26 @@ def test_generate_fp4_nf4_go_through_their_kernels(dev, name):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("m,k,n,g,domain", [
+HALVES_CASES = [
     (8, 768, 768, 128, "tinygemm"),
     (788, 768, 3072, 128, "tinygemm"),  # ViT-B's w1 at batch 4
     (100, 256, 128, 32, "minmax_int"),  # the f32 (s, b) transport
     (1, 384, 256, 64, "tinygemm"),
     (70, 192, 384, 64, "tinygemm"),     # M across two row blocks, a ragged edge
-])
+    (788, 768, 768, 128, "tinygemm"),   # ViT-B's wq / wk / wv / wo at batch 4
+    (788, 768, 768, 128, "minmax_int"),
+    (100, 512, 384, 32, "tinygemm"),    # two groups a stage
+    (100, 512, 384, 32, "minmax_int"),
+    (100, 512, 384, 256, "tinygemm"),
+    (100, 512, 384, 256, "minmax_int"),
+    (13, 96, 128, 32, "tinygemm"),      # a ragged last stage (K/2 = 48 byte rows)
+    (40, 576, 128, 96, "tinygemm"),     # runs of 16 byte rows in groups of 48
+    (8, 768, 768, 128, "minmax_int"),   # the K split
+]
+HALVES_TILE_CASES = [(100, 768, 384, 128), (300, 512, 256, 64)]
+
+
+@pytest.mark.parametrize("m,k,n,g,domain", HALVES_CASES)
 def test_int4_wo_halves_matches_plain(dev, m, k, n, g, domain):
     gen = torch.Generator(device=dev).manual_seed(m + n)
     w = (torch.randn((k, n), generator=gen, device=dev) * 0.05).to(torch.bfloat16)
@@ -1098,6 +1151,32 @@ def test_int4_wo_halves_matches_plain(dev, m, k, n, g, domain):
     # the same bf16 weights, f32 sums in another order, bf16 output: the JAX
     # suite's bound for the kernel
     assert float(compute_error(ref, got)) >= 45
+
+
+@pytest.mark.parametrize("m,k,n,g", HALVES_TILE_CASES)
+def test_int4_wo_halves_every_candidate_tile(dev, m, k, n, g):
+    gen = torch.Generator(device=dev).manual_seed(m)
+    w = (torch.randn((k, n), generator=gen, device=dev) * 0.05).to(torch.bfloat16)
+    qa = Int4Array.from_hp(w, group_size=g, layout="halves")
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    s, b = k1.affine_qparams(qa.scale, qa.zero_point, qa.zero_point_domain)
+    ref = k1.int4_wo_matmul_plain(x, qa.qdata, s, b, g)
+    for tiles in k1.candidate_tiles_halves(m, k, n, g):
+        got = k1._launch_halves(x, qa.qdata, qa.scale, qa.zero_point, g, True, tiles)
+        torch.cuda.synchronize()
+        assert float(compute_error(ref, got)) >= 45, tiles
+
+
+def test_autotune_int4_stores_a_candidate(dev, tmp_path, monkeypatch):
+    from ao_tpu_torch.ops.hopper import autotune
+
+    monkeypatch.setenv("AO_TPU_NATIVE_CACHE", str(tmp_path))
+    monkeypatch.setattr(autotune, "_CACHE", None)
+    m, k, n, g = HALVES_TILE_CASES[0]
+    best, us = autotune.autotune_int4(m, k, n, g, iters=2)
+    assert best in k1.candidate_tiles_halves(m, k, n, g) and us > 0
+    assert tuple(autotune.lookup_tuned("int4_wo_matmul", m, k, n, g)) == best
+    assert k1.pick_tiles_halves(m, k, n, g, 132) == best
 
 
 def test_int4_wo_halves_refuses_on_the_card(dev):
