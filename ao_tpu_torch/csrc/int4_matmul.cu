@@ -6,7 +6,8 @@
 // (launched by _int4_wo_magic_impl, public entry int4_wo_magic_pallas).
 //
 //   y[m, n] = sum_k x[m, k] * (q[k, n] * s[G, n] + b2[G, n]),  G = k / g,
-//   q = u - 8 in [-8, 7], the nibble u from the magic words; f32 sums, bf16 out.
+//
+// q = u - 8 in [-8, 7], the nibble u from the magic words; f32 sums, bf16 out.
 //
 // (With b2 = b + 8s, q*s + b2 = u*s + b: the tinygemm float zero point, or
 // -(8 + zp)*s for an int zero point. The wrapper sends s and b2 in bf16, as
@@ -18,17 +19,16 @@
 // holds, at bits 4j + 16h, logical row (4t + j)g + 2r' + h, so plane j of
 // super-group t is group 4t + j. ((w >> 4j) & 0x000F000F) | 0x43004300 read
 // as bf16x2 is exactly (128 + u) for rows 2r' and 2r' + 1 of that group, and
-// one bf16x2 subtract of 136 makes it q = u - 8, exact. A pair of
-// consecutive K rows of one column is what one register of an mma.sync
-// m16n8k16 fragment holds along K (A: a0 = row groupID, columns 2*tig and
-// 2*tig + 1; B: b0 = rows 2*tig and 2*tig + 1 of column groupID), so a word
-// feeds the tensor cores with no shuffles and three integer ops per two
-// weights.
+// one bf16x2 subtract of 136 makes it q = u - 8, exact (plane_q). A pair of
+// consecutive K rows of one column is what one register of an A fragment
+// holds along K, so a word feeds the tensor cores with no shuffles and
+// three integer / bf16x2 ops per two weights.
 //
 // Group scales are applied in f32 after each group's products, as the TPU
 // kernel does: tmp = x_G . q_G on the tensor cores (exact bf16 x small-int
-// products, f32 sums), then acc += s * tmp; acc += xsum_G * b2 with the row
-// sums of x over the group.
+// products, f32 sums), then acc += s * tmp and acc += xsum_G * b2 with the
+// row sums of x over the group, in f32. No weight is rounded to bf16(q*s +
+// b2): the TPU kernel never makes that rounding.
 //
 // What bounds it on the H100, and the two kernels:
 //  * decode (M <= 16, int4_wo_magic_gemv_kernel): the weight stream, 0.5 B
@@ -36,66 +36,48 @@
 //    card hides the latency of device memory only with enough bytes in
 //    flight, and the grid must fill 132 SMs: each warp owns 32 columns, so
 //    wk/wv (N = 1024) give only 8 blocks of 4 warps. The kernel splits K as
-//    well (grid.z, whole super-groups of 4g rows per split), writes f32
+//    well (grid.z) into runs of word rows, whole super-groups of 4g rows or,
+//    where those leave the card short of blocks, runs of 16 word rows with
+//    all four planes (each run folds its part of a group), writes f32
 //    partials that stay in the 50 MB L2, and a second pass sums them into
-//    bf16. Each thread issues all its word loads of a super-group (8 KB a
-//    warp at g = 128) and the group scales before it uses any, then decodes
-//    the four planes from registers. The weights are the A operand, so at
-//    M = 8 no half of an m16 tile is spent on rows of x that do not exist.
-//  * prefill (M > 16, int4_wo_magic_gemm_kernel): tensor-core operations.
-//    A block computes 64 rows x 128 columns, each warp 64 x 32 (4 m16 x 4
-//    n8 tiles), so every decoded B fragment feeds four mma.sync. The x tile
-//    of a group is staged in shared memory by cp.async, the next group's
-//    while the current one is used, and read as A fragments by ldmatrix; the
-//    row sums of x come from one more mma per m16 tile against a B of ones.
-//    The warp walks the four planes of a super-group one after the other
-//    and re-reads its words from L1. No wgmma or TMA yet.
+//    bf16. Each thread issues all its word loads of a run and the group
+//    scales before it uses any, then decodes the four planes from registers.
+//    The weights are the A operand of mma.sync (int4_tiles.cuh), so at M = 8
+//    no half of an m16 tile is spent on rows of x that do not exist.
+//  * prefill (M > 16): tensor-core operations, 2 M K N against 989 TFLOP/s,
+//    on the shared wgmma mainloop (mixed_gemm.cuh) with MagicOp
+//    (magic_op.cuh) and PlaneQ below: each thread decodes its own A
+//    fragments with plane_q from a unit buffer of 64 word rows loaded once
+//    per CTA, the group's steps run into tmp, and the fold adds s * tmp and
+//    xsum * b2 to acc (two FMAs per accumulator a group). A pre-pass
+//    (magic_xsum_kernel) writes the row sums of x per group, (K/g, M) f32,
+//    which each stage's slot takes beside the group's s and b2 rows. The
+//    tiles (BM, BN) and a split of K in whole units come from
+//    int4_matmul.pick_tiles (the tile cache first). A fold needs a second
+//    accumulator set and empties the tensor-core queue once a group, which
+//    bounds the tiles to 128 x 128 at one CTA an SM (PERF.md).
 
 #include "int4_tiles.cuh"
-#include "mixed_gemm.cuh"
+#include "magic_op.cuh"
 
 namespace {
 
-// 16 bytes global -> shared, zero-filled when !valid.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// The A fragment of an m16 x k16 bf16 tile: lane l gives the address of row
-// (l & 15), columns 8*(l >> 4) .. + 7.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const void* smem) {
-  const unsigned p = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(p));
-}
-
-// Decode kernel (M <= 16, g = 16*KS, NT = ceil(M/8)): the swapped operands
-// and the warp's 32 columns of int4_tiles.cuh, its magic_gemv_accumulate
-// over the block's split. grid (ceil(N/128), 1, splits), 128 threads; split
-// z covers super-groups [z*sps, (z+1)*sps).
-template <int KS, int NT>
+// Decode kernel (M <= 16, g = 16*KS, NT = ceil(M/8), runs of KR k16 steps):
+// the swapped operands and the warp's 32 columns of int4_tiles.cuh. grid
+// (ceil(N/128), 1, splits), 128 threads; split z covers runs [z*rps,
+// (z+1)*rps).
+template <int KS, int KR, int NT>
 __global__ void __launch_bounds__(128)
     int4_wo_magic_gemv_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ word,
                               const __nv_bfloat16* __restrict__ s,
                               const __nv_bfloat16* __restrict__ b2, __nv_bfloat16* __restrict__ out,
-                              float* __restrict__ ws, int M, int K, int N, int sps, int raw_zp) {
-  constexpr int G = 16 * KS;
+                              float* __restrict__ ws, int M, int K, int N, int rps, int raw_zp) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
   const int nb = (blockIdx.x * 4 + warp) * 32;
   if (nb >= N) return;  // warp-uniform: the shuffles see full warps
-  const int nsuper = K / (4 * G);
-  const int t_end = min((int)(blockIdx.z + 1) * sps, nsuper);
+  const int runs = K / (4 * 16 * KS) * (KS / KR);
+  const int r_end = min((int)(blockIdx.z + 1) * rps, runs);
   const int col = nb + 4 * gid;
 
   float acc[2][NT][4];
@@ -105,8 +87,8 @@ __global__ void __launch_bounds__(128)
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[p][nt][e] = 0.f;
-  magic_gemv_accumulate<KS, NT>(acc, x, M, K, N, word, s, b2, blockIdx.z * sps, t_end, col,
-                                raw_zp);
+  magic_gemv_accumulate<KS, NT, KR>(acc, x, M, K, N, word, s, b2, blockIdx.z * rps, r_end, col,
+                                    raw_zp);
 
   // the thread's outputs: batch rows 2*tig + h (+ 8nt), columns col .. col + 3
 #pragma unroll
@@ -127,135 +109,106 @@ __global__ void __launch_bounds__(128)
     }
 }
 
-// Prefill kernel (M > 16, g = 16*KS): grid (ceil(N/128), ceil(M/64)), 128
-// threads. Warp w owns columns nb = (4*blockIdx.x + w)*32 .. + 31 of rows
-// m0 .. m0 + 63. Its 16-byte word load covers columns nb + 4*gid .. + 3;
-// element i is column gid of n8 tile i, so tile i holds the columns
-// {nb + 4c + i}, and the thread's C fragments of a row are the 8 contiguous
-// columns nb + 8*tig .. + 7. Dynamic shared memory: two x tiles of
-// 64 x (g + 8) bf16 (the 16-byte pad keeps ldmatrix free of bank conflicts).
+// The prefill pre-pass: xs[G'][m] = the f32 sum of x[m, :] over group G'
+// (g = 16*KS), for m < mp (zeros from M on). A warp takes 256 values of a
+// row (blockIdx.y: which 256); each lane sums 8, and the g / 8 lanes of a
+// group combine by shuffles. grid (ceil(mp / 4), ceil(K / 256)), 128 threads.
 template <int KS>
 __global__ void __launch_bounds__(128)
-    int4_wo_magic_gemm_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ word,
-                              const __nv_bfloat16* __restrict__ s,
-                              const __nv_bfloat16* __restrict__ b2, __nv_bfloat16* __restrict__ out,
-                              int M, int K, int N, int raw_zp) {
-  constexpr int G = 16 * KS, LD = G + 8, MT = 4;
-  extern __shared__ __align__(16) __nv_bfloat16 xtile[];  // [2][64][LD]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int nb = (blockIdx.x * 4 + warp) * 32;
-  const bool active = nb < N;  // idle warps still load tiles and meet the barriers
-  const int m0 = blockIdx.y * 64;
-  const int ngroups = K / G;
+    magic_xsum_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ xs, int M, int mp,
+                      int K) {
+  constexpr int G = 16 * KS, LG = G / 8;
+  const int m = blockIdx.x * 4 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  const int k = blockIdx.y * 256 + 8 * lane;
+  if (m >= mp) return;  // warp-uniform
+  float v = 0.f;
+  if (m < M && k < K) {
+    const int4 c = ld_16(x + (size_t)m * K + k);
+    const uint32_t u[4] = {(uint32_t)c.x, (uint32_t)c.y, (uint32_t)c.z, (uint32_t)c.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v += pair_sum(u[i]);
+  }
+#pragma unroll
+  for (int o = 1; o < LG; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if (lane % LG == 0 && k < K) xs[(size_t)(k / G) * mp + m] = v;
+}
 
-  auto load_tile = [&](int buf, int grp) {
-    for (int c = threadIdx.x; c < 64 * (G / 8); c += 128) {
-      const int r = c / (G / 8), cc = c % (G / 8);
-      const bool valid = m0 + r < M;
-      const __nv_bfloat16* src = valid ? x + (size_t)(m0 + r) * K + grp * G + cc * 8 : x;
-      cp_async16(xtile + (buf * 64 + r) * LD + cc * 8, src, valid);
-    }
-    cp_async_commit();
+// K1's decode for MagicOp: plane_q, and the fold acc += s * tmp + xsum * b2
+// per group. A group's bytes in the slot: its s and b2 rows, [2][BN] bf16,
+// then the x sums of the tile's rows, [kMagicMaxBM] f32.
+struct PlaneQ {
+  struct Params {
+    const __nv_bfloat16* s;
+    const __nv_bfloat16* b2;
+    const float* xs;  // (K/g, mp) f32 from magic_xsum_kernel
+    int mp;
+    int raw_zp;
   };
 
-  float acc[MT][4][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][i][e] = 0.f;
-
-  load_tile(0, 0);
-  for (int grp = 0; grp < ngroups; ++grp) {
-    if (grp + 1 < ngroups) {
-      load_tile((grp + 1) & 1, grp + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (active) {
-      const int t = grp >> 2, j = grp & 3;
-      const __nv_bfloat16* tile = xtile + (grp & 1) * 64 * LD;
-      const size_t qoff = (size_t)grp * N + nb + 8 * tig;
-      const int4 sv = ld_16(s + qoff), bv = ld_16(b2 + qoff);
-      const int32_t* wbase = word + (size_t)t * (G / 2) * N + nb + 4 * gid;
-      float tmp[MT][4][4], xsum[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          xsum[mt][e] = 0.f;
-#pragma unroll
-          for (int i = 0; i < 4; ++i) tmp[mt][i][e] = 0.f;
-        }
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        const int4 w0 = ld_16(wbase + (size_t)(8 * ks + tig) * N);
-        const int4 w1 = ld_16(wbase + (size_t)(8 * ks + 4 + tig) * N);
-        const uint32_t b0[4] = {plane_q(w0.x, j), plane_q(w0.y, j), plane_q(w0.z, j),
-                                plane_q(w0.w, j)};
-        const uint32_t b1[4] = {plane_q(w1.x, j), plane_q(w1.y, j), plane_q(w1.z, j),
-                                plane_q(w1.w, j)};
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          uint32_t a[4];
-          ldmatrix_x4(a, tile + (mt * 16 + (lane & 15)) * LD + ks * 16 + 8 * (lane >> 4));
-#pragma unroll
-          for (int i = 0; i < 4; ++i) mma_16816(tmp[mt][i], a, b0[i], b1[i]);
-          mma_16816(xsum[mt], a, kOnes, kOnes);
-        }
-      }
-      // Fold the group: acc += s * tmp, then acc += xsum * b2. Every column
-      // of xsum's C fragment holds the row sum: c0 row gid, c2 row gid + 8.
-      const __nv_bfloat16* sh = reinterpret_cast<const __nv_bfloat16*>(&sv);
-      const __nv_bfloat16* bh = reinterpret_cast<const __nv_bfloat16*>(&bv);
-      float sc[8], bc[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        sc[e] = __bfloat162float(sh[e]);
-        bc[e] = bias_of(sc[e], bh[e], raw_zp);
-      }
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const float x0 = xsum[mt][0], x1 = xsum[mt][2];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[mt][i][0] = fmaf(x0, bc[i], fmaf(sc[i], tmp[mt][i][0], acc[mt][i][0]));
-          acc[mt][i][1] = fmaf(x0, bc[4 + i], fmaf(sc[4 + i], tmp[mt][i][1], acc[mt][i][1]));
-          acc[mt][i][2] = fmaf(x1, bc[i], fmaf(sc[i], tmp[mt][i][2], acc[mt][i][2]));
-          acc[mt][i][3] = fmaf(x1, bc[4 + i], fmaf(sc[4 + i], tmp[mt][i][3], acc[mt][i][3]));
-        }
-      }
-    }
-    __syncthreads();  // the next iteration's load overwrites this tile
+  template <int BN>
+  __host__ __device__ static constexpr int group_bytes() {
+    return 2 * BN * 2 + mg::kMagicMaxBM * 4;
   }
-  if (!active) return;
 
-  // C fragment of n8 tile i: columns nb + 8*tig + i (c0, c2) and
-  // nb + 8*tig + 4 + i (c1, c3), rows gid (c0, c1) and gid + 8 (c2, c3)
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = m0 + mt * 16 + gid + 8 * half;
-      if (r >= M) continue;
-      float v[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        v[i] = acc[mt][i][2 * half];
-        v[4 + i] = acc[mt][i][2 * half + 1];
+  // One 16-byte chunk of a group's bytes a thread (the first 2 BN / 8 + BM / 4
+  // threads): its source at group 0, its stride a group, its place.
+  template <int BM, int BN, int NT>
+  struct Thread {
+    static constexpr int QC = BN / 8;  // chunks of a bf16 row of BN
+    static_assert(2 * QC + BM / 4 <= NT, "a chunk a thread");
+    const uint8_t* src;
+    int stride, dst;
+    bool ok, active;
+
+    __device__ Thread(const Params& p, const mg::Problem& pb, int m0, int n0, int tid) {
+      active = tid < 2 * QC + BM / 4;
+      if (tid < 2 * QC) {  // s, then b2
+        const int col = n0 + 8 * (tid % QC);
+        src = reinterpret_cast<const uint8_t*>((tid < QC ? p.s : p.b2) + col);
+        stride = 2 * pb.N;
+        dst = 2 * (tid / QC * BN + 8 * (tid % QC));
+        ok = col < pb.N;
+      } else {  // x sums of rows m0 + 4e ..
+        const int e = tid - 2 * QC;
+        src = reinterpret_cast<const uint8_t*>(p.xs + m0 + 4 * e);
+        stride = 4 * p.mp;
+        dst = 4 * BN + 16 * e;
+        ok = m0 + 4 * e < p.mp;
       }
-      int4 o;
-      o.x = (int)pack_bf16x2(v[0], v[1]);
-      o.y = (int)pack_bf16x2(v[2], v[3]);
-      o.z = (int)pack_bf16x2(v[4], v[5]);
-      o.w = (int)pack_bf16x2(v[6], v[7]);
-      *reinterpret_cast<int4*>(out + (size_t)r * N + nb + 8 * tig) = o;
     }
-}
+
+    __device__ void load(const Params& p, const mg::Problem&, uint8_t* gb, int grp) const {
+      if (active) mg::cp_async16(gb + dst, ok ? src + (size_t)grp * stride : src, ok);
+    }
+  };
+
+  __device__ static uint32_t plane(const uint8_t*, uint32_t w, int j) { return plane_q(w, j); }
+
+  // accumulator d[4i + 2h + e]: column cl + 8h, x row 8i + 2 tig + e
+  template <int BM, int BN>
+  __device__ static void fold(const Params& p, const uint8_t* gb, int cl, int lane,
+                              const float (&tmp)[BM / 2], float (&acc)[BM / 2]) {
+    const __nv_bfloat16* s = reinterpret_cast<const __nv_bfloat16*>(gb);
+    const float* xs = reinterpret_cast<const float*>(gb + 4 * BN);
+    float sc[2], bc[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sc[h] = __bfloat162float(s[cl + 8 * h]);
+      bc[h] = bias_of(sc[h], s[BN + cl + 8 * h], p.raw_zp);
+    }
+#pragma unroll
+    for (int i = 0; i < BM / 8; ++i) {
+      const float2 xv = *reinterpret_cast<const float2*>(xs + 8 * i + 2 * (lane & 3));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float& d0 = acc[4 * i + 2 * h];
+        float& d1 = acc[4 * i + 2 * h + 1];
+        d0 = fmaf(xv.x, bc[h], fmaf(sc[h], tmp[4 * i + 2 * h], d0));
+        d1 = fmaf(xv.y, bc[h], fmaf(sc[h], tmp[4 * i + 2 * h + 1], d1));
+      }
+    }
+  }
+};
 
 // Second pass of a split-K launch: out = bf16(sum over splits of ws).
 __global__ void int4_wo_reduce_kernel(const float* __restrict__ ws, __nv_bfloat16* __restrict__ out,
@@ -267,37 +220,62 @@ __global__ void int4_wo_reduce_kernel(const float* __restrict__ ws, __nv_bfloat1
   out[i] = __float2bfloat16(acc);
 }
 
+template <int KS, int KR>
+cudaError_t launch_gemv(const __nv_bfloat16* x, const int32_t* word, const __nv_bfloat16* s,
+                        const __nv_bfloat16* b2, __nv_bfloat16* out, float* ws, int M, int K,
+                        int N, int splits, int rps, int raw_zp, cudaStream_t st) {
+  dim3 grid((N + 127) / 128, 1, splits);
+  if (M <= 8)
+    int4_wo_magic_gemv_kernel<KS, KR, 1><<<grid, 128, 0, st>>>(x, word, s, b2, out, ws, M, K, N,
+                                                               rps, raw_zp);
+  else
+    int4_wo_magic_gemv_kernel<KS, KR, 2><<<grid, 128, 0, st>>>(x, word, s, b2, out, ws, M, K, N,
+                                                               rps, raw_zp);
+  return cudaGetLastError();
+}
+
+// run_rows: word rows a decode run, g/2 (a super-group) or 16 (two k16 steps)
 template <int KS>
 cudaError_t launch(const __nv_bfloat16* x, const int32_t* word, const __nv_bfloat16* s,
-                   const __nv_bfloat16* b2, __nv_bfloat16* out, float* ws, int M, int K, int N,
-                   int splits, int sps, int raw_zp, cudaStream_t st) {
-  if (M <= 16) {
-    dim3 grid((N + 127) / 128, 1, splits);
-    if (M <= 8)
-      int4_wo_magic_gemv_kernel<KS, 1><<<grid, 128, 0, st>>>(x, word, s, b2, out, ws, M, K, N,
-                                                             sps, raw_zp);
-    else
-      int4_wo_magic_gemv_kernel<KS, 2><<<grid, 128, 0, st>>>(x, word, s, b2, out, ws, M, K, N,
-                                                             sps, raw_zp);
-    return cudaGetLastError();
+                   const __nv_bfloat16* b2, __nv_bfloat16* out, float* ws, float* xs, int M,
+                   int K, int N, int bm, int bn, int splits, int per, int run_rows, int raw_zp,
+                   cudaStream_t st) {
+  if (bm == 16) {
+    if (M > 16) return cudaErrorInvalidValue;
+    if (run_rows == 8 * KS)
+      return launch_gemv<KS, KS>(x, word, s, b2, out, ws, M, K, N, splits, per, raw_zp, st);
+    if constexpr (KS > 2) {
+      if (run_rows == 16)
+        return launch_gemv<KS, 2>(x, word, s, b2, out, ws, M, K, N, splits, per, raw_zp, st);
+    }
+    return cudaErrorInvalidValue;
   }
-  const size_t smem = 2 * 64 * (16 * KS + 8) * sizeof(__nv_bfloat16);  // <= 34 KB
-  dim3 grid((N + 127) / 128, (M + 63) / 64);
-  int4_wo_magic_gemm_kernel<KS><<<grid, 128, smem, st>>>(x, word, s, b2, out, M, K, N, raw_zp);
-  return cudaGetLastError();
+  if (xs == nullptr) return cudaErrorInvalidValue;
+  const int mp = (M + 3) / 4 * 4;
+  magic_xsum_kernel<KS><<<dim3((mp + 3) / 4, (K + 255) / 256), 128, 0, st>>>(x, xs, M, mp, K);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const mg::Problem pb{x, out, ws, M, K, N, per, K / mg::kBK};
+  return mg::launch<mg::MagicOp<PlaneQ, 16 * KS>>(pb, {word, {s, b2, xs, mp, raw_zp}}, bm, bn,
+                                                  splits, st);
 }
 
 }  // namespace
 
 // x (M, K) bf16; word (K/8, N) int32; s, b2 (K/g, N) bf16 (with raw_zp != 0,
 // b2 holds the tinygemm zero point and the kernel forms bf16(zp + 8s));
-// out (M, N) bf16; ws (splits, M, N) f32 when splits > 1 (decode only).
-// Needs g in {16, 32, 64, 128}, N % 32 == 0, K % (4g) == 0 and 16-byte
+// out (M, N) bf16; ws (splits, M, N) f32 when splits > 1. Tiles from
+// int4_matmul.launch_tiles: bm 16 the decode kernel (M <= 16; per runs of
+// run_rows word rows a split, run_rows g/2 or 16), else the
+// mainloop's (bm, bn) with per stages of 64 K a split (whole units of 8
+// stages when split) and xs (K/g, ceil(M/4)*4) f32 scratch for the row sums
+// of x. Needs g in {16, 32, 64, 128}, N % 32 == 0, K % (4g) == 0 and 16-byte
 // aligned rows; the Python wrapper checks them. Returns cudaGetLastError()
 // after the launches.
 extern "C" int ao_int4_wo_magic(const void* x_, const void* word_, const void* s_, const void* b2_,
-                                void* out_, void* ws_, int M, int K, int N, int G, int splits,
-                                int sps, int raw_zp, void* stream) {
+                                void* out_, void* ws_, void* xs_, int M, int K, int N, int G,
+                                int bm, int bn, int splits, int per, int run_rows, int raw_zp,
+                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* x = static_cast<const __nv_bfloat16*>(x_);
   const auto* word = static_cast<const int32_t*>(word_);
@@ -305,12 +283,18 @@ extern "C" int ao_int4_wo_magic(const void* x_, const void* word_, const void* s
   const auto* b2 = static_cast<const __nv_bfloat16*>(b2_);
   auto* out = static_cast<__nv_bfloat16*>(out_);
   float* ws = splits > 1 ? static_cast<float*>(ws_) : nullptr;
+  float* xs = static_cast<float*>(xs_);
+  if (M < 1 || N % 32 || K % (4 * G)) return (int)cudaErrorInvalidValue;
+  auto run = [&](auto ks) {
+    return launch<decltype(ks)::value>(x, word, s, b2, out, ws, xs, M, K, N, bm, bn, splits, per,
+                                       run_rows, raw_zp, st);
+  };
   cudaError_t err;
   switch (G) {
-    case 16: err = launch<1>(x, word, s, b2, out, ws, M, K, N, splits, sps, raw_zp, st); break;
-    case 32: err = launch<2>(x, word, s, b2, out, ws, M, K, N, splits, sps, raw_zp, st); break;
-    case 64: err = launch<4>(x, word, s, b2, out, ws, M, K, N, splits, sps, raw_zp, st); break;
-    case 128: err = launch<8>(x, word, s, b2, out, ws, M, K, N, splits, sps, raw_zp, st); break;
+    case 16: err = run(std::integral_constant<int, 1>()); break;
+    case 32: err = run(std::integral_constant<int, 2>()); break;
+    case 64: err = run(std::integral_constant<int, 4>()); break;
+    case 128: err = run(std::integral_constant<int, 8>()); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess || ws == nullptr) return (int)err;

@@ -91,25 +91,28 @@ __device__ __forceinline__ float bias_of(float s, __nv_bfloat16 b, int raw_zp) {
 }
 
 // K1's decode arithmetic (g = 16*KS, NT n8 tiles of batch rows) over the
-// super-groups [t_begin, t_end) of one (K/8, N) magic word matrix and its
-// (K/g, N) s and b2: for each group G, acc += s * (x_G . q_G) on the tensor
-// cores, then acc += sum(x_G) * b2, in f32. x holds M valid rows (row r at
-// x + r*K); the rest of the n8 tiles reads zeros. Threads of a warp call it
-// together (it shuffles).
-template <int KS, int NT>
+// runs [r_begin, r_end) of KR k16 steps each (8 KR word rows, all four
+// planes; KS / KR runs a super-group) of one (K/8, N) magic word matrix and
+// its (K/g, N) s and b2: for each group's part in a run, acc += s * (x_G .
+// q_G) on the tensor cores, then acc += sum(x_G) * b2, in f32. At KR = KS
+// a run is a super-group (K13; K1 but at small N). x holds M valid
+// rows (row r at x + r*K); the rest of the n8 tiles reads zeros. Threads of
+// a warp call it together (it shuffles).
+template <int KS, int NT, int KR = KS>
 __device__ __forceinline__ void magic_gemv_accumulate(
     float (&acc)[2][NT][4], const __nv_bfloat16* __restrict__ x, int M, int K, int N,
     const int32_t* __restrict__ word, const __nv_bfloat16* __restrict__ s,
-    const __nv_bfloat16* __restrict__ b2, int t_begin, int t_end, int col, int raw_zp) {
-  constexpr int G = 16 * KS;
+    const __nv_bfloat16* __restrict__ b2, int r_begin, int r_end, int col, int raw_zp) {
+  constexpr int G = 16 * KS, RPS = KS / KR;
   const int lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
-  for (int t = t_begin; t < t_end; ++t) {
-    const int32_t* wbase = word + (size_t)t * (G / 2) * N + col;
-    int4 w[2 * KS];
+  for (int r = r_begin; r < r_end; ++r) {
+    const int t = r / RPS, ks0 = r % RPS * KR;
+    const int32_t* wbase = word + ((size_t)t * (G / 2) + 8 * ks0) * N + col;
+    int4 w[2 * KR];
     uint2 sv[4], bv[4];
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
+    for (int ks = 0; ks < KR; ++ks) {
       w[2 * ks] = ld_16(wbase + (size_t)(8 * ks + tig) * N);
       w[2 * ks + 1] = ld_16(wbase + (size_t)(8 * ks + 4 + tig) * N);
     }
@@ -129,14 +132,14 @@ __device__ __forceinline__ void magic_gemv_accumulate(
         for (int e = 0; e < 4; ++e) tmp[0][nt][e] = tmp[1][nt][e] = 0.f;
       }
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        const int k0 = (4 * t + j) * G + 16 * ks + 2 * tig;
+      for (int ks = 0; ks < KR; ++ks) {
+        const int k0 = (4 * t + j) * G + 16 * (ks0 + ks) + 2 * tig;
         uint32_t b[NT][2];
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
-          const int r = gid + 8 * nt;
-          b[nt][0] = r < M ? ld_x2(x + (size_t)r * K + k0) : 0u;
-          b[nt][1] = r < M ? ld_x2(x + (size_t)r * K + k0 + 8) : 0u;
+          const int row = gid + 8 * nt;
+          b[nt][0] = row < M ? ld_x2(x + (size_t)row * K + k0) : 0u;
+          b[nt][1] = row < M ? ld_x2(x + (size_t)row * K + k0 + 8) : 0u;
           xs[nt] += pair_sum(b[nt][0]) + pair_sum(b[nt][1]);
         }
         const int4& w0 = w[2 * ks];
@@ -151,7 +154,7 @@ __device__ __forceinline__ void magic_gemv_accumulate(
           mma_16816(tmp[1][nt], a1, b[nt][0], b[nt][1]);
         }
       }
-      // Fold the group. Row sums of x: complete them over the quad, then
+      // Fold the group's part. Row sums of x: complete them over the quad, then
       // fetch rows 2*tig and 2*tig + 1 from their quads.
       const __nv_bfloat16* sh = reinterpret_cast<const __nv_bfloat16*>(&sv[j]);
       const __nv_bfloat16* bh = reinterpret_cast<const __nv_bfloat16*>(&bv[j]);

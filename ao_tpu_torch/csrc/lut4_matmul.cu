@@ -17,38 +17,43 @@
 // (quantization/qarrays/int4.py): word row (g/2)t + r' holds, at bits
 // 4j + 16h, logical row (4t + j)g + 2r' + h, so plane j of super-group t is
 // group 4t + j and a word's plane j is two consecutive K rows of one column,
-// one register of an mma.sync m16n8k16 fragment. K1's addressing is reused
-// as it is.
+// one register of an A fragment.
 //
-// Decoding: the tables are copied as f32 into shared memory when the block
-// starts and indexed by nibble; a warp reads one table (the group is uniform)
-// whose 16 entries lie in 16 banks, so no read conflicts. The value is the
-// bf16 entry exactly. (The TPU kernel builds the values with an XOR select
-// tree for its vector unit; the bf16 entries it selects are the same.)
-// Scalers are applied in f32 after each group's products, as K1 applies its
-// group scales: tmp = x_G . lut[u_G] on the tensor cores, acc += s * tmp
-// (four k16 steps per group at NF4's g = 64).
+// Decoding: a nibble's value is its table's bf16 entry exactly. (The TPU
+// kernel builds the values with an XOR select tree for its vector unit; the
+// bf16 entries it selects are the same.) Scalers are applied in f32 after
+// each group's products, as K1 applies its group scales: tmp = x_G .
+// lut[u_G] on the tensor cores, acc += s * tmp.
 //
 // What bounds it on the H100, and the two kernels (K1's):
 //  * decode (M <= 16, lut4_gemv_kernel): the weight stream, 0.5 B per weight
-//    plus 4 B of scaler per g weights, against 3.35 TB/s. The weights are the
-//    A operand, each warp owns 32 columns, each thread issues all its word
+//    plus 4 B of scaler per g weights, against 3.35 TB/s. The tables are
+//    copied as f32 into shared memory when the block starts (a warp reads
+//    one table, whose 16 entries lie in 16 banks). The weights are the A
+//    operand, each warp owns 32 columns, each thread issues all its word
 //    loads of a super-group and its scalers before it uses any, and the grid
 //    splits K by whole super-groups (grid.z) into f32 partials summed by a
 //    second pass, so that N = 1024 fills 132 SMs.
-//  * prefill (M > 16, lut4_gemm_kernel): tensor-core operations. A block
-//    computes 64 rows x 128 columns, each warp 64 x 32; the x tile of a group
-//    is staged in shared memory by cp.async, the next group's while the
-//    current one is used, and read by ldmatrix; every decoded B fragment
-//    feeds four mma.sync. No wgmma or TMA yet.
+//  * prefill (M > 16): tensor-core operations, 2 M K N against 989 TFLOP/s,
+//    on the shared wgmma mainloop (mixed_gemm.cuh) with MagicOp
+//    (magic_op.cuh) and PlaneLut below: the stage's slot carries each of its
+//    groups' scaler row and 16 bf16 table entries (32 bytes: a warp's
+//    lookups fall in 8 banks, one word per bank, so none conflict), each
+//    thread looks up the two nibbles of each fragment register (two shared
+//    loads and a byte permute per two weights) from a unit buffer of 64 word
+//    rows loaded once per CTA, and the fold adds s * tmp to acc. Tiles and
+//    the split of K as K1's (int4_matmul.pick_tiles_magic). Its lookups
+//    cost more issue slots than K1's plane_q (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "magic_op.cuh"
+
 namespace {
 
-constexpr int kMaxLuts = 256;  // (L, 16) tables held in shared memory, 16 KB as f32
+constexpr int kMaxLuts = 256;  // (L, 16) tables the decode kernel holds in shared memory, as f32
 
 __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                           uint32_t b1) {
@@ -193,145 +198,71 @@ __global__ void __launch_bounds__(128)
     }
 }
 
-// 16 bytes global -> shared, zero-filled when !valid.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// The A fragment of an m16 x k16 bf16 tile: lane l gives the address of row
-// (l & 15), columns 8*(l >> 4) .. + 7.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const void* smem) {
-  const unsigned p = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(p));
-}
-
-// Prefill kernel (M > 16, g = 16*KS): K1's. grid (ceil(N/128), ceil(M/64)),
-// 128 threads. Warp w owns columns nb = (4*blockIdx.x + w)*32 .. + 31 of rows
-// m0 .. m0 + 63; its 16-byte word load covers columns nb + 4*gid .. + 3,
-// element i being column gid of n8 tile i. Dynamic shared memory: the tables
-// (n_luts x 16 f32), then two x tiles of 64 x (g + 8) bf16.
-template <int KS>
-__global__ void __launch_bounds__(128)
-    lut4_gemm_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ word,
-                     const float* __restrict__ s, const __nv_bfloat16* __restrict__ lut,
-                     __nv_bfloat16* __restrict__ out, int M, int K, int N, int n_luts, int gpl) {
-  constexpr int G = 16 * KS, LD = G + 8, MT = 4;
-  extern __shared__ __align__(16) float luts[];
-  __nv_bfloat16* xtile = reinterpret_cast<__nv_bfloat16*>(luts + 16 * n_luts);  // [2][64][LD]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int nb = (blockIdx.x * 4 + warp) * 32;
-  const bool active = nb < N;  // idle warps still load tiles and meet the barriers
-  const int m0 = blockIdx.y * 64;
-  const int ngroups = K / G;
-
-  auto load_tile = [&](int buf, int grp) {
-    for (int c = threadIdx.x; c < 64 * (G / 8); c += 128) {
-      const int r = c / (G / 8), cc = c % (G / 8);
-      const bool valid = m0 + r < M;
-      const __nv_bfloat16* src = valid ? x + (size_t)(m0 + r) * K + grp * G + cc * 8 : x;
-      cp_async16(xtile + (buf * 64 + r) * LD + cc * 8, src, valid);
-    }
-    cp_async_commit();
+// K15's decode for MagicOp: the codebook lookup, and the fold acc += s *
+// tmp per group. A group's bytes in the slot: its table's 16 bf16 entries,
+// then its scaler row, [BN] f32.
+struct PlaneLut {
+  struct Params {
+    const float* s;
+    const __nv_bfloat16* lut;
+    int gpl;  // groups per table (0: one shared table)
   };
 
-  float acc[MT][4][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][i][e] = 0.f;
-
-  load_tile(0, 0);
-  load_luts(luts, lut, n_luts);
-  for (int grp = 0; grp < ngroups; ++grp) {
-    if (grp + 1 < ngroups) {
-      load_tile((grp + 1) & 1, grp + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (active) {
-      const int t = grp >> 2, j = grp & 3;
-      const float* tab = lut_of(luts, grp, gpl);
-      const __nv_bfloat16* tile = xtile + (grp & 1) * 64 * LD;
-      const float* srow = s + (size_t)grp * N + nb + 8 * tig;
-      const float4 s0 = __ldg(reinterpret_cast<const float4*>(srow));
-      const float4 s1 = __ldg(reinterpret_cast<const float4*>(srow + 4));
-      const int32_t* wbase = word + (size_t)t * (G / 2) * N + nb + 4 * gid;
-      float tmp[MT][4][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) tmp[mt][i][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        const int4 w0 = ld_16(wbase + (size_t)(8 * ks + tig) * N);
-        const int4 w1 = ld_16(wbase + (size_t)(8 * ks + 4 + tig) * N);
-        const uint32_t b0[4] = {plane_lut(w0.x, j, tab), plane_lut(w0.y, j, tab),
-                                plane_lut(w0.z, j, tab), plane_lut(w0.w, j, tab)};
-        const uint32_t b1[4] = {plane_lut(w1.x, j, tab), plane_lut(w1.y, j, tab),
-                                plane_lut(w1.z, j, tab), plane_lut(w1.w, j, tab)};
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          uint32_t a[4];
-          ldmatrix_x4(a, tile + (mt * 16 + (lane & 15)) * LD + ks * 16 + 8 * (lane >> 4));
-#pragma unroll
-          for (int i = 0; i < 4; ++i) mma_16816(tmp[mt][i], a, b0[i], b1[i]);
-        }
-      }
-      // fold the group: C fragment of n8 tile i holds columns nb + 8*tig + i
-      // (c0, c2) and nb + 8*tig + 4 + i (c1, c3)
-      const float sc[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[mt][i][0] = fmaf(sc[i], tmp[mt][i][0], acc[mt][i][0]);
-          acc[mt][i][1] = fmaf(sc[4 + i], tmp[mt][i][1], acc[mt][i][1]);
-          acc[mt][i][2] = fmaf(sc[i], tmp[mt][i][2], acc[mt][i][2]);
-          acc[mt][i][3] = fmaf(sc[4 + i], tmp[mt][i][3], acc[mt][i][3]);
-        }
-    }
-    __syncthreads();  // the next iteration's load overwrites this tile
+  template <int BN>
+  __host__ __device__ static constexpr int group_bytes() {
+    return 32 + BN * 4;
   }
-  if (!active) return;
 
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = m0 + mt * 16 + gid + 8 * half;
-      if (r >= M) continue;
-      float v[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        v[i] = acc[mt][i][2 * half];
-        v[4 + i] = acc[mt][i][2 * half + 1];
+  // One 16-byte chunk of a group's bytes a thread (the first 2 + BN / 4
+  // threads): the table's two, then the scaler row's.
+  template <int BM, int BN, int NT>
+  struct Thread {
+    static_assert(2 + BN / 4 <= NT, "a chunk a thread");
+    const uint8_t* src;
+    int stride, dst;
+    bool ok, active, table;
+
+    __device__ Thread(const Params& p, const mg::Problem& pb, int, int n0, int tid) {
+      active = tid < 2 + BN / 4;
+      table = tid < 2;
+      dst = 16 * tid;
+      if (table) {
+        src = reinterpret_cast<const uint8_t*>(p.lut + 8 * tid);
+        stride = 0;
+        ok = true;
+      } else {
+        const int col = n0 + 4 * (tid - 2);
+        src = reinterpret_cast<const uint8_t*>(p.s + col);
+        stride = 4 * pb.N;
+        ok = col < pb.N;
       }
-      int4 o;
-      o.x = (int)pack_bf16x2(v[0], v[1]);
-      o.y = (int)pack_bf16x2(v[2], v[3]);
-      o.z = (int)pack_bf16x2(v[4], v[5]);
-      o.w = (int)pack_bf16x2(v[6], v[7]);
-      *reinterpret_cast<int4*>(out + (size_t)r * N + nb + 8 * tig) = o;
     }
-}
+
+    __device__ void load(const Params& p, const mg::Problem&, uint8_t* gb, int grp) const {
+      if (!active) return;
+      const uint8_t* at =
+          table ? src + 32 * (p.gpl == 0 ? 0 : grp / p.gpl) : src + (size_t)grp * stride;
+      mg::cp_async16(gb + dst, ok ? at : src, ok);
+    }
+  };
+
+  // the entries of the nibbles at bits 4j and 16 + 4j, as bf16x2
+  __device__ static uint32_t plane(const uint8_t* gb, uint32_t w, int j) {
+    const uint16_t* tab = reinterpret_cast<const uint16_t*>(gb);
+    const uint32_t t = w >> (4 * j);
+    return (uint32_t)tab[t & 15u] | ((uint32_t)tab[(t >> 16) & 15u] << 16);
+  }
+
+  // accumulator d[4i + 2h + e]: column cl + 8h
+  template <int BM, int BN>
+  __device__ static void fold(const Params&, const uint8_t* gb, int cl, int,
+                              const float (&tmp)[BM / 2], float (&acc)[BM / 2]) {
+    const float* s = reinterpret_cast<const float*>(gb + 32);
+    const float sc[2] = {s[cl], s[cl + 8]};
+#pragma unroll
+    for (int i = 0; i < BM / 2; ++i) acc[i] = fmaf(sc[(i >> 1) & 1], tmp[i], acc[i]);
+  }
+};
 
 // Second pass of a split-K launch: out = bf16(sum over splits of ws).
 __global__ void lut4_reduce_kernel(const float* __restrict__ ws, __nv_bfloat16* __restrict__ out,
@@ -346,28 +277,22 @@ __global__ void lut4_reduce_kernel(const float* __restrict__ ws, __nv_bfloat16* 
 template <int KS>
 cudaError_t launch(const __nv_bfloat16* x, const int32_t* word, const float* s,
                    const __nv_bfloat16* lut, __nv_bfloat16* out, float* ws, int M, int K, int N,
-                   int n_luts, int gpl, int splits, int sps, cudaStream_t st) {
-  const size_t lut_bytes = (size_t)16 * n_luts * sizeof(float);
-  if (M <= 16) {
+                   int n_luts, int gpl, int bm, int bn, int splits, int per, cudaStream_t st) {
+  if (bm == 16) {  // the decode kernel, per = super-groups a split
+    if (M > 16) return cudaErrorInvalidValue;
+    const size_t lut_bytes = (size_t)16 * n_luts * sizeof(float);
     dim3 grid((N + 127) / 128, 1, splits);
     if (M <= 8)
       lut4_gemv_kernel<KS, 1><<<grid, 128, lut_bytes, st>>>(x, word, s, lut, out, ws, M, K, N,
-                                                            n_luts, gpl, sps);
+                                                            n_luts, gpl, per);
     else
       lut4_gemv_kernel<KS, 2><<<grid, 128, lut_bytes, st>>>(x, word, s, lut, out, ws, M, K, N,
-                                                            n_luts, gpl, sps);
+                                                            n_luts, gpl, per);
     return cudaGetLastError();
   }
-  // tables + two x tiles: at most 16 KB + 34 KB
-  const size_t smem = lut_bytes + 2 * 64 * (16 * KS + 8) * sizeof(__nv_bfloat16);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(lut4_gemm_kernel<KS>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  dim3 grid((N + 127) / 128, (M + 63) / 64);
-  lut4_gemm_kernel<KS><<<grid, 128, smem, st>>>(x, word, s, lut, out, M, K, N, n_luts, gpl);
-  return cudaGetLastError();
+  // the mainloop, per = stages of 64 K a split
+  const mg::Problem pb{x, out, ws, M, K, N, per, K / mg::kBK};
+  return mg::launch<mg::MagicOp<PlaneLut, 16 * KS>>(pb, {word, {s, lut, gpl}}, bm, bn, splits, st);
 }
 
 }  // namespace
@@ -378,12 +303,15 @@ extern "C" int ao_lut4_max_luts() { return kMaxLuts; }
 // x (M, K) bf16; word (K/8, N) int32 (magic layout over the code nibbles,
 // group G); s (K/G, N) f32; lut (n_luts, 16) bf16 with gpl groups per table
 // (gpl == 0: n_luts == 1, shared); out (M, N) bf16; ws (splits, M, N) f32
-// when splits > 1 (decode only). Needs G in {16, 32, 64, 128}, N % 32 == 0,
-// K % (4G) == 0, 1 <= n_luts <= 256 and 16-byte aligned rows; the Python
-// wrapper checks them. Returns cudaGetLastError() after the launches.
+// when splits > 1. Tiles from lut4_matmul.launch_tiles: bm 16 the decode
+// kernel (M <= 16, per super-groups a split), else the mainloop's (bm, bn)
+// with per stages of 64 K a split (whole units of 8 stages when split).
+// Needs G in {16, 32, 64, 128}, N % 32 == 0, K % (4G) == 0, 1 <= n_luts <=
+// 256 and 16-byte aligned rows; the Python wrapper checks them. Returns
+// cudaGetLastError() after the launches.
 extern "C" int ao_lut4_wo(const void* x_, const void* word_, const void* s_, const void* lut_,
                           void* out_, void* ws_, int M, int K, int N, int G, int n_luts, int gpl,
-                          int splits, int sps, void* stream) {
+                          int bm, int bn, int splits, int per, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* x = static_cast<const __nv_bfloat16*>(x_);
   const auto* word = static_cast<const int32_t*>(word_);
@@ -391,13 +319,18 @@ extern "C" int ao_lut4_wo(const void* x_, const void* word_, const void* s_, con
   const auto* lut = static_cast<const __nv_bfloat16*>(lut_);
   auto* out = static_cast<__nv_bfloat16*>(out_);
   float* ws = splits > 1 ? static_cast<float*>(ws_) : nullptr;
-  if (n_luts < 1 || n_luts > kMaxLuts || M < 1) return (int)cudaErrorInvalidValue;
+  if (n_luts < 1 || n_luts > kMaxLuts || M < 1 || N % 32 || K % (4 * G))
+    return (int)cudaErrorInvalidValue;
+  auto run = [&](auto ks) {
+    return launch<decltype(ks)::value>(x, word, s, lut, out, ws, M, K, N, n_luts, gpl, bm, bn,
+                                       splits, per, st);
+  };
   cudaError_t err;
   switch (G) {
-    case 16: err = launch<1>(x, word, s, lut, out, ws, M, K, N, n_luts, gpl, splits, sps, st); break;
-    case 32: err = launch<2>(x, word, s, lut, out, ws, M, K, N, n_luts, gpl, splits, sps, st); break;
-    case 64: err = launch<4>(x, word, s, lut, out, ws, M, K, N, n_luts, gpl, splits, sps, st); break;
-    case 128: err = launch<8>(x, word, s, lut, out, ws, M, K, N, n_luts, gpl, splits, sps, st); break;
+    case 16: err = run(std::integral_constant<int, 1>()); break;
+    case 32: err = run(std::integral_constant<int, 2>()); break;
+    case 64: err = run(std::integral_constant<int, 4>()); break;
+    case 128: err = run(std::integral_constant<int, 8>()); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess || ws == nullptr) return (int)err;

@@ -2,10 +2,13 @@
 // (M, K) and W a packed low-bit weight decoded exactly to bf16 inside the
 // kernel, f32 sums on the tensor cores through wgmma. Shared by K14
 // (fp4_matmul.cu: MXFP4 / NVFP4, the TPU kernels
-// ao_tpu/ops/pallas/fp4_matmul.py::_mx_kernel and ::_nv_kernel) and K11
+// ao_tpu/ops/pallas/fp4_matmul.py::_mx_kernel and ::_nv_kernel), K11
 // (int4_matmul.cu: the split-half int4 layout, the TPU kernels
-// ao_tpu/ops/pallas/int4_matmul.py::_kernel and ::_kernel_twoplane). Only
-// the decode differs between them: it is the template parameter Op.
+// ao_tpu/ops/pallas/int4_matmul.py::_kernel and ::_kernel_twoplane) and,
+// with a per-group fold (below), K1 and K15 over the int4 magic layout
+// (magic_op.cuh; the TPU kernels int4_matmul.py::_magic_kernel and
+// lut4_matmul.py::_lut4_kernel). Only the decode differs between them: it
+// is the template parameter Op.
 //
 // What bounds these kernels on the H100: at prefill sizes (M in the hundreds
 // or more) the tensor-core operations, 2 M K N against 989 TFLOP/s, with
@@ -47,12 +50,32 @@
 // (A first version decoded each stage into a swizzled bf16 tile in shared
 // memory for wgmma to read as its B operand, x as A: the stores, the extra
 // barrier and the decoded tile's reads made it far slower.)
+//
+// The per-group fold (K1 and K15, magic_op.cuh). The TPU kernels scale each
+// group's f32 dot after its products (acc += s_G * (x_G . w_G)), which keeps
+// every weight exact in bf16 (q or a codebook entry, never q * s). An Op
+// that declares kGroup = G (16, 32, 64 or 128 K values) gets a second
+// accumulator set, tmp: the wgmma of a group's first k16 step have scale-d
+// 0, and once the group's last step retired the Op folds tmp into acc in
+// f32 (K1: acc += s * tmp + xsum * b2, two FMAs an accumulator; K15: one).
+// Such an Op reads x in K order, 64 K values a stage; supplies
+// unit_bytes<BN>() and kUnitStages (a buffer of raw weight bytes that its
+// stages share: both unit buffers sit after the ring) and a per-thread
+// state Thread<BM, BN, NT>(args, pb, m0, n0, tid), built before the K loop
+// with every offset that does not change over it, with load(...),
+// decode(...) and fold(...) in place of load_raw and decode_a. Its tiles
+// are (128, 128) at one CTA an SM (acc and tmp take 128 of its registers)
+// and (64, 128) at two; its last tile of columns may be ragged (N % 32 ==
+// 0: zero-filled loads, predicated stores); K splits fall on units.
+// Ops without a group length compile as before.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace mg {
 
@@ -141,7 +164,8 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 
 // D (64 x 64 f32, registers) += A (64 x 16 bf16, registers: a fragment of
 // four) * B (64 x 16 bf16, shared memory, K-major); 32 accumulators a thread.
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                             int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -152,12 +176,13 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 // D (64 x 128 f32, registers) += A (64 x 16 bf16, registers: a fragment of
 // four) * B (128 x 16 bf16, shared memory, K-major); 64 accumulators a thread.
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                             int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -174,12 +199,13 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 // D (64 x 256 f32, registers) += A (64 x 16 bf16, registers: a fragment of
 // four) * B (256 x 16 bf16, shared memory, K-major); 128 accumulators a thread.
-__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t db,
+                                             int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
@@ -208,47 +234,107 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// D (64 x BM f32) = A B + (scale_d ? D : 0), the wgmma of a tile of BM x rows.
 template <int BM>
-__device__ __forceinline__ void wgmma_rs(float (&d)[BM / 2], const uint32_t (&a)[4], uint64_t db);
+__device__ __forceinline__ void wgmma_rs(float (&d)[BM / 2], const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d = 1);
 template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  wgmma_rs_n64(d, a, db);
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                             int scale_d) {
+  wgmma_rs_n64(d, a, db, scale_d);
 }
 template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-  wgmma_rs_n128(d, a, db);
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                              int scale_d) {
+  wgmma_rs_n128(d, a, db, scale_d);
 }
 template <>
-__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
-  wgmma_rs_n256(d, a, db);
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&a)[4], uint64_t db,
+                                              int scale_d) {
+  wgmma_rs_n256(d, a, db, scale_d);
 }
+
+// An Op's group length in K values (Op::kGroup), or 0 for an Op without a
+// fold (K14's and K11's).
+template <class Op, class = void>
+struct GroupLen {
+  static constexpr int value = 0;
+};
+template <class Op>
+struct GroupLen<Op, std::void_t<decltype(Op::kGroup)>> {
+  static constexpr int value = Op::kGroup;
+};
+
+// Bytes of a fold Op's two unit buffers (0 without a fold).
+template <class Op, int BN, bool = (GroupLen<Op>::value > 0)>
+struct UnitBytes {
+  static constexpr int value = 0;
+};
+template <class Op, int BN>
+struct UnitBytes<Op, BN, true> {
+  static constexpr int value = 2 * Op::template unit_bytes<BN>();
+};
+
+// A fold Op's per-thread state (Op::Thread<BM, BN, NT>), or nothing.
+struct NoThread {
+  template <class... T>
+  __device__ explicit NoThread(const T&...) {}
+};
+template <class Op, int BM, int BN, int NT, bool = (GroupLen<Op>::value > 0)>
+struct ThreadOf {
+  using type = NoThread;
+};
+template <class Op, int BM, int BN, int NT>
+struct ThreadOf<Op, BM, BN, NT, true> {
+  using type = typename Op::template Thread<BM, BN, NT>;
+};
 
 // A CTA's shared memory: a ring of slots (x tile, then raw bytes), as many
-// (at most 8) as fit two CTAs on an SM, or one at BM = 256 (128 accumulators
-// a thread), and 1024 bytes to align the base.
-template <int BM, int RAW>
+// (at most 8) as fit CTAS CTAs on an SM beside UNITS bytes of unit buffers
+// after the ring, and 1024 bytes to align the base.
+template <int BM, int RAW, int UNITS = 0, int CTAS = (BM == 256 ? 1 : 2)>
 struct Layout {
   static constexpr int kX = BM * kRowBytes;                // x tile of a slot
   static constexpr int kRaw = (RAW + 1023) / 1024 * 1024;  // raw bytes of a slot
   static constexpr int kSlot = kX + kRaw;
-  static constexpr int kBudget = (BM == 256 ? 227 : 113) * 1024 - 1024;
+  static constexpr int kBudget = (CTAS == 1 ? 227 : 113) * 1024 - 1024 - UNITS;
   static constexpr int kStages = kBudget / kSlot < 8 ? kBudget / kSlot : 8;
-  static constexpr int kSmem = kStages * kSlot + 1024;
+  static constexpr int kSmem = kStages * kSlot + UNITS + 1024;
   static_assert(kStages >= 3, "the ring needs three slots");
 };
 
-// grid (N / BN, ceil(M / BM), splits), 2 BN threads: warp w (of 4) of
-// warpgroup wg owns weight columns n0 + 64 wg + 16 w .. + 15, all BM rows.
-// Split z takes stages [z per, min((z + 1) per, stages)). At most 128
-// registers a thread below BM = 256.
+// What a tile (BM, BN) of an Op takes of an SM. Without a fold: one CTA at
+// BM = 256 (128 accumulators a thread), else two (at most 128 registers a
+// thread at BN = 128). With a fold (acc and tmp, BM / 2 each): one CTA at
+// (128, 128), two at (64, 128).
 template <class Op, int BM, int BN>
-__global__ void __launch_bounds__(2 * BN, BM == 256 ? 1 : 256 / BN)
+struct Tile {
+  static constexpr int kGroup = GroupLen<Op>::value;
+  static constexpr int kCtas = kGroup ? (BM == 128 && BN == 128 ? 1 : 2) : (BM == 256 ? 1 : 2);
+  static constexpr int kMinBlocks = kGroup ? kCtas : (BM == 256 ? 1 : 256 / BN);
+  static constexpr int kUnit = kGroup ? UnitBytes<Op, BN>::value / 2 : 0;
+  using L = Layout<BM, Op::template raw_bytes<BN>(), UnitBytes<Op, BN>::value, kCtas>;
+};
+
+// grid (ceil(N / BN), ceil(M / BM), splits), 2 BN threads: warp w (of 4) of
+// warpgroup wg owns weight columns n0 + 64 wg + 16 w .. + 15, all BM rows.
+// Split z takes stages [z per, min((z + 1) per, stages)). Without a fold,
+// at most 128 registers a thread below BM = 256.
+//
+// A fold Op (kGroup = G > 0) reads x in K order and runs each group's k16
+// steps into tmp; once they have retired its per-thread state folds tmp
+// into acc (th.fold). Its units of kUnitStages stages, which splits never
+// cut, each have a buffer (two, in turns, after the ring) that th.load
+// fills at the unit's first stage and th.decode reads in all of them.
+template <class Op, int BM, int BN>
+__global__ void __launch_bounds__(2 * BN, (Tile<Op, BM, BN>::kMinBlocks))
     mixed_gemm_kernel(Problem pb, typename Op::Args args) {
   constexpr int NT = 2 * BN;
-  using L = Layout<BM, Op::template raw_bytes<BN>()>;
+  constexpr int kG = GroupLen<Op>::value;
+  using L = typename Tile<Op, BM, BN>::L;
   constexpr int ST = L::kStages;
   extern __shared__ uint8_t smem_dyn[];
   uint8_t* ring = smem_dyn + ((1024 - (smem_u32(smem_dyn) & 1023)) & 1023);
@@ -258,29 +344,82 @@ __global__ void __launch_bounds__(2 * BN, BM == 256 ? 1 : 256 / BN)
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   const int s0 = blockIdx.z * pb.per;
   const int count = min(pb.per, pb.stages - s0);
+  // fold Ops: x in K order (stage s is columns 64 s .. 64 s + 63), each
+  // thread's row offsets, and the Op's per-thread state, hoisted out of the
+  // K loop; unit u of stages [u U, (u + 1) U) in buffer u % 2
+  constexpr int XC = BM * 8 / NT;  // x chunks a thread
+  uint32_t xoff[kG > 0 ? XC : 1];  // element offsets in x (M K < 2^32)
+  uint32_t xok = 0;                // bit k: the thread's row k of x exists
+  if constexpr (kG > 0) {
+#pragma unroll
+    for (int k = 0; k < XC; ++k) {
+      const int r = m0 + (tid >> 3) + k * (NT / 8);
+      xok |= (uint32_t)(r < pb.M) << k;
+      xoff[k] = (uint32_t)(r < pb.M ? r : 0) * pb.K + 8 * (tid & 7);
+    }
+  }
+  typename ThreadOf<Op, BM, BN, NT>::type th(args, pb, m0, n0, tid);
+  auto slot_at = [&](int i) {  // local stage i's slot (a fold Op's index math unsigned)
+    if constexpr (kG > 0)
+      return ring + (uint32_t)i % ST * L::kSlot;
+    else
+      return ring + (i % ST) * L::kSlot;
+  };
+  auto unit_of = [&](int s) {
+    if constexpr (kG > 0)
+      return ring + ST * L::kSlot + (uint32_t)s / Op::kUnitStages % 2 * Tile<Op, BM, BN>::kUnit;
+    else
+      return ring;
+  };
 
   // local stage i into slot i % ST, one commit group; the thread's x chunk
   // is always c = tid % 8, of rows tid / 8 + k NT / 8
   auto load = [&](int i) {
     if (i < count) {
-      uint8_t* slot = ring + (i % ST) * L::kSlot;
+      uint8_t* slot = slot_at(i);
       const int s = s0 + i, c = tid & 7;
-      bool kv;
-      const int col = Op::x_col(args, pb, s, c, kv);
-      for_chunks<BM * 8, NT>(tid, [&](int e) {
-        const int r = e >> 3;
-        const bool valid = kv && m0 + r < pb.M;
-        const __nv_bfloat16* src = valid ? pb.x + (size_t)(m0 + r) * pb.K + col : pb.x;
-        cp_async16(slot + sw128(r, c), src, valid);
-      });
-      Op::template load_raw<BN, NT>(args, pb, slot + L::kX, s, n0, tid);
+      if constexpr (kG > 0) {
+#pragma unroll
+        for (int k = 0; k < XC; ++k)
+          cp_async16(slot + sw128(tid >> 3, c) + k * (NT / 8) * kRowBytes,
+                     pb.x + (xoff[k] + (uint32_t)(kBK * s)), (xok >> k) & 1);
+        th.load(args, pb, slot + L::kX, unit_of(s), (uint32_t)s % Op::kUnitStages == 0, s);
+      } else {
+        bool kv;
+        const int col = Op::x_col(args, pb, s, c, kv);
+        for_chunks<BM * 8, NT>(tid, [&](int e) {
+          const int r = e >> 3;
+          const bool valid = kv && m0 + r < pb.M;
+          const __nv_bfloat16* src = valid ? pb.x + (size_t)(m0 + r) * pb.K + col : pb.x;
+          cp_async16(slot + sw128(r, c), src, valid);
+        });
+        Op::template load_raw<BN, NT>(args, pb, slot + L::kX, s, n0, tid);
+      }
     }
     cp_async_commit();
+  };
+  auto decode = [&](int i, uint32_t (&a)[4][4]) {
+    const uint8_t* raw = slot_at(i) + L::kX;
+    if constexpr (kG > 0)
+      th.decode(args, raw, unit_of(s0 + i), s0 + i, a);
+    else
+      Op::template decode_a<BN>(args, raw, s0 + i, cl, lane, a);
   };
 
   float acc[BM / 2];
 #pragma unroll
   for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
+  float tmp[kG > 0 ? BM / 2 : 1];  // a fold Op's group sums
+#pragma unroll
+  for (int i = 0; i < (kG > 0 ? BM / 2 : 1); ++i) tmp[i] = 0.f;
+  // fold the group that step kk of local stage i ends, once its wgmma retired
+  auto fold = [&](int i, int kk) {
+    if constexpr (kG > 0) {
+      wgmma_wait<0>();
+      fence_acc(tmp);
+      th.fold(args, slot_at(i) + L::kX, kk, tmp, acc);
+    }
+  };
 
   // Stage i: issue its four wgmma with the fragments in acur, wait for stage
   // i - 1's (one group stays queued on the tensor cores), then, past a
@@ -288,20 +427,45 @@ __global__ void __launch_bounds__(2 * BN, BM == 256 ? 1 : 256 / BN)
   // bytes landed (each thread's cp.async waited and fenced for the async
   // proxy first), fetch stage i + ST - 1 into the slot stage i - 1 left and
   // decode stage i + 1 into anext.
+  //
+  // A fold Op's wgmma run into tmp, scale-d 0 on a group's first step. A
+  // group that ends inside the stage (g < 64) is folded there; one that ends
+  // with it after stage i + 1's decode, which so overlaps the stage's wgmma.
+  // The fold empties the tensor-core queue: with one CTA an SM nothing fills
+  // it meanwhile. (Folding tmp in two halves, each beside the other half's
+  // wgmma, made ptxas serialize every wgmma: C7514, accumulators read inside
+  // a pipeline stage.)
   auto step = [&](int i, uint32_t (&acur)[4][4], uint32_t (&anext)[4][4]) {
-    const uint64_t db = sw128_desc(ring + (i % ST) * L::kSlot);
+    const uint64_t db = sw128_desc(slot_at(i));
     wgmma_fence();
+    if constexpr (kG == 0) {
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) wgmma_rs<BM>(acc, acur[kk], db + 2 * kk);
+      for (int kk = 0; kk < kBK / 16; ++kk) wgmma_rs<BM>(acc, acur[kk], db + 2 * kk);
+    } else {
+      constexpr int SPG = kG / 16;  // k16 steps a group
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        wgmma_rs<BM>(tmp, acur[kk], db + 2 * kk, (uint32_t)(4 * (s0 + i) + kk) % SPG != 0);
+        if constexpr (SPG < 4) {
+          if (kk < kBK / 16 - 1 && (kk + 1) % SPG == 0) {  // a group ends inside the stage
+            wgmma_commit();
+            fold(i, kk);
+            wgmma_fence();
+          }
+        }
+      }
+    }
     wgmma_commit();
     wgmma_wait<1>();
     cp_async_wait<ST - 3>();
     fence_proxy_async();
     __syncthreads();
     load(i + ST - 1);
-    if (i + 1 < count)
-      Op::template decode_a<BN>(args, ring + ((i + 1) % ST) * L::kSlot + L::kX, s0 + i + 1, cl,
-                                lane, anext);
+    if (i + 1 < count) decode(i + 1, anext);
+    if constexpr (kG > 0) {
+      // the stage ends a group
+      if ((uint32_t)(4 * (s0 + i) + 4) % (kG / 16) == 0) fold(i, kBK / 16 - 1);
+    }
   };
 
   uint32_t a0[4][4], a1[4][4];
@@ -310,7 +474,7 @@ __global__ void __launch_bounds__(2 * BN, BM == 256 ? 1 : 256 / BN)
   cp_async_wait<ST - 2>();
   fence_proxy_async();
   __syncthreads();
-  Op::template decode_a<BN>(args, ring + L::kX, s0, cl, lane, a0);
+  decode(0, a0);
   for (int i = 0; i < count; i += 2) {
     step(i, a0, a1);
     if (i + 1 < count) step(i + 1, a1, a0);
@@ -323,6 +487,7 @@ __global__ void __launch_bounds__(2 * BN, BM == 256 ? 1 : 256 / BN)
   // + e. Lanes 4 apart hold neighbouring columns: an even column's lane
   // trades its e = 1 value for its neighbour's e = 0 one and writes row
   // 2 (lane % 4) + 8i, columns (c, c + 1); the odd lane writes the next row.
+  // A fold Op's last tile of columns may be ragged (N % 32 == 0).
   const bool odd = (lane >> 2) & 1;
   const int n = n0 + (cl & ~1);
   float* ws = pb.ws == nullptr ? nullptr : pb.ws + (size_t)blockIdx.z * pb.M * pb.N;
@@ -334,7 +499,7 @@ __global__ void __launch_bounds__(2 * BN, BM == 256 ? 1 : 256 / BN)
       const float recv = __shfl_xor_sync(0xFFFFFFFFu, odd ? v0 : v1, 4);
       const float lo = odd ? recv : v0, hi = odd ? v1 : recv;
       const int r = m0 + 8 * i + 2 * (lane & 3) + odd;
-      if (r >= pb.M) continue;
+      if (r >= pb.M || (kG > 0 && n + 8 * h >= pb.N)) continue;
       const size_t off = (size_t)r * pb.N + n + 8 * h;
       if (ws != nullptr)
         *reinterpret_cast<float2*>(ws + off) = make_float2(lo, hi);
@@ -347,30 +512,39 @@ __global__ void __launch_bounds__(2 * BN, BM == 256 ? 1 : 256 / BN)
 template <class Op, int BM, int BN>
 cudaError_t launch_tile(const Problem& pb, const typename Op::Args& args, int splits,
                         cudaStream_t st) {
-  constexpr int smem = Layout<BM, Op::template raw_bytes<BN>()>::kSmem;
+  constexpr int smem = Tile<Op, BM, BN>::L::kSmem;
   auto kern = mixed_gemm_kernel<Op, BM, BN>;
   // dynamic shared memory above 48 KB needs the opt-in (per device: every call)
   const cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(pb.N / BN, (pb.M + BM - 1) / BM, splits);
+  dim3 grid((pb.N + BN - 1) / BN, (pb.M + BM - 1) / BM, splits);
   kern<<<grid, 2 * BN, smem, st>>>(pb, args);
   return cudaGetLastError();
 }
 
-// The tiles the mainloop is built for, (BM, BN): (256, 128), (128, 128),
-// (64, 128), (128, 64), (64, 64); anything else is refused.
+// The tiles the mainloop is built for, (BM, BN): without a fold (256, 128),
+// (128, 128), (64, 128), (128, 64), (64, 64), N % BN == 0; with one (128,
+// 128) and (64, 128), N % 32 == 0 and splits of whole units.
+// Anything else is refused.
 template <class Op>
 cudaError_t launch(const Problem& pb, const typename Op::Args& args, int bm, int bn, int splits,
                    cudaStream_t st) {
-  if (pb.N % bn || pb.per < 1 || splits < 1 || (splits - 1) * pb.per >= pb.stages ||
+  if (pb.per < 1 || splits < 1 || (splits - 1) * pb.per >= pb.stages ||
       splits * pb.per < pb.stages || (splits > 1) != (pb.ws != nullptr))
     return cudaErrorInvalidValue;
-  if (bm == 256 && bn == 128) return launch_tile<Op, 256, 128>(pb, args, splits, st);
-  if (bm == 128 && bn == 128) return launch_tile<Op, 128, 128>(pb, args, splits, st);
-  if (bm == 64 && bn == 128) return launch_tile<Op, 64, 128>(pb, args, splits, st);
-  if (bm == 128 && bn == 64) return launch_tile<Op, 128, 64>(pb, args, splits, st);
-  if (bm == 64 && bn == 64) return launch_tile<Op, 64, 64>(pb, args, splits, st);
+  if constexpr (GroupLen<Op>::value > 0) {
+    if (pb.N % 32 || (splits > 1 && pb.per % Op::kUnitStages)) return cudaErrorInvalidValue;
+    if (bm == 128 && bn == 128) return launch_tile<Op, 128, 128>(pb, args, splits, st);
+    if (bm == 64 && bn == 128) return launch_tile<Op, 64, 128>(pb, args, splits, st);
+  } else {
+    if (pb.N % bn) return cudaErrorInvalidValue;
+    if (bm == 256 && bn == 128) return launch_tile<Op, 256, 128>(pb, args, splits, st);
+    if (bm == 128 && bn == 128) return launch_tile<Op, 128, 128>(pb, args, splits, st);
+    if (bm == 64 && bn == 128) return launch_tile<Op, 64, 128>(pb, args, splits, st);
+    if (bm == 128 && bn == 64) return launch_tile<Op, 128, 64>(pb, args, splits, st);
+    if (bm == 64 && bn == 64) return launch_tile<Op, 64, 64>(pb, args, splits, st);
+  }
   return cudaErrorInvalidValue;
 }
 

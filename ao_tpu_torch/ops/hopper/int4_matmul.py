@@ -2,7 +2,13 @@
 
 * K1 ``int4_wo_magic``: int4 weight-only matmul over the "magic" layout
   (``int4_wo_magic_pallas``, kernel ``_magic_kernel``); CUDA source
-  ``ao_tpu_torch/csrc/int4_matmul.cu``.
+  ``ao_tpu_torch/csrc/int4_matmul.cu``, its prefill form (M > 16) on the
+  shared wgmma mainloop with a per-group f32 fold (``csrc/mixed_gemm.cuh``,
+  ``csrc/magic_op.cuh``; shared with K15). ``launch_tiles`` says what a
+  launch runs: the decode kernel's K split (``pick_splits``) or the
+  mainloop's tiles (``pick_tiles``, the tuned tile cache first). The
+  ``magic_*`` functions mirror the mainloop's step order and fold in
+  PyTorch, for the CPU tests.
 * K3 ``int4_w4a8_matmul``: int8 activations times magic8 int4 weights on
   the s8 tensor cores, f32 out (``int4_w4a8_matmul_pallas``, kernel
   ``_w4a8_kernel``); CUDA source ``ao_tpu_torch/csrc/int4_w4a8.cu``.
@@ -53,7 +59,7 @@ def _lib():
     if _LIB is None:
         lib = build.load("int4_matmul")
         fn = lib.ao_int4_wo_magic
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.ao_int4_wo_halves.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
             ctypes.c_void_p]
@@ -157,36 +163,190 @@ def _split_units(units: int, n_blocks: int, sm_count: int):
     return -(-units // per), per
 
 
+GEMV_MAX_M = 16  # the decode kernels' rows; above them the mainloop's tiles
+GEMV_RUN_ROWS = 16  # word rows of K1's finer decode run (two k16 steps, all four planes)
+
+
 def pick_splits(m: int, k: int, n: int, group_size: int, sm_count: int):
-    """(splits, super-groups per split) for the K split of a K1 launch.
-    Decode (M <= 16) splits K until about four 4-warp blocks per SM are in
-    flight; larger M has blocks enough along M and N."""
-    nsuper = k // (4 * group_size)
-    if m > 16:
-        return 1, nsuper
-    return _split_units(nsuper, -(-n // 128), sm_count)
+    """(splits, runs per split, word rows per run) for K1's decode kernel
+    (M <= 16): K split into runs of word rows until about four 4-warp blocks
+    per SM are in flight. A run is a whole super-group of 4g K rows (g/2
+    word rows); where those leave fewer blocks than SMs (4096x1024 at g =
+    128: 8 super-groups, 64 blocks), runs of GEMV_RUN_ROWS word rows with
+    all four planes, each folding its part of a group."""
+    g = group_size
+    nsuper = k // (4 * g)
+    n_blocks = -(-n // 128)
+    splits, per = _split_units(nsuper, n_blocks, sm_count)
+    if n_blocks * splits < sm_count and g // 2 > GEMV_RUN_ROWS:
+        splits, per = _split_units(nsuper * (g // 2 // GEMV_RUN_ROWS), n_blocks, sm_count)
+        return splits, per, GEMV_RUN_ROWS
+    return splits, per, g // 2
 
 
-def _launch(x, word, s, b2, group_size: int, raw_zp: bool = False) -> torch.Tensor:
+# K1's and K15's prefill (M > 16) on the mainloop (csrc/mixed_gemm.cuh with
+# MagicOp, csrc/magic_op.cuh): tiles (BM, BN); K in units of 64 word rows
+# (512 K values, 8 stages of 64), which a K split never cuts
+MAGIC_TILES = ((128, 128), (64, 128))
+MAGIC_UNIT_K = 512
+MAGIC_STAGE_K = 64
+
+
+def magic_units(k: int) -> int:
+    """The mainloop's units over K (a ragged last one at K % 512)."""
+    return -(-k // MAGIC_UNIT_K)
+
+
+def magic_launched_splits(k: int, splits: int) -> int:
+    """The splits a launch runs when asked for ``splits``: ceil(units /
+    splits) whole units each, so possibly fewer."""
+    units = magic_units(k)
+    return -(-units // -(-units // splits))
+
+
+def magic_stages_per_split(k: int, splits: int) -> int:
+    """Stages of 64 K values a split of a prefill launch runs: whole units."""
+    return MAGIC_UNIT_K // MAGIC_STAGE_K * -(-magic_units(k) // splits)
+
+
+def magic_ctas_per_sm(bm: int, bn: int) -> int:
+    """CTAs of a fold tile an SM holds: one at (128, 128) (acc and tmp, 64
+    f32 each a thread), two at (64, 128)."""
+    return 1 if (bm, bn) == (128, 128) else 2
+
+
+@functools.lru_cache(maxsize=None)
+def candidate_tiles_magic(m: int, k: int, n: int):
+    """Every (bm, bn, splits) the mainloop takes for K1 or K15 at this
+    shape: MAGIC_TILES (a ragged last tile of columns where BN does not
+    divide N) and each split count a launch runs as asked. No tuner times
+    them (the reference has none); a cached entry is taken if it is one."""
+    units = magic_units(k)
+    splits = [sp for sp in range(1, units + 1) if magic_launched_splits(k, sp) == sp]
+    return tuple((bm, bn, sp) for bm, bn in MAGIC_TILES for sp in splits)
+
+
+def pick_tiles_magic(m: int, k: int, n: int, sm_count: int):
+    """(bm, bn, splits) for a prefill launch of K1 or K15: BM = 64 rows of x
+    up to M = 64, else 128, by BN = 128 weight columns; K split into whole
+    units until the CTAs fill three quarters of the card's CTA slots (a
+    split costs a second pass), as far as K's units allow."""
+    bm, bn = (64 if m <= 64 else 128), 128
+    units = magic_units(k)
+    ctas = -(-m // bm) * -(-n // bn)
+    want = -(-3 * sm_count * magic_ctas_per_sm(bm, bn) // 4)
+    need = -(-want // ctas)  # splits that fill the card
+    per = -(-units // need)  # balanced splits, unless rounding leaves too few
+    if -(-units // per) < need:
+        per = max(1, units // need)
+    return bm, bn, magic_launched_splits(k, -(-units // per))
+
+
+def pick_tiles(m: int, k: int, n: int, group_size: int, sm_count: int):
+    """(bm, bn, splits) for a K1 prefill launch (M > 16). A tuned entry of
+    the tile cache under the reference's key (``autotune.lookup_tuned(
+    "int4_wo_magic", m, k, n, 0)``, as ``_pick_tn_magic`` asks) comes first,
+    if ``candidate_tiles_magic`` lists it; else ``pick_tiles_magic``."""
+    from ao_tpu_torch.ops.hopper.autotune import lookup_tuned
+
+    tuned = lookup_tuned("int4_wo_magic", m, k, n, 0)
+    if tuned is not None and tuple(tuned) in candidate_tiles_magic(m, k, n):
+        return tuple(tuned)
+    return pick_tiles_magic(m, k, n, sm_count)
+
+
+def launch_tiles(m: int, k: int, n: int, group_size: int, sm_count: int, tiles=None):
+    """What a K1 launch at (M, K, N) runs: (bm, bn, splits, per, run_rows).
+    M <= 16: the decode kernel (bm 16, bn 128), ``per`` runs of ``run_rows``
+    word rows a split (``pick_splits``). Larger M: the mainloop's tiles
+    (``tiles``, one of ``candidate_tiles_magic``, or ``pick_tiles``'s),
+    ``per`` stages of 64 K a split, run_rows 0."""
+    if m <= GEMV_MAX_M:
+        return (GEMV_MAX_M, 128) + pick_splits(m, k, n, group_size, sm_count)
+    if tiles is None:
+        tiles = pick_tiles(m, k, n, group_size, sm_count)
+    elif tuple(tiles) not in candidate_tiles_magic(m, k, n):
+        raise ValueError(f"int4_wo_magic: tiles {tiles} are not the mainloop's at {(m, k, n)}")
+    bm, bn, splits = tiles
+    return bm, bn, splits, magic_stages_per_split(k, splits), 0
+
+
+def magic_step(s: int, kk: int, group_size: int):
+    """Step ``kk`` of mainloop stage ``s`` over a magic layout of group g, as
+    MagicOp reads it (csrc/magic_op.cuh: ``group_of``, ``unit_row``): K values
+    k = 64 s + 16 kk .. + 15 in plain K order, which are group k / g, plane
+    (k / g) % 4 of the words of rows ``row`` .. ``row`` + 7. Returns (group,
+    row), row counted from word row 0 (units of 64 rows)."""
+    g = group_size
+    k = MAGIC_STAGE_K * s + 16 * kk
+    ku = k % MAGIC_UNIT_K
+    return k // g, k // MAGIC_UNIT_K * 64 + ku // (4 * g) * (g // 2) + ku % g // 2
+
+
+def magic_fold_mirror(x, word, group_size: int, value, fold) -> torch.Tensor:
+    """The prefill kernels' arithmetic in PyTorch, f32 (M, N): step by step
+    in plain K order, each k16 step's weights decoded from the words as the
+    kernel reads them (``magic_step``: word rows row + p, plane j, halves h
+    are the step's K pair (2p, 2p + 1)) through ``value(u, group)`` (the
+    exact bf16 value of nibble u, as f32), the group's steps summed into tmp
+    and folded by ``fold(acc, tmp, group)`` after its last step."""
+    g = group_size
+    m, k = x.shape
+    xf = x.to(torch.bfloat16).to(torch.float32)
+    p = torch.arange(8)
+    acc = torch.zeros((m, word.shape[1]), dtype=torch.float32)
+    for step in range(k // 16):
+        grp, row = magic_step(step // 4, step % 4, g)
+        words = word[row + p].to(torch.int64)  # (8, N)
+        u = torch.stack([(words >> (4 * (grp % 4) + 16 * h)) & 15 for h in (0, 1)], dim=1)
+        part = xf[:, 16 * step:16 * step + 16] @ value(u.reshape(16, -1), grp)
+        first = (16 * step) % g == 0
+        tmp = part if first else tmp + part
+        if (16 * step + 16) % g == 0:
+            acc = fold(acc, tmp, grp)
+    return acc
+
+
+def int4_wo_magic_mirror(x, word, s, b2, group_size: int, raw_zp: bool = False) -> torch.Tensor:
+    """K1's prefill arithmetic through ``magic_fold_mirror``: q = u - 8,
+    then per group acc += s * tmp + sum(x_G) * b2 in f32, with the x sums
+    of the pre-pass. With ``raw_zp`` b2 holds the tinygemm zero point and
+    b2 = bf16(zp + 8s) is formed as the kernel's bias_of does."""
+    g = group_size
+    xs = x.to(torch.bfloat16).to(torch.float32).reshape(x.shape[0], -1, g).sum(-1)
+    sf = s.to(torch.float32)
+    bf = (8.0 * sf + b2.to(torch.float32)).to(torch.bfloat16) if raw_zp else b2
+    bf = bf.to(torch.float32)
+    return magic_fold_mirror(
+        x, word, g, lambda u, grp: (u - 8).to(torch.float32),
+        lambda acc, tmp, grp: acc + sf[grp] * tmp + xs[:, grp:grp + 1] * bf[grp])
+
+
+def _launch(x, word, s, b2, group_size: int, raw_zp: bool = False, tiles=None) -> torch.Tensor:
     """Launch the kernel on CUDA tensors; ``b2`` is the tinygemm zero point
-    when ``raw_zp``."""
+    when ``raw_zp``; ``tiles`` (bm, bn, splits) overrides ``pick_tiles``
+    (``launch_tiles``)."""
     dev = x.device
     m, k = x.shape
     n = word.shape[1]
+    g = group_size
     _check_operands("int4_wo_magic", dev, (
         ("x", x, torch.bfloat16, (m, k)),
         ("word", word, torch.int32, (k // 8, n)),
-        ("scale", s, torch.bfloat16, (k // group_size, n)),
-        ("bias", b2, torch.bfloat16, (k // group_size, n))))
-    splits, sps = pick_splits(m, k, n, group_size, _sm_count(dev))
+        ("scale", s, torch.bfloat16, (k // g, n)),
+        ("bias", b2, torch.bfloat16, (k // g, n))))
+    bm, bn, splits, per, run_rows = launch_tiles(m, k, n, g, _sm_count(dev), tiles)
+    xs = None  # the mainloop's row sums of x per group
+    if m > GEMV_MAX_M:
+        xs = torch.empty((k // g, -(-m // 4) * 4), dtype=torch.float32, device=dev)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     ws = torch.empty((splits, m, n), dtype=torch.float32, device=dev) if splits > 1 else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().ao_int4_wo_magic(
             x.data_ptr(), word.data_ptr(), s.data_ptr(), b2.data_ptr(), out.data_ptr(),
-            None if ws is None else ws.data_ptr(), m, k, n, group_size, splits, sps,
-            int(raw_zp), stream)
+            None if ws is None else ws.data_ptr(), None if xs is None else xs.data_ptr(), m, k, n,
+            g, bm, bn, splits, per, run_rows, int(raw_zp), stream)
     if err != 0:
         raise RuntimeError(f"int4_wo_magic kernel launch failed: CUDA error {err}")
     int4_wo_magic.launches += 1

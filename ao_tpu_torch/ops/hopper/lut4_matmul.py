@@ -7,8 +7,10 @@ scalers (K/g, N) applied after each group's products, and one shared (16,)
 codebook or (L, 16) codebooks over row blocks of K/L rows
 (``lut4_wo_magic_pallas``, kernel ``_lut4_kernel``). The codebooks are
 rounded to bf16, as the reference's kernel reads them, and passed as a
-device tensor at run time. CUDA source ``ao_tpu_torch/csrc/lut4_matmul.cu``,
-whose header says what bounds it on the H100 and how the design meets it.
+device tensor at run time. CUDA source ``ao_tpu_torch/csrc/lut4_matmul.cu``
+(its prefill form on K1's mainloop with the per-group fold,
+``csrc/magic_op.cuh``), whose header says what bounds it on the H100 and
+how the design meets it; ``launch_tiles`` says what a launch runs.
 The wrapper runs the kernel on a CUDA tensor and its plain PyTorch version
 (``lut4_wo_magic_plain``) on a CPU tensor, and raises ValueError on either
 for a shape the kernel does not take (``takes``).
@@ -21,11 +23,12 @@ import ctypes
 import torch
 
 from ao_tpu_torch.ops.hopper import build
+from ao_tpu_torch.ops.hopper import int4_matmul as k1
 from ao_tpu_torch.ops.hopper.int4_matmul import _check_operands, _sm_count, _split_units
 from ao_tpu_torch.quantization.qarrays.int4 import unpack_int4_magic
 
 GROUP_SIZES = (16, 32, 64, 128)  # the kernel's compiled group sizes
-MAX_LUTS = 256  # (L, 16) codebooks the kernel holds in shared memory
+MAX_LUTS = 256  # (L, 16) codebooks the decode kernel holds in shared memory
 
 _LIB = None
 
@@ -34,7 +37,7 @@ def _lib():
     global _LIB
     if _LIB is None:
         lib = build.load("lut4_matmul")
-        lib.ao_lut4_wo.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        lib.ao_lut4_wo.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         lib.ao_lut4_wo.restype = ctypes.c_int
         if lib.ao_lut4_max_luts() != MAX_LUTS:
             raise RuntimeError("lut4_matmul.cu and its wrapper disagree on the most codebooks")
@@ -102,12 +105,30 @@ def lut4_wo_magic_plain(x, word, scalers, codebook, group_size: int) -> torch.Te
     return acc
 
 
-def pick_splits(m: int, k: int, n: int, group_size: int, sm_count: int):
-    """(splits, super-groups per split), as K1's."""
-    nsuper = k // (4 * group_size)
-    if m > 16:
-        return 1, nsuper
-    return _split_units(nsuper, -(-n // 128), sm_count)
+def lut4_wo_magic_mirror(x, word, scalers, codebook, group_size: int) -> torch.Tensor:
+    """K15's prefill arithmetic through ``int4_matmul.magic_fold_mirror``:
+    each nibble's bf16 codebook entry, then per group acc += s * tmp in
+    f32."""
+    g = group_size
+    k = x.shape[1]
+    cb = codebook.to(torch.bfloat16).to(torch.float32).reshape(-1, 16)
+    gpl = groups_per_lut(k, g, _n_luts(codebook))
+    s = scalers.to(torch.float32)
+    return k1.magic_fold_mirror(x, word, g, lambda u, grp: cb[0 if gpl == 0 else grp // gpl][u],
+                                lambda acc, tmp, grp: acc + s[grp] * tmp)
+
+
+def launch_tiles(m: int, k: int, n: int, group_size: int, sm_count: int):
+    """What a K15 launch at (M, K, N) runs: (bm, bn, splits, per). M <= 16
+    takes the decode kernel (bm 16, bn 128), whose split of K by whole
+    super-groups (``per`` a split) aims at about four 4-warp blocks per SM.
+    Larger M takes the mainloop with K1's tiles
+    (``int4_matmul.pick_tiles_magic``), ``per`` stages of 64 K a split."""
+    if m <= k1.GEMV_MAX_M:
+        splits, per = _split_units(k // (4 * group_size), -(-n // 128), sm_count)
+        return k1.GEMV_MAX_M, 128, splits, per
+    bm, bn, splits = k1.pick_tiles_magic(m, k, n, sm_count)
+    return bm, bn, splits, k1.magic_stages_per_split(k, splits)
 
 
 def _launch(x, word, scalers, lut, group_size: int) -> torch.Tensor:
@@ -120,7 +141,7 @@ def _launch(x, word, scalers, lut, group_size: int) -> torch.Tensor:
         ("word", word, torch.int32, (k // 8, n)),
         ("scalers", scalers, torch.float32, (k // group_size, n)),
         ("codebook", lut, torch.bfloat16, tuple(lut.shape))))
-    splits, sps = pick_splits(m, k, n, group_size, _sm_count(dev))
+    bm, bn, splits, per = launch_tiles(m, k, n, group_size, _sm_count(dev))
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     ws = torch.empty((splits, m, n), dtype=torch.float32, device=dev) if splits > 1 else None
     with torch.cuda.device(dev):
@@ -128,7 +149,7 @@ def _launch(x, word, scalers, lut, group_size: int) -> torch.Tensor:
         err = _lib().ao_lut4_wo(
             x.data_ptr(), word.data_ptr(), scalers.data_ptr(), lut.data_ptr(), out.data_ptr(),
             None if ws is None else ws.data_ptr(), m, k, n, group_size, max(n_luts, 1),
-            groups_per_lut(k, group_size, n_luts), splits, sps, stream)
+            groups_per_lut(k, group_size, n_luts), bm, bn, splits, per, stream)
     if err != 0:
         raise RuntimeError(f"lut4_wo_magic kernel launch failed: CUDA error {err}")
     lut4_wo_magic.launches += 1

@@ -11,7 +11,9 @@ From the repo root, on a machine with a CUDA device and ``nvcc``:
 3. holds each kernel against its plain PyTorch version on the card at the
    shapes the main paths give it, and times kernel, plain version, a library
    yardstick where one PyTorch call computes the same function, and the
-   least time the card could take (the bound);
+   least time the card could take (the bound); K1 (int4-WO) at M = 8, 128,
+   512 and 1024 over every Llama-3-8B width and at ViT-B/16's w2 (M = 788,
+   3072x768), with each launch's tiles and K split;
    The decode attention kernels over the quantized caches (K5 int8, K6 fp8,
    K7 int4, K2v int8 and e5m2) are also timed, with K2 and the paged K9 in
    its three modes (bf16; "vec8" over int8 and fp8 pools; int4), at T =
@@ -112,10 +114,11 @@ Each phase prints its seconds. Prints the kernel table as one JSON line and, as 
 ``{"ok": true, "device": {...}}``. Any failed check makes it exit non-zero
 without that line; so does a machine without a CUDA device.
 
-    python3 chip_smoke.py --kernels K1,K3,K11,K13,K14,K18
+    python3 chip_smoke.py --kernels K1,K3,K11,K13,K14,K15,K18
 
 builds, then runs only the named kernels' phases (K1, K3, K11, K13, K14,
-K18) and prints their rows as JSON, with no result line. A copy of this
+K15, K18) and prints their rows as JSON, with no result line; the K1 and
+K15 rows name each launch's tiles and K split. A copy of this
 script run in another checkout times that checkout's kernels, so two trees'
 kernels can be set side by side on one card in one run (a checkout whose
 own script predates a kernel's name here takes a copy of this one: the
@@ -170,11 +173,15 @@ GROUP = 128
 BATCH, PROMPT, MAX_SEQ, STEPS = 8, 128, 256, 64  # bench.py's generate
 # every (M, K, N) the main paths give K1: wq/wo, wk/wv, w1/w3, w2 and the
 # lm_head, at decode (M = B), at generate's prefill (M = B * prompt) and at
-# the engine's prefills (M = 128 and 512: its buckets and its chunks)
+# the engine's prefills (M = 128 and 512: its buckets and its chunks); and
+# ViT-B/16's w2 at batch 4 (M = 4 x 197; its 3072-wide input has 24 groups:
+# the magic layout)
 K1_SHAPES = [(m, k, n) for m in (BATCH, 128, 512, BATCH * PROMPT)
              for k, n in ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
-                          (4096, 128256))]
+                          (4096, 128256))] + [(4 * 197, 3072, 768)]
 K1_REPORTED = (8, 4096, 14336)  # the decode shape that moves the most weight bytes per layer
+K1_PREFILL = (BATCH * PROMPT, 4096, 4096)  # generate's prefill, wq / wo
+K1_VIT = (4 * 197, 3072, 768)  # ViT-B/16's w2
 # every (K, N) of Llama-3-8B's linears: wq/wo, wk/wv, w1/w3, w2, lm_head; the
 # W4A8 path gives them to K3 at decode (M = B) and to K4 once per prefill
 LLAMA_KN = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]
@@ -319,16 +326,40 @@ class Failures(list):
 
 
 def kernel_row(name, shape, got, ref, check, ms, plain_ms, library_ms, nbytes, ops,
-               ops_per_s=BF16_FLOPS_PER_S):
+               ops_per_s=BF16_FLOPS_PER_S, tiles=None):
+    """One kernel's row; ``tiles`` (its launch's tiles and splits) is
+    printed beside its time and kept in the row."""
     bound_ms, bound_by = bound(nbytes, ops, ops_per_s)
     err = float((got.float() - ref.float()).abs().max())
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    launch = "" if tiles is None else f" ({tiles})"
     print(f"{name} {shape}: {check}, max|err| {err:.3g}; "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib}, "
+          f"kernel {ms:.4f} ms{launch}, plain {plain_ms:.4f} ms, library {lib}, "
           f"bound {bound_ms * 1e3:.2f} us ({bound_by}) = {bound_ms / ms:.1%} of kernel time",
           flush=True)
-    return dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    row = dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=bound_ms, bound_by=bound_by)
+    if tiles is not None:
+        row["tiles"] = tiles
+    return row
+
+
+def magic_tiles(torch, m, k, n, g, kernel):
+    """What a K1 (``kernel`` "K1") or K15 launch at (M, K, N, g) runs: the
+    decode kernel's K split, or the mainloop's tiles and K split (None from
+    a checkout whose wrappers predate ``launch_tiles``)."""
+    from ao_tpu_torch.ops.hopper import int4_matmul as k1
+    from ao_tpu_torch.ops.hopper import lut4_matmul as k15
+
+    launch_tiles = getattr(k1 if kernel == "K1" else k15, "launch_tiles", None)
+    if launch_tiles is None:
+        return None
+    bm, bn, splits, per, *run = launch_tiles(
+        m, k, n, g, k1._sm_count(torch.device(DEV, torch.cuda.current_device())))
+    if bm == k1.GEMV_MAX_M:
+        unit = f"runs of {run[0]} word rows" if run else "super-groups"
+        return f"decode kernel, {splits} splits of {per} {unit}"
+    return f"tiles ({bm}, {bn}), {splits} splits of {per} stages"
 
 
 def lsb_check(got, ref):
@@ -368,7 +399,8 @@ def k1_phase(torch, fails, seed):
         nbytes, flops = k1.traffic(m, k, n, GROUP)
         rows[(m, k, n)] = kernel_row("K1 int4_wo_magic", f"M={m} K={k} N={n}", got, ref,
                                      f"sqnr {sqnr:.2f} dB (>= {K1_SQNR_DB})", ms, plain_ms,
-                                     library_ms, nbytes, flops)
+                                     library_ms, nbytes, flops,
+                                     tiles=magic_tiles(torch, m, k, n, GROUP, "K1"))
         del qa, x, s, b2, got, ref
         torch.cuda.empty_cache()
     return rows
@@ -752,7 +784,8 @@ def k15_phase(torch, fails, seed):
         nbytes, flops = k15.traffic(m, k, n, NF4_GROUP)
         rows[(m, k, n)] = kernel_row("K15 lut4_wo_magic", f"M={m} K={k} N={n}", got, ref,
                                      f"sqnr {sqnr:.2f} dB (> {K15_SQNR_DB})", ms, plain_ms,
-                                     library_ms, nbytes, flops)
+                                     library_ms, nbytes, flops,
+                                     tiles=magic_tiles(torch, m, k, n, NF4_GROUP, "K15"))
         del qa, x, sc, got, ref
         torch.cuda.empty_cache()
     return rows
@@ -2301,9 +2334,9 @@ def k11_tile_cache(torch, card):
 
 def kernels_only(torch, names) -> int:
     """Build, then run only the phases of ``names`` (of K1, K3, K11, K13,
-    K14, K18) and print each one's rows as one JSON line."""
+    K14, K15, K18) and print each one's rows as one JSON line."""
     phases = {"K1": k1_phase, "K3": k3_phase, "K11": k11_phase, "K13": k13_phase,
-              "K14": k14_both, "K18": k18_phase}
+              "K14": k14_both, "K15": k15_phase, "K18": k18_phase}
     if not set(names) <= set(phases):
         print(f"chip_smoke: --kernels takes {', '.join(phases)}", file=sys.stderr)
         return 2
@@ -2323,7 +2356,7 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description="Smoke run of ao_tpu_torch on one NVIDIA GPU.")
     parser.add_argument("--kernels", type=lambda v: v.split(","),
-                        help="only these kernels' phases, of K1, K3, K11, K13, K14, K18 "
+                        help="only these kernels' phases, of K1, K3, K11, K13, K14, K15, K18 "
                              "(comma-separated)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -2607,6 +2640,9 @@ def main() -> int:
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     rows = [
         ("int4_wo_magic", "int4_matmul.cu", "int4_matmul.py:372", "int4-WO", k1_rows[K1_REPORTED]),
+        ("int4_wo_magic", "int4_matmul.cu", "int4_matmul.py:372", "int4-WO", k1_rows[K1_PREFILL]),
+        ("int4_wo_magic", "int4_matmul.cu", "int4_matmul.py:372", "ViT-B/16 int4-WO",
+         k1_rows[K1_VIT]),
         ("decode_attention", "decode_attention.cu", "decode_attention.py:234", "int4-WO", k2_row),
         ("int4_w4a8_matmul", "int4_w4a8.cu", "int4_matmul.py:537", "W4A8", k3_rows[KN_REPORTED]),
         ("int4_magic8_requant_int8", "int4_w4a8.cu", "int4_matmul.py:673", "W4A8",

@@ -113,12 +113,14 @@ def test_backend_gate_and_torch_path():
 @pytest.mark.parametrize("m,k,n", [(8, 4096, 4096), (8, 4096, 1024), (8, 4096, 14336),
                                    (8, 14336, 4096), (8, 4096, 128256), (1024, 4096, 14336)])
 def test_pick_splits_covers_k(m, k, n):
-    splits, sps = k1.pick_splits(m, k, n, 128, 132)
-    nsuper = k // 512
-    assert splits >= 1 and sps >= 1
-    assert (splits - 1) * sps < nsuper <= splits * sps
-    if m > 16:
-        assert splits == 1
+    if m > 16:  # the mainloop: whole units of 512 K values a split
+        _, _, splits = k1.pick_tiles_magic(m, k, n, 132)
+        units, per = k1.magic_units(k), -(-k1.magic_units(k) // splits)
+    else:  # the decode kernel: runs of word rows, a super-group (64 at g = 128) or 16
+        splits, per, run = k1.pick_splits(m, k, n, 128, 132)
+        units = k // 512 * (64 // run)
+    assert splits >= 1 and per >= 1
+    assert (splits - 1) * per < units <= splits * per
 
 
 def test_shape_checks():

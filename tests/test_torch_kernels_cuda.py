@@ -36,24 +36,40 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("m,k,n,g,domain", [
+# K1 at the decode kernel's and the mainloop's edges: (M, K, N, g, domain)
+MAGIC_CASES = [
     (1, 512, 128, 32, "tinygemm"),
     (8, 1024, 256, 128, "tinygemm"),
     (8, 1024, 1056, 64, "minmax_int"),  # N a multiple of 32 but not of 128
+    (8, 4096, 1024, 128, "tinygemm"),   # the decode's runs of 16 word rows
     (17, 512, 96, 32, "tinygemm"),      # M across two m16 tiles, a ragged edge
     (16, 512, 128, 16, "tinygemm"),     # two n8 tiles of batch rows
+    (17, 1024, 160, 16, "minmax_int"),  # the mainloop at g = 16: four groups a stage
     (40, 2048, 512, 128, "minmax_int"),
+    (100, 1024, 800, 64, "tinygemm"),   # N % 64 == 32: a ragged last tile of columns
+    (128, 2048, 1056, 128, "minmax_int"),  # K split in units, ragged N
     (200, 512, 256, 32, "tinygemm"),
     (64, 512, 128, 16, "minmax_int"),
+    (513, 1536, 256, 32, "tinygemm"),   # g = 32: two groups a stage; a ragged unit count
     (1024, 1024, 384, 128, "tinygemm"),  # prefill-sized M, N not a multiple of 128
-])
-def test_int4_wo_magic_matches_plain(dev, m, k, n, g, domain):
-    gen = torch.Generator(device=dev).manual_seed(m * 7 + n)
+    (1024, 4096, 1024, 128, "tinygemm"),  # K split at prefill-sized M
+]
+# every mainloop tile and split at one shape: (M, K, N, g)
+MAGIC_TILE_CASE = (200, 1536, 800, 64)
+
+
+def _int4_magic_operands(dev, m, k, n, g, domain):
+    gen = torch.Generator(device=dev).manual_seed(m * 7 + n + g)
     w = (torch.randn((k, n), generator=gen, device=dev) * 0.05).to(torch.bfloat16)
     zpd = ZeroPointDomain.FLOAT if domain == "tinygemm" else ZeroPointDomain.INT
     qa = Int4Array.from_hp(w, group_size=g, zero_point_domain=zpd)
     assert qa.layout == "magic"
-    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    return qa, torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("m,k,n,g,domain", MAGIC_CASES)
+def test_int4_wo_magic_matches_plain(dev, m, k, n, g, domain):
+    qa, x = _int4_magic_operands(dev, m, k, n, g, domain)
     before = k1.int4_wo_magic.launches
     got = k1.int4_wo_magic(x, qa.qdata, qa.scale, qa.zero_point, g, qa.zero_point_domain)
     torch.cuda.synchronize()
@@ -64,6 +80,23 @@ def test_int4_wo_magic_matches_plain(dev, m, k, n, g, domain):
     # same arithmetic, f32 sums in another order, bf16 output: the JAX
     # suite's bound for the int4 kernel
     assert float(compute_error(ref, got)) >= 45
+
+
+def test_int4_wo_magic_every_tile(dev):
+    """Every (bm, bn, splits) of the mainloop at one shape with a ragged
+    last tile of columns and three units of K, against the plain version."""
+    m, k, n, g = MAGIC_TILE_CASE
+    qa, x = _int4_magic_operands(dev, m, k, n, g, "tinygemm")
+    s, b2 = k1.transport_qparams(qa.scale, qa.zero_point, qa.zero_point_domain)
+    ref = k1.int4_wo_magic_plain(x, qa.qdata, s, b2, g)
+    tiles = k1.candidate_tiles_magic(m, k, n)
+    assert len(tiles) == 6
+    for t in tiles:
+        got = k1._launch(x, qa.qdata, qa.scale, qa.zero_point, g, raw_zp=True, tiles=t)
+        torch.cuda.synchronize()
+        assert float(compute_error(ref, got)) >= 45, t
+    with pytest.raises(ValueError, match="not the mainloop's"):
+        k1._launch(x, qa.qdata, qa.scale, qa.zero_point, g, raw_zp=True, tiles=(256, 128, 1))
 
 
 def test_int4_wo_magic_refuses_what_it_does_not_take(dev):
@@ -1019,16 +1052,24 @@ def _lut4_operands(dev, k, n, g, n_luts, seed):
     return word, scalers, cb, gen
 
 
-@pytest.mark.parametrize("n_luts", [0, 4], ids=["shared", "per-row-block"])
-@pytest.mark.parametrize("m,k,n,g", [
+# K15 at the decode kernel's and the mainloop's edges: (M, K, N, g)
+LUT4_CASES = [
     (1, 256, 128, 64),
     (8, 4096, 1024, 64),    # split K over 16 super-groups
     (8, 1024, 1056, 64),    # N a multiple of 32, not of 128
     (13, 1024, 256, 32),
-    (17, 512, 256, 64),     # the tile kernel
+    (17, 512, 256, 64),     # the mainloop's smallest M
+    (100, 1024, 800, 64),   # N % 64 == 32: a ragged last tile of columns
+    (128, 2048, 1056, 128),  # K split in units, ragged N, a group over two stages
     (200, 1024, 512, 128),
-    (1024, 1024, 384, 16),  # prefill-sized M
-])
+    (513, 1536, 256, 32),   # g = 32: two groups a stage
+    (1024, 1024, 384, 16),  # prefill-sized M, g = 16: four groups a stage
+    (1024, 4096, 1024, 64),  # K split at prefill-sized M
+]
+
+
+@pytest.mark.parametrize("n_luts", [0, 4], ids=["shared", "per-row-block"])
+@pytest.mark.parametrize("m,k,n,g", LUT4_CASES)
 def test_lut4_wo_magic_matches_plain(dev, n_luts, m, k, n, g):
     from ao_tpu_torch.ops.hopper import lut4_matmul as k15
 
