@@ -367,7 +367,9 @@ struct Fp4Op {
     }
   }
 
-  __device__ static float finish(const Args& a, float acc) { return ::finish<KIND>(acc, a.pts); }
+  __device__ static float finish(const Args& a, int, float acc) {
+    return ::finish<KIND>(acc, a.pts);
+  }
 };
 
 // Second pass of a split-K launch: out = bf16(finish(sum over splits of ws)).

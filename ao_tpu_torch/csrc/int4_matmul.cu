@@ -450,7 +450,7 @@ struct HalvesOp {
     }
   }
 
-  __device__ static float finish(const Args&, float acc) { return acc; }
+  __device__ static float finish(const Args&, int, float acc) { return acc; }
 };
 
 }  // namespace

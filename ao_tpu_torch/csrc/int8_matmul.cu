@@ -11,16 +11,8 @@
 // TPU kernel.
 //
 // Layout: the weight is stored column-major (Int8Array keeps qdata so), i.e.
-// as wt (N, K) row-major: each column's K values are contiguous. That is the
-// "col" operand of mma.sync m16n8k16 (B as K x N with K contiguous), and
-// with operands swapped (weights as A, rows = N) the "row" operand too.
-//
-// K order inside a 64-wide window: a thread loads 16 consecutive K values
-// (16 bytes of int8, or 32 bytes of bf16 x) at offset 16*tig, and uses them
-// in four k16 steps j = 0..3, taking the four values 16*tig + 4j .. + 3 as
-// the fragment's logical columns 2*tig, 2*tig + 1, 2*tig + 8, 2*tig + 9. A
-// dot product is a sum over k, so one permutation of K applied to both
-// operands leaves it unchanged, and every load is a whole 16-byte vector.
+// as wt (N, K) row-major: each column's K values are contiguous, the
+// K-major operand of both kernels' tensor-core instructions.
 //
 // int8 -> bf16: w ^ 0x80 in the low byte of the f32 2^23 (one byte_perm)
 // is 2^23 + 128 + v exactly; subtracting 2^23 + 128 leaves v, and one
@@ -36,23 +28,41 @@
 //    any (4 KB a warp in flight). The grid splits K by whole units (grid.z)
 //    into f32 partials that stay in the 50 MB L2, and a second pass sums
 //    them, scales and rounds, so that wk/wv (N = 1024, 8 blocks of 128
-//    columns) fill 132 SMs.
-//  * prefill (M > 16, int8_wo_gemm_kernel): tensor-core operations. A block
-//    computes 64 rows x 128 columns, each warp 64 x 32 (4 m16 x 4 n8 tiles),
-//    so each converted weight fragment feeds four mma.sync. The x tile of a
-//    64-wide K chunk is staged in shared memory by cp.async, the next
-//    chunk's while the current one is used; the weights are read from
-//    device memory (L2 for the other row blocks). No wgmma or TMA yet.
+//    columns) fill 132 SMs. K order inside a 64-wide window: a thread loads
+//    16 consecutive K values (16 bytes of int8, or 32 bytes of bf16 x) at
+//    offset 16*tig, and uses them in four k16 steps j, taking the four
+//    values 16*tig + 4j .. + 3 as the fragment's logical columns 2*tig,
+//    2*tig + 1, 2*tig + 8, 2*tig + 9 (one permutation of K applied to both
+//    operands leaves a dot product unchanged).
+//  * prefill (M > 16): tensor-core operations, 2 M K N against 989 TFLOP/s,
+//    on the shared wgmma mainloop (mixed_gemm.cuh, Int8Op below): a ring of
+//    cp.async slots holding each 64-K stage's x tile (wgmma's B operand) and
+//    the stage's BN x 64 weight bytes; each thread decodes, once per CTA,
+//    the bytes of its wgmma A-fragment registers (three integer, two float
+//    and one conversion instruction a bf16x2). x is read in plain K order,
+//    so each thread's x offsets are computed once, before the K loop
+//    (kXInOrder). The tiles (BM, BN) and a split of K come from
+//    int8_matmul.pick_tiles (K14's mainloop tiles). The scale
+//    is the Op's finish, which the mainloop gives the output column; a K
+//    split writes unscaled f32 partials and the second pass scales their
+//    sum. What bounds it: instruction dispatch beside the tensor cores, about
+//    240 instructions a warp a stage at (256, 128), the decode half of
+//    them, against the tensor cores' 983 cycles: on the H100 the loop
+//    without its decode took 20 % less time and without its x copies none
+//    less; the x offsets' hoisting then took 15 % off, and dropping the x
+//    rows' predicates 3 % (PERF.md).
+//    The first version (mma.sync, each warp converting its own weight
+//    fragments from device memory, x through a two-slot cp.async buffer)
+//    took 3.7-4.4x cuBLAS's time at M = 1024 (PERF.md).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mixed_gemm.cuh"
 
 namespace {
 
-constexpr int kUnit = 128;  // K values per split unit (the wrapper's unit)
-constexpr int kChunk = 64;  // K values per staged x chunk (prefill)
-constexpr int kLd = kChunk + 8;  // x tile row, bf16, padded by 16 bytes
+constexpr int kUnit = 128;  // K values per split unit of the decode kernel (the wrapper's unit)
+
+using mg::pack_bf16x2;
+
 
 __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                           uint32_t b1) {
@@ -61,11 +71,6 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 // bytes 2*half and 2*half + 1 of w (signed int8) as bf16x2, exactly
@@ -82,20 +87,6 @@ __device__ __forceinline__ int4 ld_16(const void* p) {
 
 __device__ __forceinline__ uint32_t word(const int4& v, int j) {
   return j == 0 ? (uint32_t)v.x : j == 1 ? (uint32_t)v.y : j == 2 ? (uint32_t)v.z : (uint32_t)v.w;
-}
-
-// 16 bytes global -> shared, zero-filled when !valid.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // Decode kernel (M <= 16, NT = ceil(M/8) n8 tiles of batch rows). grid
@@ -183,94 +174,60 @@ __global__ void __launch_bounds__(128)
     }
 }
 
-// Prefill kernel (M > 16): grid (N/128, ceil(M/64)), 128 threads. Warp w owns
-// columns nb = (4*blockIdx.x + w)*32 .. + 31 (n8 tile i: columns nb + 8i ..
-// + 7, B column gid) of rows m0 .. m0 + 63 (m16 tile mt: rows m0 + 16mt ..).
-// Shared memory: two x chunks of 64 rows x 64 K (bf16, rows padded to kLd).
-__global__ void __launch_bounds__(128)
-    int8_wo_gemm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ wt,
-                        const float* __restrict__ s, __nv_bfloat16* __restrict__ out, int M,
-                        int K, int N) {
-  constexpr int MT = 4;
-  __shared__ __align__(16) __nv_bfloat16 xtile[2][64][kLd];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int nb = (blockIdx.x * 4 + warp) * 32;
-  const int m0 = blockIdx.y * 64;
-  const int nchunks = K / kChunk;
-
-  auto load_tile = [&](int buf, int c) {
-    for (int i = threadIdx.x; i < 64 * (kChunk / 8); i += 128) {
-      const int r = i / (kChunk / 8), cc = i % (kChunk / 8);
-      const bool valid = m0 + r < M;
-      const __nv_bfloat16* src = valid ? x + (size_t)(m0 + r) * K + c * kChunk + cc * 8 : x;
-      cp_async16(&xtile[buf][r][cc * 8], src, valid);
-    }
-    cp_async_commit();
+// K10's decode for the shared mainloop. Stage s is K values 64 s .. 64 s +
+// 63 in plain order (kXInOrder: x chunk c is columns 64 s + 8 c .., each
+// thread's x offsets computed once, before the K loop). Its slot holds the
+// weight's bytes [BN][kRawRow]: row n0 + r of wt, the stage's 64 bytes,
+// padded to 80 so that the eight rows a warp reads at once fall in
+// different banks. Step kk's fragment takes, of rows cl (a0, a2) and cl + 8
+// (a1, a3), the K pairs 16 kk + 2 tig, + 1 (a0, a1) and 16 kk + 8 + 2 tig,
+// + 1 (a2, a3): half tig & 1 of words 4 kk + tig / 2 and 4 kk + 2 + tig / 2
+// of the row. Threads tig and tig ^ 1 read the same whole 32-bit word (one
+// broadcast) and decode one half each. No permutation of K inside a stage
+// can give a thread all four bytes of a word: x is staged by 16-byte
+// chunks, which keep 8 consecutive K values in their order, and a thread's
+// K pairs sit at the same offset 2 tig of eight different 8-value chunks.
+struct Int8Op {
+  struct Args {
+    const int8_t* wt;
+    const float* s;
   };
+  static constexpr int kRawRow = 80;
+  static constexpr bool kXInOrder = true;
 
-  float acc[MT][4][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][i][e] = 0.f;
-
-  load_tile(0, 0);
-  for (int c = 0; c < nchunks; ++c) {
-    int4 w[4];  // n8 tile i: column nb + 8i + gid, K values c*64 + 16*tig .. + 15
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      w[i] = ld_16(wt + (size_t)(nb + 8 * i + gid) * K + c * kChunk + 16 * tig);
-    if (c + 1 < nchunks) {
-      load_tile((c + 1) & 1, c + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      uint32_t b[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const uint32_t wj = word(w[i], j);
-        b[i][0] = i8x2_bf16x2(wj, 0);
-        b[i][1] = i8x2_bf16x2(wj, 1);
-      }
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        // rows gid and gid + 8 of the tile, K values 16*tig + 4j .. + 3
-        const uint2 lo = *reinterpret_cast<const uint2*>(
-            &xtile[c & 1][mt * 16 + gid][16 * tig + 4 * j]);
-        const uint2 hi = *reinterpret_cast<const uint2*>(
-            &xtile[c & 1][mt * 16 + gid + 8][16 * tig + 4 * j]);
-        const uint32_t a[4] = {lo.x, hi.x, lo.y, hi.y};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) mma_16816(acc[mt][i], a, b[i][0], b[i][1]);
-      }
-    }
-    __syncthreads();  // the next iteration's load overwrites this tile
+  template <int BN>
+  __host__ __device__ static constexpr int raw_bytes() {
+    return BN * kRawRow;
   }
 
-  // C fragment of n8 tile i: columns nb + 8i + 2*tig (c0, c2) and + 1 (c1,
-  // c3), rows gid (c0, c1) and gid + 8 (c2, c3)
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = nb + 8 * i + 2 * tig;
-    const float s0 = s[n], s1 = s[n + 1];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = m0 + mt * 16 + gid + 8 * half;
-        if (r >= M) continue;
-        *reinterpret_cast<uint32_t*>(out + (size_t)r * N + n) =
-            pack_bf16x2(acc[mt][i][2 * half] * s0, acc[mt][i][2 * half + 1] * s1);
-      }
+  template <int BN, int NT>
+  __device__ static void load_raw(const Args& a, const mg::Problem& pb, uint8_t* raw, int s,
+                                  int n0, int tid) {
+    mg::for_chunks<BN * 4, NT>(tid, [&](int e) {
+      const int r = e >> 2, cc = e & 3;
+      mg::cp_async16(raw + r * kRawRow + 16 * cc,
+                     a.wt + (size_t)(n0 + r) * pb.K + mg::kBK * s + 16 * cc, true);
+    });
   }
-}
+
+  template <int BN>
+  __device__ static void decode_a(const Args&, const uint8_t* raw, int, int cl, int lane,
+                                  uint32_t (&a)[4][4]) {
+    const int tig = lane & 3, half = tig & 1;
+    const uint32_t* r0 = reinterpret_cast<const uint32_t*>(raw + cl * kRawRow) + (tig >> 1);
+    const uint32_t* r1 = r0 + 8 * kRawRow / 4;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      a[kk][0] = i8x2_bf16x2(r0[4 * kk], half);
+      a[kk][1] = i8x2_bf16x2(r1[4 * kk], half);
+      a[kk][2] = i8x2_bf16x2(r0[4 * kk + 2], half);
+      a[kk][3] = i8x2_bf16x2(r1[4 * kk + 2], half);
+    }
+  }
+
+  // the per-column scale, in f32 before the bf16 rounding
+  __device__ static float finish(const Args& a, int n, float acc) { return acc * __ldg(a.s + n); }
+};
 
 // Second pass of a split-K launch: out = bf16(s[n] * sum over splits of ws).
 __global__ void int8_wo_reduce_kernel(const float* __restrict__ ws, const float* __restrict__ s,
@@ -286,12 +243,14 @@ __global__ void int8_wo_reduce_kernel(const float* __restrict__ ws, const float*
 }  // namespace
 
 // x (M, K) bf16; wt (N, K) int8 (the column-major (K, N) weight); s (N) f32;
-// out (M, N) bf16; ws (splits, M, N) f32 when splits > 1 (decode only), ups
-// 128-wide K units per split. Needs K % 128 == 0, N % 128 == 0 and 16-byte
-// aligned rows; the Python wrapper checks them. Returns cudaGetLastError()
-// after the launches.
+// out (M, N) bf16. Tiles from int8_matmul.pick_tiles: bm 16 the decode
+// kernel (M <= 16, bn 128, per 128-wide K units a split), else the
+// mainloop's (bm, bn) with per stages of 64 K a split; ws (splits, M, N) f32
+// when splits > 1. Needs K % 128 == 0, N % 128 == 0 and 16-byte aligned
+// rows; the Python wrapper checks them. Returns cudaGetLastError() after
+// the launches.
 extern "C" int ao_int8_wo(const void* x_, const void* wt_, const void* s_, void* out_, void* ws_,
-                          int M, int K, int N, int splits, int ups, void* stream) {
+                          int M, int K, int N, int bm, int bn, int splits, int per, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* x = static_cast<const __nv_bfloat16*>(x_);
   const auto* wt = static_cast<const int8_t*>(wt_);
@@ -299,17 +258,20 @@ extern "C" int ao_int8_wo(const void* x_, const void* wt_, const void* s_, void*
   auto* out = static_cast<__nv_bfloat16*>(out_);
   float* ws = splits > 1 ? static_cast<float*>(ws_) : nullptr;
   if (K % kUnit || N % 128 || M < 1) return (int)cudaErrorInvalidValue;
-  if (M > 16) {
-    dim3 grid(N / 128, (M + 63) / 64);
-    int8_wo_gemm_kernel<<<grid, 128, 0, st>>>(x, wt, s, out, M, K, N);
-    return (int)cudaGetLastError();
+  cudaError_t err;
+  if (bm == 16) {  // the decode kernel, per = units per split
+    if (M > 16 || bn != 128) return (int)cudaErrorInvalidValue;
+    dim3 grid(N / 128, 1, splits);
+    if (M <= 8)
+      int8_wo_gemv_kernel<1><<<grid, 128, 0, st>>>(x, wt, s, out, ws, M, K, N, per);
+    else
+      int8_wo_gemv_kernel<2><<<grid, 128, 0, st>>>(x, wt, s, out, ws, M, K, N, per);
+    err = cudaGetLastError();
+  } else {  // the mainloop, per = stages of 64 K values per split
+    if ((size_t)M * K >= (1ull << 32)) return (int)cudaErrorInvalidValue;  // 32-bit x offsets
+    const mg::Problem pb{x, out, ws, M, K, N, per, K / mg::kBK};
+    err = mg::launch<Int8Op>(pb, {wt, s}, bm, bn, splits, st);
   }
-  dim3 grid(N / 128, 1, splits);
-  if (M <= 8)
-    int8_wo_gemv_kernel<1><<<grid, 128, 0, st>>>(x, wt, s, out, ws, M, K, N, ups);
-  else
-    int8_wo_gemv_kernel<2><<<grid, 128, 0, st>>>(x, wt, s, out, ws, M, K, N, ups);
-  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || ws == nullptr) return (int)err;
   const size_t mn = (size_t)M * N;
   int8_wo_reduce_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(ws, s, out, N, mn, splits);

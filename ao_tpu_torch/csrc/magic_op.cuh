@@ -146,7 +146,7 @@ struct MagicOp {
     }
   };
 
-  __device__ static float finish(const Args&, float acc) { return acc; }
+  __device__ static float finish(const Args&, int, float acc) { return acc; }
 };
 
 }  // namespace mg

@@ -4,7 +4,9 @@
 // (fp4_matmul.cu: MXFP4 / NVFP4, the TPU kernels
 // ao_tpu/ops/pallas/fp4_matmul.py::_mx_kernel and ::_nv_kernel), K11
 // (int4_matmul.cu: the split-half int4 layout, the TPU kernels
-// ao_tpu/ops/pallas/int4_matmul.py::_kernel and ::_kernel_twoplane) and,
+// ao_tpu/ops/pallas/int4_matmul.py::_kernel and ::_kernel_twoplane), K10
+// (int8_matmul.cu: int8 weight-only, ao_tpu/ops/pallas/int8_matmul.py::
+// _kernel, its per-column scale in finish) and,
 // with a per-group fold (below), K1 and K15 over the int4 magic layout
 // (magic_op.cuh; the TPU kernels int4_matmul.py::_magic_kernel and
 // lut4_matmul.py::_lut4_kernel). Only the decode differs between them: it
@@ -43,10 +45,13 @@
 // An Op supplies: Args (its pointers); raw_bytes<BN>() (raw bytes a stage
 // needs in its slot); x_col(args, pb, stage, chunk, valid) (the K column of
 // the stage's 16-byte x chunk 0..7, whose order defines the stage's K order
-// for the decode too); load_raw<BN, NT>(...) (cp.async of a stage's raw
-// bytes, no commit); decode_a<BN>(args, raw, stage, cl, lane, a) (the A
-// fragments a[k16 step][4] of local weight columns cl and cl + 8, lane's
-// K pairs); finish(args, acc) (the f32 epilogue before the bf16 store).
+// for the decode too), or kXInOrder = true for plain K order;
+// load_raw<BN, NT>(...) (cp.async of a stage's raw bytes, no commit);
+// decode_a<BN>(args, raw, stage, cl, lane, a) (the A fragments a[k16
+// step][4] of local weight columns cl and cl + 8, lane's K pairs);
+// finish(args, n, acc) (the f32 epilogue of weight column n before the bf16
+// store; a K split stores the partials unfinished, and its second pass
+// finishes them).
 // (A first version decoded each stage into a swizzled bf16 tile in shared
 // memory for wgmma to read as its B operand, x as A: the stores, the extra
 // barrier and the decoded tile's reads made it far slower.)
@@ -268,6 +273,18 @@ struct GroupLen<Op, std::void_t<decltype(Op::kGroup)>> {
   static constexpr int value = Op::kGroup;
 };
 
+// Whether an Op reads x in plain K order (stage s is columns 64 s .. 64 s
+// + 63, no x_col): every fold Op, and an Op that declares kXInOrder. Each
+// thread's x offsets are then computed once, before the K loop.
+template <class Op, class = void>
+struct XInOrder {
+  static constexpr bool value = GroupLen<Op>::value > 0;
+};
+template <class Op>
+struct XInOrder<Op, std::void_t<decltype(Op::kXInOrder)>> {
+  static constexpr bool value = Op::kXInOrder;
+};
+
 // Bytes of a fold Op's two unit buffers (0 without a fold).
 template <class Op, int BN, bool = (GroupLen<Op>::value > 0)>
 struct UnitBytes {
@@ -344,13 +361,15 @@ __global__ void __launch_bounds__(2 * BN, (Tile<Op, BM, BN>::kMinBlocks))
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   const int s0 = blockIdx.z * pb.per;
   const int count = min(pb.per, pb.stages - s0);
-  // fold Ops: x in K order (stage s is columns 64 s .. 64 s + 63), each
-  // thread's row offsets, and the Op's per-thread state, hoisted out of the
-  // K loop; unit u of stages [u U, (u + 1) U) in buffer u % 2
+  // x in K order (fold Ops and kXInOrder: stage s is columns 64 s .. 64 s +
+  // 63): each thread's row offsets hoisted out of the K loop; fold Ops:
+  // their per-thread state too, and unit u of stages [u U, (u + 1) U) in
+  // buffer u % 2
+  constexpr bool kXO = XInOrder<Op>::value;
   constexpr int XC = BM * 8 / NT;  // x chunks a thread
-  uint32_t xoff[kG > 0 ? XC : 1];  // element offsets in x (M K < 2^32)
+  uint32_t xoff[kXO ? XC : 1];     // element offsets in x (M K < 2^32)
   uint32_t xok = 0;                // bit k: the thread's row k of x exists
-  if constexpr (kG > 0) {
+  if constexpr (kXO) {
 #pragma unroll
     for (int k = 0; k < XC; ++k) {
       const int r = m0 + (tid >> 3) + k * (NT / 8);
@@ -359,8 +378,8 @@ __global__ void __launch_bounds__(2 * BN, (Tile<Op, BM, BN>::kMinBlocks))
     }
   }
   typename ThreadOf<Op, BM, BN, NT>::type th(args, pb, m0, n0, tid);
-  auto slot_at = [&](int i) {  // local stage i's slot (a fold Op's index math unsigned)
-    if constexpr (kG > 0)
+  auto slot_at = [&](int i) {  // local stage i's slot (index math unsigned with x in K order)
+    if constexpr (kXO)
       return ring + (uint32_t)i % ST * L::kSlot;
     else
       return ring + (i % ST) * L::kSlot;
@@ -378,12 +397,13 @@ __global__ void __launch_bounds__(2 * BN, (Tile<Op, BM, BN>::kMinBlocks))
     if (i < count) {
       uint8_t* slot = slot_at(i);
       const int s = s0 + i, c = tid & 7;
-      if constexpr (kG > 0) {
+      if constexpr (kXO) {
+        // rows past M: zeros for a fold Op; row 0 again for another Op,
+        // whose rows past M only reach accumulators that are not stored
 #pragma unroll
         for (int k = 0; k < XC; ++k)
           cp_async16(slot + sw128(tid >> 3, c) + k * (NT / 8) * kRowBytes,
-                     pb.x + (xoff[k] + (uint32_t)(kBK * s)), (xok >> k) & 1);
-        th.load(args, pb, slot + L::kX, unit_of(s), (uint32_t)s % Op::kUnitStages == 0, s);
+                     pb.x + (xoff[k] + (uint32_t)(kBK * s)), kG > 0 ? (xok >> k) & 1 : 1);
       } else {
         bool kv;
         const int col = Op::x_col(args, pb, s, c, kv);
@@ -393,8 +413,11 @@ __global__ void __launch_bounds__(2 * BN, (Tile<Op, BM, BN>::kMinBlocks))
           const __nv_bfloat16* src = valid ? pb.x + (size_t)(m0 + r) * pb.K + col : pb.x;
           cp_async16(slot + sw128(r, c), src, valid);
         });
-        Op::template load_raw<BN, NT>(args, pb, slot + L::kX, s, n0, tid);
       }
+      if constexpr (kG > 0)
+        th.load(args, pb, slot + L::kX, unit_of(s), (uint32_t)s % Op::kUnitStages == 0, s);
+      else
+        Op::template load_raw<BN, NT>(args, pb, slot + L::kX, s, n0, tid);
     }
     cp_async_commit();
   };
@@ -505,7 +528,7 @@ __global__ void __launch_bounds__(2 * BN, (Tile<Op, BM, BN>::kMinBlocks))
         *reinterpret_cast<float2*>(ws + off) = make_float2(lo, hi);
       else
         *reinterpret_cast<uint32_t*>(pb.out + off) =
-            pack_bf16x2(Op::finish(args, lo), Op::finish(args, hi));
+            pack_bf16x2(Op::finish(args, n + 8 * h, lo), Op::finish(args, n + 8 * h + 1, hi));
     }
 }
 

@@ -20,7 +20,9 @@ From the repo root, on a machine with a CUDA device and ``nvcc``:
    4096, where the cache bytes set the bound, K5-K7 at the slot engine's
    decode shape, and the flash prefill K8 at S = 2048; the int8 weight-only
    K10, the fp8 blockwise K17, the fp4 K14 (MXFP4 and NVFP4) and the NF4
-   LUT kernel K15 at M = 8 and 1024 over every Llama-3-8B width; the vision
+   LUT kernel K15 at M = 8 and 1024 over every Llama-3-8B width (K10's and
+   K17's launches with their tiles and K split, K17 beside cuBLAS's fp8
+   product with rowwise scales on the same operands); the vision
    slice's kernels at its paths' shapes: the int4 split-half matmul K11 at
    ViT-B's M = 788 rows (with ``autotune_int4``'s winners at both shapes,
    tuned into a temporary tile cache, beside the heuristic's tiles and
@@ -114,11 +116,11 @@ Each phase prints its seconds. Prints the kernel table as one JSON line and, as 
 ``{"ok": true, "device": {...}}``. Any failed check makes it exit non-zero
 without that line; so does a machine without a CUDA device.
 
-    python3 chip_smoke.py --kernels K1,K3,K11,K13,K14,K15,K18
+    python3 chip_smoke.py --kernels K1,K3,K10,K11,K13,K14,K15,K17,K18
 
-builds, then runs only the named kernels' phases (K1, K3, K11, K13, K14,
-K15, K18) and prints their rows as JSON, with no result line; the K1 and
-K15 rows name each launch's tiles and K split. A copy of this
+builds, then runs only the named kernels' phases (K1, K3, K10, K11, K13,
+K14, K15, K17, K18) and prints their rows as JSON, with no result line; the
+K1, K10, K15 and K17 rows name each launch's tiles and K split. A copy of this
 script run in another checkout times that checkout's kernels, so two trees'
 kernels can be set side by side on one card in one run (a checkout whose
 own script predates a kernel's name here takes a copy of this one: the
@@ -360,6 +362,44 @@ def magic_tiles(torch, m, k, n, g, kernel):
         unit = f"runs of {run[0]} word rows" if run else "super-groups"
         return f"decode kernel, {splits} splits of {per} {unit}"
     return f"tiles ({bm}, {bn}), {splits} splits of {per} stages"
+
+
+def launch_desc(torch, mod, m, k, n, stage):
+    """What a K10 (``mod`` int8_matmul) or K17 (fp8_matmul) launch at (M, K,
+    N) runs: the decode kernel's K split, or the prefill tiles and K split
+    in ``stage``s (None from a checkout whose wrapper predates
+    ``launch_tiles``)."""
+    launch_tiles = getattr(mod, "launch_tiles", None)
+    if launch_tiles is None:
+        return None
+    from ao_tpu_torch.ops.hopper import int4_matmul as k1
+
+    bm, bn, splits, per = launch_tiles(
+        m, k, n, k1._sm_count(torch.device(DEV, torch.cuda.current_device())))
+    if bm == mod.GEMV_MAX_M:
+        return f"decode kernel, {splits} splits of {per} K units of 128"
+    return f"tiles ({bm}, {bn}), {splits} splits of {per} {stage}"
+
+
+def scaled_mm_rowwise(torch, qx, qw):
+    """cuBLAS's fp8 tensor cores at this shape: (ms, what) of one
+    ``torch._scaled_mm`` over the same e4m3 operands with rowwise scales
+    (ones), a note beside K17's row and not its library column: rowwise
+    scales are not K17's function."""
+    from ao_tpu_torch.utils.timing import cuda_time_ms
+
+    a = torch.ones((qx.shape[0], 1), dtype=torch.float32, device=DEV)
+    b = torch.ones((1, qw.shape[1]), dtype=torch.float32, device=DEV)
+
+    def run():
+        return torch._scaled_mm(qx, qw, scale_a=a, scale_b=b, out_dtype=torch.bfloat16)
+
+    try:
+        run()
+        torch.cuda.synchronize()
+    except (RuntimeError, ValueError, TypeError) as e:
+        return None, f"torch._scaled_mm rowwise refused: {str(e).splitlines()[0][:160]}"
+    return cuda_time_ms(run, iters=10), "torch._scaled_mm rowwise (cuBLAS fp8)"
 
 
 def lsb_check(got, ref):
@@ -622,7 +662,8 @@ def k10_phase(torch, fails, seed):
         nbytes, flops = k10.traffic(m, k, n)
         rows[(m, k, n)] = kernel_row("K10 int8_wo_matmul", f"M={m} K={k} N={n}", got, ref,
                                      f"sqnr {sqnr:.2f} dB (>= {K10_SQNR_DB})", ms, plain_ms,
-                                     library_ms, nbytes, flops)
+                                     library_ms, nbytes, flops,
+                                     tiles=launch_desc(torch, k10, m, k, n, "stages of 64 K"))
         del qa, x, got, ref
         torch.cuda.empty_cache()
     return rows
@@ -691,10 +732,15 @@ def k17_phase(torch, fails, seed):
         lib_fn, lib_what = scaled_mm_blockwise(torch, qx, sx, qa.qdata, qa.scale, ref)
         library_ms = cuda_time_ms(lib_fn, iters=10)
         print(f"  K17 {(m, k, n)} library yardstick: {lib_what}", flush=True)
+        row_ms, row_what = scaled_mm_rowwise(torch, qx, qa.qdata)
+        note = row_what if row_ms is None else f"{row_what}: {row_ms:.4f} ms"
+        print(f"  K17 {(m, k, n)} beside it, not the same function: {note}", flush=True)
         nbytes, flops = k17.traffic(m, k, n)
         rows[(m, k, n)] = kernel_row("K17 fp8_blockwise_matmul", f"M={m} K={k} N={n}", got, ref,
                                      f"sqnr {sqnr:.2f} dB (> {K17_SQNR_DB})", ms, plain_ms,
-                                     library_ms, nbytes, flops, FP8_FLOPS_PER_S)
+                                     library_ms, nbytes, flops, FP8_FLOPS_PER_S,
+                                     tiles=launch_desc(torch, k17, m, k, n, "k-blocks"))
+        rows[(m, k, n)]["scaled_mm_rowwise_ms"] = row_ms
         del qa, x, qx, sx, got, ref, lib_fn
         torch.cuda.empty_cache()
     return rows
@@ -2333,10 +2379,11 @@ def k11_tile_cache(torch, card):
 
 
 def kernels_only(torch, names) -> int:
-    """Build, then run only the phases of ``names`` (of K1, K3, K11, K13,
-    K14, K15, K18) and print each one's rows as one JSON line."""
-    phases = {"K1": k1_phase, "K3": k3_phase, "K11": k11_phase, "K13": k13_phase,
-              "K14": k14_both, "K15": k15_phase, "K18": k18_phase}
+    """Build, then run only the phases of ``names`` (of K1, K3, K10, K11,
+    K13, K14, K15, K17, K18) and print each one's rows as one JSON line."""
+    phases = {"K1": k1_phase, "K3": k3_phase, "K10": k10_phase, "K11": k11_phase,
+              "K13": k13_phase, "K14": k14_both, "K15": k15_phase, "K17": k17_phase,
+              "K18": k18_phase}
     if not set(names) <= set(phases):
         print(f"chip_smoke: --kernels takes {', '.join(phases)}", file=sys.stderr)
         return 2
@@ -2356,8 +2403,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description="Smoke run of ao_tpu_torch on one NVIDIA GPU.")
     parser.add_argument("--kernels", type=lambda v: v.split(","),
-                        help="only these kernels' phases, of K1, K3, K11, K13, K14, K15, K18 "
-                             "(comma-separated)")
+                        help="only these kernels' phases, of K1, K3, K10, K11, K13, K14, K15, "
+                             "K17, K18 (comma-separated)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)

@@ -1,0 +1,130 @@
+"""Time the prefill launches of K10 (int8 weight-only) or K17 (fp8
+blockwise) at generate's five M = 1024 shapes over Llama-3-8B's widths, at
+the tiles each wrapper picks and at every other unsplit tile it takes, on
+one CUDA device; or compare the SASS of each kernel in two builds of one
+source, with names and addresses stripped.
+
+    python3 kernel_tiles.py time K10          # or K17
+    python3 kernel_tiles.py sass LIB_A LIB_B  # two builds' lib<source>-*.so
+
+Run in a copy of the tree with a kernel changed and in this one, in turns
+on one card, ``time`` sets the variant beside the kernel; ``sass`` on the
+two copies' libraries (``ao_tpu_torch/_build/``) shows whether a change to
+a shared header moved another kernel's code.
+"""
+
+from __future__ import annotations
+
+import argparse
+import difflib
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+M_PREFILL = 1024  # generate's prefill: batch 8 x prompt 128
+LLAMA_KN = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]
+
+
+def time_tiles(kernel: str) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_tiles: no CUDA device; times come only from a card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from ao_tpu_torch.ops.act_quant import quantize_activation
+    from ao_tpu_torch.ops.hopper import fp8_matmul as k17
+    from ao_tpu_torch.ops.hopper import int8_matmul as k10
+    from ao_tpu_torch.quantization.qarrays.common import ActQuantSpec
+    from ao_tpu_torch.quantization.qarrays.float8 import Float8Array
+    from ao_tpu_torch.quantization.qarrays.int8 import Int8Array
+    from ao_tpu_torch.utils.timing import cuda_time_ms
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"card: {torch.cuda.get_device_name(dev)}", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    mod = k10 if kernel == "K10" else k17
+    m = M_PREFILL
+    for k, n in LLAMA_KN:
+        w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(torch.bfloat16)
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        if kernel == "K10":
+            qa = Int8Array.from_hp(w, (k, 1))
+            args = (x, qa.qdata, qa.scale)
+        else:
+            qa = Float8Array.from_hp(w, (128, 128))
+            qx, sx, _ = quantize_activation(
+                x, ActQuantSpec(dtype="float8_e4m3fn", granularity="per_group:128"))
+            args = (qx, sx, qa.qdata, qa.scale)
+        del w
+        picked = tuple(mod.pick_tiles(m, k, n, sms)[:3])
+        tiles = [picked] + sorted({t for t in mod.candidate_tiles(m, k, n)
+                                   if t[2] == 1 and t != picked}, reverse=True)
+        times = []
+        for t in tiles:
+            us = 1e3 * cuda_time_ms(lambda: mod._launch(*args, tiles=t), iters=20)
+            times.append(f"{t} {us:.1f} us" + (" (picked)" if t == picked else ""))
+        print(f"{kernel} M={m} K={k} N={n}: " + ", ".join(times), flush=True)
+        del qa, args
+        torch.cuda.empty_cache()
+    return 0
+
+
+def _sass(lib: str):
+    """{kernel name, anonymous-namespace tags stripped: its instructions,
+    addresses and encodings stripped} of a built library."""
+    sys.path.insert(0, str(ROOT))
+    from ao_tpu_torch.ops.hopper import build
+
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    out = subprocess.run([str(cuobjdump), "-sass", lib], capture_output=True, text=True,
+                         check=True).stdout
+    funcs, name = {}, None
+    for line in out.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            name = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+", "ANON", found.group(1))
+            funcs[name] = []
+            continue
+        ins = re.sub(r"/\*[0-9a-f]{4,}\*/|/\* 0x[0-9a-f]+ \*/", "", line).strip()
+        if name is not None and ins:
+            funcs[name].append(ins)
+    return funcs
+
+
+def compare_sass(lib_a: str, lib_b: str) -> int:
+    a, b = _sass(lib_a), _sass(lib_b)
+    same = sorted(n for n in a.keys() & b.keys() if a[n] == b[n])
+    differ = sorted(n for n in a.keys() & b.keys() if a[n] != b[n])
+    only = sorted(a.keys() ^ b.keys())
+    print(f"SASS: {len(same)} kernels identical, {len(differ)} differ, {len(only)} in one "
+          f"build only")
+    for n in differ:
+        changed = [ln for ln in difflib.unified_diff(a[n], b[n], lineterm="", n=0)
+                   if ln[:1] in "+-" and ln[:3] not in ("+++", "---")]
+        print(f"  differs: {n} ({len(a[n])} against {len(b[n])} instructions, "
+              f"{len(changed)} changed lines)")
+    for n in only:
+        print(f"  in one build only: {n}")
+    return 0 if not differ and not only else 1
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    sub = parser.add_subparsers(dest="cmd", required=True)
+    t = sub.add_parser("time", help="time a kernel's prefill launch at each tile")
+    t.add_argument("kernel", choices=("K10", "K17"))
+    s = sub.add_parser("sass", help="compare the SASS of two builds of one source")
+    s.add_argument("lib_a")
+    s.add_argument("lib_b")
+    args = parser.parse_args()
+    if args.cmd == "time":
+        return time_tiles(args.kernel)
+    return compare_sass(args.lib_a, args.lib_b)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

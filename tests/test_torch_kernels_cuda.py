@@ -678,15 +678,26 @@ def _int8_weight(dev, k, n, seed):
     return Int8Array.from_hp(w, (k, 1)), gen
 
 
-@pytest.mark.parametrize("m,k,n", [
+# K10 at the decode kernel's and the mainloop's edges: (M, K, N)
+INT8_CASES = [
     (1, 256, 128),
     (8, 4096, 1024),    # split K over 32 units
     (8, 512, 384),
     (13, 1024, 256),    # two n8 tiles of batch rows, a ragged edge
-    (17, 512, 256),     # the tile kernel, one ragged 64-row block
+    (17, 512, 256),     # the mainloop, one ragged 64-row tile, K split in stages
     (200, 1024, 512),
     (1024, 1024, 384),  # prefill-sized M
-])
+    (100, 1024, 384),   # a ragged 128-row tile, N = 384
+    (40, 128, 256),     # K = 128: two stages
+    (100, 14336, 256),  # K = 14336: the ring's slots reused 45 times
+    (1024, 4096, 1024),  # Llama-3-8B's wk / wv at generate's prefill: K split in 4
+    (1024, 4096, 4096),  # its wq / wo
+]
+# every mainloop tile, unsplit and in three splits, at one shape: (M, K, N)
+INT8_TILE_CASE = (200, 1024, 384)
+
+
+@pytest.mark.parametrize("m,k,n", INT8_CASES)
 def test_int8_wo_matmul_matches_plain(dev, m, k, n):
     qa, gen = _int8_weight(dev, k, n, seed=m * 7 + n)
     assert qa.qdata.stride() == (1, k)  # stored column-major
@@ -701,6 +712,19 @@ def test_int8_wo_matmul_matches_plain(dev, m, k, n):
     # bound for the int8 kernel
     sqnr = float(compute_error(ref, got))
     assert sqnr >= 45, f"K10 vs plain: {sqnr:.2f} dB"
+
+
+def test_int8_wo_matmul_every_tile(dev):
+    m, k, n = INT8_TILE_CASE
+    qa, gen = _int8_weight(dev, k, n, seed=5)
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    ref = k10.int8_wo_matmul_plain(x, qa.qdata, qa.scale)
+    for bm, bn in k10.MAINLOOP_TILES:
+        for splits in (1, 3):
+            got = k10._launch(x, qa.qdata, qa.scale, tiles=(bm, bn, splits))
+            torch.cuda.synchronize()
+            sqnr = float(compute_error(ref, got))
+            assert sqnr >= 45, f"K10 tiles {(bm, bn, splits)}: {sqnr:.2f} dB"
 
 
 def test_int8_wo_matmul_refuses_on_the_card(dev):
@@ -729,15 +753,27 @@ def _fp8_block_operands(dev, m, k, n, seed):
     return qx, sx, qa
 
 
-@pytest.mark.parametrize("m,k,n", [
+# K17 at the decode kernel's and the prefill kernel's edges: (M, K, N)
+FP8_BLOCK_CASES = [
     (1, 256, 128),
     (8, 4096, 1024),    # split K over 32 k-blocks
     (8, 512, 384),
     (13, 1024, 256),    # two n8 tiles of batch rows
-    (17, 512, 256),     # the tile kernel, a ragged 32-row block
+    (17, 512, 256),     # the prefill kernel, a ragged 128-row tile, BN 64, K split
     (100, 1024, 512),
     (1024, 512, 256),   # prefill-sized M
-])
+    (17, 512, 384),     # N = 384
+    (200, 1024, 384),   # a ragged second row tile
+    (40, 128, 256),     # K = 128: one k-block, one stage
+    (300, 14336, 256),  # K = 14336: 112 k-blocks through the ring's slots
+    (1024, 4096, 1024),  # Llama-3-8B's wk / wv at generate's prefill (BN 64)
+    (1024, 4096, 4096),  # its wq / wo
+]
+# every prefill tile, unsplit and in three splits, at one shape: (M, K, N)
+FP8_BLOCK_TILE_CASE = (200, 1024, 384)
+
+
+@pytest.mark.parametrize("m,k,n", FP8_BLOCK_CASES)
 def test_fp8_blockwise_matches_plain(dev, m, k, n):
     qx, sx, qa = _fp8_block_operands(dev, m, k, n, seed=m * 3 + n)
     assert qa.qdata.stride() == (1, k) and sx.shape == (m, k // 128)
@@ -751,6 +787,45 @@ def test_fp8_blockwise_matches_plain(dev, m, k, n):
     # another order, bf16 out (the JAX suite's bound is > 30 dB)
     sqnr = float(compute_error(ref, got))
     assert sqnr > 30, f"K17 vs plain: {sqnr:.2f} dB"
+
+
+def test_fp8_blockwise_every_tile(dev):
+    m, k, n = FP8_BLOCK_TILE_CASE
+    qx, sx, qa = _fp8_block_operands(dev, m, k, n, seed=6)
+    ref = k17.fp8_blockwise_matmul_plain(qx, sx, qa.qdata, qa.scale)
+    for bn in k17.PREFILL_BN:
+        for splits in (1, 3):
+            got = k17._launch(qx, sx, qa.qdata, qa.scale, tiles=(k17.PREFILL_BM, bn, splits))
+            torch.cuda.synchronize()
+            sqnr = float(compute_error(ref, got))
+            assert sqnr > 30, f"K17 tiles {(k17.PREFILL_BM, bn, splits)}: {sqnr:.2f} dB"
+
+
+def test_fp8_blockwise_raises_when_no_tensor_map(dev, monkeypatch):
+    """A tensor map libcuda refuses (here: qx's rows 16-byte aligned,
+    its base not) makes the C function return minus the CUresult before any
+    launch, and the wrapper raise; nothing falls back."""
+    import ctypes
+
+    qx, sx, qa = _fp8_block_operands(dev, 64, 256, 128, seed=7)
+    buf = torch.zeros(qx.numel() + 16, dtype=torch.uint8, device=dev)
+    out = torch.empty((64, 128), dtype=torch.bfloat16, device=dev)
+    wt = qa.qdata.t()
+    err = k17._lib().ao_fp8_blockwise(buf.data_ptr() + 1, sx.data_ptr(), wt.data_ptr(),
+                                      qa.scale.data_ptr(), out.data_ptr(), None, 64, 256, 128,
+                                      128, 128, 1, 2, ctypes.c_void_p(0))
+    assert err < 0
+
+    class Refusing:
+        @staticmethod
+        def ao_fp8_blockwise(*args):
+            return -1
+
+    monkeypatch.setattr(k17, "_lib", lambda: Refusing)
+    before = k17.fp8_blockwise_matmul.launches
+    with pytest.raises(RuntimeError, match="cuTensorMapEncodeTiled"):
+        k17.fp8_blockwise_matmul(qx, sx, qa.qdata, qa.scale)
+    assert k17.fp8_blockwise_matmul.launches == before
 
 
 def test_fp8_blockwise_refuses_on_the_card(dev):

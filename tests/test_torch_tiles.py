@@ -1,10 +1,12 @@
 """The tile choices of K14 (``fp4_matmul.pick_tiles``), K11
 (``int4_matmul.pick_tiles_halves``), K1 (``int4_matmul.launch_tiles``:
-``pick_splits`` and ``pick_tiles``) and K15 (``lut4_matmul.launch_tiles``) over every shape
-``chip_smoke.py`` and the card's tests give them, the PyTorch mirror of
-K14's integer decode against the plain decode over every code and scale
-byte, the PyTorch mirror of K1's and K15's stage K order and per-group fold
-against their plain versions, and the ported tile cache
+``pick_splits`` and ``pick_tiles``), K15 (``lut4_matmul.launch_tiles``),
+K10 (``int8_matmul.pick_tiles``) and K17 (``fp8_matmul.pick_tiles``) over
+every shape ``chip_smoke.py`` and the card's tests give them, the PyTorch
+mirrors of K14's and K10's integer decodes against the plain decode over
+every code and scale byte, the PyTorch mirror of K1's and K15's stage K
+order and per-group fold and of K17's stage order and promotion against
+their plain versions, and the ported tile cache
 (``ops/hopper/autotune.py``). CPU only, a few seconds."""
 
 import importlib.util
@@ -17,7 +19,9 @@ import torch
 
 from ao_tpu_torch.ops.hopper import autotune
 from ao_tpu_torch.ops.hopper import fp4_matmul as k14
+from ao_tpu_torch.ops.hopper import fp8_matmul as k17
 from ao_tpu_torch.ops.hopper import int4_matmul as k1
+from ao_tpu_torch.ops.hopper import int8_matmul as k10
 from ao_tpu_torch.ops.hopper import lut4_matmul as k15
 from ao_tpu_torch.quantization.primitives import ZeroPointDomain
 from ao_tpu_torch.quantization.qarrays.fp4 import _remap_fp4_magic, decode_fp4_e2m1
@@ -47,6 +51,14 @@ K1_SHAPES = sorted({(m, k, n, _smoke.GROUP) for m, k, n in _smoke.K1_SHAPES}
                    | {case[:4] for case in _cuda.MAGIC_CASES} | {_cuda.MAGIC_TILE_CASE})
 K15_SHAPES = sorted({(m, k, n, _smoke.NF4_GROUP) for m, k, n in _smoke.WEIGHT_SHAPES}
                     | set(_cuda.LUT4_CASES))
+# K10 and K17: every shape of the smoke run and the card's tests, and ragged
+# row tiles (M = 17, 100) at N = 384
+RAGGED = {(m, 4096, 384) for m in (17, 100)}
+K10_SHAPES = sorted(set(_smoke.WEIGHT_SHAPES) | set(_cuda.INT8_CASES) | RAGGED
+                    | {_cuda.INT8_TILE_CASE})
+K17_SHAPES = sorted(set(_smoke.WEIGHT_SHAPES) | set(_cuda.FP8_BLOCK_CASES) | RAGGED
+                    | {_cuda.FP8_BLOCK_TILE_CASE})
+LLAMA_PREFILL = [(1024, k, n) for k, n in _smoke.LLAMA_KN]  # generate's prefill, M = 8 x 128
 
 
 @pytest.fixture
@@ -279,3 +291,82 @@ def test_k15_stage_order_and_fold_mirror_the_plain_version(g, n_luts):
     ref = k15.lut4_wo_magic_plain(x, word, scalers, cb, g)
     got = k15.lut4_wo_magic_mirror(x, word, scalers, cb, g)
     torch.testing.assert_close(got, ref, rtol=0, atol=MIRROR_TOL * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("m,k,n", K10_SHAPES)
+def test_k10_tiles_cover_k_and_fill_the_card(m, k, n):
+    bm, bn, splits, per = k10.pick_tiles(m, k, n, SM)
+    assert n % bn == 0
+    if m <= k10.GEMV_MAX_M:  # the decode kernel: K units of 128, blocks of 128 columns
+        assert (bm, bn) == (k10.GEMV_MAX_M, k10.UNIT)
+        assert _covers(k // k10.UNIT, splits, per)
+        return
+    assert (bm, bn, splits) in k10.candidate_tiles(m, k, n)
+    stages = k // k10.K_STAGE
+    assert _covers(stages, splits, per)
+    ctas = -(-m // bm) * (n // bn) * splits
+    # three quarters of the card's CTA slots (one CTA an SM at BM = 256, two
+    # below), or every stage a split of its own; always at generate's prefill
+    slots = SM * k14.ctas_per_sm(bm)
+    assert 4 * ctas >= 3 * slots or splits == stages, (bm, bn, splits, per, ctas)
+    if (m, k, n) in LLAMA_PREFILL:
+        assert 4 * ctas >= 3 * slots
+
+
+@pytest.mark.parametrize("m,k,n", K17_SHAPES)
+def test_k17_tiles_cover_k_and_fill_the_card(m, k, n):
+    bm, bn, splits, per = k17.pick_tiles(m, k, n, SM)
+    assert n % bn == 0
+    kbs = k // k17.BLK
+    assert _covers(kbs, splits, per)
+    if m <= k17.GEMV_MAX_M:  # the decode kernel, blocks of 128 columns
+        assert (bm, bn) == (k17.GEMV_MAX_M, 128)
+        return
+    assert (bm, bn, splits) in k17.candidate_tiles(m, k, n)
+    assert bm == k17.PREFILL_BM and 128 % bn == 0  # one sw value a CTA and k-block
+    ctas = -(-m // bm) * (n // bn) * splits
+    # one CTA an SM: three quarters of the SMs, or every k-block a split of
+    # its own; at generate's prefill without a split
+    assert 4 * ctas >= 3 * SM or splits == kbs, (bm, bn, splits, per, ctas)
+    if (m, k, n) in LLAMA_PREFILL:
+        assert 4 * ctas >= 3 * SM and splits == 1
+
+
+@pytest.mark.parametrize("mod,tiles", [(k10, (32, 128, 1)), (k10, (256, 256, 1)),
+                                       (k10, (64, 128, 17)), (k17, (64, 128, 1)),
+                                       (k17, (128, 32, 1)), (k17, (128, 128, 9))],
+                         ids=["k10-bm", "k10-bn", "k10-splits", "k17-bm", "k17-bn",
+                              "k17-splits"])
+def test_launch_tiles_refuse_what_no_kernel_is_built_for(mod, tiles):
+    m, k, n = 200, 1024, 384  # 16 stages of 64 K, 8 k-blocks
+    with pytest.raises(ValueError, match="tiles"):
+        mod.launch_tiles(m, k, n, SM, tiles)
+
+
+def test_k10_decode_mirror_is_the_plain_cast():
+    """Every int8 value, bit for bit."""
+    q = torch.arange(-128, 128, dtype=torch.int32).to(torch.int8)
+    got = k10.int8_decode_mirror(q)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), q.to(torch.bfloat16).view(torch.int16))
+
+
+# K17's prefill arithmetic in PyTorch (k-blocks in order, four k32 steps
+# into a fresh f32 sum, the fold acc = fma(tmp, sx * sw, acc)) against the
+# plain version's (part * sx) * sw: exact fp8 products in both, the f32
+# sums' order and the scales' product rounded differently
+FP8_MIRROR_TOL = 1e-6  # of the output's largest magnitude
+
+
+@pytest.mark.parametrize("m,k,n", [(5, 384, 256), (17, 128, 128), (3, 512, 384)])
+def test_k17_stage_order_and_promotion_mirror_the_plain_version(m, k, n):
+    rng = np.random.default_rng(m + k + n)
+    qx = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32) * 30).to(
+        torch.float8_e4m3fn)
+    qw = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32) * 30).to(
+        torch.float8_e4m3fn)
+    sx = torch.from_numpy(rng.random((m, k // 128)).astype(np.float32) + 0.01)
+    sw = torch.from_numpy(rng.random((k // 128, n // 128)).astype(np.float32) + 0.01)
+    ref = k17.fp8_blockwise_matmul_plain(qx, sx, qw, sw)
+    got = k17.fp8_block_fold_mirror(qx, sx, qw, sw)
+    torch.testing.assert_close(got, ref, rtol=0, atol=FP8_MIRROR_TOL * float(ref.abs().max()))
