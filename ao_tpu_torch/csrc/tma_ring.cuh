@@ -1,7 +1,8 @@
 // The pieces of a TMA-fed ring of shared-memory stages for Hopper (sm_90a):
-// 2-D tensor maps encoded on the host, bulk tensor copies that complete on
-// an mbarrier, and the mbarrier operations a producer and its consumers
-// use. K17's prefill kernel (fp8_matmul.cu) is built on them.
+// 2-D and 3-D tensor maps encoded on the host, bulk tensor copies that
+// complete on an mbarrier, and the mbarrier operations a producer and its
+// consumers use. K17's prefill kernel (fp8_matmul.cu) and the attention
+// mainloop of K8 and K16 (attn_mainloop.cuh) are built on them.
 //
 // Tensor maps are encoded by cuTensorMapEncodeTiled, a libcuda function.
 // Its address comes from the runtime (cudaGetDriverEntryPoint*), once, so
@@ -84,6 +85,16 @@ __device__ __forceinline__ void load_2d(void* dst, const CUtensorMap* map, uint6
       : "memory");
 }
 
+// The box of a 3-D `map` at (c0 innermost, c1, c2), as load_2d.
+__device__ __forceinline__ void load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                        int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
@@ -148,6 +159,26 @@ inline CUresult encode_rows_sw128(CUtensorMap* map, const void* base, uint64_t r
   const cuuint32_t box[2] = {128, box_rows};
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// The map of a bf16 tensor (n2, n1, n0), n0 innermost and contiguous, at
+// `base` (16-byte aligned), n1 and n2 strided by stride1 and stride2 bytes
+// (multiples of 16), in boxes of box1 x 64 values (128 bytes a row) at one
+// index of n2, with the 128-byte swizzle. A box that runs past n1 lands as
+// zeros and never reads the next n2 index's rows. Returns libcuda's CUresult,
+// or CUDA_ERROR_NOT_FOUND without the entry point.
+inline CUresult encode_bf16_3d_sw128(CUtensorMap* map, const void* base, uint64_t n0, uint64_t n1,
+                                     uint64_t n2, uint64_t stride1, uint64_t stride2,
+                                     uint32_t box1) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[3] = {n0, n1, n2};
+  const cuuint64_t strides[2] = {stride1, stride2};
+  const cuuint32_t box[3] = {64, box1, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }

@@ -8,15 +8,19 @@ the reference takes (B, H, S, D) with K and V repeated over the G heads.
 The causal mask is the reference's, top-left aligned: query row i, counted
 from 0, sees cache rows 0..i, also when Sq < Sk.
 
-``flash_attention`` runs the kernel (``csrc/flash_attention.cu``, whose
-header says what bounds it) on CUDA tensors and its plain PyTorch version
-on CPU tensors, and counts its launches. q is taken in bf16, as every
-attention kernel of the port takes it.
+``flash_attention`` runs the kernel (``csrc/flash_attention.cu`` on the
+shared attention mainloop ``csrc/attn_mainloop.cuh``, whose headers say
+what bounds it) on CUDA tensors and its plain PyTorch version on CPU
+tensors, and counts its launches. q is taken in bf16, as every attention
+kernel of the port takes it. ``launch_plan`` says what a launch on the
+mainloop runs: the cache rows its tensor maps cover and its CTAs in launch
+order.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import List, NamedTuple, Tuple
 
 import torch
 
@@ -24,11 +28,12 @@ from ao_tpu_torch.ops.hopper import build
 
 _MASK = -0.7 * float(torch.finfo(torch.float32).max)  # the reference's mask value
 
-# what flash_attention.cu takes, and its keys per tile of the online softmax,
-# which the plain version's roundings follow (checked against the library
-# when it loads)
+# what flash_attention.cu takes, its keys per tile of the online softmax,
+# which the plain version's roundings follow, and its query rows a CTA
+# (checked against the library when it loads)
 HEAD_DIM = 128
 BLOCK_K = 64
+BLOCK_Q = 64
 
 
 def takes(head_dim: int, group: int) -> bool:
@@ -46,17 +51,48 @@ def _lib():
     if _LIB is None:
         lib = build.load("flash_attention")
         fn = lib.ao_flash_attention
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
-                                                                     ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         for name, want in (("ao_flash_attention_head_dim", HEAD_DIM),
-                           ("ao_flash_attention_block_k", BLOCK_K)):
+                           ("ao_flash_attention_block_k", BLOCK_K),
+                           ("ao_flash_attention_block_q", BLOCK_Q)):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_int
             if getattr(lib, name)() != want:
                 raise RuntimeError(f"flash_attention.cu: {name} is not {want}")
         _LIB = lib
     return _LIB
+
+
+def kv_rows(sq: int, sk: int, causal: bool) -> int:
+    """The cache rows the kernel's tensor maps cover: causally min(Sq, Sk),
+    so the rows past Sq, which a prefill has not written, are never read."""
+    return min(sq, sk) if causal else sk
+
+
+class LaunchPlan(NamedTuple):
+    block_q: int   # query rows a CTA
+    kv_len: int    # cache rows the tensor maps cover
+    ctas: List[Tuple[int, int, int, int]]  # (first row, batch row, head, key tiles), launch order
+
+
+def launch_plan(q_shape, kv_shape, causal: bool, block_q: int = BLOCK_Q) -> LaunchPlan:
+    """What a launch on the attention mainloop runs at these shapes, with
+    ``block_q`` query rows a CTA (K16 picks its own), as
+    ``csrc/attn_mainloop.cuh`` orders it: CTA i takes head i % H, batch row
+    (i / H) % B and the query tile counted from the last, so the heaviest
+    causal tiles start first; causally a CTA loads the 64-key tiles up to
+    its last row."""
+    b, sq, h, _ = q_shape
+    kv_len = kv_rows(sq, kv_shape[1], causal)
+    n_qt = -(-sq // block_q)
+    ctas = []
+    for i in range(n_qt * h * b):
+        q0 = (n_qt - 1 - i // h // b) * block_q
+        end = min(kv_len, q0 + block_q, sq) if causal else kv_len
+        ctas.append((q0, i // h % b, i % h, -(-end // BLOCK_K)))
+    return LaunchPlan(block_q, kv_len, ctas)
 
 
 def flash_attention_plain(q, k, v, causal: bool, sm_scale: float) -> torch.Tensor:
@@ -112,11 +148,15 @@ def _launch(q, k, v, causal: bool, sm_scale: float) -> torch.Tensor:
     lib = _lib()
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
+    kv_len = kv_rows(sq, sk, causal)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.ao_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                     b, sq, sk, h, hkv, sm_scale, int(causal), stream)
+                                     b, sq, sk, h, hkv, kv_len, sm_scale, int(causal), stream)
+    if err < 0:
+        raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled failed (CUresult {-err}); "
+                           f"q, K and V must be 16-byte aligned")
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     flash_attention.launches += 1

@@ -9,9 +9,10 @@ rel_w (G, nh, T, side),
     out = softmax(s over the T keys) . v,  (G, T, nh * hd) bf16.
 
 The CUDA source ``csrc/window_attention.cu`` says what bounds the kernel and
-how its design meets it: a streamed online softmax over 64-key tiles, so it
-takes the global layers' side 64 (T = 4096), which the TPU kernel refuses
-for lack of VMEM. ``window_bias_attention`` runs the kernel on CUDA tensors
+how its design meets it: a streamed online softmax over 64-key tiles on the
+shared attention mainloop (``csrc/attn_mainloop.cuh``), so it takes the
+global layers' side 64 (T = 4096), which the TPU kernel refuses for lack of
+VMEM. ``window_bias_attention`` runs the kernel on CUDA tensors
 and its plain PyTorch version on CPU tensors; ``takes(side, head_dim)`` says
 which shapes the kernel takes, and the route in ``models/sam.py`` asks it
 before the call. q, k, v and the rel terms are taken in bf16, as the
@@ -26,12 +27,13 @@ import torch
 
 from ao_tpu_torch.ops.hopper import build
 
-# what window_attention.cu takes, and its keys per tile of the online
-# softmax, which the plain version's roundings follow (checked against the
-# library when it loads)
+# what window_attention.cu takes, its keys per tile of the online softmax,
+# which the plain version's roundings follow, and its query rows a CTA
+# (checked against the library when it loads)
 HEAD_DIM = 64
 MAX_SIDE = 64
 BLOCK_K = 64
+BLOCK_Q = 128
 
 
 def takes(side: int, head_dim: int) -> bool:
@@ -54,7 +56,8 @@ def _lib():
         fn.restype = ctypes.c_int
         for name, want in (("ao_window_attention_head_dim", HEAD_DIM),
                            ("ao_window_attention_max_side", MAX_SIDE),
-                           ("ao_window_attention_block_k", BLOCK_K)):
+                           ("ao_window_attention_block_k", BLOCK_K),
+                           ("ao_window_attention_block_q", BLOCK_Q)):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_int
             if getattr(lib, name)() != want:
@@ -124,6 +127,9 @@ def _launch(q, k, v, rel_h, rel_w, side: int, scale: float) -> torch.Tensor:
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().ao_window_attention(*(x.data_ptr() for x in args), out.data_ptr(), g, t,
                                          side, nh, float(scale), stream)
+    if err < 0:
+        raise RuntimeError(f"window_bias_attention: cuTensorMapEncodeTiled failed (CUresult "
+                           f"{-err}); q, k and v must be 16-byte aligned")
     if err != 0:
         raise RuntimeError(f"window_bias_attention kernel launch failed: CUDA error {err}")
     window_bias_attention.launches += 1

@@ -116,11 +116,13 @@ Each phase prints its seconds. Prints the kernel table as one JSON line and, as 
 ``{"ok": true, "device": {...}}``. Any failed check makes it exit non-zero
 without that line; so does a machine without a CUDA device.
 
-    python3 chip_smoke.py --kernels K1,K3,K10,K11,K13,K14,K15,K17,K18
+    python3 chip_smoke.py --kernels K1,K3,K8,K10,K11,K13,K14,K15,K16,K17,K18
 
-builds, then runs only the named kernels' phases (K1, K3, K10, K11, K13,
-K14, K15, K17, K18) and prints their rows as JSON, with no result line; the
-K1, K10, K15 and K17 rows name each launch's tiles and K split. A copy of this
+builds, then runs only the named kernels' phases (K1, K3, K8, K10, K11,
+K13, K14, K15, K16, K17, K18) and prints their rows as JSON, with no result
+line (``--sam`` the SAM-B paths alone, with images/s); the K1, K10, K15
+and K17 rows name each launch's tiles and K split, the K8 and K16 rows its
+query rows a CTA. A copy of this
 script run in another checkout times that checkout's kernels, so two trees'
 kernels can be set side by side on one card in one run (a checkout whose
 own script predates a kernel's name here takes a copy of this one: the
@@ -957,9 +959,15 @@ def k16_phase(torch, fails, seed, g, side):
                                                                      scale=sm), iters=10)
     del bias, lib
     nbytes, flops = k16.traffic(g, t, nh, hd, side)
+    tiles = None
+    if hasattr(k16, "BLOCK_Q"):  # a checkout whose wrapper predates it has no plan
+        from ao_tpu_torch.ops.hopper import flash_attention as k8
+
+        plan = k8.launch_plan(tuple(q.shape), tuple(q.shape), False, k16.BLOCK_Q)
+        tiles = f"block_q {plan.block_q}, {len(plan.ctas)} CTAs, key tiles {plan.ctas[0][3]}"
     row = kernel_row("K16 window_bias_attention", f"G={g} T={t} side={side} nh={nh} hd={hd}",
                      got, ref, f"sqnr {sqnr:.2f} dB (>= {K16_SQNR_DB}); without the bias "
-                     f"{nobias:.2f} dB", ms, plain_ms, library_ms, nbytes, flops)
+                     f"{nobias:.2f} dB", ms, plain_ms, library_ms, nbytes, flops, tiles=tiles)
     torch.cuda.empty_cache()
     return row
 
@@ -1218,9 +1226,14 @@ def k8_phase(torch, fails, seed, b, sq, sk):
     plain_ms = cuda_time_ms(lambda: k8.flash_attention_plain(q, kc, vc, True, sm), iters=3,
                             warmup=1)
     nbytes, flops = k8.traffic(tuple(q.shape), tuple(kc.shape))
+    tiles = None
+    if hasattr(k8, "launch_plan"):  # a checkout whose wrapper predates it has no plan
+        plan = k8.launch_plan(tuple(q.shape), tuple(kc.shape), True)
+        tiles = (f"block_q {plan.block_q}, {len(plan.ctas)} CTAs, key tiles "
+                 f"{plan.ctas[0][3]}-{plan.ctas[-1][3]}")
     return kernel_row("K8 flash_attention", f"B={b} Sq={sq} Sk={sk} H={h} Hkv={hkv} D={d}", got,
                       ref, f"sqnr {sqnr:.2f} dB (>= {K8_SQNR_DB})", ms, plain_ms,
-                      cuda_time_ms(sdpa, iters=20), nbytes, flops)
+                      cuda_time_ms(sdpa, iters=20), nbytes, flops, tiles=tiles)
 
 
 def k9_phase(torch, fails, seed, lengths, max_pages, dtype_name=None):
@@ -2378,12 +2391,23 @@ def k11_tile_cache(torch, card):
         autotune._CACHE = None
 
 
+def k8_rows(torch, fails, seed):
+    """K8's rows at each shape of K8_SHAPES."""
+    return {shape: k8_phase(torch, fails, seed, *shape) for shape in K8_SHAPES}
+
+
+def k16_rows(torch, fails, seed):
+    """K16's rows at each shape of K16_SHAPES."""
+    return {shape: k16_phase(torch, fails, seed, *shape) for shape in K16_SHAPES}
+
+
 def kernels_only(torch, names) -> int:
-    """Build, then run only the phases of ``names`` (of K1, K3, K10, K11,
-    K13, K14, K15, K17, K18) and print each one's rows as one JSON line."""
-    phases = {"K1": k1_phase, "K3": k3_phase, "K10": k10_phase, "K11": k11_phase,
-              "K13": k13_phase, "K14": k14_both, "K15": k15_phase, "K17": k17_phase,
-              "K18": k18_phase}
+    """Build, then run only the phases of ``names`` (of K1, K3, K8, K10,
+    K11, K13, K14, K15, K16, K17, K18) and print each one's rows as one JSON
+    line."""
+    phases = {"K1": k1_phase, "K3": k3_phase, "K8": k8_rows, "K10": k10_phase,
+              "K11": k11_phase, "K13": k13_phase, "K14": k14_both, "K15": k15_phase,
+              "K16": k16_rows, "K17": k17_phase, "K18": k18_phase}
     if not set(names) <= set(phases):
         print(f"chip_smoke: --kernels takes {', '.join(phases)}", file=sys.stderr)
         return 2
@@ -2398,13 +2422,35 @@ def kernels_only(torch, names) -> int:
     return 1 if fails else 0
 
 
+def sam_only(torch) -> int:
+    """Build, then run only the SAM-B paths (W8A8 and bf16: exact launch
+    counts, masks and IoU against the plain route, images/s over three
+    forwards and a profile each) and print images/s as one JSON line."""
+    from ao_tpu_torch.ops.hopper import fused_act as k12
+    from ao_tpu_torch.ops.hopper import window_attention as k16
+
+    print(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}",
+          flush=True)
+    build_all()
+    fails = Failures()
+    counters = {"window_bias_attention": k16.window_bias_attention,
+                "norm_modulate_quant": k12.norm_modulate_quant, "gelu_quant": k12.gelu_quant}
+    launches, ips = {}, {}
+    with phase("SAM-B paths"):
+        sam_paths(torch, fails, counters, launches, ips)
+    print(json.dumps({"images/s": ips}), flush=True)
+    return 1 if fails else 0
+
+
 def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser(description="Smoke run of ao_tpu_torch on one NVIDIA GPU.")
     parser.add_argument("--kernels", type=lambda v: v.split(","),
-                        help="only these kernels' phases, of K1, K3, K10, K11, K13, K14, K15, "
-                             "K17, K18 (comma-separated)")
+                        help="only these kernels' phases, of K1, K3, K8, K10, K11, K13, K14, "
+                             "K15, K16, K17, K18 (comma-separated)")
+    parser.add_argument("--sam", action="store_true",
+                        help="only the SAM-B paths (W8A8 and bf16), for images/s")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
@@ -2414,6 +2460,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if args.kernels:
         return kernels_only(torch, args.kernels)
+    if args.sam:
+        return sam_only(torch)
     import ao_tpu_torch
     from ao_tpu_torch.models import llama
     from ao_tpu_torch.ops.hopper import bsr_matmul as k18
@@ -2454,7 +2502,7 @@ def main() -> int:
         k12_row = k12_phase(torch, fails, SEED)
         k2_engine = k2_phase(torch, fails, SEED, t=ENGINE_CFG["max_seq"],
                              lengths=ENGINE_LENGTHS)
-        k8_rows = {shape: k8_phase(torch, fails, SEED, *shape) for shape in K8_SHAPES}
+        k8_by_shape = k8_rows(torch, fails, SEED)
         # K9 in each mode at the engine's decode shape and at T = 4096
         k9_rows = {kv: (k9_phase(torch, fails, SEED, ENGINE_LENGTHS,
                                  ENGINE_CFG["max_seq"] // PAGE, kv),
@@ -2472,7 +2520,7 @@ def main() -> int:
         k11_tile_cache(torch, card)
         k12n_rows = {shape: k12v_phase(torch, fails, SEED, "norm", shape) for shape in K12N_SHAPES}
         k12g_rows = {shape: k12v_phase(torch, fails, SEED, "gelu", shape) for shape in K12G_SHAPES}
-        k16_rows = {shape: k16_phase(torch, fails, SEED, *shape) for shape in K16_SHAPES}
+        k16_by_shape = k16_rows(torch, fails, SEED)
     with phase("kernel K13"):
         k13_rows = k13_phase(torch, fails, SEED)
     with phase("kernel K18"):
@@ -2708,7 +2756,7 @@ def main() -> int:
     rows += [("decode_attention_vec8", "decode_attention_quant.cu", "decode_attention.py:234",
               KV_TAG["float8_e5m2"], row) for row in (kv_rows["k2v-int8"], long_rows["k2v-int8"])]
     rows += [("flash_attention", "flash_attention.cu", "flash_attention.py:94",
-              "int4-WO+flash" if shape[0] > 1 else "engine-slots", k8_rows[shape])
+              "int4-WO+flash" if shape[0] > 1 else "engine-slots", k8_by_shape[shape])
              for shape in K8_SHAPES]
     rows += [(KV_KERNELS[kv][0], "decode_attention_quant.cu", ref, engine_tag(False, kv),
               engine_kv_rows[kv])
@@ -2733,7 +2781,7 @@ def main() -> int:
     rows += [("gelu_quant", "fused_act.cu", "fused_act.py:122", "SAM-B W8A8", k12g_rows[shape])
              for shape in K12G_SHAPES]
     rows += [("window_bias_attention", "window_attention.cu", "window_attention.py:126",
-              "SAM-B W8A8", k16_rows[shape]) for shape in K16_SHAPES]
+              "SAM-B W8A8", k16_by_shape[shape]) for shape in K16_SHAPES]
     rows += [(K13_FORMS[form][0], "grouped_matmul.cu", K13_FORMS[form][1], path,
               k13_rows[(form, t, k, n)]) for form, t, k, n, path in K13_SHAPES]
     rows += [("bsr_matmul", "bsr_matmul.cu", "bsr_matmul.py:25", sh[5], k18_rows[sh[:5]])

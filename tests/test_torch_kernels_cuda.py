@@ -389,15 +389,21 @@ def test_generate_w4a8_goes_through_its_kernels(dev):
                                               cfg.n_layers * 4]
 
 
-@pytest.mark.parametrize("b,sq,sk,h,hkv,causal", [
+# K8's cases: (B, Sq, Sk, H, Hkv, causal)
+FLASH_CASES = [
     (1, 128, 128, 4, 2, True),
     (1, 128, 128, 4, 2, False),
     (2, 128, 256, 4, 2, True),      # Sq < Sk: top-left aligned, the cache rows past Sq unseen
     (2, 13, 128, 8, 8, True),       # a ragged query tile
     (1, 200, 200, 4, 1, False),     # a ragged key tile
+    (1, 200, 200, 4, 1, True),      # a ragged query tile, causal
+    (2, 200, 200, 4, 1, False),     # a ragged key tile; NaN in the next batch row's K, V
     (8, 128, 256, 32, 8, True),     # generate(use_flash=True)
     (1, 512, 512, 32, 8, True),     # the engine's largest bucket
-])
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hkv,causal", FLASH_CASES)
 def test_flash_attention_matches_plain(dev, b, sq, sk, h, hkv, causal):
     gen = torch.Generator(device=dev).manual_seed(sq * 7 + sk)
     q = torch.randn((b, sq, h, 128), generator=gen, device=dev).to(torch.bfloat16)
@@ -409,15 +415,63 @@ def test_flash_attention_matches_plain(dev, b, sq, sk, h, hkv, causal):
     assert k8.flash_attention.launches == before + 1
     ref = k8.flash_attention_plain(q, kc, vc, causal, 128 ** -0.5)
     # f32 scores and sums in both, bf16 p and output; the kernel rounds p
-    # against its running max per 64-key tile, the plain version against
-    # the row's max
+    # against its running max per 64-key tile, as the plain version does
     sqnr = float(compute_error(ref.float(), got.float()))
     assert got.dtype == torch.bfloat16 and got.shape == q.shape and sqnr >= 40, f"{sqnr:.2f} dB"
     if causal and sq < sk:
         # rows past Sq of the cache never reach the output
         vc[:, sq:] = float("nan")
+        kc[:, sq:] = float("nan")
         again = k8.flash_attention(q, kc, vc, causal=True)
         assert torch.equal(again, got)
+    if b > 1 and not causal:
+        # the last key tile runs past Sk: the tensor maps zero-fill it and
+        # never read the next batch row's keys
+        kc[1:], vc[1:] = float("nan"), float("nan")
+        again = k8.flash_attention(q, kc, vc, causal=False)
+        torch.cuda.synchronize()
+        assert torch.isfinite(again[0]).all()
+        assert torch.equal(again[0], k8.flash_attention(q[:1], kc[:1], vc[:1], causal=False)[0])
+
+
+@pytest.mark.parametrize("kernel", ["K8", "K16"])
+def test_attention_raises_when_no_tensor_map(dev, monkeypatch, kernel):
+    """A tensor map libcuda refuses (here: q's base not 16-byte aligned)
+    makes the C function return minus the CUresult before any launch, and
+    the wrapper raise; nothing falls back."""
+    import ctypes
+
+    from ao_tpu_torch.ops.hopper import window_attention as k16
+
+    x = torch.zeros((1, 64, 2, 128), dtype=torch.bfloat16, device=dev)
+    buf = torch.zeros(x.numel() + 8, dtype=torch.bfloat16, device=dev)
+    out = torch.empty_like(x)
+    if kernel == "K8":
+        err = k8._lib().ao_flash_attention(buf.data_ptr() + 2, x.data_ptr(), x.data_ptr(),
+                                           out.data_ptr(), 1, 64, 64, 2, 2, 64, 0.1, 1,
+                                           ctypes.c_void_p(0))
+        mod, name, fn = k8, "ao_flash_attention", k8.flash_attention
+        call = lambda: k8.flash_attention(x, x, x)  # noqa: E731
+    else:
+        xw = x[..., :64].contiguous()  # T = 64: side 8
+        rel = torch.zeros((1, 2, 64, 8), dtype=torch.bfloat16, device=dev)
+        err = k16._lib().ao_window_attention(buf.data_ptr() + 2, xw.data_ptr(), xw.data_ptr(),
+                                             rel.data_ptr(), rel.data_ptr(), out.data_ptr(), 1,
+                                             64, 8, 2, 0.1, ctypes.c_void_p(0))
+        mod, name, fn = k16, "ao_window_attention", k16.window_bias_attention
+        call = lambda: k16.window_bias_attention(xw, xw, xw, rel, rel, side=8,  # noqa: E731
+                                                 scale=0.1)
+    assert err < 0
+
+    class Refusing:
+        pass
+
+    setattr(Refusing, name, staticmethod(lambda *args: -1))
+    monkeypatch.setattr(mod, "_lib", lambda: Refusing)
+    before = fn.launches
+    with pytest.raises(RuntimeError, match="cuTensorMapEncodeTiled"):
+        call()
+    assert fn.launches == before
 
 
 def test_flash_attention_refuses_on_the_card(dev):
@@ -1369,13 +1423,17 @@ def test_producers_refuse_on_the_card(dev):
         k12.gelu_quant(h.transpose(0, 1).contiguous().transpose(0, 1))
 
 
-@pytest.mark.parametrize("g,side,nh,pad_rows", [
+# K16's cases: (G, side, nh, padded rows)
+WINDOW_CASES = [
     (10, 14, 12, 0),   # SAM-B's windows
     (4, 14, 12, 40),   # padded windows: their last rows' k and v are those of zeros
     (1, 64, 12, 0),    # a global layer at image 1024 (T = 4096)
-    (3, 5, 2, 0),      # T = 25: one ragged key tile
+    (3, 5, 2, 0),      # T = 25: one ragged key tile, one ragged query tile
     (2, 32, 4, 0),
-])
+]
+
+
+@pytest.mark.parametrize("g,side,nh,pad_rows", WINDOW_CASES)
 def test_window_attention_matches_plain(dev, g, side, nh, pad_rows):
     from ao_tpu_torch.ops.hopper import window_attention as k16
 
@@ -1397,6 +1455,15 @@ def test_window_attention_matches_plain(dev, g, side, nh, pad_rows):
     assert float(compute_error(ref.float(), got.float())) >= 35
     nobias = k16.window_bias_attention_plain(q, k, v, 0 * rh, 0 * rw, side, hd ** -0.5)
     assert float(compute_error(nobias.float(), got.float())) < 30  # the bias is applied
+    if g > 1 and t % 64:
+        # the last key tile runs past T: the tensor maps zero-fill it and
+        # never read the next window's keys
+        k[1:], v[1:] = float("nan"), float("nan")
+        again = k16.window_bias_attention(q, k, v, rh, rw, side=side, scale=hd ** -0.5)
+        torch.cuda.synchronize()
+        assert torch.isfinite(again[0]).all()
+        assert torch.equal(again[0], k16.window_bias_attention(
+            q[:1], k[:1], v[:1], rh[:1], rw[:1], side=side, scale=hd ** -0.5)[0])
 
 
 def test_window_attention_refuses_on_the_card(dev):

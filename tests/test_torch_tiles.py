@@ -1,7 +1,9 @@
 """The tile choices of K14 (``fp4_matmul.pick_tiles``), K11
 (``int4_matmul.pick_tiles_halves``), K1 (``int4_matmul.launch_tiles``:
 ``pick_splits`` and ``pick_tiles``), K15 (``lut4_matmul.launch_tiles``),
-K10 (``int8_matmul.pick_tiles``) and K17 (``fp8_matmul.pick_tiles``) over
+K10 (``int8_matmul.pick_tiles``) and K17 (``fp8_matmul.pick_tiles``), and
+the launch plans of K8 and K16 on the attention mainloop
+(``flash_attention.launch_plan``), over
 every shape ``chip_smoke.py`` and the card's tests give them, the PyTorch
 mirrors of K14's and K10's integer decodes against the plain decode over
 every code and scale byte, the PyTorch mirror of K1's and K15's stage K
@@ -18,11 +20,13 @@ import pytest
 import torch
 
 from ao_tpu_torch.ops.hopper import autotune
+from ao_tpu_torch.ops.hopper import flash_attention as k8
 from ao_tpu_torch.ops.hopper import fp4_matmul as k14
 from ao_tpu_torch.ops.hopper import fp8_matmul as k17
 from ao_tpu_torch.ops.hopper import int4_matmul as k1
 from ao_tpu_torch.ops.hopper import int8_matmul as k10
 from ao_tpu_torch.ops.hopper import lut4_matmul as k15
+from ao_tpu_torch.ops.hopper import window_attention as k16
 from ao_tpu_torch.quantization.primitives import ZeroPointDomain
 from ao_tpu_torch.quantization.qarrays.fp4 import _remap_fp4_magic, decode_fp4_e2m1
 from ao_tpu_torch.quantization.qarrays.int4 import Int4Array, pack_int4_magic
@@ -59,6 +63,11 @@ K10_SHAPES = sorted(set(_smoke.WEIGHT_SHAPES) | set(_cuda.INT8_CASES) | RAGGED
 K17_SHAPES = sorted(set(_smoke.WEIGHT_SHAPES) | set(_cuda.FP8_BLOCK_CASES) | RAGGED
                     | {_cuda.FP8_BLOCK_TILE_CASE})
 LLAMA_PREFILL = [(1024, k, n) for k, n in _smoke.LLAMA_KN]  # generate's prefill, M = 8 x 128
+# K8 (B, Sq, Sk, H, Hkv, causal) and K16 (G, side, nh)
+K8_CASES = sorted({(b, sq, sk, _smoke.K2_SHAPE["h"], _smoke.K2_SHAPE["hkv"], True)
+                   for b, sq, sk in _smoke.K8_SHAPES} | set(_cuda.FLASH_CASES))
+K16_CASES = sorted({(g, side, 12) for g, side in _smoke.K16_SHAPES}
+                   | {case[:3] for case in _cuda.WINDOW_CASES})
 
 
 @pytest.fixture
@@ -370,3 +379,49 @@ def test_k17_stage_order_and_promotion_mirror_the_plain_version(m, k, n):
     ref = k17.fp8_blockwise_matmul_plain(qx, sx, qw, sw)
     got = k17.fp8_block_fold_mirror(qx, sx, qw, sw)
     torch.testing.assert_close(got, ref, rtol=0, atol=FP8_MIRROR_TOL * float(ref.abs().max()))
+
+
+def _check_plan(plan, b, sq, h, causal):
+    """Each (batch row, head)'s query rows in exactly one CTA, its query
+    tiles heaviest first, the heads of a query tile adjacent, and each CTA
+    loading the key tiles its last row needs."""
+    bq = plan.block_q
+    assert len(plan.ctas) == -(-sq // bq) * b * h
+    starts = {}
+    for i, (q0, bb, hh, tiles) in enumerate(plan.ctas):
+        assert (bb, hh) == (i // h % b, i % h)
+        starts.setdefault((bb, hh), []).append(q0)
+        end = min(plan.kv_len, q0 + bq, sq) if causal else plan.kv_len
+        assert tiles == -(-end // k8.BLOCK_K) >= 1
+    for rows in starts.values():
+        assert rows == list(range(0, sq, bq))[::-1]
+    work = [tiles for *_, tiles in plan.ctas]
+    assert work == sorted(work, reverse=True)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hkv,causal", K8_CASES)
+def test_k8_plan_covers_rows_once_heaviest_first(b, sq, sk, h, hkv, causal):
+    plan = k8.launch_plan((b, sq, h, 128), (b, sk, hkv, 128), causal)
+    # causally the maps stop at Sq: the cache rows a prefill has not written
+    # are never read
+    assert plan.kv_len == (min(sq, sk) if causal else sk)
+    _check_plan(plan, b, sq, h, causal)
+
+
+@pytest.mark.parametrize("g,side,nh", K16_CASES)
+def test_k16_plan_covers_rows_once(g, side, nh):
+    t = side * side
+    plan = k8.launch_plan((g, t, nh, 64), (g, t, nh, 64), False, k16.BLOCK_Q)
+    assert plan.kv_len == t
+    _check_plan(plan, g, t, nh, False)
+
+
+def test_attention_ctas_at_the_main_paths():
+    # the engine's 128 bucket: 64 CTAs of 64 rows (128-row CTAs would be 32)
+    plan = k8.launch_plan((1, 128, 32, 128), (1, 128, 8, 128), True)
+    assert plan.block_q == 64 and len(plan.ctas) == 64
+    # K16 at SAM-B's windows and global layers: at least two CTAs an SM
+    for g, side in _smoke.K16_SHAPES:
+        t = side * side
+        plan = k8.launch_plan((g, t, 12, 64), (g, t, 12, 64), False, k16.BLOCK_Q)
+        assert len(plan.ctas) >= 2 * SM

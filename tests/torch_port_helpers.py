@@ -1,5 +1,13 @@
 """Helpers shared by the ``test_torch_*`` files: carry inputs between the
-JAX package and its PyTorch port as numpy arrays."""
+JAX package and its PyTorch port as numpy arrays.
+
+Importing this module caps torch at one intra-op thread. The suite runs in
+six worker processes on an 8-core machine, each also running XLA's CPU
+thread pool, and torch's pool of one thread a core in each worker
+oversubscribed the cores: the port's test files took 496 s on 6 workers
+with it, 194 s with one thread (one case, ``test_torch_fp4_nf4.py::
+test_generate_matches_jax[MXFP4-WO]``, 172 s against 3.6 s alone). The
+tests' shapes are tiny, so a second thread buys nothing."""
 
 import dataclasses
 
@@ -9,6 +17,8 @@ import torch
 
 from ao_tpu.quantization.qarrays.base import QuantizedArray as JaxQuantizedArray
 from ao_tpu_torch.weights import params_from_numpy, tensor_from_numpy
+
+torch.set_num_threads(1)
 
 
 def jax_tree_to_numpy(tree):
