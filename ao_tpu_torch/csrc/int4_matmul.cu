@@ -46,7 +46,7 @@
 //    no half of an m16 tile is spent on rows of x that do not exist.
 //  * prefill (M > 16): tensor-core operations, 2 M K N against 989 TFLOP/s,
 //    on the shared wgmma mainloop (mixed_gemm.cuh) with MagicOp
-//    (magic_op.cuh) and PlaneQ below: each thread decodes its own A
+//    (magic_op.cuh) and PlaneQ (plane_q.cuh): each thread decodes its own A
 //    fragments with plane_q from a unit buffer of 64 word rows loaded once
 //    per CTA, the group's steps run into tmp, and the fold adds s * tmp and
 //    xsum * b2 to acc (two FMAs per accumulator a group). A pre-pass
@@ -57,8 +57,7 @@
 //    accumulator set and empties the tensor-core queue once a group, which
 //    bounds the tiles to 128 x 128 at one CTA an SM (PERF.md).
 
-#include "int4_tiles.cuh"
-#include "magic_op.cuh"
+#include "plane_q.cuh"
 
 namespace {
 
@@ -132,83 +131,6 @@ __global__ void __launch_bounds__(128)
   for (int o = 1; o < LG; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   if (lane % LG == 0 && k < K) xs[(size_t)(k / G) * mp + m] = v;
 }
-
-// K1's decode for MagicOp: plane_q, and the fold acc += s * tmp + xsum * b2
-// per group. A group's bytes in the slot: its s and b2 rows, [2][BN] bf16,
-// then the x sums of the tile's rows, [kMagicMaxBM] f32.
-struct PlaneQ {
-  struct Params {
-    const __nv_bfloat16* s;
-    const __nv_bfloat16* b2;
-    const float* xs;  // (K/g, mp) f32 from magic_xsum_kernel
-    int mp;
-    int raw_zp;
-  };
-
-  template <int BN>
-  __host__ __device__ static constexpr int group_bytes() {
-    return 2 * BN * 2 + mg::kMagicMaxBM * 4;
-  }
-
-  // One 16-byte chunk of a group's bytes a thread (the first 2 BN / 8 + BM / 4
-  // threads): its source at group 0, its stride a group, its place.
-  template <int BM, int BN, int NT>
-  struct Thread {
-    static constexpr int QC = BN / 8;  // chunks of a bf16 row of BN
-    static_assert(2 * QC + BM / 4 <= NT, "a chunk a thread");
-    const uint8_t* src;
-    int stride, dst;
-    bool ok, active;
-
-    __device__ Thread(const Params& p, const mg::Problem& pb, int m0, int n0, int tid) {
-      active = tid < 2 * QC + BM / 4;
-      if (tid < 2 * QC) {  // s, then b2
-        const int col = n0 + 8 * (tid % QC);
-        src = reinterpret_cast<const uint8_t*>((tid < QC ? p.s : p.b2) + col);
-        stride = 2 * pb.N;
-        dst = 2 * (tid / QC * BN + 8 * (tid % QC));
-        ok = col < pb.N;
-      } else {  // x sums of rows m0 + 4e ..
-        const int e = tid - 2 * QC;
-        src = reinterpret_cast<const uint8_t*>(p.xs + m0 + 4 * e);
-        stride = 4 * p.mp;
-        dst = 4 * BN + 16 * e;
-        ok = m0 + 4 * e < p.mp;
-      }
-    }
-
-    __device__ void load(const Params& p, const mg::Problem&, uint8_t* gb, int grp) const {
-      if (active) mg::cp_async16(gb + dst, ok ? src + (size_t)grp * stride : src, ok);
-    }
-  };
-
-  __device__ static uint32_t plane(const uint8_t*, uint32_t w, int j) { return plane_q(w, j); }
-
-  // accumulator d[4i + 2h + e]: column cl + 8h, x row 8i + 2 tig + e
-  template <int BM, int BN>
-  __device__ static void fold(const Params& p, const uint8_t* gb, int cl, int lane,
-                              const float (&tmp)[BM / 2], float (&acc)[BM / 2]) {
-    const __nv_bfloat16* s = reinterpret_cast<const __nv_bfloat16*>(gb);
-    const float* xs = reinterpret_cast<const float*>(gb + 4 * BN);
-    float sc[2], bc[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      sc[h] = __bfloat162float(s[cl + 8 * h]);
-      bc[h] = bias_of(sc[h], s[BN + cl + 8 * h], p.raw_zp);
-    }
-#pragma unroll
-    for (int i = 0; i < BM / 8; ++i) {
-      const float2 xv = *reinterpret_cast<const float2*>(xs + 8 * i + 2 * (lane & 3));
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float& d0 = acc[4 * i + 2 * h];
-        float& d1 = acc[4 * i + 2 * h + 1];
-        d0 = fmaf(xv.x, bc[h], fmaf(sc[h], tmp[4 * i + 2 * h], d0));
-        d1 = fmaf(xv.y, bc[h], fmaf(sc[h], tmp[4 * i + 2 * h + 1], d1));
-      }
-    }
-  }
-};
 
 // Second pass of a split-K launch: out = bf16(sum over splits of ws).
 __global__ void int4_wo_reduce_kernel(const float* __restrict__ ws, __nv_bfloat16* __restrict__ out,

@@ -1,7 +1,7 @@
 // Device code shared by the int4 kernels over the magic layouts: K1's and
 // K3's decode paths (int4_matmul.cu, int4_w4a8.cu) and the MoE grouped
-// kernels K13 (grouped_matmul.cu), which run the same arithmetic over the
-// rows of one expert at a time.
+// kernels K13 (grouped_matmul.cu: its w4a8 form runs K3's arithmetic over
+// the rows of one expert at a time).
 //
 // Both decode paths swap the operands' roles: the weight tile is the A
 // operand of an mma.sync (16 columns of N as the rows of an m16 tile) and
@@ -95,7 +95,7 @@ __device__ __forceinline__ float bias_of(float s, __nv_bfloat16 b, int raw_zp) {
 // planes; KS / KR runs a super-group) of one (K/8, N) magic word matrix and
 // its (K/g, N) s and b2: for each group's part in a run, acc += s * (x_G .
 // q_G) on the tensor cores, then acc += sum(x_G) * b2, in f32. At KR = KS
-// a run is a super-group (K13; K1 but at small N). x holds M valid
+// a run is a super-group (K1 but at small N). x holds M valid
 // rows (row r at x + r*K); the rest of the n8 tiles reads zeros. Threads of
 // a warp call it together (it shuffles).
 template <int KS, int NT, int KR = KS>

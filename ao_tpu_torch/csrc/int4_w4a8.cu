@@ -31,15 +31,24 @@
 //
 // What bounds it on the H100 at decode (M = 8): the weight stream, 0.5 B per
 // weight plus 4 B of s and b per g weights, against 3.35 TB/s; the int8
-// operations are ~0.5 % of the tensor cores' time at that rate. As in K1,
-// a warp owns 32 columns and loads them with one 16-byte load per word row
-// and thread; a thread issues all the word loads of a group pair before it
-// uses any; and the grid splits K by whole group pairs (grid.z) into f32
-// partials kept in L2, which a second pass sums and scales by sx, so that
-// wk/wv (N = 1024, 8 blocks) fill 132 SMs. Larger M runs 32 batch rows per
-// block along grid.y and re-reads the weights from L2 for each such tile.
-// No wgmma or TMA yet.
-//
+// operations are ~0.5 % of the tensor cores' time at that rate. In
+// practice the latency of a warp's chain of group pairs: each costs a
+// word load from HBM and its products, about 1.2-1.8 us a pair at the small
+// shapes on the H100, so K is split until each warp holds one to four
+// pairs. A warp owns 32 columns and loads them with one 16-byte load per
+// word row and thread (with more than one pair, the next pair's words in
+// flight while it multiplies this one's). A launch is one kernel: a CTA is
+// one warp of columns by up to 8 warps along K, summed in shared memory,
+// and the CTAs of a split along grid.z form a thread-block cluster of up to
+// 8, summed through distributed shared memory in rank order
+// (cluster_sum.cuh), then scaled by sx and stored; no f32 workspace, no
+// second pass. The first version wrote every split's partials to device
+// memory and summed them in a second kernel: two launches and an
+// allocation a linear. int4_matmul.w4a8_plan picks the warps along K and
+// the cluster (measured: about 16 warps an SM, up to 4 along K in a CTA).
+// Larger M runs 32 batch rows per CTA along grid.y and re-reads the weights
+// from L2 for each such tile.
+
 // ---------------------------------------------------------------------------
 // K4: int4_magic8_requant_kernel replaces ao_tpu/ops/pallas/int4_matmul.py::
 // _requant_kernel (launched by _requant_impl, public entry
@@ -62,29 +71,133 @@
 
 #include <math.h>
 
+#include "cluster_sum.cuh"
 #include "int4_tiles.cuh"
 
 namespace {
 
-// K3 (M rows of x, g = 32*KS, NT n8 tiles of batch rows per block): the
-// swapped operands and the warp's 32 columns of int4_tiles.cuh, its
-// w4a8_gemv_accumulate over the block's rows and split. grid (N/128,
-// ceil(M/(8*NT)), splits), 128 threads. Split z covers group pairs
-// [z*spp, (z+1)*spp).
-template <int KS, int NT>
-__global__ void __launch_bounds__(128)
+// K3's group pairs [t_begin, t_end) of one (K/8, N) magic8 word matrix
+// and its (K/g, N) s and b, over NT n8 tiles of M valid int8 rows at x: for
+// each group G, acc += s * dot_i32(x_G, u_G) + b * sum(x_G) in f32, the row
+// sums from one more mma against an A of ones (w4a8_gemv_accumulate's
+// arithmetic); with PF, pair t + 1's words and qparams are loaded before
+// pair t's products (without it a warp of one pair holds half the
+// registers).
+template <int KS, int NT, bool PF>
+__device__ __forceinline__ void w4a8_pairs_accumulate(
+    float (&acc)[2][NT][4], const int8_t* __restrict__ x, int M, int K, int N,
+    const int32_t* __restrict__ word, const __nv_bfloat16* __restrict__ s,
+    const __nv_bfloat16* __restrict__ b, int t_begin, int t_end, int col) {
+  constexpr int G = 32 * KS, WR = G / 4;  // word rows per group pair
+  const int lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const uint32_t ones[4] = {kOnes8, kOnes8, kOnes8, kOnes8};
+  struct Pair {
+    int4 w[2 * KS];
+    uint2 sv[2], bv[2];
+  };
+  auto load = [&](int t, Pair& pr) {
+    const int32_t* wbase = word + (size_t)t * WR * N + col;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      pr.w[2 * ks] = ld_16(wbase + (size_t)(8 * ks + tig) * N);
+      pr.w[2 * ks + 1] = ld_16(wbase + (size_t)(8 * ks + 4 + tig) * N);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const size_t qoff = (size_t)(2 * t + h) * N + col;
+      pr.sv[h] = __ldg(reinterpret_cast<const uint2*>(s + qoff));
+      pr.bv[h] = __ldg(reinterpret_cast<const uint2*>(b + qoff));
+    }
+  };
+  auto multiply = [&](int t, const Pair& pr) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int tmp[2][NT][4], xs[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tmp[0][nt][e] = tmp[1][nt][e] = xs[nt][e] = 0;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const int k0 = (2 * t + h) * G + 32 * ks + 4 * tig;
+        const int4& w0 = pr.w[2 * ks];
+        const int4& w1 = pr.w[2 * ks + 1];
+        const uint32_t a0[4] = {plane8(w0.x, h), plane8(w0.y, h), plane8(w1.x, h),
+                                plane8(w1.y, h)};
+        const uint32_t a1[4] = {plane8(w0.z, h), plane8(w0.w, h), plane8(w1.z, h),
+                                plane8(w1.w, h)};
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int r = 8 * nt + gid;
+          const uint32_t b0 = r < M ? ld_4(x + (size_t)r * K + k0) : 0u;
+          const uint32_t b1 = r < M ? ld_4(x + (size_t)r * K + k0 + 16) : 0u;
+          mma_16832(tmp[0][nt], a0, b0, b1);
+          mma_16832(tmp[1][nt], a1, b0, b1);
+          mma_16832(xs[nt], ones, b0, b1);
+        }
+      }
+      const __nv_bfloat16* sh = reinterpret_cast<const __nv_bfloat16*>(&pr.sv[h]);
+      const __nv_bfloat16* bh = reinterpret_cast<const __nv_bfloat16*>(&pr.bv[h]);
+      float sc[4], bc[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        sc[c] = __bfloat162float(sh[c]);
+        bc[c] = __bfloat162float(bh[c]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 2 * p + (e >> 1);
+            acc[p][nt][e] = fmaf((float)xs[nt][e & 1], bc[c],
+                                 fmaf(sc[c], (float)tmp[p][nt][e], acc[p][nt][e]));
+          }
+    }
+  };
+  Pair pa;
+  if constexpr (!PF) {
+    for (int t = t_begin; t < t_end; ++t) {
+      load(t, pa);
+      multiply(t, pa);
+    }
+  } else {
+    Pair pb;
+    if (t_begin < t_end) load(t_begin, pa);
+    for (int t = t_begin; t < t_end; t += 2) {
+      if (t + 1 < t_end) load(t + 1, pb);
+      multiply(t, pa);
+      if (t + 1 < t_end) {
+        if (t + 2 < t_end) load(t + 2, pa);
+        multiply(t + 1, pb);
+      }
+    }
+  }
+}
+
+// K3 (M rows of x, g = 32*KS, NT n8 tiles of batch rows a CTA): grid
+// (N / 32, ceil(M / (8 NT)), splits) in clusters of (1, 1, splits), 32 WK
+// threads (WK = 1 above 16 rows): CTA x owns the columns 32 x .. + 31, its
+// warp w K slice z WK + w, group pairs [slice spp, (slice + 1) spp). The
+// CTA's WK slices are summed in shared memory in slice order, then the
+// cluster's splits (cluster_sum) in rank order, then scaled by sx.
+template <int KS, int NT, bool PF>
+__global__ void __launch_bounds__(256)
     int4_w4a8_gemv_kernel(const int8_t* __restrict__ x, const float* __restrict__ sx,
                           const int32_t* __restrict__ word, const __nv_bfloat16* __restrict__ s,
-                          const __nv_bfloat16* __restrict__ b, float* __restrict__ out,
-                          float* __restrict__ ws, int M, int K, int N, int spp) {
-  constexpr int G = 32 * KS;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+                          const __nv_bfloat16* __restrict__ b, float* __restrict__ out, int M,
+                          int K, int N, int spp) {
+  constexpr int G = 32 * KS, NV = 8 * NT;
+  __shared__ float part[(NV + 7) * 32];             // the splits' partials (cluster_sum)
+  __shared__ float red[NT <= 2 ? 7 * NV * 32 : 1];  // the CTA's K slices' partials
+  if (gridDim.z > 1) cluster_started();
+  const int wk = blockDim.x >> 5, wk_i = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
-  const int nb = (blockIdx.x * 4 + warp) * 32;
-  const int col = nb + 4 * gid;
+  const int col = blockIdx.x * 32 + 4 * gid;
   const int m0 = blockIdx.y * 8 * NT;
-  const int npairs = K / (2 * G);
-  const int t_end = min((int)(blockIdx.z + 1) * spp, npairs);
+  const int t0 = (blockIdx.z * wk + wk_i) * spp, t1 = min(t0 + spp, K / (2 * G));
   float acc[2][NT][4];
 #pragma unroll
   for (int p = 0; p < 2; ++p)
@@ -92,9 +205,41 @@ __global__ void __launch_bounds__(128)
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[p][nt][e] = 0.f;
-  w4a8_gemv_accumulate<KS, NT>(acc, x + (size_t)m0 * K, M - m0, K, N, word, s, b,
-                               blockIdx.z * spp, t_end, col);
+  w4a8_pairs_accumulate<KS, NT, PF>(acc, x + (size_t)m0 * K, M - m0, K, N, word, s, b, t0, t1,
+                                    col);
 
+  float v[NV];  // value (p NT + nt) 4 + e
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[(p * NT + nt) * 4 + e] = acc[p][nt][e];
+  if constexpr (NT <= 2) {
+    if (wk > 1) {  // the CTA's slices 1 .. WK - 1 into slice 0's warp, in order
+      if (wk_i > 0) {
+#pragma unroll
+        for (int i = 0; i < NV; ++i) red[((wk_i - 1) * NV + i) * 32 + lane] = v[i];
+      }
+      __syncthreads();
+      if (wk_i == 0) {
+        for (int q = 1; q < wk; ++q) {
+#pragma unroll
+          for (int i = 0; i < NV; ++i) v[i] += red[((q - 1) * NV + i) * 32 + lane];
+        }
+      }
+    }
+  }
+  auto store = [&](int i, float sum) {
+    const int e = i & 3, nt = (i >> 2) % NT, p = (i >> 2) / NT;
+    const int r = m0 + 2 * tig + (e & 1) + 8 * nt;
+    if (r < M) out[(size_t)r * N + col + 2 * p + (e >> 1)] = sum * sx[r];
+  };
+  if (gridDim.z > 1) {
+    cluster_sum(v, part, lane, 32, wk_i == 0, store);
+    return;
+  }
+  if (wk_i != 0) return;
   // the thread's outputs: batch rows m0 + 2*tig + hh (+ 8nt), columns col .. col + 3
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
@@ -102,46 +247,38 @@ __global__ void __launch_bounds__(128)
     for (int hh = 0; hh < 2; ++hh) {
       const int r = m0 + 2 * tig + hh + 8 * nt;
       if (r >= M) continue;
-      float4 v = make_float4(acc[0][nt][hh], acc[0][nt][2 + hh], acc[1][nt][hh], acc[1][nt][2 + hh]);
-      const size_t off = (size_t)r * N + col;
-      if (ws == nullptr) {
-        const float sr = sx[r];
-        v.x *= sr;
-        v.y *= sr;
-        v.z *= sr;
-        v.w *= sr;
-        *reinterpret_cast<float4*>(out + off) = v;
-      } else {
-        *reinterpret_cast<float4*>(ws + (size_t)blockIdx.z * M * N + off) = v;
-      }
+      const float sr = sx[r];
+      *reinterpret_cast<float4*>(out + (size_t)r * N + col) =
+          make_float4(v[nt * 4 + hh] * sr, v[nt * 4 + 2 + hh] * sr,
+                      v[(NT + nt) * 4 + hh] * sr, v[(NT + nt) * 4 + 2 + hh] * sr);
     }
 }
 
-// Second pass of a split-K launch: out = sx[m] * (sum over splits of ws).
-__global__ void int4_w4a8_reduce_kernel(const float* __restrict__ ws, const float* __restrict__ sx,
-                                        float* __restrict__ out, int N, size_t mn, int splits) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float acc = 0.f;
-  for (int z = 0; z < splits; ++z) acc += ws[(size_t)z * mn + i];
-  out[i] = acc * sx[i / N];
+template <int KS, int NT>
+cudaError_t launch_rows(const int8_t* x, const float* sx, const int32_t* word,
+                        const __nv_bfloat16* s, const __nv_bfloat16* b, float* out, int M, int K,
+                        int N, int wk, int splits, int spp, cudaStream_t st) {
+  const dim3 grid(N / 32, (M + 8 * NT - 1) / (8 * NT), splits);
+  if (spp > 1)
+    return launch_cluster(int4_w4a8_gemv_kernel<KS, NT, true>, grid, 32 * wk, st, x, sx, word, s,
+                          b, out, M, K, N, spp);
+  return launch_cluster(int4_w4a8_gemv_kernel<KS, NT, false>, grid, 32 * wk, st, x, sx, word, s,
+                        b, out, M, K, N, spp);
 }
 
 template <int KS>
 cudaError_t launch_gemv(const int8_t* x, const float* sx, const int32_t* word,
-                        const __nv_bfloat16* s, const __nv_bfloat16* b, float* out, float* ws, int M,
-                        int K, int N, int splits, int spp, cudaStream_t st) {
-  if (M <= 8) {
-    dim3 grid(N / 128, 1, splits);
-    int4_w4a8_gemv_kernel<KS, 1><<<grid, 128, 0, st>>>(x, sx, word, s, b, out, ws, M, K, N, spp);
-  } else if (M <= 16) {
-    dim3 grid(N / 128, 1, splits);
-    int4_w4a8_gemv_kernel<KS, 2><<<grid, 128, 0, st>>>(x, sx, word, s, b, out, ws, M, K, N, spp);
-  } else {
-    dim3 grid(N / 128, (M + 31) / 32, splits);
-    int4_w4a8_gemv_kernel<KS, 4><<<grid, 128, 0, st>>>(x, sx, word, s, b, out, ws, M, K, N, spp);
-  }
-  return cudaGetLastError();
+                        const __nv_bfloat16* s, const __nv_bfloat16* b, float* out, int M, int K,
+                        int N, int wk, int splits, int spp, cudaStream_t st) {
+  const int pairs = K / (64 * KS), slices = splits * wk;
+  if ((wk != 1 && wk != 2 && wk != 4 && wk != 8) || (M > 16 && wk > 1)) return cudaErrorInvalidValue;
+  // every CTA along K has pairs (a warp of the last may have none)
+  if (N % 32 || splits < 1 || splits > 8 || spp < 1 || (slices - wk) * spp >= pairs ||
+      slices * spp < pairs)
+    return cudaErrorInvalidValue;
+  if (M <= 8) return launch_rows<KS, 1>(x, sx, word, s, b, out, M, K, N, wk, splits, spp, st);
+  if (M <= 16) return launch_rows<KS, 2>(x, sx, word, s, b, out, M, K, N, wk, splits, spp, st);
+  return launch_rows<KS, 4>(x, sx, word, s, b, out, M, K, N, wk, splits, spp, st);
 }
 
 // K4: grid (N/64, K/256), 256 threads. Word rows r0 = 32*blockIdx.y .. + 31
@@ -193,12 +330,13 @@ __global__ void __launch_bounds__(256)
 }  // namespace
 
 // K3. x (M, K) int8; sx (M,) f32; word (K/8, N) int32 magic8; s, b (K/g, N)
-// bf16; out (M, N) f32; ws (splits, M, N) f32 when splits > 1. Needs
-// g in {32, 64, 128}, N % 128 == 0, K % (2g) == 0 and 16-byte aligned
-// rows; the Python wrapper checks them. Returns cudaGetLastError() after
-// the launches.
+// bf16; out (M, N) f32. A CTA of 32 columns and wk warps along K (1, 2, 4 or
+// 8; 1 above 16 rows), ``splits`` CTAs (at most 8) along K in one cluster,
+// ``spp`` group pairs a warp. Needs g in {32, 64, 128}, N % 32 == 0,
+// K % (2g) == 0 and 16-byte aligned rows; the Python wrapper checks them.
+// Returns the launch's CUDA error.
 extern "C" int ao_int4_w4a8(const void* x_, const void* sx_, const void* word_, const void* s_,
-                            const void* b_, void* out_, void* ws_, int M, int K, int N, int G,
+                            const void* b_, void* out_, int M, int K, int N, int G, int wk,
                             int splits, int spp, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* x = static_cast<const int8_t*>(x_);
@@ -207,19 +345,13 @@ extern "C" int ao_int4_w4a8(const void* x_, const void* sx_, const void* word_, 
   const auto* s = static_cast<const __nv_bfloat16*>(s_);
   const auto* b = static_cast<const __nv_bfloat16*>(b_);
   auto* out = static_cast<float*>(out_);
-  float* ws = splits > 1 ? static_cast<float*>(ws_) : nullptr;
-  cudaError_t err;
+  if (M < 1 || K % (2 * G)) return (int)cudaErrorInvalidValue;
   switch (G) {
-    case 32: err = launch_gemv<1>(x, sx, word, s, b, out, ws, M, K, N, splits, spp, st); break;
-    case 64: err = launch_gemv<2>(x, sx, word, s, b, out, ws, M, K, N, splits, spp, st); break;
-    case 128: err = launch_gemv<4>(x, sx, word, s, b, out, ws, M, K, N, splits, spp, st); break;
+    case 32: return (int)launch_gemv<1>(x, sx, word, s, b, out, M, K, N, wk, splits, spp, st);
+    case 64: return (int)launch_gemv<2>(x, sx, word, s, b, out, M, K, N, wk, splits, spp, st);
+    case 128: return (int)launch_gemv<4>(x, sx, word, s, b, out, M, K, N, wk, splits, spp, st);
     default: return (int)cudaErrorInvalidValue;
   }
-  if (err != cudaSuccess || ws == nullptr) return (int)err;
-  const size_t mn = (size_t)M * N;
-  int4_w4a8_reduce_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(ws, sx, out, N, mn,
-                                                                       splits);
-  return (int)cudaGetLastError();
 }
 
 // K4. word (K/8, N) int32 magic8; a, b (K/g, N) f32; out (N, K) int8 (the

@@ -336,10 +336,14 @@ struct Tile {
   using L = Layout<BM, Op::template raw_bytes<BN>(), UnitBytes<Op, BN>::value, kCtas>;
 };
 
-// grid (ceil(N / BN), ceil(M / BM), splits), 2 BN threads: warp w (of 4) of
-// warpgroup wg owns weight columns n0 + 64 wg + 16 w .. + 15, all BM rows.
-// Split z takes stages [z per, min((z + 1) per, stages)). Without a fold,
-// at most 128 registers a thread below BM = 256.
+// One CTA's tile, 2 BN threads: x rows m0 .. m0 + BM - 1 (rows from pb.M on
+// read as zeros for a fold Op and never stored) by weight columns n0 .. n0
+// + BN - 1, K split z; warp w (of 4) of warpgroup wg owns weight columns
+// n0 + 64 wg + 16 w .. + 15, all BM rows. Split z takes stages [z per,
+// min((z + 1) per, stages)). mq is the tile's row as the Op's per-thread
+// state counts it (m0, but for K13's tiles of one expert's rows, whose x
+// sums lie in tile order). Without a fold, at most 128 registers a thread
+// below BM = 256.
 //
 // A fold Op (kGroup = G > 0) reads x in K order and runs each group's k16
 // steps into tmp; once they have retired its per-thread state folds tmp
@@ -347,8 +351,8 @@ struct Tile {
 // cut, each have a buffer (two, in turns, after the ring) that th.load
 // fills at the unit's first stage and th.decode reads in all of them.
 template <class Op, int BM, int BN>
-__global__ void __launch_bounds__(2 * BN, (Tile<Op, BM, BN>::kMinBlocks))
-    mixed_gemm_kernel(Problem pb, typename Op::Args args) {
+__device__ __forceinline__ void mainloop(const Problem& pb, const typename Op::Args& args, int m0,
+                                         int mq, int n0, unsigned z) {
   constexpr int NT = 2 * BN;
   constexpr int kG = GroupLen<Op>::value;
   using L = typename Tile<Op, BM, BN>::L;
@@ -358,8 +362,7 @@ __global__ void __launch_bounds__(2 * BN, (Tile<Op, BM, BN>::kMinBlocks))
 
   const int tid = threadIdx.x, lane = tid & 31;
   const int cl = (tid >> 5) * 16 + (lane >> 2);  // the thread's first local weight column
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int s0 = blockIdx.z * pb.per;
+  const int s0 = z * pb.per;
   const int count = min(pb.per, pb.stages - s0);
   // x in K order (fold Ops and kXInOrder: stage s is columns 64 s .. 64 s +
   // 63): each thread's row offsets hoisted out of the K loop; fold Ops:
@@ -377,7 +380,7 @@ __global__ void __launch_bounds__(2 * BN, (Tile<Op, BM, BN>::kMinBlocks))
       xoff[k] = (uint32_t)(r < pb.M ? r : 0) * pb.K + 8 * (tid & 7);
     }
   }
-  typename ThreadOf<Op, BM, BN, NT>::type th(args, pb, m0, n0, tid);
+  typename ThreadOf<Op, BM, BN, NT>::type th(args, pb, mq, n0, tid);
   auto slot_at = [&](int i) {  // local stage i's slot (index math unsigned with x in K order)
     if constexpr (kXO)
       return ring + (uint32_t)i % ST * L::kSlot;
@@ -513,7 +516,7 @@ __global__ void __launch_bounds__(2 * BN, (Tile<Op, BM, BN>::kMinBlocks))
   // A fold Op's last tile of columns may be ragged (N % 32 == 0).
   const bool odd = (lane >> 2) & 1;
   const int n = n0 + (cl & ~1);
-  float* ws = pb.ws == nullptr ? nullptr : pb.ws + (size_t)blockIdx.z * pb.M * pb.N;
+  float* ws = pb.ws == nullptr ? nullptr : pb.ws + (size_t)z * pb.M * pb.N;
 #pragma unroll
   for (int i = 0; i < BM / 8; ++i)
 #pragma unroll
@@ -530,6 +533,14 @@ __global__ void __launch_bounds__(2 * BN, (Tile<Op, BM, BN>::kMinBlocks))
         *reinterpret_cast<uint32_t*>(pb.out + off) =
             pack_bf16x2(Op::finish(args, n + 8 * h, lo), Op::finish(args, n + 8 * h + 1, hi));
     }
+}
+
+// grid (ceil(N / BN), ceil(M / BM), splits), 2 BN threads: the mainloop of
+// tile (blockIdx.y, blockIdx.x), split blockIdx.z.
+template <class Op, int BM, int BN>
+__global__ void __launch_bounds__(2 * BN, (Tile<Op, BM, BN>::kMinBlocks))
+    mixed_gemm_kernel(Problem pb, typename Op::Args args) {
+  mainloop<Op, BM, BN>(pb, args, blockIdx.y * BM, blockIdx.y * BM, blockIdx.x * BN, blockIdx.z);
 }
 
 template <class Op, int BM, int BN>

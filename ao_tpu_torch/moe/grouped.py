@@ -5,9 +5,18 @@ e(t) is the expert owning row t: the rows come sorted by expert and
 ``group_sizes[e]`` counts expert e's rows (they sum to T, what
 ``moe.layer.dispatch`` gives). Each quantized container has its branch, in
 the reference's order; the int4 "magic" and "magic8" stacks take the
-hand-written kernel K13 (``ops/hopper/grouped_matmul.py``) at
-T <= ``kernels.GROUPED_KERNEL_MAX_T`` rows where its ``takes`` allows, and
-every other case dequantizes and runs the ragged dot.
+hand-written kernel K13 (``ops/hopper/grouped_matmul.py``) where its
+``takes`` allows: the magic form at any T on CUDA tensors, the magic8 form
+(and either on the CPU, through K13's plain versions) at
+T <= ``kernels.GROUPED_KERNEL_MAX_T`` rows, the reference's gate; every
+other case dequantizes and runs the ragged dot.
+
+The reference gates its TPU kernel at 256 rows because that kernel sums E
+masked dense products (E T K N multiply-adds); the port's row tiles multiply
+only each expert's own rows, so on the card the magic form keeps K13 at
+prefill row counts too. The magic8 form keeps the gate: above it the
+reference's fallback multiplies the unquantized activations, a different
+function from K13's int8 one.
 
 The ragged dot (the reference's ``jax.lax.ragged_dot``, an XLA product
 outside any Pallas kernel) is ``torch._grouped_mm`` over the offsets
@@ -130,19 +139,27 @@ def _fp8_grouped(x, w: Float8Array, group_sizes, out_dtype):
     return ragged_dot(x, w.dequantize(x.dtype), group_sizes).to(out_dtype)
 
 
+def k13_takes_rows(t: int, layout: str, on_cuda: bool) -> bool:
+    """Whether K13 takes T routed rows of an int4 ``layout`` stack: the
+    magic form at any T on CUDA tensors, else T <= GROUPED_KERNEL_MAX_T
+    (the reference's gate; see the module doc)."""
+    return t <= kernels.GROUPED_KERNEL_MAX_T or (layout == "magic" and on_cuda)
+
+
 @implements("grouped_matmul", Int4Array)
 def _int4_grouped(x, w: Int4Array, group_sizes, out_dtype):
-    """int4 grouped: magic / magic8 expert stacks take K13 at decode row
-    counts (T <= GROUPED_KERNEL_MAX_T) where its ``takes`` allows; the
-    fallback dequantizes before the ragged dot, on the unquantized x (the
-    reference's W4A8 prefill fallback does not quantize the activations)."""
+    """int4 grouped: magic / magic8 expert stacks take K13 where its
+    ``takes`` allows, at decode row counts (T <= GROUPED_KERNEL_MAX_T) and,
+    for the magic form on CUDA tensors, at any T; the fallback dequantizes
+    before the ragged dot, on the unquantized x (the reference's W4A8
+    prefill fallback does not quantize the activations)."""
     out_dtype = out_dtype or x.dtype
     _check_3d(w)
     if w.act_pre_scale is not None:
         x = x * w.act_pre_scale.to(x.dtype)
     t = x.shape[0]
     k, n = w.shape[-2], w.shape[-1]
-    if (t <= kernels.GROUPED_KERNEL_MAX_T and w.layout in ("magic", "magic8")
+    if (k13_takes_rows(t, w.layout, x.is_cuda) and w.layout in ("magic", "magic8")
             and k13.takes(k, n, w.group_size, w.layout) and kernels.use_kernel(x)):
         aq = w.act_quant
         if (w.layout == "magic8" and aq is not None and aq.dtype == "int8"

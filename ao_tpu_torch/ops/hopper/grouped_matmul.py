@@ -12,8 +12,14 @@ sorted by expert (``group_sizes[e]`` rows each, in expert order):
 CUDA source ``ao_tpu_torch/csrc/grouped_matmul.cu``; its header says what
 bounds the kernels on the H100 and how the design meets it. The TPU kernel
 takes each row's expert id; these take the group sizes themselves, which the
-kernel turns into row ranges on the device. The rows must cover all T rows
+kernels turn into row ranges on the device. The rows must cover all T rows
 (``sum(group_sizes) == T``, what ``moe.layer.dispatch`` gives).
+
+The magic form runs one of two kernels: at T <= ``DECODE_MAX_T`` rows the
+decode kernel, its K split summed in a cluster (``decode_plan``); above, row
+tiles of ``pick_bm`` rows of one expert each on the shared wgmma mainloop,
+which the kernel finds from the group sizes on the device (``tile_plan``
+mirrors that schedule).
 
 Each wrapper runs its kernel on a CUDA tensor and its plain PyTorch version
 (``*_plain``, the TPU kernel's masked sum over experts of K1's or K3's plain
@@ -35,6 +41,9 @@ from ao_tpu_torch.quantization import primitives as P
 
 MAGIC_GROUP_SIZES = k1.GROUP_SIZES  # the magic form's compiled group sizes, K1's
 W4A8_GROUP_SIZES = k1.W4A8_GROUP_SIZES  # the W4A8 form's, K3's
+DECODE_MAX_T = 16  # the magic form's decode kernel takes up to this many rows
+ROW_TILES = (64, 128)  # the row-tile kernel's tiles of x rows (BM)
+MAX_CLUSTER = 8  # CTAs of a portable thread-block cluster: the decode's K splits
 
 _LIB = None
 
@@ -43,7 +52,7 @@ def _lib():
     global _LIB
     if _LIB is None:
         lib = build.load("grouped_matmul")
-        lib.ao_int4_grouped_magic.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+        lib.ao_int4_grouped_magic.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
             ctypes.c_void_p]
         lib.ao_int4_grouped_magic.restype = ctypes.c_int
         lib.ao_int4_grouped_w4a8.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
@@ -119,23 +128,77 @@ def _raw_tinygemm(scale, zp, zp_domain) -> bool:
             and zp is not None and zp.dtype == torch.bfloat16)
 
 
-def _launch_magic(x, word3, s3, b23, group_sizes, group_size: int, raw_zp: bool) -> torch.Tensor:
+def tile_plan(group_sizes, bm: int):
+    """The row-tile kernel's schedule, as its ``row_tile`` computes it on the
+    device: for each CTA j of the grid's T // bm + E row tiles, (expert,
+    first row, the expert's end row) of the j-th tile of bm rows in expert
+    order (each expert's tiles from its first row on), or None for a
+    surplus CTA, which exits at once."""
+    sizes = [int(v) for v in group_sizes]
+    t, plan, lo = sum(sizes), [], 0
+    for e, n in enumerate(sizes):
+        n = max(0, min(n, t - lo))
+        plan += [(e, lo + i * bm, lo + n) for i in range(-(-n // bm))]
+        lo += n
+    ctas = t // bm + len(sizes)
+    return plan + [None] * (ctas - len(plan))
+
+
+def pick_bm(t: int, e: int) -> int:
+    """Row tile of the magic form above DECODE_MAX_T rows: 128 rows where
+    the experts own 128 rows each on average, else 64 (a 128-row tile runs
+    one CTA an SM, a 64-row one two). On the H100 at Mixtral's widths
+    (kernel_tiles.py time K13) 64 is 1.5x faster at T = 256, the two are
+    level at T = 1024 (within 5 % either way) and 128 is 8-12 % faster at
+    2048."""
+    return 128 if t >= 128 * e else 64
+
+
+def decode_plan(k: int, n: int, e: int, group_size: int, sm_count: int):
+    """(splits, super-groups per split) of the magic form's decode kernel:
+    K (K / 4g super-groups) split into up to MAX_CLUSTER ranks of a cluster
+    until the (N/128) x E blocks, times the splits, put about four 4-warp
+    blocks on every SM. At Mixtral's widths and E = 8 w_gate / w_up (896
+    blocks) stay whole and w_down (256) splits in three, the fastest of
+    one to seven on the H100 (kernel_tiles.py time K13)."""
+    nsg = k // (4 * group_size)
+    blocks = n // 128 * e
+    splits = max(1, min(MAX_CLUSTER, nsg, -(-4 * sm_count // blocks)))
+    per = -(-nsg // splits)
+    return -(-nsg // per), per
+
+
+def _launch_magic(x, word3, s3, b23, group_sizes, group_size: int, raw_zp: bool,
+                  plan=None) -> torch.Tensor:
+    """Launch the magic form on CUDA tensors. ``plan`` overrides the picks:
+    (splits, per) of the decode kernel at T <= DECODE_MAX_T, else the row
+    tile (64 or 128)."""
     dev = x.device
     t, k = x.shape
     e, _, n = word3.shape
-    ng = k // group_size
+    g = group_size
+    ng = k // g
     k1._check_operands("int4_grouped_magic", dev, (
         ("x", x, torch.bfloat16, (t, k)),
         ("word", word3, torch.int32, (e, k // 8, n)),
         ("scale", s3, torch.bfloat16, (e, ng, n)),
         ("bias", b23, torch.bfloat16, (e, ng, n)),
         ("group_sizes", group_sizes, torch.int32, (e,))))
+    xs, bm, splits, per = None, 0, 1, 1
+    if t <= DECODE_MAX_T:
+        splits, per = plan or decode_plan(k, n, e, g, k1._sm_count(dev))
+    else:
+        bm = plan or pick_bm(t, e)
+        if bm not in ROW_TILES:
+            raise ValueError(f"int4_grouped_magic: row tile {bm} is not one of {ROW_TILES}")
+        xs = torch.empty((ng, (t // bm + e) * bm), dtype=torch.float32, device=dev)
     out = torch.empty((t, n), dtype=torch.bfloat16, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().ao_int4_grouped_magic(
             x.data_ptr(), word3.data_ptr(), s3.data_ptr(), b23.data_ptr(), group_sizes.data_ptr(),
-            out.data_ptr(), t, k, n, e, group_size, int(raw_zp), stream)
+            out.data_ptr(), None if xs is None else xs.data_ptr(), t, k, n, e, g, int(raw_zp), bm,
+            splits, per, stream)
     if err != 0:
         raise RuntimeError(f"int4_grouped_magic kernel launch failed: CUDA error {err}")
     int4_grouped_magic.launches += 1

@@ -72,7 +72,7 @@ def _lib_w4a8():
     global _LIB_W4A8
     if _LIB_W4A8 is None:
         lib = build.load("int4_w4a8")
-        lib.ao_int4_w4a8.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.ao_int4_w4a8.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         lib.ao_int4_w4a8.restype = ctypes.c_int
         lib.ao_int4_magic8_requant.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p]
@@ -425,7 +425,34 @@ def int4_w4a8_matmul_plain(xq, sx, word, s, b, group_size: int) -> torch.Tensor:
     return acc * sx.reshape(m, 1).to(torch.float32)
 
 
-def _launch_w4a8(xq, sx, word, s, b, group_size: int) -> torch.Tensor:
+W4A8_MAX_CLUSTER = 8  # CTAs of a portable thread-block cluster: K3's K splits
+W4A8_K_WARPS = (1, 2, 4, 8)  # warps along K a K3 CTA (of one warp of 32 columns)
+
+
+def w4a8_plan(m: int, k: int, n: int, group_size: int, sm_count: int):
+    """(warps along K, splits, group pairs a warp) of a K3 launch. K (K / 2g
+    group pairs) is cut into slices until about 16 warps an SM are in
+    flight over the N / 32 warps of columns (times the 32-row tiles above
+    M = 16); a CTA (one warp of columns) takes 4, 2 or 1 of them as warps
+    along K, the most that divides them (1 above 16 rows), and the cluster
+    of its splits along K the rest, at most W4A8_MAX_CLUSTER CTAs. Llama-3-8B
+    at M = 8: wq / wo (4, 4, 1), wk / wv (4, 4, 1), w1 / w3 (4, 1, 4), w2
+    (2, 7, 4), the lm_head (1, 1, 16); on the H100 each within noise of the
+    fastest plan of kernel_tiles.py time K3 but wk / wv's (2, 8, 1), 5 %."""
+    pairs = k // (2 * group_size)
+    col_warps = n // 32 * (1 if m <= 16 else -(-m // 32))
+    most = (1 if m > 16 else 4) * W4A8_MAX_CLUSTER
+    slices = max(1, min(pairs, 16 * sm_count // col_warps, most))
+    per = -(-pairs // slices)
+    slices = -(-pairs // per)
+    wk = 1 if m > 16 else next((w for w in (4, 2, 1) if slices % w == 0
+                                and slices // w <= W4A8_MAX_CLUSTER), 4)
+    return wk, -(-slices // wk), per
+
+
+def _launch_w4a8(xq, sx, word, s, b, group_size: int, plan=None) -> torch.Tensor:
+    """Launch K3 on CUDA tensors: one kernel, no workspace. ``plan``
+    (warps along K, splits, pairs a warp) overrides ``w4a8_plan``."""
     dev = xq.device
     m, k = xq.shape
     n = word.shape[1]
@@ -436,16 +463,13 @@ def _launch_w4a8(xq, sx, word, s, b, group_size: int) -> torch.Tensor:
         ("word", word, torch.int32, (k // 8, n)),
         ("scale", s, torch.bfloat16, (ng, n)),
         ("bias", b, torch.bfloat16, (ng, n))))
-    n_blocks = (n // 128) * (1 if m <= 16 else -(-m // 32))
-    splits, spp = _split_units(ng // 2, n_blocks, _sm_count(dev))
+    wk, splits, spp = plan or w4a8_plan(m, k, n, group_size, _sm_count(dev))
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    ws = torch.empty((splits, m, n), dtype=torch.float32, device=dev) if splits > 1 else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib_w4a8().ao_int4_w4a8(
             xq.data_ptr(), sx.data_ptr(), word.data_ptr(), s.data_ptr(), b.data_ptr(),
-            out.data_ptr(), None if ws is None else ws.data_ptr(), m, k, n, group_size, splits,
-            spp, stream)
+            out.data_ptr(), m, k, n, group_size, wk, splits, spp, stream)
     if err != 0:
         raise RuntimeError(f"int4_w4a8_matmul kernel launch failed: CUDA error {err}")
     int4_w4a8_matmul.launches += 1

@@ -60,7 +60,8 @@ LUT4_KERNEL_MAX_M = 1024
 # Largest row count T the MoE grouped kernel K13 takes (the reference's gate,
 # ao_tpu/moe/grouped.py:200): at or below it an int4 "magic" or "magic8"
 # expert stack goes to K13 where ``grouped_matmul.takes`` allows, above it
-# (prefill) the experts are dequantized for one ragged dot.
+# (prefill) the experts are dequantized for one ragged dot; on CUDA tensors
+# a "magic" stack takes K13 at any T (moe/grouped.py says why).
 GROUPED_KERNEL_MAX_T = 256
 
 # torch._int_mm on the card takes M > 16 only: smaller M is padded with rows

@@ -86,17 +86,19 @@ From the repo root, on a machine with a CUDA device and ``nvcc``:
 7. drives the MoE FFN at Mixtral-8x7B's published widths (8 experts, top-2;
    random weights from the seed, built and quantized one layer at a time):
    greedy ``generate`` under int4-WO at 32 layers (K13 magic for every
-   expert stack at decode, the ragged fallback at the 2048-row prefill),
-   W4A8 and bf16 at 8, with exact launch counts, two-layer logits against
+   expert stack at decode and at the 2048-row prefill: its row tiles),
+   W4A8 (K13 w4a8 at decode, the ragged fallback at the prefill) and bf16
+   at 8, with exact launch counts, two-layer logits against
    the plain route with the router's decisions pinned to the plain route's,
    K13 alone against its plain version in the same route, a decode-shape MoE
    FFN under CUDA's sync debug mode, tok/s and profiles, then one slot
-   ``Engine`` run over the 32-layer int4-WO model (K13 at decode and in the
-   128-token bucket). K13 itself is held to its plain version in both forms
-   at Mixtral's decode rows (16) over both expert widths, in the magic form
-   also at the engine bucket's 256 rows over both widths (w4a8 at 256 rows
-   of 4096x14336 too, which no path launches), with one routing of every
-   row onto one expert;
+   ``Engine`` run over the 32-layer int4-WO model (K13 at decode and in
+   every bucketed or chunked prefill). K13 itself is held to its plain
+   version in both forms at Mixtral's decode rows (16) over both expert
+   widths, in the magic form also at the engine buckets' 256 and 1024 rows
+   and generate's 2048 over both widths (w4a8 at 256 rows of 4096x14336
+   too, which no path launches), with one routing of every row onto one
+   expert;
 8. drives the sparsity slice at ViT-L/16's full width (24 layers, batch 16
    at 224^2: 3152 rows per linear; random weights from the seed) through
    ``vit.forward``: block-sparse MLPs
@@ -120,9 +122,12 @@ without that line; so does a machine without a CUDA device.
 
 builds, then runs only the named kernels' phases (K1, K3, K8, K10, K11,
 K13, K14, K15, K16, K17, K18) and prints their rows as JSON, with no result
-line (``--sam`` the SAM-B paths alone, with images/s); the K1, K10, K15
-and K17 rows name each launch's tiles and K split, the K8 and K16 rows its
-query rows a CTA. A copy of this
+line (``--sam`` the SAM-B paths alone, with images/s; ``--mixtral`` the
+Mixtral paths alone, with tok/s, the prefill's device time and the
+engine's TTFT); the K1, K10, K15 and K17 rows name each launch's tiles and
+K split, the K3 rows their CTA width and K split and the device kernels a
+call, the K13 rows the magic form's K split or row tile, the K8 and K16
+rows its query rows a CTA. A copy of this
 script run in another checkout times that checkout's kernels, so two trees'
 kernels can be set side by side on one card in one run (a checkout whose
 own script predates a kernel's name here takes a copy of this one: the
@@ -267,13 +272,16 @@ MIXTRAL = dict(vocab_size=32000, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8
 MOE_CUT = 8
 # K13 (E = 8) where the main paths launch it: (form, T rows, K, N, path). A
 # decode step puts 8 tokens x top-2 = 16 rows through w_gate / w_up (4096 x
-# 14336) and w_down (14336 x 4096) in both forms; the slot engine's 128-token
-# bucket puts 256 rows through the same widths in the magic form. The w4a8
-# form is also held at 256 rows, where no path launches it (path None: no
-# W4A8 engine runs)
+# 14336) and w_down (14336 x 4096) in both forms; the slot engine's 128- and
+# 512-token buckets put 256 and 1024 rows, and generate's prefill (8 x 128
+# tokens) 2048 rows, through the same widths in the magic form (its row
+# tiles). The w4a8 form is also held at 256 rows, where no path launches it
+# (path None: no W4A8 engine runs)
 K13_SHAPES = [(form, t, k, n, path)
               for form, t, path in (("magic", 16, "Mixtral int4-WO"),
                                     ("magic", 256, "Mixtral engine-slots"),
+                                    ("magic", 1024, "Mixtral engine-slots"),
+                                    ("magic", 2 * BATCH * PROMPT, "Mixtral int4-WO"),
                                     ("w4a8", 16, f"Mixtral W4A8/{MOE_CUT}L"))
               for k, n in ((4096, 14336), (14336, 4096))] + [("w4a8", 256, 4096, 14336, None)]
 K13_SQNR_DB = 45.0  # the JAX suite's bound for its grouped kernels (tests/test_pallas_interpret.py)
@@ -560,20 +568,39 @@ def k3_phase(torch, fails, seed):
         sqnr = float(compute_error(ref, got))
         fails.check(bool(torch.isfinite(got).all()) and sqnr >= K3_SQNR_DB,
                     f"K3 int4_w4a8_matmul {(BATCH, k, n)}: sqnr {sqnr:.2f} dB < {K3_SQNR_DB}")
-        ms = cuda_time_ms(lambda: k34._launch_w4a8(xq, sx, qa.qdata, qa.scale, qa.zero_point,
-                                                   GROUP), iters=20)
+        launch = lambda: k34._launch_w4a8(xq, sx, qa.qdata, qa.scale, qa.zero_point,  # noqa: E731
+                                          GROUP)
+        ms = cuda_time_ms(launch, iters=20)
         plain_ms = cuda_time_ms(lambda: k34.int4_w4a8_matmul_plain(xq, sx, qa.qdata, s, b, GROUP),
                                 iters=3, warmup=1)
         w_dq = qa.dequantize(torch.bfloat16)
         library_ms = cuda_time_ms(lambda: torch.matmul(x, w_dq), iters=10)
         del w_dq
         nbytes, ops = k34.traffic_w4a8(BATCH, k, n, GROUP)
+        plan = getattr(k34, "w4a8_plan", None)  # None in a checkout that predates it
+        dev = torch.device(DEV, torch.cuda.current_device())
+        desc = (f"{device_kernels(torch, launch)} device kernel(s) a call" + (
+            "" if plan is None else ", (warps along K, splits, pairs a warp) "
+            f"{plan(BATCH, k, n, GROUP, k34._sm_count(dev))}"))
         rows[(k, n)] = kernel_row("K3 int4_w4a8_matmul", f"M={BATCH} K={k} N={n}", got, ref,
                                   f"sqnr {sqnr:.2f} dB (>= {K3_SQNR_DB})", ms, plain_ms,
-                                  library_ms, nbytes, ops, INT8_OPS_PER_S)
+                                  library_ms, nbytes, ops, INT8_OPS_PER_S, tiles=desc)
         del qa, x, xq, sx, s, b, got, ref
         torch.cuda.empty_cache()
     return rows
+
+
+def device_kernels(torch, fn) -> int:
+    """The device kernels one call of ``fn`` runs, as torch.profiler counts
+    them (after a warm call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
 def k4_phase(torch, fails, seed):
@@ -1054,11 +1081,28 @@ def k13_phase(torch, fails, seed, n_experts=8):
                 f"sqnr {sqnr:.2f} dB (>= {K13_SQNR_DB}), {active} experts own a row"
                 + ("" if forms[form] else ", on no main path"), ms,
                 plain_ms, library_ms, nbytes, ops,
-                INT8_OPS_PER_S if form == "w4a8" else BF16_FLOPS_PER_S)
+                INT8_OPS_PER_S if form == "w4a8" else BF16_FLOPS_PER_S,
+                tiles=k13_plan(torch, form, t, k, n, n_experts))
             del results, got, ref
         del stacks, x, xq, tokens
         torch.cuda.empty_cache()
     return rows
+
+
+def k13_plan(torch, form, t, k, n, n_experts):
+    """What a K13 launch of the magic form runs: the decode kernel's K split
+    (splits, super-groups a split) or the row tile (None for the w4a8 form
+    and in a checkout that predates the plans)."""
+    from ao_tpu_torch.ops.hopper import grouped_matmul as k13
+    from ao_tpu_torch.ops.hopper import int4_matmul as k1
+
+    if form != "magic" or not hasattr(k13, "decode_plan"):
+        return None
+    if t > k13.DECODE_MAX_T:
+        return f"row tiles of {k13.pick_bm(t, n_experts)}"
+    dev = torch.device(DEV, torch.cuda.current_device())
+    splits = k13.decode_plan(k, n, n_experts, GROUP, k1._sm_count(dev))
+    return f"decode (splits, super-groups a split) {splits}"
 
 
 @contextlib.contextmanager
@@ -1409,6 +1453,19 @@ def engine_requests(seed, vocab):
             for i, n in enumerate(lengths)]
 
 
+def k13_takes_rows():
+    """Whether the route sends T routed rows of a magic expert stack on the
+    card to K13 (``moe.grouped.k13_takes_rows``; the reference's gate of
+    ``kernels.GROUPED_KERNEL_MAX_T`` rows in a checkout that predates it)."""
+    from ao_tpu_torch.moe import grouped
+    from ao_tpu_torch.ops import kernels
+
+    rule = getattr(grouped, "k13_takes_rows", None)
+    if rule is None:
+        return lambda t: t <= kernels.GROUPED_KERNEL_MAX_T
+    return lambda t: rule(t, "magic", True)
+
+
 def engine_tag(paged, kv_quant=None):
     return ("engine-paged" if paged else "engine-slots") + (
         f"-{SHORT[kv_quant]}KV" if kv_quant else "")
@@ -1420,7 +1477,6 @@ def engine_run(torch, fails, qparams, cfg, requests, counters, paged, kv_quant=N
     against the engine's own schedule, every request finished with its
     tokens. Returns (launches, the finished requests' tokens, metrics)."""
     import ao_tpu_torch
-    from ao_tpu_torch.ops import kernels
 
     model = "Mixtral-8x7B" if cfg.n_experts else "Llama-3-8B"
     tag = ("Mixtral " if cfg.n_experts else "") + engine_tag(paged, kv_quant)
@@ -1460,10 +1516,12 @@ def engine_run(torch, fails, qparams, cfg, requests, counters, paged, kv_quant=N
     want["int4_wo_magic"] = linears * (n_bucketed + n_chunks + n_steps)
     if cfg.n_experts:
         # K13 for w_gate, w_up and w_down at every decode step (8 slots x
-        # top-k rows) and in the bucketed prefills whose rows fit its gate;
-        # the larger bucket and the chunks take the ragged fallback
-        fits = sum(n for bk, n in per_bucket.items()
-                   if bk * cfg.top_k_experts <= kernels.GROUPED_KERNEL_MAX_T)
+        # top-k rows) and in the prefills (a bucket's or a chunk's padded
+        # tokens x top-k rows) whose rows its route takes (all of them on
+        # the card; a prefill it does not take runs the ragged fallback)
+        takes = k13_takes_rows()
+        fits = sum(n for bk, n in per_bucket.items() if takes(bk * cfg.top_k_experts))
+        fits += n_chunks if takes(chunk * cfg.top_k_experts) else 0
         want["int4_grouped_magic"] = 3 * cfg.n_layers * (n_steps + fits)
     decode = (POOL_KERNELS[kv_quant] if paged
               else KV_KERNELS[kv_quant][0] if kv_quant else "decode_attention")
@@ -2214,9 +2272,10 @@ def mixtral_models(torch):
 def mixtral_paths(torch, fails, counters, launches, tps, card):
     """The MoE slice's main paths on Mixtral-8x7B widths: greedy
     ``generate`` at batch 8, prompt 128, 64 steps under int4-WO (32 layers:
-    K13 magic at decode, the ragged fallback at the 2048-row prefill, K1 for
-    the attention linears and the lm_head), W4A8 (8 layers: K13 w4a8 at
-    decode, K3 / K4 for the linears) and bf16 (8 layers: the ragged dot),
+    K13 magic at decode and at the 2048-row prefill, K1 for the attention
+    linears and the lm_head), W4A8 (8 layers: K13 w4a8 at decode, the ragged
+    fallback at the prefill, K3 / K4 for the linears) and bf16 (8 layers:
+    the ragged dot),
     with exact launch counts; two-layer logits against the plain route; a
     decode-shape MoE FFN under CUDA's sync debug mode; tok/s and profiles;
     then the slot Engine over the 32-layer int4-WO model. Prints the
@@ -2245,8 +2304,11 @@ def mixtral_paths(torch, fails, counters, launches, tps, card):
         n, decode = c.n_layers, c.n_layers * (STEPS - 1)
         linears = 4 * n + 1  # wq, wk, wv, wo per layer, and the lm_head
         if tag.startswith("Mixtral int4-WO"):
+            # K13 at every decode step and, where the route takes its 8 x
+            # 128 x top-2 rows, at the prefill
+            prefill = 3 * n if k13_takes_rows()(BATCH * PROMPT * c.top_k_experts) else 0
             return {"int4_wo_magic": linears * STEPS, "decode_attention": decode,
-                    "int4_grouped_magic": 3 * decode}
+                    "int4_grouped_magic": 3 * decode + prefill}
         if tag.startswith("Mixtral W4A8"):  # the 1024-row prefill requantizes (K4)
             return {"int4_w4a8_matmul": linears * (STEPS - 1),
                     "int4_magic8_requant_int8": linears, "decode_attention": decode,
@@ -2422,6 +2484,31 @@ def kernels_only(torch, names) -> int:
     return 1 if fails else 0
 
 
+def mixtral_only(torch) -> int:
+    """Build, then run only the MoE slice's paths (``mixtral_paths``: launch
+    counts, logits, tok/s, profiles with the prefill's device time, and the
+    slot engine's TTFT) and print tok/s as one JSON line."""
+    from ao_tpu_torch.ops.hopper import decode_attention as k2
+    from ao_tpu_torch.ops.hopper import flash_attention as k8
+    from ao_tpu_torch.ops.hopper import grouped_matmul as k13
+    from ao_tpu_torch.ops.hopper import int4_matmul as k1
+
+    card = card_line()
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    build_all()
+    fails = Failures()
+    counters = {"int4_wo_magic": k1.int4_wo_magic, "decode_attention": k2.decode_attention,
+                "int4_w4a8_matmul": k1.int4_w4a8_matmul,
+                "int4_magic8_requant_int8": k1.int4_magic8_requant_int8,
+                "flash_attention": k8.flash_attention,
+                "int4_grouped_magic": k13.int4_grouped_magic,
+                "int4_grouped_w4a8": k13.int4_grouped_w4a8}
+    launches, tps = {}, {}
+    mixtral_paths(torch, fails, counters, launches, tps, card)
+    print(json.dumps({"tok/s": tps}), flush=True)
+    return 1 if fails else 0
+
+
 def sam_only(torch) -> int:
     """Build, then run only the SAM-B paths (W8A8 and bf16: exact launch
     counts, masks and IoU against the plain route, images/s over three
@@ -2451,6 +2538,8 @@ def main() -> int:
                              "K15, K16, K17, K18 (comma-separated)")
     parser.add_argument("--sam", action="store_true",
                         help="only the SAM-B paths (W8A8 and bf16), for images/s")
+    parser.add_argument("--mixtral", action="store_true",
+                        help="only the Mixtral-8x7B paths (generate and the slot engine)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
@@ -2462,6 +2551,8 @@ def main() -> int:
         return kernels_only(torch, args.kernels)
     if args.sam:
         return sam_only(torch)
+    if args.mixtral:
+        return mixtral_only(torch)
     import ao_tpu_torch
     from ao_tpu_torch.models import llama
     from ao_tpu_torch.ops.hopper import bsr_matmul as k18

@@ -1,10 +1,13 @@
 """Time the prefill launches of K10 (int8 weight-only) or K17 (fp8
 blockwise) at generate's five M = 1024 shapes over Llama-3-8B's widths, at
-the tiles each wrapper picks and at every other unsplit tile it takes, on
-one CUDA device; or compare the SASS of each kernel in two builds of one
-source, with names and addresses stripped.
+the tiles each wrapper picks and at every other unsplit tile it takes; K3
+(W4A8) at decode (M = 8) over the same widths at its plan and every other
+CTA width and cluster split; or K13's magic form (E = 8, Mixtral's expert
+widths, a top-2 routing) at its decode splits (T = 16) and row tiles (T =
+256, 1024, 2048), on one CUDA device; or compare the SASS of each kernel in
+two builds of one source, with names and addresses stripped.
 
-    python3 kernel_tiles.py time K10          # or K17
+    python3 kernel_tiles.py time K10          # or K17, K3, K13
     python3 kernel_tiles.py sass LIB_A LIB_B  # two builds' lib<source>-*.so
 
 Run in a copy of the tree with a kernel changed and in this one, in turns
@@ -45,6 +48,9 @@ def time_tiles(kernel: str) -> int:
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     print(f"card: {torch.cuda.get_device_name(dev)}", flush=True)
+    if kernel in ("K3", "K13"):
+        (time_k3 if kernel == "K3" else time_k13)(torch, cuda_time_ms, dev, sms)
+        return 0
     gen = torch.Generator(device=dev).manual_seed(0)
     mod = k10 if kernel == "K10" else k17
     m = M_PREFILL
@@ -71,6 +77,78 @@ def time_tiles(kernel: str) -> int:
         del qa, args
         torch.cuda.empty_cache()
     return 0
+
+
+def time_k3(torch, cuda_time_ms, dev, sms) -> None:
+    """K3 at M = 8 over LLAMA_KN: the plan ``w4a8_plan`` picks, then the
+    others of 1-8 warps along K and clusters of 1-8 CTAs."""
+    from ao_tpu_torch.ops.act_quant import quantize_activation
+    from ao_tpu_torch.ops.hopper import int4_matmul as k1
+    from ao_tpu_torch.quantization.configs import Int8DynamicActivationInt4WeightConfig
+    from ao_tpu_torch.quantization.quantize import quantize_
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g, m = 128, 8
+    for k, n in LLAMA_KN:
+        w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(torch.bfloat16)
+        qa = quantize_({"w": w}, Int8DynamicActivationInt4WeightConfig(group_size=g))["w"]
+        del w
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        xq, sx, _ = quantize_activation(x, qa.act_quant)
+        pairs = k // (2 * g)
+        picked = k1.w4a8_plan(m, k, n, g, sms)
+        plans = [picked] + [(wk, sp, -(-pairs // (sp * wk)))
+                            for wk in k1.W4A8_K_WARPS for sp in range(1, k1.W4A8_MAX_CLUSTER + 1)
+                            if sp * wk <= pairs
+                            and (sp - 1) * wk * -(-pairs // (sp * wk)) < pairs
+                            and (wk, sp, -(-pairs // (sp * wk))) != picked]
+        times = []
+        for plan in plans:
+            us = 1e3 * cuda_time_ms(lambda: k1._launch_w4a8(xq, sx, qa.qdata, qa.scale,
+                                                            qa.zero_point, g, plan), iters=20)
+            times.append(f"{plan} {us:.1f} us" + (" (picked)" if plan == picked else ""))
+        print(f"K3 M={m} K={k} N={n} (warps along K, splits, pairs a warp): "
+              + ", ".join(times),
+              flush=True)
+        del qa
+        torch.cuda.empty_cache()
+
+
+def time_k13(torch, cuda_time_ms, dev, sms) -> None:
+    """K13's magic form at Mixtral's expert widths (E = 8) over a top-2
+    routing: the decode kernel at T = 16 at every K split up to a cluster of
+    8, the row tiles at T = 256, 1024 and 2048 at both tiles."""
+    from ao_tpu_torch.ops.hopper import grouped_matmul as k13
+    from ao_tpu_torch.quantization.qarrays.int4 import Int4Array
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g, e = 128, 8
+    for k, n in ((4096, 14336), (14336, 4096)):
+        w = torch.randn((e, k, n), generator=gen, device=dev, dtype=torch.bfloat16) * k ** -0.5
+        qa = Int4Array.from_hp(w, group_size=g)
+        del w
+        nsg = k // (4 * g)
+        for t in (16, 256, 1024, 2048):
+            x = torch.randn((t, k), generator=gen, device=dev).to(torch.bfloat16)
+            idx = torch.topk(torch.randn((t // 2, e), generator=gen, device=dev), 2).indices
+            gs = torch.bincount(idx.reshape(-1), minlength=e).to(torch.int32)
+            if t <= k13.DECODE_MAX_T:
+                picked = k13.decode_plan(k, n, e, g, sms)
+                plans = [picked] + [(sp, -(-nsg // sp)) for sp in range(1, k13.MAX_CLUSTER + 1)
+                                    if -(-nsg // -(-nsg // sp)) == sp
+                                    and (sp, -(-nsg // sp)) != picked]
+            else:
+                picked = k13.pick_bm(t, e)
+                plans = [picked] + [bm for bm in k13.ROW_TILES if bm != picked]
+            times = []
+            for plan in plans:
+                us = 1e3 * cuda_time_ms(lambda: k13._launch_magic(
+                    x, qa.qdata, qa.scale, qa.zero_point, gs, g, True, plan), iters=20)
+                times.append(f"{plan} {us:.1f} us" + (" (picked)" if plan == picked else ""))
+            print(f"K13 magic T={t} K={k} N={n} (splits, super-groups a split, or the row "
+                  f"tile): " + ", ".join(times), flush=True)
+        del qa
+        torch.cuda.empty_cache()
 
 
 def _sass(lib: str):
@@ -116,7 +194,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = parser.add_subparsers(dest="cmd", required=True)
     t = sub.add_parser("time", help="time a kernel's prefill launch at each tile")
-    t.add_argument("kernel", choices=("K10", "K17"))
+    t.add_argument("kernel", choices=("K10", "K17", "K3", "K13"))
     s = sub.add_parser("sass", help="compare the SASS of two builds of one source")
     s.add_argument("lib_a")
     s.add_argument("lib_b")

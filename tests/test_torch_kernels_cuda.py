@@ -324,6 +324,68 @@ def test_int4_w4a8_matches_plain(dev, m, k, n, g, domain):
     assert sqnr >= 45, f"K3 vs plain: {sqnr:.2f} dB"
 
 
+def _device_kernels(fn) -> int:
+    """The device kernels one call of ``fn`` runs, as torch.profiler counts
+    them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+LLAMA_KN = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]
+
+
+@pytest.mark.parametrize("k,n", LLAMA_KN)
+def test_int4_w4a8_one_launch_at_each_llama_plan(dev, k, n):
+    """K3 at Llama-3-8B's widths and M = 1, 8 and 16, each at its
+    ``w4a8_plan`` (a K split of up to 8 CTAs summed in their cluster): 45
+    dB against the plain version, one device kernel a call, no workspace,
+    and the same bits on a second call."""
+    from ao_tpu_torch.ops.act_quant import quantize_activation
+
+    qa, gen = _w4a8_weight(dev, k, n, 128, "tinygemm", seed=k + n)
+    s, b = k1.w4a8_qparams(qa.scale, qa.zero_point, qa.zero_point_domain)
+    for m in (1, 8, 16):
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        xq, sx, _ = quantize_activation(x, W4A8_SPEC)
+        run = lambda: k1._launch_w4a8(xq, sx, qa.qdata, qa.scale, qa.zero_point, 128)  # noqa: E731
+        got, again = run(), run()
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), f"M={m}: two calls differ"
+        ref = k1.int4_w4a8_matmul_plain(xq, sx, qa.qdata, s, b, 128)
+        sqnr = float(compute_error(ref, got))
+        assert sqnr >= 45, f"K3 M={m} K={k} N={n} {k1.w4a8_plan(m, k, n, 128, 132)}: {sqnr:.2f} dB"
+        assert _device_kernels(run) == 1
+
+
+@pytest.mark.parametrize("plan", [(1, 1, 8), (1, 8, 1), (1, 4, 2), (1, 3, 3), (2, 4, 1),
+                                  (8, 1, 1), (4, 2, 1), (2, 2, 3), (2, 1, 4)])
+def test_int4_w4a8_every_cta_width_and_split(dev, plan):
+    """K3 at 1-8 warps along K in a CTA (M = 5 only: above 16 rows a CTA has
+    one) and K splits of 1-8 (uneven ones, and a last CTA with an idle
+    warp, too) at M = 5 and 40 (32-row tiles along grid.y) over 8 group
+    pairs."""
+    from ao_tpu_torch.ops.act_quant import quantize_activation
+
+    qa, gen = _w4a8_weight(dev, 2048, 256, 128, "minmax_int", seed=sum(plan))
+    s, b = k1.w4a8_qparams(qa.scale, qa.zero_point, qa.zero_point_domain)
+    for m in (5, 40) if plan[0] == 1 else (5,):
+        x = torch.randn((m, 2048), generator=gen, device=dev).to(torch.bfloat16)
+        xq, sx, _ = quantize_activation(x, W4A8_SPEC)
+        got = k1._launch_w4a8(xq, sx, qa.qdata, s, b, 128, plan)
+        again = k1._launch_w4a8(xq, sx, qa.qdata, s, b, 128, plan)
+        torch.cuda.synchronize()
+        ref = k1.int4_w4a8_matmul_plain(xq, sx, qa.qdata, s, b, 128)
+        assert float(compute_error(ref, got)) >= 45 and torch.equal(got, again)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        k1._launch_w4a8(xq, sx, qa.qdata, s, b, 128, (1, 9, 1))  # a cluster of 9
+
+
 @pytest.mark.parametrize("k,n,g", [(512, 256, 64), (1024, 1024, 128), (512, 128, 32),
                                    (4096, 1024, 128)])
 def test_requant_matches_plain_and_feeds_int_mm(dev, k, n, g):
@@ -1558,7 +1620,9 @@ def test_vit_int4_two_layers_go_through_their_kernels(dev):
 def _routing(dev, kind, t, e, gen):
     """Group sizes (E,) int32 summing to T: a top-2 routing of T/2 random
     tokens ("top2"), every row to one expert and the others empty ("one"),
-    or rows spread with an empty expert in the middle ("gap")."""
+    rows spread with an empty expert in the middle ("gap"), or 12 rows in
+    expert 0 and the rest in the last ("twelve": an expert of 9-16 rows at
+    decode)."""
     if kind == "top2":
         logits = torch.randn((t // 2, e), generator=gen, device=dev)
         idx = torch.topk(logits, 2, dim=-1).indices.reshape(-1)
@@ -1567,6 +1631,8 @@ def _routing(dev, kind, t, e, gen):
     gs = torch.zeros(e, dtype=torch.int32, device=dev)
     if kind == "one":
         gs[e // 2] = t
+    elif kind == "twelve":
+        gs[0], gs[e - 1] = 12, t - 12
     else:
         gs[0], gs[e - 1] = t // 2, t - t // 2
     return gs
@@ -1580,11 +1646,19 @@ def _grouped_weight(dev, e, k, n, g, domain, act_quant, seed):
 
 
 GROUPED_CASES = [
-    (16, 8, 512, 256, 128, "tinygemm", "top2"),   # Mixtral's decode rows at small width
+    (16, 8, 512, 256, 128, "tinygemm", "top2"),   # Mixtral's decode rows: each expert <= 8
     (16, 8, 512, 256, 128, "tinygemm", "one"),    # every row in one expert, the rest empty
+    (16, 8, 2048, 128, 128, "tinygemm", "twelve"),  # an expert of 12 rows: two n8 tiles
     (8, 4, 256, 128, 32, "minmax_int", "gap"),    # 8-row tiles, an int zero point
-    (256, 8, 1024, 384, 64, "tinygemm", "top2"),  # the engine's 128-token bucket: 32-row chunks
-    (256, 8, 512, 128, 128, "tinygemm", "one"),   # 256 rows of one expert: eight chunks
+    (256, 8, 1024, 384, 64, "tinygemm", "top2"),  # the engine's 128-token bucket
+    (256, 8, 512, 128, 128, "tinygemm", "one"),   # 256 rows of one expert
+    (300, 4, 512, 128, 16, "tinygemm", "top2"),   # g = 16, T not a multiple of a row tile
+    (1024, 8, 512, 256, 128, "tinygemm", "top2"),  # the engine's 512 bucket: ragged last tiles
+    (1024, 8, 1024, 384, 32, "minmax_int", "gap"),
+    (1024, 8, 512, 128, 64, "tinygemm", "one"),
+    (2048, 8, 512, 256, 128, "tinygemm", "top2"),  # generate's prefill: 128-row tiles
+    (2048, 8, 512, 128, 64, "minmax_int", "gap"),
+    (2048, 8, 512, 128, 128, "tinygemm", "one"),  # sixteen tiles of one expert
 ]
 
 
@@ -1637,6 +1711,95 @@ def test_grouped_w4a8_matches_plain(dev, t, e, k, n, g, domain, routing):
     assert sqnr >= 45, f"K13 w4a8 vs plain: {sqnr:.2f} dB"
 
 
+def _magic_case(dev, t, e, k, n, g, domain, routing, seed):
+    from ao_tpu_torch.ops.hopper import grouped_matmul as k13
+
+    qa, gen = _grouped_weight(dev, e, k, n, g, domain, None, seed=seed)
+    x = torch.randn((t, k), generator=gen, device=dev).to(torch.bfloat16)
+    gs = _routing(dev, routing, t, e, gen)
+    s, b2 = k1.transport_qparams(qa.scale, qa.zero_point, qa.zero_point_domain)
+    return qa, x, gs, s, b2, k13.int4_grouped_magic_plain(x, qa.qdata, s, b2, gs, g)
+
+
+@pytest.mark.parametrize("t,routing,plan", [
+    (16, "top2", None), (16, "twelve", None), (300, "top2", 64), (300, "top2", 128),
+    (1024, "gap", 64), (1024, "top2", 128), (2048, "top2", 128), (2048, "top2", 64),
+])
+def test_grouped_magic_keeps_to_each_experts_rows(dev, t, routing, plan):
+    """With every row outside expert e set to +-inf, expert e's rows still
+    match the plain version and are finite: no tile of another expert
+    stores into them, and no row of another expert reaches them (the row
+    tiles zero-fill past an expert's last row, the decode reads only its
+    own), at either row tile."""
+    from ao_tpu_torch.ops.hopper import grouped_matmul as k13
+
+    qa, x, gs, s, b2, ref = _magic_case(dev, t, 8, 512, 256, 128, "tinygemm", routing, seed=t)
+    ends = torch.cumsum(gs, 0).tolist()
+    inf = torch.where(torch.arange(x.shape[0], device=dev) % 2 == 0, float("inf"),
+                      float("-inf")).to(torch.bfloat16)[:, None].expand_as(x)
+    checked = 0
+    for e, (hi, n_rows) in enumerate(zip(ends, gs.tolist())):
+        if not n_rows:
+            continue
+        lo = hi - n_rows
+        own = torch.zeros(x.shape[0], dtype=torch.bool, device=dev)
+        own[lo:hi] = True
+        poisoned = torch.where(own[:, None], x, inf)
+        got = k13._launch_magic(poisoned, qa.qdata, qa.scale, qa.zero_point, gs, 128, True,
+                                plan)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got[lo:hi]).all()), f"expert {e}: rows not finite"
+        sqnr = float(compute_error(ref[lo:hi], got[lo:hi]))
+        assert sqnr >= 45, f"expert {e}: {sqnr:.2f} dB"
+        checked += 1
+    assert checked >= 2
+
+
+@pytest.mark.parametrize("t,k,plan", [(16, 2048, (1, 4)), (16, 2048, (2, 2)),
+                                      (16, 2048, (4, 1)), (8, 4096, (8, 1)),
+                                      (16, 4096, (3, 3))])
+def test_grouped_magic_decode_splits_are_repeatable(dev, t, k, plan):
+    """The decode kernel at each K split (a cluster of up to 8 CTAs, summed
+    in rank order inside the launch): the plain version's function at 45
+    dB, with large row sums of x (a mean 8 standard deviations off zero,
+    against which the 128 + u offset's f32 cancellation is held), and the
+    same bits on a second run."""
+    from ao_tpu_torch.ops.hopper import grouped_matmul as k13
+
+    qa, x, gs, s, b2, _ = _magic_case(dev, t, 8, k, 256, 128, "tinygemm", "top2", seed=k + t)
+    x = (x.float() + 8.0).to(torch.bfloat16)
+    ref = k13.int4_grouped_magic_plain(x, qa.qdata, s, b2, gs, 128)
+    got = k13._launch_magic(x, qa.qdata, qa.scale, qa.zero_point, gs, 128, True, plan)
+    again = k13._launch_magic(x, qa.qdata, qa.scale, qa.zero_point, gs, 128, True, plan)
+    torch.cuda.synchronize()
+    assert float(compute_error(ref, got)) >= 45
+    assert torch.equal(got, again)
+
+
+def test_grouped_routes_magic_above_256_rows_and_magic8_not(dev):
+    """On CUDA tensors a magic expert stack takes K13 at 320 rows (above the
+    reference's gate of 256); a magic8 (W4A8) stack there takes the ragged
+    fallback on the unquantized activations, as the reference does."""
+    from ao_tpu_torch.moe import grouped_matmul
+    from ao_tpu_torch.ops.hopper import grouped_matmul as k13
+
+    t = 320
+    assert t > kernels.GROUPED_KERNEL_MAX_T
+    for act_quant, counter in ((None, k13.int4_grouped_magic), (W4A8_SPEC, k13.int4_grouped_w4a8)):
+        qa, gen = _grouped_weight(dev, 4, 512, 256, 64, "tinygemm", act_quant, seed=7)
+        x = torch.randn((t, 512), generator=gen, device=dev).to(torch.bfloat16)
+        gs = _routing(dev, "top2", t, 4, gen)
+        before = (k13.int4_grouped_magic.launches, k13.int4_grouped_w4a8.launches)
+        y = grouped_matmul(x, qa, gs)
+        torch.cuda.synchronize()
+        after = (k13.int4_grouped_magic.launches, k13.int4_grouped_w4a8.launches)
+        want = (before[0] + 1, before[1]) if act_quant is None else before
+        assert after == want and y.shape == (t, 256)
+        with kernels.backend("torch"):
+            ref = grouped_matmul(x, qa, gs)
+        assert float(compute_error(ref, y)) >= 35
+
+
 def test_grouped_refuses_on_the_card(dev):
     from ao_tpu_torch.ops.hopper import grouped_matmul as k13
 
@@ -1665,8 +1828,9 @@ def _moe_llama(dev, config):
 @pytest.mark.parametrize("name", ["int4-WO", "W4A8"])
 def test_moe_generate_goes_through_k13(dev, name):
     """A 2-layer MoE llama (4 experts, top-2) under int4-WO or W4A8: K13 for
-    w_gate, w_up and w_down at every decode step (T = 2 x 2 rows), the ragged
-    fallback at the prefill (T = 2 x 80 x 2 = 320 > 256), K1 or K3 / K4 for
+    w_gate, w_up and w_down at every decode step (T = 2 x 2 rows) and, for
+    int4-WO's magic stacks, at the prefill too (T = 2 x 80 x 2 = 320 > 256:
+    the row tiles), where W4A8 takes the ragged fallback; K1 or K3 / K4 for
     the attention linears and the lm_head; the prefill's and one decode
     step's logits near the "torch" backend's."""
     from ao_tpu_torch.moe import layer as moe_layer
@@ -1685,7 +1849,7 @@ def test_moe_generate_goes_through_k13(dev, name):
     assert toks.shape == (2, 5) and toks.dtype == torch.int32
     n_lin, n_exp, steps = 4 * cfg.n_layers + 1, 3 * cfg.n_layers, 5
     if name == "int4-WO":
-        want = [n_exp * (steps - 1), 0, n_lin * steps, 0, 0, cfg.n_layers * (steps - 1)]
+        want = [n_exp * steps, 0, n_lin * steps, 0, 0, cfg.n_layers * (steps - 1)]
     else:  # 160 prefill rows <= 512: K3 at the prefill too
         want = [0, n_exp * (steps - 1), 0, n_lin * steps, 0, cfg.n_layers * (steps - 1)]
     assert [c.launches for c in counters] == want

@@ -12,7 +12,8 @@ package's, on the same numpy inputs, on the CPU.
   carried container equals JAX's bit for bit.
 * The plain versions of K13 (the "auto" route on the CPU) against JAX's
   Pallas kernels in interpret mode, on tests/test_pallas_interpret.py's
-  cases, and the T > 256 fallback against JAX's "xla" route.
+  cases and at T = 512, and the CPU's T > 256 fallback against JAX's "xla"
+  route.
 * The tiny MoE llama of tests/test_moe_llama.py (f32): forward logits,
   greedy ``generate`` tokens and the slot ``Engine``'s tokens against
   JAX's; a wider one (every expert stack taken by K13) under int4-WO and
@@ -209,10 +210,10 @@ def test_grouped_matmul_all_rows_in_one_expert():
 E, T, GK, GN, G = 3, 8, 256, 128, 32  # tests/test_pallas_interpret.py's cases
 
 
-def _k13_setup(act_quant=None):
+def _k13_setup(act_quant=None, t=T):
     rng = np.random.default_rng(1)
     w = (rng.standard_normal((E, GK, GN)) * 0.02).astype(np.float32)
-    x = jnp.asarray(rng.standard_normal((T, GK)).astype(np.float32), jnp.bfloat16)
+    x = jnp.asarray(rng.standard_normal((t, GK)).astype(np.float32), jnp.bfloat16)
     qa = jax.jit(lambda a: JInt4Array.from_hp(a, group_size=G, act_quant=act_quant))(
         jnp.asarray(w))
     return x, qa
@@ -224,14 +225,37 @@ def _jax_pallas(x, qa, gs):
         return np.asarray(jax.block_until_ready(y).astype(jnp.float32))
 
 
-@pytest.mark.parametrize("gs,bound", [([3, 1, 4], 45), ([0, 8, 0], 45)])
+def _jax_pallas_magic(x, qa, gs):
+    """JAX's magic TPU kernel itself in interpret mode, at any T (its route
+    takes it up to 256 rows only)."""
+    from ao_tpu.ops.pallas import grouped_matmul as gk
+
+    ids = jgrouped.token_expert_ids(jnp.asarray(gs), x.shape[0])
+    with pltpu.force_tpu_interpret_mode():
+        y = gk.int4_grouped_magic_pallas(x, qa.qdata, qa.scale, qa.zero_point, ids,
+                                         qa.group_size, qa.zero_point_domain)
+        return np.asarray(jax.block_until_ready(y).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("gs,bound", [([3, 1, 4], 45), ([0, 8, 0], 45),
+                                      ([150, 297, 65], 45)])
 def test_k13_magic_plain_matches_pallas(gs, bound):
-    x, qa = _k13_setup()
+    """K13's magic plain version against JAX's Pallas kernel: through both
+    routes at T = 8; at T = 512 (ragged groups over several of the card's
+    64-row tiles), past the routes' CPU gate, the two called directly."""
+    t = sum(gs)
+    x, qa = _k13_setup(t=t)
     assert qa.layout == "magic"
     gs = np.asarray(gs, np.int32)
-    ref = _jax_pallas(x, qa, jnp.asarray(gs))
+    tw, tgs = jax_to_torch(qa), torch.from_numpy(gs)
     before = k13.int4_grouped_magic.launches
-    got = tgrouped.grouped_matmul(torch_from_np(x), jax_to_torch(qa), torch.from_numpy(gs))
+    if t <= tkernels.GROUPED_KERNEL_MAX_T:
+        ref = _jax_pallas(x, qa, jnp.asarray(gs))
+        got = tgrouped.grouped_matmul(torch_from_np(x), tw, tgs)
+    else:
+        ref = _jax_pallas_magic(x, qa, gs)
+        got = k13.int4_grouped_magic(torch_from_np(x), tw.qdata, tw.scale, tw.zero_point, tgs,
+                                     tw.group_size, tw.zero_point_domain)
     assert got.dtype == torch.bfloat16 and k13.int4_grouped_magic.launches == before
     sqnr = _sqnr(ref, got)
     assert sqnr >= bound, sqnr
@@ -251,8 +275,10 @@ def test_k13_w4a8_plain_matches_pallas():
 
 
 def test_k13_large_t_falls_back_as_xla():
-    """T > 256 takes the ragged fallback, as JAX's "xla" route: dequantize to
-    bf16, one bf16 product with f32 sums, bf16 out."""
+    """T > 256 takes the ragged fallback on the CPU, as JAX's "xla" route:
+    dequantize to bf16, one bf16 product with f32 sums, bf16 out. (On the
+    card a magic stack takes K13 at any T; the fallback above 256 rows is
+    the CPU's, and magic8's there.)"""
     rng = np.random.default_rng(2)
     w = (rng.standard_normal((2, GK, GN)) * 0.02).astype(np.float32)
     qa = jax.jit(lambda a: JInt4Array.from_hp(a, group_size=G))(jnp.asarray(w))

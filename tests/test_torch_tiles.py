@@ -3,7 +3,9 @@
 ``pick_splits`` and ``pick_tiles``), K15 (``lut4_matmul.launch_tiles``),
 K10 (``int8_matmul.pick_tiles``) and K17 (``fp8_matmul.pick_tiles``), and
 the launch plans of K8 and K16 on the attention mainloop
-(``flash_attention.launch_plan``), over
+(``flash_attention.launch_plan``), K13's row tiles and decode splits
+(``grouped_matmul.tile_plan``, ``decode_plan``) and K3's cluster split
+(``int4_matmul.w4a8_plan``), over
 every shape ``chip_smoke.py`` and the card's tests give them, the PyTorch
 mirrors of K14's and K10's integer decodes against the plain decode over
 every code and scale byte, the PyTorch mirror of K1's and K15's stage K
@@ -23,6 +25,7 @@ from ao_tpu_torch.ops.hopper import autotune
 from ao_tpu_torch.ops.hopper import flash_attention as k8
 from ao_tpu_torch.ops.hopper import fp4_matmul as k14
 from ao_tpu_torch.ops.hopper import fp8_matmul as k17
+from ao_tpu_torch.ops.hopper import grouped_matmul as k13
 from ao_tpu_torch.ops.hopper import int4_matmul as k1
 from ao_tpu_torch.ops.hopper import int8_matmul as k10
 from ao_tpu_torch.ops.hopper import lut4_matmul as k15
@@ -425,3 +428,127 @@ def test_attention_ctas_at_the_main_paths():
         t = side * side
         plan = k8.launch_plan((g, t, 12, 64), (g, t, 12, 64), False, k16.BLOCK_Q)
         assert len(plan.ctas) >= 2 * SM
+
+
+# K13's row tiles over routings with empty experts, every row in one
+# expert, T not a multiple of a tile, and top-2 routings of Mixtral's
+# prefill (T = 2048) and the engine's 512 bucket (T = 1024) over 8 experts
+
+
+def _top2_sizes(tokens, e, seed):
+    rng = np.random.default_rng(seed)
+    idx = np.argsort(-rng.standard_normal((tokens, e)), axis=1)[:, :2].reshape(-1)
+    return np.bincount(idx, minlength=e).tolist()
+
+
+K13_ROUTINGS = {
+    "empty experts": [0, 40, 0, 0, 88, 0, 0, 0],
+    "one expert": [0, 0, 0, 2048, 0, 0, 0, 0],
+    "ragged": [3, 64, 65, 127, 129, 0, 1, 300],
+    "decode": _top2_sizes(8, 8, 0),
+    "T = 1024 over 8": _top2_sizes(512, 8, 1),
+    "T = 2048 over 8": _top2_sizes(1024, 8, 2),
+}
+
+
+@pytest.mark.parametrize("bm", k13.ROW_TILES)
+@pytest.mark.parametrize("name", sorted(K13_ROUTINGS))
+def test_k13_row_tiles_cover_each_row_once(name, bm):
+    sizes = K13_ROUTINGS[name]
+    t, ends = sum(sizes), np.cumsum(sizes)
+    plan = k13.tile_plan(sizes, bm)
+    live = [tile for tile in plan if tile is not None]
+    # the grid's T // BM + E row tiles bound the tiles; the surplus CTAs
+    # come last and exit
+    assert len(plan) == t // bm + len(sizes) and plan[:len(live)] == live
+    assert len(live) == sum(-(-n // bm) for n in sizes)
+    seen = np.zeros(t, np.int64)
+    for e, m0, hi in live:
+        lo = int(ends[e]) - sizes[e]
+        assert hi == int(ends[e]) and lo <= m0 < hi and (m0 - lo) % bm == 0
+        seen[m0:min(m0 + bm, hi)] += 1
+    assert (seen == 1).all()
+    # an expert's tiles run next to each other, experts in order
+    experts = [e for e, *_ in live]
+    assert experts == sorted(experts)
+
+
+def test_k13_row_tiles_at_the_main_paths():
+    # 64-row tiles at the engine's 128 bucket, 128 at its 512 bucket and
+    # at generate's prefill
+    assert [k13.pick_bm(t, 8) for t in (256, 1024, 2048)] == [64, 128, 128]
+    for _, t, k, n, _ in _smoke.K13_SHAPES:
+        assert (t <= k13.DECODE_MAX_T) == (t == 16)
+
+
+@pytest.mark.parametrize("k,n", sorted({(k, n) for _, _, k, n, _ in _smoke.K13_SHAPES}
+                                       | {(512, 256), (2048, 128), (4096, 256)}))
+def test_k13_decode_splits_cover_k(k, n):
+    nsg = k // (4 * _smoke.GROUP)
+    splits, per = k13.decode_plan(k, n, 8, _smoke.GROUP, SM)
+    assert 1 <= splits <= k13.MAX_CLUSTER and _covers(nsg, splits, per)
+    # w_down (N = 4096: 256 blocks at E = 8) is split, w_gate / w_up not
+    if (k, n) in ((14336, 4096), (4096, 14336)):
+        assert (splits > 1) == (n == 4096)
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 40, 512])
+@pytest.mark.parametrize("k,n", _smoke.LLAMA_KN)
+def test_k3_plan_covers_every_group_pair_once(m, k, n):
+    g = _smoke.GROUP
+    pairs = k // (2 * g)
+    wk, splits, per = k1.w4a8_plan(m, k, n, g, SM)
+    assert wk in k1.W4A8_K_WARPS and (m <= 16 or wk == 1)
+    assert 1 <= splits <= k1.W4A8_MAX_CLUSTER
+    # warp slice z wk + w of the cluster's CTA z takes pairs [slice per, + per):
+    # every pair once, and every CTA along K some (the kernel's own check)
+    slices = [range(i * per, min((i + 1) * per, pairs)) for i in range(splits * wk)]
+    assert sorted(t for r in slices for t in r) == list(range(pairs))
+    assert (splits - 1) * wk * per < pairs <= splits * wk * per
+    ctas = n // 32 * (1 if m <= 16 else -(-m // 32)) * splits
+    assert ctas >= 128  # every SM busy, wk / wv (N = 1024) included
+
+
+@pytest.mark.parametrize("m", [1, 9, 17])
+@pytest.mark.parametrize("k,n", [(2816, 128), (7168, 32), (256, 4096), (14336, 96), (5632, 640)])
+def test_k3_plan_is_one_the_kernel_takes(m, k, n):
+    # odd pair counts, narrow N: the kernel's own rule (int4_w4a8.cu)
+    pairs = k // 256
+    wk, splits, per = k1.w4a8_plan(m, k, n, 128, SM)
+    slices = splits * wk
+    assert wk in k1.W4A8_K_WARPS and (m <= 16 or wk == 1) and 1 <= splits <= 8
+    assert (slices - wk) * per < pairs <= slices * per
+
+
+def test_k3_plans_at_decode():
+    # about 16 warps an SM, up to 4 along K in a CTA (kernel_tiles.py time K3)
+    want = {(4096, 4096): (4, 4, 1), (4096, 1024): (4, 4, 1), (4096, 14336): (4, 1, 4),
+            (14336, 4096): (2, 7, 4), (4096, 128256): (1, 1, 16)}
+    assert {kn: k1.w4a8_plan(8, *kn, _smoke.GROUP, SM) for kn in want} == want
+
+
+@pytest.mark.parametrize("offset", [0.0, 8.0])
+def test_k13_decode_offset_fold_is_the_plain_function(offset):
+    """The decode kernel's arithmetic in PyTorch: per group, tmp' = x_G .
+    (128 + u_G) and xsum = sum(x_G) in f32, then acc += s tmp' + xsum (b2 -
+    136 s), against the plain version (s (x_G . q_G) + xsum b2, q = u - 8)
+    at the 45 dB bound, also where the row sums are large (a mean of 8)."""
+    from ao_tpu_torch.quantization.qarrays.int4 import unpack_int4_magic
+
+    g, k, n, m = 128, 1024, 256, 8
+    gen = torch.Generator().manual_seed(int(offset))
+    w = (torch.randn((k, n), generator=gen) * 0.05).to(torch.bfloat16)
+    qa = Int4Array.from_hp(w, group_size=g)
+    s, b2 = k1.transport_qparams(qa.scale, qa.zero_point, qa.zero_point_domain)
+    x = (torch.randn((m, k), generator=gen) + offset).to(torch.bfloat16)
+    u = unpack_int4_magic(qa.qdata, g).to(torch.float32)
+    xf, sf = x.float(), s.float()
+    bias = b2.float() - 136.0 * sf
+    acc = torch.zeros((m, n))
+    for grp in range(k // g):
+        xg = xf[:, grp * g:(grp + 1) * g]
+        tmp = xg @ (128.0 + u[grp * g:(grp + 1) * g])
+        acc = acc + sf[grp] * tmp + xg.sum(1, keepdim=True) * bias[grp]
+    ref = k1.int4_wo_magic_plain(x, qa.qdata, s, b2, g)
+    err = (acc - ref).pow(2).mean() / ref.pow(2).mean()
+    assert float(-10 * torch.log10(err)) >= 45
