@@ -1,5 +1,5 @@
 // Single-query decode attention over a bf16 (B, T, Hkv, D) cache, for Hopper
-// (sm_90a).
+// (sm_90a): K2.
 //
 // Replaces the TPU kernel ao_tpu/ops/pallas/decode_attention.py::_tok_kernel
 // in mode "fp" (launched by _tok_impl from the tokens branch of
@@ -7,187 +7,68 @@
 // heads of its group share one K/V stream:
 //
 //   s[h, t] = (q[h] . K[t]) * sm_scale in f32, masked to _NEG where t >= lengths[b];
-//   out[h]  = softmax_t(s[h]) . V  in f32.
+//   out[h]  = softmax_t(s[h]) . V  in f32, p rounded to bf16 before p . V
+//             (ao_tpu/ops/pallas/decode_attention.py:216).
 //
-// What bounds it on the H100: the K and V bytes of the valid positions
-// (2 * 2 * Hkv * D bytes per token and batch row) against 3.35 TB/s; the
-// arithmetic is 4 * G flops per cache element loaded, far below the ridge.
-// At batch 8 with 8 kv heads there are only 64 (b, kv-head) streams for 132
-// SMs, and the TPU kernel's sequential grid carried one online-softmax
-// state along T. Blocks here run in no order, so the kernel splits T
-// (flash-decoding): grid (T/64, Hkv, B), each block owns 64 positions,
-// stages their K and V rows in shared memory with 16-byte coalesced loads,
-// and writes its unnormalised output with its max and sum; a second pass
-// combines the splits of each head. Splits that lie wholly at or past
-// lengths[b] (lengths >= 1) return at once: their weight exp(_NEG - max)
-// is exactly 0, so the combine skips them and their bytes are never read.
-// With lengths <= 0 every position is masked, as in the reference, and the
-// output is the mean of V over all T.
+// What bounds it on the H100: the K and V bytes of the valid positions (2 *
+// 2 * Hkv * D bytes per token and batch row) against 3.35 TB/s. The TPU
+// kernel's sequential grid carried one online softmax along T; here the
+// shared decode mainloop (decode_mainloop.cuh, whose header gives the
+// design) streams the rows through each warp's cp.async ring into
+// mma.sync, and the CTAs of a stream merge their softmaxes inside one
+// cluster: one launch, no workspace. This Op says where rows live (row t of
+// kv head n at ((b T + t) Hkv + n) D) and what a stream walks: positions
+// below min(lengths[b], T); with lengths <= 0 every position is masked, as in
+// the reference, and the output is the mean of V over all T, so the walk
+// then covers all T. Positions at or past T in a last partial tile are no
+// positions at all (-inf).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "decode_mainloop.cuh"
 
 namespace {
 
-constexpr int kD = 128;     // head dim
-constexpr int kChunk = 64;  // positions per block
-constexpr int kGMax = 8;    // query heads per kv head
-constexpr int kThreads = 128;
-constexpr int kPad = 8;     // row padding (bf16): 16-byte reads stay bank-conflict free
-constexpr float kNeg = -0.7f * 3.4028234663852886e38f;  // decode_attention.py:52
-
-__global__ void __launch_bounds__(kThreads)
-    decode_attn_split_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                             const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
-                             float* __restrict__ o_part, float* __restrict__ m_part,
-                             float* __restrict__ l_part, int T, int H, int Hkv, int nsplit,
-                             float sm_scale) {
-  const int sp = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int G = H / Hkv;
-  const int L = lengths[b];
-  const int t0 = sp * kChunk;
-  if (L >= 1 && t0 >= L) return;
-  const int tn = min(kChunk, T - t0);
-
-  __shared__ __align__(16) __nv_bfloat16 ks[kChunk][kD + kPad];
-  __shared__ __align__(16) __nv_bfloat16 vs[kChunk][kD + kPad];
-  __shared__ float qs[kGMax][kD];
-  __shared__ float ps[kGMax][kChunk];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-
-  for (int i = tid; i < G * kD; i += kThreads) {
-    const int gi = i / kD, d = i % kD;
-    qs[gi][d] = __bfloat162float(q[((size_t)b * H + kvh * G + gi) * kD + d]);
+struct Tokens {
+  static constexpr int kRowBytes = dm::kRowB;
+  static constexpr bool kQuant = false;
+  struct Cursor {};
+  __device__ static Cursor look(const dm::Params&, int, int) { return {}; }
+  __device__ static int walk_end(int L, int T) { return L >= 1 ? min(L, T) : T; }
+  __device__ static float mask(float s, int pos, int L, int T) {
+    return pos >= T ? -INFINITY : pos >= L ? dm::kNeg : s;
   }
-  const size_t row_stride = (size_t)Hkv * kD;
-  const size_t base = ((size_t)b * T + t0) * row_stride + (size_t)kvh * kD;
-  for (int i = tid; i < kChunk * (kD / 8); i += kThreads) {
-    const int r = i / (kD / 8), c = i % (kD / 8);
-    int4 kv = make_int4(0, 0, 0, 0), vv = make_int4(0, 0, 0, 0);
-    if (r < tn) {
-      kv = __ldg(reinterpret_cast<const int4*>(k + base + r * row_stride + c * 8));
-      vv = __ldg(reinterpret_cast<const int4*>(v + base + r * row_stride + c * 8));
-    }
-    *reinterpret_cast<int4*>(&ks[r][c * 8]) = kv;
-    *reinterpret_cast<int4*>(&vs[r][c * 8]) = vv;
+  __device__ static size_t row_offset(const dm::Params& p, const Cursor&, int b, int kvh,
+                                      int start, int r) {
+    return (((size_t)b * p.T + start + r) * p.Hkv + kvh) * kRowBytes;
   }
-  __syncthreads();
-
-  // scores: one (head, position) pair per thread and pass
-  for (int i = tid; i < G * kChunk; i += kThreads) {
-    const int gi = i / kChunk, r = i % kChunk;
-    float acc = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < kD / 8; ++c) {
-      const int4 kk = *reinterpret_cast<const int4*>(&ks[r][c * 8]);
-      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&kk);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(h2[e]);
-        acc = fmaf(qs[gi][c * 8 + 2 * e], f.x, acc);
-        acc = fmaf(qs[gi][c * 8 + 2 * e + 1], f.y, acc);
-      }
-    }
-    float sc = acc * sm_scale;
-    if (t0 + r >= L) sc = kNeg;
-    if (r >= tn) sc = -INFINITY;  // past the end of the cache: no position at all
-    ps[gi][r] = sc;
-  }
-  __syncthreads();
-
-  // per-head max and sum over this block's positions; p overwrites s
-  for (int gi = warp; gi < G; gi += kThreads / 32) {
-    float mx = -INFINITY;
-    for (int r = lane; r < kChunk; r += 32) mx = fmaxf(mx, ps[gi][r]);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    float sum = 0.f;
-    for (int r = lane; r < kChunk; r += 32) {
-      const float p = expf(ps[gi][r] - mx);
-      ps[gi][r] = p;
-      sum += p;
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    if (lane == 0) {
-      const size_t idx = (((size_t)b * Hkv + kvh) * nsplit + sp) * G + gi;
-      m_part[idx] = mx;
-      l_part[idx] = sum;
-    }
-  }
-  __syncthreads();
-
-  // unnormalised p . V: four dims of one head per thread and pass
-  for (int i = tid; i < G * (kD / 4); i += kThreads) {
-    const int gi = i / (kD / 4), d4 = i % (kD / 4);
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int r = 0; r < tn; ++r) {
-      const float p = ps[gi][r];
-      const uint2 raw = *reinterpret_cast<const uint2*>(&vs[r][4 * d4]);
-      const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-      const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-      acc.x = fmaf(p, lo.x, acc.x);
-      acc.y = fmaf(p, lo.y, acc.y);
-      acc.z = fmaf(p, hi.x, acc.z);
-      acc.w = fmaf(p, hi.y, acc.w);
-    }
-    const size_t idx = (((size_t)b * Hkv + kvh) * nsplit + sp) * G + gi;
-    *reinterpret_cast<float4*>(o_part + idx * kD + 4 * d4) = acc;
-  }
-}
-
-// grid (H, B), kD threads: merge the splits of one query head.
-__global__ void __launch_bounds__(kD)
-    decode_attn_combine_kernel(const float* __restrict__ o_part, const float* __restrict__ m_part,
-                               const float* __restrict__ l_part, const int* __restrict__ lengths,
-                               float* __restrict__ out, int H, int Hkv, int nsplit) {
-  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  const int G = H / Hkv;
-  const int kvh = h / G, gi = h % G;
-  const int L = lengths[b];
-  const int nvalid = L >= 1 ? min((L + kChunk - 1) / kChunk, nsplit) : nsplit;
-  const size_t base = ((size_t)b * Hkv + kvh) * nsplit;
-  float mx = -INFINITY;
-  for (int sp = 0; sp < nvalid; ++sp) mx = fmaxf(mx, m_part[(base + sp) * G + gi]);
-  float lsum = 0.f, acc = 0.f;
-  for (int sp = 0; sp < nvalid; ++sp) {
-    const size_t idx = (base + sp) * G + gi;
-    const float w = expf(m_part[idx] - mx);
-    lsum = fmaf(w, l_part[idx], lsum);
-    acc = fmaf(w, o_part[idx * kD + d], acc);
-  }
-  out[((size_t)b * H + h) * kD + d] = acc / fmaxf(lsum, 1e-30f);
-}
+};
 
 }  // namespace
 
-extern "C" int ao_decode_attention_chunk(void) { return kChunk; }
-extern "C" int ao_decode_attention_max_group(void) { return kGMax; }
-extern "C" int ao_decode_attention_head_dim(void) { return kD; }
+extern "C" int ao_decode_attention_slab(void) { return dm::kSlab; }
+extern "C" int ao_decode_attention_max_group(void) { return dm::kGMax; }
+extern "C" int ao_decode_attention_head_dim(void) { return dm::kD; }
+extern "C" int ao_decode_attention_max_split(void) { return dm::kMaxSplit; }
 
 // q (B, H, D) bf16; k, v (B, T, Hkv, D) bf16; lengths (B,) int32; out
-// (B, H, D) f32; o_part (B, Hkv, nsplit, G, D), m_part and l_part
-// (B, Hkv, nsplit, G) f32 with nsplit = ceil(T / chunk). Needs D == 128 and
-// H / Hkv <= 8; the Python wrapper checks them. Returns cudaGetLastError().
+// (B, H, D) f32. One launch: ``splits`` CTAs a (b, kv head) stream in one
+// cluster (1, 2, 4 or 8), each walking ``tiles`` tiles of ``rows`` positions
+// (64, or 128 at 3 stages) with ``stages`` slabs in each warp's ring (3 or
+// 4). Needs D == 128 and H / Hkv <= 8; the Python wrapper checks them.
+// Returns the CUDA error of the launch (cudaErrorInvalidValue for a plan it
+// does not take).
 extern "C" int ao_decode_attention(const void* q, const void* k, const void* v, const void* lengths,
-                                   void* out, void* o_part, void* m_part, void* l_part, int B,
-                                   int H, int Hkv, int T, int nsplit, float sm_scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* len = static_cast<const int*>(lengths);
-  dim3 grid1(nsplit, Hkv, B);
-  decode_attn_split_kernel<<<grid1, kThreads, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), len, static_cast<float*>(o_part),
-      static_cast<float*>(m_part), static_cast<float*>(l_part), T, H, Hkv, nsplit, sm_scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid2(H, B);
-  decode_attn_combine_kernel<<<grid2, kD, 0, st>>>(
-      static_cast<const float*>(o_part), static_cast<const float*>(m_part),
-      static_cast<const float*>(l_part), len, static_cast<float*>(out), H, Hkv, nsplit);
-  return (int)cudaGetLastError();
+                                   void* out, int B, int H, int Hkv, int T, int splits, int tiles,
+                                   int rows, int stages, float sm_scale, void* stream) {
+  dm::Params p = {};
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const uint8_t*>(k);
+  p.v = static_cast<const uint8_t*>(v);
+  p.lengths = static_cast<const int*>(lengths);
+  p.out = static_cast<float*>(out);
+  p.T = T;
+  p.H = H;
+  p.Hkv = Hkv;
+  p.tiles = tiles;
+  p.sm_scale = sm_scale;
+  return (int)dm::launch<Tokens>(p, splits, B, rows, stages, static_cast<cudaStream_t>(stream));
 }

@@ -18,8 +18,12 @@ Counterparts of ``ao_tpu/ops/pallas/decode_attention.py::decode_attention``:
   ``_tok_kernel`` over an int8 or fp8 e5m2 "tokens" cache, K6's function
   over those storage types.
 
-The CUDA sources' headers say what bounds each kernel on the H100 and how
-the split over T (flash-decoding) meets it. Every wrapper runs its kernel on
+K2 runs on the decode mainloop shared with K9 (``csrc/decode_mainloop.cuh``,
+whose header says what bounds it and how it is built): one launch a call,
+``launch_plan`` choosing the CTAs a stream (one cluster), the positions a
+tile and the depth of each warp's ring from static shapes. K5-K7 and K2v
+(``decode_attention_quant.cu``) still split T (flash-decoding) into f32
+partials and combine them in a second kernel. Every wrapper runs its kernel on
 CUDA tensors and its plain PyTorch version (``decode_attention_plain``,
 ``decode_attention_quant_plain``) on CPU tensors, and counts its launches.
 ``decode_attention`` dispatches on the cache's dtype and layout and on the
@@ -31,6 +35,7 @@ paged layout's decode attention is K9 (``paged_attention.py``).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -39,12 +44,84 @@ from ao_tpu_torch.ops.hopper import build
 _NEG = -0.7 * float(torch.finfo(torch.float32).max)  # the reference's mask value
 
 # what decode_attention.cu (K2) and decode_attention_quant.cu (K5-K7, K2v)
-# take, and their positions per split (checked against each library when it
-# loads); known here so that the routes and the CPU refuse the same shapes
-# as the card
+# take (checked against each library when it loads); known here so that the
+# routes and the CPU refuse the same shapes as the card
 HEAD_DIM = 128
 MAX_GROUP = 8
+# K5-K7 and K2v: positions per split
 CHUNK = 64
+# the decode mainloop (K2, K9): positions a warp takes at a time (one k16
+# step of p . V), the CTAs of a stream (a portable cluster), the positions a
+# tile (16 a warp: four or eight warps) and the slabs of a warp's cp.async ring
+SLAB = 16
+MAX_SPLIT = 8
+SMS = 132  # the H100's SMs, which one launch's CTAs fill once
+SMEM_MAX = 232448  # shared memory a block can have on the H100 (227 KB)
+SPLITS = (1, 2, 4, 8)
+TILE_ROWS = (64, 128)
+STAGES = (3, 4)
+ROW_BYTES = 2 * HEAD_DIM  # a bf16 row of one kv head; K9's converted rows are 128 or 64
+
+
+class DecodePlan(NamedTuple):
+    splits: int  # CTAs of one (batch row, kv head) stream: one cluster
+    rows: int    # positions a tile; warp w takes the 16-position slab w of each
+    stages: int  # slabs in each warp's cp.async ring
+    tiles: int   # tiles a CTA walks: CTA r takes tiles [r tiles, (r + 1) tiles)
+
+
+def smem_bytes(rows: int, stages: int, row_bytes: int = ROW_BYTES) -> int:
+    """Shared memory of a CTA at ``rows`` positions a tile and ``stages``
+    slabs a warp's ring over stored rows of ``row_bytes``, as
+    ``csrc/decode_mainloop.cuh``'s Layout: a warp's stages of 16 K and 16 V
+    rows (and, for converted rows, their 32 f32 scales and a bf16 slab),
+    then the cluster merge's receive area."""
+    quant = row_bytes != ROW_BYTES
+    stage = 2 * SLAB * row_bytes + (2 * SLAB * 4 if quant else 0)
+    warp = stages * stage + (2 * SLAB * ROW_BYTES if quant else 0)
+    return rows // SLAB * warp + 4 * (MAX_GROUP * HEAD_DIM + 2 * MAX_SPLIT * MAX_GROUP)
+
+
+def plan_for(streams: int, t: int, row_bytes: int = ROW_BYTES, splits=None, rows=None,
+             stages=None) -> DecodePlan:
+    """The decode mainloop's launch for ``streams`` (batch row, kv head)
+    streams of ``t`` positions stored in rows of ``row_bytes`` (bf16: 256;
+    K9's int8 and fp8: 128, int4: 64, converted to bf16 in the kernel); any
+    of ``splits``, ``rows`` and ``stages`` given is taken as it is
+    (``kernel_tiles.py time K2`` sweeps them). From static shapes only,
+    never the lengths: the CTAs of a stream split its tiles evenly, a CTA
+    stopping at its stream's length."""
+    quant = row_bytes != ROW_BYTES
+    # converted rows take a slab about twice as long as bf16 rows: above
+    # generate's T = 256 eight warps a CTA walk half as many slabs each
+    rows = rows or (128 if quant and t > 256 else 64)
+    stages = stages or (4 if quant else 3)
+    n_tiles = max(-(-t // rows), 1)
+    if splits is None:
+        # at most one CTA an SM, and at least four tiles a CTA for bf16 rows,
+        # two for converted ones, so that the cluster's merge pays
+        min_tiles = 2 if quant else 4
+        splits = 1
+        while (splits < MAX_SPLIT and streams * 2 * splits <= SMS
+               and n_tiles >= min_tiles * 2 * splits):
+            splits *= 2
+    return check_plan(DecodePlan(splits, rows, stages, -(-n_tiles // splits)), t, row_bytes)
+
+
+def check_plan(plan: DecodePlan, t: int, row_bytes: int = ROW_BYTES) -> DecodePlan:
+    """Raise ValueError unless the decode mainloop takes ``plan`` over rows of
+    ``row_bytes`` (its shared memory fits a block) and its CTAs cover all
+    ``t`` positions of a stream."""
+    if plan.splits not in SPLITS or plan.rows not in TILE_ROWS or plan.stages not in STAGES \
+            or smem_bytes(plan.rows, plan.stages, row_bytes) > SMEM_MAX \
+            or plan.splits * plan.tiles * plan.rows < t:
+        raise ValueError(f"not a plan of the decode mainloop for T={t}: {plan}")
+    return plan
+
+
+def launch_plan(q_shape, cache_shape, **kw) -> DecodePlan:
+    """K2's launch at q (B, H, D) over a (B, T, Hkv, D) cache (``plan_for``)."""
+    return plan_for(q_shape[0] * cache_shape[2], cache_shape[1], **kw)
 
 
 def takes(head_dim: int, group: int) -> bool:
@@ -54,13 +131,12 @@ def takes(head_dim: int, group: int) -> bool:
     return head_dim == HEAD_DIM and 1 <= group <= MAX_GROUP
 
 
-def _check_library(lib, source: str, prefix: str) -> None:
-    for name, want in ((f"{prefix}_chunk", CHUNK), (f"{prefix}_max_group", MAX_GROUP),
-                       (f"{prefix}_head_dim", HEAD_DIM)):
-        getattr(lib, name).argtypes = []
-        getattr(lib, name).restype = ctypes.c_int
-        if getattr(lib, name)() != want:
-            raise RuntimeError(f"{source}: {name} is not {want}")
+def _check_library(lib, source: str, prefix: str, wants) -> None:
+    for name, want in wants:
+        getattr(lib, f"{prefix}_{name}").argtypes = []
+        getattr(lib, f"{prefix}_{name}").restype = ctypes.c_int
+        if getattr(lib, f"{prefix}_{name}")() != want:
+            raise RuntimeError(f"{source}: {prefix}_{name} is not {want}")
 
 
 _LIB = None
@@ -71,10 +147,12 @@ def _lib():
     if _LIB is None:
         lib = build.load("decode_attention")
         fn = lib.ao_decode_attention
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float,
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float,
                                                                      ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _check_library(lib, "decode_attention.cu", "ao_decode_attention")
+        _check_library(lib, "decode_attention.cu", "ao_decode_attention",
+                       (("slab", SLAB), ("max_group", MAX_GROUP), ("head_dim", HEAD_DIM),
+                        ("max_split", MAX_SPLIT)))
         _LIB = lib
     return _LIB
 
@@ -96,7 +174,8 @@ def decode_attention_plain(q, k_cache, v_cache, lengths, sm_scale: float) -> tor
     return torch.einsum("bngt,btnd->bngd", p, vf).reshape(b, h, d)
 
 
-def _launch(q, k_cache, v_cache, lengths, sm_scale: float) -> torch.Tensor:
+def _launch(q, k_cache, v_cache, lengths, sm_scale: float, plan=None) -> torch.Tensor:
+    """One launch of K2 at ``plan`` (by default ``launch_plan``'s)."""
     lib = _lib()
     dev = q.device
     b, h, d = q.shape
@@ -116,18 +195,14 @@ def _launch(q, k_cache, v_cache, lengths, sm_scale: float) -> torch.Tensor:
                 f"got {x.dtype} {tuple(x.shape)} on {x.device}")
         if x.data_ptr() % 16:
             raise ValueError(f"decode_attention: {name} must be 16-byte aligned")
-    g = h // hkv
-    nsplit = -(-t // CHUNK)
+    plan = check_plan(plan or launch_plan((b, h, d), (b, t, hkv, d)), t)
     out = torch.empty((b, h, d), dtype=torch.float32, device=dev)
-    o_part = torch.empty((b, hkv, nsplit, g, d), dtype=torch.float32, device=dev)
-    m_part = torch.empty((b, hkv, nsplit, g), dtype=torch.float32, device=dev)
-    l_part = torch.empty((b, hkv, nsplit, g), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ao_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
-            b, h, hkv, t, nsplit, sm_scale, stream)
+            out.data_ptr(), b, h, hkv, t, plan.splits, plan.tiles, plan.rows, plan.stages,
+            sm_scale, stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {err}")
     decode_attention.launches += 1
@@ -203,7 +278,8 @@ def _qlib():
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _check_library(lib, "decode_attention_quant.cu", "ao_decode_attention_quant")
+        _check_library(lib, "decode_attention_quant.cu", "ao_decode_attention_quant",
+                       (("chunk", CHUNK), ("max_group", MAX_GROUP), ("head_dim", HEAD_DIM)))
         _QLIB = lib
     return _QLIB
 

@@ -9,13 +9,14 @@ or e4m3, or (P, page_size, Hkv, D/8) int32 "ch4" words for int4; scales
 block table of page ids and lengths (B,), the new token counted.
 ``serving/paged.py::paged_attention`` dispatches here by the pool's dtype.
 
-Three wrappers, one kernel template (``csrc/paged_attention.cu``, whose
-header says what bounds it and how it splits over positions), each with its
-own launch count: ``paged_decode_attention`` ("fp", bf16 pools),
+Three wrappers, one kernel (``csrc/paged_attention.cu`` on the decode
+mainloop it shares with K2, ``csrc/decode_mainloop.cuh``, whose header says
+what bounds it and how it is built), each with its own launch count:
+``paged_decode_attention`` ("fp", bf16 pools),
 ``paged_decode_attention_vec8`` (int8 and fp8 e4m3 pools) and
-``paged_decode_attention_int4``. Each runs the kernel on CUDA tensors and
-its plain PyTorch version (``paged_decode_attention_plain``) on CPU
-tensors.
+``paged_decode_attention_int4``. Each runs the kernel on CUDA tensors, one
+launch at ``launch_plan``'s split from static shapes, and its plain PyTorch
+version (``paged_decode_attention_plain``) on CPU tensors.
 """
 
 from __future__ import annotations
@@ -25,6 +26,11 @@ import ctypes
 import torch
 
 from ao_tpu_torch.ops.hopper import build
+from ao_tpu_torch.ops.hopper.decode_attention import (MAX_SPLIT, SLAB, DecodePlan,
+                                                      _check_library, check_plan, plan_for)
+
+# bytes of a stored row of one kv head, by pool dtype
+_ROW_BYTES = {torch.bfloat16: 2 * 128, torch.int8: 128, torch.float8_e4m3fn: 128, torch.int32: 64}
 
 _NEG = -0.7 * float(torch.finfo(torch.float32).max)  # the reference's mask value
 
@@ -32,7 +38,6 @@ _NEG = -0.7 * float(torch.finfo(torch.float32).max)  # the reference's mask valu
 # known here so that the CPU refuses the same shapes as the card
 HEAD_DIM = 128
 MAX_GROUP = 8
-CHUNK = 64
 
 
 def takes(head_dim: int, group: int) -> bool:
@@ -40,6 +45,15 @@ def takes(head_dim: int, group: int) -> bool:
     The paged decode route of ``serving/paged.py`` and the wrappers' own
     checks both ask it."""
     return head_dim == HEAD_DIM and 1 <= group <= MAX_GROUP
+
+
+def launch_plan(q_shape, pool_shape, max_pages: int, pool_dtype=torch.bfloat16,
+                **kw) -> DecodePlan:
+    """K9's launch at q (B, H, D) over pools (P, page_size, Hkv, *) of
+    ``pool_dtype`` with a (B, max_pages) block table: the decode mainloop's
+    ``plan_for`` over T = max_pages * page_size positions."""
+    return plan_for(q_shape[0] * pool_shape[2], max_pages * pool_shape[1],
+                    _ROW_BYTES[pool_dtype], **kw)
 
 
 _LIB = None
@@ -50,16 +64,12 @@ def _lib():
     if _LIB is None:
         lib = build.load("paged_attention")
         fn = lib.ao_paged_attention
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        for name, want in (("ao_paged_attention_chunk", CHUNK),
-                           ("ao_paged_attention_max_group", MAX_GROUP),
-                           ("ao_paged_attention_head_dim", HEAD_DIM)):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = ctypes.c_int
-            if getattr(lib, name)() != want:
-                raise RuntimeError(f"paged_attention.cu: {name} is not {want}")
+        _check_library(lib, "paged_attention.cu", "ao_paged_attention",
+                       (("slab", SLAB), ("max_group", MAX_GROUP), ("head_dim", HEAD_DIM),
+                        ("max_split", MAX_SPLIT)))
         _LIB = lib
     return _LIB
 
@@ -73,23 +83,31 @@ _STORAGE = {"fp": (torch.bfloat16,), "vec8": (torch.int8, torch.float8_e4m3fn),
 
 
 def paged_decode_attention_plain(q, k_pages, v_pages, block_table, lengths, sm_scale: float,
-                                 k_scale=None, v_scale=None) -> torch.Tensor:
-    """The kernel's function in plain PyTorch, to its roundings: q (B, H, D)
-    rounded to bf16; each sequence's K and V rows (and, for a quantized
-    pool, their scales) gathered through the block table, rows at or past
-    lengths zeroed (never read as data) and their scores masked to _NEG;
-    s = q . K * sm_scale (* ks). Positions go in splits of CHUNK; a split
-    that starts below lengths[b] gives bf16(exp(s - m_split) (* vs)) . V and
-    the f32 sum of exp(s - m_split), each scaled by exp(m_split - max over
-    those splits); out = the scaled products / max(the scaled sums, 1e-30),
-    f32 (B, H, D); 0 for lengths <= 0."""
+                                 k_scale=None, v_scale=None, plan=None) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, to its roundings at ``plan``
+    (by default ``launch_plan``'s): q (B, H, D) rounded to bf16; each
+    sequence's K and V rows (and, for a quantized pool, their scales)
+    gathered through the block table, rows at or past lengths zeroed (never
+    read as data) and their scores masked to _NEG; s = q . K * sm_scale
+    (* ks). Positions go in slabs of SLAB, walked as the kernel walks them:
+    CTA r of a stream takes tiles [r tiles, (r + 1) tiles) of ``plan.rows``
+    positions and its warp w the slab w of each, while the slab starts below
+    lengths[b]. A slab gives bf16(exp(s - m_run) (* vs)) . V and the f32 sum
+    of exp(s - m_run), m_run the running max of its warp's walk up to it,
+    each scaled by exp(m_run - the max over the stream); out = the scaled
+    products / max(the scaled sums, 1e-30), f32 (B, H, D); 0 for lengths
+    <= 0."""
     from ao_tpu_torch.serving.kvcache import stored_values
 
     b, h, d = q.shape
     ps, hkv = k_pages.shape[1], k_pages.shape[2]
-    t = block_table.shape[1] * ps
+    max_pages = block_table.shape[1]
+    t = max_pages * ps
     g = h // hkv
-    nsplit = -(-t // CHUNK)
+    plan = check_plan(plan or launch_plan(q.shape, k_pages.shape, max_pages, k_pages.dtype),
+                      t, _ROW_BYTES[k_pages.dtype])
+    warps = plan.rows // SLAB
+    pad = plan.splits * plan.tiles * plan.rows - t
     table = block_table.long()
     valid = torch.arange(t, device=q.device)[None, :] < lengths.reshape(b, 1)  # (B, T)
 
@@ -101,28 +119,32 @@ def paged_decode_attention_plain(q, k_pages, v_pages, block_table, lengths, sm_s
         x = scale[table].transpose(1, 2).reshape(b, hkv, t)
         return torch.where(valid[:, None, :], x, torch.zeros_like(x))[:, :, None, :]
 
+    def walk(x):  # (..., T + pad) -> (..., splits, warps, tiles, SLAB): each warp's walk
+        x = x.reshape(*x.shape[:-1], plan.splits, plan.tiles, warps, SLAB)
+        return x.transpose(-3, -2)
+
     qf = q.to(torch.bfloat16).to(torch.float32).reshape(b, hkv, g, d)
     s = torch.einsum("bngd,btnd->bngt", qf, rows(k_pages)) * sm_scale
     if k_scale is not None:
         s = s * scales(k_scale)
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, _NEG))
-    s = torch.nn.functional.pad(s, (0, nsplit * CHUNK - t), value=_NEG)
-    s = s.reshape(b, hkv, g, nsplit, CHUNK)
-    m = s.amax(dim=-1)  # (B, Hkv, G, nsplit)
-    p = torch.exp(s - m[..., None])
-    # the splits the kernel runs: those starting below the length
-    ran = (torch.arange(nsplit, device=q.device) * CHUNK)[None, :] < lengths.reshape(b, 1)
-    ran = ran[:, None, None, :]
-    top = torch.where(ran, m, torch.full_like(m, -torch.inf)).amax(dim=-1, keepdim=True)
-    w = torch.where(ran, torch.exp(m - top), torch.zeros_like(m))
-    pv = p.flatten(-2)[..., :t]
+    s = walk(torch.nn.functional.pad(s, (0, pad), value=_NEG))  # (B, Hkv, G, S, W, tiles, SLAB)
+    # the slabs the kernel walks: those starting below the length
+    starts = walk(torch.arange(t + pad, device=q.device))[..., 0]  # (S, W, tiles)
+    ran = (starts[None] < lengths.clamp(max=t).reshape(b, 1, 1, 1))[:, None, None]
+    mx = torch.where(ran, s.amax(dim=-1), torch.full_like(s[..., 0], -torch.inf))
+    m_run = torch.cummax(mx, dim=-1).values
+    top = mx.flatten(-3).amax(dim=-1)[..., None, None, None]  # (B, Hkv, G, 1, 1, 1)
+    w = torch.where(ran, torch.exp(m_run - top), torch.zeros_like(m_run))
+    p = torch.where(ran[..., None], torch.exp(s - m_run[..., None]), torch.zeros_like(s))
+    pv = p
     if v_scale is not None:
-        pv = pv * scales(v_scale)
-    pv = pv.to(torch.bfloat16).to(torch.float32).reshape(b, hkv, g, -1)
-    pv = torch.nn.functional.pad(pv, (0, nsplit * CHUNK - t)).reshape(b, hkv, g, nsplit, CHUNK)
-    pw = (pv * w[..., None]).flatten(-2)[..., :t]
+        vs = torch.nn.functional.pad(scales(v_scale), (0, pad))
+        pv = pv * walk(vs)
+    pw = pv.to(torch.bfloat16).to(torch.float32) * w[..., None]
+    pw = pw.transpose(-3, -2).reshape(b, hkv, g, t + pad)[..., :t]
     out = torch.einsum("bngt,btnd->bngd", pw, rows(v_pages))
-    l = (p.sum(dim=-1) * w).sum(dim=-1, keepdim=True)
+    l = (p.sum(dim=-1) * w).flatten(-3).sum(dim=-1, keepdim=True)
     return (out / l.clamp_min(1e-30)).reshape(b, h, d)
 
 
@@ -162,25 +184,24 @@ def _check(mode, q, k_pages, k_scale, v_pages, v_scale, block_table, lengths):
                          f"got {tuple(block_table.shape)}, {tuple(lengths.shape)}")
     if block_table.device != dev or lengths.device != dev:
         raise ValueError(f"{name}: the block table and lengths must be on {dev}")
+    if ps % 8:
+        raise ValueError(f"{name}: the kernel takes page_size % 8 == 0, got {ps}")
     return (q.to(torch.bfloat16).contiguous(), block_table.to(torch.int32).contiguous(),
             lengths.reshape(b).to(torch.int32).contiguous())
 
 
-def _launch(q, k_pages, k_scale, v_pages, v_scale, block_table, lengths,
-            sm_scale: float) -> torch.Tensor:
+def _launch(q, k_pages, k_scale, v_pages, v_scale, block_table, lengths, sm_scale: float,
+            plan=None) -> torch.Tensor:
     """One launch of the kernel in the mode of the pools' dtype (k_scale and
-    v_scale None for bf16 pools)."""
+    v_scale None for bf16 pools) at ``plan`` (by default ``launch_plan``'s)."""
     lib = _lib()
     dev = q.device
     b, h, d = q.shape
     ps, hkv = k_pages.shape[1], k_pages.shape[2]
     max_pages = block_table.shape[1]
-    g = h // hkv
-    nsplit = -(-(max_pages * ps) // CHUNK)
+    plan = check_plan(plan or launch_plan(q.shape, k_pages.shape, max_pages, k_pages.dtype),
+                      max_pages * ps, _ROW_BYTES[k_pages.dtype])
     out = torch.empty((b, h, d), dtype=torch.float32, device=dev)
-    o_part = torch.empty((b, hkv, nsplit, g, d), dtype=torch.float32, device=dev)
-    m_part = torch.empty((b, hkv, nsplit, g), dtype=torch.float32, device=dev)
-    l_part = torch.empty((b, hkv, nsplit, g), dtype=torch.float32, device=dev)
     mode = _MODE[k_pages.dtype]
     ks = 0 if k_scale is None else k_scale.data_ptr()
     vs = 0 if v_scale is None else v_scale.data_ptr()
@@ -188,9 +209,8 @@ def _launch(q, k_pages, k_scale, v_pages, v_scale, block_table, lengths,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ao_paged_attention(
             mode, q.data_ptr(), k_pages.data_ptr(), ks, v_pages.data_ptr(), vs,
-            block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), o_part.data_ptr(),
-            m_part.data_ptr(), l_part.data_ptr(), b, h, hkv, ps, max_pages, nsplit, sm_scale,
-            stream)
+            block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h, hkv, ps, max_pages,
+            plan.splits, plan.tiles, plan.rows, plan.stages, sm_scale, stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed (mode {mode}): "
                            f"CUDA error {err}")

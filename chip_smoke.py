@@ -118,15 +118,18 @@ Each phase prints its seconds. Prints the kernel table as one JSON line and, as 
 ``{"ok": true, "device": {...}}``. Any failed check makes it exit non-zero
 without that line; so does a machine without a CUDA device.
 
-    python3 chip_smoke.py --kernels K1,K3,K8,K10,K11,K13,K14,K15,K16,K17,K18
+    python3 chip_smoke.py --kernels K1,K2,K3,K8,K9,K10,K11,K13,K14,K15,K16,K17,K18
 
-builds, then runs only the named kernels' phases (K1, K3, K8, K10, K11,
-K13, K14, K15, K16, K17, K18) and prints their rows as JSON, with no result
-line (``--sam`` the SAM-B paths alone, with images/s; ``--mixtral`` the
-Mixtral paths alone, with tok/s, the prefill's device time and the
+builds, then runs only the named kernels' phases (K1, K2, K3, K8, K9, K10,
+K11, K13, K14, K15, K16, K17, K18) and prints their rows as JSON, with no
+result line (``--sam`` the SAM-B paths alone, with images/s; ``--mixtral``
+the Mixtral paths alone, with tok/s, the prefill's device time and the
 engine's TTFT); the K1, K10, K15 and K17 rows name each launch's tiles and
 K split, the K3 rows their CTA width and K split and the device kernels a
-call, the K13 rows the magic form's K split or row tile, the K8 and K16
+call, the K2 and K9 rows (K2 at generate's, the slot engine's and the long
+shape; K9 in each mode at the paged engine's and the long shape) their
+decode-mainloop plan and the device kernels a call (one, checked), the K13
+rows the magic form's K split or row tile, the K8 and K16
 rows its query rows a CTA. A copy of this
 script run in another checkout times that checkout's kernels, so two trees'
 kernels can be set side by side on one card in one run (a checkout whose
@@ -492,12 +495,37 @@ def k2_phase(torch, fails, seed, t=None, lengths=None):
     sqnr = float(compute_error(ref, got))
     fails.check(bool(torch.isfinite(got).all()) and sqnr >= K2_SQNR_DB,
                 f"K2 decode_attention T={t}: sqnr {sqnr:.2f} dB < {K2_SQNR_DB}")
-    ms = cuda_time_ms(lambda: k2._launch(q, kc, vc, lens, sm), iters=50)
+    launch = lambda: k2._launch(q, kc, vc, lens, sm)  # noqa: E731
+    ms = cuda_time_ms(launch, iters=50)
     plain_ms = cuda_time_ms(lambda: k2.decode_attention_plain(q, kc, vc, lens, sm), iters=10)
     nbytes, flops = k2.traffic((b, h, d), (b, t, hkv, d), lengths)
+    plan = getattr(k2, "launch_plan", None)  # None in a checkout that predates it
+    desc = one_launch(torch, fails, f"K2 decode_attention T={t}", launch,
+                      plan and plan((b, h, d), (b, t, hkv, d)))
     return kernel_row("K2 decode_attention", f"B={b} H={h} Hkv={hkv} D={d} T={t}", got, ref,
                       f"sqnr {sqnr:.2f} dB (>= {K2_SQNR_DB})", ms, plain_ms,
-                      sdpa_ms(torch, q, kc, vc, lens, sm), nbytes, flops)
+                      sdpa_ms(torch, q, kc, vc, lens, sm), nbytes, flops, tiles=desc)
+
+
+def one_launch(torch, fails, what, launch, plan):
+    """The device kernels one call of a decode attention kernel runs, with
+    its plan (None for a kernel that has none): the decode mainloop's K2
+    and K9 must run one."""
+    n = device_kernels(torch, launch)
+    if plan is None:
+        return f"{n} device kernel(s) a call"
+    fails.check(n == 1, f"{what}: {n} device kernels a call, not 1")
+    return (f"{n} device kernel(s) a call, plan (splits, rows, stages, tiles) "
+            f"{tuple(plan)}")
+
+
+def k2_rows(torch, fails, seed):
+    """K2's rows at generate's T (ragged lengths), the slot engine's decode
+    shape and T_LONG (every position valid)."""
+    return {"generate": k2_phase(torch, fails, seed),
+            "engine-slots": k2_phase(torch, fails, seed, t=ENGINE_CFG["max_seq"],
+                                     lengths=ENGINE_LENGTHS),
+            "long": k2_phase(torch, fails, seed, t=T_LONG, lengths=[T_LONG] * K2_SHAPE["b"])}
 
 
 def kv_phase(torch, fails, seed, dtype_name, t=None, lengths=None, kernel=None):
@@ -592,15 +620,22 @@ def k3_phase(torch, fails, seed):
 
 def device_kernels(torch, fn) -> int:
     """The device kernels one call of ``fn`` runs, as torch.profiler counts
-    them (after a warm call)."""
+    them (after a warm call); a profile that came back without device
+    records (seen on the H100, ``utils/timing.py``) is taken again, up to
+    three times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    n = 0
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+        if n:
+            break
+    return n
 
 
 def k4_phase(torch, fails, seed):
@@ -1323,17 +1358,29 @@ def k9_phase(torch, fails, seed, lengths, max_pages, dtype_name=None):
     t = max_pages * PAGE
     fails.check(bool(torch.isfinite(got).all()) and sqnr >= K2_SQNR_DB,
                 f"K9 {name} {dtype_name or 'bf16'} T={t}: sqnr {sqnr:.2f} dB < {K2_SQNR_DB}")
-    ms = cuda_time_ms(lambda: k9._launch(*args, sm), iters=50)
+    launch = lambda: k9._launch(*args, sm)  # noqa: E731
+    ms = cuda_time_ms(launch, iters=50)
     plain_ms = cuda_time_ms(lambda: k9.paged_decode_attention_plain(
         q, kp.pages, vp.pages, table, lens, sm, kp.scale, vp.scale), iters=10)
     dense_k, dense_v = (pool.gather(table) for pool in (kp, vp))  # bf16 (B, T, Hkv, D)
     nbytes, flops = k9.traffic((b, h, d), tuple(kp.pages.shape), max_pages, lengths,
                                dtype_name or "bf16")
+    plan = getattr(k9, "launch_plan", None)  # None in a checkout that predates it
+    desc = one_launch(torch, fails, f"K9 {name} {dtype_name or 'bf16'} T={t}", launch,
+                      plan and plan(q.shape, kp.pages.shape, max_pages, kp.pages.dtype))
     return kernel_row(f"K9 {name}",
                       f"B={b} H={h} Hkv={hkv} D={d} page_size={PAGE} T={t} "
                       f"{dtype_name or 'bf16'} pool", got, ref,
                       f"sqnr {sqnr:.2f} dB (>= {K2_SQNR_DB})", ms, plain_ms,
-                      sdpa_ms(torch, q, dense_k, dense_v, lens, sm), nbytes, flops)
+                      sdpa_ms(torch, q, dense_k, dense_v, lens, sm), nbytes, flops, tiles=desc)
+
+
+def k9_rows(torch, fails, seed):
+    """K9 in each mode at the paged engine's decode shape and at T_LONG:
+    {pool dtype (None for bf16): (engine row, T_LONG row)}."""
+    return {kv: (k9_phase(torch, fails, seed, ENGINE_LENGTHS, ENGINE_CFG["max_seq"] // PAGE, kv),
+                 k9_phase(torch, fails, seed, [T_LONG] * K2_SHAPE["b"], T_LONG // PAGE, kv))
+            for kv in (None,) + KV_QUANT}
 
 
 def check_serving_logits(torch, fails, qparams, cfg, seed, kv_quant=None):
@@ -2464,12 +2511,12 @@ def k16_rows(torch, fails, seed):
 
 
 def kernels_only(torch, names) -> int:
-    """Build, then run only the phases of ``names`` (of K1, K3, K8, K10,
-    K11, K13, K14, K15, K16, K17, K18) and print each one's rows as one JSON
-    line."""
-    phases = {"K1": k1_phase, "K3": k3_phase, "K8": k8_rows, "K10": k10_phase,
-              "K11": k11_phase, "K13": k13_phase, "K14": k14_both, "K15": k15_phase,
-              "K16": k16_rows, "K17": k17_phase, "K18": k18_phase}
+    """Build, then run only the phases of ``names`` (of K1, K2, K3, K8, K9,
+    K10, K11, K13, K14, K15, K16, K17, K18) and print each one's rows as one
+    JSON line."""
+    phases = {"K1": k1_phase, "K2": k2_rows, "K3": k3_phase, "K8": k8_rows, "K9": k9_rows,
+              "K10": k10_phase, "K11": k11_phase, "K13": k13_phase, "K14": k14_both,
+              "K15": k15_phase, "K16": k16_rows, "K17": k17_phase, "K18": k18_phase}
     if not set(names) <= set(phases):
         print(f"chip_smoke: --kernels takes {', '.join(phases)}", file=sys.stderr)
         return 2
@@ -2534,8 +2581,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description="Smoke run of ao_tpu_torch on one NVIDIA GPU.")
     parser.add_argument("--kernels", type=lambda v: v.split(","),
-                        help="only these kernels' phases, of K1, K3, K8, K10, K11, K13, K14, "
-                             "K15, K16, K17, K18 (comma-separated)")
+                        help="only these kernels' phases, of K1, K2, K3, K8, K9, K10, K11, K13, "
+                             "K14, K15, K16, K17, K18 (comma-separated)")
     parser.add_argument("--sam", action="store_true",
                         help="only the SAM-B paths (W8A8 and bf16), for images/s")
     parser.add_argument("--mixtral", action="store_true",
@@ -2580,25 +2627,19 @@ def main() -> int:
     long_lengths = [T_LONG] * K2_SHAPE["b"]
     with phase("kernels K1-K10, K12s, K14, K15, K17"):
         k1_rows = k1_phase(torch, fails, SEED)
-        k2_row = k2_phase(torch, fails, SEED)
+        k2_by_path = k2_rows(torch, fails, SEED)
         kv_rows = {kv: kv_phase(torch, fails, SEED, kv) for kv in KV_ALL}
         kv_rows["k2v-int8"] = kv_phase(torch, fails, SEED, "int8", kernel=K2V_INT8)
-        long_rows = {"bf16": k2_phase(torch, fails, SEED, t=T_LONG, lengths=long_lengths)}
-        long_rows.update({kv: kv_phase(torch, fails, SEED, kv, t=T_LONG, lengths=long_lengths)
-                          for kv in KV_ALL})
+        long_rows = {kv: kv_phase(torch, fails, SEED, kv, t=T_LONG, lengths=long_lengths)
+                     for kv in KV_ALL}
         long_rows["k2v-int8"] = kv_phase(torch, fails, SEED, "int8", t=T_LONG,
                                          lengths=long_lengths, kernel=K2V_INT8)
         k3_rows = k3_phase(torch, fails, SEED)
         k4_rows = k4_phase(torch, fails, SEED)
         k12_row = k12_phase(torch, fails, SEED)
-        k2_engine = k2_phase(torch, fails, SEED, t=ENGINE_CFG["max_seq"],
-                             lengths=ENGINE_LENGTHS)
         k8_by_shape = k8_rows(torch, fails, SEED)
         # K9 in each mode at the engine's decode shape and at T = 4096
-        k9_rows = {kv: (k9_phase(torch, fails, SEED, ENGINE_LENGTHS,
-                                 ENGINE_CFG["max_seq"] // PAGE, kv),
-                        k9_phase(torch, fails, SEED, long_lengths, T_LONG // PAGE, kv))
-                   for kv in (None,) + KV_QUANT}
+        k9_by_mode = k9_rows(torch, fails, SEED)
         # K5-K7 at the slot engine's decode shape, where they launch
         engine_kv_rows = {kv: kv_phase(torch, fails, SEED, kv, t=ENGINE_CFG["max_seq"],
                                        lengths=ENGINE_LENGTHS) for kv in KV_QUANT}
@@ -2829,15 +2870,16 @@ def main() -> int:
         ("int4_wo_magic", "int4_matmul.cu", "int4_matmul.py:372", "int4-WO", k1_rows[K1_PREFILL]),
         ("int4_wo_magic", "int4_matmul.cu", "int4_matmul.py:372", "ViT-B/16 int4-WO",
          k1_rows[K1_VIT]),
-        ("decode_attention", "decode_attention.cu", "decode_attention.py:234", "int4-WO", k2_row),
+        ("decode_attention", "decode_attention.cu", "decode_attention.py:234", "int4-WO",
+         k2_by_path["generate"]),
         ("int4_w4a8_matmul", "int4_w4a8.cu", "int4_matmul.py:537", "W4A8", k3_rows[KN_REPORTED]),
         ("int4_magic8_requant_int8", "int4_w4a8.cu", "int4_matmul.py:673", "W4A8",
          k4_rows[KN_REPORTED]),
         ("silu_mul_quant", "fused_act.cu", "fused_act.py:171", "W4A8", k12_row),
         ("decode_attention", "decode_attention.cu", "decode_attention.py:234", "engine-slots",
-         k2_engine),
+         k2_by_path["engine-slots"]),
         ("decode_attention", "decode_attention.cu", "decode_attention.py:234", "int4-WO",
-         long_rows["bf16"]),
+         k2_by_path["long"]),
     ]
     for kv, ref in zip(KV_ALL, ("decode_attention.py:138", "decode_attention.py:598",
                                 "decode_attention.py:471", "decode_attention.py:234")):
@@ -2864,7 +2906,7 @@ def main() -> int:
     rows += [("lut4_wo_magic", "lut4_matmul.cu", "lut4_matmul.py:186", "NF4-WO", k15_rows[shape])
              for shape in WEIGHT_REPORTED]
     rows += [(POOL_KERNELS[kv], "paged_attention.cu", "paged_attention.py:189",
-              engine_tag(True, kv), row) for kv in (None,) + KV_QUANT for row in k9_rows[kv]]
+              engine_tag(True, kv), row) for kv in (None,) + KV_QUANT for row in k9_by_mode[kv]]
     rows += [("int4_wo_matmul", "int4_matmul.cu", "int4_matmul.py:222", "ViT-B/16 int4-WO",
               k11_rows[shape]) for shape in K11_SHAPES]
     rows += [("norm_modulate_quant", "fused_act.cu", "fused_act.py:56", "SAM-B W8A8",

@@ -2,12 +2,15 @@
 blockwise) at generate's five M = 1024 shapes over Llama-3-8B's widths, at
 the tiles each wrapper picks and at every other unsplit tile it takes; K3
 (W4A8) at decode (M = 8) over the same widths at its plan and every other
-CTA width and cluster split; or K13's magic form (E = 8, Mixtral's expert
+CTA width and cluster split; K13's magic form (E = 8, Mixtral's expert
 widths, a top-2 routing) at its decode splits (T = 16) and row tiles (T =
-256, 1024, 2048), on one CUDA device; or compare the SASS of each kernel in
-two builds of one source, with names and addresses stripped.
+256, 1024, 2048); or K2 and K9 (K9 in each pool mode) on the decode
+mainloop at every plan (CTAs a stream, positions a tile, ring stages) at
+T = 256, 1024 and 4096 with ``chip_smoke.py``'s lengths there, on one CUDA
+device; or compare the SASS of each kernel in two builds of one source,
+with names and addresses stripped.
 
-    python3 kernel_tiles.py time K10          # or K17, K3, K13
+    python3 kernel_tiles.py time K10          # or K17, K3, K13, K2, K9
     python3 kernel_tiles.py sass LIB_A LIB_B  # two builds' lib<source>-*.so
 
 Run in a copy of the tree with a kernel changed and in this one, in turns
@@ -48,6 +51,9 @@ def time_tiles(kernel: str) -> int:
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     print(f"card: {torch.cuda.get_device_name(dev)}", flush=True)
+    if kernel in ("K2", "K9"):
+        time_decode(torch, cuda_time_ms, dev, kernel)
+        return 0
     if kernel in ("K3", "K13"):
         (time_k3 if kernel == "K3" else time_k13)(torch, cuda_time_ms, dev, sms)
         return 0
@@ -151,6 +157,64 @@ def time_k13(torch, cuda_time_ms, dev, sms) -> None:
         torch.cuda.empty_cache()
 
 
+def time_decode(torch, cuda_time_ms, dev, kernel) -> None:
+    """K2 (bf16 cache) or K9 (pages of 128 rows, shuffled, in each pool
+    mode) at Llama-3-8B's decode shape, B = 8, H = 32, Hkv = 8, at T = 256
+    (generate's ragged lengths), 1024 (the engine's) and 4096 (all valid):
+    the plan ``launch_plan`` picks, then every other one of the mainloop."""
+    import chip_smoke as smoke
+    from ao_tpu_torch.ops.hopper import decode_attention as k2
+    from ao_tpu_torch.ops.hopper import paged_attention as k9
+    from ao_tpu_torch.serving.paged import PagedKVPool
+
+    b, h, hkv, d = (smoke.K2_SHAPE[key] for key in ("b", "h", "hkv", "d"))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    cases = ((smoke.K2_SHAPE["t"], smoke.K2_LENGTHS),
+             (smoke.ENGINE_CFG["max_seq"], smoke.ENGINE_LENGTHS),
+             (smoke.T_LONG, [smoke.T_LONG] * b))
+    pools = ("bf16",) + smoke.KV_QUANT if kernel == "K9" else ("bf16",)
+    for dtype_name in pools:
+        for t, lengths in cases:
+            lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+            if kernel == "K2":
+                kc, vc = (torch.randn((b, t, hkv, d), generator=gen, device=dev)
+                          .to(torch.bfloat16) for _ in range(2))
+                picked = k2.launch_plan(q.shape, kc.shape)
+                plan_of = lambda **kw: k2.launch_plan(q.shape, kc.shape, **kw)  # noqa: E731
+                run = lambda plan: k2._launch(q, kc, vc, lens, d ** -0.5, plan)  # noqa: E731
+            else:
+                pages = t // smoke.PAGE
+                kp, vp = (PagedKVPool.create(b * pages + 1, smoke.PAGE, hkv, d, dtype_name,
+                                             device=dev) for _ in range(2))
+                for pool in (kp, vp):
+                    pool.write_prompt(torch.randn((pool.pages.shape[0] * smoke.PAGE, hkv, d),
+                                                  generator=gen, device=dev),
+                                      torch.arange(pool.pages.shape[0], device=dev))
+                perm = torch.randperm(b * pages, generator=torch.Generator().manual_seed(t)) + 1
+                table = perm.reshape(b, pages).to(torch.int32).to(dev)
+                for i, n in enumerate(lengths):
+                    table[i, -(-n // smoke.PAGE):] = 0
+                args = (q, kp.pages, kp.scale, vp.pages, vp.scale, table, lens, d ** -0.5)
+                picked = k9.launch_plan(q.shape, kp.pages.shape, pages, kp.pages.dtype)
+                plan_of = lambda **kw: k9.launch_plan(q.shape, kp.pages.shape, pages,  # noqa: E731
+                                                      kp.pages.dtype, **kw)
+                run = lambda plan: k9._launch(*args, plan)  # noqa: E731
+            row_bytes = k2.ROW_BYTES if kernel == "K2" else k9._ROW_BYTES[kp.pages.dtype]
+            plans = [picked] + [plan_of(splits=sp, rows=rows, stages=st) for sp in k2.SPLITS
+                                for rows in k2.TILE_ROWS for st in k2.STAGES
+                                if (sp, rows, st) != picked[:3]
+                                and k2.smem_bytes(rows, st, row_bytes) <= k2.SMEM_MAX]
+            times = []
+            for plan in plans:
+                us = 1e3 * cuda_time_ms(lambda: run(plan), iters=20)
+                times.append(f"{tuple(plan[:3])} {us:.1f} us" + (" (picked)" if plan == picked
+                                                                   else ""))
+            print(f"{kernel} {dtype_name} T={t} (splits, rows, stages): " + ", ".join(times),
+                  flush=True)
+            torch.cuda.empty_cache()
+
+
 def _sass(lib: str):
     """{kernel name, anonymous-namespace tags stripped: its instructions,
     addresses and encodings stripped} of a built library."""
@@ -193,8 +257,8 @@ def compare_sass(lib_a: str, lib_b: str) -> int:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = parser.add_subparsers(dest="cmd", required=True)
-    t = sub.add_parser("time", help="time a kernel's prefill launch at each tile")
-    t.add_argument("kernel", choices=("K10", "K17", "K3", "K13"))
+    t = sub.add_parser("time", help="time a kernel's launch at each tile or plan")
+    t.add_argument("kernel", choices=("K10", "K17", "K3", "K13", "K2", "K9"))
     s = sub.add_parser("sass", help="compare the SASS of two builds of one source")
     s.add_argument("lib_a")
     s.add_argument("lib_b")

@@ -127,8 +127,9 @@ def test_decode_attention_matches_plain(dev, b, h, hkv, t, lengths):
     torch.cuda.synchronize()
     assert k2.decode_attention.launches == before + 1
     ref = k2.decode_attention_plain(q, kc, vc, lens, 128 ** -0.5)
-    # f32 scores, softmax and sums in both; the kernel merges per-chunk
-    # partial softmaxes, the plain version takes one softmax over T
+    # f32 scores, softmax and sums in both; the kernel merges its warps' and
+    # CTAs' online softmaxes and rounds p to bf16 (the TPU kernel's own
+    # rounding), the plain version takes one f32 softmax over T
     assert got.dtype == torch.float32 and float(compute_error(ref, got)) >= 40
 
 
@@ -326,15 +327,21 @@ def test_int4_w4a8_matches_plain(dev, m, k, n, g, domain):
 
 def _device_kernels(fn) -> int:
     """The device kernels one call of ``fn`` runs, as torch.profiler counts
-    them."""
+    them; a profile that came back without device records is taken again,
+    up to three times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    n = 0
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+        if n:
+            break
+    return n
 
 
 LLAMA_KN = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]
@@ -576,7 +583,7 @@ def test_paged_attention_matches_plain(dev, b, h, hkv, ps, max_pages, lengths):
     assert k9.paged_decode_attention.launches == before + 1
     ref = k9.paged_decode_attention_plain(q, kp, vp, table, lens, 128 ** -0.5)
     assert bool(torch.isfinite(got).all())
-    # the same roundings; the kernel rounds p against its split's max
+    # the same roundings; the kernel rounds p against its warp's running max
     sqnr = float(compute_error(ref, got))
     assert got.dtype == torch.float32 and sqnr >= 40, f"{sqnr:.2f} dB"
     for i, n in enumerate(lengths):
@@ -683,6 +690,166 @@ def test_paged_attention_refuses_on_the_card(dev):
     with pytest.raises(ValueError, match="at most 8"):
         k9.paged_decode_attention(q.repeat(1, 5, 1), kp[:, :, :1].contiguous(),
                                   vp[:, :, :1].contiguous(), table, lens)
+
+
+# the decode mainloop (K2, K9) at every plan it is built for: CTAs a stream
+# (one cluster), positions a tile, slabs a warp's ring
+def _plans(row_bytes):
+    return [(sp, rows, st) for sp in k2.SPLITS for rows in k2.TILE_ROWS for st in k2.STAGES
+            if k2.smem_bytes(rows, st, row_bytes) <= k2.SMEM_MAX]
+
+
+DECODE_PLANS = _plans(k2.ROW_BYTES)
+# lengths 0, 1, a tile of either size +- 1 and T - 1 and T, over T = 200 (not
+# a multiple of either tile)
+DECODE_T = 200
+DECODE_LENGTHS = [0, 1, 31, 33, 63, 65, DECODE_T - 1, DECODE_T]
+
+
+def _repeats(fn, n=3):
+    """``fn()`` n times; asserts every output the same bits as the first."""
+    outs = [fn() for _ in range(n)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    return outs[0]
+
+
+@pytest.mark.parametrize("splits,rows,stages", DECODE_PLANS)
+def test_decode_attention_every_plan(dev, splits, rows, stages):
+    """K2 at each plan: G = 8, T not a multiple of the tile, lengths 0 (the
+    mean of V over all T), 1, tile +- 1 and T; >= 40 dB against the plain
+    version, the same bits over three calls, one device kernel a call."""
+    b, h, hkv, t = len(DECODE_LENGTHS), 16, 2, DECODE_T
+    gen = torch.Generator(device=dev).manual_seed(splits * 100 + rows + stages)
+    q = torch.randn((b, h, 128), generator=gen, device=dev).to(torch.bfloat16)
+    kc, vc = (torch.randn((b, t, hkv, 128), generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    lens = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=dev)
+    plan = k2.launch_plan(q.shape, kc.shape, splits=splits, rows=rows, stages=stages)
+    got = _repeats(lambda: k2._launch(q, kc, vc, lens, 128 ** -0.5, plan))
+    ref = k2.decode_attention_plain(q, kc, vc, lens, 128 ** -0.5)
+    assert bool(torch.isfinite(got).all())
+    sqnr = float(compute_error(ref, got))
+    assert sqnr >= 40, f"{plan}: {sqnr:.2f} dB"
+    mean_v = vc[0].float().mean(dim=0)  # length 0: every position masked, all T weigh alike
+    assert float(compute_error(mean_v.repeat_interleave(h // hkv, dim=0), got[0])) >= 40
+    assert _device_kernels(lambda: k2._launch(q, kc, vc, lens, 128 ** -0.5, plan)) == 1
+
+
+def _nan_pools(dev, dtype_name, b, hkv, ps, lengths, gen):
+    """(q, k pool, v pool, table, lengths) for K9 over pools of ``dtype_name``
+    (bf16 or one write_prompt takes): every sequence's pages shuffled over
+    the pool, table entries past its pages 0 (the null page), and NaN (bf16
+    NaN, or 0x7F bytes, an e4m3 NaN, with NaN scales) in the null page and
+    in every row at or past each length."""
+    from ao_tpu_torch.serving.paged import PagedKVPool
+
+    max_pages = -(-max(lengths) // ps)
+    n_pages = b * max_pages + 2
+    pools = []
+    for scale in (2.0, 1.0):
+        pool = PagedKVPool.create(n_pages, ps, hkv, 128, dtype_name, device=dev)
+        pool.write_prompt(torch.randn((n_pages * ps, hkv, 128), generator=gen, device=dev) * scale,
+                          torch.arange(n_pages, device=dev))
+        pools.append(pool)
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(n_pages)) + 1
+    table = perm[:b * max_pages].reshape(b, max_pages).to(torch.int32).to(dev)
+    for i, n in enumerate(lengths):
+        table[i, -(-n // ps):] = 0
+    for pool in pools:
+        raw = pool.pages if dtype_name == "bf16" else pool.pages.view(torch.uint8)
+        nan = float("nan") if dtype_name == "bf16" else 0x7F
+        raw[0] = nan
+        if pool.scale is not None:
+            pool.scale[0] = float("nan")
+        for i, n in enumerate(lengths):
+            pos = torch.arange(max(n, 0), -(-n // ps) * ps, device=dev)  # the last page's tail
+            page, off = table[i, pos // ps].long(), pos % ps
+            raw[page, off] = nan
+            if pool.scale is not None:
+                pool.scale[page, :, off] = float("nan")
+    q = torch.randn((b, 16, 128), generator=gen, device=dev).to(torch.bfloat16)
+    return q, pools[0], pools[1], table, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+
+K9_MODES = {"bf16": k9.paged_decode_attention, "int8": k9.paged_decode_attention_vec8,
+            "float8_e4m3fn": k9.paged_decode_attention_vec8,
+            "int4": k9.paged_decode_attention_int4}
+K9_STORAGE = {"bf16": torch.bfloat16, "int8": torch.int8, "float8_e4m3fn": torch.float8_e4m3fn,
+              "int4": torch.int32}
+
+
+def _k9_case(dev, dtype_name, ps, plan_kw, seed):
+    hkv = 2
+    t = -(-DECODE_T // ps) * ps
+    lengths = DECODE_LENGTHS[:-2] + [t - 1, t]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, kp, vp, table, lens = _nan_pools(dev, dtype_name, len(lengths), hkv, ps, lengths, gen)
+    plan = k9.launch_plan(q.shape, kp.pages.shape, table.shape[1], kp.pages.dtype, **plan_kw)
+    args = (q, kp.pages, kp.scale, vp.pages, vp.scale, table, lens, 128 ** -0.5, plan)
+    before = K9_MODES[dtype_name].launches
+    got = _repeats(lambda: k9._launch(*args))
+    assert K9_MODES[dtype_name].launches == before + 3
+    ref = k9.paged_decode_attention_plain(q, kp.pages, vp.pages, table, lens, 128 ** -0.5,
+                                          kp.scale, vp.scale, plan)
+    assert bool(torch.isfinite(got).all()) and float(got[0].abs().max()) == 0.0
+    sqnr = float(compute_error(ref, got))
+    assert sqnr >= 40, f"{dtype_name} page_size {ps} {plan}: {sqnr:.2f} dB"
+    return args
+
+
+@pytest.mark.parametrize("dtype_name,splits,rows,stages",
+                         [(dt,) + plan for dt, pages in K9_STORAGE.items()
+                          for plan in _plans(k9._ROW_BYTES[pages])])
+def test_paged_attention_every_plan(dev, dtype_name, splits, rows, stages):
+    """K9 in each mode at each plan over pages of 8 and 128 rows: NaN in the
+    null page and past every length never reaches the output, length 0
+    gives 0, >= 40 dB against the plain version at the same plan, the same
+    bits over three calls, one device kernel a call."""
+    for ps in (8, 128):
+        args = _k9_case(dev, dtype_name, ps, dict(splits=splits, rows=rows, stages=stages),
+                        seed=ps + splits * 10 + rows + stages)
+    assert _device_kernels(lambda: k9._launch(*args)) == 1
+
+
+@pytest.mark.parametrize("dtype_name", ["int8", "float8_e4m3fn", "int4"])
+def test_paged_attention_decodes_every_code_exactly(dev, dtype_name):
+    """K9's bf16 decode of the stored values, exact for every code: two
+    sequences of length 1 (p = 1, v scale 1) whose V rows hold every int8 /
+    e4m3 byte (the e4m3 NaN codes 0x7F, 0xFF set to 0) or every int4 nibble
+    at every channel of a word give those values as their output, bit for
+    bit the plain decode's."""
+    from ao_tpu_torch.serving.kvcache import stored_values
+    from ao_tpu_torch.serving.paged import PagedKVPool
+
+    ps = 8
+    kp, vp = (PagedKVPool.create(3, ps, 1, 128, dtype_name, device=dev) for _ in range(2))
+    if dtype_name == "int4":  # word i: nibble o of word i is (i + o) % 16
+        words = [sum(((i + o) % 16) << (4 * o) for o in range(8)) for i in range(16)]
+        rows = torch.tensor(words, dtype=torch.int64).to(torch.int32).reshape(1, 16)
+        rows = torch.cat([rows, rows.roll(8, dims=1)])
+    else:
+        codes = torch.arange(256, dtype=torch.uint8)
+        if dtype_name == "float8_e4m3fn":
+            codes[[0x7F, 0xFF]] = 0
+        rows = codes.reshape(2, 128)
+    for pool in (kp, vp):
+        pool.pages[1:3, 0, 0] = rows.to(dev).view(pool.pages.dtype)
+        pool.scale.fill_(1.0)
+    q = torch.zeros((2, 1, 128), device=dev, dtype=torch.bfloat16)
+    table = torch.tensor([[1], [2]], dtype=torch.int32, device=dev)
+    lens = torch.ones(2, dtype=torch.int32, device=dev)
+    got = K9_MODES[dtype_name](q, kp.pages, kp.scale, vp.pages, vp.scale, table, lens)
+    want = stored_values(vp.pages[1:3, 0, 0]).to(torch.float32)
+    assert torch.equal(got[:, 0], want.to(dev))
+
+
+@pytest.mark.parametrize("ps", [16, 24, 64])
+@pytest.mark.parametrize("dtype_name", list(K9_MODES))
+def test_paged_attention_page_sizes(dev, dtype_name, ps):
+    """K9 at its default plan over pages of 16, 24 (a slab across two
+    pages) and 64 rows."""
+    _k9_case(dev, dtype_name, ps, {}, seed=ps)
 
 
 def _small_int4_model(dev):

@@ -62,7 +62,7 @@ def test_plain_matches_pallas_interpret():
                                     torch.from_numpy(TABLE), torch.from_numpy(LENGTHS))
     assert got.dtype == torch.float32 and got.shape == (B, H, D)
     # both round p to bf16 before p.V, the Pallas kernel against its running
-    # max per page, the plain version (as K9) against its split's max
+    # max per page, the plain version (as K9) against its warp's running max
     assert _sqnr(np.asarray(ref), got.numpy()) >= 40
     # the JAX suite's bound against the gather reference (f32 q, f32 p)
     jref = jpaged.paged_decode_attention_reference(q, jk, jv, jnp.asarray(TABLE),
@@ -288,7 +288,7 @@ def test_quantized_plain_matches_pallas_interpret(dtype_name):
     got = _k9(tk, tv, torch_from_np(q), torch.from_numpy(table), torch.from_numpy(LENGTHS))
     assert got.dtype == torch.float32 and got.shape == (B, H, D)
     # both round p * vs to bf16 before p.V, the Pallas kernel against its
-    # running max per page, the plain version (as K9) against its split's max
+    # running max per page, the plain version (as K9) against its warp's running max
     assert _sqnr(np.asarray(ref), got.numpy()) >= 40
     jref = jpaged.paged_decode_attention_reference(q, jk, jv, jnp.asarray(table),
                                                    jnp.asarray(LENGTHS))

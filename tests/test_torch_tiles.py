@@ -4,8 +4,10 @@
 K10 (``int8_matmul.pick_tiles``) and K17 (``fp8_matmul.pick_tiles``), and
 the launch plans of K8 and K16 on the attention mainloop
 (``flash_attention.launch_plan``), K13's row tiles and decode splits
-(``grouped_matmul.tile_plan``, ``decode_plan``) and K3's cluster split
-(``int4_matmul.w4a8_plan``), over
+(``grouped_matmul.tile_plan``, ``decode_plan``), K3's cluster split
+(``int4_matmul.w4a8_plan``) and the decode mainloop's launch of K2 and K9
+(``decode_attention.launch_plan``, ``paged_attention.launch_plan``, with a
+numpy mirror of its walk and its warp- and rank-ordered merge), over
 every shape ``chip_smoke.py`` and the card's tests give them, the PyTorch
 mirrors of K14's and K10's integer decodes against the plain decode over
 every code and scale byte, the PyTorch mirror of K1's and K15's stage K
@@ -22,6 +24,7 @@ import pytest
 import torch
 
 from ao_tpu_torch.ops.hopper import autotune
+from ao_tpu_torch.ops.hopper import decode_attention as k2
 from ao_tpu_torch.ops.hopper import flash_attention as k8
 from ao_tpu_torch.ops.hopper import fp4_matmul as k14
 from ao_tpu_torch.ops.hopper import fp8_matmul as k17
@@ -29,6 +32,7 @@ from ao_tpu_torch.ops.hopper import grouped_matmul as k13
 from ao_tpu_torch.ops.hopper import int4_matmul as k1
 from ao_tpu_torch.ops.hopper import int8_matmul as k10
 from ao_tpu_torch.ops.hopper import lut4_matmul as k15
+from ao_tpu_torch.ops.hopper import paged_attention as k9
 from ao_tpu_torch.ops.hopper import window_attention as k16
 from ao_tpu_torch.quantization.primitives import ZeroPointDomain
 from ao_tpu_torch.quantization.qarrays.fp4 import _remap_fp4_magic, decode_fp4_e2m1
@@ -552,3 +556,149 @@ def test_k13_decode_offset_fold_is_the_plain_function(offset):
     ref = k1.int4_wo_magic_plain(x, qa.qdata, s, b2, g)
     err = (acc - ref).pow(2).mean() / ref.pow(2).mean()
     assert float(-10 * torch.log10(err)) >= 45
+
+
+# the decode mainloop (K2, K9): T of generate (256), the engine (1024) and
+# the long rows (4096), and T not a multiple of either tile
+DECODE_TS = sorted({_smoke.K2_SHAPE["t"], _smoke.ENGINE_CFG["max_seq"], _smoke.T_LONG,
+                    _cuda.DECODE_T, 100, 1000})
+
+
+def _walk(plan, t):
+    """{(rank, warp): the slab starts it walks in order} of a stream of t
+    positions, as ``csrc/decode_mainloop.cuh`` walks them (a length >= t)."""
+    warps = plan.rows // k2.SLAB
+    out = {}
+    for r in range(plan.splits):
+        stop = min((r + 1) * plan.tiles * plan.rows, t)
+        for w in range(warps):
+            first = r * plan.tiles * plan.rows + w * k2.SLAB
+            out[(r, w)] = list(range(first, stop, plan.rows))
+    return out
+
+
+@pytest.mark.parametrize("stages", k2.STAGES)
+@pytest.mark.parametrize("rows", k2.TILE_ROWS)
+@pytest.mark.parametrize("splits", k2.SPLITS)
+@pytest.mark.parametrize("t", DECODE_TS)
+def test_decode_plan_covers_each_position_once(t, splits, rows, stages):
+    pool = (65, t // 4 if t % 4 == 0 else t, 8, 128), 4 if t % 4 == 0 else 1
+    kw = dict(splits=splits, rows=rows, stages=stages)
+    plans = []
+    for dtype, row_bytes in ((torch.bfloat16, 256), (torch.int8, 128), (torch.int32, 64)):
+        if k2.smem_bytes(rows, stages, row_bytes) > k2.SMEM_MAX:
+            # a ring the kernel does not build: 128-row tiles of bf16 rows at 4 stages
+            assert (rows, stages, row_bytes) == (128, 4, 256)
+            with pytest.raises(ValueError, match="not a plan"):
+                k9.launch_plan((8, 32, 128), *pool, dtype, **kw)
+            continue
+        plans.append(k9.launch_plan((8, 32, 128), *pool, dtype, **kw))
+        if dtype == torch.bfloat16:
+            plans.append(k2.launch_plan((8, 32, 128), (8, t, 8, 128), **kw))
+    for plan in plans:
+        assert (plan.splits, plan.rows, plan.stages) == (splits, rows, stages)
+        seen = np.zeros(t, np.int64)
+        for starts in _walk(plan, t).values():
+            assert starts == sorted(starts)
+            for s0 in starts:
+                seen[s0:s0 + k2.SLAB] += 1
+        assert (seen == 1).all()
+
+
+def test_decode_plans_at_the_main_paths():
+    b, h, hkv, d = (_smoke.K2_SHAPE[key] for key in ("b", "h", "hkv", "d"))
+    for t in (_smoke.K2_SHAPE["t"], _smoke.ENGINE_CFG["max_seq"], _smoke.T_LONG):
+        plan = k2.launch_plan((b, h, d), (b, t, hkv, d))
+        pool = (b, h, d), (65, _smoke.PAGE, hkv, d), t // _smoke.PAGE
+        assert plan == k9.launch_plan(*pool) == k2.plan_for(b * hkv, t)
+        quant = [k9.launch_plan(*pool, dt) for dt in (torch.int8, torch.float8_e4m3fn, torch.int32)]
+        assert quant == [k2.plan_for(b * hkv, t, row_bytes) for row_bytes in (128, 128, 64)]
+        for p in [plan] + quant:
+            # the chosen split leaves no CTA without a tile
+            assert (p.splits - 1) * p.tiles * p.rows < t
+    # kernel_tiles.py time K2 / K9 (PERF.md, PR 16): bf16 rows one CTA a
+    # stream at generate's T = 256, two above; converted rows two, in
+    # 128-row tiles above T = 256
+    assert [tuple(k2.plan_for(64, t)) for t in (256, 1024, 4096)] == [
+        (1, 64, 3, 4), (2, 64, 3, 8), (2, 64, 3, 32)]
+    assert [tuple(k2.plan_for(64, t, 128)) for t in (256, 1024, 4096)] == [
+        (2, 64, 4, 2), (2, 128, 4, 4), (2, 128, 4, 16)]
+    with pytest.raises(ValueError, match="splits"):
+        k2.plan_for(64, 256, splits=3)
+    with pytest.raises(ValueError, match="not a plan"):
+        k2.check_plan(k2.DecodePlan(2, 64, 3, 1), 256)
+
+
+def _mainloop_mirror(q, k, v, length, plan, paged):
+    """One stream through the mainloop's arithmetic in f64, no bf16: q (G,
+    D), k / v (T, D). Each warp walks its slabs with an online softmax
+    (masked scores: K2 _NEG past the length, -inf past T; K9 _NEG past the
+    length), the CTA merges its warps in warp order and rank f sums the
+    ranks' (m, l, acc) in rank order, a warp or rank that walked nothing
+    weighing exactly 0. Returns (out (G, D), the ranks' m)."""
+    t = k.shape[0]
+    end = max(min(length, t), 0) if paged else (min(length, t) if length >= 1 else t)
+    stop_all = end
+    ranks = []
+    warps = plan.rows // k2.SLAB
+    for r in range(plan.splits):
+        parts = []
+        for w in range(warps):
+            m, l, acc = np.full(q.shape[0], -np.inf), np.zeros(q.shape[0]), np.zeros(q.shape)
+            first = r * plan.tiles * plan.rows + w * k2.SLAB
+            stop = min((r + 1) * plan.tiles * plan.rows, stop_all)
+            for s0 in range(first, stop, plan.rows):
+                pos = np.arange(s0, s0 + k2.SLAB)
+                read = pos < end
+                kk = np.where(read[:, None], k[np.minimum(pos, t - 1)], 0.0)
+                vv = np.where(read[:, None], v[np.minimum(pos, t - 1)], 0.0)
+                sc = q @ kk.T * 128 ** -0.5
+                masked = (pos >= min(length, t)) if paged else (pos >= length)
+                sc = np.where(masked[None, :], k2._NEG, sc)
+                if not paged:
+                    sc = np.where((pos >= t)[None, :], -np.inf, sc)
+                m_new = np.maximum(m, sc.max(axis=1))
+                alpha = np.exp(m - m_new)
+                p = np.exp(sc - m_new[:, None])
+                l, acc, m = l * alpha + p.sum(axis=1), acc * alpha[:, None] + p @ vv, m_new
+            parts.append((m, l, acc))
+        mc = np.max([pm for pm, _, _ in parts], axis=0)
+        wts = [np.where(pm == -np.inf, 0.0, np.exp(pm - mc)) for pm, _, _ in parts]
+        ranks.append((mc, sum(wt * pl for wt, (_, pl, _) in zip(wts, parts)),
+                      sum(wt[:, None] * pa for wt, (_, _, pa) in zip(wts, parts))))
+    m = np.max([rm for rm, _, _ in ranks], axis=0)
+    l, acc = np.zeros_like(m), np.zeros(q.shape)
+    for rm, rl, ra in ranks:  # rank order
+        wt = np.where(rm == -np.inf, 0.0, np.exp(rm - m))
+        l, acc = l + wt * rl, acc + wt[:, None] * ra
+    return acc / np.maximum(l, 1e-30)[:, None], [rm for rm, _, _ in ranks]
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["K2", "K9"])
+@pytest.mark.parametrize("length", [-3, 0, 1, 17, 63, 64, 65, 150, 199, 200, 500])
+@pytest.mark.parametrize("splits,rows", [(1, 64), (2, 128), (4, 64), (8, 64), (8, 128)])
+def test_decode_merge_mirror_is_the_softmax(splits, rows, length, paged):
+    """The mainloop's walk and merge equal one softmax over the positions
+    below the length; a rank that walks nothing weighs 0 (its m is -inf);
+    lengths <= 0 give K2's mean of V over all T and K9's 0."""
+    t, g, d = 200, 4, 128
+    rng = np.random.default_rng(length % 97 + splits + rows)
+    q, k, v = rng.standard_normal((g, d)), rng.standard_normal((t, d)), rng.standard_normal((t, d))
+    plan = k2.plan_for(1, t, splits=splits, rows=rows)
+    got, rank_m = _mainloop_mirror(q, k, v, length, plan, paged)
+    assert np.isfinite(got).all()
+    n = min(length, t)
+    if n >= 1:
+        s = q @ k[:n].T * 128 ** -0.5
+        p = np.exp(s - s.max(axis=1, keepdims=True))
+        want = p @ v[:n] / p.sum(axis=1, keepdims=True)
+    elif paged:
+        want = np.zeros((g, d))
+    else:
+        want = np.broadcast_to(v.mean(axis=0), (g, d))
+    np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-12)
+    # the ranks whose range starts at or past the walk's end walked nothing
+    end = max(n, 0) if paged else (n if length >= 1 else t)
+    idle = [r for r in range(splits) if r * plan.tiles * plan.rows >= end]
+    assert all((rank_m[r] == -np.inf).all() for r in idle)
+    assert all(np.isfinite(rank_m[r]).all() for r in range(splits) if r not in idle)
