@@ -1,6 +1,8 @@
 // Single-query decode attention over quantized (B, T, Hkv, *) KV caches with
 // one f32 scale per (batch row, kv head, position), for Hopper (sm_90a).
-// One kernel template, four kernels (ao_tpu_torch/serving/kvcache.py):
+// One kernel template, three kernels (ao_tpu_torch/serving/kvcache.py), in
+// their first design (K2v, the same function over int8 and e5m2 caches with
+// bf16 q, runs on the decode mainloop: decode_attention.cu):
 //
 //   K5, mode kI8: int8 "tokens" cache, the reference's "i8" semantics.
 //       Replaces ao_tpu/ops/pallas/decode_attention.py::_kt_kernel in mode
@@ -20,11 +22,6 @@
 //       ks[t]. (w >> 4j) & 0x000F000F | 0x43004300 is bf16x2 128 + u of
 //       channels j and j + 4, as in the int4 weight kernel (int4_matmul.cu);
 //       subtracting 136 in bf16 is exact.
-//   K2v, modes kV8 and kE5: int8 or fp8 e5m2 "tokens" cache with bf16 q.
-//       Replaces _tok_kernel in mode "vec8" (launched by _tok_impl) for
-//       those two storage types (its e4m3 form is K6): s = dot_f32(q, K[t]) *
-//       sm_scale * ks[t], K converted exactly to bf16 (int8 by value, e5m2
-//       by the hardware's cvt to f16; every e5m2 value is a bf16 value).
 //
 // In all of them, with q in bf16 and the mask at lengths[b]:
 //   p = exp(s - max), pv = bf16(p * vs[t]), out = sum_t pv * V[t] /
@@ -34,7 +31,8 @@
 // (1 B per value for int8 and fp8, half a byte for int4, plus two f32
 // scales per position and kv head) against 3.35 TB/s; the arithmetic is 4 *
 // G operations per cache value, far below the ridge. The structure is K2's
-// (decode_attention.cu): grid (T/64, Hkv, B), each block owns 64 positions
+// first design (before the decode mainloop): grid (T/64, Hkv, B), each
+// block owns 64 positions
 // of one kv head, stages their K and V rows in shared memory with 16-byte
 // coalesced loads (converted to bf16 on the way in, except K5's int8 K),
 // writes its unnormalised output with its max and sum, and a second pass
@@ -63,7 +61,7 @@ constexpr int kPad = 8;     // bf16 row padding: 16-byte reads stay bank-conflic
 constexpr int kRow8 = kD + 16;  // int8 row stride (bytes): fragment reads conflict free
 constexpr float kNeg = -0.7f * 3.4028234663852886e38f;  // decode_attention.py:52
 
-enum Mode { kI8 = 0, kF8 = 1, kI4 = 2, kV8 = 3, kE5 = 4 };
+enum Mode { kI8 = 0, kF8 = 1, kI4 = 2 };
 
 __device__ __forceinline__ void mma_16832(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                           uint32_t b1) {
@@ -84,7 +82,7 @@ __device__ __forceinline__ __nv_bfloat162 bits_bf162(uint32_t x) {
 
 template <__nv_fp8_interpretation_t KIND>
 __device__ __forceinline__ __nv_bfloat16 fp8_to_bf16(uint8_t x) {
-  // fp8 -> half -> float -> bf16: each step exact for every e4m3 and e5m2
+  // fp8 -> half -> float -> bf16: each step exact for every e4m3
   const __half h(__nv_cvt_fp8_to_halfraw(static_cast<__nv_fp8_storage_t>(x), KIND));
   return __float2bfloat16_rn(__half2float(h));
 }
@@ -114,9 +112,8 @@ __device__ __forceinline__ void to_bf16(int4 raw, __nv_bfloat16* dst) {
     __align__(16) __nv_bfloat16 v[16];
 #pragma unroll
     for (int e = 0; e < 16; ++e)
-      v[e] = MODE == kF8   ? fp8_to_bf16<__NV_E4M3>(b[e])
-             : MODE == kE5 ? fp8_to_bf16<__NV_E5M2>(b[e])
-                           : __float2bfloat16_rn((float)static_cast<int8_t>(b[e]));
+      v[e] = MODE == kF8 ? fp8_to_bf16<__NV_E4M3>(b[e])
+                         : __float2bfloat16_rn((float)static_cast<int8_t>(b[e]));
     *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(&v[0]);
     *reinterpret_cast<uint4*>(dst + 8) = *reinterpret_cast<const uint4*>(&v[8]);
   }
@@ -318,9 +315,8 @@ extern "C" int ao_decode_attention_quant_chunk(void) { return kChunk; }
 extern "C" int ao_decode_attention_quant_max_group(void) { return kGMax; }
 extern "C" int ao_decode_attention_quant_head_dim(void) { return kD; }
 
-// mode 0 (K5, int8), 1 (K6, fp8 e4m3), 2 (K7, int4 "ch4"), 3 (K2v, int8),
-// 4 (K2v, fp8 e5m2). q (B, H, D) bf16; k, v (B, T, Hkv, D) int8 / e4m3 /
-// e5m2 or (B, T, Hkv, D/8) int32; ks, vs
+// mode 0 (K5, int8), 1 (K6, fp8 e4m3), 2 (K7, int4 "ch4"). q (B, H, D)
+// bf16; k, v (B, T, Hkv, D) int8 / e4m3 or (B, T, Hkv, D/8) int32; ks, vs
 // (B, Hkv, T) f32; lengths (B,) int32; out (B, H, D) f32; o_part
 // (B, Hkv, nsplit, G, D), m_part and l_part (B, Hkv, nsplit, G) f32 with
 // nsplit = ceil(T / chunk). Needs D == 128 and H / Hkv <= 8, 16-byte aligned
@@ -336,8 +332,6 @@ extern "C" int ao_decode_attention_quant(int mode, const void* q, const void* k,
   auto* kern = mode == kI8   ? quant_split_kernel<kI8>
                : mode == kF8 ? quant_split_kernel<kF8>
                : mode == kI4 ? quant_split_kernel<kI4>
-               : mode == kV8 ? quant_split_kernel<kV8>
-               : mode == kE5 ? quant_split_kernel<kE5>
                              : nullptr;
   if (kern == nullptr) return (int)cudaErrorInvalidValue;
   kern<<<grid1, kThreads, 0, st>>>(

@@ -1,5 +1,5 @@
-// The single-query decode attention mainloop of K2 (decode_attention.cu)
-// and K9 (paged_attention.cu), for Hopper (sm_90a).
+// The single-query decode attention mainloop of K2 and K2v
+// (decode_attention.cu) and K9 (paged_attention.cu), for Hopper (sm_90a).
 //
 // For each batch row b and kv head, the G = H / Hkv <= 8 query heads of its
 // group share one stream of K and V rows (positions t < T):
@@ -9,9 +9,9 @@
 //
 // f32 (B, H, D), with p = exp(s - m) against a running max m, rounded to
 // bf16 before p . V as the TPU kernels round it. An Op says where a row's
-// bytes live (K2: the dense (B, T, Hkv, D) cache; K9: a page of the pool,
-// looked up in the block table), how many positions a stream walks, the
-// mask, and how stored bytes become bf16.
+// bytes live (K2, K2v: the dense (B, T, Hkv, D) cache; K9: a page of the
+// pool, looked up in the block table), how many positions a stream walks,
+// the mask, and how stored bytes become bf16 (bytes_to_bf16 below).
 //
 // What bounds it on the H100: the K and V bytes of the positions walked
 // against 3.35 TB/s; 4 G flops a loaded element are far below the ridge.
@@ -138,6 +138,54 @@ __device__ __forceinline__ float exp_f32(float x) { return exp2f(x * 1.442695040
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&x);
+}
+
+__device__ __forceinline__ uint32_t bf162_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+__device__ __forceinline__ __nv_bfloat162 bits_bf162(uint32_t x) {
+  return *reinterpret_cast<__nv_bfloat162*>(&x);
+}
+
+// The one-byte stored values an Op converts (its to_bf16).
+enum Byte { kInt8 = 0, kE4M3 = 1, kE5M2 = 2 };
+
+// 16 stored bytes of one row -> two chunks o of 8 bf16 values each; exact,
+// in integer and bf16x2 operations (a type conversion runs at a quarter of
+// their rate). Two bytes x of a word go to the two 16-bit halves of a pair
+// at a time:
+//   int8: bf16 (0x4300 | x & 0x7F) - bf16 (0x4300 | x & 0x80), that is
+//         (128 + (x & 0x7F)) - (x < 0 ? 256 : 128);
+//   e4m3: bf16 ((x & 0x80) << 8 | (x & 0x7F) << 4) * 2^120: the byte's
+//         exponent and mantissa in bf16's, off by the bias difference
+//         127 - 7, subnormals and 0 included (the NaN codes become finite);
+//   e5m2: bf16 ((x & 0x80) << 8 | (x & 0x7F) << 5) * 2^112, the same with
+//         the bias difference 127 - 15 (the exponent-31 codes, inf and NaN,
+//         become finite).
+// Rows at or past a stream's walk end are never loaded, and the caches'
+// quantizers write none of the codes that become finite below it.
+template <int KIND>
+__device__ __forceinline__ void bytes_to_bf16(int4 raw, uint4 (&o)[2]) {
+  const uint32_t w[4] = {(uint32_t)raw.x, (uint32_t)raw.y, (uint32_t)raw.z, (uint32_t)raw.w};
+  uint32_t v[8];  // bf16x2 of bytes (2k, 2k + 1)
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    // bytes 2k and 2k + 1 of the chunk into the two halves of x
+    const uint32_t x = __byte_perm(w[k >> 1], 0u, (k & 1) ? 0x4342u : 0x4140u);
+    if constexpr (KIND == kInt8) {
+      v[k] = bf162_bits(__hsub2(bits_bf162((x & 0x007F007Fu) | 0x43004300u),
+                                bits_bf162((x & 0x00800080u) | 0x43004300u)));
+    } else if constexpr (KIND == kE4M3) {
+      const uint32_t e = ((x << 4) & 0x07F007F0u) | ((x << 8) & 0x80008000u);
+      v[k] = bf162_bits(__hmul2(bits_bf162(e), bits_bf162(0x7B807B80u)));
+    } else {
+      const uint32_t e = ((x << 5) & 0x0FE00FE0u) | ((x << 8) & 0x80008000u);
+      v[k] = bf162_bits(__hmul2(bits_bf162(e), bits_bf162(0x77807780u)));
+    }
+  }
+  o[0] = make_uint4(v[0], v[1], v[2], v[3]);
+  o[1] = make_uint4(v[4], v[5], v[6], v[7]);
 }
 
 // Byte offset of 16-byte chunk c (values 8c .. 8c + 7) of row r in a bf16

@@ -50,14 +50,6 @@ namespace {
 
 enum Mode { kFP = 0, kI8 = 1, kF8 = 2, kI4 = 3 };
 
-__device__ __forceinline__ uint32_t bf162_bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-__device__ __forceinline__ __nv_bfloat162 bits_bf162(uint32_t x) {
-  return *reinterpret_cast<__nv_bfloat162*>(&x);
-}
-
 template <int MODE>
 struct Paged {
   static constexpr int kRowBytes = MODE == kFP ? dm::kRowB : MODE == kI4 ? dm::kD / 2 : dm::kD;
@@ -100,49 +92,26 @@ struct Paged {
   }
 
   // 16 stored bytes of one row of a converted mode -> bf16 chunks o: 2 (16
-  // values) for int8 and fp8, 4 (32 values: four words of 8 channels each)
-  // for int4; exact, in integer and bf16x2 operations (a type conversion runs
-  // at a quarter of their rate). Two bytes x of a word go to the two 16-bit
-  // halves of a pair at a time:
-  //   int8: bf16 (0x4300 | x & 0x7F) - bf16 (0x4300 | x & 0x80), that is
-  //         (128 + (x & 0x7F)) - (x < 0 ? 256 : 128);
-  //   e4m3: bf16 ((x & 0x80) << 8 | (x & 0x7F) << 4) * 2^120: the byte's
-  //         exponent and mantissa in bf16's, off by the bias difference
-  //         127 - 7, subnormals and 0 included (the NaN codes, never loaded,
-  //         become finite);
-  //   int4: (w >> 4j) & 0x000F000F | 0x43004300 = bf16x2 128 + u of
-  //         channels j and j + 4, less 136.
+  // values) for int8 and fp8 (dm::bytes_to_bf16), 4 (32 values: four words
+  // of 8 channels each) for int4, exact: (w >> 4j) & 0x000F000F | 0x43004300
+  // = bf16x2 128 + u of channels j and j + 4, less 136.
   __device__ static void to_bf16(int4 raw, uint4 (&o)[dm::kRowB / kRowBytes]) {
-    const uint32_t w[4] = {(uint32_t)raw.x, (uint32_t)raw.y, (uint32_t)raw.z, (uint32_t)raw.w};
     if constexpr (MODE == kI4) {
+      const uint32_t w[4] = {(uint32_t)raw.x, (uint32_t)raw.y, (uint32_t)raw.z, (uint32_t)raw.w};
       const __nv_bfloat162 bias = __floats2bfloat162_rn(136.f, 136.f);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         __nv_bfloat162 q[4];  // q[j] = (channel j, channel j + 4) of word i
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          q[j] = __hsub2(bits_bf162(((w[i] >> (4 * j)) & 0x000F000Fu) | 0x43004300u), bias);
-        o[i].x = bf162_bits(__lows2bfloat162(q[0], q[1]));
-        o[i].y = bf162_bits(__lows2bfloat162(q[2], q[3]));
-        o[i].z = bf162_bits(__highs2bfloat162(q[0], q[1]));
-        o[i].w = bf162_bits(__highs2bfloat162(q[2], q[3]));
+          q[j] = __hsub2(dm::bits_bf162(((w[i] >> (4 * j)) & 0x000F000Fu) | 0x43004300u), bias);
+        o[i].x = dm::bf162_bits(__lows2bfloat162(q[0], q[1]));
+        o[i].y = dm::bf162_bits(__lows2bfloat162(q[2], q[3]));
+        o[i].z = dm::bf162_bits(__highs2bfloat162(q[0], q[1]));
+        o[i].w = dm::bf162_bits(__highs2bfloat162(q[2], q[3]));
       }
     } else {
-      uint32_t v[8];  // bf16x2 of bytes (2k, 2k + 1)
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        // bytes 2k and 2k + 1 of the chunk into the two halves of x
-        const uint32_t x = __byte_perm(w[k >> 1], 0u, (k & 1) ? 0x4342u : 0x4140u);
-        if constexpr (MODE == kI8) {
-          v[k] = bf162_bits(__hsub2(bits_bf162((x & 0x007F007Fu) | 0x43004300u),
-                                    bits_bf162((x & 0x00800080u) | 0x43004300u)));
-        } else {
-          const uint32_t e = ((x << 4) & 0x07F007F0u) | ((x << 8) & 0x80008000u);
-          v[k] = bf162_bits(__hmul2(bits_bf162(e), bits_bf162(0x7B807B80u)));
-        }
-      }
-      o[0] = make_uint4(v[0], v[1], v[2], v[3]);
-      o[1] = make_uint4(v[4], v[5], v[6], v[7]);
+      dm::bytes_to_bf16<MODE == kI8 ? dm::kInt8 : dm::kE4M3>(raw, o);
     }
   }
 };

@@ -14,14 +14,16 @@ Counterparts of ``ao_tpu/ops/pallas/decode_attention.py::decode_attention``:
 * K7 (same source, ``decode_attention_int4``): the int4 cache
   (``_ck4_kernel`` and ``_int4_kernel``) in the port's channel-packed
   "ch4" layout.
-* K2v (same source, ``decode_attention_vec8``): the bf16-q "vec8" form of
-  ``_tok_kernel`` over an int8 or fp8 e5m2 "tokens" cache, K6's function
-  over those storage types.
+* K2v (``decode_attention.cu``, ``decode_attention_vec8``): the bf16-q
+  "vec8" form of ``_tok_kernel`` over an int8 or fp8 e5m2 "tokens" cache,
+  K6's function over those storage types.
 
-K2 runs on the decode mainloop shared with K9 (``csrc/decode_mainloop.cuh``,
-whose header says what bounds it and how it is built): one launch a call,
-``launch_plan`` choosing the CTAs a stream (one cluster), the positions a
-tile and the depth of each warp's ring from static shapes. K5-K7 and K2v
+K2 and K2v run on the decode mainloop shared with K9
+(``csrc/decode_mainloop.cuh``, whose header says what bounds it and how it
+is built): one launch a call, no workspace, ``launch_plan`` /
+``launch_plan_vec8`` choosing the CTAs a stream (one cluster), the
+positions a tile and the depth of each warp's ring from static shapes (K2v's
+128-byte rows converted to bf16 exactly in shared memory). K5-K7
 (``decode_attention_quant.cu``) still split T (flash-decoding) into f32
 partials and combine them in a second kernel. Every wrapper runs its kernel on
 CUDA tensors and its plain PyTorch version (``decode_attention_plain``,
@@ -43,14 +45,14 @@ from ao_tpu_torch.ops.hopper import build
 
 _NEG = -0.7 * float(torch.finfo(torch.float32).max)  # the reference's mask value
 
-# what decode_attention.cu (K2) and decode_attention_quant.cu (K5-K7, K2v)
+# what decode_attention.cu (K2, K2v) and decode_attention_quant.cu (K5-K7)
 # take (checked against each library when it loads); known here so that the
 # routes and the CPU refuse the same shapes as the card
 HEAD_DIM = 128
 MAX_GROUP = 8
-# K5-K7 and K2v: positions per split
+# K5-K7 (and K2v's plain version): positions per split
 CHUNK = 64
-# the decode mainloop (K2, K9): positions a warp takes at a time (one k16
+# the decode mainloop (K2, K2v, K9): positions a warp takes at a time (one k16
 # step of p . V), the CTAs of a stream (a portable cluster), the positions a
 # tile (16 a warp: four or eight warps) and the slabs of a warp's cp.async ring
 SLAB = 16
@@ -124,6 +126,12 @@ def launch_plan(q_shape, cache_shape, **kw) -> DecodePlan:
     return plan_for(q_shape[0] * cache_shape[2], cache_shape[1], **kw)
 
 
+def launch_plan_vec8(q_shape, cache_shape, **kw) -> DecodePlan:
+    """K2v's launch at q (B, H, D) over a (B, T, Hkv, D) int8 or e5m2 cache:
+    ``plan_for`` over rows of 128 bytes."""
+    return plan_for(q_shape[0] * cache_shape[2], cache_shape[1], HEAD_DIM, **kw)
+
+
 def takes(head_dim: int, group: int) -> bool:
     """Whether the decode attention kernels take this head_dim and this many
     query heads per kv head. The single-token decode route of
@@ -149,6 +157,10 @@ def _lib():
         fn = lib.ao_decode_attention
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float,
                                                                      ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.ao_decode_attention_vec8
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+            ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _check_library(lib, "decode_attention.cu", "ao_decode_attention",
                        (("slab", SLAB), ("max_group", MAX_GROUP), ("head_dim", HEAD_DIM),
@@ -259,11 +271,12 @@ def traffic(q_shape, cache_shape, lengths):
 
 
 # ---------------------------------------------------------------------------
-# K5, K6, K7: quantized caches
+# K5, K6, K7, K2v: quantized caches
 
-# the kernel's mode argument by kind and storage type (K2v has two)
+# the kernel's mode argument by kind and storage type (K5-K7:
+# decode_attention_quant.cu's; K2v: ao_decode_attention_vec8's two)
 _KIND_MODE = {"i8": {torch.int8: 0}, "f8": {torch.float8_e4m3fn: 1}, "i4": {torch.int32: 2},
-              "v8": {torch.int8: 3, torch.float8_e5m2: 4}}
+              "v8": {torch.int8: 0, torch.float8_e5m2: 1}}
 _KIND_NAME = {"i8": "int8 (K5)", "f8": "fp8 e4m3 (K6)", "i4": "int4 (K7)",
               "v8": "int8 / fp8 e5m2 bf16-q (K2v)"}
 
@@ -307,12 +320,13 @@ def decode_attention_quant_plain(kind: str, q, k, k_scale, v, v_scale, lengths,
     clip(round(q / qs), +-127), s = dot(qi, K) * ks * (qs * sm_scale) (the
     integer dot is exact in f32); otherwise s = dot(q, K) * sm_scale * ks.
     Masked to _NEG at positions >= lengths (lengths >= 1), whose values and
-    scales are never read. Positions go in splits of CHUNK, as in the
-    kernels: a split that starts below lengths[b] (every split, for
-    lengths <= 0) gives sum bf16(exp(s - m_split) * vs) * V and the f32 sum
-    of exp(s - m_split), each scaled by exp(m_split - the max over those
-    splits); out = the scaled products / max(the scaled sums, 1e-30), f32
-    (B, H, D)."""
+    scales are never read. Positions go in splits of CHUNK, as in K5-K7: a
+    split that starts below lengths[b] (every split, for lengths <= 0) gives
+    sum bf16(exp(s - m_split) * vs) * V and the f32 sum of exp(s -
+    m_split), each scaled by exp(m_split - the max over those splits); out =
+    the scaled products / max(the scaled sums, 1e-30), f32 (B, H, D). (K2v
+    on the decode mainloop rounds bf16(p * vs) against each warp's running
+    max instead: the same function to bf16's rounding of p.)"""
     from ao_tpu_torch.serving.kvcache import stored_values
 
     b, h, d = q.shape
@@ -395,23 +409,33 @@ def _quant_attention(kind, q, k, k_scale, v, v_scale, lengths, sm_scale):
     return _launch_quant(kind, q, k, k_scale, v, v_scale, lengths, sm_scale)
 
 
-def _launch_quant(kind, q, k, k_scale, v, v_scale, lengths, sm_scale: float) -> torch.Tensor:
-    lib = _qlib()
+def _launch_quant(kind, q, k, k_scale, v, v_scale, lengths, sm_scale: float,
+                  plan=None) -> torch.Tensor:
+    """One launch of K5, K6, K7 or, for "v8", K2v at ``plan`` (by default
+    ``launch_plan_vec8``'s; K5-K7 have none)."""
     dev = q.device
     b, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
-    g = h // hkv
-    nsplit = -(-t // CHUNK)
     out = torch.empty((b, h, d), dtype=torch.float32, device=dev)
-    o_part = torch.empty((b, hkv, nsplit, g, d), dtype=torch.float32, device=dev)
-    m_part = torch.empty((b, hkv, nsplit, g), dtype=torch.float32, device=dev)
-    l_part = torch.empty((b, hkv, nsplit, g), dtype=torch.float32, device=dev)
+    mode = _KIND_MODE[kind][k.dtype]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ao_decode_attention_quant(
-            _KIND_MODE[kind][k.dtype], q.data_ptr(), k.data_ptr(), k_scale.data_ptr(), v.data_ptr(),
-            v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(), o_part.data_ptr(),
-            m_part.data_ptr(), l_part.data_ptr(), b, h, hkv, t, nsplit, sm_scale, stream)
+        if kind == "v8":
+            plan = check_plan(plan or launch_plan_vec8((b, h, d), (b, t, hkv, d)), t, HEAD_DIM)
+            err = _lib().ao_decode_attention_vec8(
+                mode, q.data_ptr(), k.data_ptr(), k_scale.data_ptr(), v.data_ptr(),
+                v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h, hkv, t,
+                plan.splits, plan.tiles, plan.rows, plan.stages, sm_scale, stream)
+        else:
+            g = h // hkv
+            nsplit = -(-t // CHUNK)
+            o_part = torch.empty((b, hkv, nsplit, g, d), dtype=torch.float32, device=dev)
+            m_part = torch.empty((b, hkv, nsplit, g), dtype=torch.float32, device=dev)
+            l_part = torch.empty((b, hkv, nsplit, g), dtype=torch.float32, device=dev)
+            err = _qlib().ao_decode_attention_quant(
+                mode, q.data_ptr(), k.data_ptr(), k_scale.data_ptr(), v.data_ptr(),
+                v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(), o_part.data_ptr(),
+                m_part.data_ptr(), l_part.data_ptr(), b, h, hkv, t, nsplit, sm_scale, stream)
     if err != 0:
         raise RuntimeError(f"decode_attention {_KIND_NAME[kind]} kernel launch failed: "
                            f"CUDA error {err}")

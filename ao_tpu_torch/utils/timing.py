@@ -110,3 +110,49 @@ def _event_ms(fn: Callable[[], object], scratch: torch.Tensor, iters: int) -> fl
         end.synchronize()
         total += start.elapsed_time(end)
     return total / iters
+
+
+def device_kernels(fn: Callable[[], object]) -> int:
+    """The device operations (kernels, memsets, copies) one call of ``fn()``
+    runs on the current device, after a warm call, as torch.profiler counts
+    them. Over long runs of profiles the profiler now and then returns no
+    device record at all, several times in a row (seen on the H100), so an
+    empty profile is taken again, up to ATTEMPTS times, and then the call is
+    counted as the nodes of a CUDA graph captured from it (0 if it cannot
+    be captured either)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("device_kernels counts device operations and needs a CUDA device")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+        if n:
+            return n
+    return _graph_nodes(fn) or 0
+
+
+def _graph_nodes(fn: Callable[[], object]):
+    """The nodes of a CUDA graph captured from one call of ``fn()`` (read
+    through libcuda's cuGraphGetNodes), or None where it cannot be had."""
+    import ctypes
+
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError:
+        return None
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            fn()
+        raw = graph.raw_cuda_graph()
+        libcuda = ctypes.CDLL("libcuda.so.1")
+    except (RuntimeError, OSError):
+        return None
+    n = ctypes.c_size_t(0)
+    err = libcuda.cuGraphGetNodes(ctypes.c_void_p(raw), None, ctypes.byref(n))
+    return int(n.value) if err == 0 else None

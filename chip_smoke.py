@@ -15,7 +15,8 @@ From the repo root, on a machine with a CUDA device and ``nvcc``:
    512 and 1024 over every Llama-3-8B width and at ViT-B/16's w2 (M = 788,
    3072x768), with each launch's tiles and K split;
    The decode attention kernels over the quantized caches (K5 int8, K6 fp8,
-   K7 int4, K2v int8 and e5m2) are also timed, with K2 and the paged K9 in
+   K7 int4, K2v int8 and e5m2 on K2's decode mainloop) are also timed, with
+   K2 and the paged K9 in
    its three modes (bf16; "vec8" over int8 and fp8 pools; int4), at T =
    4096, where the cache bytes set the bound, K5-K7 at the slot engine's
    decode shape, and the flash prefill K8 at S = 2048; the int8 weight-only
@@ -108,29 +109,33 @@ From the repo root, on a machine with a CUDA device and ``nvcc``:
    (``Sparse24Int4WeightConfig(group_size=128)``) and bf16, with exact
    launch counts, BSR logits against the "torch" backend, 2:4 logits against
    the dense forward on the dequantized weights, images/s of the four timed
-   in turns and a profile each. K18 itself is held to its plain version at ViT-L's w1 / w2 at b =
-   64, keep 0.1 and b = 128, keep 0.5, at the JAX suite's two shapes and on
-   a fully dense BSR weight, and timed beside cuBLAS on the dequantized
-   weight and ``torch.sparse``'s BSR product, with the host cost of one
-   linear call through each route at ViT-L's shapes.
+   in turns and a profile each. K18 itself is held to its plain version at
+   ViT-L's w1 / w2 at b = 64, keep 0.1 and b = 128, keep 0.5, at the JAX
+   suite's two shapes and on a fully dense BSR weight, and timed beside
+   cuBLAS on the dequantized weight and ``torch.sparse``'s BSR product, with
+   each launch's plan and the host cost of one linear call through each
+   route at ViT-L's shapes.
 
 Each phase prints its seconds. Prints the kernel table as one JSON line and, as the last line,
 ``{"ok": true, "device": {...}}``. Any failed check makes it exit non-zero
 without that line; so does a machine without a CUDA device.
 
-    python3 chip_smoke.py --kernels K1,K2,K3,K8,K9,K10,K11,K13,K14,K15,K16,K17,K18
+    python3 chip_smoke.py --kernels K1,K2,K2v,K3,K8,K9,K10,K11,K13,K14,K15,K16,K17,K18
 
-builds, then runs only the named kernels' phases (K1, K2, K3, K8, K9, K10,
-K11, K13, K14, K15, K16, K17, K18) and prints their rows as JSON, with no
-result line (``--sam`` the SAM-B paths alone, with images/s; ``--mixtral``
+builds, then runs only the named kernels' phases (K1, K2, K2v, K3, K8, K9,
+K10, K11, K13, K14, K15, K16, K17, K18) and prints their rows as JSON, with no
+result line (``--sam`` the SAM-B paths alone, with images/s; ``--vitl`` the
+ViT-L/16 sparse paths alone, with images/s and profiles; ``--mixtral``
 the Mixtral paths alone, with tok/s, the prefill's device time and the
 engine's TTFT); the K1, K10, K15 and K17 rows name each launch's tiles and
 K split, the K3 rows their CTA width and K split and the device kernels a
-call, the K2 and K9 rows (K2 at generate's, the slot engine's and the long
+call, the K2, K2v and K9 rows (K2 at generate's, the slot engine's and the
+long shape; K2v over its e5m2 and int8 caches at generate's and the long
 shape; K9 in each mode at the paged engine's and the long shape) their
 decode-mainloop plan and the device kernels a call (one, checked), the K13
 rows the magic form's K split or row tile, the K8 and K16
-rows its query rows a CTA. A copy of this
+rows its query rows a CTA, the K18 rows each launch's plan (cluster split,
+CTAs, items) and the device kernels a call (one, checked). A copy of this
 script run in another checkout times that checkout's kernels, so two trees'
 kernels can be set side by side on one card in one run (a checkout whose
 own script predates a kernel's name here takes a copy of this one: the
@@ -528,6 +533,17 @@ def k2_rows(torch, fails, seed):
             "long": k2_phase(torch, fails, seed, t=T_LONG, lengths=[T_LONG] * K2_SHAPE["b"])}
 
 
+def k2v_rows(torch, fails, seed):
+    """K2v's rows over its e5m2 cache (generate's e5m2-KV path) and its int8
+    one (no main path) at generate's T (ragged lengths) and at T_LONG (every
+    position valid), each with its plan and the device kernels a call."""
+    long = [T_LONG] * K2_SHAPE["b"]
+    return {(kv, t): kv_phase(torch, fails, seed, kv, t=t, lengths=lengths,
+                              kernel=K2V_INT8 if kv == "int8" else None)
+            for kv in ("float8_e5m2", "int8")
+            for t, lengths in ((K2_SHAPE["t"], K2_LENGTHS), (T_LONG, long))}
+
+
 def kv_phase(torch, fails, seed, dtype_name, t=None, lengths=None, kernel=None):
     """K5, K6, K7 or K2v (``kernel``, by default the cache's on the main
     path) at the path's shape (or at ``t`` with ``lengths``) over caches
@@ -556,14 +572,20 @@ def kv_phase(torch, fails, seed, dtype_name, t=None, lengths=None, kernel=None):
     sqnr = float(compute_error(ref, got))
     fails.check(bool(torch.isfinite(got).all()) and sqnr >= K2_SQNR_DB,
                 f"{knum} {name} T={t}: sqnr {sqnr:.2f} dB < {K2_SQNR_DB}")
-    ms = cuda_time_ms(lambda: da._launch_quant(kind, *args, sm), iters=50)
+    launch = lambda: da._launch_quant(kind, *args, sm)  # noqa: E731
+    ms = cuda_time_ms(launch, iters=50)
     plain_ms = cuda_time_ms(lambda: da.decode_attention_quant_plain(kind, *args, sm), iters=10)
     library_ms = sdpa_ms(torch, q, ck.dequantize(torch.bfloat16), cv.dequantize(torch.bfloat16),
                          args[-1], sm)
     nbytes, ops = da.traffic_quant(kind, (b, h, d), tuple(ck.qdata.shape), lengths)
+    # K2v runs on the decode mainloop: its plan, and one device kernel
+    plan = getattr(da, "launch_plan_vec8", None)  # None in a checkout that predates it
+    desc = None if kind != "v8" else one_launch(
+        torch, fails, f"{knum} {name} T={t}", launch,
+        plan and plan((b, h, d), tuple(ck.qdata.shape)))
     return kernel_row(f"{knum} {name}", f"B={b} H={h} Hkv={hkv} D={d} T={t} {dtype_name} cache",
                       got, ref, f"sqnr {sqnr:.2f} dB (>= {K2_SQNR_DB})", ms, plain_ms, library_ms,
-                      nbytes, ops)
+                      nbytes, ops, tiles=desc)
 
 
 def w4a8_weight(torch, gen, k, n):
@@ -619,10 +641,16 @@ def k3_phase(torch, fails, seed):
 
 
 def device_kernels(torch, fn) -> int:
-    """The device kernels one call of ``fn`` runs, as torch.profiler counts
-    them (after a warm call); a profile that came back without device
-    records (seen on the H100, ``utils/timing.py``) is taken again, up to
-    three times."""
+    """The device kernels one call of ``fn`` runs, after a warm call, as
+    torch.profiler counts them, a profile that came back without device
+    records taken again, up to three times (seen on the H100,
+    ``utils/timing.py``); then ``utils/timing.device_kernels`` counts the
+    nodes of a CUDA graph captured from one call (not in a checkout that
+    predates it)."""
+    from ao_tpu_torch.utils import timing
+
+    if hasattr(timing, "device_kernels"):
+        return timing.device_kernels(fn)
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2156,8 +2184,17 @@ def k18_phase(torch, fails, seed):
         shape = f"M={m} K={k} N={n} b={b} keep={keep} nnz={bw.nnz_blocks}"
         fails.check(bool(torch.isfinite(got).all()) and sqnr >= K18_SQNR_DB,
                     f"K18 bsr_matmul {shape}: sqnr {sqnr:.2f} dB < {K18_SQNR_DB}")
-        ms = cuda_time_ms(lambda: k18._launch(x, bw), iters=20)
+        launch = lambda: k18._launch(x, bw)  # noqa: E731
+        ms = cuda_time_ms(launch, iters=20)
         plain_ms = cuda_time_ms(lambda: k18.bsr_matmul_plain(x, bw), iters=5, warmup=1)
+        n_dev = device_kernels(torch, launch)
+        desc = f"{n_dev} device kernel(s) a call"
+        plan = getattr(k18, "launch_plan", None)  # None in a checkout that predates it
+        if plan is not None:
+            fails.check(n_dev == 1, f"K18 bsr_matmul {shape}: {n_dev} device kernels a call")
+            sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+            desc += (", plan (splits, ctas, m_tiles, items) "
+                     f"{tuple(plan(m, n, b, bw.nnz_blocks, sms))}")
         w_dq = bw.dequantize(torch.bfloat16)
         library_ms = cuda_time_ms(lambda: torch.matmul(x, w_dq), iters=20)
         sparse_ms, note = torch_bsr_ms(torch, x, w_dq, b, got)
@@ -2171,7 +2208,7 @@ def k18_phase(torch, fails, seed):
         nbytes, flops = k18.traffic(m, k, n, b, bw.nnz_blocks)
         rows[(m, k, n, b, keep)] = kernel_row(
             "K18 bsr_matmul", shape, got, ref, f"sqnr {sqnr:.2f} dB (>= {K18_SQNR_DB})", ms,
-            plain_ms, library_ms, nbytes, flops)
+            plain_ms, library_ms, nbytes, flops, tiles=desc)
     return rows
 
 
@@ -2511,11 +2548,11 @@ def k16_rows(torch, fails, seed):
 
 
 def kernels_only(torch, names) -> int:
-    """Build, then run only the phases of ``names`` (of K1, K2, K3, K8, K9,
-    K10, K11, K13, K14, K15, K16, K17, K18) and print each one's rows as one
-    JSON line."""
-    phases = {"K1": k1_phase, "K2": k2_rows, "K3": k3_phase, "K8": k8_rows, "K9": k9_rows,
-              "K10": k10_phase, "K11": k11_phase, "K13": k13_phase, "K14": k14_both,
+    """Build, then run only the phases of ``names`` (of K1, K2, K2v, K3, K8,
+    K9, K10, K11, K13, K14, K15, K16, K17, K18) and print each one's rows as
+    one JSON line."""
+    phases = {"K1": k1_phase, "K2": k2_rows, "K2v": k2v_rows, "K3": k3_phase, "K8": k8_rows,
+              "K9": k9_rows, "K10": k10_phase, "K11": k11_phase, "K13": k13_phase, "K14": k14_both,
               "K15": k15_phase, "K16": k16_rows, "K17": k17_phase, "K18": k18_phase}
     if not set(names) <= set(phases):
         print(f"chip_smoke: --kernels takes {', '.join(phases)}", file=sys.stderr)
@@ -2576,15 +2613,34 @@ def sam_only(torch) -> int:
     return 1 if fails else 0
 
 
+def vitl_only(torch) -> int:
+    """Build, then run only the ViT-L/16 sparse paths (BSR through K18, 2:4,
+    2:4-int4, bf16: exact launch counts, logits, images/s in turns and a
+    profile each) and print images/s as one JSON line."""
+    from ao_tpu_torch.ops.hopper import bsr_matmul as k18
+
+    print(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}",
+          flush=True)
+    build_all()
+    fails = Failures()
+    launches, ips = {}, {}
+    with phase("ViT-L/16 sparse paths"):
+        vitl_sparse_paths(torch, fails, {"bsr_matmul": k18.bsr_matmul}, launches, ips)
+    print(json.dumps({"images/s": ips}), flush=True)
+    return 1 if fails else 0
+
+
 def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser(description="Smoke run of ao_tpu_torch on one NVIDIA GPU.")
     parser.add_argument("--kernels", type=lambda v: v.split(","),
-                        help="only these kernels' phases, of K1, K2, K3, K8, K9, K10, K11, K13, "
-                             "K14, K15, K16, K17, K18 (comma-separated)")
+                        help="only these kernels' phases, of K1, K2, K2v, K3, K8, K9, K10, K11, "
+                             "K13, K14, K15, K16, K17, K18 (comma-separated)")
     parser.add_argument("--sam", action="store_true",
                         help="only the SAM-B paths (W8A8 and bf16), for images/s")
+    parser.add_argument("--vitl", action="store_true",
+                        help="only the ViT-L/16 sparse paths (BSR, 2:4, 2:4-int4, bf16)")
     parser.add_argument("--mixtral", action="store_true",
                         help="only the Mixtral-8x7B paths (generate and the slot engine)")
     args = parser.parse_args()
@@ -2598,6 +2654,8 @@ def main() -> int:
         return kernels_only(torch, args.kernels)
     if args.sam:
         return sam_only(torch)
+    if args.vitl:
+        return vitl_only(torch)
     if args.mixtral:
         return mixtral_only(torch)
     import ao_tpu_torch
@@ -2883,10 +2941,12 @@ def main() -> int:
     ]
     for kv, ref in zip(KV_ALL, ("decode_attention.py:138", "decode_attention.py:598",
                                 "decode_attention.py:471", "decode_attention.py:234")):
-        rows += [(KV_KERNELS[kv][0], "decode_attention_quant.cu", ref, KV_TAG[kv], row)
+        # K2v on the decode mainloop beside K2; K5-K7 in their first design
+        src = "decode_attention.cu" if KV_KERNELS[kv][2] == "K2v" else "decode_attention_quant.cu"
+        rows += [(KV_KERNELS[kv][0], src, ref, KV_TAG[kv], row)
                  for row in (kv_rows[kv], long_rows[kv])]
     # K2v's int8 form: the same kernel as its e5m2 form, whose path it counts
-    rows += [("decode_attention_vec8", "decode_attention_quant.cu", "decode_attention.py:234",
+    rows += [("decode_attention_vec8", "decode_attention.cu", "decode_attention.py:234",
               KV_TAG["float8_e5m2"], row) for row in (kv_rows["k2v-int8"], long_rows["k2v-int8"])]
     rows += [("flash_attention", "flash_attention.cu", "flash_attention.py:94",
               "int4-WO+flash" if shape[0] > 1 else "engine-slots", k8_by_shape[shape])

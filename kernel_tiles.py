@@ -4,13 +4,15 @@ the tiles each wrapper picks and at every other unsplit tile it takes; K3
 (W4A8) at decode (M = 8) over the same widths at its plan and every other
 CTA width and cluster split; K13's magic form (E = 8, Mixtral's expert
 widths, a top-2 routing) at its decode splits (T = 16) and row tiles (T =
-256, 1024, 2048); or K2 and K9 (K9 in each pool mode) on the decode
-mainloop at every plan (CTAs a stream, positions a tile, ring stages) at
-T = 256, 1024 and 4096 with ``chip_smoke.py``'s lengths there, on one CUDA
+256, 1024, 2048); or K2, K2v (over its e5m2 and int8 caches) and K9 (in
+each pool mode) on the decode mainloop at every plan (CTAs a stream,
+positions a tile, ring stages) at T = 256, 1024 and 4096 with
+``chip_smoke.py``'s lengths there; or K18 (the block-sparse matmul) at
+``chip_smoke.py``'s shapes at each cluster split and CTA count, on one CUDA
 device; or compare the SASS of each kernel in two builds of one source,
 with names and addresses stripped.
 
-    python3 kernel_tiles.py time K10          # or K17, K3, K13, K2, K9
+    python3 kernel_tiles.py time K10          # or K17, K3, K13, K2, K2v, K9, K18
     python3 kernel_tiles.py sass LIB_A LIB_B  # two builds' lib<source>-*.so
 
 Run in a copy of the tree with a kernel changed and in this one, in turns
@@ -51,8 +53,11 @@ def time_tiles(kernel: str) -> int:
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     print(f"card: {torch.cuda.get_device_name(dev)}", flush=True)
-    if kernel in ("K2", "K9"):
+    if kernel in ("K2", "K2v", "K9"):
         time_decode(torch, cuda_time_ms, dev, kernel)
+        return 0
+    if kernel == "K18":
+        time_k18(torch, cuda_time_ms, dev, sms)
         return 0
     if kernel in ("K3", "K13"):
         (time_k3 if kernel == "K3" else time_k13)(torch, cuda_time_ms, dev, sms)
@@ -157,14 +162,52 @@ def time_k13(torch, cuda_time_ms, dev, sms) -> None:
         torch.cuda.empty_cache()
 
 
+# K18 beside chip_smoke.py's shapes: few items with runs of 8-32 blocks,
+# where ``launch_plan`` splits a run over a cluster, and of 4
+K18_SPLIT_SHAPES = [(64, 4096, 1024, 128, None), (64, 4096, 1024, 128, 0.25),
+                    (1, 4096, 1024, 128, None), (64, 1024, 1024, 128, 0.5),
+                    (16, 4096, 4096, 64, 0.25)]
+
+
+def time_k18(torch, cuda_time_ms, dev, sms) -> None:
+    """K18 at each of ``chip_smoke.py``'s shapes and K18_SPLIT_SHAPES (a
+    random bf16 weight made block-sparse from the seed): the plan
+    ``launch_plan`` picks, then, unsplit, one CTA an SM, one CTA an item and
+    two CTAs an SM, and clusters of 2 and 4 splitting each item's run."""
+    import chip_smoke as smoke
+    from ao_tpu_torch.ops.hopper import bsr_matmul as k18
+    from ao_tpu_torch.sparsity.blocksparse import BlockSparseArray
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for m, k, n, b, keep in [s[:5] for s in smoke.K18_SHAPES] + K18_SPLIT_SHAPES:
+        w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(torch.bfloat16)
+        bw = BlockSparseArray.from_hp(w, b, keep)
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        picked = k18.launch_plan(m, n, b, bw.nnz_blocks, sms)
+        one = k18.launch_plan(m, n, b, bw.nnz_blocks, sms, splits=1)
+        plans = [picked, one._replace(ctas=min(one.items, sms)), one._replace(ctas=one.items),
+                 one] + [k18.launch_plan(m, n, b, bw.nnz_blocks, sms, splits=s)
+                         for s in (2, 4) if s <= k18.MAX_SPLIT[b]]
+        times = []
+        for plan in dict.fromkeys(plans):
+            us = 1e3 * cuda_time_ms(lambda: k18._launch(x, bw, plan), iters=20)
+            times.append(f"(splits {plan.splits}, ctas {plan.ctas}) {us:.1f} us"
+                         + (" (picked)" if plan == picked else ""))
+        print(f"K18 M={m} K={k} N={n} b={b} keep={keep} nnz={bw.nnz_blocks} "
+              f"items={picked.items}: " + ", ".join(times), flush=True)
+        torch.cuda.empty_cache()
+
+
 def time_decode(torch, cuda_time_ms, dev, kernel) -> None:
-    """K2 (bf16 cache) or K9 (pages of 128 rows, shuffled, in each pool
-    mode) at Llama-3-8B's decode shape, B = 8, H = 32, Hkv = 8, at T = 256
-    (generate's ragged lengths), 1024 (the engine's) and 4096 (all valid):
-    the plan ``launch_plan`` picks, then every other one of the mainloop."""
+    """K2 (bf16 cache), K2v (its e5m2 and int8 caches) or K9 (pages of 128
+    rows, shuffled, in each pool mode) at Llama-3-8B's decode shape, B = 8,
+    H = 32, Hkv = 8, at T = 256 (generate's ragged lengths), 1024 (the
+    engine's) and 4096 (all valid): the plan ``launch_plan`` picks, then
+    every other one of the mainloop."""
     import chip_smoke as smoke
     from ao_tpu_torch.ops.hopper import decode_attention as k2
     from ao_tpu_torch.ops.hopper import paged_attention as k9
+    from ao_tpu_torch.serving.kvcache import QuantKVCache
     from ao_tpu_torch.serving.paged import PagedKVPool
 
     b, h, hkv, d = (smoke.K2_SHAPE[key] for key in ("b", "h", "hkv", "d"))
@@ -173,7 +216,8 @@ def time_decode(torch, cuda_time_ms, dev, kernel) -> None:
     cases = ((smoke.K2_SHAPE["t"], smoke.K2_LENGTHS),
              (smoke.ENGINE_CFG["max_seq"], smoke.ENGINE_LENGTHS),
              (smoke.T_LONG, [smoke.T_LONG] * b))
-    pools = ("bf16",) + smoke.KV_QUANT if kernel == "K9" else ("bf16",)
+    pools = {"K2": ("bf16",), "K2v": ("float8_e5m2", "int8"),
+             "K9": ("bf16",) + smoke.KV_QUANT}[kernel]
     for dtype_name in pools:
         for t, lengths in cases:
             lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
@@ -183,6 +227,16 @@ def time_decode(torch, cuda_time_ms, dev, kernel) -> None:
                 picked = k2.launch_plan(q.shape, kc.shape)
                 plan_of = lambda **kw: k2.launch_plan(q.shape, kc.shape, **kw)  # noqa: E731
                 run = lambda plan: k2._launch(q, kc, vc, lens, d ** -0.5, plan)  # noqa: E731
+                row_bytes = k2.ROW_BYTES
+            elif kernel == "K2v":
+                ck, cv = (QuantKVCache.create(b, t, hkv, d, dtype_name, device=dev).update(
+                    torch.randn((b, t, hkv, d), generator=gen, device=dev), 0) for _ in range(2))
+                args = (q, ck.qdata, ck.scale, cv.qdata, cv.scale, lens, d ** -0.5)
+                picked = k2.launch_plan_vec8(q.shape, ck.qdata.shape)
+                plan_of = lambda **kw: k2.launch_plan_vec8(q.shape, ck.qdata.shape,  # noqa: E731
+                                                           **kw)
+                run = lambda plan: k2._launch_quant("v8", *args, plan)  # noqa: E731
+                row_bytes = k2.HEAD_DIM
             else:
                 pages = t // smoke.PAGE
                 kp, vp = (PagedKVPool.create(b * pages + 1, smoke.PAGE, hkv, d, dtype_name,
@@ -200,7 +254,7 @@ def time_decode(torch, cuda_time_ms, dev, kernel) -> None:
                 plan_of = lambda **kw: k9.launch_plan(q.shape, kp.pages.shape, pages,  # noqa: E731
                                                       kp.pages.dtype, **kw)
                 run = lambda plan: k9._launch(*args, plan)  # noqa: E731
-            row_bytes = k2.ROW_BYTES if kernel == "K2" else k9._ROW_BYTES[kp.pages.dtype]
+                row_bytes = k9._ROW_BYTES[kp.pages.dtype]
             plans = [picked] + [plan_of(splits=sp, rows=rows, stages=st) for sp in k2.SPLITS
                                 for rows in k2.TILE_ROWS for st in k2.STAGES
                                 if (sp, rows, st) != picked[:3]
@@ -258,7 +312,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = parser.add_subparsers(dest="cmd", required=True)
     t = sub.add_parser("time", help="time a kernel's launch at each tile or plan")
-    t.add_argument("kernel", choices=("K10", "K17", "K3", "K13", "K2", "K9"))
+    t.add_argument("kernel", choices=("K10", "K17", "K3", "K13", "K2", "K2v", "K9", "K18"))
     s = sub.add_parser("sass", help="compare the SASS of two builds of one source")
     s.add_argument("lib_a")
     s.add_argument("lib_b")

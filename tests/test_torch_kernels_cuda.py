@@ -139,6 +139,13 @@ QUANT_WRAPPERS = {"int8": (k2.decode_attention_int8, "i8"),
 K2V_DTYPES = ("int8", "float8_e5m2")
 
 
+def _plans(row_bytes):
+    """The decode mainloop's (splits, rows, stages) whose ring fits a block
+    over stored rows of ``row_bytes``."""
+    return [(sp, rows, st) for sp in k2.SPLITS for rows in k2.TILE_ROWS for st in k2.STAGES
+            if k2.smem_bytes(rows, st, row_bytes) <= k2.SMEM_MAX]
+
+
 def _quant_cache(dev, dtype_name, b, t, hkv, gen, scale=1.0):
     x = torch.randn((b, t, hkv, 128), generator=gen, device=dev) * scale
     return QuantKVCache.create(b, t, hkv, 128, dtype_name, device=dev).update(x, 0)
@@ -230,6 +237,74 @@ def test_k2v_refuses_on_the_card(dev):
     with pytest.raises(ValueError, match="v_cache must be"):
         k2.decode_attention_vec8(q, ck.qdata, ck.scale, ck.qdata.view(torch.int8), ck.scale, lens)
     assert k2.decode_attention_vec8.launches == before
+
+
+@pytest.mark.parametrize("dtype_name", K2V_DTYPES)
+def test_k2v_decodes_every_code_exactly(dev, dtype_name):
+    """K2v's bf16 decode of the stored bytes: two sequences of length 1 (q
+    0, so p = 1; scales 1) whose K and V rows at position 0 hold every int8
+    / e5m2 byte give those values as their output, bit for bit the plain
+    decode's. The e5m2 codes of exponent 31 (inf and NaN: 0x7C-0x7F,
+    0xFC-0xFF), which the cache's quantizer never writes below a length,
+    come out finite."""
+    from ao_tpu_torch.serving.kvcache import stored_values
+
+    ck, cv = (QuantKVCache.create(2, 16, 1, 128, dtype_name, device=dev) for _ in range(2))
+    codes = torch.arange(256, dtype=torch.uint8).reshape(2, 128).to(dev)
+    for c in (ck, cv):
+        c.qdata.view(torch.uint8)[:, 0, 0] = codes
+        c.scale.fill_(1.0)
+    q = torch.zeros((2, 1, 128), device=dev, dtype=torch.bfloat16)
+    lens = torch.ones(2, dtype=torch.int32, device=dev)
+    got = k2.decode_attention_vec8(q, ck.qdata, ck.scale, cv.qdata, cv.scale, lens)[:, 0]
+    want = stored_values(cv.qdata[:, 0, 0]).to(torch.float32)
+    exact = torch.isfinite(want)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got[exact], want[exact])
+    assert int((~exact).sum()) == (8 if dtype_name == "float8_e5m2" else 0)
+
+
+K2V_TS = (256, 1024, 4096)
+
+
+def _k2v_lengths(t):
+    # 0 and negative (every position masked: the mean of vs V over all T),
+    # 1, a slab and a tile +- 1, T - 1, T and past T (every position valid)
+    return [0, -3, 1, 17, 129, t - 1, t, t + 5]
+
+
+@pytest.mark.parametrize("dtype_name", K2V_DTYPES)
+@pytest.mark.parametrize("splits,rows,stages", _plans(k2.HEAD_DIM))
+def test_k2v_every_plan(dev, dtype_name, splits, rows, stages):
+    """K2v at each plan of the decode mainloop over 128-byte rows, at T =
+    256, 1024 and 4096 with lengths 0, negative, 1, ..., T and past T, and
+    NaN bytes and scales at or past every length: >= 40 dB against the
+    plain version, the same bits over three calls, one device kernel a
+    call."""
+    b, h, hkv = 8, 32, 8
+    for t in K2V_TS:
+        lengths = _k2v_lengths(t)
+        gen = torch.Generator(device=dev).manual_seed(t + splits * 10 + rows + stages)
+        q = torch.randn((b, h, 128), generator=gen, device=dev).to(torch.bfloat16)
+        ck = _quant_cache(dev, dtype_name, b, t, hkv, gen, scale=2.0)
+        cv = _quant_cache(dev, dtype_name, b, t, hkv, gen)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        args = (q, ck.qdata, ck.scale, cv.qdata, cv.scale, lens)
+        ref = k2.decode_attention_quant_plain("v8", *args, 128 ** -0.5)
+        for i, n in enumerate(lengths):
+            if n >= 1:
+                for c in (ck, cv):
+                    c.qdata.view(torch.uint8)[i, n:] = 0x7F  # e5m2 NaN
+                    c.scale[i, :, n:] = float("nan")
+        plan = k2.launch_plan_vec8(q.shape, ck.qdata.shape, splits=splits, rows=rows,
+                                   stages=stages)
+        before = k2.decode_attention_vec8.launches
+        got = _repeats(lambda: k2._launch_quant("v8", *args, 128 ** -0.5, plan))
+        assert k2.decode_attention_vec8.launches == before + 3
+        assert bool(torch.isfinite(got).all())
+        sqnr = float(compute_error(ref, got))
+        assert sqnr >= 40, f"{dtype_name} T={t} {plan}: {sqnr:.2f} dB"
+    assert _device_kernels(lambda: k2._launch_quant("v8", *args, 128 ** -0.5, plan)) == 1
 
 
 def test_fp8_cast_matches_cpu(dev):
@@ -327,21 +402,11 @@ def test_int4_w4a8_matches_plain(dev, m, k, n, g, domain):
 
 def _device_kernels(fn) -> int:
     """The device kernels one call of ``fn`` runs, as torch.profiler counts
-    them; a profile that came back without device records is taken again,
-    up to three times."""
-    from torch.profiler import ProfilerActivity, profile
+    them (``utils/timing.device_kernels``: an empty profile taken again, then
+    the nodes of a CUDA graph captured from one call)."""
+    from ao_tpu_torch.utils.timing import device_kernels
 
-    fn()
-    torch.cuda.synchronize()
-    n = 0
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
-        if n:
-            break
-    return n
+    return device_kernels(fn)
 
 
 LLAMA_KN = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]
@@ -694,11 +759,6 @@ def test_paged_attention_refuses_on_the_card(dev):
 
 # the decode mainloop (K2, K9) at every plan it is built for: CTAs a stream
 # (one cluster), positions a tile, slabs a warp's ring
-def _plans(row_bytes):
-    return [(sp, rows, st) for sp in k2.SPLITS for rows in k2.TILE_ROWS for st in k2.STAGES
-            if k2.smem_bytes(rows, st, row_bytes) <= k2.SMEM_MAX]
-
-
 DECODE_PLANS = _plans(k2.ROW_BYTES)
 # lengths 0, 1, a tile of either size +- 1 and T - 1 and T, over T = 200 (not
 # a multiple of either tile)
@@ -2102,6 +2162,7 @@ def test_moe_decode_forward_never_syncs(dev):
     (200, 1024, 4096, 64, None),   # every block of a dense weight
     (13, 256, 384, 32, 0.4),       # b = 32, a ragged M tile
     (65, 512, 256, 64, 0.01),      # one live block: the other columns are padding
+    (300, 4096, 512, 128, None),   # a column's run of 32 blocks: longer than the ring
 ])
 def test_bsr_matmul_matches_plain(dev, m, k, n, b, keep):
     from ao_tpu_torch.ops.hopper import bsr_matmul as k18
@@ -2123,6 +2184,69 @@ def test_bsr_matmul_matches_plain(dev, m, k, n, b, keep):
     dq = bw.dequantize(torch.float32)
     empty = dq.reshape(k, n // b, b).abs().sum((0, 2)) == 0
     assert bool((got.reshape(m, n // b, b)[:, empty] == 0).all())
+
+
+def _bsr_case(dev, m, k, n, b, keep, seed=0):
+    from ao_tpu_torch.sparsity.blocksparse import BlockSparseArray
+
+    gen = torch.Generator(device=dev).manual_seed(m + n + b + seed)
+    w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(torch.bfloat16)
+    return (BlockSparseArray.from_hp(w, b, keep),
+            torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("m,k,n,b,keep,picked", [
+    (64, 1024, 1024, 128, 0.25, 1),   # the JAX suite's shapes: runs of 2 blocks
+    (1, 512, 640, 128, 0.5, 1),
+    (64, 4096, 1024, 128, None, 4),   # runs of 32: each rank takes 8
+    (1, 4096, 1024, 128, 0.25, 4),
+    (16, 2048, 4096, 64, 0.5, 2),     # b = 64 splits in two at most
+])
+def test_bsr_matmul_split_plans(dev, m, k, n, b, keep, picked):
+    """K18 at M = 64, 16 and 1, where the items are fewer than the SMs, at
+    each cluster split it takes: >= 45 dB against the plain version, padding
+    columns exactly 0, the same bits over three calls; ``launch_plan``
+    splits the runs of 8 blocks or more and not those of 2."""
+    from ao_tpu_torch.ops.hopper import bsr_matmul as k18
+
+    bw, x = _bsr_case(dev, m, k, n, b, keep)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert k18.launch_plan(m, n, b, bw.nnz_blocks, sms).splits == picked
+    ref = k18.bsr_matmul_plain(x, bw)
+    empty = bw.dequantize(torch.float32).reshape(k, n // b, b).abs().sum((0, 2)) == 0
+    for splits in [s for s in (1, 2, 4) if s <= k18.MAX_SPLIT[b]]:
+        plan = k18.launch_plan(m, n, b, bw.nnz_blocks, sms, splits=splits)
+        got = _repeats(lambda: k18._launch(x, bw, plan))
+        sqnr = float(compute_error(ref, got))
+        assert sqnr >= 45, f"{plan}: {sqnr:.2f} dB"
+        assert bool((got.reshape(m, n // b, b)[:, empty] == 0).all())
+
+
+@pytest.mark.parametrize("m,k,n,b,keep", [
+    (200, 1024, 512, 64, 0.3), (13, 256, 384, 32, 0.4), (64, 1024, 1024, 128, 0.25)])
+def test_bsr_matmul_reads_no_row_past_m(dev, m, k, n, b, keep):
+    """x as the first M rows of a larger tensor whose other rows are NaN:
+    the output is finite and the same bits as over a copy of x alone."""
+    from ao_tpu_torch.ops.hopper import bsr_matmul as k18
+
+    bw, x = _bsr_case(dev, m, k, n, b, keep, seed=1)
+    big = torch.full((m + 130, k), float("nan"), dtype=torch.bfloat16, device=dev)
+    big[:m] = x
+    got = k18.bsr_matmul(big[:m], bw)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, k18.bsr_matmul(x.clone(), bw))
+
+
+@pytest.mark.parametrize("m,k,n,b,keep", [
+    (3152, 1024, 4096, 64, 0.1), (64, 1024, 1024, 128, 0.25), (200, 1024, 4096, 64, None)])
+def test_bsr_matmul_one_kernel_same_bits(dev, m, k, n, b, keep):
+    """K18 is one device kernel a call (the weight's column runs and tensor
+    map built by the first), and two calls give the same bits."""
+    from ao_tpu_torch.ops.hopper import bsr_matmul as k18
+
+    bw, x = _bsr_case(dev, m, k, n, b, keep, seed=2)
+    _repeats(lambda: k18.bsr_matmul(x, bw), n=2)
+    assert _device_kernels(lambda: k18.bsr_matmul(x, bw)) == 1
 
 
 def test_bsr_matmul_f32_container_and_refusals(dev):

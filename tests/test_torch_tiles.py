@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from ao_tpu_torch.ops.hopper import autotune
+from ao_tpu_torch.ops.hopper import bsr_matmul as k18
 from ao_tpu_torch.ops.hopper import decode_attention as k2
 from ao_tpu_torch.ops.hopper import flash_attention as k8
 from ao_tpu_torch.ops.hopper import fp4_matmul as k14
@@ -595,6 +596,8 @@ def test_decode_plan_covers_each_position_once(t, splits, rows, stages):
         plans.append(k9.launch_plan((8, 32, 128), *pool, dtype, **kw))
         if dtype == torch.bfloat16:
             plans.append(k2.launch_plan((8, 32, 128), (8, t, 8, 128), **kw))
+        if dtype == torch.int8:  # K2v's dense int8 / e5m2 rows: 128 bytes too
+            plans.append(k2.launch_plan_vec8((8, 32, 128), (8, t, 8, 128), **kw))
     for plan in plans:
         assert (plan.splits, plan.rows, plan.stages) == (splits, rows, stages)
         seen = np.zeros(t, np.int64)
@@ -613,6 +616,7 @@ def test_decode_plans_at_the_main_paths():
         assert plan == k9.launch_plan(*pool) == k2.plan_for(b * hkv, t)
         quant = [k9.launch_plan(*pool, dt) for dt in (torch.int8, torch.float8_e4m3fn, torch.int32)]
         assert quant == [k2.plan_for(b * hkv, t, row_bytes) for row_bytes in (128, 128, 64)]
+        assert k2.launch_plan_vec8((b, h, d), (b, t, hkv, d)) == quant[0]  # K2v
         for p in [plan] + quant:
             # the chosen split leaves no CTA without a tile
             assert (p.splits - 1) * p.tiles * p.rows < t
@@ -702,3 +706,77 @@ def test_decode_merge_mirror_is_the_softmax(splits, rows, length, paged):
     idle = [r for r in range(splits) if r * plan.tiles * plan.rows >= end]
     assert all((rank_m[r] == -np.inf).all() for r in idle)
     assert all(np.isfinite(rank_m[r]).all() for r in range(splits) if r not in idle)
+
+
+# K18: chip_smoke.py's shapes (ViT-L's w1 / w2 at b = 64 and 128, the JAX
+# suite's two, a dense weight) and random patterns where the items are fewer
+# than the SMs (cluster splits) or ragged, as (M, K, N, b, keep)
+K18_PLAN_CASES = [s[:5] for s in _smoke.K18_SHAPES] + [
+    (1, 4096, 1024, 128, None), (64, 4096, 1024, 128, 0.3), (16, 2048, 4096, 64, 0.5),
+    (13, 256, 384, 32, 0.4), (200, 1024, 4096, 64, None), (700, 512, 2048, 32, 0.05)]
+
+
+def _bsr_pattern(k, n, b, keep, seed):
+    """(row_indices, col_indices) of a random BSR pattern sorted by (col,
+    row), every column present (an empty one padded with a block at row 0,
+    as ``BlockSparseArray.from_hp`` does)."""
+    rng = np.random.default_rng(seed)
+    live = np.ones((k // b, n // b), bool) if keep is None else rng.random((k // b, n // b)) < keep
+    rows, cols = np.nonzero(live)
+    missing = np.setdiff1d(np.arange(n // b), cols)
+    rows, cols = np.concatenate([rows, 0 * missing]), np.concatenate([cols, missing])
+    order = np.lexsort((rows, cols))
+    return rows[order], cols[order]
+
+
+@pytest.mark.parametrize("m,k,n,b,keep", K18_PLAN_CASES)
+def test_k18_plan_walks_every_item_and_block_once(m, k, n, b, keep):
+    """``bsr_matmul.schedule``, the kernel's walk, at the plan ``launch_plan``
+    picks and at every split: each (row tile, column) item is taken by one
+    cluster, by each of its ranks once; the ranks' block ranges tile the
+    column's run in rank order, so each block is summed once, in the
+    column's order; every CTA the plan names takes an item."""
+    rows, cols = _bsr_pattern(k, n, b, keep, seed=m + n + b)
+    runs = k18.column_runs(torch.from_numpy(cols.astype(np.int32)), n // b).numpy()
+    assert runs[0] == 0 and runs[-1] == len(cols) and (np.diff(runs) >= 1).all()
+    for splits in [None] + [sp for sp in (1, 2, 4) if sp <= k18.MAX_SPLIT[b]]:
+        plan = k18.launch_plan(m, n, b, len(cols), k18.SMS, splits=splits)
+        assert plan.items == -(-m // k18.TILE_ROWS) * (n // b) == plan.m_tiles * (n // b)
+        assert plan.ctas == (plan.items * plan.splits if plan.splits > 1
+                             else min(plan.items, 2 * k18.SMS))
+        walk = k18.schedule(plan, runs)
+        assert {w[0] for w in walk} == set(range(plan.ctas))
+        parts = {}
+        for cta, rank, t, c, m0, a, e in walk:
+            assert (c, m0) == (t // plan.m_tiles, t % plan.m_tiles * k18.TILE_ROWS) and m0 < m
+            assert rank == cta % plan.splits
+            assert cta // plan.splits == t % (plan.ctas // plan.splits)
+            parts.setdefault(t, []).append((rank, a, e))
+        assert sorted(parts) == list(range(plan.items))
+        for t, ranks in parts.items():
+            c = t // plan.m_tiles
+            assert sorted(r for r, _, _ in ranks) == list(range(plan.splits))
+            pos = runs[c]
+            for _, a, e in sorted(ranks):
+                assert a == pos <= e
+                pos = e
+            assert pos == runs[c + 1]
+            blocks = slice(runs[c], runs[c + 1])
+            assert (cols[blocks] == c).all() and (np.diff(rows[blocks]) > 0).all()
+
+
+def test_k18_plans_at_the_main_paths():
+    """The plans ``chip_smoke.py``'s shapes take (PERF.md): unsplit
+    at ViT-L's shapes, two CTAs an SM or one an item; the JAX suite's runs
+    of 2 blocks unsplit; runs of 8 or more split over 4 CTAs (2 at b = 64)."""
+    picks = [tuple(k18.launch_plan(m, n, b, nnz)) for m, k, n, b, nnz in (
+        (3152, 1024, 4096, 64, 117), (3152, 4096, 1024, 64, 102), (3152, 1024, 4096, 128, 128),
+        (3152, 4096, 1024, 128, 128), (64, 1024, 1024, 128, 17), (1, 512, 640, 128, 10),
+        (3152, 1024, 4096, 64, 1024), (64, 4096, 1024, 128, 256), (16, 2048, 4096, 64, 1024))]
+    assert picks == [
+        (1, 264, 25, 1600), (1, 264, 25, 400), (1, 264, 25, 800), (1, 200, 25, 200),
+        (1, 8, 1, 8), (1, 5, 1, 5), (1, 264, 25, 1600), (4, 32, 1, 8), (2, 128, 1, 64)]
+    with pytest.raises(ValueError, match="splits"):
+        k18.launch_plan(64, 1024, 64, 256, splits=4)
+    with pytest.raises(ValueError, match="splits"):
+        k18.launch_plan(64, 1024, 128, 256, splits=3)
