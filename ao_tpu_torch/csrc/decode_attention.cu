@@ -1,12 +1,21 @@
-// Single-query decode attention over a dense (B, T, Hkv, D) cache, for
-// Hopper (sm_90a): K2 over bf16 rows, K2v over int8 or fp8 e5m2 rows with
-// one f32 scale per (batch row, kv head, position).
+// Single-query decode attention over a dense (B, T, Hkv, *) cache, for
+// Hopper (sm_90a): K2 over bf16 rows; K2v over int8 or fp8 e5m2 rows, K6
+// over fp8 e4m3 rows and K7 over int4 "ch4" rows, each with one f32 scale
+// per (batch row, kv head, position).
 //
-// Replaces the TPU kernel ao_tpu/ops/pallas/decode_attention.py::_tok_kernel
-// (launched by _tok_impl from the tokens branch of decode_attention): K2 its
-// mode "fp", K2v its mode "vec8" over the int8 and e5m2 storage types (the
-// e4m3 form is K6). For each batch row b and kv head, the G = H / Hkv query
-// heads of its group share one K/V stream:
+// Replaces the TPU kernels of ao_tpu/ops/pallas/decode_attention.py:
+//   K2, _tok_kernel in mode "fp" (launched by _tok_impl from the tokens
+//       branch of decode_attention);
+//   K2v, _tok_kernel "vec8" over the int8 and e5m2 storage types;
+//   K6, _f8_kernel (launched by _f8_impl), with the "cvt" mode of _kt_kernel
+//       and the e4m3 form of _tok_kernel "vec8": e4m3 K and V converted
+//       exactly (the TPU kernel spliced bytes and folded 2^60 / 2^120 into
+//       the scales because v5e has no fp8 convert);
+//   K7, _ck4_kernel (_ck4_impl) and _int4_kernel (_int4_impl), the same
+//       function over the port's int4 "ch4" words, (B, T, Hkv, D/8) int32
+//       of 8 channel nibbles u at bits [4o, 4o + 4), value u - 8.
+// For each batch row b and kv head, the G = H / Hkv query heads of its
+// group share one K/V stream:
 //
 //   s[h, t] = (q[h] . K[t]) * sm_scale (* ks[t]) in f32, masked to _NEG where
 //             t >= lengths[b];
@@ -14,31 +23,34 @@
 //             bf16 before p . V (ao_tpu/ops/pallas/decode_attention.py:216).
 //
 // What bounds it on the H100: the K and V bytes of the valid positions (2 *
-// 2 * Hkv * D bytes per token and batch row for bf16; 2 * Hkv * (D + 4) for
-// K2v's bytes and scales) against 3.35 TB/s. The TPU kernel's sequential
-// grid carried one online softmax along T; here the shared decode mainloop
-// (decode_mainloop.cuh, whose header gives the design) streams the rows
-// through each warp's cp.async ring into mma.sync, K2v's rows converted to
-// bf16 exactly in shared memory (dm::bytes_to_bf16) with their scales folded
-// into each score and each probability, and the CTAs of a stream merge
-// their softmaxes inside one cluster: one launch, no workspace. The Op says
-// where rows live (row t of kv head n at ((b T + t) Hkv + n) row bytes;
-// K2v's scales at (b Hkv + n) T + t) and what a stream walks: positions
-// below min(lengths[b], T); with lengths <= 0 every position is masked, as
-// in the reference, and the output is the mean of (vs) V over all T, so the
-// walk then covers all T. Positions at or past T in a last partial tile are
-// no positions at all (-inf). Rows and scales at or past the walk's end are
-// never loaded (a stored e5m2 NaN there never reaches the output).
+// 2 * Hkv * D bytes per token and batch row for bf16; 2 * Hkv * (D + 4)
+// for one-byte rows and scales, 2 * Hkv * (D / 2 + 4) for ch4) against
+// 3.35 TB/s. The TPU kernels' sequential grid carried one online softmax
+// along T; here the shared decode mainloop (decode_mainloop.cuh, whose
+// header gives the design) streams the rows through each warp's cp.async
+// ring into mma.sync, with the scales folded into each score and each
+// probability, and the CTAs of a stream merge their softmaxes inside one
+// cluster: one launch, no workspace. K2v's rows become bf16 exactly in a
+// per-warp slab in shared memory (dm::bytes_to_bf16); K6's and K7's go
+// from the ring straight into mma fragments (the Direct Op), converted in
+// registers by the same exact bit tricks (dm::e4m3x2, dm::ch4_pair). The
+// Op says where rows live (row t of kv head n at ((b T + t) Hkv + n) row
+// bytes; the scales at (b Hkv + n) T + t) and what a stream walks:
+// positions below min(lengths[b], T); with lengths <= 0 every position is
+// masked, as in the reference, and the output is the mean of (vs) V over all
+// T, so the walk then covers all T. Positions at or past T in a last
+// partial tile are no positions at all (-inf). Rows and scales at or past
+// the walk's end are never loaded (a stored fp8 NaN there never reaches the
+// output).
 
 #include "decode_mainloop.cuh"
 
 namespace {
 
-// KIND: the stored values, bf16 (-1) or a dm::Byte kind (int8, e5m2)
-template <int KIND>
-struct Tokens {
-  static constexpr bool kQuant = KIND >= 0;
-  static constexpr int kRowBytes = kQuant ? dm::kD : dm::kRowB;
+// The dense addressing and walk of a (B, T, Hkv, RB-byte row) cache.
+template <int RB>
+struct Dense {
+  static constexpr int kRowBytes = RB;
   struct Cursor {};
   __device__ static Cursor look(const dm::Params&, int, int) { return {}; }
   __device__ static int walk_end(int L, int T) { return L >= 1 ? min(L, T) : T; }
@@ -47,13 +59,29 @@ struct Tokens {
   }
   __device__ static size_t row_offset(const dm::Params& p, const Cursor&, int b, int kvh,
                                       int start, int r) {
-    return (((size_t)b * p.T + start + r) * p.Hkv + kvh) * kRowBytes;
+    return (((size_t)b * p.T + start + r) * p.Hkv + kvh) * RB;
   }
   __device__ static size_t scale_index(const dm::Params& p, const Cursor&, int b, int kvh,
                                        int start, int r) {
     return ((size_t)b * p.Hkv + kvh) * p.T + start + r;
   }
+};
+
+// K2 and K2v. KIND: the stored values, bf16 (-1) or a dm::Byte kind (int8,
+// e5m2), converted in the bf16 slab
+template <int KIND>
+struct Tokens : Dense<(KIND >= 0 ? dm::kD : dm::kRowB)> {
+  static constexpr bool kQuant = KIND >= 0;
+  static constexpr bool kDirect = false;
   __device__ static void to_bf16(int4 raw, uint4 (&o)[2]) { dm::bytes_to_bf16<KIND>(raw, o); }
+};
+
+// K6 (KIND dm::kE4M3, 128-byte rows) and K7 (dm::kCh4, 64-byte rows): K and
+// V rows converted from the ring straight into mma fragments.
+template <int KIND>
+struct Direct : Dense<(KIND == dm::kCh4 ? dm::kD / 2 : dm::kD)> {
+  static constexpr bool kQuant = true, kDirect = true;
+  static constexpr int kKind = KIND;
 };
 
 constexpr int kBF16 = -1;
@@ -90,12 +118,13 @@ extern "C" int ao_decode_attention(const void* q, const void* k, const void* v, 
                                              static_cast<cudaStream_t>(stream));
 }
 
-// K2v: mode 0 (int8) or 1 (fp8 e5m2). q (B, H, D) bf16; k, v (B, T, Hkv, D)
-// int8 / e5m2; k_scale, v_scale (B, Hkv, T) f32; lengths (B,) int32; out
-// (B, H, D) f32. One launch at a plan as ao_decode_attention's (positions a
-// tile 64 or 128, 3 or 4 stages, as far as the shared memory goes). Needs
-// D == 128, H / Hkv <= 8 and 16-byte aligned caches; the Python wrapper
-// checks them. Returns the CUDA error of the launch.
+// K2v: mode 0 (int8) or 1 (fp8 e5m2); K6: mode 2 (fp8 e4m3); K7: mode 3
+// (int4 "ch4"). q (B, H, D) bf16; k, v (B, T, Hkv, D) int8 / e5m2 / e4m3
+// or (B, T, Hkv, D/8) int32; k_scale, v_scale (B, Hkv, T) f32; lengths (B,)
+// int32; out (B, H, D) f32. One launch at a plan as ao_decode_attention's
+// (positions a tile 64 or 128; 3 or 4 stages for K2v, 3 for K6 and K7).
+// Needs D == 128, H / Hkv <= 8, 16-byte aligned caches and q; the Python
+// wrapper sees to them. Returns the CUDA error of the launch.
 extern "C" int ao_decode_attention_vec8(int mode, const void* q, const void* k,
                                         const void* k_scale, const void* v, const void* v_scale,
                                         const void* lengths, void* out, int B, int H, int Hkv,
@@ -118,6 +147,8 @@ extern "C" int ao_decode_attention_vec8(int mode, const void* q, const void* k,
   switch (mode) {
     case 0: return (int)dm::launch<Tokens<dm::kInt8>>(p, splits, B, rows, stages, st);
     case 1: return (int)dm::launch<Tokens<dm::kE5M2>>(p, splits, B, rows, stages, st);
+    case 2: return (int)dm::launch<Direct<dm::kE4M3>>(p, splits, B, rows, stages, st);
+    case 3: return (int)dm::launch<Direct<dm::kCh4>>(p, splits, B, rows, stages, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,4 +1,4 @@
-// The single-query decode attention mainloop of K2 and K2v
+// The single-query decode attention mainloop of K2, K2v, K6 and K7
 // (decode_attention.cu) and K9 (paged_attention.cu), for Hopper (sm_90a).
 //
 // For each batch row b and kv head, the G = H / Hkv <= 8 query heads of its
@@ -37,6 +37,28 @@
 //   online softmax in f32 (scale, k scale, mask, running max and sum); p
 //   rounded to bf16 (after * v scale) stays in registers as the A operand
 //   of p . V, FlashAttention-2 style, with V by ldmatrix.trans.
+// * Direct Ops (Op::kDirect: K6's e4m3 rows, K7's int4 "ch4" rows) skip
+//   the bf16 slab and its round trip (stores, __syncwarp, ldmatrix) on each
+//   slab's dependent chain: every lane loads raw bytes from the ring and
+//   converts them in registers straight into its mma B fragments.
+//   - K: lane (g, t) of a warp takes position 8j + g of n8 tile j and the
+//     32 contiguous channels [32 t, 32 t + 32) of its row (32 bytes e4m3,
+//     16 ch4). A lane's k slots of the 8 k16 steps are permuted onto those
+//     channels (direct_k_frag below), and q's A fragments are built through
+//     the same permutation once, before the loop (direct_q_frag; for ch4
+//     after the first copies are issued), so q . K is unchanged.
+//   - V: as B of p . V a lane needs one channel of the two positions 2t,
+//     2t + 1 (and 2t + 8, 2t + 9): it loads the 16 channels [16 g, 16 g +
+//     16) of those four rows and joins the bytes (nibbles) of two rows with
+//     one __byte_perm before each bf16x2 conversion. Column n of n8 tile nn
+//     is then channel 16 n + nn, restored when the warp stores its partials.
+//   - The raw stage is swizzled in 16-byte chunks within 128-byte lines
+//     (direct_raw_off), so that every one of these loads is free of bank
+//     conflicts, and so are the warps' partial stores and the merge's reads
+//     (direct_part_col). A direct Op's ring is built at three stages, which
+//     timed best at the main paths' shapes.
+//   - The merge's weights of the warps are computed once a CTA, not by
+//     every thread.
 // * Merge: the warps' (m, l, acc) through shared memory in warp order; then
 //   the CTAs of a cluster: rank f finishes output columns [f D / S, (f + 1)
 //   D / S), every rank storing its m, l and those columns into rank f's
@@ -66,6 +88,7 @@ constexpr int kSlab = 16;       // positions a warp takes at a time: one k16 ste
 constexpr int kMaxSplit = 8;    // CTAs of a stream: a portable cluster
 constexpr int kRowB = 2 * kD;   // bytes of a bf16 row
 constexpr int kMaxSmem = 232448;  // shared memory a block can have on the H100 (227 KB)
+constexpr int kWarpsMax = 8;      // warps a CTA (128-row tiles)
 constexpr float kNeg = -0.7f * 3.4028234663852886e38f;  // the TPU kernels' mask value
 
 // What a launch reads and writes; the Op reads its own fields.
@@ -148,8 +171,40 @@ __device__ __forceinline__ __nv_bfloat162 bits_bf162(uint32_t x) {
   return *reinterpret_cast<__nv_bfloat162*>(&x);
 }
 
-// The one-byte stored values an Op converts (its to_bf16).
-enum Byte { kInt8 = 0, kE4M3 = 1, kE5M2 = 2 };
+// The stored values an Op converts (its to_bf16): one-byte kinds, and int4
+// "ch4" words (8 channel nibbles u at bits [4o, 4o + 4), value u - 8).
+enum Byte { kInt8 = 0, kE4M3 = 1, kE5M2 = 2, kCh4 = 3 };
+
+// e4m3 bytes 0 and 2 of x -> bf16x2 (bytes 1 and 3 ignored), exact: see
+// bytes_to_bf16.
+__device__ __forceinline__ uint32_t e4m3x2(uint32_t x) {
+  const uint32_t e = ((x << 4) & 0x07F007F0u) | ((x << 8) & 0x80008000u);
+  return bf162_bits(__hmul2(bits_bf162(e), bits_bf162(0x7B807B80u)));
+}
+
+// A ch4 word w (or two rows' halves joined by __byte_perm) -> bf16x2 of its
+// nibbles j and j + 4, exact: (w >> 4j) & 0x000F000F | 0x43004300 is bf16x2
+// 128 + u, less 136 (the int4 weight kernels' bit trick).
+__device__ __forceinline__ uint32_t ch4_pair(uint32_t w, int j) {
+  const __nv_bfloat162 bias = __floats2bfloat162_rn(136.f, 136.f);
+  return bf162_bits(__hsub2(bits_bf162(((w >> (4 * j)) & 0x000F000Fu) | 0x43004300u), bias));
+}
+
+// 16 stored bytes of one ch4 row (four words of 8 channels) -> four chunks
+// o of 8 bf16 values in channel order (K9 "int4"'s slab).
+__device__ __forceinline__ void ch4_to_bf16(int4 raw, uint4 (&o)[4]) {
+  const uint32_t w[4] = {(uint32_t)raw.x, (uint32_t)raw.y, (uint32_t)raw.z, (uint32_t)raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    __nv_bfloat162 q[4];  // q[j] = (channel j, channel j + 4) of word i
+#pragma unroll
+    for (int j = 0; j < 4; ++j) q[j] = bits_bf162(ch4_pair(w[i], j));
+    o[i].x = bf162_bits(__lows2bfloat162(q[0], q[1]));
+    o[i].y = bf162_bits(__lows2bfloat162(q[2], q[3]));
+    o[i].z = bf162_bits(__highs2bfloat162(q[0], q[1]));
+    o[i].w = bf162_bits(__highs2bfloat162(q[2], q[3]));
+  }
+}
 
 // 16 stored bytes of one row -> two chunks o of 8 bf16 values each; exact,
 // in integer and bf16x2 operations (a type conversion runs at a quarter of
@@ -177,8 +232,7 @@ __device__ __forceinline__ void bytes_to_bf16(int4 raw, uint4 (&o)[2]) {
       v[k] = bf162_bits(__hsub2(bits_bf162((x & 0x007F007Fu) | 0x43004300u),
                                 bits_bf162((x & 0x00800080u) | 0x43004300u)));
     } else if constexpr (KIND == kE4M3) {
-      const uint32_t e = ((x << 4) & 0x07F007F0u) | ((x << 8) & 0x80008000u);
-      v[k] = bf162_bits(__hmul2(bits_bf162(e), bits_bf162(0x7B807B80u)));
+      v[k] = e4m3x2(x);
     } else {
       const uint32_t e = ((x << 5) & 0x0FE00FE0u) | ((x << 8) & 0x80008000u);
       v[k] = bf162_bits(__hmul2(bits_bf162(e), bits_bf162(0x77807780u)));
@@ -192,18 +246,88 @@ __device__ __forceinline__ void bytes_to_bf16(int4 raw, uint4 (&o)[2]) {
 // slab (16 rows of 256 bytes).
 __device__ __forceinline__ int swz(int r, int c) { return r * kRowB + ((c ^ (r & 7)) << 4); }
 
+// Direct Ops: byte offset of 16-byte chunk c of row r in a raw K or V block
+// of 16 rows of RB bytes (128: e4m3, 64: ch4). A 128-byte line (one e4m3
+// row, two ch4 rows) keeps its chunk i at i ^ (line & 7) (e4m3) or i ^ 2
+// (line & 3) (ch4), so that each phase of the fragment loads below reads
+// every bank once.
+template <int RB>
+__device__ __forceinline__ int direct_raw_off(int r, int c) {
+  if constexpr (RB == 128) {
+    return r * 128 + ((c ^ (r & 7)) << 4);
+  } else {
+    const int line = r >> 1;
+    return line * 128 + (((4 * (r & 1) + c) ^ (2 * (line & 3))) << 4);
+  }
+}
+
+// Direct Ops: q's A fragment word h (k slots 2t, 2t + 1 of k16 step kk, or
+// 2t + 8, 2t + 9) from the lane's words qw = channels [32 t, 32 t + 32) of
+// its head row, through the permutation of direct_k_frag: e4m3 channels
+// 32 t + 4 kk + 2 h + {0, 1}; ch4 channels c and c + 4, c = 32 t + 8 (kk /
+// 2) + 2 (kk % 2) + h.
+template <int KIND>
+__device__ __forceinline__ uint32_t direct_q_frag(const uint32_t (&qw)[16], int kk, int h) {
+  if constexpr (KIND == kE4M3) {
+    return qw[2 * kk + h];
+  } else {
+    const int w = 4 * (kk >> 1) + (kk & 1);
+    return __byte_perm(qw[w], qw[w + 2], h ? 0x7632u : 0x5410u);
+  }
+}
+
+// Direct Ops: q . K^T's B fragments (b0, b1) of k16 step kk from the raw
+// words w of the lane's 32 channels of one K row: e4m3 word kk, its bytes
+// (0, 1) and (2, 3); ch4 word kk / 2, its nibbles (j, j + 4) and (j + 1,
+// j + 5), j = 2 (kk % 2).
+template <int KIND>
+__device__ __forceinline__ void direct_k_frag(const uint32_t* w, int kk, uint32_t& b0,
+                                              uint32_t& b1) {
+  if constexpr (KIND == kE4M3) {
+    b0 = e4m3x2(__byte_perm(w[kk], 0u, 0x4140u));
+    b1 = e4m3x2(__byte_perm(w[kk], 0u, 0x4342u));
+  } else {
+    b0 = ch4_pair(w[kk >> 1], 2 * (kk & 1));
+    b1 = ch4_pair(w[kk >> 1], 2 * (kk & 1) + 1);
+  }
+}
+
+// Direct Ops: p . V's B fragment word of n8 tile nn from the raw words a
+// and b of the lane's 16 channels [16 g, 16 g + 16) of two V rows: channel
+// 16 g + nn of both, a's in the low half.
+template <int KIND>
+__device__ __forceinline__ uint32_t direct_v_frag(const uint32_t* a, const uint32_t* b, int nn) {
+  if constexpr (KIND == kE4M3) {
+    const uint32_t k = nn & 3;
+    return e4m3x2(__byte_perm(a[nn >> 2], b[nn >> 2], ((4u + k) << 8) | k));
+  } else {
+    return ch4_pair(__byte_perm(a[nn >> 3], b[nn >> 3], (nn & 4) ? 0x7632u : 0x5410u), nn & 3);
+  }
+}
+
+// Direct V: the column of a warp's partial where channel d of head row g
+// is kept, rotated by 8 (d / 32) + g within its block of 32, so that the
+// 32 lanes of each partial store (channels 32 t + 16 e + nn of rows g) and
+// of each merge read hit 32 banks.
+__device__ __forceinline__ int direct_part_col(int g, int d) {
+  return (d & ~31) | ((d + 8 * (d >> 5) + g) & 31);
+}
+
 // Shared memory: a region a warp (its ring, then for quantized rows its
-// bf16 slab), then the cluster merge's receive area.
+// bf16 slab of K and V, none for a direct Op), then the cluster merge's
+// receive area.
 template <class Op, int NS>
 struct Layout {
   // a stage: the K rows, the V rows and (quantized) their 16 + 16 scales
   static constexpr int kStage = 2 * kSlab * Op::kRowBytes + (Op::kQuant ? 2 * kSlab * 4 : 0);
-  static constexpr int kWarp = NS * kStage + (Op::kQuant ? 2 * kSlab * kRowB : 0);
+  static constexpr int kSlabBytes = Op::kQuant && !Op::kDirect ? 2 * kSlab * kRowB : 0;
+  static constexpr int kWarp = NS * kStage + kSlabBytes;
   // [ranks][heads][D / S] columns, then m and l [ranks][heads]
   static constexpr int kRecvFloats = kGMax * kD + 2 * kMaxSplit * kGMax;
   static constexpr int kPartFloats = kGMax * kD + 2 * kGMax;  // a warp's (acc, m, l)
   static_assert(kStage % 128 == 0 && kWarp % 128 == 0, "128-byte aligned regions");
-  static_assert(kPartFloats * 4 <= kWarp, "a warp's partials fit its region");
+  static_assert((kPartFloats + (kWarpsMax + 2) * kGMax) * 4 <= kWarp,
+                "a warp's partials, and warp 0's merge weights, fit its region");
   static constexpr int smem(int warps) { return warps * kWarp + kRecvFloats * 4; }
 };
 
@@ -220,7 +344,9 @@ __device__ __forceinline__ void issue_slab(const Params& p, uint32_t stage, int 
     const int r = r0 + i * kRowsPass;
     const bool ok = start + r < end;
     const size_t off = ok ? Op::row_offset(p, cur, b, kvh, start, r) + c * 16 : 0;
-    const uint32_t dst = Op::kQuant ? stage + r * RB + c * 16 : stage + swz(r, c);
+    const uint32_t dst = Op::kDirect  ? stage + direct_raw_off<RB>(r, c)
+                         : Op::kQuant ? stage + r * RB + c * 16
+                                      : stage + swz(r, c);
     cp_async16(dst, p.k + off, ok);
     cp_async16(dst + kSlab * RB, p.v + off, ok);
   }
@@ -253,6 +379,63 @@ __device__ __forceinline__ void convert_slab(const uint8_t* raw, uint8_t* slab, 
   }
 }
 
+// Direct Ops: the slab's q . K^T, s[kk % 2][n8 tile][column] (the two
+// chains of the bf16 path), K's B fragments converted from the raw rows:
+// lane (g, t) loads the 32 channels [32 t, 32 t + 32) of position 8 j + g
+// of each n8 tile j.
+template <class Op>
+__device__ __forceinline__ void direct_scores(const uint8_t* kraw, const uint32_t (&qa)[kD / 16][2],
+                                              float (&s)[2][2][2], int g, int t) {
+  constexpr int RB = Op::kRowBytes, kKC = 2 * RB / kD;  // 16-byte chunks of 32 channels
+  uint32_t w[2][4 * kKC];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int h = 0; h < kKC; ++h) {
+      const uint4 x =
+          *reinterpret_cast<const uint4*>(kraw + direct_raw_off<RB>(8 * j + g, kKC * t + h));
+      w[j][4 * h] = x.x;
+      w[j][4 * h + 1] = x.y;
+      w[j][4 * h + 2] = x.z;
+      w[j][4 * h + 3] = x.w;
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      uint32_t b0, b1;
+      direct_k_frag<Op::kKind>(w[j], kk, b0, b1);
+      mma_rows8(s[kk & 1][j][0], s[kk & 1][j][1], qa[kk][0], qa[kk][1], b0, b1);
+    }
+  }
+}
+
+// Direct Ops' V: lane (g, t) loads the 16 channels [16 g, 16 g + 16) of rows 2t,
+// 2t + 1, 2t + 8 and 2t + 9 of the slab (the k rows of its b0 and b1).
+template <class Op>
+__device__ __forceinline__ void direct_load_v(const uint8_t* vraw,
+                                              uint32_t (&w)[4][4 * Op::kRowBytes / kD], int g,
+                                              int t) {
+  constexpr int RB = Op::kRowBytes;
+#pragma unroll
+  for (int o = 0; o < 4; ++o) {
+    const int r = 2 * t + (o & 1) + 8 * (o >> 1);
+    if constexpr (RB == 128) {
+      const uint4 x = *reinterpret_cast<const uint4*>(vraw + direct_raw_off<RB>(r, g));
+      w[o][0] = x.x;
+      w[o][1] = x.y;
+      w[o][2] = x.z;
+      w[o][3] = x.w;
+    } else {
+      const uint2 x =
+          *reinterpret_cast<const uint2*>(vraw + direct_raw_off<RB>(r, g >> 1) + 8 * (g & 1));
+      w[o][0] = x.x;
+      w[o][1] = x.y;
+    }
+  }
+}
+
 template <class Op, int WARPS, int NS>
 __global__ void __launch_bounds__(32 * WARPS) decode_attn_kernel(const Params p) {
   using Lay = Layout<Op, NS>;
@@ -273,15 +456,29 @@ __global__ void __launch_bounds__(32 * WARPS) decode_attn_kernel(const Params p)
   const uint32_t ring = smem_u32(region);
   const int grp = lane >> 2, tq = 2 * (lane & 3);  // the lane's head row, its column pair
 
-  // q: the group's heads as rows 0-7 of A, k-steps of 16 channels
-  uint32_t qa[kD / 16][2];
+  // q: the group's heads as rows 0-7 of A, k-steps of 16 channels (a
+  // direct Op's lane loads its 32 channels qw here, its fragments are
+  // assembled below, after the first copies are issued)
+  uint32_t qa[kD / 16][2], qw[16];
   {
     const uint32_t* qr = reinterpret_cast<const uint32_t*>(
         p.q + ((size_t)b * p.H + kvh * G + min(grp, G - 1)) * kD);
+    if constexpr (Op::kDirect) {
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      qa[kk][0] = grp < G ? qr[8 * kk + tq / 2] : 0u;
-      qa[kk][1] = grp < G ? qr[8 * kk + 4 + tq / 2] : 0u;
+      for (int i = 0; i < 4; ++i) {
+        const uint4 x = grp < G ? reinterpret_cast<const uint4*>(qr)[4 * (lane & 3) + i]
+                                : make_uint4(0u, 0u, 0u, 0u);
+        qw[4 * i] = x.x;
+        qw[4 * i + 1] = x.y;
+        qw[4 * i + 2] = x.z;
+        qw[4 * i + 3] = x.w;
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        qa[kk][0] = grp < G ? qr[8 * kk + tq / 2] : 0u;
+        qa[kk][1] = grp < G ? qr[8 * kk + 4 + tq / 2] : 0u;
+      }
     }
   }
 
@@ -302,6 +499,20 @@ __global__ void __launch_bounds__(32 * WARPS) decode_attn_kernel(const Params p)
     cp_async_commit();
   }
   typename Op::Cursor next = cur[NS - 1];
+  if constexpr (Op::kDirect) {
+    // q's fragments through direct_k_frag's permutation, after the copies:
+    // ch4's byte permutes would otherwise hold the first copy until q landed
+    // (e4m3's words are its fragments: they wait for q at the first mma)
+    if constexpr (Op::kKind == kCh4) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(qw[i]));
+    }
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      qa[kk][0] = direct_q_frag<Op::kKind>(qw, kk, 0);
+      qa[kk][1] = direct_q_frag<Op::kKind>(qw, kk, 1);
+    }
+  }
 
   const int kr = ((lane >> 4) << 3) + (lane & 7), kc = (lane >> 3) & 1;  // ldmatrix rows of K
   const int vr = (((lane >> 3) & 1) << 3) + (lane & 7), vc = lane >> 4;  // and of V (trans)
@@ -318,21 +529,28 @@ __global__ void __launch_bounds__(32 * WARPS) decode_attn_kernel(const Params p)
     const int start = first + i * kRows;
     const uint8_t* stage = region + (i % NS) * Lay::kStage;
     uint32_t slab = ring + (i % NS) * Lay::kStage;
-    if constexpr (Op::kQuant) {
+    if constexpr (Op::kQuant && !Op::kDirect) {
       convert_slab<Op>(stage, region + NS * Lay::kStage, lane);
       __syncwarp();
       slab = ring + NS * Lay::kStage;
     }
+    // a direct Op's V: its raw words, loaded beside the q . K chain
+    uint32_t vw[4][4 * Op::kRowBytes / kD];
+    if constexpr (Op::kDirect) direct_load_v<Op>(stage + kSlab * Op::kRowBytes, vw, grp, lane & 3);
 
     // q . K^T in two independent chains of k-steps (even, odd), summed
     float s[2][2][2] = {};  // [chain][n8 tile][column]
+    if constexpr (Op::kDirect) {
+      direct_scores<Op>(stage, qa, s, grp, lane & 3);
+    } else {
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      uint32_t r[4];
-      ldmatrix_x4(r, slab + swz(kr, 2 * kk + kc));
-      float(&c)[2][2] = s[kk & 1];
-      mma_rows8(c[0][0], c[0][1], qa[kk][0], qa[kk][1], r[0], r[1]);
-      mma_rows8(c[1][0], c[1][1], qa[kk][0], qa[kk][1], r[2], r[3]);
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        uint32_t r[4];
+        ldmatrix_x4(r, slab + swz(kr, 2 * kk + kc));
+        float(&c)[2][2] = s[kk & 1];
+        mma_rows8(c[0][0], c[0][1], qa[kk][0], qa[kk][1], r[0], r[1]);
+        mma_rows8(c[1][0], c[1][1], qa[kk][0], qa[kk][1], r[2], r[3]);
+      }
     }
     const float* ksc = reinterpret_cast<const float*>(stage + 2 * kSlab * Op::kRowBytes);
     float x[4];
@@ -367,12 +585,19 @@ __global__ void __launch_bounds__(32 * WARPS) decode_attn_kernel(const Params p)
       for (int e = 0; e < 4; ++e) pr[e] *= vsc[(e >> 1) * 8 + tq + (e & 1)];
     }
     const uint32_t pa0 = pack_bf16(pr[0], pr[1]), pa2 = pack_bf16(pr[2], pr[3]);
+    if constexpr (Op::kDirect) {  // column n of n8 tile nn: channel 16 n + nn
 #pragma unroll
-    for (int np = 0; np < kD / 16; ++np) {
-      uint32_t r[4];
-      ldmatrix_x4_trans(r, slab + kSlab * kRowB + swz(vr, 2 * np + vc));
-      mma_rows8(acc[2 * np][0], acc[2 * np][1], pa0, pa2, r[0], r[1]);
-      mma_rows8(acc[2 * np + 1][0], acc[2 * np + 1][1], pa0, pa2, r[2], r[3]);
+      for (int nn = 0; nn < kD / 8; ++nn)
+        mma_rows8(acc[nn][0], acc[nn][1], pa0, pa2, direct_v_frag<Op::kKind>(vw[0], vw[1], nn),
+                  direct_v_frag<Op::kKind>(vw[2], vw[3], nn));
+    } else {
+#pragma unroll
+      for (int np = 0; np < kD / 16; ++np) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, slab + kSlab * kRowB + swz(vr, 2 * np + vc));
+        mma_rows8(acc[2 * np][0], acc[2 * np][1], pa0, pa2, r[0], r[1]);
+        mma_rows8(acc[2 * np + 1][0], acc[2 * np + 1][1], pa0, pa2, r[2], r[3]);
+      }
     }
   }
   cp_async_wait<0>();
@@ -384,8 +609,15 @@ __global__ void __launch_bounds__(32 * WARPS) decode_attn_kernel(const Params p)
   {
     float* part = reinterpret_cast<float*>(region);
 #pragma unroll
-    for (int nn = 0; nn < kD / 8; ++nn)
-      *reinterpret_cast<float2*>(part + grp * kD + 8 * nn + tq) = make_float2(acc[nn][0], acc[nn][1]);
+    for (int nn = 0; nn < kD / 8; ++nn) {
+      if constexpr (Op::kDirect) {  // back to channel order, columns rotated
+        part[grp * kD + direct_part_col(grp, 16 * tq + nn)] = acc[nn][0];
+        part[grp * kD + direct_part_col(grp, 16 * (tq + 1) + nn)] = acc[nn][1];
+      } else {
+        *reinterpret_cast<float2*>(part + grp * kD + 8 * nn + tq) =
+            make_float2(acc[nn][0], acc[nn][1]);
+      }
+    }
     if ((lane & 3) == 0) {
       part[kGMax * kD + grp] = m_run;
       part[kGMax * kD + kGMax + grp] = l_run;
@@ -394,19 +626,47 @@ __global__ void __launch_bounds__(32 * WARPS) decode_attn_kernel(const Params p)
   __syncthreads();
   auto part_of = [&](int w) { return reinterpret_cast<const float*>(smem + w * Lay::kWarp); };
   float mc[kGMax], lc[kGMax], wt[WARPS][kGMax];
+  // a direct Op's weights once a CTA: thread g computes head g's into warp
+  // 0's region past its partial ([WARPS][kGMax] weights, then m and l),
+  // which every thread reads back; every thread computes them otherwise
+  float* shw = reinterpret_cast<float*>(smem) + Lay::kPartFloats;
+  if constexpr (Op::kDirect) {
+    if (tid < kGMax) {
+      float m = -INFINITY, l = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) m = fmaxf(m, part_of(w)[kGMax * kD + tid]);
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) {
+        const float mw = part_of(w)[kGMax * kD + tid];
+        const float x = mw == -INFINITY ? 0.f : exp_f32(mw - m);
+        shw[w * kGMax + tid] = x;
+        l = fmaf(x, part_of(w)[kGMax * kD + kGMax + tid], l);
+      }
+      shw[WARPS * kGMax + tid] = m;
+      shw[(WARPS + 1) * kGMax + tid] = l;
+    }
+    __syncthreads();
+  }
 #pragma unroll
   for (int g = 0; g < kGMax; ++g) {
-    float m = -INFINITY, l = 0.f;
+    if constexpr (Op::kDirect) {
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) m = fmaxf(m, part_of(w)[kGMax * kD + g]);
+      for (int w = 0; w < WARPS; ++w) wt[w][g] = shw[w * kGMax + g];
+      mc[g] = shw[WARPS * kGMax + g];
+      lc[g] = shw[(WARPS + 1) * kGMax + g];
+    } else {
+      float m = -INFINITY, l = 0.f;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      const float mw = part_of(w)[kGMax * kD + g];
-      wt[w][g] = mw == -INFINITY ? 0.f : exp_f32(mw - m);
-      l = fmaf(wt[w][g], part_of(w)[kGMax * kD + kGMax + g], l);
+      for (int w = 0; w < WARPS; ++w) m = fmaxf(m, part_of(w)[kGMax * kD + g]);
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) {
+        const float mw = part_of(w)[kGMax * kD + g];
+        wt[w][g] = mw == -INFINITY ? 0.f : exp_f32(mw - m);
+        l = fmaf(wt[w][g], part_of(w)[kGMax * kD + kGMax + g], l);
+      }
+      mc[g] = m;
+      lc[g] = l;
     }
-    mc[g] = m;
-    lc[g] = l;
   }
   float* recv = reinterpret_cast<float*>(smem + WARPS * Lay::kWarp);
   const int per = kD / S;  // columns each rank finishes
@@ -420,8 +680,9 @@ __global__ void __launch_bounds__(32 * WARPS) decode_attn_kernel(const Params p)
     for (int g = 0; g < kGMax; ++g) {
       if (g >= G) break;
       float a = 0.f;
+      const int col = Op::kDirect ? direct_part_col(g, d) : d;
 #pragma unroll
-      for (int w = 0; w < WARPS; ++w) a = fmaf(wt[w][g], part_of(w)[g * kD + d], a);
+      for (int w = 0; w < WARPS; ++w) a = fmaf(wt[w][g], part_of(w)[g * kD + col], a);
       if (S == 1)
         p.out[((size_t)b * p.H + kvh * G + g) * kD + d] = a / fmaxf(lc[g], 1e-30f);
       else
@@ -483,14 +744,15 @@ cudaError_t launch_rows(const Params& p, int S, int B, int stages, cudaStream_t 
   // only the rings whose shared memory a block can have are built
   if constexpr (Layout<Op, 3>::smem(WARPS) <= kMaxSmem)
     if (stages == 3) return launch_one<Op, WARPS, 3>(p, S, B, st);
-  if constexpr (Layout<Op, 4>::smem(WARPS) <= kMaxSmem)
+  // a direct Op is built at the three stages its plans take
+  if constexpr (!Op::kDirect && Layout<Op, 4>::smem(WARPS) <= kMaxSmem)
     if (stages == 4) return launch_one<Op, WARPS, 4>(p, S, B, st);
   return cudaErrorInvalidValue;
 }
 
 // One launch at S CTAs a stream, ``rows`` positions a tile (64 or 128: four
-// or eight warps) and ``stages`` slabs a warp's ring (3 or 4, as far as the
-// shared memory goes); anything else is refused.
+// or eight warps) and ``stages`` slabs a warp's ring (3 or 4 as far as the
+// shared memory goes, 3 for a direct Op); anything else is refused.
 template <class Op>
 cudaError_t launch(const Params& p, int S, int B, int rows, int stages, cudaStream_t st) {
   if ((S != 1 && S != 2 && S != 4 && S != 8) || p.tiles < 1 || p.H % p.Hkv ||

@@ -24,9 +24,9 @@
 // the TPU kernel rounds it against its running max before p . V. The stored
 // values become bf16 exactly in shared memory, by bit operations and one
 // bf16x2 operation a pair (Paged::to_bf16; int4 nibbles by the int4 weight
-// kernels' bit trick), and the scales fold into each score and each
-// probability ("scale-commuted, no dequant multiplies", as the TPU kernel
-// does).
+// kernels' bit trick, dm::ch4_to_bf16 on dm::ch4_pair, which K7 shares),
+// and the scales fold into each score and each probability
+// ("scale-commuted, no dequant multiplies", as the TPU kernel does).
 //
 // What bounds it on the H100: the K and V bytes of the valid positions (2 B
 // per value for bf16, 1 B for int8 and fp8, half a byte for int4, plus two
@@ -54,6 +54,7 @@ template <int MODE>
 struct Paged {
   static constexpr int kRowBytes = MODE == kFP ? dm::kRowB : MODE == kI4 ? dm::kD / 2 : dm::kD;
   static constexpr bool kQuant = MODE != kFP;
+  static constexpr bool kDirect = false;  // converted in the bf16 slab
 
   // the pages of a slab's rows: rows r with base0 + r < page_size in page
   // p0 at row base0 + r, the others in p1 (16 rows of a slab, pages of
@@ -93,26 +94,13 @@ struct Paged {
 
   // 16 stored bytes of one row of a converted mode -> bf16 chunks o: 2 (16
   // values) for int8 and fp8 (dm::bytes_to_bf16), 4 (32 values: four words
-  // of 8 channels each) for int4, exact: (w >> 4j) & 0x000F000F | 0x43004300
-  // = bf16x2 128 + u of channels j and j + 4, less 136.
+  // of 8 channels each) for int4 (dm::ch4_to_bf16, whose dm::ch4_pair K7
+  // shares), exact.
   __device__ static void to_bf16(int4 raw, uint4 (&o)[dm::kRowB / kRowBytes]) {
-    if constexpr (MODE == kI4) {
-      const uint32_t w[4] = {(uint32_t)raw.x, (uint32_t)raw.y, (uint32_t)raw.z, (uint32_t)raw.w};
-      const __nv_bfloat162 bias = __floats2bfloat162_rn(136.f, 136.f);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        __nv_bfloat162 q[4];  // q[j] = (channel j, channel j + 4) of word i
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          q[j] = __hsub2(dm::bits_bf162(((w[i] >> (4 * j)) & 0x000F000Fu) | 0x43004300u), bias);
-        o[i].x = dm::bf162_bits(__lows2bfloat162(q[0], q[1]));
-        o[i].y = dm::bf162_bits(__lows2bfloat162(q[2], q[3]));
-        o[i].z = dm::bf162_bits(__highs2bfloat162(q[0], q[1]));
-        o[i].w = dm::bf162_bits(__highs2bfloat162(q[2], q[3]));
-      }
-    } else {
+    if constexpr (MODE == kI4)
+      dm::ch4_to_bf16(raw, o);
+    else
       dm::bytes_to_bf16<MODE == kI8 ? dm::kInt8 : dm::kE4M3>(raw, o);
-    }
   }
 };
 

@@ -8,30 +8,33 @@ Counterparts of ``ao_tpu/ops/pallas/decode_attention.py::decode_attention``:
 * K5 (``decode_attention_quant.cu``, ``decode_attention_int8``): the int8
   cache in the reference's "i8" semantics (``_kt_kernel``): q quantized to
   int8 per (batch, kv-head group), exact int8 dots for the scores.
-* K6 (same source, ``decode_attention_fp8``): the fp8 e4m3 cache
-  (``_f8_kernel``, and the fp8 form of ``_tok_kernel`` "vec8"): bf16 q over
-  e4m3 K and V converted exactly in the kernel.
-* K7 (same source, ``decode_attention_int4``): the int4 cache
+* K6 (``decode_attention.cu``, ``decode_attention_fp8``): the fp8 e4m3
+  cache (``_f8_kernel``, and the fp8 form of ``_tok_kernel`` "vec8"): bf16 q
+  over e4m3 K and V converted exactly in the kernel.
+* K7 (``decode_attention.cu``, ``decode_attention_int4``): the int4 cache
   (``_ck4_kernel`` and ``_int4_kernel``) in the port's channel-packed
   "ch4" layout.
 * K2v (``decode_attention.cu``, ``decode_attention_vec8``): the bf16-q
   "vec8" form of ``_tok_kernel`` over an int8 or fp8 e5m2 "tokens" cache,
   K6's function over those storage types.
 
-K2 and K2v run on the decode mainloop shared with K9
+K2, K2v, K6 and K7 run on the decode mainloop shared with K9
 (``csrc/decode_mainloop.cuh``, whose header says what bounds it and how it
 is built): one launch a call, no workspace, ``launch_plan`` /
-``launch_plan_vec8`` choosing the CTAs a stream (one cluster), the
-positions a tile and the depth of each warp's ring from static shapes (K2v's
-128-byte rows converted to bf16 exactly in shared memory). K5-K7
-(``decode_attention_quant.cu``) still split T (flash-decoding) into f32
-partials and combine them in a second kernel. Every wrapper runs its kernel on
-CUDA tensors and its plain PyTorch version (``decode_attention_plain``,
-``decode_attention_quant_plain``) on CPU tensors, and counts its launches.
-``decode_attention`` dispatches on the cache's dtype and layout and on the
-mode the caller asks for. ``lengths`` is per row, so K2 also serves the
-serving engine's slot layout, whose rows sit at their own positions; the
-paged layout's decode attention is K9 (``paged_attention.py``).
+``launch_plan_quant`` choosing the CTAs a stream (one cluster), the
+positions a tile and the depth of each warp's ring from static shapes. K2v's
+128-byte rows are converted to bf16 exactly in shared memory; K6's e4m3
+rows and K7's 64-byte ch4 rows go from the ring straight into mma fragments
+("direct": no bf16 slab; ``tests/test_torch_tiles.py`` mirrors the lanes'
+maps). K5 (``decode_attention_quant.cu``) still splits T
+(flash-decoding) into f32 partials and combines them in a second kernel.
+Every wrapper runs its kernel on CUDA tensors and its plain PyTorch version
+(``decode_attention_plain``, ``decode_attention_quant_plain``) on CPU
+tensors, and counts its launches. ``decode_attention`` dispatches on the
+cache's dtype and layout and on the mode the caller asks for. ``lengths``
+is per row, so K2 also serves the serving engine's slot layout, whose rows
+sit at their own positions; the paged layout's decode attention is K9
+(``paged_attention.py``).
 """
 
 from __future__ import annotations
@@ -45,16 +48,17 @@ from ao_tpu_torch.ops.hopper import build
 
 _NEG = -0.7 * float(torch.finfo(torch.float32).max)  # the reference's mask value
 
-# what decode_attention.cu (K2, K2v) and decode_attention_quant.cu (K5-K7)
-# take (checked against each library when it loads); known here so that the
-# routes and the CPU refuse the same shapes as the card
+# what decode_attention.cu (K2, K2v, K6, K7) and decode_attention_quant.cu
+# (K5) take (checked against each library when it loads); known here so that
+# the routes and the CPU refuse the same shapes as the card
 HEAD_DIM = 128
 MAX_GROUP = 8
-# K5-K7 (and K2v's plain version): positions per split
+# K5 (and the quantized kinds' plain version): positions per split
 CHUNK = 64
-# the decode mainloop (K2, K2v, K9): positions a warp takes at a time (one k16
-# step of p . V), the CTAs of a stream (a portable cluster), the positions a
-# tile (16 a warp: four or eight warps) and the slabs of a warp's cp.async ring
+# the decode mainloop (K2, K2v, K6, K7, K9): positions a warp takes at a time
+# (one k16 step of p . V), the CTAs of a stream (a portable cluster), the
+# positions a tile (16 a warp: four or eight warps) and the slabs of a warp's
+# cp.async ring (K6's and K7's "direct" ring: three, the depth it is built at)
 SLAB = 16
 MAX_SPLIT = 8
 SMS = 132  # the H100's SMs, which one launch's CTAs fill once
@@ -62,7 +66,8 @@ SMEM_MAX = 232448  # shared memory a block can have on the H100 (227 KB)
 SPLITS = (1, 2, 4, 8)
 TILE_ROWS = (64, 128)
 STAGES = (3, 4)
-ROW_BYTES = 2 * HEAD_DIM  # a bf16 row of one kv head; K9's converted rows are 128 or 64
+DIRECT_STAGES = (3,)
+ROW_BYTES = 2 * HEAD_DIM  # a bf16 row of one kv head; converted rows are 128 or 64
 
 
 class DecodePlan(NamedTuple):
@@ -72,24 +77,27 @@ class DecodePlan(NamedTuple):
     tiles: int   # tiles a CTA walks: CTA r takes tiles [r tiles, (r + 1) tiles)
 
 
-def smem_bytes(rows: int, stages: int, row_bytes: int = ROW_BYTES) -> int:
+def smem_bytes(rows: int, stages: int, row_bytes: int = ROW_BYTES, direct: bool = False) -> int:
     """Shared memory of a CTA at ``rows`` positions a tile and ``stages``
     slabs a warp's ring over stored rows of ``row_bytes``, as
     ``csrc/decode_mainloop.cuh``'s Layout: a warp's stages of 16 K and 16 V
-    rows (and, for converted rows, their 32 f32 scales and a bf16 slab),
-    then the cluster merge's receive area."""
+    rows (and, for converted rows, their 32 f32 scales), its bf16 slab of K
+    and V for K2v's and K9's converted rows (none for K6's and K7's
+    ``direct`` rows), then the cluster merge's receive area."""
     quant = row_bytes != ROW_BYTES
     stage = 2 * SLAB * row_bytes + (2 * SLAB * 4 if quant else 0)
-    warp = stages * stage + (2 * SLAB * ROW_BYTES if quant else 0)
-    return rows // SLAB * warp + 4 * (MAX_GROUP * HEAD_DIM + 2 * MAX_SPLIT * MAX_GROUP)
+    slab = 2 * SLAB * ROW_BYTES if quant and not direct else 0
+    return rows // SLAB * (stages * stage + slab) + 4 * (MAX_GROUP * HEAD_DIM
+                                                         + 2 * MAX_SPLIT * MAX_GROUP)
 
 
 def plan_for(streams: int, t: int, row_bytes: int = ROW_BYTES, splits=None, rows=None,
-             stages=None) -> DecodePlan:
+             stages=None, direct: bool = False) -> DecodePlan:
     """The decode mainloop's launch for ``streams`` (batch row, kv head)
     streams of ``t`` positions stored in rows of ``row_bytes`` (bf16: 256;
-    K9's int8 and fp8: 128, int4: 64, converted to bf16 in the kernel); any
-    of ``splits``, ``rows`` and ``stages`` given is taken as it is
+    int8 and fp8: 128, int4: 64, converted in the kernel: in a bf16 slab,
+    or for K6 and K7, ``direct``, straight into mma fragments); any of
+    ``splits``, ``rows`` and ``stages`` given is taken as it is
     (``kernel_tiles.py time K2`` sweeps them). From static shapes only,
     never the lengths: the CTAs of a stream split its tiles evenly, a CTA
     stopping at its stream's length."""
@@ -97,25 +105,30 @@ def plan_for(streams: int, t: int, row_bytes: int = ROW_BYTES, splits=None, rows
     # converted rows take a slab about twice as long as bf16 rows: above
     # generate's T = 256 eight warps a CTA walk half as many slabs each
     rows = rows or (128 if quant and t > 256 else 64)
-    stages = stages or (4 if quant else 3)
+    # K6 and K7 (kernel_tiles.py time K6 / K7, PERF.md): three stages
+    stages = stages or (3 if direct or not quant else 4)
     n_tiles = max(-(-t // rows), 1)
     if splits is None:
-        # at most one CTA an SM, and at least four tiles a CTA for bf16 rows,
-        # two for converted ones, so that the cluster's merge pays
-        min_tiles = 2 if quant else 4
+        # at most one CTA an SM, and at least four tiles a CTA (two for K2v's
+        # and K9's converted rows), so that the cluster's merge pays
+        min_tiles = 2 if quant and not direct else 4
         splits = 1
         while (splits < MAX_SPLIT and streams * 2 * splits <= SMS
                and n_tiles >= min_tiles * 2 * splits):
             splits *= 2
-    return check_plan(DecodePlan(splits, rows, stages, -(-n_tiles // splits)), t, row_bytes)
+    return check_plan(DecodePlan(splits, rows, stages, -(-n_tiles // splits)), t, row_bytes,
+                      direct)
 
 
-def check_plan(plan: DecodePlan, t: int, row_bytes: int = ROW_BYTES) -> DecodePlan:
+def check_plan(plan: DecodePlan, t: int, row_bytes: int = ROW_BYTES,
+               direct: bool = False) -> DecodePlan:
     """Raise ValueError unless the decode mainloop takes ``plan`` over rows of
-    ``row_bytes`` (its shared memory fits a block) and its CTAs cover all
-    ``t`` positions of a stream."""
-    if plan.splits not in SPLITS or plan.rows not in TILE_ROWS or plan.stages not in STAGES \
-            or smem_bytes(plan.rows, plan.stages, row_bytes) > SMEM_MAX \
+    ``row_bytes`` (``direct``: K6's and K7's) at a ring it builds, whose
+    shared memory fits a block, and its CTAs cover all ``t`` positions of a
+    stream."""
+    if plan.splits not in SPLITS or plan.rows not in TILE_ROWS \
+            or plan.stages not in (DIRECT_STAGES if direct else STAGES) \
+            or smem_bytes(plan.rows, plan.stages, row_bytes, direct) > SMEM_MAX \
             or plan.splits * plan.tiles * plan.rows < t:
         raise ValueError(f"not a plan of the decode mainloop for T={t}: {plan}")
     return plan
@@ -129,7 +142,22 @@ def launch_plan(q_shape, cache_shape, **kw) -> DecodePlan:
 def launch_plan_vec8(q_shape, cache_shape, **kw) -> DecodePlan:
     """K2v's launch at q (B, H, D) over a (B, T, Hkv, D) int8 or e5m2 cache:
     ``plan_for`` over rows of 128 bytes."""
-    return plan_for(q_shape[0] * cache_shape[2], cache_shape[1], HEAD_DIM, **kw)
+    return launch_plan_quant("v8", q_shape, cache_shape, **kw)
+
+
+# the stored row bytes of K6 ("f8": e4m3) and K7 ("i4": ch4), converted
+# straight into mma fragments, and of each kind on the decode mainloop with
+# whether it is (K2v's "v8" rows go through a bf16 slab)
+DIRECT_KINDS = {"f8": HEAD_DIM, "i4": HEAD_DIM // 2}
+_RING = {"v8": (HEAD_DIM, False), **{k: (rb, True) for k, rb in DIRECT_KINDS.items()}}
+
+
+def launch_plan_quant(kind: str, q_shape, cache_shape, **kw) -> DecodePlan:
+    """The launch of K2v ("v8"), K6 ("f8") or K7 ("i4") at q (B, H, D) over
+    a (B, T, Hkv, *) cache: ``plan_for`` over rows of 128, 128 and 64 bytes,
+    K6's and K7's converted straight into mma fragments."""
+    row_bytes, direct = _RING[kind]
+    return plan_for(q_shape[0] * cache_shape[2], cache_shape[1], row_bytes, direct=direct, **kw)
 
 
 def takes(head_dim: int, group: int) -> bool:
@@ -273,9 +301,10 @@ def traffic(q_shape, cache_shape, lengths):
 # ---------------------------------------------------------------------------
 # K5, K6, K7, K2v: quantized caches
 
-# the kernel's mode argument by kind and storage type (K5-K7:
-# decode_attention_quant.cu's; K2v: ao_decode_attention_vec8's two)
-_KIND_MODE = {"i8": {torch.int8: 0}, "f8": {torch.float8_e4m3fn: 1}, "i4": {torch.int32: 2},
+# the storage type of each kind and, on the decode mainloop, the mode of
+# ao_decode_attention_vec8 (K2v 0 / 1, K6 2, K7 3); K5 is
+# decode_attention_quant.cu's one kernel
+_KIND_MODE = {"i8": {torch.int8: None}, "f8": {torch.float8_e4m3fn: 2}, "i4": {torch.int32: 3},
               "v8": {torch.int8: 0, torch.float8_e5m2: 1}}
 _KIND_NAME = {"i8": "int8 (K5)", "f8": "fp8 e4m3 (K6)", "i4": "int4 (K7)",
               "v8": "int8 / fp8 e5m2 bf16-q (K2v)"}
@@ -288,7 +317,7 @@ def _qlib():
     if _QLIB is None:
         lib = build.load("decode_attention_quant")
         fn = lib.ao_decode_attention_quant
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _check_library(lib, "decode_attention_quant.cu", "ao_decode_attention_quant",
@@ -320,13 +349,13 @@ def decode_attention_quant_plain(kind: str, q, k, k_scale, v, v_scale, lengths,
     clip(round(q / qs), +-127), s = dot(qi, K) * ks * (qs * sm_scale) (the
     integer dot is exact in f32); otherwise s = dot(q, K) * sm_scale * ks.
     Masked to _NEG at positions >= lengths (lengths >= 1), whose values and
-    scales are never read. Positions go in splits of CHUNK, as in K5-K7: a
+    scales are never read. Positions go in splits of CHUNK, as in K5: a
     split that starts below lengths[b] (every split, for lengths <= 0) gives
     sum bf16(exp(s - m_split) * vs) * V and the f32 sum of exp(s -
     m_split), each scaled by exp(m_split - the max over those splits); out =
-    the scaled products / max(the scaled sums, 1e-30), f32 (B, H, D). (K2v
-    on the decode mainloop rounds bf16(p * vs) against each warp's running
-    max instead: the same function to bf16's rounding of p.)"""
+    the scaled products / max(the scaled sums, 1e-30), f32 (B, H, D). (K2v,
+    K6 and K7 on the decode mainloop round bf16(p * vs) against each warp's
+    running max instead: the same function to bf16's rounding of p.)"""
     from ao_tpu_torch.serving.kvcache import stored_values
 
     b, h, d = q.shape
@@ -368,7 +397,9 @@ def decode_attention_quant_plain(kind: str, q, k, k_scale, v, v_scale, lengths,
 
 def _check_quant(kind, q, k, k_scale, v, v_scale, lengths):
     """Raise ValueError for what the kernel does not take, on the card and
-    on the CPU alike; returns q as bf16 and lengths as int32 (B,)."""
+    on the CPU alike; returns q as a contiguous, 16-byte aligned bf16 tensor
+    (the kernels read it in 16-byte loads: a view that starts elsewhere is
+    copied) and lengths as int32 (B,)."""
     name = f"decode_attention {_KIND_NAME[kind]}"
     if q.ndim != 3 or k.ndim != 4:
         raise ValueError(f"{name}: q must be (B, H, D) and the caches (B, T, Hkv, *), got "
@@ -396,7 +427,10 @@ def _check_quant(kind, q, k, k_scale, v, v_scale, lengths):
             raise ValueError(f"{name}: {what} must be 16-byte aligned")
     if lengths.numel() != b:
         raise ValueError(f"{name}: lengths must have B={b} entries, got {lengths.numel()}")
-    return q.to(torch.bfloat16).contiguous(), lengths.reshape(b).to(torch.int32).contiguous()
+    q = q.to(torch.bfloat16).contiguous()
+    if q.data_ptr() % 16:
+        q = q.clone()
+    return q, lengths.reshape(b).to(torch.int32).contiguous()
 
 
 def _quant_attention(kind, q, k, k_scale, v, v_scale, lengths, sm_scale):
@@ -411,17 +445,22 @@ def _quant_attention(kind, q, k, k_scale, v, v_scale, lengths, sm_scale):
 
 def _launch_quant(kind, q, k, k_scale, v, v_scale, lengths, sm_scale: float,
                   plan=None) -> torch.Tensor:
-    """One launch of K5, K6, K7 or, for "v8", K2v at ``plan`` (by default
-    ``launch_plan_vec8``'s; K5-K7 have none)."""
+    """One launch of K5 or, on the decode mainloop, of K6, K7 or (for "v8")
+    K2v at ``plan`` (by default ``launch_plan_quant``'s; K5 has none). The
+    plan is checked before anything runs, so a plan the kernel does not
+    build raises ValueError on any device."""
     dev = q.device
     b, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
-    out = torch.empty((b, h, d), dtype=torch.float32, device=dev)
     mode = _KIND_MODE[kind][k.dtype]
+    if kind != "i8":
+        row_bytes, direct = _RING[kind]
+        plan = check_plan(plan or launch_plan_quant(kind, (b, h, d), (b, t, hkv, d)), t,
+                          row_bytes, direct)
+    out = torch.empty((b, h, d), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if kind == "v8":
-            plan = check_plan(plan or launch_plan_vec8((b, h, d), (b, t, hkv, d)), t, HEAD_DIM)
+        if kind != "i8":
             err = _lib().ao_decode_attention_vec8(
                 mode, q.data_ptr(), k.data_ptr(), k_scale.data_ptr(), v.data_ptr(),
                 v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h, hkv, t,
@@ -433,7 +472,7 @@ def _launch_quant(kind, q, k, k_scale, v, v_scale, lengths, sm_scale: float,
             m_part = torch.empty((b, hkv, nsplit, g), dtype=torch.float32, device=dev)
             l_part = torch.empty((b, hkv, nsplit, g), dtype=torch.float32, device=dev)
             err = _qlib().ao_decode_attention_quant(
-                mode, q.data_ptr(), k.data_ptr(), k_scale.data_ptr(), v.data_ptr(),
+                q.data_ptr(), k.data_ptr(), k_scale.data_ptr(), v.data_ptr(),
                 v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(), o_part.data_ptr(),
                 m_part.data_ptr(), l_part.data_ptr(), b, h, hkv, t, nsplit, sm_scale, stream)
     if err != 0:

@@ -17,6 +17,7 @@ L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
 
 
 ATTEMPTS = 3  # a profile whose device records came back incomplete is taken again
+EVENT_FALLBACKS = 0  # cuda_time_ms calls timed with CUDA events (no whole profile)
 
 _FLUSH_KERNELS = {}  # device index -> kernels one L2 flush launches
 
@@ -55,8 +56,8 @@ def cuda_time_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3) -> 
     counted once per device, and
     a profile whose record count is not a whole number of runs is taken
     again, up to ATTEMPTS times. If none comes back whole, the runs are
-    timed with CUDA events around ``fn`` instead (``_event_ms``), and a note
-    on stderr says so."""
+    timed with CUDA events around ``fn`` instead (``_event_ms``), a note on
+    stderr says so and EVENT_FALLBACKS counts it."""
     if not torch.cuda.is_available():
         raise RuntimeError("cuda_time_ms measures device time and needs a CUDA device")
     from torch.profiler import ProfilerActivity
@@ -86,6 +87,8 @@ def cuda_time_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3) -> 
         per_run = len(got) // iters
         if per_run * iters == len(got) and per_run > n_flush:
             return sum(d for i, d in enumerate(got) if i % per_run >= n_flush) / iters / 1e3
+    global EVENT_FALLBACKS
+    EVENT_FALLBACKS += 1
     print(f"cuda_time_ms: {len(got)} device records over {iters} runs of "
           f"{_FLUSH_KERNELS.get(dev)} flush kernels + fn in each of {ATTEMPTS} profiles; "
           f"timed with CUDA events instead", file=sys.stderr, flush=True)

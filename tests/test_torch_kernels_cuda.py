@@ -307,6 +307,146 @@ def test_k2v_every_plan(dev, dtype_name, splits, rows, stages):
     assert _device_kernels(lambda: k2._launch_quant("v8", *args, 128 ** -0.5, plan)) == 1
 
 
+# K6 (fp8 e4m3) and K7 (int4 "ch4") on the decode mainloop, rows converted
+# straight into mma fragments ("direct")
+K67_DTYPES = {"float8_e4m3fn": "f8", "int4": "i4"}
+
+
+def _direct_plans(kind):
+    """The (splits, rows, stages) of K6's or K7's ring that the kernel builds."""
+    return [(sp, rows, st) for sp in k2.SPLITS for rows in k2.TILE_ROWS
+            for st in k2.DIRECT_STAGES
+            if k2.smem_bytes(rows, st, k2.DIRECT_KINDS[kind], direct=True) <= k2.SMEM_MAX]
+
+
+def _allocations(fn) -> int:
+    """The caching allocator's allocations one call of ``fn`` makes, after a
+    warm call."""
+    fn()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_stats()["allocation.all.allocated"] - before
+
+
+def _poison_past(caches, lengths):
+    """Bytes at or past each length set to 0x7F (an e4m3 NaN; int4 nibbles
+    7 and 15) and their scales to NaN: none of it may reach the output."""
+    for i, n in enumerate(lengths):
+        if n >= 1:
+            for c in caches:
+                c.qdata.view(torch.uint8)[i, n:] = 0x7F
+                c.scale[i, :, n:] = float("nan")
+
+
+def _check_k67(dev, dtype_name, b, h, hkv, t, lengths, plan_kw=None, seed=0, q_offset=0):
+    """K6 or K7 at one shape and plan against its plain version: >= 40 dB,
+    poison past the lengths unread, three calls the same bits, one device
+    kernel and one allocation (the output) a call; with ``q_offset``, q a
+    view that many elements into its buffer, called through the wrapper
+    (which copies a q off a 16-byte boundary)."""
+    kind = K67_DTYPES[dtype_name]
+    wrapper = QUANT_WRAPPERS[dtype_name][0]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, h, 128), generator=gen, device=dev).to(torch.bfloat16)
+    if q_offset:
+        q = torch.cat([q.new_zeros(q_offset), q.flatten()])[q_offset:].view(b, h, 128)
+    ck = _quant_cache(dev, dtype_name, b, t, hkv, gen, scale=2.0)
+    cv = _quant_cache(dev, dtype_name, b, t, hkv, gen)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    args = (q, ck.qdata, ck.scale, cv.qdata, cv.scale, lens)
+    ref = k2.decode_attention_quant_plain(kind, *args, 128 ** -0.5)
+    _poison_past((ck, cv), lengths)
+    plan = k2.launch_plan_quant(kind, q.shape, ck.qdata.shape, **(plan_kw or {}))
+    if q_offset:
+        run = lambda: wrapper(*args, sm_scale=128 ** -0.5)  # noqa: E731
+    else:
+        run = lambda: k2._launch_quant(kind, *args, 128 ** -0.5, plan)  # noqa: E731
+    before = wrapper.launches
+    got = _repeats(run)
+    assert wrapper.launches == before + 3
+    assert bool(torch.isfinite(got).all())
+    sqnr = float(compute_error(ref, got))
+    assert sqnr >= 40, f"{dtype_name} T={t} {plan}: {sqnr:.2f} dB"
+    return run
+
+
+@pytest.mark.parametrize("dtype_name,splits,rows,stages", [
+    (dtype_name, *plan) for dtype_name, kind in K67_DTYPES.items()
+    for plan in _direct_plans(kind)])
+def test_k6_k7_every_plan(dev, dtype_name, splits, rows, stages):
+    """K6 / K7 at each plan of their ring (direct) at T = 256, 1024 and 4096
+    with lengths 0, negative, 1, ..., T and past T, NaN bytes and scales past
+    every length: >= 40 dB against the plain version, the same bits over
+    three calls, one device kernel and no allocation but the output's."""
+    for t in K2V_TS:
+        run = _check_k67(dev, dtype_name, 8, 32, 8, t, _k2v_lengths(t),
+                         dict(splits=splits, rows=rows, stages=stages),
+                         seed=t + splits * 10 + rows + stages)
+    assert _device_kernels(run) == 1
+    assert _allocations(run) == 1
+
+
+@pytest.mark.parametrize("dtype_name", list(K67_DTYPES))
+@pytest.mark.parametrize("b,h,hkv,t,lengths", [
+    (2, 8, 8, 104, [-2, 104]),        # G = 1, T not a multiple of 16 (int4: of 8)
+    (3, 16, 2, 72, [0, 1, 71]),       # G = 8
+    (2, 32, 8, 1000, [999, 3]),       # T not a multiple of 64
+    (8, 32, 8, 1024, [1, 1024, 128, 129, 700, 64, 65, 1000]),  # the slot engine's
+])
+def test_k6_k7_groups_and_ragged_t(dev, dtype_name, b, h, hkv, t, lengths):
+    """K6 / K7 at their default plan: G = 1 and 8, T not a multiple of the
+    slab or the tile, lengths 0 / negative / 1 / T."""
+    for splits in (None, 1):
+        run = _check_k67(dev, dtype_name, b, h, hkv, t, lengths,
+                         {} if splits is None else dict(splits=splits), seed=b + t)
+    assert _device_kernels(run) == 1
+    assert _allocations(run) == 1
+
+
+@pytest.mark.parametrize("dtype_name", list(K67_DTYPES))
+def test_k6_k7_take_a_q_off_16_bytes(dev, dtype_name):
+    """A contiguous q view off a 16-byte boundary (the kernels read q in
+    16-byte loads) through the wrapper: its aligned copy gives the plain
+    version's output at >= 40 dB; two device operations a call, q's copy
+    and the kernel."""
+    run = _check_k67(dev, dtype_name, 2, 32, 8, 200, [150, 200], q_offset=3)
+    assert _device_kernels(run) == 2
+
+
+@pytest.mark.parametrize("dtype_name", list(K67_DTYPES))
+def test_k6_k7_decode_every_code_exactly(dev, dtype_name):
+    """K6's / K7's conversion of V in registers and the output's
+    channel order: sequences of length 1 (q 0, so p = 1; scales 1) whose V
+    row at position 0 holds every e4m3 byte or every int4 nibble in every
+    channel give those values as their output, bit for bit the plain
+    decode's; the two e4m3 NaN codes (0x7F, 0xFF), which the cache's
+    quantizer never writes, come out finite."""
+    from ao_tpu_torch.serving.kvcache import stored_values
+
+    kind = K67_DTYPES[dtype_name]
+    nb = 2 if kind == "f8" else 16
+    ck, cv = (QuantKVCache.create(nb, 16, 1, 128, dtype_name, device=dev) for _ in range(2))
+    if kind == "f8":
+        codes = torch.arange(256, dtype=torch.uint8).reshape(2, 128)
+    else:  # nibble u of channel c in row i: (c + i) % 16
+        u = (torch.arange(128)[None, :] + torch.arange(16)[:, None]) % 16
+        codes = (u[:, 0::2] | (u[:, 1::2] << 4)).to(torch.uint8)  # channel 2i low, 2i + 1 high
+    for c in (ck, cv):
+        c.qdata.view(torch.uint8)[:, 0, 0] = codes.to(dev)
+        c.scale.fill_(1.0)
+    q = torch.zeros((nb, 1, 128), device=dev, dtype=torch.bfloat16)
+    lens = torch.ones(nb, dtype=torch.int32, device=dev)
+    got = k2._launch_quant(kind, q, ck.qdata, ck.scale, cv.qdata, cv.scale, lens,
+                           128 ** -0.5)[:, 0]
+    want = stored_values(cv.qdata[:, 0, 0]).to(torch.float32)
+    exact = torch.isfinite(want)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got[exact], want[exact])
+    assert int((~exact).sum()) == (2 if kind == "f8" else 0)
+
+
 def test_fp8_cast_matches_cpu(dev):
     # the cache's fp8 quantize on the card gives the CPU's bits (the CPU's
     # equal JAX's, tests/test_torch_kvcache.py)

@@ -598,6 +598,16 @@ def test_decode_plan_covers_each_position_once(t, splits, rows, stages):
             plans.append(k2.launch_plan((8, 32, 128), (8, t, 8, 128), **kw))
         if dtype == torch.int8:  # K2v's dense int8 / e5m2 rows: 128 bytes too
             plans.append(k2.launch_plan_vec8((8, 32, 128), (8, t, 8, 128), **kw))
+    # K6's e4m3 and K7's ch4 rows, converted straight into fragments: a ring
+    # of three stages, the one the kernel builds
+    for kind in k2.DIRECT_KINDS:
+        cache = (8, t, 8, 128 if kind == "f8" else 16)
+        assert k2.smem_bytes(rows, stages, k2.DIRECT_KINDS[kind], direct=True) <= k2.SMEM_MAX
+        if stages not in k2.DIRECT_STAGES:
+            with pytest.raises(ValueError, match="not a plan"):
+                k2.launch_plan_quant(kind, (8, 32, 128), cache, **kw)
+            continue
+        plans.append(k2.launch_plan_quant(kind, (8, 32, 128), cache, **kw))
     for plan in plans:
         assert (plan.splits, plan.rows, plan.stages) == (splits, rows, stages)
         seen = np.zeros(t, np.int64)
@@ -617,7 +627,12 @@ def test_decode_plans_at_the_main_paths():
         quant = [k9.launch_plan(*pool, dt) for dt in (torch.int8, torch.float8_e4m3fn, torch.int32)]
         assert quant == [k2.plan_for(b * hkv, t, row_bytes) for row_bytes in (128, 128, 64)]
         assert k2.launch_plan_vec8((b, h, d), (b, t, hkv, d)) == quant[0]  # K2v
-        for p in [plan] + quant:
+        direct = [k2.launch_plan_quant(kind, (b, h, d),
+                                       (b, t, hkv, d // (1 if kind == "f8" else 8)))
+                  for kind in ("f8", "i4")]  # K6, K7
+        assert direct == [k2.plan_for(b * hkv, t, row_bytes, direct=True)
+                          for row_bytes in (128, 64)]
+        for p in [plan] + quant + direct:
             # the chosen split leaves no CTA without a tile
             assert (p.splits - 1) * p.tiles * p.rows < t
     # kernel_tiles.py time K2 / K9 (PERF.md, PR 16): bf16 rows one CTA a
@@ -627,6 +642,11 @@ def test_decode_plans_at_the_main_paths():
         (1, 64, 3, 4), (2, 64, 3, 8), (2, 64, 3, 32)]
     assert [tuple(k2.plan_for(64, t, 128)) for t in (256, 1024, 4096)] == [
         (2, 64, 4, 2), (2, 128, 4, 4), (2, 128, 4, 16)]
+    # K6 and K7 (kernel_tiles.py time K6 / K7, PERF.md): one CTA a
+    # stream at T = 256, two of 128-row tiles above, three stages
+    for row_bytes in (128, 64):
+        assert [tuple(k2.plan_for(64, t, row_bytes, direct=True))
+                for t in (256, 1024, 4096)] == [(1, 64, 3, 4), (2, 128, 3, 4), (2, 128, 3, 16)]
     with pytest.raises(ValueError, match="splits"):
         k2.plan_for(64, 256, splits=3)
     with pytest.raises(ValueError, match="not a plan"):
@@ -706,6 +726,306 @@ def test_decode_merge_mirror_is_the_softmax(splits, rows, length, paged):
     idle = [r for r in range(splits) if r * plan.tiles * plan.rows >= end]
     assert all((rank_m[r] == -np.inf).all() for r in idle)
     assert all(np.isfinite(rank_m[r]).all() for r in range(splits) if r not in idle)
+
+
+# K6 and K7: the lanes' direct fragment maps, mirrored from
+# ao_tpu_torch/csrc/decode_mainloop.cuh (direct_raw_off, direct_q_frag, direct_k_frag,
+# direct_v_frag, direct_scores, direct_load_v and the partial store). A
+# 32-bit register is mirrored as its 8 nibbles, each labelled with where it
+# came from: (row, nibble index in the row) for a raw K or V row, where a
+# ch4 row's nibble index is its channel and an e4m3 row's byte index (the
+# nibble index // 2) is; ("q", channel) for q; None for a zero.
+
+
+def _direct_raw_offset(row_bytes: int, r: int, c: int) -> int:
+    """Byte offset of 16-byte chunk c of row r in a direct Op's raw K or V
+    block (``direct_raw_off``): a 128-byte line (one e4m3 row, two ch4 rows)
+    keeps its chunk i at i ^ (line & 7) (e4m3) or i ^ 2 (line & 3) (ch4)."""
+    if row_bytes == 128:
+        return r * 128 + ((c ^ (r & 7)) << 4)
+    line = r >> 1
+    return line * 128 + (((4 * (r & 1) + c) ^ (2 * (line & 3))) << 4)
+
+
+def _raw_word(row: int, byte: int):
+    return [(row, 2 * byte + i) for i in range(8)]
+
+
+def _q_word(w: int):
+    return [("q", 2 * w)] * 4 + [("q", 2 * w + 1)] * 4
+
+
+def _byte_perm(a, b, sel: int):
+    src = a + b  # bytes 0-3 of a, then of b, two nibbles each
+    out = []
+    for i in range(4):
+        k = (sel >> (4 * i)) & 7
+        out += src[2 * k:2 * k + 2]
+    return out
+
+
+def _e4m3x2(x):
+    """The (row, channel) of the two bf16 halves of ``e4m3x2(x)``: bytes 0
+    and 2 of x."""
+    out = []
+    for lo in (0, 4):
+        (row, n), hi = x[lo], x[lo + 1]
+        assert n % 2 == 0 and hi == (row, n + 1), "a byte split across nibbles"
+        out.append((row, n // 2))
+    return out
+
+
+def _ch4_pair(x, j: int):
+    """The (row, channel) of the two bf16 halves of ``ch4_pair(x, j)``."""
+    return [x[j], x[j + 4]]
+
+
+def _q_half(x, lo: int):
+    assert len(set(x[lo:lo + 4])) == 1, "a bf16 split across registers"
+    return x[lo][1]
+
+
+def _direct_q_channels(kind: str, t: int, kk: int, h: int):
+    """The q channels of the two bf16 halves of q's A fragment word h (k
+    slots 2t + 8h and 2t + 8h + 1) of k16 step kk, for the lanes with lane %
+    4 == t, which hold words [16 t, 16 t + 16) of their head row
+    (``direct_q_frag``)."""
+    qw = [_q_word(16 * t + i) for i in range(16)]
+    if kind == "f8":
+        x = qw[2 * kk + h]
+    else:
+        w = 4 * (kk >> 1) + (kk & 1)
+        x = _byte_perm(qw[w], qw[w + 2], 0x7632 if h else 0x5410)
+    return [_q_half(x, 0), _q_half(x, 4)]
+
+
+def _direct_k_fragments(kind: str, lane: int):
+    """Lane's raw K loads and its q . K^T B fragments (``direct_scores``):
+    (loads [(row, chunk)] in load order, {(n8 tile j, k16 step kk, word h):
+    [(row, channel) of the bf16 of k slot 2t + 8h, of slot 2t + 8h + 1]}),
+    t = lane % 4; the fragment's column is position 8 j + lane // 4."""
+    g, t = lane >> 2, lane & 3
+    kkc = 2 * k2.DIRECT_KINDS[kind] // k2.HEAD_DIM
+    loads, frags = [], {}
+    for j in range(2):
+        row, words = 8 * j + g, []
+        for h in range(kkc):
+            c = kkc * t + h
+            loads.append((row, c))
+            words += [_raw_word(row, 16 * c + 4 * i) for i in range(4)]
+        zero = [None] * 8
+        for kk in range(k2.HEAD_DIM // 16):
+            if kind == "f8":
+                pair = [_e4m3x2(_byte_perm(words[kk], zero, sel)) for sel in (0x4140, 0x4342)]
+            else:
+                pair = [_ch4_pair(words[kk >> 1], 2 * (kk & 1) + h) for h in (0, 1)]
+            frags[(j, kk, 0)], frags[(j, kk, 1)] = pair
+    return loads, frags
+
+
+def _direct_v_fragments(kind: str, lane: int):
+    """Lane's raw V loads and its p . V B fragments (``direct_load_v``,
+    ``direct_v_frag``): (loads [(row, byte offset in the row, bytes)],
+    {(n8 tile nn, word h): [(row, channel) of the bf16 of k slot (position)
+    2t + 8h, of 2t + 8h + 1]}); the fragment's column is n = lane // 4."""
+    g, t = lane >> 2, lane & 3
+    row_bytes = k2.DIRECT_KINDS[kind]
+    nbytes = 16 * row_bytes // k2.HEAD_DIM  # 16 channels
+    loads, words = [], []
+    for o in range(4):
+        row = 2 * t + (o & 1) + 8 * (o >> 1)
+        loads.append((row, nbytes * g, nbytes))
+        words.append([_raw_word(row, nbytes * g + 4 * i) for i in range(nbytes // 4)])
+    frags = {}
+    for nn in range(k2.HEAD_DIM // 8):
+        for h in (0, 1):
+            a, b = words[2 * h], words[2 * h + 1]
+            if kind == "f8":
+                k = nn & 3
+                frags[(nn, h)] = _e4m3x2(_byte_perm(a[nn >> 2], b[nn >> 2], ((4 + k) << 8) | k))
+            else:
+                sel = 0x7632 if nn & 4 else 0x5410
+                frags[(nn, h)] = _ch4_pair(_byte_perm(a[nn >> 3], b[nn >> 3], sel), nn & 3)
+    return loads, frags
+
+
+def _direct_out_channel(nn: int, n: int) -> int:
+    """The channel a warp's partial stores column n of p . V's n8 tile nn
+    at (direct V)."""
+    return 16 * n + nn
+
+
+def _direct_part_col(g: int, d: int) -> int:
+    """The column of a warp's partial that keeps channel d of head row g
+    (direct V, ``direct_part_col``): rotated by 8 (d / 32) + g within its
+    block of 32."""
+    return (d & ~31) | ((d + 8 * (d >> 5) + g) & 31)
+
+
+DIRECT_KINDS = sorted(k2.DIRECT_KINDS)
+
+
+def _lane_loads(kind):
+    """[(byte address in the raw K or V block, bytes)] a lane of each load
+    instruction, lanes in order: K's then V's."""
+    rb = k2.DIRECT_KINDS[kind]
+    k_loads = [_direct_k_fragments(kind, lane)[0] for lane in range(32)]
+    v_loads = [_direct_v_fragments(kind, lane)[0] for lane in range(32)]
+    out = []
+    for i in range(len(k_loads[0])):
+        out.append([(_direct_raw_offset(rb, *k_loads[lane][i]), 16) for lane in range(32)])
+    for i in range(len(v_loads[0])):
+        out.append([(_direct_raw_offset(rb, row, byte // 16) + byte % 16, n)
+                    for row, byte, n in (v_loads[lane][i] for lane in range(32))])
+    return out
+
+
+@pytest.mark.parametrize("kind", DIRECT_KINDS)
+def test_direct_fragments_read_each_position_and_channel_once(kind):
+    """Every (position, channel) of a 16-row slab is in exactly one lane's
+    B fragments, once, for K and for V; K's fragment of n8 tile j is position
+    8 j + lane // 4, V's k slot 2t + 8h + i is position 2t + 8h + i; and the
+    raw loads read each byte of the K and V blocks once."""
+    want = {(r, c): 1 for r in range(k2.SLAB) for c in range(k2.HEAD_DIM)}
+    seen_k, seen_v = {}, {}
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        for (j, _, _), pair in _direct_k_fragments(kind, lane)[1].items():
+            for row, ch in pair:
+                assert row == 8 * j + g
+                seen_k[(row, ch)] = seen_k.get((row, ch), 0) + 1
+        for (_, h), pair in _direct_v_fragments(kind, lane)[1].items():
+            for i, (row, ch) in enumerate(pair):
+                assert row == 2 * t + 8 * h + i
+                seen_v[(row, ch)] = seen_v.get((row, ch), 0) + 1
+    assert seen_k == want and seen_v == want
+    rb = k2.DIRECT_KINDS[kind]
+    for block in (_lane_loads(kind)[:-4], _lane_loads(kind)[-4:]):  # K's loads, V's four
+        read = np.zeros(k2.SLAB * rb, np.int64)
+        for instr in block:
+            for addr, n in instr:
+                read[addr:addr + n] += 1
+        assert (read == 1).all()
+
+
+@pytest.mark.parametrize("kind", DIRECT_KINDS)
+def test_direct_loads_are_free_of_bank_conflicts(kind):
+    """The ring's cp.async writes put each 16-byte chunk of a 16-row block in
+    a slot of its own, and each phase of every fragment load (8 lanes of 16
+    bytes, 16 lanes of 8) touches each of the 32 banks once."""
+    rb = k2.DIRECT_KINDS[kind]
+    slots = sorted(_direct_raw_offset(rb, r, c) for r in range(k2.SLAB) for c in range(rb // 16))
+    assert slots == list(range(0, k2.SLAB * rb, 16))
+    for instr in _lane_loads(kind):
+        width = instr[0][1]
+        per = 128 // width  # lanes a phase
+        for ph in range(32 // per):
+            banks = [(addr // 4 + w) % 32 for addr, n in instr[ph * per:(ph + 1) * per]
+                     for w in range(n // 4)]
+            assert sorted(banks) == list(range(32)), (kind, width, ph)
+    # direct V's partials: a warp's store of acc[nn][e] (lane g, t: channel
+    # 16 (2t + e) + nn of head row g) and the merge's read of channel d of
+    # row g by thread d each hit 32 banks; each row's columns a permutation
+    for nn in range(k2.HEAD_DIM // 8):
+        for e in (0, 1):
+            cols = [g * k2.HEAD_DIM + _direct_part_col(g, _direct_out_channel(nn, 2 * t + e))
+                    for g in range(8) for t in range(4)]
+            assert sorted(c % 32 for c in cols) == list(range(32))
+    for g in range(8):
+        cols = [_direct_part_col(g, d) for d in range(k2.HEAD_DIM)]
+        assert sorted(cols) == list(range(k2.HEAD_DIM))
+        for d0 in range(0, k2.HEAD_DIM, 32):
+            assert sorted(c % 32 for c in cols[d0:d0 + 32]) == list(range(32))
+
+
+@pytest.mark.parametrize("kind", DIRECT_KINDS)
+def test_direct_permuted_products_are_the_plain_ones(kind):
+    """q . K^T through the lanes' permuted k slots (q's A fragments by
+    ``_direct_q_channels``, K's B fragments by ``_direct_k_fragments``) and p .
+    V through ``_direct_v_fragments``, its columns stored at
+    ``_direct_out_channel``, in f64: the plain products, columns in channel
+    order."""
+    rng = np.random.default_rng(18 + len(kind))
+    q, k = rng.standard_normal((8, k2.HEAD_DIM)), rng.standard_normal((k2.SLAB, k2.HEAD_DIM))
+    p, v = rng.standard_normal((8, k2.SLAB)), rng.standard_normal((k2.SLAB, k2.HEAD_DIM))
+    s = np.zeros((8, k2.SLAB))
+    out = np.zeros((8, k2.HEAD_DIM))
+    for lane in range(32):
+        n, t = lane >> 2, lane & 3  # the B operand's column, the lane's k slots
+        for (j, kk, h), pair in _direct_k_fragments(kind, lane)[1].items():
+            qch = _direct_q_channels(kind, t, kk, h)  # A's rows hold the same k slots
+            for i, (row, ch) in enumerate(pair):
+                s[:, row] += q[:, qch[i]] * k[row, ch]
+        for (nn, h), pair in _direct_v_fragments(kind, lane)[1].items():
+            col = _direct_out_channel(nn, n)
+            for row, ch in pair:
+                assert ch == col
+                out[:, col] += p[:, row] * v[row, ch]
+    np.testing.assert_allclose(s, q @ k.T, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(out, p @ v, rtol=1e-12, atol=1e-12)
+    # the q channels of a lane's k slots over the 8 steps: each once
+    for t in range(4):
+        chans = [c for kk in range(8) for h in (0, 1) for c in _direct_q_channels(kind, t, kk, h)]
+        assert sorted(chans) == list(range(32 * t, 32 * t + 32))
+
+
+@pytest.mark.parametrize("kind", DIRECT_KINDS)
+def test_k6_k7_launch_asks_the_mainloop_plan(kind, monkeypatch):
+    """K6's and K7's launch takes the decode mainloop's plan over their
+    stored rows (``plan_for``, direct) and checks a given plan before it
+    touches a device: a plan the kernel does not build (K6's and K7's ring
+    is built at three stages) raises ValueError on the CPU as on the card."""
+    b, h, hkv, t, d = 2, 8, 2, 100, k2.HEAD_DIM
+    dtype, row = {"f8": (torch.float8_e4m3fn, d), "i4": (torch.int32, d // 8)}[kind]
+    q = torch.zeros((b, h, d), dtype=torch.bfloat16)
+    kc = torch.zeros((b, t, hkv, row), dtype=torch.float32).to(dtype)
+    sc = torch.ones((b, hkv, t))
+    args = (q, kc, sc, kc, sc, torch.tensor([5, 100], dtype=torch.int32), d ** -0.5)
+    asked = []
+
+    class Asked(Exception):
+        pass
+
+    def spy(*a, **kw):
+        asked.append((a, kw))
+        raise Asked
+
+    with monkeypatch.context() as m:
+        m.setattr(k2, "plan_for", spy)
+        with pytest.raises(Asked):
+            k2._launch_quant(kind, *args)
+    rb = k2.DIRECT_KINDS[kind]
+    assert asked == [((b * hkv, t, rb), {"direct": True})]
+    bad = [k2.DecodePlan(1, 64, 5, 2), k2.DecodePlan(3, 64, 3, 1), k2.DecodePlan(1, 64, 3, 1),
+           k2.DecodePlan(2, 64, 4, 1), k2.DecodePlan(1, 128, 8, 1)]
+    for plan in bad:
+        with pytest.raises(ValueError, match="not a plan"):
+            k2._launch_quant(kind, *args, plan)
+
+
+@pytest.mark.parametrize("kind", ["i8", "f8", "i4", "v8"])
+def test_quant_wrappers_hand_the_kernel_an_aligned_q(kind):
+    """The quantized kinds' kernels read q in 16-byte loads: a contiguous q
+    view that starts off a 16-byte boundary is handed on as an aligned copy
+    of the same values, and the output is the aligned q's."""
+    b, h, hkv, t, d = 2, 8, 2, 40, k2.HEAD_DIM
+    dtype, row = {"i8": (torch.int8, d), "f8": (torch.float8_e4m3fn, d),
+                  "i4": (torch.int32, d // 8), "v8": (torch.float8_e5m2, d)}[kind]
+    gen = torch.Generator().manual_seed(len(kind))
+    buf = torch.randn((1 + b * h * d,), generator=gen).to(torch.bfloat16)
+    q = buf[1:].view(b, h, d)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    kc, vc = (torch.randint(-100, 100, (b, t, hkv, row), generator=gen, dtype=torch.int32)
+              .to(torch.float32).to(dtype) if dtype != torch.int32
+              else torch.randint(-2 ** 31, 2 ** 31 - 1, (b, t, hkv, row), generator=gen,
+                                 dtype=torch.int32) for _ in range(2))
+    ks, vs = (torch.rand((b, hkv, t), generator=gen) / 64 for _ in range(2))
+    lens = torch.tensor([7, t], dtype=torch.int32)
+    qa, _ = k2._check_quant(kind, q, kc, ks, vc, vs, lens)
+    assert qa.data_ptr() % 16 == 0 and torch.equal(qa, q)
+    wrapper = k2._QUANT_WRAPPERS[kind]
+    torch.testing.assert_close(wrapper(q, kc, ks, vc, vs, lens),
+                               wrapper(q.clone(), kc, ks, vc, vs, lens), rtol=0, atol=0)
 
 
 # K18: chip_smoke.py's shapes (ViT-L's w1 / w2 at b = 64 and 128, the JAX
