@@ -1,12 +1,17 @@
 // Single-query decode attention over a dense (B, T, Hkv, *) cache, for
-// Hopper (sm_90a): K2 over bf16 rows; K2v over int8 or fp8 e5m2 rows, K6
-// over fp8 e4m3 rows and K7 over int4 "ch4" rows, each with one f32 scale
-// per (batch row, kv head, position).
+// Hopper (sm_90a): K2 over bf16 rows; K2v over int8 or fp8 e5m2 rows, K5
+// over int8 rows with q quantized to int8, K6 over fp8 e4m3 rows and K7
+// over int4 "ch4" rows, each with one f32 scale per (batch row, kv head,
+// position).
 //
 // Replaces the TPU kernels of ao_tpu/ops/pallas/decode_attention.py:
 //   K2, _tok_kernel in mode "fp" (launched by _tok_impl from the tokens
 //       branch of decode_attention);
 //   K2v, _tok_kernel "vec8" over the int8 and e5m2 storage types;
+//   K5, _kt_kernel in mode "i8" (launched by _kt_impl): q quantized per
+//       (batch row, kv head) group, qs = max(max |q|, 1e-8) / 127, qi =
+//       clip(rint(q / qs), +-127), the scores exact int8 dots with the
+//       stored K rows, f32(dot) * ks[t] * (qs * sm_scale);
 //   K6, _f8_kernel (launched by _f8_impl), with the "cvt" mode of _kt_kernel
 //       and the e4m3 form of _tok_kernel "vec8": e4m3 K and V converted
 //       exactly (the TPU kernel spliced bytes and folded 2^60 / 2^120 into
@@ -33,8 +38,9 @@
 // cluster: one launch, no workspace. K2v's rows become bf16 exactly in a
 // per-warp slab in shared memory (dm::bytes_to_bf16); K6's and K7's go
 // from the ring straight into mma fragments (the Direct Op), converted in
-// registers by the same exact bit tricks (dm::e4m3x2, dm::ch4_pair). The
-// Op says where rows live (row t of kv head n at ((b T + t) Hkv + n) row
+// registers by the same exact bit tricks (dm::e4m3x2, dm::ch4_pair); so do
+// K5's (V by dm::int8x2; K as stored, against q quantized to int8 in each
+// warp, the scores by integer mma.sync). The Op says where rows live (row t of kv head n at ((b T + t) Hkv + n) row
 // bytes; the scales at (b Hkv + n) T + t) and what a stream walks:
 // positions below min(lengths[b], T); with lengths <= 0 every position is
 // masked, as in the reference, and the output is the mean of (vs) V over all
@@ -77,7 +83,9 @@ struct Tokens : Dense<(KIND >= 0 ? dm::kD : dm::kRowB)> {
 };
 
 // K6 (KIND dm::kE4M3, 128-byte rows) and K7 (dm::kCh4, 64-byte rows): K and
-// V rows converted from the ring straight into mma fragments.
+// V rows converted from the ring straight into mma fragments. K5
+// (dm::kInt8, 128-byte rows): V so, K as stored against q quantized to int8
+// (dm::direct_int8).
 template <int KIND>
 struct Direct : Dense<(KIND == dm::kCh4 ? dm::kD / 2 : dm::kD)> {
   static constexpr bool kQuant = true, kDirect = true;
@@ -119,10 +127,11 @@ extern "C" int ao_decode_attention(const void* q, const void* k, const void* v, 
 }
 
 // K2v: mode 0 (int8) or 1 (fp8 e5m2); K6: mode 2 (fp8 e4m3); K7: mode 3
-// (int4 "ch4"). q (B, H, D) bf16; k, v (B, T, Hkv, D) int8 / e5m2 / e4m3
-// or (B, T, Hkv, D/8) int32; k_scale, v_scale (B, Hkv, T) f32; lengths (B,)
-// int32; out (B, H, D) f32. One launch at a plan as ao_decode_attention's
-// (positions a tile 64 or 128; 3 or 4 stages for K2v, 3 for K6 and K7).
+// (int4 "ch4"); K5: mode 4 (int8, q quantized to int8). q (B, H, D) bf16;
+// k, v (B, T, Hkv, D) int8 / e5m2 / e4m3 or (B, T, Hkv, D/8) int32;
+// k_scale, v_scale (B, Hkv, T) f32; lengths (B,) int32; out (B, H, D) f32.
+// One launch at a plan as ao_decode_attention's (positions a tile 64 or
+// 128; 3 or 4 stages for K2v, 3 for K5, K6 and K7).
 // Needs D == 128, H / Hkv <= 8, 16-byte aligned caches and q; the Python
 // wrapper sees to them. Returns the CUDA error of the launch.
 extern "C" int ao_decode_attention_vec8(int mode, const void* q, const void* k,
@@ -149,6 +158,7 @@ extern "C" int ao_decode_attention_vec8(int mode, const void* q, const void* k,
     case 1: return (int)dm::launch<Tokens<dm::kE5M2>>(p, splits, B, rows, stages, st);
     case 2: return (int)dm::launch<Direct<dm::kE4M3>>(p, splits, B, rows, stages, st);
     case 3: return (int)dm::launch<Direct<dm::kCh4>>(p, splits, B, rows, stages, st);
+    case 4: return (int)dm::launch<Direct<dm::kInt8>>(p, splits, B, rows, stages, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,10 +1,12 @@
-// The single-query decode attention mainloop of K2, K2v, K6 and K7
+// The single-query decode attention mainloop of K2, K2v, K5, K6 and K7
 // (decode_attention.cu) and K9 (paged_attention.cu), for Hopper (sm_90a).
 //
 // For each batch row b and kv head, the G = H / Hkv <= 8 query heads of its
 // group share one stream of K and V rows (positions t < T):
 //
-//   s[h, t] = (q[h] . K[t]) * sm_scale (* ks[t]) in f32, masked by the Op;
+//   s[h, t] = (q[h] . K[t]) * sm_scale (* ks[t]) in f32, masked by the Op
+//             (K5: q quantized to int8, f32(qi[h] . K[t]) * ks[t] * (qs *
+//             sm_scale));
 //   out[h]  = sum_t bf16(p[h, t] (* vs[t])) V[t] / max(sum_t p[h, t], 1e-30),
 //
 // f32 (B, H, D), with p = exp(s - m) against a running max m, rounded to
@@ -37,16 +39,26 @@
 //   online softmax in f32 (scale, k scale, mask, running max and sum); p
 //   rounded to bf16 (after * v scale) stays in registers as the A operand
 //   of p . V, FlashAttention-2 style, with V by ldmatrix.trans.
-// * Direct Ops (Op::kDirect: K6's e4m3 rows, K7's int4 "ch4" rows) skip
-//   the bf16 slab and its round trip (stores, __syncwarp, ldmatrix) on each
-//   slab's dependent chain: every lane loads raw bytes from the ring and
-//   converts them in registers straight into its mma B fragments.
+// * Direct Ops (Op::kDirect: K5's int8 rows, K6's e4m3 rows, K7's int4
+//   "ch4" rows) skip the bf16 slab and its round trip (stores, __syncwarp,
+//   ldmatrix) on each slab's dependent chain: every lane loads raw bytes
+//   from the ring and converts them in registers straight into its mma B
+//   fragments.
 //   - K: lane (g, t) of a warp takes position 8j + g of n8 tile j and the
-//     32 contiguous channels [32 t, 32 t + 32) of its row (32 bytes e4m3,
-//     16 ch4). A lane's k slots of the 8 k16 steps are permuted onto those
-//     channels (direct_k_frag below), and q's A fragments are built through
-//     the same permutation once, before the loop (direct_q_frag; for ch4
-//     after the first copies are issued), so q . K is unchanged.
+//     32 contiguous channels [32 t, 32 t + 32) of its row (32 bytes int8 or
+//     e4m3, 16 ch4). A lane's k slots of the 8 k16 steps are permuted onto
+//     those channels (direct_k_frag below), and q's A fragments are built
+//     through the same permutation once, before the loop (direct_q_frag;
+//     for ch4 after the first copies are issued), so q . K is unchanged.
+//   - K5's int8 K rows are not converted at all: after the first copies
+//     each warp quantizes the group's q to int8 (direct_q_int8: one xor-
+//     shuffle max, the IEEE quotients' codes by quant_round.cuh, the same
+//     bits in every warp), and the
+//     scores are exact integer dots, mma.sync m16n8k32 s8 with the k slots
+//     4t .. 4t + 3 and 16 + 4t .. 19 + 4t of k32 step kk on channels 32 t +
+//     8 kk + [0, 8): A's words are the lane's q words 2 kk and 2 kk + 1, B's
+//     its raw K words 2 kk and 2 kk + 1. A score is f32(dot) * ks[t] * (qs *
+//     sm_scale), the reference's order.
 //   - V: as B of p . V a lane needs one channel of the two positions 2t,
 //     2t + 1 (and 2t + 8, 2t + 9): it loads the 16 channels [16 g, 16 g +
 //     16) of those four rows and joins the bytes (nibbles) of two rows with
@@ -78,6 +90,7 @@
 #include <stdint.h>
 
 #include "cluster_sum.cuh"
+#include "quant_round.cuh"
 
 namespace {
 namespace dm {
@@ -155,6 +168,20 @@ __device__ __forceinline__ void mma_rows8(float& d0, float& d1, uint32_t a0, uin
       : "r"(a0), "r"(z), "r"(a2), "r"(z), "r"(b0), "r"(b1), "f"(0.f), "f"(0.f));
 }
 
+// d0, d1 += (rows 0-7 of A) . B for one m16n8k32 step over int8, exact in
+// int32: A's words a0 (k slots 4t .. 4t + 3 of the lane's row) and a2 (16 +
+// 4t .. 19 + 4t), its rows 8-15 zero, whose results (d2, d3) are dropped.
+__device__ __forceinline__ void mma_rows8_s8(int& d0, int& d1, uint32_t a0, uint32_t a2,
+                                             uint32_t b0, uint32_t b1) {
+  const uint32_t z = 0u;
+  int x2, x3;
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %10, %11};\n"
+      : "+r"(d0), "+r"(d1), "=r"(x2), "=r"(x3)
+      : "r"(a0), "r"(z), "r"(a2), "r"(z), "r"(b0), "r"(b1), "r"(0), "r"(0));
+}
+
 // e^x as 2^(x log2 e): MUFU.EX2 (-inf gives 0)
 __device__ __forceinline__ float exp_f32(float x) { return exp2f(x * 1.4426950408889634f); }
 
@@ -174,6 +201,13 @@ __device__ __forceinline__ __nv_bfloat162 bits_bf162(uint32_t x) {
 // The stored values an Op converts (its to_bf16): one-byte kinds, and int4
 // "ch4" words (8 channel nibbles u at bits [4o, 4o + 4), value u - 8).
 enum Byte { kInt8 = 0, kE4M3 = 1, kE5M2 = 2, kCh4 = 3 };
+
+// int8 bytes 0 and 2 of x -> bf16x2 (bytes 1 and 3 ignored), exact: see
+// bytes_to_bf16.
+__device__ __forceinline__ uint32_t int8x2(uint32_t x) {
+  return bf162_bits(__hsub2(bits_bf162((x & 0x007F007Fu) | 0x43004300u),
+                            bits_bf162((x & 0x00800080u) | 0x43004300u)));
+}
 
 // e4m3 bytes 0 and 2 of x -> bf16x2 (bytes 1 and 3 ignored), exact: see
 // bytes_to_bf16.
@@ -229,8 +263,7 @@ __device__ __forceinline__ void bytes_to_bf16(int4 raw, uint4 (&o)[2]) {
     // bytes 2k and 2k + 1 of the chunk into the two halves of x
     const uint32_t x = __byte_perm(w[k >> 1], 0u, (k & 1) ? 0x4342u : 0x4140u);
     if constexpr (KIND == kInt8) {
-      v[k] = bf162_bits(__hsub2(bits_bf162((x & 0x007F007Fu) | 0x43004300u),
-                                bits_bf162((x & 0x00800080u) | 0x43004300u)));
+      v[k] = int8x2(x);
     } else if constexpr (KIND == kE4M3) {
       v[k] = e4m3x2(x);
     } else {
@@ -246,10 +279,18 @@ __device__ __forceinline__ void bytes_to_bf16(int4 raw, uint4 (&o)[2]) {
 // slab (16 rows of 256 bytes).
 __device__ __forceinline__ int swz(int r, int c) { return r * kRowB + ((c ^ (r & 7)) << 4); }
 
+// Whether Op is K5's: a direct Op over int8 rows, whose q is quantized to
+// int8 and whose scores are integer dots.
+template <class Op>
+__host__ __device__ constexpr bool direct_int8() {
+  if constexpr (Op::kDirect) return Op::kKind == kInt8;
+  else return false;
+}
+
 // Direct Ops: byte offset of 16-byte chunk c of row r in a raw K or V block
-// of 16 rows of RB bytes (128: e4m3, 64: ch4). A 128-byte line (one e4m3
-// row, two ch4 rows) keeps its chunk i at i ^ (line & 7) (e4m3) or i ^ 2
-// (line & 3) (ch4), so that each phase of the fragment loads below reads
+// of 16 rows of RB bytes (128: int8, e4m3; 64: ch4). A 128-byte line (one
+// int8 or e4m3 row, two ch4 rows) keeps its chunk i at i ^ (line & 7)
+// (128-byte rows) or i ^ 2 (line & 3) (ch4), so that each phase of the fragment loads below reads
 // every bank once.
 template <int RB>
 __device__ __forceinline__ int direct_raw_off(int r, int c) {
@@ -276,6 +317,33 @@ __device__ __forceinline__ uint32_t direct_q_frag(const uint32_t (&qw)[16], int 
   }
 }
 
+// K5: the group's q quantized to int8 by each warp, as the reference does
+// it (qs = max(max |q|, 1e-8) / 127 over its G heads x D channels, qi =
+// clip(rint(q / qs), +-127), the IEEE quotients' codes by quant_byte:
+// every warp of the cluster gets the same bits). Lane (g, t) holds channels [32 t, 32 t + 32) of head
+// row g in qw (rows g >= G hold zeros); qa[kk] gets qi's words 2 kk and 2 kk
+// + 1 (channels 32 t + 8 kk + [0, 8)), the A fragment of k32 step kk.
+// Returns qs.
+__device__ __forceinline__ float direct_q_int8(const uint32_t (&qw)[16],
+                                               uint32_t (&qa)[kD / 16][2]) {
+  float v[32], amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const float2 f = __bfloat1622float2(bits_bf162(qw[i]));
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+    amax = fmaxf(amax, fmaxf(fabsf(f.x), fabsf(f.y)));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  const float qs = __fdiv_rn(fmaxf(amax, 1e-8f), 127.f), r = __frcp_rn(qs);
+#pragma unroll
+  for (int w = 0; w < 8; ++w)
+    qa[w >> 1][w & 1] = pack_bytes(quant_byte(v[4 * w], qs, r), quant_byte(v[4 * w + 1], qs, r),
+                                   quant_byte(v[4 * w + 2], qs, r), quant_byte(v[4 * w + 3], qs, r));
+  return qs;
+}
+
 // Direct Ops: q . K^T's B fragments (b0, b1) of k16 step kk from the raw
 // words w of the lane's 32 channels of one K row: e4m3 word kk, its bytes
 // (0, 1) and (2, 3); ch4 word kk / 2, its nibbles (j, j + 4) and (j + 1,
@@ -300,6 +368,9 @@ __device__ __forceinline__ uint32_t direct_v_frag(const uint32_t* a, const uint3
   if constexpr (KIND == kE4M3) {
     const uint32_t k = nn & 3;
     return e4m3x2(__byte_perm(a[nn >> 2], b[nn >> 2], ((4u + k) << 8) | k));
+  } else if constexpr (KIND == kInt8) {
+    const uint32_t k = nn & 3;
+    return int8x2(__byte_perm(a[nn >> 2], b[nn >> 2], ((4u + k) << 8) | k));
   } else {
     return ch4_pair(__byte_perm(a[nn >> 3], b[nn >> 3], (nn & 4) ? 0x7632u : 0x5410u), nn & 3);
   }
@@ -380,12 +451,12 @@ __device__ __forceinline__ void convert_slab(const uint8_t* raw, uint8_t* slab, 
 }
 
 // Direct Ops: the slab's q . K^T, s[kk % 2][n8 tile][column] (the two
-// chains of the bf16 path), K's B fragments converted from the raw rows:
-// lane (g, t) loads the 32 channels [32 t, 32 t + 32) of position 8 j + g
-// of each n8 tile j.
-template <class Op>
+// chains of the bf16 path; K5's k32 steps in int32), K's B fragments
+// converted from the raw rows (K5's taken as they are): lane (g, t) loads
+// the 32 channels [32 t, 32 t + 32) of position 8 j + g of each n8 tile j.
+template <class Op, class Acc>
 __device__ __forceinline__ void direct_scores(const uint8_t* kraw, const uint32_t (&qa)[kD / 16][2],
-                                              float (&s)[2][2][2], int g, int t) {
+                                              Acc (&s)[2][2][2], int g, int t) {
   constexpr int RB = Op::kRowBytes, kKC = 2 * RB / kD;  // 16-byte chunks of 32 channels
   uint32_t w[2][4 * kKC];
 #pragma unroll
@@ -400,13 +471,23 @@ __device__ __forceinline__ void direct_scores(const uint8_t* kraw, const uint32_
       w[j][4 * h + 3] = x.w;
     }
   }
+  if constexpr (direct_int8<Op>()) {
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
+    for (int kk = 0; kk < kD / 32; ++kk) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      uint32_t b0, b1;
-      direct_k_frag<Op::kKind>(w[j], kk, b0, b1);
-      mma_rows8(s[kk & 1][j][0], s[kk & 1][j][1], qa[kk][0], qa[kk][1], b0, b1);
+      for (int j = 0; j < 2; ++j)
+        mma_rows8_s8(s[kk & 1][j][0], s[kk & 1][j][1], qa[kk][0], qa[kk][1], w[j][2 * kk],
+                     w[j][2 * kk + 1]);
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        uint32_t b0, b1;
+        direct_k_frag<Op::kKind>(w[j], kk, b0, b1);
+        mma_rows8(s[kk & 1][j][0], s[kk & 1][j][1], qa[kk][0], qa[kk][1], b0, b1);
+      }
     }
   }
 }
@@ -499,18 +580,24 @@ __global__ void __launch_bounds__(32 * WARPS) decode_attn_kernel(const Params p)
     cp_async_commit();
   }
   typename Op::Cursor next = cur[NS - 1];
+  float cq = 0.f;  // K5: qs * sm_scale
   if constexpr (Op::kDirect) {
     // q's fragments through direct_k_frag's permutation, after the copies:
-    // ch4's byte permutes would otherwise hold the first copy until q landed
-    // (e4m3's words are its fragments: they wait for q at the first mma)
-    if constexpr (Op::kKind == kCh4) {
+    // ch4's byte permutes and K5's quantize would otherwise hold the first
+    // copy until q landed (e4m3's words are its fragments: they wait for q
+    // at the first mma)
+    if constexpr (Op::kKind != kE4M3) {
 #pragma unroll
       for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(qw[i]));
     }
+    if constexpr (direct_int8<Op>()) {
+      cq = __fmul_rn(direct_q_int8(qw, qa), p.sm_scale);
+    } else {
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      qa[kk][0] = direct_q_frag<Op::kKind>(qw, kk, 0);
-      qa[kk][1] = direct_q_frag<Op::kKind>(qw, kk, 1);
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        qa[kk][0] = direct_q_frag<Op::kKind>(qw, kk, 0);
+        qa[kk][1] = direct_q_frag<Op::kKind>(qw, kk, 1);
+      }
     }
   }
 
@@ -540,7 +627,10 @@ __global__ void __launch_bounds__(32 * WARPS) decode_attn_kernel(const Params p)
 
     // q . K^T in two independent chains of k-steps (even, odd), summed
     float s[2][2][2] = {};  // [chain][n8 tile][column]
-    if constexpr (Op::kDirect) {
+    int si[2][2][2] = {};   // K5's, in int32
+    if constexpr (direct_int8<Op>()) {
+      direct_scores<Op>(stage, qa, si, grp, lane & 3);
+    } else if constexpr (Op::kDirect) {
       direct_scores<Op>(stage, qa, s, grp, lane & 3);
     } else {
 #pragma unroll
@@ -557,8 +647,14 @@ __global__ void __launch_bounds__(32 * WARPS) decode_attn_kernel(const Params p)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = (e >> 1) * 8 + tq + (e & 1);
-      float v = (s[0][e >> 1][e & 1] + s[1][e >> 1][e & 1]) * p.sm_scale;
-      if constexpr (Op::kQuant) v *= ksc[r];
+      float v;
+      if constexpr (direct_int8<Op>()) {  // the exact dot, * ks, * (qs sm_scale)
+        v = __fmul_rn(__fmul_rn((float)(si[0][e >> 1][e & 1] + si[1][e >> 1][e & 1]), ksc[r]),
+                      cq);
+      } else {
+        v = (s[0][e >> 1][e & 1] + s[1][e >> 1][e & 1]) * p.sm_scale;
+        if constexpr (Op::kQuant) v *= ksc[r];
+      }
       x[e] = Op::mask(v, start + r, L, p.T);
     }
     float mx = fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3]));

@@ -26,6 +26,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "quant_round.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -146,9 +148,17 @@ extern "C" int ao_silu_mul_quant(const void* a, const void* b, void* q, void* sc
 // version). The modulation rows are read with a batch stride, 0 when one
 // row serves every batch row (SAM's LayerNorm affine), so no broadcast is
 // materialized. Bytes bound both, as K12s: 2 B read (bf16) and 1 B written
-// per value; one block of 256 threads per row keeps the row in f32 in
-// dynamic shared memory (4*D bytes) across the reductions (two for K12n's
-// moments, one amax).
+// per value. K12g, and K12n above 2048 values a row, take one block of 256
+// threads per row, which keeps the row in f32 in dynamic shared memory (4*D
+// bytes) across the reductions (two for K12n's moments, one amax). K12n up
+// to 2048 values (SAM-B's 768, SAM-L's 1024, SAM-H's 1280, DiT-XL's 1152)
+// takes one warp a row instead, eight rows a CTA: lane l holds chunks l, l +
+// 32, .. of 8 values (C of them, the last predicated where D / 8 is not a
+// multiple of 32) in f32 registers from 16-byte loads, and each reduction
+// (the sum, the squared deviations from the mean, the amax) is the lane's
+// sum in chunk order, then one xor-shuffle tree: no shared memory, no
+// barrier, the same IEEE steps in the same order otherwise; the codes are
+// the IEEE quotients' (quant_round.cuh).
 
 namespace {
 
@@ -259,6 +269,86 @@ __global__ void __launch_bounds__(kThreads)
   quant_row(ys, amax, q + row * D, scale + row, D);
 }
 
+constexpr int kNormWarps = 8;       // rows a CTA of the warp kernel
+constexpr int kNormWarpChunks = 8;  // at most 8 chunks of 8 values a lane: D <= 2048
+
+// grid (ceil(rows / kNormWarps)), kNormWarps warps; warp w of CTA i takes
+// row i kNormWarps + w, its lane l chunks l + 32 c (c < C) of 8 values; the
+// modulation row of row r is shift / smod + (r / T) * mod_stride, read in
+// 16-byte loads (16-byte aligned rows).
+template <typename T, typename M, int C>
+__global__ void __launch_bounds__(32 * kNormWarps)
+    norm_modulate_quant_warp_kernel(const T* __restrict__ h, const M* __restrict__ shift,
+                                    const M* __restrict__ smod, int mod_stride,
+                                    int8_t* __restrict__ q, float* __restrict__ scale, int rows,
+                                    int T_, int D, float eps) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kNormWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int nchunk = D / 8;
+  const T* hr = h + (size_t)row * D;
+  float v[C][8];
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    if (lane + 32 * c < nchunk) load8(hr + 8 * (lane + 32 * c), v[c]);
+  float sum = 0.f;
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    if (lane + 32 * c < nchunk)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) sum = __fadd_rn(sum, v[c][i]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, o));
+  const float mu = __fdiv_rn(sum, (float)D);
+  float sq = 0.f;
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    if (lane + 32 * c < nchunk)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float d = __fsub_rn(v[c][i], mu);
+        sq = __fmaf_rn(d, d, sq);
+      }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) sq = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, o));
+  const float var = __fdiv_rn(sq, (float)D);
+  const float rs = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps)));
+  const M* sh = shift + (size_t)(row / T_) * mod_stride;
+  const M* sm = smod + (size_t)(row / T_) * mod_stride;
+  float amax = 0.f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int k = lane + 32 * c;
+    if (k < nchunk) {
+      float a[8], b[8];
+      load8(sm + 8 * k, a);
+      load8(sh + 8 * k, b);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float yn = __fmul_rn(__fsub_rn(v[c][i], mu), rs);
+        v[c][i] = __fadd_rn(__fmul_rn(yn, __fadd_rn(1.f, a[i])), b[i]);
+        amax = fmaxf(amax, fabsf(v[c][i]));
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  const float sc = __fdiv_rn(fmaxf(amax, 1e-8f), 127.f), r = __frcp_rn(sc);
+  int8_t* qr = q + (size_t)row * D;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int k = lane + 32 * c;
+    if (k < nchunk) {
+      uint32_t b[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) b[i] = quant_byte(v[c][i], sc, r);
+      *reinterpret_cast<uint2*>(qr + 8 * k) =
+          make_uint2(pack_bytes(b[0], b[1], b[2], b[3]), pack_bytes(b[4], b[5], b[6], b[7]));
+    }
+  }
+  if (lane == 0) scale[row] = sc;
+}
+
 template <typename K>
 cudaError_t set_smem(K* kern, size_t smem) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -275,10 +365,29 @@ cudaError_t launch_gelu(const void* y, void* q, void* scale, int rows, int D, cu
   return cudaGetLastError();
 }
 
+template <typename T, typename M, int C>
+cudaError_t launch_norm_warp(const void* h, const void* shift, const void* smod, int mod_stride,
+                             void* q, void* scale, int rows, int T_, int D, float eps,
+                             cudaStream_t st) {
+  if constexpr (C < kNormWarpChunks) {
+    if ((D / 8 + 31) / 32 > C)
+      return launch_norm_warp<T, M, C + 1>(h, shift, smod, mod_stride, q, scale, rows, T_, D, eps,
+                                           st);
+  }
+  if ((D / 8 + 31) / 32 != C) return cudaErrorInvalidValue;  // above 2048 values a row
+  const int grid = (rows + kNormWarps - 1) / kNormWarps;
+  norm_modulate_quant_warp_kernel<T, M, C><<<grid, 32 * kNormWarps, 0, st>>>(
+      static_cast<const T*>(h), static_cast<const M*>(shift), static_cast<const M*>(smod),
+      mod_stride, static_cast<int8_t*>(q), static_cast<float*>(scale), rows, T_, D, eps);
+  return cudaGetLastError();
+}
+
 template <typename T, typename M>
 cudaError_t launch_norm(const void* h, const void* shift, const void* smod, int mod_stride,
-                        void* q, void* scale, int rows, int T_, int D, float eps,
+                        void* q, void* scale, int rows, int T_, int D, float eps, int warp,
                         cudaStream_t st) {
+  if (warp)
+    return launch_norm_warp<T, M, 1>(h, shift, smod, mod_stride, q, scale, rows, T_, D, eps, st);
   const size_t smem = (size_t)D * sizeof(float);
   auto* kern = norm_modulate_quant_kernel<T, M>;
   cudaError_t err = set_smem(kern, smem);
@@ -304,21 +413,24 @@ extern "C" int ao_gelu_quant(const void* y, void* q, void* scale, int rows, int 
 
 // h (B*T, D) bf16 or f32 (h_f32); shift, smod rows of D values, bf16 or f32
 // (mod_f32), batch row b's at b * mod_stride; q (B*T, D) int8; scale (B*T,)
-// f32. The same needs as ao_gelu_quant. Returns cudaGetLastError().
+// f32. warp 1: one warp a row (D <= 2048, 16-byte aligned modulation rows),
+// 0: one block a row. The same needs as ao_gelu_quant. Returns
+// cudaGetLastError() (cudaErrorInvalidValue for a warp launch above 2048).
 extern "C" int ao_norm_modulate_quant(const void* h, const void* shift, const void* smod,
                                       int mod_stride, void* q, void* scale, int rows, int T,
-                                      int D, float eps, int h_f32, int mod_f32, void* stream) {
+                                      int D, float eps, int h_f32, int mod_f32, int warp,
+                                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (h_f32)
     err = mod_f32 ? launch_norm<float, float>(h, shift, smod, mod_stride, q, scale, rows, T, D,
-                                              eps, st)
+                                              eps, warp, st)
                   : launch_norm<float, __nv_bfloat16>(h, shift, smod, mod_stride, q, scale, rows,
-                                                      T, D, eps, st);
+                                                      T, D, eps, warp, st);
   else
     err = mod_f32 ? launch_norm<__nv_bfloat16, float>(h, shift, smod, mod_stride, q, scale, rows,
-                                                      T, D, eps, st)
+                                                      T, D, eps, warp, st)
                   : launch_norm<__nv_bfloat16, __nv_bfloat16>(h, shift, smod, mod_stride, q,
-                                                              scale, rows, T, D, eps, st);
+                                                              scale, rows, T, D, eps, warp, st);
   return (int)err;
 }

@@ -22,9 +22,9 @@ from typing import Dict, Iterable
 PKG_ROOT = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_ROOT / "csrc"
 BUILD_DIR = PKG_ROOT / "_build"
-SOURCES = ("int4_matmul", "decode_attention", "decode_attention_quant", "int4_w4a8",
-           "fused_act", "flash_attention", "paged_attention", "int8_matmul", "fp8_matmul",
-           "fp4_matmul", "lut4_matmul", "window_attention", "grouped_matmul", "bsr_matmul")
+SOURCES = ("int4_matmul", "decode_attention", "int4_w4a8", "fused_act", "flash_attention",
+           "paged_attention", "int8_matmul", "fp8_matmul", "fp4_matmul", "lut4_matmul",
+           "window_attention", "grouped_matmul", "bsr_matmul")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

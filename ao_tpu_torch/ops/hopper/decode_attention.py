@@ -5,9 +5,9 @@ Counterparts of ``ao_tpu/ops/pallas/decode_attention.py::decode_attention``:
 
 * K2 (``decode_attention.cu``): the bf16 "tokens" branch, ``_tok_kernel`` in
   mode "fp".
-* K5 (``decode_attention_quant.cu``, ``decode_attention_int8``): the int8
-  cache in the reference's "i8" semantics (``_kt_kernel``): q quantized to
-  int8 per (batch, kv-head group), exact int8 dots for the scores.
+* K5 (``decode_attention.cu``, ``decode_attention_int8``): the int8 cache
+  in the reference's "i8" semantics (``_kt_kernel``): q quantized to int8
+  per (batch, kv-head group), exact int8 dots for the scores.
 * K6 (``decode_attention.cu``, ``decode_attention_fp8``): the fp8 e4m3
   cache (``_f8_kernel``, and the fp8 form of ``_tok_kernel`` "vec8"): bf16 q
   over e4m3 K and V converted exactly in the kernel.
@@ -18,7 +18,7 @@ Counterparts of ``ao_tpu/ops/pallas/decode_attention.py::decode_attention``:
   "vec8" form of ``_tok_kernel`` over an int8 or fp8 e5m2 "tokens" cache,
   K6's function over those storage types.
 
-K2, K2v, K6 and K7 run on the decode mainloop shared with K9
+K2, K2v, K5, K6 and K7 run on the decode mainloop shared with K9
 (``csrc/decode_mainloop.cuh``, whose header says what bounds it and how it
 is built): one launch a call, no workspace, ``launch_plan`` /
 ``launch_plan_quant`` choosing the CTAs a stream (one cluster), the
@@ -26,11 +26,10 @@ positions a tile and the depth of each warp's ring from static shapes. K2v's
 128-byte rows are converted to bf16 exactly in shared memory; K6's e4m3
 rows and K7's 64-byte ch4 rows go from the ring straight into mma fragments
 ("direct": no bf16 slab; ``tests/test_torch_tiles.py`` mirrors the lanes'
-maps). K5 (``decode_attention_quant.cu``) still splits T
-(flash-decoding) into f32 partials and combines them in a second kernel.
-Every wrapper runs its kernel on CUDA tensors and its plain PyTorch version
-(``decode_attention_plain``, ``decode_attention_quant_plain``) on CPU
-tensors, and counts its launches. ``decode_attention`` dispatches on the
+maps), and so do K5's int8 rows, K as stored into integer mma's against q
+quantized to int8 in each warp. Every wrapper runs its kernel on CUDA
+tensors and its plain PyTorch version (``decode_attention_plain``,
+``decode_attention_quant_plain``) on CPU tensors, and counts its launches. ``decode_attention`` dispatches on the
 cache's dtype and layout and on the mode the caller asks for. ``lengths``
 is per row, so K2 also serves the serving engine's slot layout, whose rows
 sit at their own positions; the paged layout's decode attention is K9
@@ -48,17 +47,18 @@ from ao_tpu_torch.ops.hopper import build
 
 _NEG = -0.7 * float(torch.finfo(torch.float32).max)  # the reference's mask value
 
-# what decode_attention.cu (K2, K2v, K6, K7) and decode_attention_quant.cu
-# (K5) take (checked against each library when it loads); known here so that
-# the routes and the CPU refuse the same shapes as the card
+# what decode_attention.cu (K2, K2v, K5, K6, K7) takes (checked against the
+# library when it loads); known here so that the routes and the CPU refuse
+# the same shapes as the card
 HEAD_DIM = 128
 MAX_GROUP = 8
-# K5 (and the quantized kinds' plain version): positions per split
+# the quantized kinds' plain version: positions per split
 CHUNK = 64
-# the decode mainloop (K2, K2v, K6, K7, K9): positions a warp takes at a time
+# the decode mainloop (K2, K2v, K5, K6, K7, K9): positions a warp takes at a time
 # (one k16 step of p . V), the CTAs of a stream (a portable cluster), the
 # positions a tile (16 a warp: four or eight warps) and the slabs of a warp's
-# cp.async ring (K6's and K7's "direct" ring: three, the depth it is built at)
+# cp.async ring (K5's, K6's and K7's "direct" ring: three, the depth it is
+# built at)
 SLAB = 16
 MAX_SPLIT = 8
 SMS = 132  # the H100's SMs, which one launch's CTAs fill once
@@ -82,7 +82,7 @@ def smem_bytes(rows: int, stages: int, row_bytes: int = ROW_BYTES, direct: bool 
     slabs a warp's ring over stored rows of ``row_bytes``, as
     ``csrc/decode_mainloop.cuh``'s Layout: a warp's stages of 16 K and 16 V
     rows (and, for converted rows, their 32 f32 scales), its bf16 slab of K
-    and V for K2v's and K9's converted rows (none for K6's and K7's
+    and V for K2v's and K9's converted rows (none for K5's, K6's and K7's
     ``direct`` rows), then the cluster merge's receive area."""
     quant = row_bytes != ROW_BYTES
     stage = 2 * SLAB * row_bytes + (2 * SLAB * 4 if quant else 0)
@@ -96,16 +96,17 @@ def plan_for(streams: int, t: int, row_bytes: int = ROW_BYTES, splits=None, rows
     """The decode mainloop's launch for ``streams`` (batch row, kv head)
     streams of ``t`` positions stored in rows of ``row_bytes`` (bf16: 256;
     int8 and fp8: 128, int4: 64, converted in the kernel: in a bf16 slab,
-    or for K6 and K7, ``direct``, straight into mma fragments); any of
+    or for K5, K6 and K7, ``direct``, straight into mma fragments); any of
     ``splits``, ``rows`` and ``stages`` given is taken as it is
     (``kernel_tiles.py time K2`` sweeps them). From static shapes only,
     never the lengths: the CTAs of a stream split its tiles evenly, a CTA
     stopping at its stream's length."""
     quant = row_bytes != ROW_BYTES
     # converted rows take a slab about twice as long as bf16 rows: above
-    # generate's T = 256 eight warps a CTA walk half as many slabs each
-    rows = rows or (128 if quant and t > 256 else 64)
-    # K6 and K7 (kernel_tiles.py time K6 / K7, PERF.md): three stages
+    # generate's T = 256 eight warps a CTA walk half as many slabs each;
+    # direct rows at every T (kernel_tiles.py time K5 / K6 / K7, PERF.md)
+    rows = rows or (128 if direct or (quant and t > 256) else 64)
+    # K5, K6 and K7 (kernel_tiles.py time K5 / K6 / K7, PERF.md): three stages
     stages = stages or (3 if direct or not quant else 4)
     n_tiles = max(-(-t // rows), 1)
     if splits is None:
@@ -123,7 +124,7 @@ def plan_for(streams: int, t: int, row_bytes: int = ROW_BYTES, splits=None, rows
 def check_plan(plan: DecodePlan, t: int, row_bytes: int = ROW_BYTES,
                direct: bool = False) -> DecodePlan:
     """Raise ValueError unless the decode mainloop takes ``plan`` over rows of
-    ``row_bytes`` (``direct``: K6's and K7's) at a ring it builds, whose
+    ``row_bytes`` (``direct``: K5's, K6's and K7's) at a ring it builds, whose
     shared memory fits a block, and its CTAs cover all ``t`` positions of a
     stream."""
     if plan.splits not in SPLITS or plan.rows not in TILE_ROWS \
@@ -145,17 +146,18 @@ def launch_plan_vec8(q_shape, cache_shape, **kw) -> DecodePlan:
     return launch_plan_quant("v8", q_shape, cache_shape, **kw)
 
 
-# the stored row bytes of K6 ("f8": e4m3) and K7 ("i4": ch4), converted
-# straight into mma fragments, and of each kind on the decode mainloop with
-# whether it is (K2v's "v8" rows go through a bf16 slab)
-DIRECT_KINDS = {"f8": HEAD_DIM, "i4": HEAD_DIM // 2}
+# the stored row bytes of K5 ("i8": int8), K6 ("f8": e4m3) and K7 ("i4":
+# ch4), converted straight into mma fragments (K5's K rows taken as they
+# are), and of each kind on the decode mainloop with whether it is (K2v's
+# "v8" rows go through a bf16 slab)
+DIRECT_KINDS = {"i8": HEAD_DIM, "f8": HEAD_DIM, "i4": HEAD_DIM // 2}
 _RING = {"v8": (HEAD_DIM, False), **{k: (rb, True) for k, rb in DIRECT_KINDS.items()}}
 
 
 def launch_plan_quant(kind: str, q_shape, cache_shape, **kw) -> DecodePlan:
-    """The launch of K2v ("v8"), K6 ("f8") or K7 ("i4") at q (B, H, D) over
-    a (B, T, Hkv, *) cache: ``plan_for`` over rows of 128, 128 and 64 bytes,
-    K6's and K7's converted straight into mma fragments."""
+    """The launch of K2v ("v8"), K5 ("i8"), K6 ("f8") or K7 ("i4") at q (B,
+    H, D) over a (B, T, Hkv, *) cache: ``plan_for`` over rows of 128, 128,
+    128 and 64 bytes, K5's, K6's and K7's straight into mma fragments."""
     row_bytes, direct = _RING[kind]
     return plan_for(q_shape[0] * cache_shape[2], cache_shape[1], row_bytes, direct=direct, **kw)
 
@@ -301,30 +303,12 @@ def traffic(q_shape, cache_shape, lengths):
 # ---------------------------------------------------------------------------
 # K5, K6, K7, K2v: quantized caches
 
-# the storage type of each kind and, on the decode mainloop, the mode of
-# ao_decode_attention_vec8 (K2v 0 / 1, K6 2, K7 3); K5 is
-# decode_attention_quant.cu's one kernel
-_KIND_MODE = {"i8": {torch.int8: None}, "f8": {torch.float8_e4m3fn: 2}, "i4": {torch.int32: 3},
+# the storage type of each kind and its mode of ao_decode_attention_vec8
+# (K2v 0 / 1, K6 2, K7 3, K5 4)
+_KIND_MODE = {"i8": {torch.int8: 4}, "f8": {torch.float8_e4m3fn: 2}, "i4": {torch.int32: 3},
               "v8": {torch.int8: 0, torch.float8_e5m2: 1}}
 _KIND_NAME = {"i8": "int8 (K5)", "f8": "fp8 e4m3 (K6)", "i4": "int4 (K7)",
               "v8": "int8 / fp8 e5m2 bf16-q (K2v)"}
-
-_QLIB = None
-
-
-def _qlib():
-    global _QLIB
-    if _QLIB is None:
-        lib = build.load("decode_attention_quant")
-        fn = lib.ao_decode_attention_quant
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _check_library(lib, "decode_attention_quant.cu", "ao_decode_attention_quant",
-                       (("chunk", CHUNK), ("max_group", MAX_GROUP), ("head_dim", HEAD_DIM)))
-        _QLIB = lib
-    return _QLIB
-
 
 def _quant_kind(dtype, layout: str, mode) -> str:
     """Which kernel computes attention over a quantized cache of ``dtype`` in
@@ -341,21 +325,30 @@ def _quant_kind(dtype, layout: str, mode) -> str:
     raise ValueError(f"no decode attention kernel for a {dtype} cache in layout {layout!r}")
 
 
+def quantize_q_plain(qf: torch.Tensor):
+    """K5's q quantize: qf (B, Hkv, G, D) f32 -> (qi (B, Hkv, G, D) f32
+    integers, qs (B, Hkv) f32), per (batch row, kv head) group as the
+    reference quantizes it: qs = max(max |q|, 1e-8) / 127, qi =
+    clip(round(q / qs), +-127), IEEE division, ties to even."""
+    qs = qf.abs().amax(dim=(2, 3)).clamp_min(1e-8) / 127.0
+    return torch.round(qf / qs[..., None, None]).clamp_(-127, 127), qs
+
+
 def decode_attention_quant_plain(kind: str, q, k, k_scale, v, v_scale, lengths,
                                  sm_scale: float) -> torch.Tensor:
     """K5 ("i8"), K6 ("f8"), K7 ("i4") or K2v ("v8") in plain PyTorch, to the
     kernels' roundings: q (B, H, D) rounded to bf16; for "i8" q quantized
-    per (batch, kv head) to int8, qs = max(amax, 1e-8) / 127, qi =
-    clip(round(q / qs), +-127), s = dot(qi, K) * ks * (qs * sm_scale) (the
-    integer dot is exact in f32); otherwise s = dot(q, K) * sm_scale * ks.
-    Masked to _NEG at positions >= lengths (lengths >= 1), whose values and
-    scales are never read. Positions go in splits of CHUNK, as in K5: a
-    split that starts below lengths[b] (every split, for lengths <= 0) gives
-    sum bf16(exp(s - m_split) * vs) * V and the f32 sum of exp(s -
-    m_split), each scaled by exp(m_split - the max over those splits); out =
-    the scaled products / max(the scaled sums, 1e-30), f32 (B, H, D). (K2v,
-    K6 and K7 on the decode mainloop round bf16(p * vs) against each warp's
-    running max instead: the same function to bf16's rounding of p.)"""
+    per (batch, kv head) to int8 (``quantize_q_plain``), s = dot(qi, K) * ks
+    * (qs * sm_scale) (the integer dot is exact in f32); otherwise s =
+    dot(q, K) * sm_scale * ks. Masked to _NEG at positions >= lengths
+    (lengths >= 1), whose values and scales are never read. Positions go in
+    splits of CHUNK: a split that starts below lengths[b] (every split, for
+    lengths <= 0) gives sum bf16(exp(s - m_split) * vs) * V and the f32 sum
+    of exp(s - m_split), each scaled by exp(m_split - the max over those
+    splits); out = the scaled products / max(the scaled sums, 1e-30), f32
+    (B, H, D). (The kernels on the decode mainloop round bf16(p * vs)
+    against each warp's running max instead: the same function to bf16's
+    rounding of p.)"""
     from ao_tpu_torch.serving.kvcache import stored_values
 
     b, h, d = q.shape
@@ -370,8 +363,7 @@ def decode_attention_quant_plain(kind: str, q, k, k_scale, v, v_scale, lengths,
     ks, vs = (torch.where(read[:, None, :], x, torch.zeros_like(x))[:, :, None, :]
               for x in (k_scale, v_scale))
     if kind == "i8":
-        qs = qf.abs().amax(dim=(2, 3)).clamp_min(1e-8) / 127.0  # (B, Hkv)
-        qi = torch.round(qf / qs[..., None, None]).clamp_(-127, 127)
+        qi, qs = quantize_q_plain(qf)
         s = torch.einsum("bngd,btnd->bngt", qi, kf) * ks * (qs * sm_scale)[..., None, None]
     else:
         s = torch.einsum("bngd,btnd->bngt", qf, kf) * sm_scale * ks
@@ -445,36 +437,24 @@ def _quant_attention(kind, q, k, k_scale, v, v_scale, lengths, sm_scale):
 
 def _launch_quant(kind, q, k, k_scale, v, v_scale, lengths, sm_scale: float,
                   plan=None) -> torch.Tensor:
-    """One launch of K5 or, on the decode mainloop, of K6, K7 or (for "v8")
-    K2v at ``plan`` (by default ``launch_plan_quant``'s; K5 has none). The
-    plan is checked before anything runs, so a plan the kernel does not
-    build raises ValueError on any device."""
+    """One launch of K2v ("v8"), K5, K6 or K7 on the decode mainloop at
+    ``plan`` (by default ``launch_plan_quant``'s). The plan is checked
+    before anything runs, so a plan the kernel does not build raises
+    ValueError on any device."""
     dev = q.device
     b, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     mode = _KIND_MODE[kind][k.dtype]
-    if kind != "i8":
-        row_bytes, direct = _RING[kind]
-        plan = check_plan(plan or launch_plan_quant(kind, (b, h, d), (b, t, hkv, d)), t,
-                          row_bytes, direct)
+    row_bytes, direct = _RING[kind]
+    plan = check_plan(plan or launch_plan_quant(kind, (b, h, d), (b, t, hkv, d)), t, row_bytes,
+                      direct)
     out = torch.empty((b, h, d), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if kind != "i8":
-            err = _lib().ao_decode_attention_vec8(
-                mode, q.data_ptr(), k.data_ptr(), k_scale.data_ptr(), v.data_ptr(),
-                v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h, hkv, t,
-                plan.splits, plan.tiles, plan.rows, plan.stages, sm_scale, stream)
-        else:
-            g = h // hkv
-            nsplit = -(-t // CHUNK)
-            o_part = torch.empty((b, hkv, nsplit, g, d), dtype=torch.float32, device=dev)
-            m_part = torch.empty((b, hkv, nsplit, g), dtype=torch.float32, device=dev)
-            l_part = torch.empty((b, hkv, nsplit, g), dtype=torch.float32, device=dev)
-            err = _qlib().ao_decode_attention_quant(
-                q.data_ptr(), k.data_ptr(), k_scale.data_ptr(), v.data_ptr(),
-                v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(), o_part.data_ptr(),
-                m_part.data_ptr(), l_part.data_ptr(), b, h, hkv, t, nsplit, sm_scale, stream)
+        err = _lib().ao_decode_attention_vec8(
+            mode, q.data_ptr(), k.data_ptr(), k_scale.data_ptr(), v.data_ptr(),
+            v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h, hkv, t, plan.splits,
+            plan.tiles, plan.rows, plan.stages, sm_scale, stream)
     if err != 0:
         raise RuntimeError(f"decode_attention {_KIND_NAME[kind]} kernel launch failed: "
                            f"CUDA error {err}")

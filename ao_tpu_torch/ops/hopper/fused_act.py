@@ -28,6 +28,10 @@ from ao_tpu_torch.ops.hopper import build
 
 ACTS = ("silu", "gelu")
 MAX_D = 57344  # the kernel keeps a row's f32 gate in 4*D bytes of shared memory
+# K12n's rows up to this width take one warp a row (8 chunks of 8 values a
+# lane in registers), wider rows one block a row (the row in shared memory)
+NORM_WARP_MAX_D = 2048
+NORM_FORMS = ("warp", "block")
 
 _LIB = None
 
@@ -43,7 +47,7 @@ def _lib():
             ctypes.c_void_p]
         lib.ao_gelu_quant.restype = ctypes.c_int
         lib.ao_norm_modulate_quant.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [
-            ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 2 + [
+            ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 3 + [
             ctypes.c_void_p]
         lib.ao_norm_modulate_quant.restype = ctypes.c_int
         _LIB = lib
@@ -196,6 +200,13 @@ def norm_modulate_quant_plain(h, shift, smod, eps: float):
     return _row_quant(y)
 
 
+def norm_form(d: int) -> str:
+    """K12n's kernel for rows of ``d`` values (D % 128 == 0): "warp", one
+    warp a row, up to NORM_WARP_MAX_D; "block", one block of 256 threads a
+    row, above."""
+    return "warp" if d <= NORM_WARP_MAX_D else "block"
+
+
 def _mod_rows(name: str, m: torch.Tensor, b: int, d: int) -> int:
     """The batch stride of a (B, D) modulation with contiguous rows (0 for
     one row broadcast over the batch)."""
@@ -205,16 +216,25 @@ def _mod_rows(name: str, m: torch.Tensor, b: int, d: int) -> int:
     return m.stride(0)
 
 
-def _launch_norm(h, shift, smod, eps: float):
+def _launch_norm(h, shift, smod, eps: float, form=None):
+    """One launch of K12n in ``form`` (by default ``norm_form``'s), checked
+    before anything runs: a warp launch above NORM_WARP_MAX_D raises
+    ValueError on any device."""
     dev = h.device
     b, t, d = h.shape
+    form = form or norm_form(d)
+    if form not in NORM_FORMS or (form == "warp" and d > NORM_WARP_MAX_D):
+        raise ValueError(f"norm_modulate_quant: no {form!r} kernel at D={d}")
     if not h.is_contiguous() or h.data_ptr() % 16:
         raise ValueError("norm_modulate_quant: h must be contiguous and 16-byte aligned")
     if shift.dtype != smod.dtype:
         smod = smod.to(shift.dtype)
     stride = _mod_rows("shift", shift, b, d)
-    if _mod_rows("smod", smod, b, d) != stride:
-        shift, smod = shift.contiguous(), smod.contiguous()
+    # the warp kernel reads the modulation in 16-byte loads: rows that are
+    # not 16-byte aligned are copied, as are two different batch strides
+    if _mod_rows("smod", smod, b, d) != stride or any(
+            (m.data_ptr() | stride * m.element_size()) % 16 for m in (shift, smod)):
+        shift, smod = (m.clone(memory_format=torch.contiguous_format) for m in (shift, smod))
         stride = d
     for name, m in (("shift", shift), ("smod", smod)):
         if m.device != dev:
@@ -226,7 +246,7 @@ def _launch_norm(h, shift, smod, eps: float):
         err = _lib().ao_norm_modulate_quant(
             h.data_ptr(), shift.data_ptr(), smod.data_ptr(), stride, q.data_ptr(),
             scale.data_ptr(), b * t, t, d, float(eps), int(h.dtype == torch.float32),
-            int(shift.dtype == torch.float32), stream)
+            int(shift.dtype == torch.float32), int(form == "warp"), stream)
     if err != 0:
         raise RuntimeError(f"norm_modulate_quant kernel launch failed: CUDA error {err}")
     norm_modulate_quant.launches += 1

@@ -14,7 +14,7 @@ From the repo root, on a machine with a CUDA device and ``nvcc``:
    least time the card could take (the bound); K1 (int4-WO) at M = 8, 128,
    512 and 1024 over every Llama-3-8B width and at ViT-B/16's w2 (M = 788,
    3072x768), with each launch's tiles and K split;
-   The decode attention kernels over the quantized caches (K5 int8; K6 fp8,
+   The decode attention kernels over the quantized caches (K5 int8, K6 fp8,
    K7 int4, K2v int8 and e5m2 on K2's decode mainloop) are also timed, with
    K2 and the paged K9 in
    its three modes (bf16; "vec8" over int8 and fp8 pools; int4), at T =
@@ -120,21 +120,22 @@ Each phase prints its seconds. Prints the kernel table as one JSON line and, as 
 ``{"ok": true, "device": {...}}``. Any failed check makes it exit non-zero
 without that line; so does a machine without a CUDA device.
 
-    python3 chip_smoke.py --kernels K1,K2,K2v,K3,K5,K6,K7,K8,K9,K10,K11,K13,K14,K15,K16,K17,K18
+    python3 chip_smoke.py --kernels K1,K2,K2v,K3,K5,K6,K7,K8,K9,K10,K11,K12n,K13,K14,K15,K16,K17,K18
 
 builds, then runs only the named kernels' phases (K1, K2, K2v, K3, K5, K6,
-K7, K8, K9, K10, K11, K13, K14, K15, K16, K17, K18) and prints their rows
+K7, K8, K9, K10, K11, K12n, K13, K14, K15, K16, K17, K18) and prints their rows
 as JSON, with no result line (``--sam`` the SAM-B paths alone, with
 images/s; ``--vitl`` the ViT-L/16 sparse paths alone, with images/s and
 profiles; ``--mixtral`` the Mixtral paths alone, with tok/s, the prefill's
 device time and the engine's TTFT); the K1, K10, K15 and K17 rows name each
 launch's tiles and K split, the K3 rows their CTA width and K split and the
-device kernels a call, the K2, K2v, K6, K7 and K9 rows (K2, K5, K6 and K7
+device kernels a call, the K2, K2v, K5, K6, K7 and K9 rows (K2, K5, K6 and K7
 at generate's, the slot engine's and the long shape; K2v over its e5m2 and
 int8 caches at generate's and the long shape; K9 in each mode at the paged
 engine's and the long shape) their decode-mainloop plan and the device
 kernels a call (one, checked), the K5-K7 and K2v rows whether the profiler
-or CUDA events timed the kernel, the K13 rows the magic form's K split or
+or CUDA events timed the kernel, the K12n rows the kernel's form (one warp
+or one block a row), the K13 rows the magic form's K split or
 row tile, the K8 and K16 rows its query rows a CTA, the K18 rows each
 launch's plan (cluster split, CTAs, items) and the device kernels a call
 (one, checked). A copy of this script run in another checkout times that
@@ -231,8 +232,6 @@ KV_KERNELS = {"int8": ("decode_attention_int8", "i8", "K5"),
               "int4": ("decode_attention_int4", "i4", "K7"),
               "float8_e5m2": ("decode_attention_vec8", "v8", "K2v")}
 K2V_INT8 = ("decode_attention_vec8", "v8", "K2v")
-KV_SOURCE = {"K5": "decode_attention_quant.cu", "K6": "decode_attention.cu",
-             "K7": "decode_attention.cu", "K2v": "decode_attention.cu"}
 SHORT = {"int8": "int8", "float8_e4m3fn": "fp8", "int4": "int4", "float8_e5m2": "e5m2"}
 KV_TAG = {kv: f"int4-WO+{SHORT[kv]}KV" for kv in KV_ALL}
 # K9's wrapper for each pool dtype
@@ -551,8 +550,7 @@ def k2v_rows(torch, fails, seed):
 def kv_rows(torch, fails, seed, dtype_name):
     """K5's (int8), K6's (fp8 e4m3) or K7's (int4) rows at generate's T
     (ragged lengths), the slot engine's decode shape and T_LONG (every
-    position valid); K6's and K7's with their plan and the device kernels a
-    call."""
+    position valid), with their plan and the device kernels a call."""
     return {t: kv_phase(torch, fails, seed, dtype_name, t=t, lengths=lengths)
             for t, lengths in ((K2_SHAPE["t"], K2_LENGTHS),
                                (ENGINE_CFG["max_seq"], ENGINE_LENGTHS),
@@ -563,9 +561,9 @@ def kv_phase(torch, fails, seed, dtype_name, t=None, lengths=None, kernel=None):
     """K5, K6, K7 or K2v (``kernel``, by default the cache's on the main
     path) at the path's shape (or at ``t`` with ``lengths``) over caches
     written by ``QuantKVCache.update`` from random bf16 K and V; the library
-    yardstick runs SDPA over the same caches dequantized to bf16. K2v, K6
-    and K7 must run one device kernel a call; each row says whether the
-    profiler or CUDA events timed the kernel (``cuda_time_ms``'s fallback)."""
+    yardstick runs SDPA over the same caches dequantized to bf16. Each must
+    run one device kernel a call; each row says whether the profiler or
+    CUDA events timed the kernel (``cuda_time_ms``'s fallback)."""
     from ao_tpu_torch.ops.hopper import decode_attention as da
     from ao_tpu_torch.quantization.primitives import compute_error
     from ao_tpu_torch.serving.kvcache import QuantKVCache
@@ -598,13 +596,14 @@ def kv_phase(torch, fails, seed, dtype_name, t=None, lengths=None, kernel=None):
     library_ms = sdpa_ms(torch, q, ck.dequantize(torch.bfloat16), cv.dequantize(torch.bfloat16),
                          args[-1], sm)
     nbytes, ops = da.traffic_quant(kind, (b, h, d), tuple(ck.qdata.shape), lengths)
-    # K2v, K6 and K7 run on the decode mainloop: their plan, and one device
-    # kernel (None in a checkout that predates launch_plan_quant)
+    # on the decode mainloop: the plan, and one device kernel (a checkout
+    # whose K5 predates it has no plan for "i8", and runs two)
     plan = getattr(da, "launch_plan_quant", None)
-    desc = f"kernel timed by {timed_by}"
-    if kind != "i8":
-        desc += ", " + one_launch(torch, fails, f"{knum} {name} T={t}", launch,
-                                  plan and plan(kind, (b, h, d), tuple(ck.qdata.shape)))
+    if kind not in getattr(da, "_RING", {kind: None}):
+        plan = None
+    desc = f"kernel timed by {timed_by}, " + one_launch(
+        torch, fails, f"{knum} {name} T={t}", launch,
+        plan and plan(kind, (b, h, d), tuple(ck.qdata.shape)))
     return kernel_row(f"{knum} {name}", f"B={b} H={h} Hkv={hkv} D={d} T={t} {dtype_name} cache",
                       got, ref, f"sqnr {sqnr:.2f} dB (>= {K2_SQNR_DB})", ms, plain_ms, library_ms,
                       nbytes, ops, tiles=desc)
@@ -1017,6 +1016,9 @@ def k12v_phase(torch, fails, seed, kind, shape):
     q, sc = wrapper(*args)
     qr, sr = plain(*args)
     torch.cuda.synchronize()
+    # K12n's form: one warp a row up to 2048 values (none in a checkout
+    # that predates it)
+    form = k12.norm_form(d) if kind == "norm" and hasattr(k12, "norm_form") else None
     over, frac = lsb_check(q, qr)
     rel = float(((sc - sr).abs() / sr).max())
     fails.check(over == 0 and frac < LSB_FRACTION and rel <= rtol,
@@ -1026,7 +1028,8 @@ def k12v_phase(torch, fails, seed, kind, shape):
     plain_ms = cuda_time_ms(lambda: plain(*args), iters=5, warmup=1)
     return kernel_row(name, "B={} T={} D={}".format(*shape), q, qr,
                       f"q: {frac:.6%} of values 1 LSB off ({over} more); scales rtol {rel:.3g}",
-                      ms, plain_ms, None, nbytes, ops, F32_FLOPS_PER_S)
+                      ms, plain_ms, None, nbytes, ops, F32_FLOPS_PER_S,
+                      tiles=form and f"one {form} a row")
 
 
 def k16_phase(torch, fails, seed, g, side):
@@ -2571,12 +2574,14 @@ def k16_rows(torch, fails, seed):
 
 def kernels_only(torch, names) -> int:
     """Build, then run only the phases of ``names`` (of K1, K2, K2v, K3, K5,
-    K6, K7, K8, K9, K10, K11, K13, K14, K15, K16, K17, K18) and print each
-    one's rows as one JSON line."""
+    K6, K7, K8, K9, K10, K11, K12n, K13, K14, K15, K16, K17, K18) and print
+    each one's rows as one JSON line."""
     phases = {"K1": k1_phase, "K2": k2_rows, "K2v": k2v_rows, "K3": k3_phase,
               "K5": lambda *a: kv_rows(*a, "int8"), "K6": lambda *a: kv_rows(*a, "float8_e4m3fn"),
               "K7": lambda *a: kv_rows(*a, "int4"), "K8": k8_rows,
-              "K9": k9_rows, "K10": k10_phase, "K11": k11_phase, "K13": k13_phase, "K14": k14_both,
+              "K9": k9_rows, "K10": k10_phase, "K11": k11_phase,
+              "K12n": lambda *a: {sh: k12v_phase(*a, "norm", sh) for sh in K12N_SHAPES},
+              "K13": k13_phase, "K14": k14_both,
               "K15": k15_phase, "K16": k16_rows, "K17": k17_phase, "K18": k18_phase}
     if not set(names) <= set(phases):
         print(f"chip_smoke: --kernels takes {', '.join(phases)}", file=sys.stderr)
@@ -2660,7 +2665,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke run of ao_tpu_torch on one NVIDIA GPU.")
     parser.add_argument("--kernels", type=lambda v: v.split(","),
                         help="only these kernels' phases, of K1, K2, K2v, K3, K5, K6, K7, K8, K9, "
-                             "K10, K11, K13, K14, K15, K16, K17, K18 (comma-separated)")
+                             "K10, K11, K12n, K13, K14, K15, K16, K17, K18 (comma-separated)")
     parser.add_argument("--sam", action="store_true",
                         help="only the SAM-B paths (W8A8 and bf16), for images/s")
     parser.add_argument("--vitl", action="store_true",
@@ -2965,9 +2970,8 @@ def main() -> int:
     ]
     for kv, ref in zip(KV_ALL, ("decode_attention.py:138", "decode_attention.py:598",
                                 "decode_attention.py:471", "decode_attention.py:234")):
-        # K2v, K6 and K7 on the decode mainloop beside K2; K5 in its first design
-        src = KV_SOURCE[KV_KERNELS[kv][2]]
-        rows += [(KV_KERNELS[kv][0], src, ref, KV_TAG[kv], row)
+        # K2v, K5, K6 and K7 on the decode mainloop beside K2
+        rows += [(KV_KERNELS[kv][0], "decode_attention.cu", ref, KV_TAG[kv], row)
                  for row in (kv_rows[kv], long_rows[kv])]
     # K2v's int8 form: the same kernel as its e5m2 form, whose path it counts
     rows += [("decode_attention_vec8", "decode_attention.cu", "decode_attention.py:234",
@@ -2975,7 +2979,7 @@ def main() -> int:
     rows += [("flash_attention", "flash_attention.cu", "flash_attention.py:94",
               "int4-WO+flash" if shape[0] > 1 else "engine-slots", k8_by_shape[shape])
              for shape in K8_SHAPES]
-    rows += [(KV_KERNELS[kv][0], KV_SOURCE[KV_KERNELS[kv][2]], ref, engine_tag(False, kv),
+    rows += [(KV_KERNELS[kv][0], "decode_attention.cu", ref, engine_tag(False, kv),
               engine_kv_rows[kv])
              for kv, ref in zip(KV_QUANT, ("decode_attention.py:138", "decode_attention.py:598",
                                            "decode_attention.py:471"))]

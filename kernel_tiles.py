@@ -4,15 +4,15 @@ each wrapper picks and at every other unsplit tile it takes; K3 (W4A8) at
 decode (M = 8) over the same widths at its plan and every other CTA width
 and cluster split; K13's magic form (E = 8, Mixtral's expert widths, a
 top-2 routing) at its decode splits (T = 16) and row tiles (T = 256, 1024,
-2048); or K2, K2v (over its e5m2 and int8 caches), K6, K7 and K9 (in each
-pool mode) on the decode mainloop at every plan (CTAs a stream, positions a
+2048); or K2, K2v (over its e5m2 and int8 caches), K5, K6, K7 and K9 (in
+each pool mode) on the decode mainloop at every plan (CTAs a stream, positions a
 tile, ring stages) at T = 256, 1024 and 4096 with ``chip_smoke.py``'s
 lengths there; or K18 (the block-sparse matmul) at ``chip_smoke.py``'s
 shapes at each cluster split and CTA count, on one CUDA device; or compare
 the SASS of each kernel in two builds of one source, with names and
 addresses stripped.
 
-    python3 kernel_tiles.py time K10          # or K17, K3, K13, K2, K2v, K6, K7, K9, K18
+    python3 kernel_tiles.py time K10          # or K17, K3, K13, K2, K2v, K5, K6, K7, K9, K18
     python3 kernel_tiles.py sass LIB_A LIB_B  # two builds' lib<source>-*.so
 
 Run in a copy of the tree with a kernel changed and in this one, in turns
@@ -53,7 +53,7 @@ def time_tiles(kernel: str) -> int:
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     print(f"card: {torch.cuda.get_device_name(dev)}", flush=True)
-    if kernel in ("K2", "K2v", "K6", "K7", "K9"):
+    if kernel in ("K2", "K2v", "K5", "K6", "K7", "K9"):
         time_decode(torch, cuda_time_ms, dev, kernel)
         return 0
     if kernel == "K18":
@@ -199,13 +199,13 @@ def time_k18(torch, cuda_time_ms, dev, sms) -> None:
 
 
 def time_decode(torch, cuda_time_ms, dev, kernel) -> None:
-    """K2 (bf16 cache), K2v (its e5m2 and int8 caches), K6 (fp8 e4m3 cache),
-    K7 (int4 cache) or K9 (pages of 128 rows, shuffled, in each pool mode)
-    at Llama-3-8B's decode shape, B = 8, H = 32, Hkv = 8, at T = 256
-    (generate's ragged lengths), 1024 (the engine's) and 4096 (all valid):
-    the plan ``launch_plan`` picks, then every other one of the mainloop. In
-    a checkout whose K6 and K7 have no plan (their first design), their one
-    launch."""
+    """K2 (bf16 cache), K2v (its e5m2 and int8 caches), K5 (int8 cache, q
+    quantized), K6 (fp8 e4m3 cache), K7 (int4 cache) or K9 (pages of 128
+    rows, shuffled, in each pool mode) at Llama-3-8B's decode shape, B = 8,
+    H = 32, Hkv = 8, at T = 256 (generate's ragged lengths), 1024 (the
+    engine's) and 4096 (all valid): the plan ``launch_plan`` picks, then
+    every other one of the mainloop. In a checkout whose K5, K6 or K7 has no
+    plan (its first design), its one launch."""
     import chip_smoke as smoke
     from ao_tpu_torch.ops.hopper import decode_attention as k2
     from ao_tpu_torch.ops.hopper import paged_attention as k9
@@ -218,9 +218,10 @@ def time_decode(torch, cuda_time_ms, dev, kernel) -> None:
     cases = ((smoke.K2_SHAPE["t"], smoke.K2_LENGTHS),
              (smoke.ENGINE_CFG["max_seq"], smoke.ENGINE_LENGTHS),
              (smoke.T_LONG, [smoke.T_LONG] * b))
-    pools = {"K2": ("bf16",), "K2v": ("float8_e5m2", "int8"), "K6": ("float8_e4m3fn",),
-             "K7": ("int4",), "K9": ("bf16",) + smoke.KV_QUANT}[kernel]
-    planned = hasattr(k2, "launch_plan_quant") or kernel not in ("K6", "K7")
+    pools = {"K2": ("bf16",), "K2v": ("float8_e5m2", "int8"), "K5": ("int8",),
+             "K6": ("float8_e4m3fn",), "K7": ("int4",), "K9": ("bf16",) + smoke.KV_QUANT}[kernel]
+    kind = {"K2v": "v8", "K5": "i8", "K6": "f8", "K7": "i4"}.get(kernel)
+    planned = kind is None or kind in getattr(k2, "_RING", {})
     for dtype_name in pools:
         for t, lengths in cases:
             lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
@@ -232,8 +233,7 @@ def time_decode(torch, cuda_time_ms, dev, kernel) -> None:
                 plan_of = lambda **kw: k2.launch_plan(q.shape, kc.shape, **kw)  # noqa: E731
                 run = lambda plan: k2._launch(q, kc, vc, lens, d ** -0.5, plan)  # noqa: E731
                 row_bytes = k2.ROW_BYTES
-            elif kernel in ("K2v", "K6", "K7"):
-                kind = {"K2v": "v8", "K6": "f8", "K7": "i4"}[kernel]
+            elif kind is not None:
                 ck, cv = (QuantKVCache.create(b, t, hkv, d, dtype_name, device=dev).update(
                     torch.randn((b, t, hkv, d), generator=gen, device=dev), 0) for _ in range(2))
                 args = (q, ck.qdata, ck.scale, cv.qdata, cv.scale, lens, d ** -0.5)
@@ -322,8 +322,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = parser.add_subparsers(dest="cmd", required=True)
     t = sub.add_parser("time", help="time a kernel's launch at each tile or plan")
-    t.add_argument("kernel", choices=("K10", "K17", "K3", "K13", "K2", "K2v", "K6", "K7", "K9",
-                                       "K18"))
+    t.add_argument("kernel", choices=("K10", "K17", "K3", "K13", "K2", "K2v", "K5", "K6", "K7",
+                                       "K9", "K18"))
     s = sub.add_parser("sass", help="compare the SASS of two builds of one source")
     s.add_argument("lib_a")
     s.add_argument("lib_b")

@@ -66,10 +66,10 @@ def test_port_has_the_slice_modules():
                 "ao_tpu_torch/sparsity/configs.py", "ao_tpu_torch/algorithms/observe.py",
                 "ao_tpu_torch/ops/hopper/bsr_matmul.py", "chip_smoke.py"):
         assert mod in rel, mod
-    for src in ("int4_matmul.cu", "decode_attention.cu", "decode_attention_quant.cu",
-                "int4_w4a8.cu", "fused_act.cu", "flash_attention.cu", "paged_attention.cu",
-                "int8_matmul.cu", "fp8_matmul.cu", "fp4_matmul.cu", "lut4_matmul.cu",
-                "window_attention.cu", "grouped_matmul.cu", "bsr_matmul.cu", "int4_tiles.cuh"):
+    for src in ("int4_matmul.cu", "decode_attention.cu", "int4_w4a8.cu", "fused_act.cu",
+                "flash_attention.cu", "paged_attention.cu", "int8_matmul.cu", "fp8_matmul.cu",
+                "fp4_matmul.cu", "lut4_matmul.cu", "window_attention.cu", "grouped_matmul.cu",
+                "bsr_matmul.cu", "int4_tiles.cuh"):
         assert (ROOT / "ao_tpu_torch" / "csrc" / src).exists()
     from ao_tpu_torch.ops.hopper import build
 

@@ -172,8 +172,8 @@ def test_decode_attention_quant_matches_plain(dev, dtype_name, b, h, hkv, t, len
     ref = k2.decode_attention_quant_plain(kind, q, ck.qdata, ck.scale, cv.qdata, cv.scale, lens,
                                           128 ** -0.5)
     # the same roundings (K5: the same int8 q, exact integer dots); the
-    # kernel merges per-chunk softmaxes, each with its own max at the bf16
-    # rounding of p * vs
+    # kernel rounds p * vs to bf16 against each warp's running max, the
+    # plain version against each chunk's
     sqnr = float(compute_error(ref, got))
     assert got.dtype == torch.float32 and sqnr >= 40, f"{dtype_name}: {sqnr:.2f} dB"
 
@@ -307,9 +307,9 @@ def test_k2v_every_plan(dev, dtype_name, splits, rows, stages):
     assert _device_kernels(lambda: k2._launch_quant("v8", *args, 128 ** -0.5, plan)) == 1
 
 
-# K6 (fp8 e4m3) and K7 (int4 "ch4") on the decode mainloop, rows converted
-# straight into mma fragments ("direct")
-K67_DTYPES = {"float8_e4m3fn": "f8", "int4": "i4"}
+# K6 (fp8 e4m3), K7 (int4 "ch4") and K5 (int8, q quantized to int8) on the
+# decode mainloop, rows converted straight into mma fragments ("direct")
+K67_DTYPES = {"float8_e4m3fn": "f8", "int4": "i4", "int8": "i8"}
 
 
 def _direct_plans(kind):
@@ -341,7 +341,7 @@ def _poison_past(caches, lengths):
 
 
 def _check_k67(dev, dtype_name, b, h, hkv, t, lengths, plan_kw=None, seed=0, q_offset=0):
-    """K6 or K7 at one shape and plan against its plain version: >= 40 dB,
+    """K6, K7 or K5 at one shape and plan against its plain version: >= 40 dB,
     poison past the lengths unread, three calls the same bits, one device
     kernel and one allocation (the output) a call; with ``q_offset``, q a
     view that many elements into its buffer, called through the wrapper
@@ -376,7 +376,7 @@ def _check_k67(dev, dtype_name, b, h, hkv, t, lengths, plan_kw=None, seed=0, q_o
     (dtype_name, *plan) for dtype_name, kind in K67_DTYPES.items()
     for plan in _direct_plans(kind)])
 def test_k6_k7_every_plan(dev, dtype_name, splits, rows, stages):
-    """K6 / K7 at each plan of their ring (direct) at T = 256, 1024 and 4096
+    """K6 / K7 / K5 at each plan of their ring (direct) at T = 256, 1024 and 4096
     with lengths 0, negative, 1, ..., T and past T, NaN bytes and scales past
     every length: >= 40 dB against the plain version, the same bits over
     three calls, one device kernel and no allocation but the output's."""
@@ -396,8 +396,8 @@ def test_k6_k7_every_plan(dev, dtype_name, splits, rows, stages):
     (8, 32, 8, 1024, [1, 1024, 128, 129, 700, 64, 65, 1000]),  # the slot engine's
 ])
 def test_k6_k7_groups_and_ragged_t(dev, dtype_name, b, h, hkv, t, lengths):
-    """K6 / K7 at their default plan: G = 1 and 8, T not a multiple of the
-    slab or the tile, lengths 0 / negative / 1 / T."""
+    """K6 / K7 / K5 at their default plan: G = 1 and 8, T not a multiple of
+    the slab or the tile, lengths 0 / negative / 1 / T."""
     for splits in (None, 1):
         run = _check_k67(dev, dtype_name, b, h, hkv, t, lengths,
                          {} if splits is None else dict(splits=splits), seed=b + t)
@@ -417,18 +417,18 @@ def test_k6_k7_take_a_q_off_16_bytes(dev, dtype_name):
 
 @pytest.mark.parametrize("dtype_name", list(K67_DTYPES))
 def test_k6_k7_decode_every_code_exactly(dev, dtype_name):
-    """K6's / K7's conversion of V in registers and the output's
+    """K6's / K7's / K5's conversion of V in registers and the output's
     channel order: sequences of length 1 (q 0, so p = 1; scales 1) whose V
-    row at position 0 holds every e4m3 byte or every int4 nibble in every
-    channel give those values as their output, bit for bit the plain
+    row at position 0 holds every e4m3 or int8 byte or every int4 nibble in
+    every channel give those values as their output, bit for bit the plain
     decode's; the two e4m3 NaN codes (0x7F, 0xFF), which the cache's
     quantizer never writes, come out finite."""
     from ao_tpu_torch.serving.kvcache import stored_values
 
     kind = K67_DTYPES[dtype_name]
-    nb = 2 if kind == "f8" else 16
+    nb = 16 if kind == "i4" else 2
     ck, cv = (QuantKVCache.create(nb, 16, 1, 128, dtype_name, device=dev) for _ in range(2))
-    if kind == "f8":
+    if kind != "i4":
         codes = torch.arange(256, dtype=torch.uint8).reshape(2, 128)
     else:  # nibble u of channel c in row i: (c + i) % 16
         u = (torch.arange(128)[None, :] + torch.arange(16)[:, None]) % 16
@@ -445,6 +445,37 @@ def test_k6_k7_decode_every_code_exactly(dev, dtype_name):
     assert bool(torch.isfinite(got).all())
     assert torch.equal(got[exact], want[exact])
     assert int((~exact).sum()) == (2 if kind == "f8" else 0)
+
+
+@pytest.mark.parametrize("b,h,hkv,t,lengths", [
+    (2, 8, 2, 128, [128, 77]),
+    (3, 8, 1, 104, [1, 104, 64]),    # G = 8, T not a multiple of the slab
+    (2, 4, 4, 192, [0, 65]),         # G = 1; length 0 masks every position
+    (8, 32, 8, 1024, [1, 1024, 128, 129, 700, 64, 65, 1000]),  # the slot engine's
+])
+def test_k5_poison_past_the_lengths_changes_no_bit(dev, b, h, hkv, t, lengths):
+    """K5 through its wrapper: >= 40 dB against its plain version, and
+    0x7F bytes and NaN scales at or past every length change no output bit;
+    one device kernel and one allocation (the output) a call."""
+    gen = torch.Generator(device=dev).manual_seed(b * 100 + t + 5)
+    q = torch.randn((b, h, 128), generator=gen, device=dev).to(torch.bfloat16)
+    ck = _quant_cache(dev, "int8", b, t, hkv, gen, scale=2.0)
+    cv = _quant_cache(dev, "int8", b, t, hkv, gen)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    args = (q, ck.qdata, ck.scale, cv.qdata, cv.scale, lens)
+    before = k2.decode_attention_int8.launches
+    got = k2.decode_attention(q, ck.qdata, cv.qdata, lens, k_scale=ck.scale, v_scale=cv.scale,
+                              mode="i8")
+    torch.cuda.synchronize()
+    assert k2.decode_attention_int8.launches == before + 1
+    ref = k2.decode_attention_quant_plain("i8", *args, 128 ** -0.5)
+    sqnr = float(compute_error(ref, got))
+    assert bool(torch.isfinite(got).all()) and sqnr >= 40, f"{sqnr:.2f} dB"
+    _poison_past((ck, cv), lengths)
+    run = lambda: k2.decode_attention_int8(*args)  # noqa: E731
+    assert torch.equal(_repeats(run), got)
+    assert _device_kernels(run) == 1
+    assert _allocations(run) == 1
 
 
 def test_fp8_cast_matches_cpu(dev):
@@ -1804,6 +1835,9 @@ def _lsb_ok(got, ref):
     ((10, 196, 768), torch.bfloat16, True),   # SAM-B's windowed MLP LN, its affine as a row
     ((2, 1024, 768), torch.bfloat16, False),  # a global layer's rows, a row per batch row
     ((2, 100, 256), torch.float32, False),
+    ((3, 45, 1152), torch.bfloat16, True),    # DiT-XL's width: a predicated last chunk a lane
+    ((2, 37, 2048), torch.float32, False),    # the widest rows of one warp
+    ((2, 29, 3072), torch.bfloat16, True),    # one block a row
 ])
 def test_norm_modulate_quant_matches_plain(dev, shape, dtype, broadcast):
     b, t, d = shape
@@ -1821,6 +1855,49 @@ def test_norm_modulate_quant_matches_plain(dev, shape, dtype, broadcast):
     # moments summed in another order: at most 1 LSB on under 1 % of codes
     assert _lsb_ok(q, qr)
     assert float(((s - sr).abs() / sr).max()) <= 1e-5
+
+
+# K12n's two kernels at each width: one warp a row up to 2048 values, one
+# block a row at any width; bf16 / f32 h and modulation, a stride-0 and a
+# per-batch modulation, T not a multiple of the 8 rows of a warp kernel's CTA
+K12N_FORM_CASES = [(d, hd, md, bc) for d in (768, 1152, 2048, 3072)
+                   for hd, md, bc in ((torch.bfloat16, torch.bfloat16, True),
+                                      (torch.bfloat16, torch.float32, False),
+                                      (torch.float32, torch.bfloat16, False),
+                                      (torch.float32, torch.float32, True))]
+
+
+@pytest.mark.parametrize("d,h_dtype,mod_dtype,broadcast", K12N_FORM_CASES)
+def test_norm_modulate_quant_each_form(dev, d, h_dtype, mod_dtype, broadcast):
+    """K12n's warp kernel (D <= 2048) and block kernel against the plain
+    version: at most 1 LSB on under 1 % of codes, scales within 1e-5, one
+    device kernel a call; a modulation row off a 16-byte boundary is copied
+    by the wrapper and gives the same bits; a warp launch above 2048 values
+    raises."""
+    b, t = 3, 45
+    gen = torch.Generator(device=dev).manual_seed(d + t)
+    h = (torch.randn((b, t, d), generator=gen, device=dev) * 2 + 0.5).to(h_dtype)
+    rows = 1 if broadcast else b
+    shift, smod = ((torch.randn((rows, d), generator=gen, device=dev) * 0.1).to(mod_dtype)
+                   .expand(b, d) for _ in range(2))
+    qr, sr = k12.norm_modulate_quant_plain(h, shift, smod, 1e-6)
+    forms = ("warp", "block") if d <= k12.NORM_WARP_MAX_D else ("block",)
+    for form in forms:
+        before = k12.norm_modulate_quant.launches
+        q, s = k12._launch_norm(h, shift, smod, 1e-6, form)
+        torch.cuda.synchronize()
+        assert k12.norm_modulate_quant.launches == before + 1
+        assert _lsb_ok(q, qr), form
+        assert float(((s - sr).abs() / sr).max()) <= 1e-5, form
+        assert _device_kernels(lambda: k12._launch_norm(h, shift, smod, 1e-6, form)) == 1
+        # the same rows off a 16-byte boundary: copied, the same bits
+        off = [torch.cat([m.new_zeros(1), m.reshape(-1)])[1:].view(b, d) for m in (shift, smod)]
+        assert off[0].data_ptr() % 16
+        q2, s2 = k12._launch_norm(h, *off, 1e-6, form)
+        assert torch.equal(q2, q) and torch.equal(s2, s)
+    if d > k12.NORM_WARP_MAX_D:
+        with pytest.raises(ValueError, match="no 'warp' kernel"):
+            k12._launch_norm(h, shift, smod, 1e-6, "warp")
 
 
 @pytest.mark.parametrize("shape,dtype", [

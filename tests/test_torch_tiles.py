@@ -29,6 +29,7 @@ from ao_tpu_torch.ops.hopper import decode_attention as k2
 from ao_tpu_torch.ops.hopper import flash_attention as k8
 from ao_tpu_torch.ops.hopper import fp4_matmul as k14
 from ao_tpu_torch.ops.hopper import fp8_matmul as k17
+from ao_tpu_torch.ops.hopper import fused_act as k12
 from ao_tpu_torch.ops.hopper import grouped_matmul as k13
 from ao_tpu_torch.ops.hopper import int4_matmul as k1
 from ao_tpu_torch.ops.hopper import int8_matmul as k10
@@ -598,10 +599,10 @@ def test_decode_plan_covers_each_position_once(t, splits, rows, stages):
             plans.append(k2.launch_plan((8, 32, 128), (8, t, 8, 128), **kw))
         if dtype == torch.int8:  # K2v's dense int8 / e5m2 rows: 128 bytes too
             plans.append(k2.launch_plan_vec8((8, 32, 128), (8, t, 8, 128), **kw))
-    # K6's e4m3 and K7's ch4 rows, converted straight into fragments: a ring
-    # of three stages, the one the kernel builds
+    # K5's int8, K6's e4m3 and K7's ch4 rows, straight into fragments: a
+    # ring of three stages, the one the kernel builds
     for kind in k2.DIRECT_KINDS:
-        cache = (8, t, 8, 128 if kind == "f8" else 16)
+        cache = (8, t, 8, 16 if kind == "i4" else 128)
         assert k2.smem_bytes(rows, stages, k2.DIRECT_KINDS[kind], direct=True) <= k2.SMEM_MAX
         if stages not in k2.DIRECT_STAGES:
             with pytest.raises(ValueError, match="not a plan"):
@@ -628,10 +629,10 @@ def test_decode_plans_at_the_main_paths():
         assert quant == [k2.plan_for(b * hkv, t, row_bytes) for row_bytes in (128, 128, 64)]
         assert k2.launch_plan_vec8((b, h, d), (b, t, hkv, d)) == quant[0]  # K2v
         direct = [k2.launch_plan_quant(kind, (b, h, d),
-                                       (b, t, hkv, d // (1 if kind == "f8" else 8)))
-                  for kind in ("f8", "i4")]  # K6, K7
+                                       (b, t, hkv, d // (8 if kind == "i4" else 1)))
+                  for kind in ("i8", "f8", "i4")]  # K5, K6, K7
         assert direct == [k2.plan_for(b * hkv, t, row_bytes, direct=True)
-                          for row_bytes in (128, 64)]
+                          for row_bytes in (128, 128, 64)]
         for p in [plan] + quant + direct:
             # the chosen split leaves no CTA without a tile
             assert (p.splits - 1) * p.tiles * p.rows < t
@@ -642,11 +643,11 @@ def test_decode_plans_at_the_main_paths():
         (1, 64, 3, 4), (2, 64, 3, 8), (2, 64, 3, 32)]
     assert [tuple(k2.plan_for(64, t, 128)) for t in (256, 1024, 4096)] == [
         (2, 64, 4, 2), (2, 128, 4, 4), (2, 128, 4, 16)]
-    # K6 and K7 (kernel_tiles.py time K6 / K7, PERF.md): one CTA a
-    # stream at T = 256, two of 128-row tiles above, three stages
+    # K5, K6 and K7 (kernel_tiles.py time K5 / K6 / K7, PERF.md): 128-row
+    # tiles, one CTA a stream at T = 256, two above, three stages
     for row_bytes in (128, 64):
         assert [tuple(k2.plan_for(64, t, row_bytes, direct=True))
-                for t in (256, 1024, 4096)] == [(1, 64, 3, 4), (2, 128, 3, 4), (2, 128, 3, 16)]
+                for t in (256, 1024, 4096)] == [(1, 128, 3, 2), (2, 128, 3, 4), (2, 128, 3, 16)]
     with pytest.raises(ValueError, match="splits"):
         k2.plan_for(64, 256, splits=3)
     with pytest.raises(ValueError, match="not a plan"):
@@ -728,13 +729,14 @@ def test_decode_merge_mirror_is_the_softmax(splits, rows, length, paged):
     assert all(np.isfinite(rank_m[r]).all() for r in range(splits) if r not in idle)
 
 
-# K6 and K7: the lanes' direct fragment maps, mirrored from
-# ao_tpu_torch/csrc/decode_mainloop.cuh (direct_raw_off, direct_q_frag, direct_k_frag,
-# direct_v_frag, direct_scores, direct_load_v and the partial store). A
-# 32-bit register is mirrored as its 8 nibbles, each labelled with where it
-# came from: (row, nibble index in the row) for a raw K or V row, where a
-# ch4 row's nibble index is its channel and an e4m3 row's byte index (the
-# nibble index // 2) is; ("q", channel) for q; None for a zero.
+# K5, K6 and K7: the lanes' direct fragment maps, mirrored from
+# ao_tpu_torch/csrc/decode_mainloop.cuh (direct_raw_off, direct_q_frag,
+# direct_q_int8, direct_k_frag, direct_v_frag, direct_scores, direct_load_v
+# and the partial store). A 32-bit register is mirrored as its 8 nibbles,
+# each labelled with where it came from: (row, nibble index in the row) for
+# a raw K or V row, where a ch4 row's nibble index is its channel and an
+# int8 or e4m3 row's byte index (the nibble index // 2) is; ("q", channel)
+# for q; None for a zero.
 
 
 def _direct_raw_offset(row_bytes: int, r: int, c: int) -> int:
@@ -764,9 +766,19 @@ def _byte_perm(a, b, sel: int):
     return out
 
 
+def _bytes(x):
+    """The (row, channel) of the four bytes of x, in order."""
+    out = []
+    for i in range(4):
+        (row, n), hi = x[2 * i], x[2 * i + 1]
+        assert n % 2 == 0 and hi == (row, n + 1), "a byte split across nibbles"
+        out.append((row, n // 2))
+    return out
+
+
 def _e4m3x2(x):
-    """The (row, channel) of the two bf16 halves of ``e4m3x2(x)``: bytes 0
-    and 2 of x."""
+    """The (row, channel) of the two bf16 halves of ``e4m3x2(x)`` (and of
+    ``int8x2(x)``): bytes 0 and 2 of x."""
     out = []
     for lo in (0, 4):
         (row, n), hi = x[lo], x[lo + 1]
@@ -789,8 +801,15 @@ def _direct_q_channels(kind: str, t: int, kk: int, h: int):
     """The q channels of the two bf16 halves of q's A fragment word h (k
     slots 2t + 8h and 2t + 8h + 1) of k16 step kk, for the lanes with lane %
     4 == t, which hold words [16 t, 16 t + 16) of their head row
-    (``direct_q_frag``)."""
+    (``direct_q_frag``); for K5 ("i8") of the four int8 of word h (k slots
+    4t + 16h + [0, 4)) of k32 step kk (``direct_q_int8``: the bf16 words
+    unpacked in order, v[2 i], v[2 i + 1] from word i, then byte i of int8
+    word w from v[4 w + i], word w into qa[w // 2][w % 2])."""
     qw = [_q_word(16 * t + i) for i in range(16)]
+    if kind == "i8":
+        v = [ch for x in qw for ch in (_q_half(x, 0), _q_half(x, 4))]
+        qa = [[v[4 * w + i] for i in range(4)] for w in range(8)]
+        return qa[2 * kk + h]
     if kind == "f8":
         x = qw[2 * kk + h]
     else:
@@ -803,7 +822,9 @@ def _direct_k_fragments(kind: str, lane: int):
     """Lane's raw K loads and its q . K^T B fragments (``direct_scores``):
     (loads [(row, chunk)] in load order, {(n8 tile j, k16 step kk, word h):
     [(row, channel) of the bf16 of k slot 2t + 8h, of slot 2t + 8h + 1]}),
-    t = lane % 4; the fragment's column is position 8 j + lane // 4."""
+    t = lane % 4; for K5 ("i8") {(j, k32 step kk, word h): [(row, channel)
+    of the int8 of k slots 4t + 16h + [0, 4)]}, the raw words 2 kk + h as
+    they are; the fragment's column is position 8 j + lane // 4."""
     g, t = lane >> 2, lane & 3
     kkc = 2 * k2.DIRECT_KINDS[kind] // k2.HEAD_DIM
     loads, frags = [], {}
@@ -814,6 +835,11 @@ def _direct_k_fragments(kind: str, lane: int):
             loads.append((row, c))
             words += [_raw_word(row, 16 * c + 4 * i) for i in range(4)]
         zero = [None] * 8
+        if kind == "i8":
+            for kk in range(k2.HEAD_DIM // 32):
+                for h in (0, 1):
+                    frags[(j, kk, h)] = _bytes(words[2 * kk + h])
+            continue
         for kk in range(k2.HEAD_DIM // 16):
             if kind == "f8":
                 pair = [_e4m3x2(_byte_perm(words[kk], zero, sel)) for sel in (0x4140, 0x4342)]
@@ -840,7 +866,7 @@ def _direct_v_fragments(kind: str, lane: int):
     for nn in range(k2.HEAD_DIM // 8):
         for h in (0, 1):
             a, b = words[2 * h], words[2 * h + 1]
-            if kind == "f8":
+            if kind != "i4":  # int8x2 and e4m3x2 read bytes 0 and 2
                 k = nn & 3
                 frags[(nn, h)] = _e4m3x2(_byte_perm(a[nn >> 2], b[nn >> 2], ((4 + k) << 8) | k))
             else:
@@ -944,11 +970,13 @@ def test_direct_permuted_products_are_the_plain_ones(kind):
     ``_direct_q_channels``, K's B fragments by ``_direct_k_fragments``) and p .
     V through ``_direct_v_fragments``, its columns stored at
     ``_direct_out_channel``, in f64: the plain products, columns in channel
-    order."""
+    order; K5's ("i8") integer q . K^T equal to numpy's int dot exactly."""
     rng = np.random.default_rng(18 + len(kind))
     q, k = rng.standard_normal((8, k2.HEAD_DIM)), rng.standard_normal((k2.SLAB, k2.HEAD_DIM))
+    if kind == "i8":
+        q, k = (rng.integers(-127, 128, (n, k2.HEAD_DIM)) for n in (8, k2.SLAB))
     p, v = rng.standard_normal((8, k2.SLAB)), rng.standard_normal((k2.SLAB, k2.HEAD_DIM))
-    s = np.zeros((8, k2.SLAB))
+    s = np.zeros((8, k2.SLAB), q.dtype)
     out = np.zeros((8, k2.HEAD_DIM))
     for lane in range(32):
         n, t = lane >> 2, lane & 3  # the B operand's column, the lane's k slots
@@ -961,22 +989,103 @@ def test_direct_permuted_products_are_the_plain_ones(kind):
             for row, ch in pair:
                 assert ch == col
                 out[:, col] += p[:, row] * v[row, ch]
-    np.testing.assert_allclose(s, q @ k.T, rtol=1e-12, atol=1e-12)
+    if kind == "i8":
+        assert s.dtype == np.int64 and np.array_equal(s, q @ k.T)
+    else:
+        np.testing.assert_allclose(s, q @ k.T, rtol=1e-12, atol=1e-12)
     np.testing.assert_allclose(out, p @ v, rtol=1e-12, atol=1e-12)
-    # the q channels of a lane's k slots over the 8 steps: each once
+    # the q channels of a lane's k slots over the 8 k16 (K5: 4 k32) steps:
+    # each once
+    steps = k2.HEAD_DIM // (32 if kind == "i8" else 16)
     for t in range(4):
-        chans = [c for kk in range(8) for h in (0, 1) for c in _direct_q_channels(kind, t, kk, h)]
+        chans = [c for kk in range(steps) for h in (0, 1)
+                 for c in _direct_q_channels(kind, t, kk, h)]
         assert sorted(chans) == list(range(32 * t, 32 * t + 32))
+
+
+def _quant_bytes(v, s):
+    """numpy f32 mirror of ``csrc/quant_round.cuh``'s quant_byte: the codes
+    clip(rint(v / s), +-127) from y = v * (1 / s), the IEEE quotient v / s
+    where y lies within 2^-20 |y| of a half-integer, then clip(y) + 1.5 *
+    2^23 (its low byte). Returns (codes int8, how many took the quotient)."""
+    v, s = np.asarray(v, np.float32), np.float32(s)
+    magic = np.float32(12582912)
+    y = v * (np.float32(1) / s)
+    near = np.abs(np.abs(y - ((y + magic) - magic)) - np.float32(0.5)) <= np.abs(y) * np.float32(
+        2.0 ** -20)
+    y = np.where(near, v / s, y)
+    code = (np.clip(y, np.float32(-127), np.float32(127)) + magic).view(np.uint32) & 0xFF
+    return code.astype(np.uint8).view(np.int8), int(near.sum())
+
+
+def test_quant_byte_is_the_rounded_ieee_quotient():
+    """quant_byte's codes equal clip(rint(v / s), +-127) with v / s an IEEE
+    f32 division, bit for bit: at random values, and at every half-integer
+    multiple of random scales and its f32 neighbours, where the reciprocal's
+    product alone would round the other way (the quotient is taken there)."""
+    rng = np.random.default_rng(19)
+    for s in np.float32(rng.uniform(1e-4, 10, 40)) / np.float32(127):
+        s = np.float32(s)
+        half = (np.arange(-128, 128, dtype=np.float32) + np.float32(0.5)) * s
+        v = np.concatenate([half, np.nextafter(half, np.float32(np.inf)),
+                            np.nextafter(half, np.float32(-np.inf)),
+                            np.float32(rng.standard_normal(512)) * s * np.float32(40),
+                            np.zeros(4, np.float32)]).astype(np.float32)
+        got, slow = _quant_bytes(v, s)
+        want = np.clip(np.rint(v / s), -127, 127).astype(np.int8)
+        assert np.array_equal(got, want)
+        assert slow >= 256  # every exact half-integer multiple takes the quotient
+
+
+def _warp_q_int8(qf: np.ndarray):
+    """numpy mirror of ``direct_q_int8`` for one (batch row, kv head) group:
+    qf (G, D) f32 (bf16 values) on lanes (g, t) of a warp, lane 4 g + t
+    holding channels [32 t, 32 t + 32) of head row g, rows g >= G zeros; the
+    lane's max of |q|, the xor-shuffle tree over the 32 lanes (every lane
+    ends with the same value), qs = max(amax, 1e-8) / 127 in an f32 IEEE
+    division and qi by ``_quant_bytes``. Returns (qi (G, D), qs f32)."""
+    g = qf.shape[0]
+    lanes = np.zeros((8, 4, 32), np.float32)
+    lanes[:g] = qf.reshape(g, 4, 32)
+    amax = np.abs(lanes).max(axis=2).reshape(32)
+    for o in (16, 8, 4, 2, 1):
+        amax = np.maximum(amax, amax[np.arange(32) ^ o])
+    assert (amax == amax[0]).all()
+    qs = np.maximum(amax[0], np.float32(1e-8)) / np.float32(127)
+    assert qs.dtype == np.float32
+    qi, _ = _quant_bytes(lanes[:g].reshape(g, k2.HEAD_DIM), qs)
+    return qi, qs
+
+
+@pytest.mark.parametrize("g", [1, 4, 8])
+def test_k5_warp_q_quantize_is_the_plain_ones(g):
+    """Each warp's q quantize (``_warp_q_int8``) gives
+    ``quantize_q_plain``'s qi and qs bit for bit: groups of random bf16
+    heads, of heads with a zero row, with a row far larger than the rest,
+    and of zero heads only (qs from the 1e-8 floor), at G = 1, 4 and 8."""
+    rng = np.random.default_rng(19 + g)
+    groups = rng.standard_normal((6, g, k2.HEAD_DIM)) * np.array([1, 1, 3, 0.01, 1, 0])[:, None,
+                                                                                         None]
+    groups[1, -1] = 0.0  # a zero head row (G = 1: a zero group)
+    groups[4, 0] *= 1000.0
+    qf = torch.from_numpy(groups).to(torch.bfloat16).to(torch.float32)  # (6, G, D)
+    qi, qs = k2.quantize_q_plain(qf[None])  # (1, 6, G, D), (1, 6)
+    for n in range(groups.shape[0]):
+        mqi, mqs = _warp_q_int8(qf[n].numpy())
+        assert np.float32(mqs).view(np.int32) == qs[0, n].numpy().view(np.int32), n
+        assert np.array_equal(mqi, qi[0, n].numpy()), n
+    assert float(qs[0, 5]) == np.float32(1e-8) / np.float32(127)
 
 
 @pytest.mark.parametrize("kind", DIRECT_KINDS)
 def test_k6_k7_launch_asks_the_mainloop_plan(kind, monkeypatch):
-    """K6's and K7's launch takes the decode mainloop's plan over their
-    stored rows (``plan_for``, direct) and checks a given plan before it
-    touches a device: a plan the kernel does not build (K6's and K7's ring
-    is built at three stages) raises ValueError on the CPU as on the card."""
+    """K5's, K6's and K7's launch takes the decode mainloop's plan over
+    their stored rows (``plan_for``, direct) and checks a given plan before
+    it touches a device: a plan the kernel does not build (their ring is
+    built at three stages) raises ValueError on the CPU as on the card."""
     b, h, hkv, t, d = 2, 8, 2, 100, k2.HEAD_DIM
-    dtype, row = {"f8": (torch.float8_e4m3fn, d), "i4": (torch.int32, d // 8)}[kind]
+    dtype, row = {"i8": (torch.int8, d), "f8": (torch.float8_e4m3fn, d),
+                  "i4": (torch.int32, d // 8)}[kind]
     q = torch.zeros((b, h, d), dtype=torch.bfloat16)
     kc = torch.zeros((b, t, hkv, row), dtype=torch.float32).to(dtype)
     sc = torch.ones((b, hkv, t))
@@ -1100,3 +1209,107 @@ def test_k18_plans_at_the_main_paths():
         k18.launch_plan(64, 1024, 64, 256, splits=4)
     with pytest.raises(ValueError, match="splits"):
         k18.launch_plan(64, 1024, 128, 256, splits=3)
+
+
+# K12n: the one-warp-a-row kernel of ao_tpu_torch/csrc/fused_act.cu
+# (norm_modulate_quant_warp_kernel), mirrored in numpy f32
+
+
+def _lane_tree(x, op):
+    """The xor-shuffle tree over the 32 lanes of axis 1: every lane ends
+    with the same value."""
+    for o in (16, 8, 4, 2, 1):
+        x = op(x, x[:, np.arange(32) ^ o])
+    assert (x == x[:, :1]).all()
+    return x[:, 0]
+
+
+def _k12n_warp_mirror(h, shift, smod, eps):
+    """K12n one warp a row: h (R, D) f32 (bf16 values), shift / smod (D,);
+    lane l holds chunks l + 32 c (c < C) of 8 values, the last predicated
+    where D / 8 is not a multiple of 32; each of the three reductions is the
+    lane's f32 sum (or max) in chunk order, then the xor tree; every step
+    one f32 rounding (the fma d * d + sq through f64, exact before its one
+    rounding but for a double rounding no data here reaches); the codes by
+    ``_quant_bytes``. Returns (q int8 (R, D), scale f32 (R,))."""
+    r, d = h.shape
+    n = d // 8
+    c_max = -(-n // 32)
+    idx = np.arange(32)[:, None] + 32 * np.arange(c_max)[None, :]  # (lane, c) chunk
+    valid = idx < n
+    lanes = np.zeros((r, 32, c_max, 8), np.float32)
+    lanes[:, valid] = h.reshape(r, n, 8)[:, idx[valid]]
+    f32 = np.float32
+
+    def lane_sum(step):
+        acc = np.zeros((r, 32), np.float32)
+        for c in range(c_max):
+            for i in range(8):
+                acc = np.where(valid[None, :, c], step(acc, lanes[:, :, c, i]), acc)
+        return _lane_tree(acc, np.add)
+
+    mu = lane_sum(lambda acc, x: acc + x) / f32(d)
+    sq = lane_sum(lambda acc, x: ((x - mu[:, None]).astype(np.float64) ** 2
+                                  + acc).astype(np.float32))
+    rs = f32(1) / np.sqrt(sq / f32(d) + f32(eps))
+    yn = (lanes - mu[:, None, None, None]) * rs[:, None, None, None]
+    mod = lambda m: m.reshape(n, 8)[np.minimum(idx, n - 1)]  # noqa: E731  (lane, c, 8)
+    y = yn * (f32(1) + mod(smod)) + mod(shift)
+    y = np.where(valid[None, :, :, None], y, f32(0))
+    amax = _lane_tree(np.abs(y).max(axis=(2, 3)), np.maximum)
+    sc = np.maximum(amax, f32(1e-8)) / f32(127)
+    q = np.stack([_quant_bytes(y[i], sc[i])[0] for i in range(r)])
+    out = np.zeros((r, n, 8), np.int8)
+    out[:, idx[valid]] = q[:, valid]
+    return out.reshape(r, d), sc
+
+
+@pytest.mark.parametrize("d", [768, 1024, 1152, 2048])
+def test_k12n_warp_reduction_order_keeps_the_plain_codes(d):
+    """K12n's one-warp-a-row order of sums (lane partials in chunk order,
+    then the xor tree) against ``norm_modulate_quant_plain`` on bf16 rows
+    from a seed: codes at most 1 LSB off on under ``LSB_FRACTION`` of
+    values, scales within ``K12N_SCALE_RTOL`` (chip_smoke.py's checks)."""
+    rng = np.random.default_rng(d)
+    rows = 256
+    to_bf16 = lambda x: torch.from_numpy(x).to(torch.bfloat16)  # noqa: E731
+    h = to_bf16(rng.standard_normal((1, rows, d)) * 2 + 0.5)
+    shift, smod = (to_bf16(rng.standard_normal((1, d)) * 0.1) for _ in range(2))
+    qr, sr = k12.norm_modulate_quant_plain(h, shift, smod, 1e-6)
+    q, sc = _k12n_warp_mirror(h[0].float().numpy(), shift[0].float().numpy(),
+                              smod[0].float().numpy(), 1e-6)
+    diff = np.abs(q.astype(np.int32) - qr[0].numpy().astype(np.int32))
+    assert diff.max() <= 1 and (diff > 0).mean() < _smoke.LSB_FRACTION
+    rel = np.abs(sc - sr[0, :, 0].numpy()) / sr[0, :, 0].numpy()
+    assert rel.max() <= _smoke.K12N_SCALE_RTOL
+
+
+def test_k12n_takes_the_warp_kernel_up_to_2048():
+    """The wrapper's choice of K12n's kernel by D alone: one warp a row up
+    to 2048 values (SAM-B 768, SAM-L 1024, DiT-XL 1152, SAM-H 1280), one
+    block a row above; the launch asks it before it touches a device, and a
+    warp launch above 2048 or an unknown form raises ValueError on the CPU
+    as on the card."""
+    assert [k12.norm_form(d) for d in (128, 768, 1024, 1152, 1280, 2048)] == ["warp"] * 6
+    assert [k12.norm_form(d) for d in (2176, 3072, 5120)] == ["block"] * 3
+    for d in (768, 3072):
+        h = torch.zeros((2, 3, d), dtype=torch.bfloat16)
+        mod = torch.zeros((2, d), dtype=torch.bfloat16)
+        asked = []
+
+        class Asked(Exception):
+            pass
+
+        def spy(width):
+            asked.append(width)
+            raise Asked
+
+        with pytest.MonkeyPatch.context() as m:
+            m.setattr(k12, "norm_form", spy)
+            with pytest.raises(Asked):
+                k12._launch_norm(h, mod, mod, 1e-6)
+        assert asked == [d]
+    with pytest.raises(ValueError, match="no 'warp' kernel"):
+        k12._launch_norm(h, mod, mod, 1e-6, form="warp")
+    with pytest.raises(ValueError, match="no 'rows' kernel"):
+        k12._launch_norm(h, mod, mod, 1e-6, form="rows")
