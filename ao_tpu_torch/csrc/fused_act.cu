@@ -148,17 +148,38 @@ extern "C" int ao_silu_mul_quant(const void* a, const void* b, void* q, void* sc
 // version). The modulation rows are read with a batch stride, 0 when one
 // row serves every batch row (SAM's LayerNorm affine), so no broadcast is
 // materialized. Bytes bound both, as K12s: 2 B read (bf16) and 1 B written
-// per value. K12g, and K12n above 2048 values a row, take one block of 256
-// threads per row, which keeps the row in f32 in dynamic shared memory (4*D
-// bytes) across the reductions (two for K12n's moments, one amax). K12n up
-// to 2048 values (SAM-B's 768, SAM-L's 1024, SAM-H's 1280, DiT-XL's 1152)
-// takes one warp a row instead, eight rows a CTA: lane l holds chunks l, l +
-// 32, .. of 8 values (C of them, the last predicated where D / 8 is not a
-// multiple of 32) in f32 registers from 16-byte loads, and each reduction
-// (the sum, the squared deviations from the mean, the amax) is the lane's
-// sum in chunk order, then one xor-shuffle tree: no shared memory, no
-// barrier, the same IEEE steps in the same order otherwise; the codes are
-// the IEEE quotients' (quant_round.cuh).
+// per value. K12n above 2048 values a row, and K12g above 3072, take one
+// block of 256 threads per row, which keeps the row in f32 in dynamic shared
+// memory (4*D bytes) across the reductions (two for K12n's moments, one
+// amax). K12n up to 2048 values (SAM-B's 768, SAM-L's 1024, SAM-H's 1280,
+// DiT-XL's 1152) takes one warp a row instead, eight rows a CTA: lane l
+// holds chunks l, l + 32, .. of 8 values (C of them, the last predicated
+// where D / 8 is not a multiple of 32) in f32 registers from 16-byte loads,
+// and each reduction (the sum, the squared deviations from the mean, the
+// amax) is the lane's sum in chunk order, then one xor-shuffle tree: no
+// shared memory, no barrier, the same IEEE steps in the same order
+// otherwise; the codes are the IEEE quotients' (quant_round.cuh).
+//
+// K12g up to 3072 values a row (SAM-B's MLP width) takes 4 warps a row, 1-3
+// chunks of 8 values a lane by D, eight warps a CTA: every 16-byte load of
+// the row is issued before the first GELU, the 4 warps' maxima meet in
+// shared memory after one barrier. The block kernel it
+// replaces there was bound by issue, not bytes (116 / 97.7 us at SAM-B's
+// windowed / global rows against bounds of 53.9 / 45.1): per value a precise
+// tanhf, an IEEE division, a shared-memory store and load, two barriers a
+// row. The warps kernel keeps the tanhf of the plain version (PyTorch's
+// tanh-GELU on the card takes the same f32 steps) and takes the codes from
+// the reciprocal without a clip (quant_byte_in_row). Measured on the H100
+// (PERF.md): one warp a row, 12 chunks a lane, 138 registers, 12 warps an
+// SM, was slower than the block kernel (174 / 149 us: each lane's 96 values
+// ran one after another through tanhf's and the codes' branches, which 3
+// warps a scheduler could not hide); four warps a row in CTAs of 4, 8 and 16
+// warps took 91 / 77, 86 / 73 and 94 / 80 us, and persistent CTAs loading
+// the next rows while computing these 105 / 87. The GELU by the identity
+// 0.5 x (1 + tanh(u)) = x / (1 + exp(-2u)) with the fast exponential and
+// reciprocal ran faster but left codes and scales far off the plain
+// version's where 1 + tanh(u) cancels (x below about -3), so it is not
+// built.
 
 namespace {
 
@@ -349,13 +370,94 @@ __global__ void __launch_bounds__(32 * kNormWarps)
   if (lane == 0) scale[row] = sc;
 }
 
+constexpr int kGeluWarps = 8;  // warps a CTA of K12g's warps kernel: 2 rows of 4 warps
+constexpr int kGeluRowWarps = 4;  // warps a row
+constexpr int kGeluChunks = 3;  // at most 3 chunks of 8 values a lane: D <= 3072
+
+// gate<1>'s tanh-GELU, its 0.5 (1 + tanh) as one FMA: the same value, since
+// halving commutes with the rounding
+__device__ __forceinline__ float gelu_tanh(float x) {
+  const float inner = 0.7978845608028654f * (x + 0.044715f * (x * x * x));
+  return x * __fmaf_rn(0.5f, tanhf(inner), 0.5f);
+}
+
+// grid (ceil(rows / 2)), kGeluWarps warps; warp i of CTA b is warp w = i % 4
+// of row 2 b + i / 4, and its lane l takes chunks 32 (4 c + w) + l (c < C)
+// of 8 values, all loaded before the first GELU; the row's 4 warp maxima
+// meet in shared memory after one barrier.
+template <typename T, int C>
+__global__ void __launch_bounds__(32 * kGeluWarps)
+    gelu_quant_warps_kernel(const T* __restrict__ y, int8_t* __restrict__ q,
+                            float* __restrict__ scale, int rows, int D) {
+  constexpr int W = kGeluRowWarps;
+  __shared__ float red[kGeluWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, w = warp % W;
+  const int row = blockIdx.x * (kGeluWarps / W) + warp / W;
+  const bool live = row < rows;  // a dead row's warps still meet at the barrier
+  const int nchunk = D / 8;
+  const T* yr = y + (size_t)row * D;
+  float v[C][8];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int k = 32 * (W * c + w) + lane;
+    if (live && k < nchunk) load8(yr + 8 * k, v[c]);
+  }
+  float amax = 0.f;
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    if (live && 32 * (W * c + w) + lane < nchunk)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        v[c][i] = gelu_tanh(v[c][i]);
+        amax = fmaxf(amax, fabsf(v[c][i]));
+      }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  if (lane == 0) red[warp] = amax;
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < W; ++j) amax = fmaxf(amax, red[warp - w + j]);
+  if (!live) return;
+  const float sc = __fdiv_rn(fmaxf(amax, 1e-8f), 127.f), r = __frcp_rn(sc);
+  int8_t* qr = q + (size_t)row * D;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int k = 32 * (W * c + w) + lane;
+    if (k < nchunk) {
+      uint32_t b[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) b[i] = quant_byte_in_row(v[c][i], sc, r);
+      *reinterpret_cast<uint2*>(qr + 8 * k) =
+          make_uint2(pack_bytes(b[0], b[1], b[2], b[3]), pack_bytes(b[4], b[5], b[6], b[7]));
+    }
+  }
+  if (w == 0 && lane == 0) scale[row] = sc;
+}
+
 template <typename K>
 cudaError_t set_smem(K* kern, size_t smem) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+template <typename T, int C>
+cudaError_t launch_gelu_warps(const void* y, void* q, void* scale, int rows, int D,
+                              cudaStream_t st) {
+  constexpr int W = kGeluRowWarps;
+  if constexpr (C < kGeluChunks) {
+    if ((D / 8 + 32 * W - 1) / (32 * W) > C)
+      return launch_gelu_warps<T, C + 1>(y, q, scale, rows, D, st);
+  }
+  if ((D / 8 + 32 * W - 1) / (32 * W) != C) return cudaErrorInvalidValue;  // above 3072
+  const int per = kGeluWarps / W, grid = (rows + per - 1) / per;
+  gelu_quant_warps_kernel<T, C><<<grid, 32 * kGeluWarps, 0, st>>>(
+      static_cast<const T*>(y), static_cast<int8_t*>(q), static_cast<float*>(scale), rows, D);
+  return cudaGetLastError();
+}
+
 template <typename T>
-cudaError_t launch_gelu(const void* y, void* q, void* scale, int rows, int D, cudaStream_t st) {
+cudaError_t launch_gelu(const void* y, void* q, void* scale, int rows, int D, int warps,
+                        cudaStream_t st) {
+  if (warps) return launch_gelu_warps<T, 1>(y, q, scale, rows, D, st);
   const size_t smem = (size_t)D * sizeof(float);
   auto* kern = gelu_quant_kernel<T>;
   cudaError_t err = set_smem(kern, smem);
@@ -402,13 +504,15 @@ cudaError_t launch_norm(const void* h, const void* shift, const void* smod, int 
 }  // namespace
 
 // y (rows, D) bf16 (is_f32 == 0) or f32; q (rows, D) int8; scale (rows,) f32.
-// Needs D % 128 == 0, 4*D bytes of shared memory and 16-byte aligned rows;
-// the Python wrapper checks them. Returns cudaGetLastError() after the launch.
+// warps 1: 4 warps a row (D <= 3072), 0: one block a row. Needs D % 128 ==
+// 0, 4*D bytes of shared memory for the block kernel and 16-byte aligned
+// rows; the Python wrapper checks them. Returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for a warps launch above 3072 values).
 extern "C" int ao_gelu_quant(const void* y, void* q, void* scale, int rows, int D, int is_f32,
-                             void* stream) {
+                             int warps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(is_f32 ? launch_gelu<float>(y, q, scale, rows, D, st)
-                      : launch_gelu<__nv_bfloat16>(y, q, scale, rows, D, st));
+  return (int)(is_f32 ? launch_gelu<float>(y, q, scale, rows, D, warps, st)
+                      : launch_gelu<__nv_bfloat16>(y, q, scale, rows, D, warps, st));
 }
 
 // h (B*T, D) bf16 or f32 (h_f32); shift, smod rows of D values, bf16 or f32

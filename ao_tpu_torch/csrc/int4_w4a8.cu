@@ -64,15 +64,40 @@
 // (N, K) row-major, and the wrapper returns the (K, N) view of it.
 //
 // What bounds it: bytes, 0.5 B read and 1 B written per weight (plus 8 B of
-// a and b per g weights), against 3.35 TB/s. A block decodes 32 word rows
-// (256 K rows) of 64 columns, reads them coalesced along N, transposes them
-// through shared memory (rows padded to 65 words: no bank conflicts on
-// either side) and writes 4-byte words coalesced along K.
+// a and b per g weights), against 3.35 TB/s. The first design spent about
+// 10 instructions a weight on the f32 arithmetic (a multiply, an add, a
+// rounding, a clamp and a pack per nibble): at 4096 x 14336 about 20 us of
+// issue beside a 27.4 us bytes bound, so it reached 53-66 % of the bound.
+//
+// This design looks the codes up. A (group, column) has only 16 codes, one
+// for each u = 0..15, computed once with the same two roundings
+// (code_table) and kept as four registers of packed bytes. A magic8 word's
+// four low nibbles are four consecutive K rows of plane A's group in one
+// column, its four high nibbles plane B's, so each half maps to its four
+// output bytes through one table: a prmt over the low eight entries and one
+// over the high eight, the nibbles' low three bits as selectors, then a
+// byte select on bit 3 (decode_word): about 17 instructions for 8 weights.
+// A thread takes 4 columns (one 16-byte load a word row) by 8 word rows of
+// one group pair, so each table serves 32 weights.
+//
+// An item is 256 K rows (32 word rows: whole group pairs) by 64 columns,
+// decoded by a CTA of 64 threads (16 columns of four by 4 runs of 8 word
+// rows) into a shared-memory tile of each column's 256 bytes along K
+// (16-byte chunks swizzled by the column's group of four, so neither the
+// decode's 16-byte stores nor the copy-out's loads conflict), then written
+// out with 16-byte stores, 16 threads a column's 256 bytes. N % 64 == 0, so
+// every tile is whole. One item a CTA: at 80 registers and 16 KB a CTA, a
+// dozen CTAs an SM overlap one another's loads and stores. Persistent CTAs,
+// each loading the next item's words while it decoded and stored the
+// current one (two tiles, 168 registers), were 5-12 % slower at each of the
+// W4A8 prefill's large shapes on the H100, and items of 128 columns level or
+// slower (PERF.md); int4_matmul.requant_plan counts the CTAs.
 
 #include <math.h>
 
 #include "cluster_sum.cuh"
 #include "int4_tiles.cuh"
+#include "quant_round.cuh"
 
 namespace {
 
@@ -281,50 +306,111 @@ cudaError_t launch_gemv(const int8_t* x, const float* sx, const int32_t* word,
   return launch_rows<KS, 4>(x, sx, word, s, b, out, M, K, N, wk, splits, spp, st);
 }
 
-// K4: grid (N/64, K/256), 256 threads. Word rows r0 = 32*blockIdx.y .. + 31
-// are whole group pairs (g divides 128), so they hold K rows
-// 256*blockIdx.y .. + 255: local pair lt = lr / WR, in-pair word row
-// i = lr % WR, plane A rows 2*lt*g + 4i .. + 3, plane B rows (2*lt+1)*g + 4i .. + 3.
+// prmt.b32 in its default mode: byte n of the result is byte s[4n+2:4n] of
+// {b, a}, or that byte's sign bit over all eight bits where s[4n+3] is set.
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t s) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(s));
+  return d;
+}
+
+// K4's 16 codes of one (group, column): code u = clip(rint(__fadd_rn(
+// __fmul_rn(u, a), b)), -127, 127) in byte u % 4 of t[u / 4]. Clipping to
+// +-127 before the rounding (clip(v) + 1.5 * 2^23, quant_round.cuh) gives
+// the same integer as clipping after it, since +-127 are integers.
+__device__ __forceinline__ void code_table(float a, float b, uint32_t (&t)[4]) {
+  constexpr float kMagic = 12582912.f;  // 1.5 * 2^23
+  uint32_t e[16];
+#pragma unroll
+  for (int u = 0; u < 16; ++u) {
+    const float v = __fadd_rn(__fmul_rn((float)u, a), b);
+    e[u] = __float_as_uint(__fadd_rn(fminf(fmaxf(v, -127.f), 127.f), kMagic));
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) t[j] = pack_bytes(e[4 * j], e[4 * j + 1], e[4 * j + 2], e[4 * j + 3]);
+}
+
+// The eight codes of one magic8 word w through its column's tables: plane A's
+// (the low nibbles, group 2t) into qa, plane B's (the high nibbles, group
+// 2t + 1) into qb, byte b for in-group row 4i + b. With bytes 1 and 2 of w
+// swapped, x | (x >> 12) of x = (the plane's nibbles) & 7 in each byte holds
+// nibble b's low three bits in bits 4b .. 4b + 2: the selectors of both
+// lookups; the sign-replicating prmt turns each nibble's bit 3 into a byte
+// mask that picks the high eight entries' lookup.
+__device__ __forceinline__ void decode_word(uint32_t w, const uint32_t (&ta)[4],
+                                            const uint32_t (&tb)[4], uint32_t& qa, uint32_t& qb) {
+  const uint32_t ws = __byte_perm(w, 0u, 0x3120u);
+  const uint32_t xa = ws & 0x07070707u, xb = (ws >> 4) & 0x07070707u;
+  const uint32_t sa = xa | (xa >> 12), sb = xb | (xb >> 12);
+  const uint32_t ma = prmt(w << 4, 0u, 0xBA98u), mb = prmt(w, 0u, 0xBA98u);
+  const uint32_t la = __byte_perm(ta[0], ta[1], sa), ha = __byte_perm(ta[2], ta[3], sa);
+  const uint32_t lb = __byte_perm(tb[0], tb[1], sb), hb = __byte_perm(tb[2], tb[3], sb);
+  qa = (ha & ma) | (la & ~ma);
+  qb = (hb & mb) | (lb & ~mb);
+}
+
+constexpr int kRqSlab = 256;  // K rows of a K4 item: 32 word rows, whole group pairs
+constexpr int kRqCols = 64;   // columns of a K4 item, one thread each
+
+// K4: one item a CTA of 64 threads, item blockIdx.x: slab s = item % slabs
+// (K rows 256 s .. + 255), column tile item / slabs (64 columns). Thread
+// (run ch, group cg) = (tid / 16, tid % 16) decodes word rows 32 s + 8 ch
+// .. + 7 (one group pair t, in-pair rows i0 .. i0 + 7) of columns n0 .. n0
+// + 3, n0 = 64 tile + 4 cg: plane A's 32 bytes of each column at K rows 2 t
+// g + 4 i0 .., plane B's g further, into a shared tile of 64 columns by 16
+// chunks of 16 bytes, chunk c of column n at slot c ^ ((n / 4) & 7); after
+// one barrier thread tid copies out chunk tid % 16 of columns tid / 16 + 4 j.
 template <int G>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kRqCols)
     int4_magic8_requant_kernel(const int32_t* __restrict__ word, const float* __restrict__ a,
                                const float* __restrict__ b, int8_t* __restrict__ out, int K,
                                int N) {
-  constexpr int WR = G / 4;
-  __shared__ uint32_t tile[64][65];  // [column][4-byte word of the 256 K rows], padded
-  const int tx = threadIdx.x & 63, ty = threadIdx.x >> 6;
-  const int n = blockIdx.x * 64 + tx;
-  const int r0 = blockIdx.y * 32;
-  const int pair0 = r0 / WR;
+  constexpr int WR = G / 4, COLS = kRqCols, CG = COLS / 4, CHUNKS = kRqSlab / 16;
+  __shared__ uint4 tile[COLS * CHUNKS];
+  const int tid = threadIdx.x, cg = tid % CG, ch = tid / CG;
+  const int slabs = K / kRqSlab, s = blockIdx.x % slabs, n_tile = blockIdx.x / slabs * COLS;
+  const int n0 = n_tile + 4 * cg, r0 = 32 * s + 8 * ch, t = r0 / WR;
+  int4 w[8];  // word rows r0 .. r0 + 7, columns n0 .. n0 + 3
+  float4 av[2], bv[2];  // a and b of groups 2t and 2t + 1, columns n0 .. n0 + 3
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int lr = ty + 4 * j;
-    const uint32_t w = (uint32_t)__ldg(word + (size_t)(r0 + lr) * N + n);
-    const int lt = lr / WR, i = lr % WR;
-    const size_t ga = (size_t)(2 * (pair0 + lt)) * N + n;  // plane A's group; plane B's is next
-    const float aa = __ldg(a + ga), ba = __ldg(b + ga);
-    const float ab = __ldg(a + ga + N), bb = __ldg(b + ga + N);
-    uint32_t qa = 0, qb = 0;
+  for (int j = 0; j < 8; ++j) w[j] = ld_16(word + (size_t)(r0 + j) * N + n0);
 #pragma unroll
-    for (int byte = 0; byte < 4; ++byte) {
-      const float ua = (float)((w >> (8 * byte)) & 0xFu);
-      const float ub = (float)((w >> (8 * byte + 4)) & 0xFu);
-      const float va = fminf(fmaxf(rintf(__fadd_rn(__fmul_rn(ua, aa), ba)), -127.f), 127.f);
-      const float vb = fminf(fmaxf(rintf(__fadd_rn(__fmul_rn(ub, ab), bb)), -127.f), 127.f);
-      qa |= ((uint32_t)(int)va & 0xFFu) << (8 * byte);
-      qb |= ((uint32_t)(int)vb & 0xFFu) << (8 * byte);
-    }
-    tile[tx][lt * (G / 2) + i] = qa;
-    tile[tx][lt * (G / 2) + WR + i] = qb;
+  for (int h = 0; h < 2; ++h) {
+    av[h] = __ldg(reinterpret_cast<const float4*>(a + (size_t)(2 * t + h) * N + n0));
+    bv[h] = __ldg(reinterpret_cast<const float4*>(b + (size_t)(2 * t + h) * N + n0));
+  }
+  const int ca = (2 * t * G + 4 * (r0 % WR) - kRqSlab * s) / 16;  // plane A's first chunk
+  const int sw = cg & 7;
+#pragma unroll
+  for (int ci = 0; ci < 4; ++ci) {
+    uint32_t ta[4], tb[4];
+    code_table((&av[0].x)[ci], (&bv[0].x)[ci], ta);
+    code_table((&av[1].x)[ci], (&bv[1].x)[ci], tb);
+    uint32_t qa[8], qb[8];  // planes A's and B's codes, four K rows a word
+#pragma unroll
+    for (int j = 0; j < 8; ++j) decode_word((uint32_t)(&w[j].x)[ci], ta, tb, qa[j], qb[j]);
+    uint4* col = tile + (4 * cg + ci) * CHUNKS;
+    col[ca ^ sw] = make_uint4(qa[0], qa[1], qa[2], qa[3]);
+    col[(ca + 1) ^ sw] = make_uint4(qa[4], qa[5], qa[6], qa[7]);
+    col[(ca + G / 16) ^ sw] = make_uint4(qb[0], qb[1], qb[2], qb[3]);
+    col[(ca + G / 16 + 1) ^ sw] = make_uint4(qb[4], qb[5], qb[6], qb[7]);
   }
   __syncthreads();
-  uint32_t* out32 = reinterpret_cast<uint32_t*>(out);
+  const int c = tid % CHUNKS;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int idx = threadIdx.x + 256 * j;  // 64 rows (columns n) x 64 words
-    const int row = idx >> 6, wi = idx & 63;
-    out32[((size_t)(blockIdx.x * 64 + row) * K + (size_t)blockIdx.y * 256) / 4 + wi] = tile[row][wi];
+  for (int j = 0; j < CHUNKS; ++j) {
+    const int nl = tid / CHUNKS + j * (COLS / CHUNKS), n = n_tile + nl;
+    *reinterpret_cast<uint4*>(out + (size_t)n * K + (size_t)kRqSlab * s + 16 * c) =
+        tile[nl * CHUNKS + (c ^ ((nl >> 2) & 7))];
   }
+}
+
+template <int G>
+cudaError_t launch_requant(const int32_t* word, const float* a, const float* b, int8_t* out, int K,
+                           int N, cudaStream_t st) {
+  const int items = K / kRqSlab * (N / kRqCols);
+  int4_magic8_requant_kernel<G><<<items, kRqCols, 0, st>>>(word, a, b, out, K, N);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -355,8 +441,9 @@ extern "C" int ao_int4_w4a8(const void* x_, const void* sx_, const void* word_, 
 }
 
 // K4. word (K/8, N) int32 magic8; a, b (K/g, N) f32; out (N, K) int8 (the
-// transpose of q8). Needs g in {32, 64, 128}, N % 64 == 0, K % 256 == 0;
-// the Python wrapper checks them.
+// transpose of q8). Items of 256 K rows x 64 columns, one a CTA. Needs g in
+// {32, 64, 128}, N % 64 == 0, K % 256 == 0 and 16-byte aligned operands;
+// the Python wrapper checks them. Returns the launch's CUDA error.
 extern "C" int ao_int4_magic8_requant(const void* word_, const void* a_, const void* b_, void* out_,
                                       int K, int N, int G, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -364,12 +451,11 @@ extern "C" int ao_int4_magic8_requant(const void* word_, const void* a_, const v
   const auto* a = static_cast<const float*>(a_);
   const auto* b = static_cast<const float*>(b_);
   auto* out = static_cast<int8_t*>(out_);
-  dim3 grid(N / 64, K / 256);
+  if (K % kRqSlab || N % kRqCols) return (int)cudaErrorInvalidValue;
   switch (G) {
-    case 32: int4_magic8_requant_kernel<32><<<grid, 256, 0, st>>>(word, a, b, out, K, N); break;
-    case 64: int4_magic8_requant_kernel<64><<<grid, 256, 0, st>>>(word, a, b, out, K, N); break;
-    case 128: int4_magic8_requant_kernel<128><<<grid, 256, 0, st>>>(word, a, b, out, K, N); break;
+    case 32: return (int)launch_requant<32>(word, a, b, out, K, N, st);
+    case 64: return (int)launch_requant<64>(word, a, b, out, K, N, st);
+    case 128: return (int)launch_requant<128>(word, a, b, out, K, N, st);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

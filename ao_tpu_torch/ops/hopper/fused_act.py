@@ -5,10 +5,12 @@ Counterparts of ``ao_tpu/ops/pallas/fused_act.py``:
 * K12s ``silu_mul_quant``: gated-MLP activation (``silu_mul_quant_pallas``,
   kernel ``_silu_mul_quant_kernel``);
 * K12g ``gelu_quant``: tanh-GELU (``gelu_quant_pallas``, kernel
-  ``_gelu_quant_kernel``);
+  ``_gelu_quant_kernel``); 4 warps a row up to GELU_WARP_MAX_D values,
+  one block a row above (``gelu_form``);
 * K12n ``norm_modulate_quant``: LayerNorm with no affine, then
   y * (1 + smod) + shift per batch row (``norm_modulate_quant_pallas``,
-  kernel ``_ln_mod_quant_kernel``).
+  kernel ``_ln_mod_quant_kernel``); one warp a row up to NORM_WARP_MAX_D
+  values, one block a row above (``norm_form``).
 
 The CUDA source is ``ao_tpu_torch/csrc/fused_act.cu``; its notes say what
 bounds the kernels on the H100 and how the design meets it. Each wrapper
@@ -32,6 +34,10 @@ MAX_D = 57344  # the kernel keeps a row's f32 gate in 4*D bytes of shared memory
 # lane in registers), wider rows one block a row (the row in shared memory)
 NORM_WARP_MAX_D = 2048
 NORM_FORMS = ("warp", "block")
+# K12g's rows up to this width take 4 warps a row (at most 3 chunks of 8
+# values a lane in registers), wider rows one block a row
+GELU_WARP_MAX_D = 3072
+GELU_FORMS = ("warps", "block")
 
 _LIB = None
 
@@ -43,7 +49,7 @@ def _lib():
         lib.ao_silu_mul_quant.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         lib.ao_silu_mul_quant.restype = ctypes.c_int
-        lib.ao_gelu_quant.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        lib.ao_gelu_quant.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         lib.ao_gelu_quant.restype = ctypes.c_int
         lib.ao_norm_modulate_quant.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [
@@ -155,17 +161,30 @@ def gelu_quant_plain(y):
     return _row_quant(torch.nn.functional.gelu(y.to(torch.float32), approximate="tanh"))
 
 
-def _launch_gelu(y):
+def gelu_form(d: int) -> str:
+    """K12g's kernel for rows of ``d`` values (D % 128 == 0): "warps", up
+    to GELU_WARP_MAX_D; "block", one block of 256 threads a row, above."""
+    return "warps" if d <= GELU_WARP_MAX_D else "block"
+
+
+def _launch_gelu(y, form=None):
+    """One launch of K12g in ``form`` (by default ``gelu_form``'s), checked
+    before anything runs: a "warps" launch above GELU_WARP_MAX_D raises
+    ValueError on any device."""
     dev = y.device
+    b, t, d = y.shape
+    form = form or gelu_form(d)
+    if form not in GELU_FORMS or (form == "warps" and d > GELU_WARP_MAX_D):
+        raise ValueError(f"gelu_quant: no {form!r} kernel at D={d}")
     if not y.is_contiguous() or y.data_ptr() % 16:
         raise ValueError("gelu_quant: y must be contiguous and 16-byte aligned")
-    b, t, d = y.shape
     q = torch.empty((b, t, d), dtype=torch.int8, device=dev)
     scale = torch.empty((b, t, 1), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().ao_gelu_quant(y.data_ptr(), q.data_ptr(), scale.data_ptr(), b * t, d,
-                                   int(y.dtype == torch.float32), stream)
+                                   int(y.dtype == torch.float32), int(form == "warps"),
+                                   stream)
     if err != 0:
         raise RuntimeError(f"gelu_quant kernel launch failed: CUDA error {err}")
     gelu_quant.launches += 1

@@ -14,7 +14,8 @@
   ``_w4a8_kernel``); CUDA source ``ao_tpu_torch/csrc/int4_w4a8.cu``.
 * K4 ``int4_magic8_requant_int8``: magic8 words to per-channel int8 for the
   prefill int8 GEMM (``int4_magic8_requant_int8_pallas``, kernel
-  ``_requant_kernel``); same CUDA source as K3.
+  ``_requant_kernel``); same CUDA source as K3: a 16-code table per (group,
+  column), one CTA an item of 256 K rows (``requant_plan``).
 * K11 ``int4_wo_matmul``: int4 weight-only matmul over the uint8 split-half
   layout (``int4_wo_matmul_pallas``, kernels ``_kernel`` and
   ``_kernel_twoplane``); same CUDA source as K1, on the shared wgmma
@@ -512,8 +513,8 @@ def traffic_w4a8(m: int, k: int, n: int, group_size: int):
 
 
 def check_shapes_requant(word: torch.Tensor, group_size: int) -> None:
-    """Raise ValueError for shapes K4 does not take: 256 K rows and 64
-    columns per block, the compiled group sizes."""
+    """Raise ValueError for shapes K4 does not take: items of 256 K rows,
+    columns in whole tiles of 64, the compiled group sizes."""
     if word.ndim != 2:
         raise ValueError("int4_magic8_requant_int8 takes 2-D words (K/8, N)")
     (kw, n), g = word.shape, group_size
@@ -540,7 +541,20 @@ def int4_magic8_requant_int8_plain(word, a, b, group_size: int) -> torch.Tensor:
     return torch.clamp(torch.round(v), -127, 127).to(torch.int8)
 
 
+REQUANT_SLAB = 256  # K rows of a K4 item: 32 word rows, whole group pairs
+REQUANT_COLS = 64  # columns of a K4 item, one thread each
+
+
+def requant_plan(k: int, n: int) -> int:
+    """The CTAs of a K4 launch at (K, N): one item of REQUANT_SLAB K rows by
+    REQUANT_COLS columns a CTA (N % 64 == 0: every tile whole). On the H100
+    items of 128 columns were level or slower at each of the W4A8
+    prefill's five (K, N) (PERF.md)."""
+    return k // REQUANT_SLAB * (n // REQUANT_COLS)
+
+
 def _launch_requant(word, a, b, group_size: int) -> torch.Tensor:
+    """Launch K4 on CUDA tensors: one kernel, ``requant_plan``'s CTAs."""
     dev = word.device
     kw, n = word.shape
     k = 8 * kw

@@ -120,22 +120,26 @@ Each phase prints its seconds. Prints the kernel table as one JSON line and, as 
 ``{"ok": true, "device": {...}}``. Any failed check makes it exit non-zero
 without that line; so does a machine without a CUDA device.
 
-    python3 chip_smoke.py --kernels K1,K2,K2v,K3,K5,K6,K7,K8,K9,K10,K11,K12n,K13,K14,K15,K16,K17,K18
+    python3 chip_smoke.py --kernels K1,K2,K2v,K3,K4,K5,K6,K7,K8,K9,K10,K11,K12s,K12n,K12g,K13
+    python3 chip_smoke.py --kernels K14,K15,K16,K17,K18
 
-builds, then runs only the named kernels' phases (K1, K2, K2v, K3, K5, K6,
-K7, K8, K9, K10, K11, K12n, K13, K14, K15, K16, K17, K18) and prints their rows
-as JSON, with no result line (``--sam`` the SAM-B paths alone, with
-images/s; ``--vitl`` the ViT-L/16 sparse paths alone, with images/s and
-profiles; ``--mixtral`` the Mixtral paths alone, with tok/s, the prefill's
-device time and the engine's TTFT); the K1, K10, K15 and K17 rows name each
+builds, then runs only the named kernels' phases (K1, K2, K2v, K3, K4, K5,
+K6, K7, K8, K9, K10, K11, K12s, K12n, K12g, K13, K14, K15, K16, K17, K18)
+and prints their rows as JSON, with no result line (``--sam`` the SAM-B
+paths alone, with images/s; ``--vitl`` the ViT-L/16 sparse paths alone,
+with images/s and profiles; ``--w4a8`` Llama-3-8B's W4A8 path alone, with
+its launch counts and the prefill's and a decode step's profile;
+``--mixtral`` the Mixtral paths alone, with tok/s, the prefill's device
+time and the engine's TTFT); the K1, K10, K15 and K17 rows name each
 launch's tiles and K split, the K3 rows their CTA width and K split and the
 device kernels a call, the K2, K2v, K5, K6, K7 and K9 rows (K2, K5, K6 and K7
 at generate's, the slot engine's and the long shape; K2v over its e5m2 and
 int8 caches at generate's and the long shape; K9 in each mode at the paged
 engine's and the long shape) their decode-mainloop plan and the device
 kernels a call (one, checked), the K5-K7 and K2v rows whether the profiler
-or CUDA events timed the kernel, the K12n rows the kernel's form (one warp
-or one block a row), the K13 rows the magic form's K split or
+or CUDA events timed the kernel, the K4 rows each launch's items and
+CTAs, the K12n and K12g rows the kernel's form (one warp, 4 warps or one
+block a row), the K13 rows the magic form's K split or
 row tile, the K8 and K16 rows its query rows a CTA, the K18 rows each
 launch's plan (cluster split, CTAs, items) and the device kernels a call
 (one, checked). A copy of this script run in another checkout times that
@@ -687,10 +691,21 @@ def device_kernels(torch, fn) -> int:
     return n
 
 
+def requant_desc(k, n):
+    """What a K4 launch at (K, N) runs: its items, one a CTA (None from a
+    checkout whose wrapper predates ``requant_plan``)."""
+    from ao_tpu_torch.ops.hopper import int4_matmul as k34
+
+    plan = getattr(k34, "requant_plan", None)
+    if plan is None:
+        return None
+    return f"items of 256 K rows x {k34.REQUANT_COLS} columns, {plan(k, n)} CTAs"
+
+
 def k4_phase(torch, fails, seed):
     """K4 at every (K, N) of the prefill, with the analytic per-channel
-    scale the linear computes; equal to its plain version, every difference
-    counted."""
+    scale the linear computes; equal to its plain version bit for bit, every
+    difference counted."""
     from ao_tpu_torch.ops.hopper import int4_matmul as k34
     from ao_tpu_torch.ops.linear import _requant_scale
     from ao_tpu_torch.utils.timing import cuda_time_ms
@@ -705,9 +720,9 @@ def k4_phase(torch, fails, seed):
         ref = k34.int4_magic8_requant_int8_plain(qa.qdata, a, b, GROUP)
         torch.cuda.synchronize()
         over, frac = lsb_check(got, ref)
-        fails.check(over == 0 and frac < LSB_FRACTION,
-                    f"K4 int4_magic8_requant_int8 {(k, n)}: {over} values > 1 LSB off, "
-                    f"{frac:.4%} off")
+        fails.check(frac == 0,
+                    f"K4 int4_magic8_requant_int8 {(k, n)}: {frac:.4%} of values differ from "
+                    f"the plain version ({over} by more than 1 LSB)")
         ms = cuda_time_ms(lambda: k34._launch_requant(qa.qdata, a, b, GROUP), iters=20)
         plain_ms = cuda_time_ms(lambda: k34.int4_magic8_requant_int8_plain(qa.qdata, a, b, GROUP),
                                 iters=3, warmup=1)
@@ -715,7 +730,7 @@ def k4_phase(torch, fails, seed):
         rows[(k, n)] = kernel_row(
             "K4 int4_magic8_requant_int8", f"K={k} N={n}", got, ref,
             f"{frac:.6%} of values differ from the plain version ({over} by more than 1 LSB)",
-            ms, plain_ms, None, nbytes, ops, F32_FLOPS_PER_S)
+            ms, plain_ms, None, nbytes, ops, F32_FLOPS_PER_S, tiles=requant_desc(k, n))
         del qa, sg, bg, s8, a, b, got, ref
         torch.cuda.empty_cache()
     return rows
@@ -1016,9 +1031,12 @@ def k12v_phase(torch, fails, seed, kind, shape):
     q, sc = wrapper(*args)
     qr, sr = plain(*args)
     torch.cuda.synchronize()
-    # K12n's form: one warp a row up to 2048 values (none in a checkout
-    # that predates it)
-    form = k12.norm_form(d) if kind == "norm" and hasattr(k12, "norm_form") else None
+    # the form: one warp (K12n, up to 2048 values) or 4 warps (K12g, up to
+    # 3072) or one block a row (none in a checkout that predates it)
+    chooser = getattr(k12, "norm_form" if kind == "norm" else "gelu_form", None)
+    form = chooser(d) if chooser else None
+    if form:
+        form = "4 warps a row" if form == "warps" else f"one {form} a row"
     over, frac = lsb_check(q, qr)
     rel = float(((sc - sr).abs() / sr).max())
     fails.check(over == 0 and frac < LSB_FRACTION and rel <= rtol,
@@ -1029,7 +1047,7 @@ def k12v_phase(torch, fails, seed, kind, shape):
     return kernel_row(name, "B={} T={} D={}".format(*shape), q, qr,
                       f"q: {frac:.6%} of values 1 LSB off ({over} more); scales rtol {rel:.3g}",
                       ms, plain_ms, None, nbytes, ops, F32_FLOPS_PER_S,
-                      tiles=form and f"one {form} a row")
+                      tiles=form)
 
 
 def k16_phase(torch, fails, seed, g, side):
@@ -2573,14 +2591,16 @@ def k16_rows(torch, fails, seed):
 
 
 def kernels_only(torch, names) -> int:
-    """Build, then run only the phases of ``names`` (of K1, K2, K2v, K3, K5,
-    K6, K7, K8, K9, K10, K11, K12n, K13, K14, K15, K16, K17, K18) and print
-    each one's rows as one JSON line."""
-    phases = {"K1": k1_phase, "K2": k2_rows, "K2v": k2v_rows, "K3": k3_phase,
+    """Build, then run only the phases of ``names`` (of K1, K2, K2v, K3, K4,
+    K5, K6, K7, K8, K9, K10, K11, K12s, K12n, K12g, K13, K14, K15, K16, K17,
+    K18) and print each one's rows as one JSON line."""
+    phases = {"K1": k1_phase, "K2": k2_rows, "K2v": k2v_rows, "K3": k3_phase, "K4": k4_phase,
               "K5": lambda *a: kv_rows(*a, "int8"), "K6": lambda *a: kv_rows(*a, "float8_e4m3fn"),
               "K7": lambda *a: kv_rows(*a, "int4"), "K8": k8_rows,
               "K9": k9_rows, "K10": k10_phase, "K11": k11_phase,
+              "K12s": lambda *a: {K12_SHAPE: k12_phase(*a)},
               "K12n": lambda *a: {sh: k12v_phase(*a, "norm", sh) for sh in K12N_SHAPES},
+              "K12g": lambda *a: {sh: k12v_phase(*a, "gelu", sh) for sh in K12G_SHAPES},
               "K13": k13_phase, "K14": k14_both,
               "K15": k15_phase, "K16": k16_rows, "K17": k17_phase, "K18": k18_phase}
     if not set(names) <= set(phases):
@@ -2642,6 +2662,57 @@ def sam_only(torch) -> int:
     return 1 if fails else 0
 
 
+def w4a8_want(cfg) -> dict:
+    """The launches of one greedy ``generate`` of STEPS tokens on the W4A8
+    dense Llama: K3 for q, k, v, o, w1, w3, w2 and the lm_head at each
+    decode step, K4 once for each of them at the prefill, K12s once a
+    layer there, K2 once a layer at each decode step."""
+    linears = 7 * cfg.n_layers + 1
+    return {"decode_attention": cfg.n_layers * (STEPS - 1),
+            "int4_w4a8_matmul": linears * (STEPS - 1), "int4_magic8_requant_int8": linears,
+            "silu_mul_quant": cfg.n_layers}
+
+
+def w4a8_only(torch) -> int:
+    """Build, then run only Llama-3-8B's W4A8 path at 32 layers: one greedy
+    ``generate`` with its launch counts checked exactly (K3 at decode, K4
+    and K12s at the prefill), then the profile of its prefill and of a
+    decode step (host wall, device time and ops, the largest kernels)."""
+    import ao_tpu_torch
+    from ao_tpu_torch.models import llama
+    from ao_tpu_torch.ops.hopper import decode_attention as k2
+    from ao_tpu_torch.ops.hopper import fused_act as k12
+    from ao_tpu_torch.ops.hopper import int4_matmul as k1
+
+    print(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}",
+          flush=True)
+    build_all()
+    fails = Failures()
+    cfg = llama.LLAMA3_8B
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    with phase("init and quantize_ (W4A8)"):
+        wparams = ao_tpu_torch.quantize_(
+            llama.init_params(cfg, gen, device=DEV),
+            ao_tpu_torch.Int8DynamicActivationInt4WeightConfig(group_size=GROUP))
+        torch.cuda.synchronize()
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=DEV,
+                           dtype=torch.int32)
+    counters = {"int4_w4a8_matmul": k1.int4_w4a8_matmul,
+                "int4_magic8_requant_int8": k1.int4_magic8_requant_int8,
+                "silu_mul_quant": k12.silu_mul_quant, "decode_attention": k2.decode_attention}
+    want = w4a8_want(cfg)
+    with phase("W4A8 generate and profile"):
+        for ctr in counters.values():
+            ctr.launches = 0
+        ao_tpu_torch.generate(wparams, prompt, cfg, num_steps=STEPS, max_seq=MAX_SEQ)
+        torch.cuda.synchronize()
+        got = {name: ctr.launches for name, ctr in counters.items()}
+        print(f"W4A8 ({cfg.n_layers} layers) main path launches: {got} (want {want})", flush=True)
+        fails.check(got == want, f"W4A8 launch counts {got} != {want}")
+        profile_decode(torch, wparams, cfg, prompt, "W4A8")
+    return 1 if fails else 0
+
+
 def vitl_only(torch) -> int:
     """Build, then run only the ViT-L/16 sparse paths (BSR through K18, 2:4,
     2:4-int4, bf16: exact launch counts, logits, images/s in turns and a
@@ -2664,12 +2735,16 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description="Smoke run of ao_tpu_torch on one NVIDIA GPU.")
     parser.add_argument("--kernels", type=lambda v: v.split(","),
-                        help="only these kernels' phases, of K1, K2, K2v, K3, K5, K6, K7, K8, K9, "
-                             "K10, K11, K12n, K13, K14, K15, K16, K17, K18 (comma-separated)")
+                        help="only these kernels' phases, of K1, K2, K2v, K3, K4, K5, K6, K7, "
+                             "K8, K9, K10, K11, K12s, K12n, K12g, K13, K14, K15, K16, K17, K18 "
+                             "(comma-separated)")
     parser.add_argument("--sam", action="store_true",
                         help="only the SAM-B paths (W8A8 and bf16), for images/s")
     parser.add_argument("--vitl", action="store_true",
                         help="only the ViT-L/16 sparse paths (BSR, 2:4, 2:4-int4, bf16)")
+    parser.add_argument("--w4a8", action="store_true",
+                        help="only Llama-3-8B's W4A8 path (launch counts, prefill and decode "
+                             "profiles)")
     parser.add_argument("--mixtral", action="store_true",
                         help="only the Mixtral-8x7B paths (generate and the slot engine)")
     args = parser.parse_args()
@@ -2687,6 +2762,8 @@ def main() -> int:
         return vitl_only(torch)
     if args.mixtral:
         return mixtral_only(torch)
+    if args.w4a8:
+        return w4a8_only(torch)
     import ao_tpu_torch
     from ao_tpu_torch.models import llama
     from ao_tpu_torch.ops.hopper import bsr_matmul as k18
@@ -2797,10 +2874,7 @@ def main() -> int:
     launches = {}
     paths = [("int4-WO", qparams, None, False, cfg,
               {"int4_wo_magic": linears(cfg) * STEPS, "decode_attention": decode_attn(cfg)}),
-             ("W4A8", wparams, None, False, cfg,
-              {"decode_attention": decode_attn(cfg),
-               "int4_w4a8_matmul": linears(cfg) * (STEPS - 1),
-               "int4_magic8_requant_int8": linears(cfg), "silu_mul_quant": cfg.n_layers})]
+             ("W4A8", wparams, None, False, cfg, w4a8_want(cfg))]
     paths += [(KV_TAG[kv], qparams_cut, kv, False, cut,
                {"int4_wo_magic": linears(cut) * STEPS, KV_KERNELS[kv][0]: decode_attn(cut)})
               for kv in KV_ALL]

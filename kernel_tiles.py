@@ -8,11 +8,15 @@ top-2 routing) at its decode splits (T = 16) and row tiles (T = 256, 1024,
 each pool mode) on the decode mainloop at every plan (CTAs a stream, positions a
 tile, ring stages) at T = 256, 1024 and 4096 with ``chip_smoke.py``'s
 lengths there; or K18 (the block-sparse matmul) at ``chip_smoke.py``'s
-shapes at each cluster split and CTA count, on one CUDA device; or compare
-the SASS of each kernel in two builds of one source, with names and
-addresses stripped.
+shapes at each cluster split and CTA count; or K4 (the magic8 -> int8
+requantization) at the W4A8 prefill's five (K, N) at its plan; or K12g
+(tanh-GELU + int8 row quantize) at SAM-B's rows in each form, with each
+form's differences from the plain version over every finite bf16 input;
+on one CUDA device; or compare the
+SASS of each kernel in two builds of one source, with names and addresses
+stripped.
 
-    python3 kernel_tiles.py time K10          # or K17, K3, K13, K2, K2v, K5, K6, K7, K9, K18
+    python3 kernel_tiles.py time K10  # or K17, K3, K4, K12g, K13, K2, K2v, K5, K6, K7, K9, K18
     python3 kernel_tiles.py sass LIB_A LIB_B  # two builds' lib<source>-*.so
 
 Run in a copy of the tree with a kernel changed and in this one, in turns
@@ -59,8 +63,9 @@ def time_tiles(kernel: str) -> int:
     if kernel == "K18":
         time_k18(torch, cuda_time_ms, dev, sms)
         return 0
-    if kernel in ("K3", "K13"):
-        (time_k3 if kernel == "K3" else time_k13)(torch, cuda_time_ms, dev, sms)
+    if kernel in ("K3", "K4", "K12g", "K13"):
+        {"K3": time_k3, "K4": time_k4, "K12g": time_k12g, "K13": time_k13}[kernel](
+            torch, cuda_time_ms, dev, sms)
         return 0
     gen = torch.Generator(device=dev).manual_seed(0)
     mod = k10 if kernel == "K10" else k17
@@ -123,6 +128,77 @@ def time_k3(torch, cuda_time_ms, dev, sms) -> None:
               flush=True)
         del qa
         torch.cuda.empty_cache()
+
+
+def time_k4(torch, cuda_time_ms, dev, sms) -> None:
+    """K4 at g = 128 over LLAMA_KN (a random weight quantized as the W4A8
+    linear does it), with ``requant_plan``'s CTAs where the checkout has
+    one (not its first design)."""
+    from ao_tpu_torch.ops.hopper import int4_matmul as k34
+    from ao_tpu_torch.ops.linear import _requant_scale
+    from ao_tpu_torch.quantization.configs import Int8DynamicActivationInt4WeightConfig
+    from ao_tpu_torch.quantization.quantize import quantize_
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g = 128
+    for k, n in LLAMA_KN:
+        w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(torch.bfloat16)
+        qa = quantize_({"w": w}, Int8DynamicActivationInt4WeightConfig(group_size=g))["w"]
+        del w
+        a, b = k34.requant_rows(*_requant_scale(qa))
+        plan = (f"{k34.requant_plan(k, n)} CTAs" if hasattr(k34, "requant_plan")
+                else "no plan")
+        us = 1e3 * cuda_time_ms(lambda: k34._launch_requant(qa.qdata, a, b, g), iters=20)
+        print(f"K4 K={k} N={n} ({plan}): {us:.1f} us", flush=True)
+        del qa, a, b
+        torch.cuda.empty_cache()
+
+
+def bf16_sweep(torch, dev):
+    """Every finite bf16 value (65280: NaN and +-inf left out), in the order
+    of their bit patterns."""
+    x = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    return x[torch.isfinite(x.float())].to(dev)
+
+
+def time_k12g(torch, cuda_time_ms, dev, sms) -> None:
+    """K12g at SAM-B's windowed and global rows (bf16, about 2 * randn +
+    0.5) in each form it takes there: the one ``gelu_form`` picks, then the
+    block kernel; then, for each form, the codes and scales that differ
+    from the plain version over every finite bf16 input, each value in a
+    row of its own (the row's scale is max(|GELU(x)|, 1e-8) / 127: the
+    kernel's GELU value). In a checkout without forms, its one launch."""
+    import chip_smoke as smoke
+    from ao_tpu_torch.ops.hopper import fused_act as k12
+
+    forms = list(getattr(k12, "GELU_FORMS", ()))  # ("warps", "block")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for shape in smoke.K12G_SHAPES:
+        x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(torch.bfloat16)
+        if not forms:
+            us = 1e3 * cuda_time_ms(lambda: k12._launch_gelu(x), iters=20)
+            print(f"K12g {shape} (one form): {us:.1f} us", flush=True)
+            continue
+        picked = k12.gelu_form(shape[-1])
+        times = []
+        for form in forms:
+            us = 1e3 * cuda_time_ms(lambda: k12._launch_gelu(x, form), iters=20)
+            times.append(f"{form} {us:.1f} us" + (" (picked)" if form == picked else ""))
+        print(f"K12g {shape}: " + ", ".join(times), flush=True)
+    d = smoke.K12G_SHAPES[0][-1]
+    x = bf16_sweep(torch, dev)[None, :, None].expand(1, -1, d).contiguous()
+    qr, sr = k12.gelu_quant_plain(x)
+    for form in forms or [None]:
+        q, s = k12._launch_gelu(x, form) if form else k12._launch_gelu(x)
+        codes = int((q != qr).sum())
+        far = int(((q.int() - qr.int()).abs() > 1).sum())
+        rel = ((s - sr).abs() / sr)[:, :, 0]
+        worst = int(rel.argmax())
+        print(f"K12g {form or 'its one form'} over every finite bf16 value ({x.shape[1]} rows "
+              f"of {d}): {codes} codes differ ({far} by more than 1 LSB), "
+              f"{int((rel > 0).sum())} scales differ, {int((rel > 1e-6).sum())} by more than "
+              f"1e-6, the most {float(rel.max()):.3g} at x = {float(x[0, worst, 0]):.6g}",
+              flush=True)
 
 
 def time_k13(torch, cuda_time_ms, dev, sms) -> None:
@@ -322,8 +398,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = parser.add_subparsers(dest="cmd", required=True)
     t = sub.add_parser("time", help="time a kernel's launch at each tile or plan")
-    t.add_argument("kernel", choices=("K10", "K17", "K3", "K13", "K2", "K2v", "K5", "K6", "K7",
-                                       "K9", "K18"))
+    t.add_argument("kernel", choices=("K10", "K17", "K3", "K4", "K12g", "K13", "K2", "K2v", "K5",
+                                       "K6", "K7", "K9", "K18"))
     s = sub.add_parser("sass", help="compare the SASS of two builds of one source")
     s.add_argument("lib_a")
     s.add_argument("lib_b")

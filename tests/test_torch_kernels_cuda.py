@@ -629,9 +629,18 @@ def test_int4_w4a8_every_cta_width_and_split(dev, plan):
         k1._launch_w4a8(xq, sx, qa.qdata, s, b, 128, (1, 9, 1))  # a cluster of 9
 
 
-@pytest.mark.parametrize("k,n,g", [(512, 256, 64), (1024, 1024, 128), (512, 128, 32),
-                                   (4096, 1024, 128)])
+# K4 at the five Llama widths at g = 128 (the W4A8 prefill's), at g = 32
+# and 64, and at small shapes (a single slab, N % 128 == 64)
+REQUANT_CASES = ([(512, 256, 64), (1024, 1024, 128), (512, 128, 32), (768, 320, 32)]
+                 + [(k, n, 128) for k, n in LLAMA_KN]
+                 + [(4096, 4096, 32), (4096, 4096, 64), (14336, 4096, 64), (4096, 1024, 32)])
+
+
+@pytest.mark.parametrize("k,n,g", REQUANT_CASES)
 def test_requant_matches_plain_and_feeds_int_mm(dev, k, n, g):
+    """K4 at its plan equals its plain version bit for bit, writes q8
+    column-major, feeds torch._int_mm as its B operand, runs as one device
+    kernel, and a second launch gives the same bits."""
     qa, gen = _w4a8_weight(dev, k, n, g, "tinygemm", seed=k + n)
     sg, bg, s8 = _requant_scale(qa)
     before = k1.int4_magic8_requant_int8.launches
@@ -644,10 +653,38 @@ def test_requant_matches_plain_and_feeds_int_mm(dev, k, n, g):
     diff = (got.int() - ref.int()).abs()
     # the same two f32 roundings per value: equal, bit for bit
     assert int(diff.max()) == 0, f"K4 vs plain: {int((diff > 0).sum())} values differ"
+    run = lambda: k1._launch_requant(qa.qdata, a, b, g)  # noqa: E731
+    assert torch.equal(run(), got)
+    assert _device_kernels(run) == 1
     xq = torch.randint(-127, 128, (32, k), generator=gen, device=dev, dtype=torch.int8)
-    # the column-major q8 is the B operand the int8 GEMM takes on the card
-    want = (xq.cpu().long() @ ref.cpu().long()).int()
-    assert torch.equal(torch._int_mm(xq, got).cpu(), want)
+    # the column-major q8 is the B operand the int8 GEMM takes on the card;
+    # f64 sums of int8 products are exact here
+    want = (xq.double() @ ref.double()).int()
+    assert torch.equal(torch._int_mm(xq, got), want)
+
+
+@pytest.mark.parametrize("g", [32, 64, 128])
+def test_requant_at_ties_and_clips(dev, g):
+    """K4 over random words (every nibble) with a and b that put u * a + b
+    on half-integers (ties, rounded to even) and past +-127 (clipped): bit
+    for bit the plain version."""
+    k, n = 1024, 448
+    gen = torch.Generator(device=dev).manual_seed(g)
+    word = torch.randint(-2 ** 31, 2 ** 31 - 1, (k // 8, n), generator=gen, device=dev,
+                         dtype=torch.int32)
+    ng = k // g
+    a = torch.randint(-40, 41, (ng, n), generator=gen, device=dev).float() * 0.5
+    b = torch.randint(-300, 301, (ng, n), generator=gen, device=dev).float() * 0.5
+    a[0] = torch.randn((n,), generator=gen, device=dev) * 20  # arbitrary f32 products
+    ref = k1.int4_magic8_requant_int8_plain(word, a, b, g)
+    v = (k1.unpack_int4_magic8(word, g).float() * a.repeat_interleave(g, 0)
+         + b.repeat_interleave(g, 0))
+    # ties, and clips on both sides, are there
+    assert bool(((v - v.floor()) == 0.5).any()) and bool((v > 127.5).any())
+    assert bool((v < -127.5).any())
+    got = k1._launch_requant(word, a, b, g)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
 
 
 @pytest.mark.parametrize("shape,act,dtype", [
@@ -1900,12 +1937,24 @@ def test_norm_modulate_quant_each_form(dev, d, h_dtype, mod_dtype, broadcast):
             k12._launch_norm(h, shift, smod, 1e-6, "warp")
 
 
+def _gelu_ok(q, s, qr, sr):
+    """K12g against its plain version: codes at most 1 LSB off on under 1 %
+    of values, scales within 1e-6 (chip_smoke.py's K12_SCALE_RTOL)."""
+    return _lsb_ok(q, qr) and float(((s - sr).abs() / sr).max()) <= 1e-6
+
+
 @pytest.mark.parametrize("shape,dtype", [
     ((10, 196, 3072), torch.bfloat16),  # SAM-B's windowed MLP
+    ((100, 196, 3072), torch.bfloat16),  # all of SAM-B's windowed MLP rows
+    ((4, 4096, 3072), torch.bfloat16),   # SAM-B's global MLP rows
     ((2, 1024, 3072), torch.bfloat16),
+    ((3, 45, 3072), torch.float32),
     ((3, 50, 128), torch.float32),
+    ((2, 33, 5120), torch.bfloat16),     # above the warp kernel: one block a row
 ])
 def test_gelu_quant_matches_plain(dev, shape, dtype):
+    """K12g through its wrapper (the form ``gelu_form`` picks) against the
+    plain version, one device kernel a call."""
     gen = torch.Generator(device=dev).manual_seed(shape[1])
     y = (torch.randn(shape, generator=gen, device=dev) * 2).to(dtype)
     before = k12.gelu_quant.launches
@@ -1913,9 +1962,59 @@ def test_gelu_quant_matches_plain(dev, shape, dtype):
     torch.cuda.synchronize()
     assert k12.gelu_quant.launches == before + 1
     qr, sr = k12.gelu_quant_plain(y)
-    # tanhf against torch's tanh: at most 1 LSB on under 1 % of codes
-    assert _lsb_ok(q, qr)
-    assert float(((s - sr).abs() / sr).max()) <= 1e-5
+    assert _gelu_ok(q, s, qr, sr), k12.gelu_form(shape[-1])
+    assert _device_kernels(lambda: k12.gelu_quant(y)) == 1
+
+
+@pytest.mark.parametrize("d", [128, 384, 768, 1152, 1536, 2944, 3072, 4096])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gelu_quant_each_form(dev, d, dtype):
+    """K12g's warps kernel (D <= 3072 at 1, 2 and 3 chunks a lane;
+    predicated last chunks at 128, 384, 1152 and 2944; 37 rows, so a CTA's
+    second row is past the end) and block kernel against the plain version,
+    the same codes and scales from both, one device kernel a call; a warps
+    launch above 3072 values raises."""
+    gen = torch.Generator(device=dev).manual_seed(d)
+    y = (torch.randn((1, 37, d), generator=gen, device=dev) * 2 + 0.5).to(dtype)
+    qr, sr = k12.gelu_quant_plain(y)
+    qb, sb = k12._launch_gelu(y, "block")
+    assert _gelu_ok(qb, sb, qr, sr)
+    if d <= k12.GELU_WARP_MAX_D:
+        q, s = k12._launch_gelu(y, "warps")
+        assert torch.equal(q, qb) and torch.equal(s, sb)
+        assert _device_kernels(lambda: k12._launch_gelu(y, "warps")) == 1
+    else:
+        with pytest.raises(ValueError, match="no 'warps' kernel"):
+            k12._launch_gelu(y, "warps")
+
+
+def _bf16_sweep(dev):
+    """Every finite bf16 value (65280), in the order of their bit patterns."""
+    x = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    return x[torch.isfinite(x.float())].to(dev)
+
+
+def test_gelu_quant_every_bf16_value(dev):
+    """K12g over every finite bf16 input (NaN and +-inf left out): in rows of
+    128 values in bit-pattern order (one sign and exponent a row: codes over
+    the whole range), through the warps and the block kernel; and each value
+    in a row of 3072 of its own, where the row's scale, max(|GELU(x)|, 1e-8)
+    / 127, is the kernel's GELU value. The counts of codes and scales that
+    differ are printed; codes at most 1 LSB off on under 1 %, scales within
+    1e-6."""
+    x = _bf16_sweep(dev)
+    assert x.numel() == 65280
+    for name, y, forms in (("binade rows", x.view(1, 510, 128), ("warps", "block")),
+                           ("a row a value", x[None, :, None].expand(1, -1, 3072).contiguous(),
+                            ("warps",))):
+        qr, sr = k12.gelu_quant_plain(y)
+        for form in forms:
+            q, s = k12._launch_gelu(y, form)
+            torch.cuda.synchronize()
+            rel = (s - sr).abs() / sr
+            print(f"K12g {form}, {name}: {int((q != qr).sum())} codes differ, "
+                  f"{int((rel > 0).sum())} scales differ, the most by {float(rel.max()):.3g}")
+            assert _gelu_ok(q, s, qr, sr), (name, form)
 
 
 def test_producers_refuse_on_the_card(dev):

@@ -1037,6 +1037,41 @@ def test_quant_byte_is_the_rounded_ieee_quotient():
         assert slow >= 256  # every exact half-integer multiple takes the quotient
 
 
+def _quant_bytes_in_row(v, s):
+    """numpy f32 mirror of ``quant_byte_in_row``: y = v * (1 / s), t = y +
+    1.5 * 2^23 (no clip), the IEEE quotient's t where y lies within 2^-13
+    of a half-integer; the low byte of t. Returns (codes int8, how many
+    took the quotient)."""
+    v, s = np.asarray(v, np.float32), np.float32(s)
+    magic = np.float32(12582912)
+    y = v * (np.float32(1) / s)
+    t = y + magic
+    near = np.abs(np.abs(y - (t - magic)) - np.float32(0.5)) <= np.float32(2.0 ** -13)
+    t = np.where(near, v / s + magic, t)
+    return (t.view(np.uint32) & 0xFF).astype(np.uint8).view(np.int8), int(near.sum())
+
+
+def test_quant_byte_in_row_needs_no_clip():
+    """quant_byte_in_row's codes, with no clip, equal clip(rint(v / s), +-127)
+    with v / s an IEEE f32 division for every v of a row whose scale is s =
+    max(amax, 1e-8) / 127: at +-amax, at every half-integer multiple of s
+    in the row's range and its f32 neighbours, at random values, and in rows
+    below the 1e-8 floor."""
+    rng = np.random.default_rng(20)
+    for amax in np.concatenate([np.float32(rng.uniform(1e-4, 1e4, 40)),
+                                np.float32([1e-9, 3e-12, 127, 1])]):
+        amax = np.float32(amax)
+        s = np.maximum(amax, np.float32(1e-8)) / np.float32(127)
+        half = (np.arange(-127, 127, dtype=np.float32) + np.float32(0.5)) * s
+        half = half[np.abs(half) <= amax]
+        v = np.concatenate([half, np.nextafter(half, np.float32(np.inf)),
+                            np.nextafter(half, np.float32(-np.inf)), [amax, -amax],
+                            np.float32(rng.uniform(-1, 1, 512)) * amax]).astype(np.float32)
+        v = v[np.abs(v) <= amax]
+        got, _ = _quant_bytes_in_row(v, s)
+        assert np.array_equal(got, np.clip(np.rint(v / s), -127, 127).astype(np.int8))
+
+
 def _warp_q_int8(qf: np.ndarray):
     """numpy mirror of ``direct_q_int8`` for one (batch row, kv head) group:
     qf (G, D) f32 (bf16 values) on lanes (g, t) of a warp, lane 4 g + t
@@ -1313,3 +1348,218 @@ def test_k12n_takes_the_warp_kernel_up_to_2048():
         k12._launch_norm(h, mod, mod, 1e-6, form="warp")
     with pytest.raises(ValueError, match="no 'rows' kernel"):
         k12._launch_norm(h, mod, mod, 1e-6, form="rows")
+
+
+# K4: the table-and-permute decode of ao_tpu_torch/csrc/int4_w4a8.cu
+# (code_table, decode_word) and its items, one a CTA, mirrored in numpy
+
+
+def _prmt(a, b, sel):
+    """prmt.b32 in its default mode over uint32 arrays: byte n of the result
+    is byte sel[4n+2:4n] of {b, a}, or its sign bit over all eight bits
+    where sel[4n+3] is set."""
+    a, b, sel = np.broadcast_arrays(*(np.asarray(x, np.uint32) for x in (a, b, sel)))
+    src = np.stack([(v >> np.uint32(8 * i)) & np.uint32(0xFF) for v in (a, b) for i in range(4)])
+    out = np.zeros(a.shape, np.uint32)
+    for n in range(4):
+        nib = (sel >> np.uint32(4 * n)) & np.uint32(0xF)
+        byte = np.take_along_axis(src, (nib & np.uint32(7)).astype(np.int64)[None], 0)[0]
+        byte = np.where(nib & np.uint32(8), np.where(byte & np.uint32(0x80), 0xFF, 0), byte)
+        out |= byte.astype(np.uint32) << np.uint32(8 * n)
+    return out
+
+
+def _k4_tables(a, b):
+    """code_table: a, b f32 (...) -> (..., 4) uint32, code u in byte u % 4 of
+    word u / 4: clip(u * a + b, +-127) + 1.5 * 2^23, each step one f32
+    rounding, its low byte."""
+    u = np.arange(16, dtype=np.float32)
+    v = u * np.asarray(a, np.float32)[..., None] + np.asarray(b, np.float32)[..., None]
+    code = (np.clip(v, np.float32(-127), np.float32(127)) + np.float32(12582912)).view(np.uint32)
+    code = (code & np.uint32(0xFF)).reshape(code.shape[:-1] + (4, 4))
+    return (code << (np.uint32(8) * np.arange(4, dtype=np.uint32))).sum(-1, dtype=np.uint32)
+
+
+def _k4_decode_words(w, ta, tb):
+    """decode_word over uint32 words w (...) with their tables (..., 4):
+    (plane A's four codes, plane B's) as uint32 words."""
+    w = np.asarray(w, np.uint32)
+    ws = _prmt(w, 0, 0x3120)
+    xa, xb = ws & np.uint32(0x07070707), (ws >> np.uint32(4)) & np.uint32(0x07070707)
+    sa, sb = xa | (xa >> np.uint32(12)), xb | (xb >> np.uint32(12))
+    ma, mb = _prmt(w << np.uint32(4), 0, 0xBA98), _prmt(w, 0, 0xBA98)
+    qa = (_prmt(ta[..., 2], ta[..., 3], sa) & ma) | (_prmt(ta[..., 0], ta[..., 1], sa) & ~ma)
+    qb = (_prmt(tb[..., 2], tb[..., 3], sb) & mb) | (_prmt(tb[..., 0], tb[..., 1], sb) & ~mb)
+    return qa, qb
+
+
+def _k4_mirror(word, a, b, g):
+    """K4's launch, one item of 256 K rows x 64 columns a CTA: each
+    thread's 8 word rows by 4 columns decoded into the shared tile (16-byte
+    chunks at c ^ ((column / 4) & 7)), the tile copied out, 16 threads a
+    column. Every 16-byte chunk of the (N, K) output is written once.
+    Returns the (K, N) int8 view."""
+    kw, n = word.shape
+    k = 8 * kw
+    slabs, cols = k // 256, k1.REQUANT_COLS
+    w32 = word.view(np.uint32)
+    out = np.zeros((n, k), np.uint8)
+    written = np.zeros((n, k // 16), np.int64)
+    for it in range(k1.requant_plan(k, n)):
+        s, n_tile = it % slabs, it // slabs * cols
+        tile = np.zeros((cols, 16, 16), np.uint8)
+        for tid in range(cols):
+            cg, ch = tid % (cols // 4), tid // (cols // 4)
+            n0 = n_tile + 4 * cg
+            r0 = 32 * s + 8 * ch
+            t = r0 // (g // 4)
+            ta = _k4_tables(a[2 * t, n0:n0 + 4], b[2 * t, n0:n0 + 4])
+            tb = _k4_tables(a[2 * t + 1, n0:n0 + 4], b[2 * t + 1, n0:n0 + 4])
+            qa, qb = _k4_decode_words(w32[r0:r0 + 8, n0:n0 + 4], ta[None], tb[None])
+            ca = (2 * t * g + 4 * (r0 % (g // 4)) - 256 * s) // 16
+            for ci in range(4):
+                for c, q in ((ca, qa[:4]), (ca + 1, qa[4:]), (ca + g // 16, qb[:4]),
+                             (ca + g // 16 + 1, qb[4:])):
+                    tile[4 * cg + ci, c ^ (cg & 7)] = q[:, ci].astype("<u4").view(np.uint8)
+        for tid in range(cols):
+            c = tid % 16
+            for j in range(16):
+                nl = tid // 16 + j * (cols // 16)
+                out[n_tile + nl, 256 * s + 16 * c:256 * s + 16 * c + 16] = tile[
+                    nl, c ^ ((nl >> 2) & 7)]
+                written[n_tile + nl, 16 * s + c] += 1
+    assert (written == 1).all()
+    return out.view(np.int8).T
+
+
+@pytest.mark.parametrize("g", [32, 64, 128])
+@pytest.mark.parametrize("k,n", [(512, 192), (768, 320)])
+def test_k4_table_decode_is_the_plain_version(g, k, n):
+    """K4's tables, its permuted lookups and its items give
+    ``int4_magic8_requant_int8_plain``'s int8 bit for bit: random words
+    (every nibble, 0 and 15 included), a and b that put u * a + b on
+    half-integers (ties) and past +-127 (clips), and a group of arbitrary
+    f32 products."""
+    rng = np.random.default_rng(g + k + n)
+    word = rng.integers(-2 ** 31, 2 ** 31, (k // 8, n)).astype(np.int32)
+    ng = k // g
+    a = (rng.integers(-40, 41, (ng, n)) * 0.5).astype(np.float32)
+    b = (rng.integers(-300, 301, (ng, n)) * 0.5).astype(np.float32)
+    a[1] = (rng.standard_normal(n) * 20).astype(np.float32)
+    b[1] = (rng.standard_normal(n) * 50).astype(np.float32)
+    u = k1.unpack_int4_magic8(torch.from_numpy(word), g).numpy()
+    v = u * np.repeat(a, g, 0) + np.repeat(b, g, 0)
+    assert {0, 15} <= set(np.unique(u)) and (v > 127.5).any() and (v < -127.5).any()
+    assert (v - np.floor(v) == 0.5).any()
+    want = k1.int4_magic8_requant_int8_plain(torch.from_numpy(word), torch.from_numpy(a),
+                                             torch.from_numpy(b), g).numpy()
+    assert np.array_equal(_k4_mirror(word, a, b, g), want)
+
+
+def test_k4_plan_is_one_item_a_cta():
+    """requant_plan at the W4A8 prefill's five (K, N) and at small ones:
+    one item of 256 K rows x 64 columns a CTA, the items covering K and N
+    in whole tiles; a width K4 has no whole tiles for raises ValueError
+    before any launch."""
+    for k, n in _smoke.LLAMA_KN + [(1024, 448), (256, 64), (768, 320)]:
+        assert k1.requant_plan(k, n) * 256 * 64 == k * n
+    assert [k1.requant_plan(k, n) for k, n in _smoke.LLAMA_KN] == [1024, 256, 3584, 3584, 32064]
+    for kw, n in ((32, 96), (32, 4100), (24, 64)):
+        with pytest.raises(ValueError, match="must be a multiple of 64"):
+            k1.check_shapes_requant(torch.zeros((kw, n), dtype=torch.int32), 128)
+
+
+# K12g: the four-warps-a-row kernel of ao_tpu_torch/csrc/fused_act.cu
+# (gelu_quant_warps_kernel) and the block kernel above 3072, mirrored in numpy
+
+
+def _gelu_f32(x):
+    """gate<1>'s tanh-GELU in f32: the cubic's add an FMA (through f64, exact
+    before its one rounding but for a double rounding no data here reaches),
+    every other step one f32 rounding; numpy's f32 tanh."""
+    f32 = np.float32
+    x3 = x * x * x
+    s = (np.float64(f32(0.044715)) * x3.astype(np.float64) + x.astype(np.float64)).astype(f32)
+    return x * (f32(0.5) * (f32(1) + np.tanh(f32(0.7978845608028654) * s)))
+
+
+def _k12g_mirror(x):
+    """K12g on rows x (R, D) f32 (bf16 values) in ``gelu_form(D)``'s form:
+    in the warps kernel lane l of warp w of a row's 4 holds chunks 32 (4 c
+    + w) + l (the last predicated), each lane's max of |GELU|, the xor tree,
+    then the 4 warps' maxima; codes by ``_quant_bytes_in_row``; the block
+    kernel's codes by the IEEE division. Returns (q int8 (R, D), scale f32
+    (R,))."""
+    r, d = x.shape
+    y = _gelu_f32(x)
+    warps = k12.gelu_form(d) == "warps"
+    if warps:
+        n, w = d // 8, 4  # kGeluRowWarps
+        c_max = -(-n // (32 * w))
+        assert c_max <= 3
+        idx = (32 * (w * np.arange(c_max)[None, None, :] + np.arange(w)[:, None, None])
+               + np.arange(32)[None, :, None])  # (warp, lane, c) chunk
+        chunks = np.zeros((r, w, 32, c_max, 8), np.float32)
+        chunks[:, idx < n] = y.reshape(r, n, 8)[:, idx[idx < n]]
+        assert sorted(idx[idx < n].tolist()) == list(range(n))
+        lane_max = np.abs(chunks).max(axis=(3, 4))  # (r, warp, lane)
+        amax = np.stack([_lane_tree(lane_max[:, i], np.maximum) for i in range(w)], 1).max(1)
+    else:
+        amax = np.abs(y).max(axis=1)
+    sc = np.maximum(amax, np.float32(1e-8)) / np.float32(127)
+    if warps:
+        q = np.stack([_quant_bytes_in_row(y[i], sc[i])[0] for i in range(r)])
+    else:
+        q = np.clip(np.rint(y / sc[:, None]), -127, 127).astype(np.int8)
+    return q, sc
+
+
+@pytest.mark.parametrize("d", [128, 768, 1536, 3072, 5120])
+def test_k12g_reduction_order_and_codes_keep_the_plain_ones(d):
+    """K12g's form at D (4 warps a row up to 3072: lane maxima, the xor
+    tree, the warps' maxima, codes from the reciprocal; one block a row
+    above) against
+    ``gelu_quant_plain`` on bf16 rows from a seed: codes at most 1 LSB off
+    on under ``LSB_FRACTION`` of values, scales within ``K12_SCALE_RTOL``
+    (chip_smoke.py's checks)."""
+    rng = np.random.default_rng(d + 20)
+    y = torch.from_numpy(rng.standard_normal((1, 96, d)) * 2 + 0.5).to(torch.bfloat16)
+    qr, sr = k12.gelu_quant_plain(y)
+    q, sc = _k12g_mirror(y[0].float().numpy())
+    diff = np.abs(q.astype(np.int32) - qr[0].numpy().astype(np.int32))
+    assert diff.max() <= 1 and (diff > 0).mean() < _smoke.LSB_FRACTION
+    rel = np.abs(sc - sr[0, :, 0].numpy()) / sr[0, :, 0].numpy()
+    assert rel.max() <= _smoke.K12_SCALE_RTOL
+
+
+def test_k12g_takes_the_warps_kernel_up_to_3072():
+    """The wrapper's choice of K12g's kernel by D alone: 4 warps a row up
+    to 3072 values (SAM-B's MLP), one block a row above (SAM-L's 4096,
+    SAM-H's 5120); the launch asks it before it touches a device, and a
+    warps launch above 3072 or an unknown form raise ValueError on the CPU
+    as on the card."""
+    assert [k12.gelu_form(d) for d in (128, 768, 1024, 2944, 3072)] == ["warps"] * 5
+    assert [k12.gelu_form(d) for d in (3200, 4096, 5120)] == ["block"] * 3
+    for d in (768, 5120):
+        y = torch.zeros((2, 3, d), dtype=torch.bfloat16)
+        asked = []
+
+        class Asked(Exception):
+            pass
+
+        def spy(width):
+            asked.append(width)
+            raise Asked
+
+        with pytest.MonkeyPatch.context() as m:
+            m.setattr(k12, "gelu_form", spy)
+            with pytest.raises(Asked):
+                k12._launch_gelu(y)
+        assert asked == [d]
+    with pytest.raises(ValueError, match="no 'warps' kernel"):
+        k12._launch_gelu(y, form="warps")
+    with pytest.raises(ValueError, match="no 'rows' kernel"):
+        k12._launch_gelu(y, form="rows")
+    for shape, dtype in (((2, 3, 3200), torch.float32), ((2, 3, 4096), torch.bfloat16)):
+        with pytest.raises(ValueError, match="no 'warps' kernel at D="):
+            k12._launch_gelu(torch.zeros(shape, dtype=dtype), form="warps")
