@@ -30,20 +30,18 @@
 // row sums of x over the group, in f32. No weight is rounded to bf16(q*s +
 // b2): the TPU kernel never makes that rounding.
 //
-// What bounds it on the H100, and the two kernels:
-//  * decode (M <= 16, int4_wo_magic_gemv_kernel): the weight stream, 0.5 B
-//    per weight plus 4 B of s and b2 per g weights, against 3.35 TB/s. The
-//    card hides the latency of device memory only with enough bytes in
-//    flight, and the grid must fill 132 SMs: each warp owns 32 columns, so
-//    wk/wv (N = 1024) give only 8 blocks of 4 warps. The kernel splits K as
-//    well (grid.z) into runs of word rows, whole super-groups of 4g rows or,
-//    where those leave the card short of blocks, runs of 16 word rows with
-//    all four planes (each run folds its part of a group), writes f32
-//    partials that stay in the 50 MB L2, and a second pass sums them into
-//    bf16. Each thread issues all its word loads of a run and the group
-//    scales before it uses any, then decodes the four planes from registers.
-//    The weights are the A operand of mma.sync (int4_tiles.cuh), so at M = 8
-//    no half of an m16 tile is spent on rows of x that do not exist.
+// What bounds it on the H100, and the two forms:
+//  * decode (M <= 16): the weight stream, 0.5 B per weight plus 4 B of s and
+//    b2 per g weights, against 3.35 TB/s. It runs on the weight-stream
+//    decode mainloop (gemv_mainloop.cuh) with GemvQ below: a ring of slabs
+//    of word rows, x and the group's s and b2 rows in shared memory, fed by
+//    TMA, the x sums taken once a slab for the CTA, plane_q into the A
+//    fragments of mma.sync (the weights the A operand, int4_tiles.cuh, so at
+//    M = 8 no half of an m16 tile is spent on rows of x that do not exist),
+//    the K split summed in a thread-block cluster; one kernel a call, its
+//    plan from int4_matmul.gemv_plan. (The earlier decode kernel issued
+//    one run's loads, consumed them, and only then issued the next run's;
+//    its K split wrote f32 partials that a second kernel summed.)
 //  * prefill (M > 16): tensor-core operations, 2 M K N against 989 TFLOP/s,
 //    on the shared wgmma mainloop (mixed_gemm.cuh) with MagicOp
 //    (magic_op.cuh) and PlaneQ (plane_q.cuh): each thread decodes its own A
@@ -57,56 +55,84 @@
 //    accumulator set and empties the tensor-core queue once a group, which
 //    bounds the tiles to 128 x 128 at one CTA an SM (PERF.md).
 
+#include "gemv_mainloop.cuh"
 #include "plane_q.cuh"
 
 namespace {
 
-// Decode kernel (M <= 16, g = 16*KS, NT = ceil(M/8), runs of KR k16 steps):
-// the swapped operands and the warp's 32 columns of int4_tiles.cuh. grid
-// (ceil(N/128), 1, splits), 128 threads; split z covers runs [z*rps,
-// (z+1)*rps).
-template <int KS, int KR, int NT>
-__global__ void __launch_bounds__(128)
-    int4_wo_magic_gemv_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ word,
-                              const __nv_bfloat16* __restrict__ s,
-                              const __nv_bfloat16* __restrict__ b2, __nv_bfloat16* __restrict__ out,
-                              float* __restrict__ ws, int M, int K, int N, int rps, int raw_zp) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int nb = (blockIdx.x * 4 + warp) * 32;
-  if (nb >= N) return;  // warp-uniform: the shuffles see full warps
-  const int runs = K / (4 * 16 * KS) * (KS / KR);
-  const int r_end = min((int)(blockIdx.z + 1) * rps, runs);
-  const int col = nb + 4 * gid;
+// K1's decode on the weight-stream mainloop (gemv_mainloop.cuh). Plane j of
+// a word is ((w >> 4j) & 0x000F000F) | 0x43004300, one lop3: the bf16x2
+// (128 + u) of plane_q before its subtract of 136, exact, so tmp = x_G .
+// (128 + u_G) on the tensor cores (every product exact) and the fold adds
+// acc += s * tmp, then acc += xsum * (b2 - 136 s), xsum x_G's sum over the
+// same k16 steps (the mainloop's mma against ones): the same function as
+// x_G . q_G with q = u - 8, 56 of a k16 step's 147 decode instructions
+// fewer (PERF.md). A folding stage's
+// qparams: the s rows of its 4 groups, then the b2 rows, bf16 (b2 the
+// tinygemm zero point when raw_zp).
+struct GemvQ {
+  struct Args {
+    const __nv_bfloat16* s;
+    const __nv_bfloat16* b2;
+    int raw_zp;
+  };
+  static constexpr bool kBias = true;
+  static constexpr int kQArrays = 2, kQBytes = 2;  // s, b2 in bf16
+  __host__ __device__ static int setup_bytes(const Args&) { return 0; }
+  __device__ static void setup(const Args&, uint8_t*, int, int) {}
 
-  float acc[2][NT][4];
+  struct Q {
+    uint2 s[4], b[4];  // columns cb .. cb + 3 of the four groups
+  };
+  __device__ static void read_q(const uint8_t* q, int bn, int cb, Q& r) {
 #pragma unroll
-  for (int p = 0; p < 2; ++p)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[p][nt][e] = 0.f;
-  magic_gemv_accumulate<KS, NT, KR>(acc, x, M, K, N, word, s, b2, blockIdx.z * rps, r_end, col,
-                                    raw_zp);
-
-  // the thread's outputs: batch rows 2*tig + h (+ 8nt), columns col .. col + 3
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = 2 * tig + h + 8 * nt;
-      if (r >= M) continue;
-      const float v[4] = {acc[0][nt][h], acc[0][nt][2 + h], acc[1][nt][h], acc[1][nt][2 + h]};
-      const size_t off = (size_t)r * N + col;
-      if (ws == nullptr) {
-        *reinterpret_cast<uint2*>(out + off) = make_uint2(pack_bf16x2(v[0], v[1]),
-                                                          pack_bf16x2(v[2], v[3]));
-      } else {
-        *reinterpret_cast<float4*>(ws + (size_t)blockIdx.z * M * N + off) =
-            make_float4(v[0], v[1], v[2], v[3]);
-      }
+    for (int j = 0; j < 4; ++j) {
+      r.s[j] = *reinterpret_cast<const uint2*>(gv::q_at(q, bn, 2, 0, j, cb));
+      r.b[j] = *reinterpret_cast<const uint2*>(gv::q_at(q, bn, 2, 1, j, cb));
     }
-}
+  }
+
+  struct Slab {};
+  __device__ static Slab slab(const Args&, const uint8_t*, int) { return {}; }
+  __device__ static void decode(const Slab&, const uint4& w0, const uint4& w1,
+                                uint32_t (&a)[4][2][4]) {
+    gv::by_plane(
+        [](uint32_t w, int j) {
+          uint32_t v;
+          asm("lop3.b32 %0, %1, %2, %3, 0xEA;" : "=r"(v) : "r"(w >> (4 * j)), "r"(0x000F000Fu),
+              "r"(0x43004300u));
+          return v;
+        },
+        w0, w1, a);
+  }
+
+  // C fragment e of tile p: column cb + 2p + (e >> 1), x row 2 tig + (e & 1) + 8 nt
+  template <int NT>
+  __device__ static void fold(const Args& a, const Q& r, int j, const float (&tmp)[2][NT][4],
+                              const float (&xs)[NT][4], float (&acc)[2][NT][4]) {
+    const __nv_bfloat16* sh = reinterpret_cast<const __nv_bfloat16*>(&r.s[j]);
+    const __nv_bfloat16* bh = reinterpret_cast<const __nv_bfloat16*>(&r.b[j]);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float sc = __bfloat162float(sh[c]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int p = c >> 1, e = 2 * (c & 1) + h;
+          acc[p][nt][e] = fmaf(sc, tmp[p][nt][e], acc[p][nt][e]);
+        }
+      const float bc = fmaf(-136.f, sc, bias_of(sc, bh[c], a.raw_zp));
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int p = c >> 1, e = 2 * (c & 1) + h;
+          acc[p][nt][e] = fmaf(xs[nt][h], bc, acc[p][nt][e]);
+        }
+    }
+  }
+};
 
 // The prefill pre-pass: xs[G'][m] = the f32 sum of x[m, :] over group G'
 // (g = 16*KS), for m < mp (zeros from M on). A warp takes 256 values of a
@@ -132,7 +158,7 @@ __global__ void __launch_bounds__(128)
   if (lane % LG == 0 && k < K) xs[(size_t)(k / G) * mp + m] = v;
 }
 
-// Second pass of a split-K launch: out = bf16(sum over splits of ws).
+// Second pass of a split-K prefill launch: out = bf16(sum over splits of ws).
 __global__ void int4_wo_reduce_kernel(const float* __restrict__ ws, __nv_bfloat16* __restrict__ out,
                                       size_t mn, int splits) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -142,37 +168,12 @@ __global__ void int4_wo_reduce_kernel(const float* __restrict__ ws, __nv_bfloat1
   out[i] = __float2bfloat16(acc);
 }
 
-template <int KS, int KR>
-cudaError_t launch_gemv(const __nv_bfloat16* x, const int32_t* word, const __nv_bfloat16* s,
-                        const __nv_bfloat16* b2, __nv_bfloat16* out, float* ws, int M, int K,
-                        int N, int splits, int rps, int raw_zp, cudaStream_t st) {
-  dim3 grid((N + 127) / 128, 1, splits);
-  if (M <= 8)
-    int4_wo_magic_gemv_kernel<KS, KR, 1><<<grid, 128, 0, st>>>(x, word, s, b2, out, ws, M, K, N,
-                                                               rps, raw_zp);
-  else
-    int4_wo_magic_gemv_kernel<KS, KR, 2><<<grid, 128, 0, st>>>(x, word, s, b2, out, ws, M, K, N,
-                                                               rps, raw_zp);
-  return cudaGetLastError();
-}
-
-// run_rows: word rows a decode run, g/2 (a super-group) or 16 (two k16 steps)
 template <int KS>
 cudaError_t launch(const __nv_bfloat16* x, const int32_t* word, const __nv_bfloat16* s,
                    const __nv_bfloat16* b2, __nv_bfloat16* out, float* ws, float* xs, int M,
-                   int K, int N, int bm, int bn, int splits, int per, int run_rows, int raw_zp,
+                   int K, int N, int bm, int bn, int splits, int per, int raw_zp,
                    cudaStream_t st) {
-  if (bm == 16) {
-    if (M > 16) return cudaErrorInvalidValue;
-    if (run_rows == 8 * KS)
-      return launch_gemv<KS, KS>(x, word, s, b2, out, ws, M, K, N, splits, per, raw_zp, st);
-    if constexpr (KS > 2) {
-      if (run_rows == 16)
-        return launch_gemv<KS, 2>(x, word, s, b2, out, ws, M, K, N, splits, per, raw_zp, st);
-    }
-    return cudaErrorInvalidValue;
-  }
-  if (xs == nullptr) return cudaErrorInvalidValue;
+  if (M <= 16 || xs == nullptr) return cudaErrorInvalidValue;
   const int mp = (M + 3) / 4 * 4;
   magic_xsum_kernel<KS><<<dim3((mp + 3) / 4, (K + 255) / 256), 128, 0, st>>>(x, xs, M, mp, K);
   const cudaError_t err = cudaGetLastError();
@@ -182,22 +183,31 @@ cudaError_t launch(const __nv_bfloat16* x, const int32_t* word, const __nv_bfloa
                                                   splits, st);
 }
 
+// The compiled group sizes: g = 16 KS
+template <class F>
+cudaError_t by_group(int G, F&& run) {
+  switch (G) {
+    case 16: return run(std::integral_constant<int, 1>());
+    case 32: return run(std::integral_constant<int, 2>());
+    case 64: return run(std::integral_constant<int, 4>());
+    case 128: return run(std::integral_constant<int, 8>());
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// x (M, K) bf16; word (K/8, N) int32; s, b2 (K/g, N) bf16 (with raw_zp != 0,
-// b2 holds the tinygemm zero point and the kernel forms bf16(zp + 8s));
-// out (M, N) bf16; ws (splits, M, N) f32 when splits > 1. Tiles from
-// int4_matmul.launch_tiles: bm 16 the decode kernel (M <= 16; per runs of
-// run_rows word rows a split, run_rows g/2 or 16), else the
-// mainloop's (bm, bn) with per stages of 64 K a split (whole units of 8
-// stages when split) and xs (K/g, ceil(M/4)*4) f32 scratch for the row sums
-// of x. Needs g in {16, 32, 64, 128}, N % 32 == 0, K % (4g) == 0 and 16-byte
-// aligned rows; the Python wrapper checks them. Returns cudaGetLastError()
-// after the launches.
+// The prefill (M > 16). x (M, K) bf16; word (K/8, N) int32; s, b2 (K/g,
+// N) bf16 (with raw_zp != 0, b2 holds the tinygemm zero point and the
+// kernel forms bf16(zp + 8s)); out (M, N) bf16; the mainloop's tiles (bm,
+// bn) from int4_matmul.launch_tiles, per stages of 64 K a split (whole
+// units of 8 stages when split), ws (splits, M, N) f32 when splits > 1, xs
+// (K/g, ceil(M/4)*4) f32 scratch for the row sums of x. Needs g in {16, 32,
+// 64, 128}, N % 32 == 0, K % (4g) == 0 and 16-byte aligned rows; the Python
+// wrapper checks them. Returns cudaGetLastError() after the launches.
 extern "C" int ao_int4_wo_magic(const void* x_, const void* word_, const void* s_, const void* b2_,
                                 void* out_, void* ws_, void* xs_, int M, int K, int N, int G,
-                                int bm, int bn, int splits, int per, int run_rows, int raw_zp,
-                                void* stream) {
+                                int bm, int bn, int splits, int per, int raw_zp, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* x = static_cast<const __nv_bfloat16*>(x_);
   const auto* word = static_cast<const int32_t*>(word_);
@@ -207,22 +217,41 @@ extern "C" int ao_int4_wo_magic(const void* x_, const void* word_, const void* s
   float* ws = splits > 1 ? static_cast<float*>(ws_) : nullptr;
   float* xs = static_cast<float*>(xs_);
   if (M < 1 || N % 32 || K % (4 * G)) return (int)cudaErrorInvalidValue;
-  auto run = [&](auto ks) {
+  const cudaError_t err = by_group(G, [&](auto ks) {
     return launch<decltype(ks)::value>(x, word, s, b2, out, ws, xs, M, K, N, bm, bn, splits, per,
-                                       run_rows, raw_zp, st);
-  };
-  cudaError_t err;
-  switch (G) {
-    case 16: err = run(std::integral_constant<int, 1>()); break;
-    case 32: err = run(std::integral_constant<int, 2>()); break;
-    case 64: err = run(std::integral_constant<int, 4>()); break;
-    case 128: err = run(std::integral_constant<int, 8>()); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+                                       raw_zp, st);
+  });
   if (err != cudaSuccess || ws == nullptr) return (int)err;
   const size_t mn = (size_t)M * N;
   int4_wo_reduce_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(ws, out, mn, splits);
   return (int)cudaGetLastError();
+}
+
+// The decode (M <= 16), one launch on the weight-stream mainloop: x, word,
+// s, b2 and out as above; the plan (wn warps along N, wk warps along K,
+// cluster CTAs along K, ring stages) from
+// int4_matmul.gemv_plan, checked again here (gv::plan_ok). Returns
+// cudaGetLastError() after the launch, or minus libcuda's CUresult for a
+// tensor map it refuses.
+extern "C" int ao_int4_wo_magic_gemv(const void* x, const void* word, const void* s,
+                                     const void* b2, void* out, int M, int K, int N, int G,
+                                     int wn, int wk, int cluster, int stages, int raw_zp,
+                                     void* stream) {
+  if (N % 32 || G < 16 || K % (4 * G) || cluster < 1) return (int)cudaErrorInvalidValue;
+  const int slabs = K / (4 * (G < 64 ? G : 64));  // of 8 R K values, R = min(g / 2, 32)
+  const gv::Problem pb{static_cast<const __nv_bfloat16*>(x), static_cast<const int32_t*>(word),
+                       static_cast<__nv_bfloat16*>(out), M, K, N, wn, wk, stages,
+                       (slabs + cluster - 1) / cluster};
+  const GemvQ::Args args{static_cast<const __nv_bfloat16*>(s),
+                         static_cast<const __nv_bfloat16*>(b2), raw_zp};
+  const void* q[2] = {s, b2};
+  int err = (int)cudaErrorInvalidValue;
+  by_group(G, [&](auto ks) {
+    err = gv::launch<GemvQ, decltype(ks)::value>(pb, args, q, cluster,
+                                                 static_cast<cudaStream_t>(stream));
+    return cudaSuccess;
+  });
+  return err;
 }
 
 // ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
-// Device code shared by the int4 kernels over the magic layouts: K1's and
-// K3's decode paths (int4_matmul.cu, int4_w4a8.cu) and the MoE grouped
-// kernels K13 (grouped_matmul.cu: its w4a8 form runs K3's arithmetic over
-// the rows of one expert at a time).
+// Device code shared by the int4 kernels over the magic layouts: K3's
+// decode path (int4_w4a8.cu), K1's plane_q and bias_of (int4_matmul.cu: its
+// prefill's PlaneQ and its decode form on gemv_mainloop.cuh) and the MoE
+// grouped kernels K13 (grouped_matmul.cu: its w4a8 form runs K3's
+// arithmetic over the rows of one expert at a time).
 //
-// Both decode paths swap the operands' roles: the weight tile is the A
+// The decode paths swap the operands' roles: the weight tile is the A
 // operand of an mma.sync (16 columns of N as the rows of an m16 tile) and
 // x^T the B operand (the batch rows as the columns of an n8 tile), so at
 // M = 8 no half of an m16 tile is spent on rows of x that do not exist. A
@@ -88,99 +89,6 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 __device__ __forceinline__ float bias_of(float s, __nv_bfloat16 b, int raw_zp) {
   const float v = __bfloat162float(b);
   return raw_zp ? __bfloat162float(__float2bfloat16_rn(__fmaf_rn(8.f, s, v))) : v;
-}
-
-// K1's decode arithmetic (g = 16*KS, NT n8 tiles of batch rows) over the
-// runs [r_begin, r_end) of KR k16 steps each (8 KR word rows, all four
-// planes; KS / KR runs a super-group) of one (K/8, N) magic word matrix and
-// its (K/g, N) s and b2: for each group's part in a run, acc += s * (x_G .
-// q_G) on the tensor cores, then acc += sum(x_G) * b2, in f32. At KR = KS
-// a run is a super-group (K1 but at small N). x holds M valid
-// rows (row r at x + r*K); the rest of the n8 tiles reads zeros. Threads of
-// a warp call it together (it shuffles).
-template <int KS, int NT, int KR = KS>
-__device__ __forceinline__ void magic_gemv_accumulate(
-    float (&acc)[2][NT][4], const __nv_bfloat16* __restrict__ x, int M, int K, int N,
-    const int32_t* __restrict__ word, const __nv_bfloat16* __restrict__ s,
-    const __nv_bfloat16* __restrict__ b2, int r_begin, int r_end, int col, int raw_zp) {
-  constexpr int G = 16 * KS, RPS = KS / KR;
-  const int lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  for (int r = r_begin; r < r_end; ++r) {
-    const int t = r / RPS, ks0 = r % RPS * KR;
-    const int32_t* wbase = word + ((size_t)t * (G / 2) + 8 * ks0) * N + col;
-    int4 w[2 * KR];
-    uint2 sv[4], bv[4];
-#pragma unroll
-    for (int ks = 0; ks < KR; ++ks) {
-      w[2 * ks] = ld_16(wbase + (size_t)(8 * ks + tig) * N);
-      w[2 * ks + 1] = ld_16(wbase + (size_t)(8 * ks + 4 + tig) * N);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const size_t qoff = (size_t)(4 * t + j) * N + col;
-      sv[j] = __ldg(reinterpret_cast<const uint2*>(s + qoff));
-      bv[j] = __ldg(reinterpret_cast<const uint2*>(b2 + qoff));
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float tmp[2][NT][4], xs[NT];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        xs[nt] = 0.f;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) tmp[0][nt][e] = tmp[1][nt][e] = 0.f;
-      }
-#pragma unroll
-      for (int ks = 0; ks < KR; ++ks) {
-        const int k0 = (4 * t + j) * G + 16 * (ks0 + ks) + 2 * tig;
-        uint32_t b[NT][2];
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int row = gid + 8 * nt;
-          b[nt][0] = row < M ? ld_x2(x + (size_t)row * K + k0) : 0u;
-          b[nt][1] = row < M ? ld_x2(x + (size_t)row * K + k0 + 8) : 0u;
-          xs[nt] += pair_sum(b[nt][0]) + pair_sum(b[nt][1]);
-        }
-        const int4& w0 = w[2 * ks];
-        const int4& w1 = w[2 * ks + 1];
-        const uint32_t a0[4] = {plane_q(w0.x, j), plane_q(w0.y, j), plane_q(w1.x, j),
-                                plane_q(w1.y, j)};
-        const uint32_t a1[4] = {plane_q(w0.z, j), plane_q(w0.w, j), plane_q(w1.z, j),
-                                plane_q(w1.w, j)};
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          mma_16816(tmp[0][nt], a0, b[nt][0], b[nt][1]);
-          mma_16816(tmp[1][nt], a1, b[nt][0], b[nt][1]);
-        }
-      }
-      // Fold the group's part. Row sums of x: complete them over the quad, then
-      // fetch rows 2*tig and 2*tig + 1 from their quads.
-      const __nv_bfloat16* sh = reinterpret_cast<const __nv_bfloat16*>(&sv[j]);
-      const __nv_bfloat16* bh = reinterpret_cast<const __nv_bfloat16*>(&bv[j]);
-      float sc[4], bc[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sc[e] = __bfloat162float(sh[e]);
-        bc[e] = bias_of(sc[e], bh[e], raw_zp);
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        float v = xs[nt];
-        v += __shfl_xor_sync(0xffffffffu, v, 1);
-        v += __shfl_xor_sync(0xffffffffu, v, 2);
-        const float xr[2] = {__shfl_sync(0xffffffffu, v, 8 * tig),
-                             __shfl_sync(0xffffffffu, v, 8 * tig + 4)};
-#pragma unroll
-        for (int p = 0; p < 2; ++p)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int c = 2 * p + (e >> 1);
-            acc[p][nt][e] = fmaf(xr[e & 1], bc[c], fmaf(sc[c], tmp[p][nt][e], acc[p][nt][e]));
-          }
-      }
-    }
-  }
 }
 
 // K3's decode arithmetic (g = 32*KS, NT n8 tiles of batch rows) over the

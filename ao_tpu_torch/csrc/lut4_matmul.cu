@@ -25,15 +25,17 @@
 // each group's products, as K1 applies its group scales: tmp = x_G .
 // lut[u_G] on the tensor cores, acc += s * tmp.
 //
-// What bounds it on the H100, and the two kernels (K1's):
-//  * decode (M <= 16, lut4_gemv_kernel): the weight stream, 0.5 B per weight
-//    plus 4 B of scaler per g weights, against 3.35 TB/s. The tables are
-//    copied as f32 into shared memory when the block starts (a warp reads
-//    one table, whose 16 entries lie in 16 banks). The weights are the A
-//    operand, each warp owns 32 columns, each thread issues all its word
-//    loads of a super-group and its scalers before it uses any, and the grid
-//    splits K by whole super-groups (grid.z) into f32 partials summed by a
-//    second pass, so that N = 1024 fills 132 SMs.
+// What bounds it on the H100, and the two forms (K1's):
+//  * decode (M <= 16): the weight stream, 0.5 B per weight plus 4 B of
+//    scaler per g weights, against 3.35 TB/s. It runs on K1's weight-stream
+//    decode mainloop (gemv_mainloop.cuh) with GemvLut below: the ring of
+//    slabs of word rows, x and the scaler rows in shared memory, the
+//    codebooks copied into shared memory as bf16 when the CTA starts (a
+//    group's 16 entries in 8 banks, so a warp's lookups never conflict),
+//    the K split summed in a thread-block cluster; one kernel a call, its
+//    plan from int4_matmul.gemv_plan. (The earlier decode kernel was K1's
+//    earlier one with table lookups: a run's loads consumed before the next
+//    run's were issued, its K split summed by a second kernel.)
 //  * prefill (M > 16): tensor-core operations, 2 M K N against 989 TFLOP/s,
 //    on the shared wgmma mainloop (mixed_gemm.cuh) with MagicOp
 //    (magic_op.cuh) and PlaneLut below: the stage's slot carries each of its
@@ -49,154 +51,133 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gemv_mainloop.cuh"
 #include "magic_op.cuh"
 
 namespace {
 
-constexpr int kMaxLuts = 256;  // (L, 16) tables the decode kernel holds in shared memory, as f32
+constexpr int kMaxLuts = 256;  // (L, 16) codebooks a CTA holds in shared memory
 
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint32_t ld_x2(const __nv_bfloat16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-
-__device__ __forceinline__ int4 ld_16(const void* p) {
-  return __ldg(reinterpret_cast<const int4*>(p));
-}
-
-// Plane j of a magic word through a table, as bf16x2 (row 2r' low, 2r' + 1
-// high): the entries are bf16 values, so the pack is exact.
-__device__ __forceinline__ uint32_t plane_lut(uint32_t w, int j, const float* lut) {
+// the entries of the nibbles at bits 4j and 16 + 4j of a word, as bf16x2
+__device__ __forceinline__ uint32_t lut_pair(const uint16_t* tab, uint32_t w, int j) {
   const uint32_t t = w >> (4 * j);
-  return pack_bf16x2(lut[t & 15u], lut[(t >> 16) & 15u]);
+  return (uint32_t)tab[t & 15u] | ((uint32_t)tab[(t >> 16) & 15u] << 16);
 }
 
-// The tables as f32 into shared memory (n_luts * 16 entries).
-__device__ __forceinline__ void load_luts(float* dst, const __nv_bfloat16* lut, int n_luts) {
-  for (int i = threadIdx.x; i < 16 * n_luts; i += blockDim.x) dst[i] = __bfloat162float(lut[i]);
-  __syncthreads();
+// prmt.b32 in its default mode: byte n of the result is byte s[4n+2:4n] of
+// {b, a}.
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t s) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(s));
+  return d;
 }
 
-// the table of group grp (gpl == 0: one shared table)
-__device__ __forceinline__ const float* lut_of(const float* luts, int grp, int gpl) {
-  return gpl == 0 ? luts : luts + 16 * (grp / gpl);
-}
-
-// Decode kernel (M <= 16, g = 16*KS, NT = ceil(M/8)): K1's. The warp owns 32
-// columns, col = nb + 4*gid .. + 3, in two m16 tiles: tile p holds in its rows
-// 0..7 the column col + 2p and in rows 8..15 the column col + 2p + 1. grid
-// (ceil(N/128), 1, splits), 128 threads; split z covers super-groups
-// [z*sps, (z+1)*sps).
-template <int KS, int NT>
-__global__ void __launch_bounds__(128)
-    lut4_gemv_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ word,
-                     const float* __restrict__ s, const __nv_bfloat16* __restrict__ lut,
-                     __nv_bfloat16* __restrict__ out, float* __restrict__ ws, int M, int K, int N,
-                     int n_luts, int gpl, int sps) {
-  constexpr int G = 16 * KS;
-  extern __shared__ __align__(16) float luts[];
-  load_luts(luts, lut, n_luts);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int nb = (blockIdx.x * 4 + warp) * 32;
-  if (nb >= N) return;  // warp-uniform, after the block's only barrier
-  const int nsuper = K / (4 * G);
-  const int t_end = min((int)(blockIdx.z + 1) * sps, nsuper);
-  const int col = nb + 4 * gid;
-
-  float acc[2][NT][4];
-#pragma unroll
-  for (int p = 0; p < 2; ++p)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[p][nt][e] = 0.f;
-
-  for (int t = blockIdx.z * sps; t < t_end; ++t) {
-    const int32_t* wbase = word + (size_t)t * (G / 2) * N + col;
-    int4 w[2 * KS];
-    float4 sv[4];
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      w[2 * ks] = ld_16(wbase + (size_t)(8 * ks + tig) * N);
-      w[2 * ks + 1] = ld_16(wbase + (size_t)(8 * ks + 4 + tig) * N);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      sv[j] = __ldg(reinterpret_cast<const float4*>(s + (size_t)(4 * t + j) * N + col));
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float* tab = lut_of(luts, 4 * t + j, gpl);
-      float tmp[2][NT][4];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) tmp[0][nt][e] = tmp[1][nt][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        const int k0 = (4 * t + j) * G + 16 * ks + 2 * tig;
-        uint32_t b[NT][2];
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int r = gid + 8 * nt;
-          b[nt][0] = r < M ? ld_x2(x + (size_t)r * K + k0) : 0u;
-          b[nt][1] = r < M ? ld_x2(x + (size_t)r * K + k0 + 8) : 0u;
-        }
-        const int4& w0 = w[2 * ks];
-        const int4& w1 = w[2 * ks + 1];
-        const uint32_t a0[4] = {plane_lut(w0.x, j, tab), plane_lut(w0.y, j, tab),
-                                plane_lut(w1.x, j, tab), plane_lut(w1.y, j, tab)};
-        const uint32_t a1[4] = {plane_lut(w0.z, j, tab), plane_lut(w0.w, j, tab),
-                                plane_lut(w1.z, j, tab), plane_lut(w1.w, j, tab)};
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          mma_16816(tmp[0][nt], a0, b[nt][0], b[nt][1]);
-          mma_16816(tmp[1][nt], a1, b[nt][0], b[nt][1]);
-        }
+// K15's decode on the weight-stream mainloop (gemv_mainloop.cuh): the
+// codebook lookup, and per group acc += s * tmp. A folding stage's
+// qparams: the scaler rows of its 4 groups, f32.
+//
+// BYTES (one codebook for every group, NF4's): the codebook becomes a table
+// of 256 bf16x2 pairs in shared memory, entry b = (lut[b & 15], lut[b >>
+// 4]), so a word byte's two nibbles (groups 2k and 2k + 1 of one K row) come
+// from one load, and a word's four planes from four: byte k of the word by
+// prmt, its entry, then two prmts pair the two rows' entries into each
+// plane's register, 16 instructions a word. The table is held 16 times
+// over, entry b of copy c at word 16 b + c, so that lane l, reading copy l %
+// 16, meets another lane in its bank only where their bytes' parity agrees
+// (a warp's 32 random entries of one 256-word table met in up to 4-5). (L,
+// 16) codebooks go by each nibble in its codebook (32 bytes a codebook, two
+// 16-bit loads and about 9 instructions a register).
+template <bool BYTES>
+struct GemvLut {
+  struct Args {
+    const float* s;
+    const __nv_bfloat16* lut;
+    int n_luts;
+    int gpl;  // groups per codebook (0: one shared codebook)
+  };
+  static constexpr bool kBias = false;
+  static constexpr int kQArrays = 1, kQBytes = 4;  // the scalers in f32
+  __host__ __device__ static int setup_bytes(const Args& a) {
+    return BYTES ? 16 * 1024 : 32 * a.n_luts;
+  }
+  __device__ static void setup(const Args& a, uint8_t* tabs, int tid, int threads) {
+    const uint16_t* src = reinterpret_cast<const uint16_t*>(a.lut);
+    if (BYTES) {  // entry b's 16 copies: words 16 b .. 16 b + 15
+      for (int b = tid; b < 256; b += threads) {
+        const uint32_t v = src[b & 15] | (uint32_t)src[b >> 4] << 16;
+        uint4* dst = reinterpret_cast<uint4*>(tabs) + 4 * b;
+        dst[0] = dst[1] = dst[2] = dst[3] = make_uint4(v, v, v, v);
       }
-      // fold the group: C fragment e of tile p is column col + 2p + (e >> 1)
-      const float sc[4] = {sv[j].x, sv[j].y, sv[j].z, sv[j].w};
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int p = 0; p < 2; ++p)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            acc[p][nt][e] = fmaf(sc[2 * p + (e >> 1)], tmp[p][nt][e], acc[p][nt][e]);
+    } else {
+      for (int e = tid; e < 16 * a.n_luts; e += threads)
+        reinterpret_cast<uint16_t*>(tabs)[e] = src[e];
     }
   }
 
-  // the thread's outputs: batch rows 2*tig + h (+ 8nt), columns col .. col + 3
+  struct Q {
+    float4 s[4];  // columns cb .. cb + 3 of the four groups
+  };
+  __device__ static void read_q(const uint8_t* q, int bn, int cb, Q& r) {
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
+    for (int j = 0; j < 4; ++j)
+      r.s[j] = *reinterpret_cast<const float4*>(gv::q_at(q, bn, 4, 0, j, cb));
+  }
+
+  struct Slab {
+    const void* tab[BYTES ? 1 : 4];  // this lane's copy of the pair table, or the codebooks
+  };
+  __device__ static Slab slab(const Args& a, const uint8_t* tabs, int grp) {
+    Slab sl;
+    if (BYTES) {
+      sl.tab[0] = tabs + 4 * (threadIdx.x % 16);
+    } else {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = 2 * tig + h + 8 * nt;
-      if (r >= M) continue;
-      const float v[4] = {acc[0][nt][h], acc[0][nt][2 + h], acc[1][nt][h], acc[1][nt][2 + h]};
-      const size_t off = (size_t)r * N + col;
-      if (ws == nullptr) {
-        *reinterpret_cast<uint2*>(out + off) = make_uint2(pack_bf16x2(v[0], v[1]),
-                                                          pack_bf16x2(v[2], v[3]));
-      } else {
-        *reinterpret_cast<float4*>(ws + (size_t)blockIdx.z * M * N + off) =
-            make_float4(v[0], v[1], v[2], v[3]);
-      }
+      for (int j = 0; j < (BYTES ? 1 : 4); ++j)
+        sl.tab[j] = tabs + 32 * (a.gpl == 0 ? 0 : (grp + j) / a.gpl);
     }
-}
+    return sl;
+  }
+  __device__ static void decode(const Slab& sl, const uint4& w0, const uint4& w1,
+                                uint32_t (&a)[4][2][4]) {
+    if constexpr (BYTES) {
+      const uint32_t* tab = static_cast<const uint32_t*>(sl.tab[0]);
+      const uint32_t words[8] = {w0.x, w0.y, w1.x, w1.y, w0.z, w0.w, w1.z, w1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        // bytes 0 / 1 hold groups (0, 1) / (2, 3) of row 2r', bytes 2 / 3 of row 2r' + 1
+        uint32_t e[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) e[k] = tab[prmt(words[i], 0, 0x4440 + k) * 16];
+        uint32_t* out[4] = {&a[0][i >> 2][i & 3], &a[1][i >> 2][i & 3], &a[2][i >> 2][i & 3],
+                            &a[3][i >> 2][i & 3]};
+        *out[0] = prmt(e[0], e[2], 0x5410);
+        *out[1] = prmt(e[0], e[2], 0x7632);
+        *out[2] = prmt(e[1], e[3], 0x5410);
+        *out[3] = prmt(e[1], e[3], 0x7632);
+      }
+    } else {
+      gv::by_plane(
+          [&](uint32_t w, int j) {
+            return lut_pair(static_cast<const uint16_t*>(sl.tab[j]), w, j);
+          },
+          w0, w1, a);
+    }
+  }
+
+  // C fragment e of tile p: column cb + 2p + (e >> 1)
+  template <int NT>
+  __device__ static void fold(const Args&, const Q& r, int j, const float (&tmp)[2][NT][4],
+                              const float (&)[NT][4], float (&acc)[2][NT][4]) {
+    const float sc[4] = {r.s[j].x, r.s[j].y, r.s[j].z, r.s[j].w};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[p][nt][e] = fmaf(sc[2 * p + (e >> 1)], tmp[p][nt][e], acc[p][nt][e]);
+  }
+};
 
 // K15's decode for MagicOp: the codebook lookup, and the fold acc += s *
 // tmp per group. A group's bytes in the slot: its table's 16 bf16 entries,
@@ -264,7 +245,7 @@ struct PlaneLut {
   }
 };
 
-// Second pass of a split-K launch: out = bf16(sum over splits of ws).
+// Second pass of a split-K prefill launch: out = bf16(sum over splits of ws).
 __global__ void lut4_reduce_kernel(const float* __restrict__ ws, __nv_bfloat16* __restrict__ out,
                                    size_t mn, int splits) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -274,25 +255,16 @@ __global__ void lut4_reduce_kernel(const float* __restrict__ ws, __nv_bfloat16* 
   out[i] = __float2bfloat16(acc);
 }
 
-template <int KS>
-cudaError_t launch(const __nv_bfloat16* x, const int32_t* word, const float* s,
-                   const __nv_bfloat16* lut, __nv_bfloat16* out, float* ws, int M, int K, int N,
-                   int n_luts, int gpl, int bm, int bn, int splits, int per, cudaStream_t st) {
-  if (bm == 16) {  // the decode kernel, per = super-groups a split
-    if (M > 16) return cudaErrorInvalidValue;
-    const size_t lut_bytes = (size_t)16 * n_luts * sizeof(float);
-    dim3 grid((N + 127) / 128, 1, splits);
-    if (M <= 8)
-      lut4_gemv_kernel<KS, 1><<<grid, 128, lut_bytes, st>>>(x, word, s, lut, out, ws, M, K, N,
-                                                            n_luts, gpl, per);
-    else
-      lut4_gemv_kernel<KS, 2><<<grid, 128, lut_bytes, st>>>(x, word, s, lut, out, ws, M, K, N,
-                                                            n_luts, gpl, per);
-    return cudaGetLastError();
+// The compiled group sizes: g = 16 KS
+template <class F>
+cudaError_t by_group(int G, F&& run) {
+  switch (G) {
+    case 16: return run(std::integral_constant<int, 1>());
+    case 32: return run(std::integral_constant<int, 2>());
+    case 64: return run(std::integral_constant<int, 4>());
+    case 128: return run(std::integral_constant<int, 8>());
+    default: return cudaErrorInvalidValue;
   }
-  // the mainloop, per = stages of 64 K a split
-  const mg::Problem pb{x, out, ws, M, K, N, per, K / mg::kBK};
-  return mg::launch<mg::MagicOp<PlaneLut, 16 * KS>>(pb, {word, {s, lut, gpl}}, bm, bn, splits, st);
 }
 
 }  // namespace
@@ -300,41 +272,67 @@ cudaError_t launch(const __nv_bfloat16* x, const int32_t* word, const float* s,
 // The most (L, 16) tables the kernel holds; the wrapper checks it at load.
 extern "C" int ao_lut4_max_luts() { return kMaxLuts; }
 
-// x (M, K) bf16; word (K/8, N) int32 (magic layout over the code nibbles,
-// group G); s (K/G, N) f32; lut (n_luts, 16) bf16 with gpl groups per table
-// (gpl == 0: n_luts == 1, shared); out (M, N) bf16; ws (splits, M, N) f32
-// when splits > 1. Tiles from lut4_matmul.launch_tiles: bm 16 the decode
-// kernel (M <= 16, per super-groups a split), else the mainloop's (bm, bn)
-// with per stages of 64 K a split (whole units of 8 stages when split).
-// Needs G in {16, 32, 64, 128}, N % 32 == 0, K % (4G) == 0, 1 <= n_luts <=
-// 256 and 16-byte aligned rows; the Python wrapper checks them. Returns
-// cudaGetLastError() after the launches.
+// The prefill (M > 16). x (M, K) bf16; word (K/8, N) int32 (magic layout
+// over the code nibbles, group G); s (K/G, N) f32; lut (n_luts, 16) bf16
+// with gpl groups per table (gpl == 0: n_luts == 1, shared); out (M, N)
+// bf16; the mainloop's tiles (bm, bn) from lut4_matmul.launch_tiles with
+// per stages of 64 K a split (whole units of 8 stages when split), ws
+// (splits, M, N) f32 when splits > 1. Needs G in {16, 32, 64, 128}, N % 32
+// == 0, K % (4G) == 0 and 16-byte aligned rows; the Python wrapper checks
+// them. Returns cudaGetLastError() after the launches.
 extern "C" int ao_lut4_wo(const void* x_, const void* word_, const void* s_, const void* lut_,
-                          void* out_, void* ws_, int M, int K, int N, int G, int n_luts, int gpl,
-                          int bm, int bn, int splits, int per, void* stream) {
+                          void* out_, void* ws_, int M, int K, int N, int G, int gpl, int bm,
+                          int bn, int splits, int per, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* x = static_cast<const __nv_bfloat16*>(x_);
-  const auto* word = static_cast<const int32_t*>(word_);
   const auto* s = static_cast<const float*>(s_);
   const auto* lut = static_cast<const __nv_bfloat16*>(lut_);
   auto* out = static_cast<__nv_bfloat16*>(out_);
   float* ws = splits > 1 ? static_cast<float*>(ws_) : nullptr;
-  if (n_luts < 1 || n_luts > kMaxLuts || M < 1 || N % 32 || K % (4 * G))
-    return (int)cudaErrorInvalidValue;
-  auto run = [&](auto ks) {
-    return launch<decltype(ks)::value>(x, word, s, lut, out, ws, M, K, N, n_luts, gpl, bm, bn,
-                                       splits, per, st);
-  };
-  cudaError_t err;
-  switch (G) {
-    case 16: err = run(std::integral_constant<int, 1>()); break;
-    case 32: err = run(std::integral_constant<int, 2>()); break;
-    case 64: err = run(std::integral_constant<int, 4>()); break;
-    case 128: err = run(std::integral_constant<int, 8>()); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (M <= 16 || N % 32 || K % (4 * G)) return (int)cudaErrorInvalidValue;
+  const mg::Problem pb{x, out, ws, M, K, N, per, K / mg::kBK};
+  const cudaError_t err = by_group(G, [&](auto ks) {
+    return mg::launch<mg::MagicOp<PlaneLut, 16 * decltype(ks)::value>>(
+        pb, {static_cast<const int32_t*>(word_), {s, lut, gpl}}, bm, bn, splits, st);
+  });
   if (err != cudaSuccess || ws == nullptr) return (int)err;
   const size_t mn = (size_t)M * N;
   lut4_reduce_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(ws, out, mn, splits);
   return (int)cudaGetLastError();
+}
+
+// The decode (M <= 16), one launch on the weight-stream mainloop: x, word,
+// s, lut, gpl and out as above, 1 <= n_luts <= 256; bytes != 0 the pair
+// table of one codebook (n_luts == 1, GemvLut); the plan (wn warps
+// along N, wk warps along K, cluster CTAs along K, ring stages) from
+// int4_matmul.gemv_plan, checked again here (gv::plan_ok).
+// Returns cudaGetLastError() after the launch, or minus libcuda's CUresult
+// for a tensor map it refuses.
+extern "C" int ao_lut4_wo_gemv(const void* x, const void* word, const void* s, const void* lut,
+                               void* out, int M, int K, int N, int G, int n_luts, int gpl,
+                               int bytes, int wn, int wk, int cluster, int stages, void* stream) {
+  if (n_luts < 1 || n_luts > kMaxLuts || (bytes && n_luts != 1) || N % 32 || G < 16 ||
+      K % (4 * G) || cluster < 1)
+    return (int)cudaErrorInvalidValue;
+  const int slabs = K / (4 * (G < 64 ? G : 64));  // of 8 R K values, R = min(g / 2, 32)
+  const gv::Problem pb{static_cast<const __nv_bfloat16*>(x), static_cast<const int32_t*>(word),
+                       static_cast<__nv_bfloat16*>(out), M, K, N, wn, wk, stages,
+                       (slabs + cluster - 1) / cluster};
+  const void* q[1] = {s};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err = (int)cudaErrorInvalidValue;
+  by_group(G, [&](auto ks) {
+    constexpr int KS = decltype(ks)::value;
+    if (bytes) {
+      const GemvLut<true>::Args args{static_cast<const float*>(s),
+                                     static_cast<const __nv_bfloat16*>(lut), n_luts, gpl};
+      err = gv::launch<GemvLut<true>, KS>(pb, args, q, cluster, st);
+    } else {
+      const GemvLut<false>::Args args{static_cast<const float*>(s),
+                                      static_cast<const __nv_bfloat16*>(lut), n_luts, gpl};
+      err = gv::launch<GemvLut<false>, KS>(pb, args, q, cluster, st);
+    }
+    return cudaSuccess;
+  });
+  return err;
 }

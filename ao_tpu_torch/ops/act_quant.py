@@ -67,13 +67,15 @@ def _row_quant(y: torch.Tensor):
 
 def silu_mul_quant(a, b, act: str = "silu") -> QuantizedActivation:
     """Gated-MLP product (silu(a)*b SwiGLU, or gelu(a)*b GeGLU with
-    ``act="gelu"``) + per-token int8 quantize in one pass: the kernel K12
-    (``ops/hopper/fused_act.py``) wherever the reference takes its Pallas
-    kernel, else plain PyTorch."""
+    ``act="gelu"``) + per-token int8 quantize in one pass: the kernel K12s
+    (``ops/hopper/fused_act.py``) where the reference takes its Pallas
+    kernel and ``fused_act.takes`` allows, else the plain version (the
+    reference's XLA form)."""
     from ao_tpu_torch.ops import kernels
     from ao_tpu_torch.ops.hopper import fused_act
 
-    if kernels.use_kernel(a):
+    if (tuple(a.shape) == tuple(b.shape) and fused_act.takes(tuple(a.shape))
+            and kernels.use_kernel(a)):
         q, s = fused_act.silu_mul_quant(a, b, act=act)
     else:
         q, s = fused_act.silu_mul_quant_plain(a, b, act=act)

@@ -68,9 +68,8 @@ def check_shapes(a: torch.Tensor, b: torch.Tensor, act: str) -> None:
     if a.ndim != 3 or tuple(a.shape) != tuple(b.shape):
         raise ValueError(f"silu_mul_quant takes a and b of one shape (B, T, D), got "
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
-    d = a.shape[-1]
-    if d % 128 or d > MAX_D:
-        raise ValueError(f"D={d} must be a multiple of 128 and at most {MAX_D}")
+    if not takes(tuple(a.shape)):
+        raise ValueError(f"D={a.shape[-1]} must be a multiple of 128 and at most {MAX_D}")
 
 
 def silu_mul_quant_plain(a, b, act: str = "silu"):
@@ -141,9 +140,11 @@ _DTYPES = (torch.bfloat16, torch.float32)
 
 
 def takes(shape) -> bool:
-    """Whether K12g and K12n take an input of ``shape``: (B, T, D) with
-    D % 128 == 0 (the reference's rule) and D <= MAX_D (the row in shared
-    memory)."""
+    """Whether K12s, K12g and K12n take an input of ``shape``: (B, T, D)
+    with D % 128 == 0 (the reference's rule) and D <= MAX_D (the row in
+    shared memory). Their routes (``ops/act_quant.py``) ask it before the
+    call and take the plain version otherwise, as the reference falls back
+    to its XLA form."""
     return len(shape) == 3 and shape[-1] % 128 == 0 and shape[-1] <= MAX_D
 
 

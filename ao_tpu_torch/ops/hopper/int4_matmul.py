@@ -2,13 +2,15 @@
 
 * K1 ``int4_wo_magic``: int4 weight-only matmul over the "magic" layout
   (``int4_wo_magic_pallas``, kernel ``_magic_kernel``); CUDA source
-  ``ao_tpu_torch/csrc/int4_matmul.cu``, its prefill form (M > 16) on the
-  shared wgmma mainloop with a per-group f32 fold (``csrc/mixed_gemm.cuh``,
-  ``csrc/magic_op.cuh``; shared with K15). ``launch_tiles`` says what a
-  launch runs: the decode kernel's K split (``pick_splits``) or the
-  mainloop's tiles (``pick_tiles``, the tuned tile cache first). The
-  ``magic_*`` functions mirror the mainloop's step order and fold in
-  PyTorch, for the CPU tests.
+  ``ao_tpu_torch/csrc/int4_matmul.cu``. Its decode form (M <= 16) runs on
+  the weight-stream decode mainloop (``csrc/gemv_mainloop.cuh``; shared
+  with K15), one launch whose plan ``gemv_plan`` picks and ``gemv_mirror``
+  repeats in PyTorch; its prefill form (M > 16) on the shared wgmma
+  mainloop with a per-group f32 fold (``csrc/mixed_gemm.cuh``,
+  ``csrc/magic_op.cuh``; shared with K15), whose tiles ``launch_tiles``
+  gives (``pick_tiles``, the tuned tile cache first) and whose step order
+  and fold the ``magic_*`` functions mirror. ``takes`` says which shapes
+  it takes.
 * K3 ``int4_w4a8_matmul``: int8 activations times magic8 int4 weights on
   the s8 tensor cores, f32 out (``int4_w4a8_matmul_pallas``, kernel
   ``_w4a8_kernel``); CUDA source ``ao_tpu_torch/csrc/int4_w4a8.cu``.
@@ -60,7 +62,10 @@ def _lib():
     if _LIB is None:
         lib = build.load("int4_matmul")
         fn = lib.ao_int4_wo_magic
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.ao_int4_wo_magic_gemv
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.ao_int4_wo_halves.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
             ctypes.c_void_p]
@@ -97,16 +102,25 @@ def _check_operands(kernel: str, dev, operands) -> None:
 GROUP_SIZES = (16, 32, 64, 128)  # the kernel's compiled group sizes
 
 
+def takes(k: int, n: int, group_size: int) -> bool:
+    """Whether K1 takes a magic-layout (K/8, N) weight of group g: g one of
+    GROUP_SIZES, N % 32 == 0 and K % 4g == 0 (the magic layout itself
+    guarantees the last). ``kernels.int4_wo_matmul`` asks it before the
+    call and falls back as the reference does; the wrapper's own check
+    asks it too."""
+    return group_size in GROUP_SIZES and n % 32 == 0 and k % (4 * group_size) == 0
+
+
 def check_shapes(x: torch.Tensor, word: torch.Tensor, group_size: int) -> None:
-    """Raise ValueError for shapes the kernel does not take (the magic
-    layout itself guarantees K % (4g) == 0). The wrapper applies it on
-    every device, so the CPU refuses what the card would."""
+    """Raise ValueError for shapes the kernel does not take (``takes``).
+    The wrapper applies it on every device, so the CPU refuses what the
+    card would."""
     if x.ndim != 2 or word.ndim != 2:
         raise ValueError("int4_wo_magic takes 2-D x (M, K) and words (K/8, N)")
     k, (kw, n), g = x.shape[1], word.shape, group_size
     if k != 8 * kw:
         raise ValueError(f"K mismatch {k} vs packed {kw}*8")
-    if g not in GROUP_SIZES or n % 32 or k % (4 * g):
+    if not takes(k, n, g):
         raise ValueError(f"N={n} must be a multiple of 32, g={g} one of {GROUP_SIZES} "
                          f"and K={k} a multiple of 4g")
 
@@ -164,25 +178,182 @@ def _split_units(units: int, n_blocks: int, sm_count: int):
     return -(-units // per), per
 
 
-GEMV_MAX_M = 16  # the decode kernels' rows; above them the mainloop's tiles
-GEMV_RUN_ROWS = 16  # word rows of K1's finer decode run (two k16 steps, all four planes)
+GEMV_MAX_M = 16  # the decode form's rows; above them the mainloop's tiles
+
+# K1's and K15's decode form (M <= 16) on the weight-stream mainloop
+# (csrc/gemv_mainloop.cuh): a CTA of wn warps along N (32 columns each) by wk
+# warps along K, a cluster of CTAs along K summed in rank order, a ring of
+# `stages` slabs of gemv_rows(g) word rows
+GEMV_WN = (1, 2, 4)
+GEMV_WK = (1, 2, 4)
+GEMV_MAX_WARPS = 8
+GEMV_MAX_CLUSTER = 8  # a portable thread-block cluster
+GEMV_MAX_STAGES = 8
+GEMV_MAX_SMEM = 232448  # a CTA's dynamic shared memory on the H100
 
 
-def pick_splits(m: int, k: int, n: int, group_size: int, sm_count: int):
-    """(splits, runs per split, word rows per run) for K1's decode kernel
-    (M <= 16): K split into runs of word rows until about four 4-warp blocks
-    per SM are in flight. A run is a whole super-group of 4g K rows (g/2
-    word rows); where those leave fewer blocks than SMs (4096x1024 at g =
-    128: 8 super-groups, 64 blocks), runs of GEMV_RUN_ROWS word rows with
-    all four planes, each folding its part of a group."""
+def gemv_rows(group_size: int) -> int:
+    """Word rows of a decode slab (``gv::slab_rows``): a whole super-group
+    up to 32 (g <= 64), half of one at g = 128; rows / 8 k16 steps of each
+    of its four groups."""
+    return min(group_size // 2, 32)
+
+
+def gemv_smem_bytes(m: int, wn: int, wk: int, stages: int, group_size: int,
+                    setup: int = 0) -> int:
+    """The dynamic shared memory of a decode launch (``gv::smem_bytes``):
+    1024 bytes of alignment slack; the ring, each stage (1024-byte aligned)
+    wn boxes of R word rows x 128 bytes, R / 8 boxes of x's 8 or 16 rows x
+    128 bytes and 16 BN bytes of qparams, or the warps along K's partials if
+    larger; ``setup`` bytes of tables (K15's codebooks); the cluster's
+    partials; two barriers a stage."""
+    mp = 8 if m <= 8 else 16
+    rows = gemv_rows(group_size)
+    a16 = lambda b, a=16: -(-b // a) * a  # noqa: E731
+    ring = stages * a16(wn * rows * 128 + rows // 8 * mp * 128 + 512 * wn, 1024)
+    red = (wk - 1) * wn * mp * 32 * 4
+    return 1024 + a16(max(ring, red)) + a16(setup) + (mp + 7) * 32 * wn * 4 + 16 * stages
+
+
+def gemv_per(k: int, group_size: int, cluster: int) -> int:
+    """Slabs a CTA along K takes in a cluster of ``cluster``: rank r takes
+    [r per, (r + 1) per)."""
+    return -(-(k // (8 * gemv_rows(group_size))) // cluster)
+
+
+def gemv_plan_ok(m: int, k: int, n: int, group_size: int, plan, setup: int = 0) -> bool:
+    """Whether the decode form takes ``plan`` (wn, wk, cluster, stages) at
+    (M, K, N, g) (``gv::plan_ok`` and its shared memory): every CTA along K
+    has slabs, the warps along K split a slab's steps evenly."""
+    wn, wk, cluster, stages = plan
+    rows = gemv_rows(group_size)
+    if not (1 <= m <= GEMV_MAX_M and wn in GEMV_WN and wk in GEMV_WK and wn * wk <= GEMV_MAX_WARPS
+            and n % (32 * wn) == 0 and group_size >= 16 and (rows // 8) % wk == 0
+            and 2 <= stages <= GEMV_MAX_STAGES and 1 <= cluster <= GEMV_MAX_CLUSTER
+            and k % (8 * rows) == 0):
+        return False
+    slabs, per = k // (8 * rows), gemv_per(k, group_size, cluster)
+    return ((cluster - 1) * per < slabs <= cluster * per
+            and gemv_smem_bytes(m, wn, wk, stages, group_size, setup) <= GEMV_MAX_SMEM)
+
+
+def gemv_plan(m: int, k: int, n: int, group_size: int, sm_count: int):
+    """(wn, wk, cluster, stages) of a decode launch of K1 or K15 (M <= 16),
+    one launch, no workspace. The widest CTA of columns N allows; with at
+    least two column tiles an SM, one CTA a tile and two stages (four CTAs
+    an SM: the lm_head); else a cluster along K that puts about 1.4 CTAs an
+    SM on the card (at most 8, at most one CTA a slab), one more where that
+    splits the slabs evenly and the last cluster is not filled, two warps
+    along K where the CTAs are fewer than the SMs, four stages (or one more
+    than a CTA's slabs). Measured on the H100 (``kernel_tiles.py time K1`` /
+    ``time K15``, PERF.md): Llama-3-8B at M = 8, g = 128 (NF4's g = 64
+    alike) takes (4, 1, 6, 4) / (4, 2, 8, 3) / (4, 1, 2, 4) / (4, 1, 7, 4) /
+    (4, 1, 1, 2) at wq-wo / wk-wv / w1-w3 / w2 / lm_head, the fastest plan
+    or within 5 % of it for both kernels (clusters of 8 beside more than
+    one CTA an SM lost 30-50 %: the GPCs cannot place every cluster at
+    once)."""
+    rows = gemv_rows(group_size)
+    slabs = k // (8 * rows)
+    wn = max(w for w in GEMV_WN if n % (32 * w) == 0)
+    tiles = n // (32 * wn)
+    if tiles >= 2 * sm_count:
+        return wn, 1, 1, 2
+    cluster = max(1, min(GEMV_MAX_CLUSTER, slabs, -(-14 * sm_count // (10 * tiles))))
+    if slabs % cluster and cluster + 1 < GEMV_MAX_CLUSTER and slabs % (cluster + 1) == 0:
+        cluster += 1
+    per = gemv_per(k, group_size, cluster)
+    cluster = -(-slabs // per)
+    wk = 2 if tiles * cluster < sm_count and (rows // 8) % 2 == 0 else 1
+    return wn, wk, cluster, max(2, min(4, per + 1))
+
+
+@functools.lru_cache(maxsize=None)
+def checked_gemv_plan(m: int, k: int, n: int, group_size: int, sm_count: int, plan=None,
+                      setup: int = 0):
+    """A decode launch's plan: ``plan`` (a tuple) or ``gemv_plan``'s, or None
+    where ``gemv_plan_ok`` refuses it; cached, since every linear of each
+    decode step asks for it."""
+    plan = plan or gemv_plan(m, k, n, group_size, sm_count)
+    return plan if gemv_plan_ok(m, k, n, group_size, plan, setup) else None
+
+
+def gemv_candidates(m: int, k: int, n: int, group_size: int, setup: int = 0,
+                    stages=(2, 3, 4, 6)):
+    """Every plan (wn, wk, cluster, stages) the decode form takes at (M, K,
+    N, g) with ``stages`` ring stages, each cluster as launched (so no two
+    plans run alike): what ``kernel_tiles.py time K1`` / ``K15`` sweep and
+    the card's tests run."""
+    slabs = k // (8 * gemv_rows(group_size))
+    clusters = sorted({-(-slabs // gemv_per(k, group_size, c))
+                       for c in range(1, GEMV_MAX_CLUSTER + 1)})
+    return [(wn, wk, c, st) for wn in GEMV_WN for wk in GEMV_WK for c in clusters for st in stages
+            if gemv_plan_ok(m, k, n, group_size, (wn, wk, c, st), setup)]
+
+
+def gemv_mirror(x, word, group_size: int, plan, value, fold, bias=None) -> torch.Tensor:
+    """The decode form's summation order in PyTorch, f32 (M, N): cluster
+    rank r of ``plan`` walks slabs (``gemv_rows`` word rows) [r per, (r +
+    1) per); warp w along K of
+    its CTA takes k16 steps w, w + wk, .. of each slab and of each of the
+    slab's four groups, tmp = x_G . value(u, group) and xsum = x_G's sum
+    summed over them in step order; where a group's part in the CTA ends
+    (the last slab of its super-group, or of the CTA's slabs), ``fold(acc_w,
+    tmp, group)``, then ``bias(acc_w, xsum, group)``; the warps' acc then
+    the ranks' in order. ``value(u, group)`` gives the exact bf16 weights of
+    nibbles u as f32."""
+    _, wk, cluster, _ = plan
     g = group_size
-    nsuper = k // (4 * g)
-    n_blocks = -(-n // 128)
-    splits, per = _split_units(nsuper, n_blocks, sm_count)
-    if n_blocks * splits < sm_count and g // 2 > GEMV_RUN_ROWS:
-        splits, per = _split_units(nsuper * (g // 2 // GEMV_RUN_ROWS), n_blocks, sm_count)
-        return splits, per, GEMV_RUN_ROWS
-    return splits, per, g // 2
+    m, k = x.shape
+    n = word.shape[1]
+    xf = x.to(torch.bfloat16).to(torch.float32)
+    rows = gemv_rows(g)
+    sps, slabs, per = g // 2 // rows, k // (8 * rows), gemv_per(k, g, cluster)
+    p = torch.arange(8)
+    out = torch.zeros((m, n), dtype=torch.float32)
+    for r in range(cluster):
+        s0, s1 = r * per, min((r + 1) * per, slabs)
+        cta = torch.zeros((m, n), dtype=torch.float32)
+        for w in range(wk):
+            acc = torch.zeros((m, n), dtype=torch.float32)
+            tmp = [torch.zeros((m, n), dtype=torch.float32) for _ in range(4)]
+            xs = [torch.zeros((m, 1), dtype=torch.float32) for _ in range(4)]
+            for s in range(s0, s1):
+                t, r0 = s // sps, s % sps * rows
+                for j in range(4):
+                    grp = 4 * t + j
+                    kb = grp * g + 2 * r0  # the group's K values in this slab: kb .. kb + 2 rows
+                    for q in range(w, rows // 8, wk):
+                        words = word[t * g // 2 + r0 + 8 * q + p].to(torch.int64)  # (8, N)
+                        u = torch.stack([(words >> (4 * j + 16 * h)) & 15 for h in (0, 1)], dim=1)
+                        kq = kb + 16 * q
+                        tmp[j] = tmp[j] + xf[:, kq:kq + 16] @ value(u.reshape(16, n), grp)
+                        xs[j] = xs[j] + xf[:, kq:kq + 16].sum(dim=1, keepdim=True)
+                if (s + 1) % sps == 0 or s + 1 == s1:
+                    for j in range(4):
+                        acc = fold(acc, tmp[j], 4 * t + j)
+                        if bias is not None:
+                            acc = bias(acc, xs[j], 4 * t + j)
+                        tmp[j] = torch.zeros_like(tmp[j])
+                        xs[j] = torch.zeros_like(xs[j])
+            cta = cta + acc
+        out = out + cta
+    return out
+
+
+def int4_wo_magic_gemv_mirror(x, word, s, b2, group_size: int, plan,
+                              raw_zp: bool = False) -> torch.Tensor:
+    """K1's decode arithmetic through ``gemv_mirror``: the weights 128 + u
+    (plane_q before its subtract of 136), per group acc += s * tmp, then
+    acc += xsum * (b2 - 136 s), in f32: the same function as
+    q = u - 8 with acc += xsum * b2. With ``raw_zp`` b2 holds the tinygemm
+    zero point and b2 = bf16(zp + 8s) is formed as the kernel's bias_of
+    does."""
+    sf = s.to(torch.float32)
+    bf = (8.0 * sf + b2.to(torch.float32)).to(torch.bfloat16) if raw_zp else b2
+    bf = bf.to(torch.float32) - 136.0 * sf
+    return gemv_mirror(x, word, group_size, plan, lambda u, grp: (u + 128).to(torch.float32),
+                       lambda acc, tmp, grp: acc + sf[grp] * tmp,
+                       lambda acc, xs, grp: acc + xs * bf[grp])
 
 
 # K1's and K15's prefill (M > 16) on the mainloop (csrc/mixed_gemm.cuh with
@@ -257,19 +428,18 @@ def pick_tiles(m: int, k: int, n: int, group_size: int, sm_count: int):
 
 
 def launch_tiles(m: int, k: int, n: int, group_size: int, sm_count: int, tiles=None):
-    """What a K1 launch at (M, K, N) runs: (bm, bn, splits, per, run_rows).
-    M <= 16: the decode kernel (bm 16, bn 128), ``per`` runs of ``run_rows``
-    word rows a split (``pick_splits``). Larger M: the mainloop's tiles
-    (``tiles``, one of ``candidate_tiles_magic``, or ``pick_tiles``'s),
-    ``per`` stages of 64 K a split, run_rows 0."""
+    """What a K1 prefill launch (M > 16) at (M, K, N) runs: (bm, bn, splits,
+    per), the mainloop's tiles (``tiles``, one of ``candidate_tiles_magic``,
+    or ``pick_tiles``'s) and ``per`` stages of 64 K a split. The decode form
+    (M <= 16) runs ``gemv_plan``'s plan."""
     if m <= GEMV_MAX_M:
-        return (GEMV_MAX_M, 128) + pick_splits(m, k, n, group_size, sm_count)
+        raise ValueError(f"int4_wo_magic: M={m} runs the decode form (gemv_plan), not tiles")
     if tiles is None:
         tiles = pick_tiles(m, k, n, group_size, sm_count)
     elif tuple(tiles) not in candidate_tiles_magic(m, k, n):
         raise ValueError(f"int4_wo_magic: tiles {tiles} are not the mainloop's at {(m, k, n)}")
     bm, bn, splits = tiles
-    return bm, bn, splits, magic_stages_per_split(k, splits), 0
+    return bm, bn, splits, magic_stages_per_split(k, splits)
 
 
 def magic_step(s: int, kk: int, group_size: int):
@@ -323,10 +493,12 @@ def int4_wo_magic_mirror(x, word, s, b2, group_size: int, raw_zp: bool = False) 
         lambda acc, tmp, grp: acc + sf[grp] * tmp + xs[:, grp:grp + 1] * bf[grp])
 
 
-def _launch(x, word, s, b2, group_size: int, raw_zp: bool = False, tiles=None) -> torch.Tensor:
+def _launch(x, word, s, b2, group_size: int, raw_zp: bool = False, tiles=None,
+            plan=None) -> torch.Tensor:
     """Launch the kernel on CUDA tensors; ``b2`` is the tinygemm zero point
-    when ``raw_zp``; ``tiles`` (bm, bn, splits) overrides ``pick_tiles``
-    (``launch_tiles``)."""
+    when ``raw_zp``. M <= 16: the decode form, one kernel, ``plan`` (wn,
+    wk, cluster, stages) overriding ``gemv_plan``; above, the prefill's
+    tiles, ``tiles`` (bm, bn, splits) overriding ``pick_tiles``."""
     dev = x.device
     m, k = x.shape
     n = word.shape[1]
@@ -336,18 +508,30 @@ def _launch(x, word, s, b2, group_size: int, raw_zp: bool = False, tiles=None) -
         ("word", word, torch.int32, (k // 8, n)),
         ("scale", s, torch.bfloat16, (k // g, n)),
         ("bias", b2, torch.bfloat16, (k // g, n))))
-    bm, bn, splits, per, run_rows = launch_tiles(m, k, n, g, _sm_count(dev), tiles)
-    xs = None  # the mainloop's row sums of x per group
-    if m > GEMV_MAX_M:
-        xs = torch.empty((k // g, -(-m // 4) * 4), dtype=torch.float32, device=dev)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
-    ws = torch.empty((splits, m, n), dtype=torch.float32, device=dev) if splits > 1 else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().ao_int4_wo_magic(
-            x.data_ptr(), word.data_ptr(), s.data_ptr(), b2.data_ptr(), out.data_ptr(),
-            None if ws is None else ws.data_ptr(), None if xs is None else xs.data_ptr(), m, k, n,
-            g, bm, bn, splits, per, run_rows, int(raw_zp), stream)
+        if m <= GEMV_MAX_M:
+            checked = checked_gemv_plan(m, k, n, g, _sm_count(dev), plan and tuple(plan))
+            if checked is None:
+                raise ValueError(f"int4_wo_magic: plan {plan} is not the decode form's at "
+                                 f"{(m, k, n, g)}")
+            wn, wk, cluster, stages = checked
+            err = _lib().ao_int4_wo_magic_gemv(
+                x.data_ptr(), word.data_ptr(), s.data_ptr(), b2.data_ptr(), out.data_ptr(), m, k,
+                n, g, wn, wk, cluster, stages, int(raw_zp), stream)
+        else:
+            bm, bn, splits, per = launch_tiles(m, k, n, g, _sm_count(dev), tiles)
+            # the mainloop's row sums of x per group, and a split's partials
+            xs = torch.empty((k // g, -(-m // 4) * 4), dtype=torch.float32, device=dev)
+            ws = (torch.empty((splits, m, n), dtype=torch.float32, device=dev) if splits > 1
+                  else None)
+            err = _lib().ao_int4_wo_magic(
+                x.data_ptr(), word.data_ptr(), s.data_ptr(), b2.data_ptr(), out.data_ptr(),
+                None if ws is None else ws.data_ptr(), xs.data_ptr(), m, k, n, g, bm, bn, splits,
+                per, int(raw_zp), stream)
+    if err < 0:
+        raise RuntimeError(f"int4_wo_magic: libcuda refused a tensor map (CUresult {-err})")
     if err != 0:
         raise RuntimeError(f"int4_wo_magic kernel launch failed: CUDA error {err}")
     int4_wo_magic.launches += 1
@@ -390,15 +574,22 @@ def traffic(m: int, k: int, n: int, group_size: int):
 W4A8_GROUP_SIZES = (32, 64, 128)  # K3's and K4's compiled group sizes
 
 
+def takes_w4a8(k: int, n: int, group_size: int) -> bool:
+    """Whether K3 takes a magic8 (K/8, N) weight of group g: the reference's
+    rule (N % 128 == 0, K/g even) and the compiled group sizes. The W4A8
+    route (``ops/linear.py``) asks it before the call and takes the q/dq
+    path otherwise, as the reference does; the wrapper's check asks it too."""
+    return group_size in W4A8_GROUP_SIZES and n % 128 == 0 and k % (2 * group_size) == 0
+
+
 def check_shapes_w4a8(xq: torch.Tensor, word: torch.Tensor, group_size: int) -> None:
-    """Raise ValueError for shapes K3 does not take: the reference's rule
-    (N % 128 == 0, K/g even, g % 8 == 0) and the compiled group sizes."""
+    """Raise ValueError for shapes K3 does not take (``takes_w4a8``)."""
     if xq.ndim != 2 or word.ndim != 2:
         raise ValueError("int4_w4a8_matmul takes 2-D xq (M, K) and words (K/8, N)")
     k, (kw, n), g = xq.shape[1], word.shape, group_size
     if k != 8 * kw:
         raise ValueError(f"K mismatch {k} vs packed {kw}*8")
-    if g not in W4A8_GROUP_SIZES or n % 128 or k % (2 * g):
+    if not takes_w4a8(k, n, g):
         raise ValueError(f"N={n} must be a multiple of 128, g={g} one of {W4A8_GROUP_SIZES} "
                          f"and K={k} a multiple of 2g")
 
@@ -512,13 +703,20 @@ def traffic_w4a8(m: int, k: int, n: int, group_size: int):
 # ---------------------------------------------------------------------------
 
 
+def takes_requant(k: int, n: int, group_size: int) -> bool:
+    """Whether K4 takes a magic8 (K/8, N) weight of group g: items of 256 K
+    rows, columns in whole tiles of 64, the compiled group sizes. The W4A8
+    prefill route asks it before the call and dequantizes and requantizes
+    otherwise, as the reference does; the wrapper's check asks it too."""
+    return group_size in W4A8_GROUP_SIZES and n % 64 == 0 and k % 256 == 0
+
+
 def check_shapes_requant(word: torch.Tensor, group_size: int) -> None:
-    """Raise ValueError for shapes K4 does not take: items of 256 K rows,
-    columns in whole tiles of 64, the compiled group sizes."""
+    """Raise ValueError for shapes K4 does not take (``takes_requant``)."""
     if word.ndim != 2:
         raise ValueError("int4_magic8_requant_int8 takes 2-D words (K/8, N)")
     (kw, n), g = word.shape, group_size
-    if g not in W4A8_GROUP_SIZES or n % 64 or (8 * kw) % 256:
+    if not takes_requant(8 * kw, n, g):
         raise ValueError(f"N={n} must be a multiple of 64, K={8 * kw} of 256 and "
                          f"g={g} one of {W4A8_GROUP_SIZES}")
 

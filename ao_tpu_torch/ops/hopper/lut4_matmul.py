@@ -8,9 +8,11 @@ codebook or (L, 16) codebooks over row blocks of K/L rows
 (``lut4_wo_magic_pallas``, kernel ``_lut4_kernel``). The codebooks are
 rounded to bf16, as the reference's kernel reads them, and passed as a
 device tensor at run time. CUDA source ``ao_tpu_torch/csrc/lut4_matmul.cu``
-(its prefill form on K1's mainloop with the per-group fold,
-``csrc/magic_op.cuh``), whose header says what bounds it on the H100 and
-how the design meets it; ``launch_tiles`` says what a launch runs.
+(its decode form, M <= 16, on K1's weight-stream decode mainloop,
+``csrc/gemv_mainloop.cuh``, with K1's plan ``int4_matmul.gemv_plan``; its
+prefill form on K1's wgmma mainloop with the per-group fold,
+``csrc/magic_op.cuh``, with the tiles ``launch_tiles`` gives), whose header
+says what bounds it on the H100 and how the design meets it.
 The wrapper runs the kernel on a CUDA tensor and its plain PyTorch version
 (``lut4_wo_magic_plain``) on a CPU tensor, and raises ValueError on either
 for a shape the kernel does not take (``takes``).
@@ -24,11 +26,11 @@ import torch
 
 from ao_tpu_torch.ops.hopper import build
 from ao_tpu_torch.ops.hopper import int4_matmul as k1
-from ao_tpu_torch.ops.hopper.int4_matmul import _check_operands, _sm_count, _split_units
+from ao_tpu_torch.ops.hopper.int4_matmul import _check_operands, _sm_count
 from ao_tpu_torch.quantization.qarrays.int4 import unpack_int4_magic
 
 GROUP_SIZES = (16, 32, 64, 128)  # the kernel's compiled group sizes
-MAX_LUTS = 256  # (L, 16) codebooks the decode kernel holds in shared memory
+MAX_LUTS = 256  # (L, 16) codebooks the decode form holds in shared memory
 
 _LIB = None
 
@@ -37,8 +39,11 @@ def _lib():
     global _LIB
     if _LIB is None:
         lib = build.load("lut4_matmul")
-        lib.ao_lut4_wo.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        lib.ao_lut4_wo.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         lib.ao_lut4_wo.restype = ctypes.c_int
+        lib.ao_lut4_wo_gemv.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [
+            ctypes.c_void_p]
+        lib.ao_lut4_wo_gemv.restype = ctypes.c_int
         if lib.ao_lut4_max_luts() != MAX_LUTS:
             raise RuntimeError("lut4_matmul.cu and its wrapper disagree on the most codebooks")
         _LIB = lib
@@ -118,38 +123,79 @@ def lut4_wo_magic_mirror(x, word, scalers, codebook, group_size: int) -> torch.T
                                 lambda acc, tmp, grp: acc + s[grp] * tmp)
 
 
+def lut4_wo_magic_gemv_mirror(x, word, scalers, codebook, group_size: int, plan) -> torch.Tensor:
+    """K15's decode arithmetic through ``int4_matmul.gemv_mirror``: each
+    nibble's bf16 codebook entry, then per group acc += s * tmp in f32."""
+    g = group_size
+    k = x.shape[1]
+    cb = codebook.to(torch.bfloat16).to(torch.float32).reshape(-1, 16)
+    gpl = groups_per_lut(k, g, _n_luts(codebook))
+    s = scalers.to(torch.float32)
+    return k1.gemv_mirror(x, word, g, plan, lambda u, grp: cb[0 if gpl == 0 else grp // gpl][u],
+                          lambda acc, tmp, grp: acc + s[grp] * tmp)
+
+
 def launch_tiles(m: int, k: int, n: int, group_size: int, sm_count: int):
-    """What a K15 launch at (M, K, N) runs: (bm, bn, splits, per). M <= 16
-    takes the decode kernel (bm 16, bn 128), whose split of K by whole
-    super-groups (``per`` a split) aims at about four 4-warp blocks per SM.
-    Larger M takes the mainloop with K1's tiles
-    (``int4_matmul.pick_tiles_magic``), ``per`` stages of 64 K a split."""
+    """What a K15 prefill launch (M > 16) at (M, K, N) runs: (bm, bn,
+    splits, per), K1's tiles (``int4_matmul.pick_tiles_magic``) and ``per``
+    stages of 64 K a split. The decode form (M <= 16) runs
+    ``int4_matmul.gemv_plan``'s plan."""
     if m <= k1.GEMV_MAX_M:
-        splits, per = _split_units(k // (4 * group_size), -(-n // 128), sm_count)
-        return k1.GEMV_MAX_M, 128, splits, per
+        raise ValueError(f"lut4_wo_magic: M={m} runs the decode form (gemv_plan), not tiles")
     bm, bn, splits = k1.pick_tiles_magic(m, k, n, sm_count)
     return bm, bn, splits, k1.magic_stages_per_split(k, splits)
 
 
-def _launch(x, word, scalers, lut, group_size: int) -> torch.Tensor:
+def gemv_tables(n_luts: int):
+    """(pairs, bytes) of the decode form's codebooks in shared memory: one
+    codebook (NF4's shared one) as a table of 256 bf16 pairs, 1 KB (a word's
+    four planes from four loads), held 16 times over (its lanes' loads
+    spread over the banks); (L, 16) codebooks each as its 16 entries, 32
+    bytes."""
+    luts = max(n_luts, 1)
+    return (True, 16 * 1024) if luts == 1 else (False, 32 * luts)
+
+
+def _launch(x, word, scalers, lut, group_size: int, plan=None) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors. M <= 16: the decode form, one
+    kernel, ``plan`` (wn, wk, cluster, stages) overriding
+    ``int4_matmul.gemv_plan``; above, the prefill's tiles."""
     dev = x.device
     m, k = x.shape
     n = word.shape[1]
+    g = group_size
     n_luts = _n_luts(lut)
+    gpl = groups_per_lut(k, g, n_luts)
     _check_operands("lut4_wo_magic", dev, (
         ("x", x, torch.bfloat16, (m, k)),
         ("word", word, torch.int32, (k // 8, n)),
-        ("scalers", scalers, torch.float32, (k // group_size, n)),
+        ("scalers", scalers, torch.float32, (k // g, n)),
         ("codebook", lut, torch.bfloat16, tuple(lut.shape))))
-    bm, bn, splits, per = launch_tiles(m, k, n, group_size, _sm_count(dev))
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
-    ws = torch.empty((splits, m, n), dtype=torch.float32, device=dev) if splits > 1 else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().ao_lut4_wo(
-            x.data_ptr(), word.data_ptr(), scalers.data_ptr(), lut.data_ptr(), out.data_ptr(),
-            None if ws is None else ws.data_ptr(), m, k, n, group_size, max(n_luts, 1),
-            groups_per_lut(k, group_size, n_luts), bm, bn, splits, per, stream)
+        if m <= k1.GEMV_MAX_M:
+            pairs, setup = gemv_tables(n_luts)
+            checked = k1.checked_gemv_plan(m, k, n, g, _sm_count(dev), plan and tuple(plan),
+                                           setup)
+            if checked is None:
+                raise ValueError(f"lut4_wo_magic: plan {plan} is not the decode form's at "
+                                 f"{(m, k, n, g)}")
+            wn, wk, cluster, stages = checked
+            err = _lib().ao_lut4_wo_gemv(
+                x.data_ptr(), word.data_ptr(), scalers.data_ptr(), lut.data_ptr(),
+                out.data_ptr(), m, k, n, g, max(n_luts, 1), gpl, int(pairs), wn, wk, cluster,
+                stages, stream)
+        else:
+            bm, bn, splits, per = launch_tiles(m, k, n, g, _sm_count(dev))
+            ws = (torch.empty((splits, m, n), dtype=torch.float32, device=dev) if splits > 1
+                  else None)
+            err = _lib().ao_lut4_wo(
+                x.data_ptr(), word.data_ptr(), scalers.data_ptr(), lut.data_ptr(),
+                out.data_ptr(), None if ws is None else ws.data_ptr(), m, k, n, g, gpl, bm, bn,
+                splits, per, stream)
+    if err < 0:
+        raise RuntimeError(f"lut4_wo_magic: libcuda refused a tensor map (CUresult {-err})")
     if err != 0:
         raise RuntimeError(f"lut4_wo_magic kernel launch failed: CUDA error {err}")
     lut4_wo_magic.launches += 1

@@ -31,13 +31,10 @@ _BACKEND = "auto"
 
 # Largest M the int4 kernels take (ao_tpu/ops/kernels.py:179): above it the
 # plain path dequantizes once and calls torch.matmul, as the reference
-# leaves that case to XLA. For the magic layout (K1) this gate and the
-# layout are the whole route rule, decided before the call: a magic-layout
-# weight whose shape the kernel does not take (int4_matmul.check_shapes)
-# makes the kernel's wrapper raise, on the card and on the CPU alike, and
-# the caller picks the "torch" backend for it. A split-half weight takes K11
-# where ``int4_matmul.takes_halves`` allows (the reference falls back from
-# its kernel on the same shapes) and dequantize + matmul elsewhere.
+# leaves that case to XLA. Below it a magic-layout weight takes K1 where
+# ``int4_matmul.takes`` allows and a split-half weight K11 where
+# ``int4_matmul.takes_halves`` allows; every other shape takes dequantize +
+# matmul, as the reference falls back from its kernels on UnsupportedShape.
 INT4_KERNEL_MAX_M = 1024
 
 # W4A8 (int8 activations x int4 weights, ops/linear.py): above this M the
@@ -207,8 +204,9 @@ def int4_wo_matmul(x, packed, scale, zp, group_size, zp_domain, layout=None):
         layout = "magic" if packed.dtype == torch.int32 else "halves"
     from ao_tpu_torch.ops.hopper import int4_matmul as k1
 
-    if (layout == "magic" and packed.ndim == 2 and x.shape[0] <= INT4_KERNEL_MAX_M
-            and use_kernel(x)):
+    if (layout == "magic" and packed.ndim == 2 and x.ndim == 2
+            and x.shape[0] <= INT4_KERNEL_MAX_M
+            and k1.takes(8 * packed.shape[0], packed.shape[1], group_size) and use_kernel(x)):
         return k1.int4_wo_magic(x, packed, scale, zp, group_size, zp_domain)
     if (layout == "halves" and packed.ndim == 2 and x.ndim == 2
             and x.shape[0] <= INT4_KERNEL_MAX_M

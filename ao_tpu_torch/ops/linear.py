@@ -25,7 +25,7 @@ from ao_tpu_torch.ops import kernels
 from ao_tpu_torch.ops.act_quant import QuantizedActivation, quantize_activation
 from ao_tpu_torch.ops.dispatch import implements, lookup
 from ao_tpu_torch.ops.hopper.int4_matmul import (
-    affine_qparams, int4_magic8_requant_int8, int4_w4a8_matmul,
+    affine_qparams, int4_magic8_requant_int8, int4_w4a8_matmul, takes_requant, takes_w4a8,
 )
 from ao_tpu_torch.quantization import primitives as P
 from ao_tpu_torch.quantization.qarrays.base import QuantizedArray
@@ -156,7 +156,8 @@ def _int4_linear(x, w: Int4Array, b):
             # prefill W4A8: requantize the int4 weight to per-channel int8
             # in one pass, then one int8 GEMM
             sg, bg, s8 = _requant_scale(w)
-            if w.layout == "magic8" and kernels.use_kernel(x2):
+            if (w.layout == "magic8" and takes_requant(x2.shape[1], w.qdata.shape[-1], w.group_size)
+                    and kernels.use_kernel(x2)):
                 qw8 = int4_magic8_requant_int8(w.qdata, sg, bg, s8, w.group_size)
             else:
                 w_dq = w.dequantize(torch.float32)
@@ -165,6 +166,7 @@ def _int4_linear(x, w: Int4Array, b):
                                             out_dtype=x.dtype)
             return _unflatten_batch(_maybe_bias(y.to(x.dtype), b), lead)
         if (w.act_quant.dtype == "int8" and zx is None and w.layout == "magic8"
+                and takes_w4a8(x2.shape[1], w.qdata.shape[-1], w.group_size)
                 and kernels.use_kernel(x2)):
             # W4A8 proper: int8 activations x magic8 int4 planes on the s8
             # tensor cores, exact integer dots, per-token scale in the epilogue

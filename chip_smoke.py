@@ -13,7 +13,8 @@ From the repo root, on a machine with a CUDA device and ``nvcc``:
    yardstick where one PyTorch call computes the same function, and the
    least time the card could take (the bound); K1 (int4-WO) at M = 8, 128,
    512 and 1024 over every Llama-3-8B width and at ViT-B/16's w2 (M = 788,
-   3072x768), with each launch's tiles and K split;
+   3072x768), with each launch's tiles and K split, or at M = 8 its decode
+   form's plan and one device kernel a call (checked; K15 likewise);
    The decode attention kernels over the quantized caches (K5 int8, K6 fp8,
    K7 int4, K2v int8 and e5m2 on K2's decode mainloop) are also timed, with
    K2 and the paged K9 in
@@ -130,8 +131,12 @@ paths alone, with images/s; ``--vitl`` the ViT-L/16 sparse paths alone,
 with images/s and profiles; ``--w4a8`` Llama-3-8B's W4A8 path alone, with
 its launch counts and the prefill's and a decode step's profile;
 ``--mixtral`` the Mixtral paths alone, with tok/s, the prefill's device
-time and the engine's TTFT); the K1, K10, K15 and K17 rows name each
-launch's tiles and K split, the K3 rows their CTA width and K split and the
+time and the engine's TTFT; ``--decode`` the int4-WO (32 layers) and
+NF4-WO (8 layers) paths alone, with their launch counts and profiles);
+the K1, K10, K15 and K17 rows name each
+launch's tiles and K split (K1's and K15's at M = 8 the decode form's plan
+and the device kernels a call, one, checked), the K3 rows their CTA width
+and K split and the
 device kernels a call, the K2, K2v, K5, K6, K7 and K9 rows (K2, K5, K6 and K7
 at generate's, the slot engine's and the long shape; K2v over its e5m2 and
 int8 caches at generate's and the long shape; K9 in each mode at the paged
@@ -373,20 +378,38 @@ def kernel_row(name, shape, got, ref, check, ms, plain_ms, library_ms, nbytes, o
 
 def magic_tiles(torch, m, k, n, g, kernel):
     """What a K1 (``kernel`` "K1") or K15 launch at (M, K, N, g) runs: the
-    decode kernel's K split, or the mainloop's tiles and K split (None from
-    a checkout whose wrappers predate ``launch_tiles``)."""
+    decode form's plan, or the mainloop's tiles and K split (in a checkout
+    that predates ``gemv_plan``, the decode kernel's K split; None from one
+    whose wrappers predate ``launch_tiles``)."""
     from ao_tpu_torch.ops.hopper import int4_matmul as k1
     from ao_tpu_torch.ops.hopper import lut4_matmul as k15
 
+    sms = k1._sm_count(torch.device(DEV, torch.cuda.current_device()))
+    if m <= k1.GEMV_MAX_M and hasattr(k1, "gemv_plan"):
+        return ("decode mainloop, (warps along N, warps along K, cluster, stages) "
+                f"{k1.gemv_plan(m, k, n, g, sms)}")
     launch_tiles = getattr(k1 if kernel == "K1" else k15, "launch_tiles", None)
     if launch_tiles is None:
         return None
-    bm, bn, splits, per, *run = launch_tiles(
-        m, k, n, g, k1._sm_count(torch.device(DEV, torch.cuda.current_device())))
+    bm, bn, splits, per, *run = launch_tiles(m, k, n, g, sms)
     if bm == k1.GEMV_MAX_M:
         unit = f"runs of {run[0]} word rows" if run else "super-groups"
         return f"decode kernel, {splits} splits of {per} {unit}"
     return f"tiles ({bm}, {bn}), {splits} splits of {per} stages"
+
+
+def decode_kernels(torch, fails, name, m, launch, tiles):
+    """At decode (M <= 16) the device kernels one launch runs, beside
+    ``tiles``; one is checked where the checkout has the decode form's plan
+    (a parent checkout's count is printed unchecked)."""
+    from ao_tpu_torch.ops.hopper import int4_matmul as k1
+
+    if m > k1.GEMV_MAX_M:
+        return tiles
+    count = device_kernels(torch, launch)
+    if hasattr(k1, "gemv_plan"):
+        fails.check(count == 1, f"{name} at M={m}: {count} device kernels a call, not 1")
+    return f"{tiles}; {count} device kernel(s) a call"
 
 
 def launch_desc(torch, mod, m, k, n, stage):
@@ -454,8 +477,9 @@ def k1_phase(torch, fails, seed):
         fails.check(bool(torch.isfinite(got).all()) and sqnr >= K1_SQNR_DB,
                     f"K1 int4_wo_magic {(m, k, n)}: sqnr {sqnr:.2f} dB < {K1_SQNR_DB}")
         # the launch as the main path makes it: bf16 tinygemm qparams as they are
-        ms = cuda_time_ms(lambda: k1._launch(x, qa.qdata, qa.scale, qa.zero_point, GROUP,
-                                             raw_zp=True), iters=20)
+        launch = lambda: k1._launch(x, qa.qdata, qa.scale, qa.zero_point, GROUP,  # noqa: E731
+                                    raw_zp=True)
+        ms = cuda_time_ms(launch, iters=20)
         plain_ms = cuda_time_ms(lambda: k1.int4_wo_magic_plain(x, qa.qdata, s, b2, GROUP),
                                 iters=3, warmup=1)
         w_dq = qa.dequantize(torch.bfloat16)
@@ -465,7 +489,8 @@ def k1_phase(torch, fails, seed):
         rows[(m, k, n)] = kernel_row("K1 int4_wo_magic", f"M={m} K={k} N={n}", got, ref,
                                      f"sqnr {sqnr:.2f} dB (>= {K1_SQNR_DB})", ms, plain_ms,
                                      library_ms, nbytes, flops,
-                                     tiles=magic_tiles(torch, m, k, n, GROUP, "K1"))
+                                     tiles=decode_kernels(torch, fails, "K1", m, launch,
+                                                          magic_tiles(torch, m, k, n, GROUP, "K1")))
         del qa, x, s, b2, got, ref
         torch.cuda.empty_cache()
     return rows
@@ -949,7 +974,8 @@ def k15_phase(torch, fails, seed):
         sqnr = float(compute_error(ref, got))
         fails.check(bool(torch.isfinite(got).all()) and sqnr > K15_SQNR_DB,
                     f"K15 lut4_wo_magic {(m, k, n)}: sqnr {sqnr:.2f} dB <= {K15_SQNR_DB}")
-        ms = cuda_time_ms(lambda: k15._launch(x, qa.qdata, sc, lut, NF4_GROUP), iters=20)
+        launch = lambda: k15._launch(x, qa.qdata, sc, lut, NF4_GROUP)  # noqa: E731
+        ms = cuda_time_ms(launch, iters=20)
         plain_ms = cuda_time_ms(lambda: k15.lut4_wo_magic_plain(x, qa.qdata, sc, lut, NF4_GROUP),
                                 iters=2, warmup=1)
         w_dq = qa.dequantize(torch.bfloat16)
@@ -959,7 +985,9 @@ def k15_phase(torch, fails, seed):
         rows[(m, k, n)] = kernel_row("K15 lut4_wo_magic", f"M={m} K={k} N={n}", got, ref,
                                      f"sqnr {sqnr:.2f} dB (> {K15_SQNR_DB})", ms, plain_ms,
                                      library_ms, nbytes, flops,
-                                     tiles=magic_tiles(torch, m, k, n, NF4_GROUP, "K15"))
+                                     tiles=decode_kernels(
+                                         torch, fails, "K15", m, launch,
+                                         magic_tiles(torch, m, k, n, NF4_GROUP, "K15")))
         del qa, x, sc, got, ref
         torch.cuda.empty_cache()
     return rows
@@ -2713,6 +2741,53 @@ def w4a8_only(torch) -> int:
     return 1 if fails else 0
 
 
+def decode_only(torch) -> int:
+    """Build, then run only Llama-3-8B's int4-WO path at 32 layers and its
+    NF4-WO path at CUT_LAYERS (the weight paths' depth): one greedy
+    ``generate`` each with the launch counts of K1 or K15 and K2 checked
+    exactly, then the profile of its prefill and of a decode step; what a
+    change to the weight kernels' decode form moves, with no other phase."""
+    import ao_tpu_torch
+    from ao_tpu_torch.models import llama
+    from ao_tpu_torch.ops.hopper import decode_attention as k2
+    from ao_tpu_torch.ops.hopper import int4_matmul as k1
+    from ao_tpu_torch.ops.hopper import lut4_matmul as k15
+
+    print(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}",
+          flush=True)
+    build_all()
+    fails = Failures()
+    cfg = llama.LLAMA3_8B
+    cut = dataclasses.replace(cfg, n_layers=CUT_LAYERS)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    params = llama.init_params(cfg, gen, device=DEV)
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=DEV,
+                           dtype=torch.int32)
+    counters = {"int4_wo_magic": k1.int4_wo_magic, "lut4_wo_magic": k15.lut4_wo_magic,
+                "decode_attention": k2.decode_attention}
+    for tag, c, config in (("int4-WO", cfg, ao_tpu_torch.Int4WeightOnlyConfig(group_size=GROUP)),
+                           ("NF4-WO", cut, ao_tpu_torch.NF4WeightOnlyConfig())):
+        with phase(f"{tag} ({c.n_layers} layers) generate and profile"):
+            qp = ao_tpu_torch.quantize_(dict(params, layers=params["layers"][:c.n_layers]),
+                                        config)
+            kernel = "int4_wo_magic" if tag == "int4-WO" else "lut4_wo_magic"
+            want = {name: 0 for name in counters}
+            want.update({kernel: (7 * c.n_layers + 1) * STEPS,
+                         "decode_attention": c.n_layers * (STEPS - 1)})
+            for ctr in counters.values():
+                ctr.launches = 0
+            ao_tpu_torch.generate(qp, prompt, c, num_steps=STEPS, max_seq=MAX_SEQ)
+            torch.cuda.synchronize()
+            got = {name: ctr.launches for name, ctr in counters.items()}
+            print(f"{tag} ({c.n_layers} layers) main path launches: {got} (want {want})",
+                  flush=True)
+            fails.check(got == want, f"{tag} launch counts {got} != {want}")
+            profile_decode(torch, qp, c, prompt, tag)
+            del qp
+            torch.cuda.empty_cache()
+    return 1 if fails else 0
+
+
 def vitl_only(torch) -> int:
     """Build, then run only the ViT-L/16 sparse paths (BSR through K18, 2:4,
     2:4-int4, bf16: exact launch counts, logits, images/s in turns and a
@@ -2747,6 +2822,9 @@ def main() -> int:
                              "profiles)")
     parser.add_argument("--mixtral", action="store_true",
                         help="only the Mixtral-8x7B paths (generate and the slot engine)")
+    parser.add_argument("--decode", action="store_true",
+                        help="only Llama-3-8B's int4-WO (32 layers) and NF4-WO (8 layers) "
+                             "paths (launch counts, prefill and decode profiles)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
@@ -2764,6 +2842,8 @@ def main() -> int:
         return mixtral_only(torch)
     if args.w4a8:
         return w4a8_only(torch)
+    if args.decode:
+        return decode_only(torch)
     import ao_tpu_torch
     from ao_tpu_torch.models import llama
     from ao_tpu_torch.ops.hopper import bsr_matmul as k18

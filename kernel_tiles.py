@@ -1,6 +1,10 @@
-"""Time the prefill launches of K10 (int8 weight-only) or K17 (fp8 blockwise)
-at generate's five M = 1024 shapes over Llama-3-8B's widths, at the tiles
-each wrapper picks and at every other unsplit tile it takes; K3 (W4A8) at
+"""Time the decode form of K1 (int4 weight-only) or K15 (NF4) at M = 8 over
+Llama-3-8B's five widths at every plan of the weight-stream decode mainloop
+(warps along N and K and the cluster at four stages, then the stages of
+the three fastest); the prefill launches of K10 (int8
+weight-only) or K17 (fp8 blockwise) at generate's five M = 1024 shapes over
+the same widths, at the tiles each wrapper picks and at every other
+unsplit tile it takes; K3 (W4A8) at
 decode (M = 8) over the same widths at its plan and every other CTA width
 and cluster split; K13's magic form (E = 8, Mixtral's expert widths, a
 top-2 routing) at its decode splits (T = 16) and row tiles (T = 256, 1024,
@@ -12,12 +16,19 @@ shapes at each cluster split and CTA count; or K4 (the magic8 -> int8
 requantization) at the W4A8 prefill's five (K, N) at its plan; or K12g
 (tanh-GELU + int8 row quantize) at SAM-B's rows in each form, with each
 form's differences from the plain version over every finite bf16 input;
-on one CUDA device; or compare the
-SASS of each kernel in two builds of one source, with names and addresses
-stripped.
+on one CUDA device; or the host's microseconds a call of K1's or K15's
+public wrapper at M = 8 over the same five widths, in this checkout or in
+another one (its ``ao_tpu_torch`` imported in place of this one's); or
+compare the
+SASS of each kernel in two builds, with names and addresses stripped: two
+libraries of one source, or two build directories source by source (K3
+and K4 in int4_w4a8, K13's two forms in grouped_matmul, K1's prefill and
+K11 in int4_matmul, K15's prefill in lut4_matmul, ...).
 
-    python3 kernel_tiles.py time K10  # or K17, K3, K4, K12g, K13, K2, K2v, K5, K6, K7, K9, K18
+    python3 kernel_tiles.py time K1  # or K15, K10, K17, K3, K4, K12g, K13, K2, K2v, K5, K6, K7, K9, K18
+    python3 kernel_tiles.py host K1 [TREE]  # or K15; TREE another checkout's root
     python3 kernel_tiles.py sass LIB_A LIB_B  # two builds' lib<source>-*.so
+    python3 kernel_tiles.py sass BUILD_A BUILD_B  # two ao_tpu_torch/_build directories
 
 Run in a copy of the tree with a kernel changed and in this one, in turns
 on one card, ``time`` sets the variant beside the kernel; ``sass`` on the
@@ -62,6 +73,9 @@ def time_tiles(kernel: str) -> int:
         return 0
     if kernel == "K18":
         time_k18(torch, cuda_time_ms, dev, sms)
+        return 0
+    if kernel in ("K1", "K15"):
+        time_gemv(torch, cuda_time_ms, dev, sms, kernel)
         return 0
     if kernel in ("K3", "K4", "K12g", "K13"):
         {"K3": time_k3, "K4": time_k4, "K12g": time_k12g, "K13": time_k13}[kernel](
@@ -128,6 +142,123 @@ def time_k3(torch, cuda_time_ms, dev, sms) -> None:
               flush=True)
         del qa
         torch.cuda.empty_cache()
+
+
+def time_gemv(torch, cuda_time_ms, dev, sms, kernel) -> None:
+    """K1 (int4-WO, g = 128, bf16 tinygemm qparams as the main path sends
+    them) or K15 (NF4, block 64, the shared codebook) at M = 8 over
+    LLAMA_KN on the decode mainloop: every (wn, wk, cluster) at four
+    stages, then every stage count of the three fastest of those; each line
+    lists the plans fastest first, the one ``gemv_plan`` picks marked, and
+    those the profiler dropped and CUDA events timed (host gaps counted)
+    marked "events"."""
+    from ao_tpu_torch.ops.hopper import int4_matmul as k1
+    from ao_tpu_torch.ops.hopper import lut4_matmul as k15
+    from ao_tpu_torch.quantization.qarrays.int4 import Int4Array
+    from ao_tpu_torch.quantization.qarrays.nf4 import NF4_CODEBOOK, NF4Array
+    from ao_tpu_torch.utils import timing
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    m = 8
+    g = 128 if kernel == "K1" else 64
+    lut = NF4_CODEBOOK.to(dev).to(torch.bfloat16)
+    for k, n in LLAMA_KN:
+        w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(torch.bfloat16)
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        if kernel == "K1":
+            qa = Int4Array.from_hp(w, group_size=g)
+            args, setup = (x, qa.qdata, qa.scale, qa.zero_point, g, True), 0
+
+            def run(plan):
+                return k1._launch(*args, plan=plan)
+        else:
+            qa = NF4Array.from_hp(w, g)
+            args, setup = (x, qa.qdata, qa._scalers(), lut, g), k15.gemv_tables(0)[1]
+
+            def run(plan):
+                return k15._launch(*args, plan=plan)
+        del w
+        picked = k1.gemv_plan(m, k, n, g, sms)
+        times, events = {}, set()
+
+        def timed(plans):
+            for plan in plans:
+                if plan not in times:
+                    before = timing.EVENT_FALLBACKS
+                    times[plan] = 1e3 * cuda_time_ms(lambda: run(plan), iters=20)
+                    if timing.EVENT_FALLBACKS != before:
+                        events.add(plan)
+
+        timed([picked] + k1.gemv_candidates(m, k, n, g, setup, stages=(4,)))
+        best = sorted(times, key=times.get)[:3]
+        timed([p for p in k1.gemv_candidates(m, k, n, g, setup, stages=(2, 3, 4, 6))
+               if p[:3] in {b[:3] for b in best}])
+        order = sorted(times, key=times.get)
+        print(f"{kernel} M={m} K={k} N={n} (wn, wk, cluster, stages), {len(order)} plans: "
+              + ", ".join(f"{p} {times[p]:.1f} us" + (" (picked)" if p == picked else "")
+                          + (" (events)" if p in events else "") for p in order), flush=True)
+        del qa, args
+        torch.cuda.empty_cache()
+
+
+def host_us(kernel: str, tree: str) -> int:
+    """The host's microseconds a call of K1's (int4-WO, g = 128, bf16
+    tinygemm qparams) or K15's (NF4, block 64) public wrapper at M = 8 over
+    LLAMA_KN, with the ``ao_tpu_torch`` of checkout ``tree``: 20 calls to
+    warm up, then 40 rounds of 25 calls issued without a synchronize (the
+    launch queue does not fill); the median round and the fastest, which a
+    host that other work shares inflates least (the process's CPU clock
+    ticks too coarsely here to time a round)."""
+    import time
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_tiles: no CUDA device; times come only from a card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(tree).resolve()))
+    from ao_tpu_torch.ops.hopper import int4_matmul as k1
+    from ao_tpu_torch.ops.hopper import lut4_matmul as k15
+    from ao_tpu_torch.quantization.qarrays.int4 import Int4Array
+    from ao_tpu_torch.quantization.qarrays.nf4 import NF4_CODEBOOK, NF4Array
+
+    dev = torch.device("cuda")
+    print(f"card: {torch.cuda.get_device_name(dev)}; tree {Path(k1.__file__).parents[3]}",
+          flush=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    lut = NF4_CODEBOOK.to(dev).to(torch.bfloat16)
+    for k, n in LLAMA_KN:
+        w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(torch.bfloat16)
+        x = torch.randn((8, k), generator=gen, device=dev).to(torch.bfloat16)
+        if kernel == "K1":
+            qa = Int4Array.from_hp(w, group_size=128)
+
+            def call():
+                k1.int4_wo_magic(x, qa.qdata, qa.scale, qa.zero_point, 128,
+                                 qa.zero_point_domain)
+        else:
+            qa = NF4Array.from_hp(w, 64)
+            scalers = qa._scalers()
+
+            def call():
+                k15.lut4_wo_magic(x, qa.qdata, scalers, lut, 64)
+        del w
+        for _ in range(20):
+            call()
+        torch.cuda.synchronize()
+        rounds = []
+        for _ in range(40):
+            t0 = time.perf_counter()
+            for _ in range(25):
+                call()
+            rounds.append((time.perf_counter() - t0) / 25 * 1e6)
+            torch.cuda.synchronize()
+        rounds.sort()
+        print(f"{kernel} M=8 K={k} N={n}: host us a call, median {rounds[20]:.2f}, "
+              f"fastest {rounds[0]:.2f}", flush=True)
+        del qa
+        torch.cuda.empty_cache()
+    return 0
 
 
 def time_k4(torch, cuda_time_ms, dev, sms) -> None:
@@ -377,35 +508,63 @@ def _sass(lib: str):
     return funcs
 
 
-def compare_sass(lib_a: str, lib_b: str) -> int:
-    a, b = _sass(lib_a), _sass(lib_b)
-    same = sorted(n for n in a.keys() & b.keys() if a[n] == b[n])
-    differ = sorted(n for n in a.keys() & b.keys() if a[n] != b[n])
-    only = sorted(a.keys() ^ b.keys())
-    print(f"SASS: {len(same)} kernels identical, {len(differ)} differ, {len(only)} in one "
-          f"build only")
-    for n in differ:
-        changed = [ln for ln in difflib.unified_diff(a[n], b[n], lineterm="", n=0)
-                   if ln[:1] in "+-" and ln[:3] not in ("+++", "---")]
-        print(f"  differs: {n} ({len(a[n])} against {len(b[n])} instructions, "
-              f"{len(changed)} changed lines)")
-    for n in only:
-        print(f"  in one build only: {n}")
-    return 0 if not differ and not only else 1
+def _libs(path: str):
+    """{source: library} of a build directory (its newest lib<source>-*.so
+    each), or {name: path} of one library."""
+    p = Path(path)
+    if p.is_file():
+        return {p.name.split("-")[0]: p}
+    libs = {}
+    for lib in sorted(p.glob("lib*-*.so"), key=lambda f: f.stat().st_mtime):
+        libs[lib.name[3:].rsplit("-", 1)[0]] = lib
+    return libs
+
+
+def compare_sass(path_a: str, path_b: str) -> int:
+    """Each kernel's SASS in two builds: two libraries of one source, or
+    every source two build directories both hold."""
+    libs_a, libs_b = _libs(path_a), _libs(path_b)
+    if Path(path_a).is_file() and Path(path_b).is_file():
+        pairs = [(Path(path_a).name, libs_a.popitem()[1], libs_b.popitem()[1])]
+    else:
+        pairs = [(src, libs_a[src], libs_b[src]) for src in sorted(libs_a.keys() & libs_b.keys())]
+    worst = 0
+    for src, lib_a, lib_b in pairs:
+        a, b = _sass(str(lib_a)), _sass(str(lib_b))
+        same = sorted(n for n in a.keys() & b.keys() if a[n] == b[n])
+        differ = sorted(n for n in a.keys() & b.keys() if a[n] != b[n])
+        only = sorted(a.keys() ^ b.keys())
+        print(f"{src}: SASS of {len(same)} kernels identical, {len(differ)} differ, "
+              f"{len(only)} in one build only")
+        for n in differ:
+            changed = [ln for ln in difflib.unified_diff(a[n], b[n], lineterm="", n=0)
+                       if ln[:1] in "+-" and ln[:3] not in ("+++", "---")]
+            print(f"  differs: {n} ({len(a[n])} against {len(b[n])} instructions, "
+                  f"{len(changed)} changed lines)")
+        for n in only:
+            print(f"  in one build only: {n}")
+        worst = max(worst, 1 if differ or only else 0)
+    return worst
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = parser.add_subparsers(dest="cmd", required=True)
     t = sub.add_parser("time", help="time a kernel's launch at each tile or plan")
-    t.add_argument("kernel", choices=("K10", "K17", "K3", "K4", "K12g", "K13", "K2", "K2v", "K5",
-                                       "K6", "K7", "K9", "K18"))
-    s = sub.add_parser("sass", help="compare the SASS of two builds of one source")
+    t.add_argument("kernel", choices=("K1", "K15", "K10", "K17", "K3", "K4", "K12g", "K13", "K2",
+                                       "K2v", "K5", "K6", "K7", "K9", "K18"))
+    h = sub.add_parser("host", help="host us a call of K1's or K15's wrapper at M = 8")
+    h.add_argument("kernel", choices=("K1", "K15"))
+    h.add_argument("tree", nargs="?", default=str(ROOT))
+    s = sub.add_parser("sass", help="compare the SASS of two builds: two libraries of one "
+                                    "source, or two build directories source by source")
     s.add_argument("lib_a")
     s.add_argument("lib_b")
     args = parser.parse_args()
     if args.cmd == "time":
         return time_tiles(args.kernel)
+    if args.cmd == "host":
+        return host_us(args.kernel, args.tree)
     return compare_sass(args.lib_a, args.lib_b)
 
 

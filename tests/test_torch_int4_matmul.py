@@ -116,9 +116,10 @@ def test_pick_splits_covers_k(m, k, n):
     if m > 16:  # the mainloop: whole units of 512 K values a split
         _, _, splits = k1.pick_tiles_magic(m, k, n, 132)
         units, per = k1.magic_units(k), -(-k1.magic_units(k) // splits)
-    else:  # the decode kernel: runs of word rows, a super-group (64 at g = 128) or 16
-        splits, per, run = k1.pick_splits(m, k, n, 128, 132)
-        units = k // 512 * (64 // run)
+    else:  # the decode form: a cluster of CTAs along K, slabs of word rows each
+        wn, wk, splits, stages = k1.gemv_plan(m, k, n, 128, 132)
+        units, per = k // (8 * k1.gemv_rows(128)), k1.gemv_per(k, 128, splits)
+        assert k1.gemv_plan_ok(m, k, n, 128, (wn, wk, splits, stages))
     assert splits >= 1 and per >= 1
     assert (splits - 1) * per < units <= splits * per
 
@@ -132,22 +133,29 @@ def test_shape_checks():
 
 
 def test_kernel_shape_rule_routes_other_group_sizes_to_torch():
-    """The route to the kernel is the layout and the M gate alone: a
-    magic-layout g the kernel does not take raises in its wrapper, on the
-    CPU as on the card, and reaches dequantize + matmul only through the
-    "torch" backend, which the caller picks."""
+    """A magic-layout g the kernel does not take: the route asks
+    ``int4_matmul.takes`` and falls back to dequantize + matmul, as the
+    reference falls back from its kernel, with the reference's values; the
+    wrapper itself still refuses the shape, on the CPU as on the card."""
     rng = np.random.default_rng(7)
     w = (rng.standard_normal((1024, 128)) * 0.02).astype(np.float32)
-    qt = jax_to_torch(JInt4Array.from_hp(jnp.asarray(w), group_size=256))
-    assert qt.layout == "magic"
-    x = torch.from_numpy(rng.standard_normal((8, 1024)).astype(np.float32))
-    with pytest.raises(ValueError, match="one of"):
-        tkernels.int4_wo_matmul(x, qt.qdata, qt.scale, qt.zero_point, 256,
+    qj = JInt4Array.from_hp(jnp.asarray(w), group_size=256)
+    qt = jax_to_torch(qj)
+    assert qt.layout == "magic" and not k1.takes(1024, 128, 256)
+    x = rng.standard_normal((8, 1024)).astype(np.float32)
+    ref = jkernels.int4_wo_matmul(jnp.asarray(x), qj.qdata, qj.scale, qj.zero_point, 256,
+                                  qj.zero_point_domain, "magic")
+    xt = torch.from_numpy(x)
+    y = tkernels.int4_wo_matmul(xt, qt.qdata, qt.scale, qt.zero_point, 256,
                                 qt.zero_point_domain, "magic")
-    with pytest.raises(ValueError, match="one of"):
-        k1.check_shapes(x, qt.qdata, 256)
-    with tkernels.backend("torch"):
-        y = tkernels.int4_wo_matmul(x, qt.qdata, qt.scale, qt.zero_point, 256,
-                                    qt.zero_point_domain, "magic")
     assert y.dtype == torch.float32  # dequantize + matmul, not the kernel's bf16
+    # both dequantize in f32 and multiply in f32: they differ only in the
+    # order of f32 roundings (test_backend_gate_and_torch_path's bound)
+    assert _sqnr(np.asarray(ref), y.numpy()) >= 100
+    with pytest.raises(ValueError, match="one of"):
+        k1.check_shapes(xt, qt.qdata, 256)
+    with tkernels.backend("torch"):
+        y_torch = tkernels.int4_wo_matmul(xt, qt.qdata, qt.scale, qt.zero_point, 256,
+                                          qt.zero_point_domain, "magic")
+    assert torch.equal(y, y_torch)
     assert k1.int4_wo_magic.launches == 0

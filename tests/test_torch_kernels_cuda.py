@@ -110,6 +110,95 @@ def test_int4_wo_magic_refuses_what_it_does_not_take(dev):
                          qa.zero_point_domain)
 
 
+# the five (K, N) of Llama-3-8B's linears: wq / wo, wk / wv, w1 / w3, w2, lm_head
+GEMV_KN = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]
+
+
+@pytest.mark.parametrize("m", [1, 8, 16])
+@pytest.mark.parametrize("k,n", GEMV_KN)
+def test_int4_wo_magic_decode_form_at_llama_widths(dev, m, k, n):
+    """K1's decode form (one kernel on the weight-stream mainloop) at every
+    decode width of the int4-WO path, against the plain version."""
+    qa, x = _int4_magic_operands(dev, m, k, n, 128, "tinygemm")
+    s, b2 = k1.transport_qparams(qa.scale, qa.zero_point, qa.zero_point_domain)
+    ref = k1.int4_wo_magic_plain(x, qa.qdata, s, b2, 128)
+
+    def run():
+        return k1.int4_wo_magic(x, qa.qdata, qa.scale, qa.zero_point, 128, qa.zero_point_domain)
+
+    got = run()
+    torch.cuda.synchronize()
+    assert float(compute_error(ref, got)) >= 45
+    assert _device_kernels(run) == 1
+
+
+@pytest.mark.parametrize("m,k,n,g", [(8, 2048, 512, 128), (16, 1024, 256, 32), (5, 512, 96, 16)])
+def test_int4_wo_magic_every_decode_plan(dev, m, k, n, g):
+    """Every plan of the decode form (warps along N and K, cluster, stages,
+    slab rows) at one shape, against the plain version; a plan it does not
+    take is refused before the launch."""
+    qa, x = _int4_magic_operands(dev, m, k, n, g, "minmax_int")
+    s, b2 = k1.transport_qparams(qa.scale, qa.zero_point, qa.zero_point_domain)
+    ref = k1.int4_wo_magic_plain(x, qa.qdata, s, b2, g)
+    plans = k1.gemv_candidates(m, k, n, g, stages=(2, 3, 5))
+    assert len(plans) >= 9
+    for plan in plans:
+        got = k1._launch(x, qa.qdata, s, b2, g, plan=plan)
+        torch.cuda.synchronize()
+        assert float(compute_error(ref, got)) >= 45, plan
+    before = k1.int4_wo_magic.launches
+    with pytest.raises(ValueError, match="not the decode form's"):
+        k1._launch(x, qa.qdata, s, b2, g, plan=(3, 1, 1, 3))
+    assert k1.int4_wo_magic.launches == before
+
+
+F3_WO = [(1024, 200, 128), (512, 48, 128), (256, 16, 64), (1024, 128, 256)]
+F3_W4A8 = [(512, 96, 128), (384, 128, 64), (1024, 128, 256), (512, 160, 128)]
+
+
+@pytest.mark.parametrize("m", [8, 520])
+@pytest.mark.parametrize("config,shape",
+                         [("Int4WeightOnlyConfig", s) for s in F3_WO]
+                         + [("Float8DynamicActivationInt4WeightConfig", F3_WO[0])]
+                         + [("Int8DynamicActivationInt4WeightConfig", s) for s in F3_W4A8])
+def test_f3_shapes_fall_back_and_launch_no_refusing_kernel(dev, config, shape, m):
+    """The shapes K1, K3 and K4 refuse: the route falls back as the
+    reference does (the "torch" backend's values) and launches none of
+    them; (384, 128, 64) at M = 8 is K3's."""
+    from ao_tpu_torch.ops.linear import linear
+    from ao_tpu_torch.quantization.quantize import quantize_
+
+    k, n, g = shape
+    gen = torch.Generator(device=dev).manual_seed(k + n + g + m)
+    w = (torch.randn((k, n), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+    qw = quantize_({"w1": w}, getattr(ao_tpu_torch, config)(group_size=g))["w1"]
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    counters = (k1.int4_wo_magic, k1.int4_w4a8_matmul, k1.int4_magic8_requant_int8)
+    before = [c.launches for c in counters]
+    got = linear(x, qw)
+    torch.cuda.synchronize()
+    k3 = int(config.startswith("Int8") and shape == (384, 128, 64) and m == 8)
+    assert [c.launches - b for c, b in zip(counters, before)] == [0, k3, 0]
+    with kernels.backend("torch"):
+        ref = linear(x, qw)
+    assert got.shape == ref.shape == (m, n)
+    assert float(compute_error(ref.float(), got.float())) >= (40 if k3 else 60)
+
+
+def test_silu_mul_quant_at_a_refused_width_launches_no_kernel(dev):
+    from ao_tpu_torch.ops import act_quant
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    a, b = (torch.randn((2, 8, 200), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    before = k12.silu_mul_quant.launches
+    got = act_quant.silu_mul_quant(a, b)
+    torch.cuda.synchronize()
+    assert k12.silu_mul_quant.launches == before
+    q, sc = k12.silu_mul_quant_plain(a, b)
+    assert torch.equal(got.qdata, q) and torch.equal(got.scale, sc)
+
+
 @pytest.mark.parametrize("b,h,hkv,t,lengths", [
     (2, 4, 2, 128, [100, 37]),
     (3, 8, 1, 100, [1, 100, 64]),    # G = 8, T not a multiple of the chunk
@@ -1712,6 +1801,46 @@ def test_lut4_wo_magic_matches_plain(dev, n_luts, m, k, n, g):
     sqnr = float(compute_error(ref, got))
     assert sqnr > 40, f"K15 vs plain: {sqnr:.2f} dB"
     assert bool((got[:, 2] == 0).all())
+
+
+@pytest.mark.parametrize("m", [1, 8, 16])
+@pytest.mark.parametrize("k,n", GEMV_KN)
+def test_lut4_wo_magic_decode_form_at_llama_widths(dev, m, k, n):
+    """K15's decode form at every decode width of the NF4-WO path (block
+    64, the shared NF4 codebook), against the plain version."""
+    from ao_tpu_torch.ops.hopper import lut4_matmul as k15
+
+    word, scalers, cb, gen = _lut4_operands(dev, k, n, 64, 0, seed=m + k + n)
+    cb = cb.to(torch.bfloat16)  # as the NF4 linear passes it: the call is the kernel alone
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    ref = k15.lut4_wo_magic_plain(x, word, scalers, cb, 64)
+
+    def run():
+        return k15.lut4_wo_magic(x, word, scalers, cb, 64)
+
+    got = run()
+    torch.cuda.synchronize()
+    assert float(compute_error(ref, got)) > 40
+    assert bool((got[:, 2] == 0).all())
+    assert _device_kernels(run) == 1
+
+
+@pytest.mark.parametrize("n_luts", [0, 4, 16], ids=["shared", "4-codebooks", "16-codebooks"])
+def test_lut4_wo_magic_every_decode_plan(dev, n_luts):
+    from ao_tpu_torch.ops.hopper import lut4_matmul as k15
+
+    m, k, n, g = 8, 2048, 512, 64
+    word, scalers, cb, gen = _lut4_operands(dev, k, n, g, n_luts, seed=n_luts + 9)
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    ref = k15.lut4_wo_magic_plain(x, word, scalers, cb, g)
+    lut = cb.to(torch.bfloat16).contiguous()
+    assert k15.gemv_tables(n_luts)[0] == (n_luts == 0)  # pair tables: one codebook only
+    plans = k1.gemv_candidates(m, k, n, g, k15.gemv_tables(n_luts)[1], stages=(2, 4))
+    assert len(plans) >= 9
+    for plan in plans:
+        got = k15._launch(x, word, scalers, lut, g, plan=plan)
+        torch.cuda.synchronize()
+        assert float(compute_error(ref, got)) > 40, plan
 
 
 def test_lut4_wo_magic_refuses_on_the_card(dev):

@@ -1,6 +1,7 @@
 """The tile choices of K14 (``fp4_matmul.pick_tiles``), K11
-(``int4_matmul.pick_tiles_halves``), K1 (``int4_matmul.launch_tiles``:
-``pick_splits`` and ``pick_tiles``), K15 (``lut4_matmul.launch_tiles``),
+(``int4_matmul.pick_tiles_halves``), K1 and K15 (the decode form's
+``int4_matmul.gemv_plan`` with a PyTorch mirror of its summation order,
+``int4_matmul.launch_tiles`` and ``lut4_matmul.launch_tiles`` above M = 16),
 K10 (``int8_matmul.pick_tiles``) and K17 (``fp8_matmul.pick_tiles``), and
 the launch plans of K8 and K16 on the attention mainloop
 (``flash_attention.launch_plan``), K13's row tiles and decode splits
@@ -36,7 +37,7 @@ from ao_tpu_torch.ops.hopper import int8_matmul as k10
 from ao_tpu_torch.ops.hopper import lut4_matmul as k15
 from ao_tpu_torch.ops.hopper import paged_attention as k9
 from ao_tpu_torch.ops.hopper import window_attention as k16
-from ao_tpu_torch.quantization.primitives import ZeroPointDomain
+from ao_tpu_torch.quantization.primitives import ZeroPointDomain, compute_error
 from ao_tpu_torch.quantization.qarrays.fp4 import _remap_fp4_magic, decode_fp4_e2m1
 from ao_tpu_torch.quantization.qarrays.int4 import Int4Array, pack_int4_magic
 from ao_tpu_torch.quantization.qarrays.mx import e8m0_decode
@@ -205,42 +206,103 @@ def _check_magic_tiles(m, k, n, g, bm, bn, splits):
     assert 4 * ctas >= 3 * slots or splits == units, (bm, bn, splits, ctas)
 
 
+def _check_gemv_plan(m, k, n, g, plan, setup=0):
+    """A decode plan the kernel takes, one launch of a cluster of at most 8
+    CTAs along K, every slab in exactly one CTA; a CTA an SM at least where
+    the column tiles and a cluster of 8 allow it."""
+    wn, wk, cluster, stages = plan
+    assert k1.gemv_plan_ok(m, k, n, g, plan, setup), plan
+    assert 1 <= cluster <= k1.GEMV_MAX_CLUSTER
+    slabs, per = k // (8 * k1.gemv_rows(g)), k1.gemv_per(k, g, cluster)
+    assert _covers(slabs, cluster, per)
+    ctas = n // (32 * wn) * cluster
+    assert ctas >= SM or cluster in (slabs, k1.GEMV_MAX_CLUSTER), plan
+
+
 @pytest.mark.parametrize("m,k,n,g", K1_SHAPES)
 def test_k1_tiles_cover_k_and_fill_the_card(cache, m, k, n, g):
-    bm, bn, splits, per, run = k1.launch_tiles(m, k, n, g, SM)
-    if m > k1.GEMV_MAX_M:
-        _check_magic_tiles(m, k, n, g, bm, bn, splits)
-        assert (per, run) == (8 * -(-k1.magic_units(k) // splits), 0)
-        assert not cache.exists()
+    if m <= k1.GEMV_MAX_M:
+        _check_gemv_plan(m, k, n, g, k1.gemv_plan(m, k, n, g, SM))
+        with pytest.raises(ValueError, match="decode form"):
+            k1.launch_tiles(m, k, n, g, SM)
         return
-    assert (bm, bn) == (k1.GEMV_MAX_M, 128)
-    runs = k // (4 * g) * (g // 2 // run)
-    assert _covers(runs, splits, per)
-    blocks = -(-n // 128)
-    # runs finer than a super-group only where whole ones leave SMs idle
-    whole, _ = k1._split_units(k // (4 * g), blocks, SM)
-    finer = blocks * whole < SM and g // 2 > k1.GEMV_RUN_ROWS
-    assert run == (k1.GEMV_RUN_ROWS if finer else g // 2)
-    assert blocks * splits >= SM or splits == runs, (splits, per, run)
+    bm, bn, splits, per = k1.launch_tiles(m, k, n, g, SM)
+    _check_magic_tiles(m, k, n, g, bm, bn, splits)
+    assert per == 8 * -(-k1.magic_units(k) // splits)
+    assert not cache.exists()
 
 
 def test_k1_decode_splits_4096x1024_finer():
-    # Llama-3-8B's wk / wv at decode: 8 super-groups give 64 blocks; runs of
-    # 16 word rows give 32 splits, 256 blocks. 4096x4096 keeps whole ones.
-    assert k1.pick_splits(8, 4096, 1024, 128, SM) == (32, 1, 16)
-    assert k1.pick_splits(8, 4096, 4096, 128, SM) == (8, 1, 64)
-    assert k1.pick_splits(8, 4096, 128256, 128, SM) == (1, 8, 64)
+    # Llama-3-8B's linears at decode (M = 8, g = 128; NF4's g = 64 alike):
+    # four warps of columns a CTA; wk / wv (N = 1024) with two warps along K
+    # in a cluster of 8; w2's 56 slabs in a cluster of 7; the lm_head one CTA
+    # a tile (kernel_tiles.py time K1 / K15 on the H100)
+    want = {(4096, 4096): (4, 1, 6, 4), (4096, 1024): (4, 2, 8, 3),
+            (4096, 14336): (4, 1, 2, 4), (14336, 4096): (4, 1, 7, 4),
+            (4096, 128256): (4, 1, 1, 2)}
+    for g in (128, 64):
+        assert {kn: k1.gemv_plan(8, *kn, g, SM) for kn in want} == want
 
 
 @pytest.mark.parametrize("m,k,n,g", K15_SHAPES)
 def test_k15_tiles_cover_k_and_fill_the_card(m, k, n, g):
+    if m <= k1.GEMV_MAX_M:  # K1's decode form, with the codebooks' shared memory
+        setup = k15.gemv_tables(4)[1]
+        _check_gemv_plan(m, k, n, g, k1.gemv_plan(m, k, n, g, SM), setup)
+        return
     bm, bn, splits, per = k15.launch_tiles(m, k, n, g, SM)
-    if m > k1.GEMV_MAX_M:
-        _check_magic_tiles(m, k, n, g, bm, bn, splits)
-        assert per == 8 * -(-k1.magic_units(k) // splits)
-    else:  # the decode kernel: whole super-groups a split
-        assert (bm, bn) == (k1.GEMV_MAX_M, 128)
-        assert _covers(k // (4 * g), splits, per)
+    _check_magic_tiles(m, k, n, g, bm, bn, splits)
+    assert per == 8 * -(-k1.magic_units(k) // splits)
+
+
+def _gemv_walk(k, g, plan):
+    """The (rank, warp along K) that takes each (word row, plane) of a
+    decode launch, as the kernel walks it: rank r's slabs [r per, (r + 1)
+    per), warp w's k16 steps w, w + wk, .. of each slab, a step 8 word rows
+    of every plane."""
+    _, wk, cluster, _ = plan
+    rows = k1.gemv_rows(g)
+    sps, per = g // 2 // rows, k1.gemv_per(k, g, cluster)
+    owner = {}
+    for r in range(cluster):
+        for s in range(r * per, min((r + 1) * per, k // (8 * rows))):
+            base = s // sps * (g // 2) + s % sps * rows
+            for w in range(wk):
+                for q in range(w, rows // 8, wk):
+                    for row in range(base + 8 * q, base + 8 * q + 8):
+                        for j in range(4):
+                            assert (row, j) not in owner
+                            owner[(row, j)] = (r, w)
+    return owner
+
+
+@pytest.mark.parametrize("g", [16, 32, 64, 128])
+def test_gemv_plans_take_every_word_row_and_plane_once(g):
+    k, n = 32 * g, 256
+    plans = k1.gemv_candidates(8, k, n, g, stages=(3,))
+    assert len(plans) >= 10
+    for plan in plans:
+        owner = _gemv_walk(k, g, plan)
+        assert len(owner) == 4 * (k // 8)
+        # the x values of (word row, plane j): K rows (4t + j) g + 2r' and + 1
+        ks = sorted(2 * (row % (g // 2)) + (4 * (row // (g // 2)) + j) * g for row, j in owner)
+        assert ks == list(range(0, k, 2))
+
+
+def test_gemv_plan_refuses_what_the_kernel_does_not_build():
+    ok = (2, 2, 4, 4)
+    assert k1.gemv_plan_ok(8, 4096, 4096, 128, ok)
+    for bad in [(3, 1, 4, 4), (2, 8, 4, 4), (4, 4, 4, 4), (2, 2, 9, 4), (2, 2, 4, 1),
+                (2, 2, 4, 9), (2, 2, 16, 4), (2, 2, 0, 4)]:
+        assert not k1.gemv_plan_ok(8, 4096, 4096, 128, bad), bad
+    assert not k1.gemv_plan_ok(17, 4096, 4096, 128, ok)  # M > 16: the prefill's tiles
+    assert not k1.gemv_plan_ok(8, 4096, 4096, 16, ok)  # g = 16: one step a slab, wk = 1
+    assert not k1.gemv_plan_ok(8, 4096, 1056, 128, (4, 1, 4, 4))  # N % 128: a ragged CTA
+    # eight stages of 16 rows of x beside 256 codebooks: past the shared memory
+    assert k1.gemv_smem_bytes(16, 4, 2, 8, 128, 32 * 256) > k1.GEMV_MAX_SMEM
+    assert k1.gemv_plan_ok(16, 4096, 4096, 128, (4, 2, 1, 8))
+    assert not k1.gemv_plan_ok(16, 4096, 4096, 128, (4, 2, 1, 8), 32 * 256)
+    assert [k1.gemv_rows(g) for g in (16, 32, 64, 128)] == [8, 16, 32, 32]
 
 
 @pytest.mark.parametrize("entry,taken", [((64, 128, 2), True), ((128, 128, 6), True),
@@ -309,6 +371,67 @@ def test_k15_stage_order_and_fold_mirror_the_plain_version(g, n_luts):
     ref = k15.lut4_wo_magic_plain(x, word, scalers, cb, g)
     got = k15.lut4_wo_magic_mirror(x, word, scalers, cb, g)
     torch.testing.assert_close(got, ref, rtol=0, atol=MIRROR_TOL * float(ref.abs().max()))
+
+
+def _gemv_plans(m, k, n, g):
+    """The picked decode plan, and plans with warps along K and clusters
+    that cut a super-group."""
+    plans = [k1.gemv_plan(m, k, n, g, SM)] + [
+        p for p in [(1, 2, 5, 3), (2, 1, 7, 2), (1, 4, 2, 4), (1, 1, 2, 3), (2, 1, 1, 2)]
+        if k1.gemv_plan_ok(m, k, n, g, p)]
+    assert len(plans) >= 3
+    return plans
+
+
+@pytest.mark.parametrize("m", [1, 8, 16])
+@pytest.mark.parametrize("g,domain", [(16, "tinygemm"), (32, "minmax_int"), (64, "raw_zp"),
+                                      (128, "tinygemm"), (128, "raw_zp")])
+def test_k1_decode_mirror_is_the_plain_version(m, g, domain):
+    """K1's decode form's summation order (per-group fold, slab order, warps
+    along K, the cluster's ranks) in PyTorch against the plain version: the
+    same exact products, f32 sums in another order (45 dB, the card's
+    bound, and the prefill mirror's tolerance)."""
+    rng = np.random.default_rng(10 * g + m)
+    k, n = 12 * g, 64
+    w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32) * 0.05)
+    zpd = ZeroPointDomain.INT if domain == "minmax_int" else ZeroPointDomain.FLOAT
+    qa = Int4Array.from_hp(w.to(torch.bfloat16), group_size=g, zero_point_domain=zpd)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(torch.bfloat16)
+    s, b2 = k1.transport_qparams(qa.scale, qa.zero_point, qa.zero_point_domain)
+    ref = k1.int4_wo_magic_plain(x, qa.qdata, s, b2, g)
+    for plan in _gemv_plans(m, k, n, g):
+        if domain == "raw_zp":
+            got = k1.int4_wo_magic_gemv_mirror(x, qa.qdata, qa.scale, qa.zero_point, g, plan,
+                                               raw_zp=True)
+        else:
+            got = k1.int4_wo_magic_gemv_mirror(x, qa.qdata, s, b2, g, plan)
+        assert float(compute_error(ref, got)) >= 45, plan
+        torch.testing.assert_close(got, ref, rtol=0, atol=MIRROR_TOL * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("n_luts,want", [(0, (True, 16384)), (1, (True, 16384)),
+                                         (4, (False, 128)), (256, (False, 8192))])
+def test_k15_pair_tables_take_one_codebook_only(n_luts, want):
+    # one codebook (NF4's) as 16 copies of its 256-pair table; (L, 16)
+    # codebooks each as its 16 entries
+    assert k15.gemv_tables(n_luts) == want
+
+
+@pytest.mark.parametrize("m", [1, 8, 16])
+@pytest.mark.parametrize("g,n_luts", [(32, 0), (64, 0), (64, 3), (128, 2)])
+def test_k15_decode_mirror_is_the_plain_version(m, g, n_luts):
+    rng = np.random.default_rng(200 + g + m + n_luts)
+    k, n = 12 * g, 64
+    codes = torch.from_numpy(rng.integers(0, 16, (k, n)).astype(np.uint8))
+    word = pack_int4_magic(codes, g)
+    scalers = torch.from_numpy(rng.random((k // g, n)).astype(np.float32) + 0.01)
+    cb = torch.from_numpy(rng.standard_normal((n_luts, 16) if n_luts else (16,)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(torch.bfloat16)
+    ref = k15.lut4_wo_magic_plain(x, word, scalers, cb, g)
+    for plan in _gemv_plans(m, k, n, g):
+        got = k15.lut4_wo_magic_gemv_mirror(x, word, scalers, cb, g, plan)
+        assert float(compute_error(ref, got)) > 40, plan
+        torch.testing.assert_close(got, ref, rtol=0, atol=MIRROR_TOL * float(ref.abs().max()))
 
 
 @pytest.mark.parametrize("m,k,n", K10_SHAPES)
