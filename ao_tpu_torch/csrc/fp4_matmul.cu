@@ -44,7 +44,7 @@
 // consecutive K rows of one column: one bf16x2 of a K-major B tile, or one
 // register of an mma.sync m16n8k16 fragment. K % 256 == 0, N % 128 == 0.
 //
-// What bounds it on the H100, and the two kernels:
+// What bounds it on the H100, and the two forms:
 //  * prefill (M > 16): tensor-core operations, 2 M K N against 989 TFLOP/s,
 //    with the decode's integer work on the same SMs. On the shared wgmma
 //    mainloop (mixed_gemm.cuh, Fp4Op below): a stage is 8 word rows (64 K
@@ -59,45 +59,30 @@
 //    tile, synchronous weight loads, 64 CTAs at N = 1024) took 11.9x
 //    cuBLAS's time at M = 1024; what bounds this one is the decode's
 //    instruction issue beside the tensor cores (PERF.md).
-//  * decode (M <= 16, fp4_gemv_kernel): the weight stream, 0.5 B per weight
-//    plus the scales (1/32 B per weight for MX, 1/8 B for NV's pair-words)
-//    against 3.35 TB/s, and the decode's integer work. K1's structure: the
-//    weights are the A operand (16 columns of N as the rows of an m16 tile),
-//    x^T the B operand, each warp owns 32 columns, each thread issues a
-//    unit's eight 16-byte word loads and its scale loads before it uses any,
-//    and the grid splits K by whole units (grid.z) into f32 partials summed
-//    by a second pass. The unit's K order is permuted alike in A and B so
-//    that a thread's rows of a plane are 16 consecutive ones: its x comes in
-//    two 16-byte loads a plane and row (not eight of 4 bytes), and one block
-//    scale a plane and column covers them, decoded once; the weights are
-//    decoded two at a time (fp4_pair).
+//  * decode (M <= 16): the weight stream, 0.5 B per weight plus the scales
+//    (1/32 B per weight for MX, 1/8 B for NV's pair-words) against 3.35
+//    TB/s, and the decode's integer work. It runs on K1's and K15's
+//    weight-stream decode mainloop (gemv_mainloop.cuh, KS = 0: the fp4-magic
+//    words are the int4 magic layout with one super-group, g = K/4) with
+//    Fp4Gemv below: a TMA ring of slabs of 32 word rows filled by a producer
+//    warp, each stage holding the slab's x and its block-scale rows; the
+//    weights the A operand of mma.sync, decoded by fp4_pair and their
+//    column's block scale straight into the fragments, every step's mma into
+//    acc (no qparams, no fold); the K split summed in a thread-block cluster;
+//    one kernel a call, no workspace, its plan from fp4_matmul.gemv_plan.
+//    (The earlier decode kernel, K1's old GEMV, issued a unit's loads,
+//    consumed them, and only then issued the next unit's; every warp read x
+//    from global memory; its K split wrote f32 partials that a second kernel
+//    summed.)
 
+#include "gemv_mainloop.cuh"
 #include "mixed_gemm.cuh"
 
 namespace {
 
 constexpr int kMx = 0, kNv = 1;
-constexpr int kUnitWords = 32;  // word rows per decode unit
-constexpr int kStep = 64;       // logical K per (unit, plane) step of the decode kernel
+constexpr int kUnitK = 256;  // K per unit: four planes of 64 rows, a decode slab
 
-using mg::pack_bf16x2;
-
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ int4 ld_16(const void* p) {
-  return __ldg(reinterpret_cast<const int4*>(p));
-}
-
-__device__ __forceinline__ uint32_t elem(const int4& v, int i) {
-  return i == 0 ? (uint32_t)v.x : i == 1 ? (uint32_t)v.y : i == 2 ? (uint32_t)v.z : (uint32_t)v.w;
-}
 
 __device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
   uint32_t d;
@@ -145,42 +130,50 @@ __device__ __forceinline__ uint32_t nv_scale_pair(uint32_t pw) {
   return (m << 4) | ((pw << 8) & 0x80008000u) | (nan & 0x7FC07FC0u);
 }
 
+// The decode form's code decode: the four planes of a word (plane j the
+// codes at bits 4j and 16 + 4j) as bf16x2 bits of their e2m1 values, as
+// fp4_pair gives them, from byte tables. Bytes b and 2 + b of the word hold
+// planes 2b and 2b + 1 of its two rows; their em fields, as the selector of
+// a prmt over eight bytes, pick each value's low byte (L) and high byte (H),
+// both 0 for the zero code (stored em 1); the signs go to H's top bits, and
+// two more prmts pair the halves into the planes' registers. 16
+// instructions a word, 4 a register (fp4_pair: about 9). tab holds the
+// tables (L em 0..3, L em 4..7, H em 0..3, H em 4..7): fp4_table.
+template <int KIND>
+__host__ __device__ constexpr uint32_t fp4_table(int i) {
+  return i == 0 ? 0xC0800000u : i == 1 ? 0xC0804000u
+       : i == 2 ? (KIND == kMx ? 0x3F3F003Fu : 0x7B7B007Bu)
+                : (KIND == kMx ? 0x40404040u : 0x7C7C7C7Cu);
+}
+
+__device__ __forceinline__ void fp4_planes(uint32_t w, const uint4& tab, uint32_t (&pl)[4]) {
+  const uint32_t em = w & 0x77777777u, w4 = w << 4;
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+    // nibbles: plane 2b and 2b + 1 of row 0, then of row 1; each one's
+    // sign at the top of byte n of sgn
+    const uint32_t sel = prmt(em, 0u, b ? 0x31u : 0x20u);
+    const uint32_t sgn = prmt(w4, w, b ? 0x7351u : 0x6240u);
+    const uint32_t lo = prmt(tab.x, tab.y, sel);
+    const uint32_t hi = prmt(tab.z, tab.w, sel) | (sgn & 0x80808080u);
+    pl[2 * b] = prmt(lo, hi, 0x6240u);
+    pl[2 * b + 1] = prmt(lo, hi, 0x7351u);
+  }
+}
+
+// Byte c of v, an e8m0 block scale e, as mx_scale2 gives it: e << 7 in
+// both halves, at least the bf16 subnormal 0x0040 (e = 0).
+__device__ __forceinline__ uint32_t mx_scale2_byte(uint32_t v, int c) {
+  const uint32_t e2 = prmt(v, 0u, 0x4040u | (c << 8) | c) << 7;
+  uint32_t d;
+  asm("max.u16x2 %0, %1, %2;\n" : "=r"(d) : "r"(e2), "r"(0x00400040u));
+  return d;
+}
+
 // Half sel of v in both halves.
 __device__ __forceinline__ uint32_t half2(uint32_t v, int sel) {
   return prmt(v, 0u, sel ? 0x3232u : 0x1010u);
 }
-
-// The raw scale entries covering logical row kk (a multiple of 16) for the
-// four columns col .. col + 3: MX, the four e8m0 bytes of row kk/32 in one
-// word; NV, the four pair-words of row kk/32 (16-row block 2i + sel in byte
-// sel, at bit 16 sel).
-template <int KIND>
-struct Scales;
-
-template <>
-struct Scales<kMx> {
-  uint32_t v;
-  __device__ __forceinline__ void load(const void* scale, int kk, int col, int N) {
-    v = __ldg(reinterpret_cast<const unsigned int*>(static_cast<const uint8_t*>(scale) +
-                                                    (size_t)(kk >> 5) * N + col));
-  }
-  // column i's scale as bf16x2, for either 16-row block of the pair
-  __device__ __forceinline__ uint32_t pair(int i) const { return mx_scale2((v >> (8 * i)) & 0xFFu); }
-  __device__ __forceinline__ static uint32_t scale2(uint32_t pair, int) { return pair; }
-};
-
-template <>
-struct Scales<kNv> {
-  int4 v;
-  __device__ __forceinline__ void load(const void* scale, int kk, int col, int N) {
-    v = ld_16(static_cast<const int32_t*>(scale) + (size_t)(kk >> 5) * N + col);
-  }
-  // column i's two block scales, one a half; scale2 picks block sel
-  __device__ __forceinline__ uint32_t pair(int i) const { return nv_scale_pair(elem(v, i)); }
-  __device__ __forceinline__ static uint32_t scale2(uint32_t pair, int sel) {
-    return half2(pair, sel);
-  }
-};
 
 // The NVFP4 epilogue: the reference's bf16 output times pts in f32, in bf16.
 template <int KIND>
@@ -190,109 +183,100 @@ __device__ __forceinline__ float finish(float acc, const float* pts) {
   return acc;
 }
 
-// Decode kernel (M <= 16, NT = ceil(M/8)). grid (N/128, 1, splits), 128
-// threads; warp w owns columns nb = (4*blockIdx.x + w)*32 .. + 31; the thread
-// loads columns col = nb + 4*gid .. + 3, in two m16 tiles: tile p holds in its
-// rows 0..7 column col + 2p and in rows 8..15 column col + 2p + 1. Split z
-// covers units [z*ups, (z+1)*ups).
-template <int KIND, int NT>
-__global__ void __launch_bounds__(128)
-    fp4_gemv_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ word,
-                    const void* __restrict__ scale, const float* __restrict__ pts,
-                    __nv_bfloat16* __restrict__ out, float* __restrict__ ws, int M, int K, int N,
-                    int ups) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int nb = (blockIdx.x * 4 + warp) * 32;
-  const int col = nb + 4 * gid;
-  const int kq = K / 4;
-  const int units = K / (4 * kStep);
-  const int u_end = min((int)(blockIdx.z + 1) * ups, units);
+// K14's decode form on the weight-stream mainloop (gemv_mainloop.cuh at KS
+// = 0). A stage's side rows are the slab's block scales, [4 planes][2 rows]
+// [BN] values of kStageQ / 8 bytes: MX e8m0 bytes, NV pair-words (16-row
+// blocks 2i and 2i + 1 in bytes 0 and 2). Step k (plane rows 16 k .. 16 k +
+// 15 of the slab's 64) takes row k >> 1, and for NV block k & 1 of its
+// pair-words. Each register of a fragment is two consecutive K rows of one
+// column (fp4_planes), times that column's block scale as bf16x2 (exact).
+template <int KIND>
+struct Fp4Gemv {
+  struct Args {
+    const float* pts;  // NV: the per-tensor scale, or null
+  };
+  static constexpr bool kBias = false, kBlockScales = true;
+  static constexpr int kQArrays = 0, kQBytes = 1;
+  static constexpr int kStageQ = 8 * (KIND == kMx ? 1 : 4);  // 4 planes x 2 rows a column
+  static constexpr int kEs = kStageQ / 8;                     // bytes a scale value
+  // Shared: the code tables (loaded into registers once a slab: as
+  // immediates, ptxas copied each into a register at every use), then for
+  // each warp a row of decoded scales, [4 planes][32 columns] bf16x2.
+  __host__ __device__ static int setup_bytes(const Args&) { return 16 + gv::kMaxWarps * 512; }
+  __device__ static void setup(const Args&, uint8_t* tabs, int tid, int) {
+    if (tid < 4) reinterpret_cast<uint32_t*>(tabs)[tid] = fp4_table<KIND>(tid);
+  }
+  struct Q {};
 
-  float acc[2][NT][4];
-#pragma unroll
-  for (int p = 0; p < 2; ++p)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[p][nt][e] = 0.f;
+  struct Slab {
+    const uint8_t* sc;  // the warp's 32 columns in the stage's first scale row
+    int row;            // the bytes of a scale row
+    uint32_t* dec;      // the warp's decoded row
+    int cw;             // the thread's columns: 4 cw .. 4 cw + 3 of the warp's
+    uint4 tab;          // the code tables
+    uint32_t s2[4][4];  // [plane][column cb + c]: row r's scales (MX bf16x2; NV both blocks)
+  };
+  __device__ static Slab slab(const Args&, uint8_t* tabs, int, const uint8_t* q, int bn, int cb) {
+    uint32_t* dec = reinterpret_cast<uint32_t*>(tabs + 16) + 128 * (threadIdx.x >> 5);
+    return {q + (cb & ~31) * kEs, bn * kEs, dec, (cb & 31) >> 2,
+            *reinterpret_cast<const uint4*>(tabs), {}};
+  }
 
-  for (int u = blockIdx.z * ups; u < u_end; ++u) {
-    // K order within the unit, the same for A and B: the thread's fragment
-    // K pairs (2 tig, 2 tig + 1) and (2 tig + 8, + 9) of k16 step c are the
-    // plane's rows 16 tig + 4c, + 1 and 16 tig + 4c + 2, + 3. So over the
-    // four steps the thread reads word rows 8 tig .. 8 tig + 7 of the unit
-    // (step c: 8 tig + 2c and + 1), one block scale per plane and column
-    // (MX block 32 rows, NV 16: both hold rows 16 tig .. + 15), and 32
-    // contiguous bytes of each x row per plane.
-    int4 w[8];
+  // Scale row r of each plane (the 32-row block of steps 2r and 2r + 1),
+  // decoded once for both steps, and once for the warp: a quad's four lanes
+  // share their columns, so lane l decodes plane l / 8's columns 4 (l % 8)
+  // .. + 3 into the warp's row in shared memory, and each thread reads its
+  // own back (the two rows of a slab take turns in the one buffer). MX's
+  // kernel so takes 111 registers a thread: two CTAs of 9 warps (wn 4, wk
+  // 2) no longer fit an SM's sub-partitions, which gemv_plan never picks.
+  __device__ static void scale_row(Slab& sl, int r) {
+    const int lane = threadIdx.x & 31, j = lane >> 3, c4 = 4 * (lane & 7);
+    const uint8_t* src = sl.sc + (2 * j + r) * sl.row + c4 * kEs;
+    uint4 d;
+    if constexpr (KIND == kMx) {
+      const uint32_t v = *reinterpret_cast<const uint32_t*>(src);
+      d = make_uint4(mx_scale2_byte(v, 0), mx_scale2_byte(v, 1), mx_scale2_byte(v, 2),
+                     mx_scale2_byte(v, 3));
+    } else {
+      const uint4 v = *reinterpret_cast<const uint4*>(src);
+      d = make_uint4(nv_scale_pair(v.x), nv_scale_pair(v.y), nv_scale_pair(v.z),
+                     nv_scale_pair(v.w));
+    }
+    __syncwarp();  // every lane has read the previous row
+    *reinterpret_cast<uint4*>(sl.dec + 32 * j + c4) = d;
+    __syncwarp();
 #pragma unroll
-    for (int r = 0; r < 8; ++r)
-      w[r] = ld_16(word + (size_t)(kUnitWords * u + 8 * tig + r) * N + col);
-    Scales<KIND> sv[4];  // [plane j]: the row holding rows 16 tig .. of the unit
-#pragma unroll
-    for (int j = 0; j < 4; ++j) sv[j].load(scale, j * kq + kStep * u + 16 * tig, col, N);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      uint32_t s2[4];  // column col + i's block scale, decoded once
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s2[i] = Scales<KIND>::scale2(sv[j].pair(i), tig & 1);
-      int4 xv[NT][2];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int r = gid + 8 * nt;
-        const __nv_bfloat16* xr = x + (size_t)r * K + j * kq + kStep * u + 16 * tig;
-        xv[nt][0] = r < M ? ld_16(xr) : make_int4(0, 0, 0, 0);
-        xv[nt][1] = r < M ? ld_16(xr + 8) : make_int4(0, 0, 0, 0);
-      }
-      const int sh = 4 * j;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int4& w0 = w[2 * c];
-        const int4& w1 = w[2 * c + 1];
-        const uint32_t a0[4] = {mul_bf16x2(fp4_pair<KIND>((uint32_t)w0.x >> sh), s2[0]),
-                                mul_bf16x2(fp4_pair<KIND>((uint32_t)w0.y >> sh), s2[1]),
-                                mul_bf16x2(fp4_pair<KIND>((uint32_t)w1.x >> sh), s2[0]),
-                                mul_bf16x2(fp4_pair<KIND>((uint32_t)w1.y >> sh), s2[1])};
-        const uint32_t a1[4] = {mul_bf16x2(fp4_pair<KIND>((uint32_t)w0.z >> sh), s2[2]),
-                                mul_bf16x2(fp4_pair<KIND>((uint32_t)w0.w >> sh), s2[3]),
-                                mul_bf16x2(fp4_pair<KIND>((uint32_t)w1.z >> sh), s2[2]),
-                                mul_bf16x2(fp4_pair<KIND>((uint32_t)w1.w >> sh), s2[3])};
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int4& xc = xv[nt][c >> 1];
-          const uint32_t b0 = (c & 1) ? (uint32_t)xc.z : (uint32_t)xc.x;
-          const uint32_t b1 = (c & 1) ? (uint32_t)xc.w : (uint32_t)xc.y;
-          mma_16816(acc[0][nt], a0, b0, b1);
-          mma_16816(acc[1][nt], a1, b0, b1);
-        }
-      }
+    for (int p = 0; p < 4; ++p) {
+      const uint4 t = *reinterpret_cast<const uint4*>(sl.dec + 32 * p + 4 * sl.cw);
+      sl.s2[p][0] = t.x, sl.s2[p][1] = t.y, sl.s2[p][2] = t.z, sl.s2[p][3] = t.w;
     }
   }
 
-  // C fragment e of tile p: column col + 2p + (e >> 1), batch row
-  // 2*tig + (e & 1) (+ 8nt); the thread's outputs: rows 2*tig + h, columns
-  // col .. col + 3
+  // Step k: each word's four planes decoded and scaled (row k >> 1's
+  // scales; NV's block k & 1); register e of tile p is word 4p + e of (w0.x,
+  // w0.y, w1.x, w1.y, w0.z, w0.w, w1.z, w1.w), column cb + 2p + (e & 1).
+  __device__ static void decode(const Slab& sl, int k, const uint4& w0, const uint4& w1,
+                                uint32_t (&a)[4][2][4]) {
+    uint32_t s2[4][4];
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = 2 * tig + h + 8 * nt;
-      if (r >= M) continue;
-      const float v[4] = {acc[0][nt][h], acc[0][nt][2 + h], acc[1][nt][h], acc[1][nt][2 + h]};
-      const size_t off = (size_t)r * N + col;
-      if (ws == nullptr) {
-        *reinterpret_cast<uint2*>(out + off) =
-            make_uint2(pack_bf16x2(finish<KIND>(v[0], pts), finish<KIND>(v[1], pts)),
-                       pack_bf16x2(finish<KIND>(v[2], pts), finish<KIND>(v[3], pts)));
-      } else {
-        *reinterpret_cast<float4*>(ws + (size_t)blockIdx.z * M * N + off) =
-            make_float4(v[0], v[1], v[2], v[3]);
-      }
+      for (int c = 0; c < 4; ++c) s2[j][c] = KIND == kMx ? sl.s2[j][c] : half2(sl.s2[j][c], k & 1);
+    const uint32_t words[8] = {w0.x, w0.y, w1.x, w1.y, w0.z, w0.w, w1.z, w1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      uint32_t pl[4];
+      fp4_planes(words[i], sl.tab, pl);
+      const int p = i >> 2, e = i & 3;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) a[j][p][e] = mul_bf16x2(pl[j], s2[j][2 * p + (e & 1)]);
     }
-}
+  }
 
-// K14's decode for the shared mainloop. Stage s is word rows 8s .. 8s + 7:
+  __device__ static float finish(const Args& a, float v) { return ::finish<KIND>(v, a.pts); }
+};
+
+// K14's prefill decode for the wgmma mainloop. Stage s is word rows 8s .. 8s + 7:
 // rows 16s .. 16s + 15 of each plane j, whose k16 step is the stage's K
 // values 16j .. 16j + 15 (x chunks 2j, 2j + 1 from columns jK/4 + 16s ..).
 // Its slot holds the words [8][BN + 4] int32 (rows padded by 16 bytes, so
@@ -383,23 +367,14 @@ __global__ void fp4_reduce_kernel(const float* __restrict__ ws, const float* __r
   out[i] = __float2bfloat16(finish<KIND>(acc, pts));
 }
 
+// The prefill (M > 16) on the wgmma mainloop, per = stages of 64 K values
+// per split.
 template <int KIND>
 cudaError_t launch(const __nv_bfloat16* x, const int32_t* word, const void* scale,
                    const float* pts, __nv_bfloat16* out, float* ws, int M, int K, int N, int bm,
                    int bn, int splits, int per, cudaStream_t st) {
-  cudaError_t err;
-  if (bm == 16) {  // the decode kernel, per = units per split
-    if (M > 16 || bn != 128) return cudaErrorInvalidValue;
-    dim3 grid(N / 128, 1, splits);
-    if (M <= 8)
-      fp4_gemv_kernel<KIND, 1><<<grid, 128, 0, st>>>(x, word, scale, pts, out, ws, M, K, N, per);
-    else
-      fp4_gemv_kernel<KIND, 2><<<grid, 128, 0, st>>>(x, word, scale, pts, out, ws, M, K, N, per);
-    err = cudaGetLastError();
-  } else {  // the mainloop, per = stages of 64 K values per split
-    const mg::Problem pb{x, out, ws, M, K, N, per, K / mg::kBK};
-    err = mg::launch<Fp4Op<KIND>>(pb, {word, scale, pts}, bm, bn, splits, st);
-  }
+  const mg::Problem pb{x, out, ws, M, K, N, per, K / mg::kBK};
+  const cudaError_t err = mg::launch<Fp4Op<KIND>>(pb, {word, scale, pts}, bm, bn, splits, st);
   if (err != cudaSuccess || ws == nullptr) return err;
   const size_t mn = (size_t)M * N;
   fp4_reduce_kernel<KIND><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(ws, pts, out, mn, splits);
@@ -408,18 +383,17 @@ cudaError_t launch(const __nv_bfloat16* x, const int32_t* word, const void* scal
 
 }  // namespace
 
-// K per decode unit (4 planes x 64 rows) and the N granule; the wrapper
-// checks its shapes against them at load.
-extern "C" int ao_fp4_k_unit() { return 4 * kStep; }
+// K per unit (4 planes x 64 rows) and the N granule; the wrapper checks its
+// shapes against them at load.
+extern "C" int ao_fp4_k_unit() { return kUnitK; }
 extern "C" int ao_fp4_n_block() { return 128; }
 
-// kind 0 MXFP4 (scale: e8m0 bytes (K/32, N) uint8, pts unused), 1 NVFP4
-// (scale: e4m3 pair-words (K/32, N) int32, pts an f32 scalar or null).
-// x (M, K) bf16; word (K/8, N) int32; out (M, N) bf16. Tiles from
-// fp4_matmul.pick_tiles: bm 16 the decode kernel (M <= 16, bn 128, per units
-// of 256 K a split), else the mainloop's (bm, bn) with per stages of 64 K a
-// split; ws (splits, M, N) f32 when splits > 1. Needs K % 256 == 0,
-// N % 128 == 0 and 16-byte aligned rows; the Python wrapper checks them.
+// The prefill (M > 16). kind 0 MXFP4 (scale: e8m0 bytes (K/32, N) uint8,
+// pts unused), 1 NVFP4 (scale: e4m3 pair-words (K/32, N) int32, pts an f32
+// scalar or null). x (M, K) bf16; word (K/8, N) int32; out (M, N) bf16.
+// Tiles from fp4_matmul.pick_tiles: the mainloop's (bm, bn) with per stages
+// of 64 K a split; ws (splits, M, N) f32 when splits > 1. Needs K % 256 ==
+// 0, N % 128 == 0 and 16-byte aligned rows; the Python wrapper checks them.
 // Returns cudaGetLastError() after the launches.
 extern "C" int ao_fp4_wo(int kind, const void* x_, const void* word_, const void* scale,
                          const void* pts_, void* out_, void* ws_, int M, int K, int N, int bm,
@@ -430,10 +404,32 @@ extern "C" int ao_fp4_wo(int kind, const void* x_, const void* word_, const void
   const auto* pts = static_cast<const float*>(pts_);
   auto* out = static_cast<__nv_bfloat16*>(out_);
   float* ws = splits > 1 ? static_cast<float*>(ws_) : nullptr;
-  if (K % (4 * kStep) || N % 128 || M < 1) return (int)cudaErrorInvalidValue;
+  if (K % kUnitK || N % 128 || M < 1) return (int)cudaErrorInvalidValue;
   if (kind == kMx)
     return (int)launch<kMx>(x, word, scale, nullptr, out, ws, M, K, N, bm, bn, splits, per, st);
   if (kind == kNv)
     return (int)launch<kNv>(x, word, scale, pts, out, ws, M, K, N, bm, bn, splits, per, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The decode (M <= 16), one launch on the weight-stream mainloop, no
+// workspace: kind, x, word, scale, pts and out as above; the plan (wn warps
+// along N, wk warps along K, cluster CTAs along K, ring stages) from
+// fp4_matmul.gemv_plan, checked again here (gv::plan_ok). Returns
+// cudaGetLastError() after the launch, or minus libcuda's CUresult for a
+// tensor map it refuses.
+extern "C" int ao_fp4_wo_gemv(int kind, const void* x, const void* word, const void* scale,
+                              const void* pts, void* out, int M, int K, int N, int wn, int wk,
+                              int cluster, int stages, void* stream) {
+  if (K % kUnitK || N % 128 || cluster < 1) return (int)cudaErrorInvalidValue;
+  const int slabs = K / kUnitK;
+  const gv::Problem pb{static_cast<const __nv_bfloat16*>(x), static_cast<const int32_t*>(word),
+                       static_cast<__nv_bfloat16*>(out), M, K, N, wn, wk, stages,
+                       (slabs + cluster - 1) / cluster};
+  const void* q[1] = {scale};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kind == kMx) return gv::launch<Fp4Gemv<kMx>, 0>(pb, {nullptr}, q, cluster, st);
+  if (kind == kNv)
+    return gv::launch<Fp4Gemv<kNv>, 0>(pb, {static_cast<const float*>(pts)}, q, cluster, st);
   return (int)cudaErrorInvalidValue;
 }

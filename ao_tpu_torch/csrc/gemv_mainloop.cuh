@@ -1,7 +1,8 @@
-// The weight-stream decode mainloop of K1 (int4_matmul.cu) and K15
-// (lut4_matmul.cu) at M <= 16: one device kernel a call over the int4
-// "magic" words (K/8, N), each Op supplying its decode of a word's plane and
-// its per-group fold.
+// The weight-stream decode mainloop of K1 (int4_matmul.cu), K15
+// (lut4_matmul.cu) and K14 (fp4_matmul.cu) at M <= 16: one device kernel a
+// call over the int4 "magic" words (K/8, N), or K14's fp4-magic words (the
+// same layout with one super-group, g = K/4), each Op supplying its decode
+// of a word's plane and its per-group fold, or its block scales.
 //
 // What bounds it on the H100: the weight stream, 0.5 B a weight plus 4 B of
 // qparams a group and column, against 3.35 TB/s. The earlier kernel lacked
@@ -58,15 +59,32 @@
 //
 // An Op supplies: Args; kBias (its fold adds sum(x_G) * b2, so the mainloop
 // takes the x sums); kQArrays and kQBytes (its qparam arrays, (K/g, N) of
-// kQBytes a value: 16 BN bytes a folding stage in all); setup_bytes(args)
-// and setup(args, smem, tid, threads) (per-CTA tables, K15's codebooks, by
-// plain loads); Q and read_q(q, bn, cb, Q&) (the thread's four columns'
-// qparams of the four groups, through q_at); Slab and slab(args, setup,
-// group) (per-slab state of the decode); decode(slab, w0, w1, a) (a k16
-// step's A fragments of the four groups from the thread's two 16-byte word
-// reads; by_plane builds them plane by plane); fold<NT>(args, Q, j, tmp,
-// xs, acc) (xs in the layout of an n8 tile's C fragment, value e row 2 tig +
-// (e & 1) + 8 nt of x).
+// kQBytes a value: 16 BN bytes a folding stage in all); kBlockScales and
+// kStageQ (the bytes a column of a stage's side rows: 16 for the folding
+// qparams; an Op with block scales has them in every stage, kStageQ / 8
+// bytes a value, see below); setup_bytes(args) and setup(args, smem, tid,
+// threads) (per-CTA tables, K15's codebooks, K14's code tables, by plain
+// stores); Q and read_q(q, bn, cb, Q&) (the thread's four columns' qparams
+// of the four groups, through q_at); Slab and slab(args, setup, group, q,
+// bn, cb) (per-slab state of the decode; q the stage's side rows); with
+// block scales, scale_row(slab&, r); decode(slab, k, w0, w1, a) (step k's
+// A fragments of the four groups from the thread's two 16-byte word reads;
+// by_plane builds them plane by plane); fold<NT>(args, Q, j, tmp, xs, acc)
+// (xs in the layout of an n8 tile's C fragment, value e row 2 tig + (e &
+// 1) + 8 nt of x); finish(args, v) (an output value before its bf16
+// rounding).
+//
+// K14 (KS = 0): g = K/4, one super-group, so plane j is logical rows [jK/4,
+// (j+1)K/4) and slab s its rows [64 s, 64 s + 64); R = 32, and the slab's K
+// slice of x is taken at run time. Its Op has no qparams and no bias: no
+// per-group fold, plane j's mma go to chain j % kChains of the tmp set,
+// summed into acc after the loop (one chain of 16 dependent mma a slab ran
+// slower). Its block scales, (K/32, N) values of kStageQ / 8 bytes viewed
+// as (4 planes, K/128 rows, N), come with every slab: rows 2 s and 2 s + 1
+// of each plane (the two 32-row blocks of its 64 rows), one 3-D box of (BN,
+// 2, 4) values (maps.q[0]). A warp along K takes a run of the slab's steps
+// (both steps of a block where wk <= 2), and scale_row(slab, r) decodes row
+// r once at the first of its steps; the decode of step k uses row k >> 1.
 
 #pragma once
 
@@ -109,32 +127,32 @@ struct Maps {
 __host__ __device__ constexpr int align_up(int b, int a) { return (b + a - 1) / a * a; }
 
 // The word rows of a slab at g = 16 KS: a whole super-group up to 32 rows
-// (g <= 64), half of one at g = 128.
+// (g <= 64), half of one at g = 128; 32 at g = K/4 (KS = 0, K14).
 template <int KS>
 __host__ __device__ constexpr int slab_rows() {
-  return 8 * KS < 32 ? 8 * KS : 32;
+  return KS == 0 || 8 * KS >= 32 ? 32 : 8 * KS;
 }
 
 // The bytes of one stage (1024-byte aligned, as the swizzled boxes need):
-// wn word boxes of R x 128, R / 8 x boxes of MP x 128, 16 BN / 512 qparam
-// boxes.
+// wn word boxes of R x 128, R / 8 x boxes of MP x 128, qcol BN bytes of side
+// rows (16 BN: the qparam boxes).
 struct Stage {
   int w_box, x, x_box, q, bytes;
-  __host__ __device__ Stage(int wn, int rows, int mp)
+  __host__ __device__ Stage(int wn, int rows, int mp, int qcol = 16)
       : w_box(rows * 128),
         x(wn * rows * 128),
         x_box(mp * 128),
         q(wn * rows * 128 + rows / 8 * mp * 128),
-        bytes(align_up(wn * rows * 128 + rows / 8 * mp * 128 + 512 * wn, 1024)) {}
+        bytes(align_up(wn * rows * 128 + rows / 8 * mp * 128 + qcol * 32 * wn, 1024)) {}
 };
 
 // Dynamic shared memory of a launch: 1024 bytes of alignment slack, the
 // ring (or, after the loop, the K warps' partials), the Op's tables, the
 // cluster's partials, a full and an empty barrier a stage.
 __host__ __device__ inline int smem_bytes(int wn, int wk, int rows, int stages, int nt,
-                                          int setup) {
+                                          int setup, int qcol = 16) {
   const int mp = 8 * nt, nv = 8 * nt;
-  const int ring = stages * Stage(wn, rows, mp).bytes;
+  const int ring = stages * Stage(wn, rows, mp, qcol).bytes;
   const int red = (wk - 1) * wn * nv * 32 * 4;
   return 1024 + align_up(ring > red ? ring : red, 16) + align_up(setup, 16) +
          (nv + 7) * 32 * wn * 4 + align_up(16 * stages, 16);
@@ -211,14 +229,19 @@ __device__ __forceinline__ void by_plane(F&& plane, const uint4& w0, const uint4
 }
 
 // Grid (N / 32 wn, 1, cluster), 32 (wn wk + 1) threads: wn wk consumer
-// warps, then the producer warp. g = 16 KS; NT n8 tiles of x rows (M <= 8
-// NT).
+// warps, then the producer warp. g = 16 KS (K/4 at KS = 0); NT n8 tiles of
+// x rows (M <= 8 NT).
 template <class Op, int KS, int NT>
 __global__ void __launch_bounds__(32 * (kMaxWarps + 1))
     gemv_kernel(const __grid_constant__ Maps maps, const Problem pb,
                 const typename Op::Args args) {
-  constexpr int G = 16 * KS, MP = 8 * NT, NV = 8 * NT;
-  constexpr int R = slab_rows<KS>(), SPS = G / 2 / R;
+  constexpr int MP = 8 * NT, NV = 8 * NT;
+  constexpr int R = slab_rows<KS>();
+  constexpr bool kFold = Op::kQArrays > 0 || Op::kBias;
+  // Without a fold, plane j's mma go to tmp[j % kChains], kChains chains of
+  // dependent mma, summed into acc after the loop.
+  constexpr int kChains = 2;
+  const int G = KS ? 16 * KS : pb.K / 4, SPS = G / 2 / R;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* ring = smem_raw + ((1024 - (tma::smem_u32(smem_raw) & 1023)) & 1023);
   const bool clustered = gridDim.z > 1;
@@ -230,7 +253,7 @@ __global__ void __launch_bounds__(32 * (kMaxWarps + 1))
   const int BN = 32 * pb.wn;
   const int cw = (gid >> 1) | ((gid & 1) << 2);  // the thread's chunk of its warp's box rows
   const int n0 = blockIdx.x * BN, cb = 32 * wn_i + 4 * cw;  // its columns: cb .. cb + 3
-  const Stage L(pb.wn, R, MP);
+  const Stage L(pb.wn, R, MP, Op::kStageQ);
   const int ring_bytes = pb.stages * L.bytes, red_bytes = (pb.wk - 1) * pb.wn * NV * 32 * 4;
   uint8_t* setup = ring + align_up(ring_bytes > red_bytes ? ring_bytes : red_bytes, 16);
   float* part = reinterpret_cast<float*>(setup + align_up(Op::setup_bytes(args), 16));
@@ -246,15 +269,19 @@ __global__ void __launch_bounds__(32 * (kMaxWarps + 1))
   // [0, wn) the word boxes of the CTA's wn
   // warps of columns, lanes [8, 8 + R / 8) x's boxes of 64 values (box b:
   // from group 32 b / R of the slab), in a folding slab lanes [16, 16 + 16
-  // BN / 512) the qparam boxes; lane 0 first arms the stage's barrier.
+  // BN / 512) the qparam boxes (block scales: lane 16 the slab's box, every
+  // slab); lane 0 first arms the stage's barrier.
   const int qb = q_box_bytes(BN, Op::kQBytes), q_boxes = BN * Op::kQBytes / qb;
   auto load = [&](int i, int slot) {
-    const int s = s0 + i, t = s / SPS, r0 = s % SPS * R;
+    const int s = s0 + i, t = KS ? s / SPS : 0, r0 = KS ? s % SPS * R : s * R;
     uint8_t* st = ring + slot * L.bytes;
     uint64_t* bar = full + slot;
     const bool fq = folds(s);
     if (lane == 0)
-      tma::mbar_arrive_expect_tx(bar, pb.wn * L.w_box + R / 8 * L.x_box + (fq ? 16 * BN : 0));
+      tma::mbar_arrive_expect_tx(bar, pb.wn * L.w_box + R / 8 * L.x_box +
+                                          (Op::kBlockScales ? Op::kStageQ * BN
+                                           : fq             ? 16 * BN
+                                                            : 0));
     __syncwarp();
     if (lane < pb.wn) {
       tma::load_2d(st + lane * L.w_box, &maps.w, bar, 4 * (n0 + 32 * lane), t * (G / 2) + r0);
@@ -262,6 +289,8 @@ __global__ void __launch_bounds__(32 * (kMaxWarps + 1))
       const int b = lane - 8;
       tma::load_2d(st + L.x + b * L.x_box, &maps.x, bar, 2 * ((4 * t + 32 * b / R) * G + 2 * r0),
                    0);
+    } else if constexpr (Op::kBlockScales) {
+      if (lane == 16) tma::load_3d(st + L.q, &maps.q[0], bar, n0, 2 * s, 0);
     } else if (fq && lane >= 16 && lane < 16 + Op::kQArrays * q_boxes) {
       const int a = (lane - 16) / q_boxes, b = (lane - 16) % q_boxes;
       tma::load_2d(st + L.q + (lane - 16) * 4 * qb, &maps.q[a], bar, n0 * Op::kQBytes + qb * b,
@@ -322,15 +351,23 @@ __global__ void __launch_bounds__(32 * (kMaxWarps + 1))
     wait_full(full + slot, phase);  // slab i has landed
     const uint8_t* st = ring + slot * L.bytes;
     const int s = s0 + i;
-    const typename Op::Slab sl = Op::slab(args, setup, 4 * (s / SPS));
+    typename Op::Slab sl = Op::slab(args, setup, 4 * (KS ? s / SPS : 0), st + L.q, BN, cb);
     const uint32_t xl = x_lane + slot * L.bytes;
 #pragma unroll
     for (int k = 0; k < R / 8; ++k) {
-      if ((k & (pb.wk - 1)) != wk_i) continue;  // warp wk_i's steps: wk_i, wk_i + wk, ..
+      if constexpr (Op::kBlockScales) {
+        // warp wk_i's steps: a run of R / 8 / wk from k0, so a block's two
+        // steps share the scales the Op decodes at the first of them
+        const int run = R / 8 / pb.wk, k0 = wk_i * run;
+        if (k < k0 || k >= k0 + run) continue;
+        if ((k & 1) == 0 || k == k0) Op::scale_row(sl, k >> 1);
+      } else {
+        if ((k & (pb.wk - 1)) != wk_i) continue;  // warp wk_i's steps: wk_i, wk_i + wk, ..
+      }
       const uint4 w0 = *reinterpret_cast<const uint4*>(st + w_lane0 + 1024 * k);
       const uint4 w1 = *reinterpret_cast<const uint4*>(st + w_lane1 + 1024 * k);
       uint32_t a[4][2][4];  // group j's A fragments of the step's two m16 tiles
-      Op::decode(sl, w0, w1, a);
+      Op::decode(sl, k, w0, w1, a);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         uint32_t b[NT][2];
@@ -338,21 +375,28 @@ __global__ void __launch_bounds__(32 * (kMaxWarps + 1))
         ldmatrix_b<NT>(b, xl + (v >> 6) * L.x_box + (((((v >> 3) & 7) | lh) ^ (lrow & 7)) << 4));
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
-          mma_16816(tmp[j][0][nt], a[j][0], b[nt][0], b[nt][1]);
-          mma_16816(tmp[j][1][nt], a[j][1], b[nt][0], b[nt][1]);
-          if (Op::kBias) mma_16816(xa[j][nt], ones, b[nt][0], b[nt][1]);
+          if constexpr (kFold) {
+            mma_16816(tmp[j][0][nt], a[j][0], b[nt][0], b[nt][1]);
+            mma_16816(tmp[j][1][nt], a[j][1], b[nt][0], b[nt][1]);
+            if (Op::kBias) mma_16816(xa[j][nt], ones, b[nt][0], b[nt][1]);
+          } else {
+            mma_16816(tmp[j % kChains][0][nt], a[j][0], b[nt][0], b[nt][1]);
+            mma_16816(tmp[j % kChains][1][nt], a[j][1], b[nt][0], b[nt][1]);
+          }
         }
       }
     }
-    if (folds(s)) {  // the four groups' part in this CTA ends: fold with their qparams
-      Op::read_q(st + L.q, BN, cb, q);
+    if constexpr (kFold) {
+      if (folds(s)) {  // the four groups' part in this CTA ends: fold with their qparams
+        Op::read_q(st + L.q, BN, cb, q);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        Op::template fold<NT>(args, q, j, tmp[j], xa[j], acc);
+        for (int j = 0; j < 4; ++j) {
+          Op::template fold<NT>(args, q, j, tmp[j], xa[j], acc);
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
+          for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) tmp[j][0][nt][e] = tmp[j][1][nt][e] = xa[j][nt][e] = 0.f;
+            for (int e = 0; e < 4; ++e) tmp[j][0][nt][e] = tmp[j][1][nt][e] = xa[j][nt][e] = 0.f;
+        }
       }
     }
     __syncwarp();
@@ -360,6 +404,16 @@ __global__ void __launch_bounds__(32 * (kMaxWarps + 1))
     if (++slot == pb.stages) slot = 0, phase ^= 1;
   }
 
+  if constexpr (!kFold) {  // the chains into acc, in order
+#pragma unroll
+    for (int c = 0; c < kChains; ++c)
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[p][nt][e] += tmp[c][p][nt][e];
+  }
   float v[NV];  // value (p NT + nt) 4 + e: column 2p + (e >> 1), row 2 tig + (e & 1) + 8 nt
 #pragma unroll
   for (int p = 0; p < 2; ++p)
@@ -387,7 +441,8 @@ __global__ void __launch_bounds__(32 * (kMaxWarps + 1))
     cluster_sum(v, part, 32 * wn_i + lane, 32 * pb.wn, wk_i == 0, [&](int i, float sum) {
       const int e = i & 3, nt = (i >> 2) % NT, p = (i >> 2) / NT;
       const int r = 2 * tig + (e & 1) + 8 * nt;
-      if (r < pb.M) pb.out[(size_t)r * pb.N + col + 2 * p + (e >> 1)] = __float2bfloat16(sum);
+      if (r < pb.M)
+        pb.out[(size_t)r * pb.N + col + 2 * p + (e >> 1)] = __float2bfloat16(Op::finish(args, sum));
     });
     return;
   }
@@ -398,9 +453,10 @@ __global__ void __launch_bounds__(32 * (kMaxWarps + 1))
     for (int h = 0; h < 2; ++h) {
       const int r = 2 * tig + h + 8 * nt;
       if (r >= pb.M) continue;
-      const __nv_bfloat162 lo = __floats2bfloat162_rn(v[nt * 4 + h], v[nt * 4 + 2 + h]);
-      const __nv_bfloat162 hi =
-          __floats2bfloat162_rn(v[(NT + nt) * 4 + h], v[(NT + nt) * 4 + 2 + h]);
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(Op::finish(args, v[nt * 4 + h]),
+                                                      Op::finish(args, v[nt * 4 + 2 + h]));
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(Op::finish(args, v[(NT + nt) * 4 + h]),
+                                                      Op::finish(args, v[(NT + nt) * 4 + 2 + h]));
       *reinterpret_cast<uint2*>(pb.out + (size_t)r * pb.N + col) = make_uint2(
           *reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
     }
@@ -435,8 +491,26 @@ inline CUresult encode_rows_plain(CUtensorMap* map, const void* base, uint64_t r
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
+// The map of block scales (K/32, N) of es bytes (1 or 4) viewed as (4
+// planes, K/128 rows, N), in boxes of (bn, 2, 4) values: a slab's two rows
+// of each plane.
+inline CUresult encode_block_scales(CUtensorMap* map, const void* base, int K, int N, int es,
+                                    int bn) {
+  const tma::EncodeTiled fn = tma::encode_tiled();
+  if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[3] = {(cuuint64_t)N, (cuuint64_t)K / 128, 4};
+  const cuuint64_t strides[2] = {(cuuint64_t)N * es, (cuuint64_t)K / 128 * N * es};
+  const cuuint32_t box[3] = {(cuuint32_t)bn, 2, 4};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, es == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_UINT32, 3,
+            const_cast<void*>(base), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
 // The maps of a launch at g = G: the words in boxes of a slab's rows, x in
-// boxes of its n8 tiles' rows, each of the Op's qparam arrays.
+// boxes of its n8 tiles' rows, each of the Op's qparam arrays (or its block
+// scales).
 template <class Op>
 CUresult encode_maps(Maps* m, const Problem& pb, int G, const void* const* q) {
   const int rows = G / 2 < 32 ? G / 2 : 32;
@@ -446,6 +520,8 @@ CUresult encode_maps(Maps* m, const Problem& pb, int G, const void* const* q) {
   for (int a = 0; a < Op::kQArrays && r == CUDA_SUCCESS; ++a)
     r = encode_rows_plain(&m->q[a], q[a], pb.K / G, (uint64_t)Op::kQBytes * pb.N, 4,
                           q_box_bytes(32 * pb.wn, Op::kQBytes));
+  if (Op::kBlockScales && r == CUDA_SUCCESS)
+    r = encode_block_scales(&m->q[0], q[0], pb.K, pb.N, Op::kStageQ / 8, 32 * pb.wn);
   return r;
 }
 
@@ -453,8 +529,8 @@ template <class Op, int KS, int NT>
 cudaError_t launch_nt(const Maps& maps, const Problem& pb, const typename Op::Args& args,
                       int cluster, cudaStream_t st) {
   auto kernel = gemv_kernel<Op, KS, NT>;
-  const int smem =
-      smem_bytes(pb.wn, pb.wk, slab_rows<KS>(), pb.stages, NT, Op::setup_bytes(args));
+  const int smem = smem_bytes(pb.wn, pb.wk, slab_rows<KS>(), pb.stages, NT,
+                              Op::setup_bytes(args), Op::kStageQ);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   // dynamic shared memory above 48 KB needs the opt-in (per device: every call)
   const cudaError_t set =
@@ -476,16 +552,17 @@ cudaError_t launch_nt(const Maps& maps, const Problem& pb, const typename Op::Ar
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// One launch of the mainloop at g = 16 KS: the plan checked, the maps
-// encoded (a map libcuda refuses: minus its CUresult), the kernel launched
-// (a cudaError_t).
+// One launch of the mainloop at g = 16 KS (K/4 at KS = 0): the plan
+// checked, the maps encoded (a map libcuda refuses: minus its CUresult),
+// the kernel launched (a cudaError_t).
 template <class Op, int KS>
 int launch(const Problem& pb, const typename Op::Args& args, const void* const* q, int cluster,
            cudaStream_t st) {
-  if (!plan_ok(pb.M, pb.K, pb.N, 16 * KS, pb.wn, pb.wk, cluster, pb.stages, pb.per))
+  const int G = KS ? 16 * KS : pb.K / 4;
+  if (!plan_ok(pb.M, pb.K, pb.N, G, pb.wn, pb.wk, cluster, pb.stages, pb.per))
     return (int)cudaErrorInvalidValue;
   Maps maps;
-  const CUresult r = encode_maps<Op>(&maps, pb, 16 * KS, q);
+  const CUresult r = encode_maps<Op>(&maps, pb, G, q);
   if (r != CUDA_SUCCESS) return -(int)r;
   return (int)(pb.M <= 8 ? launch_nt<Op, KS, 1>(maps, pb, args, cluster, st)
                          : launch_nt<Op, KS, 2>(maps, pb, args, cluster, st));

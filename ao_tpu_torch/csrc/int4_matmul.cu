@@ -76,8 +76,8 @@ struct GemvQ {
     const __nv_bfloat16* b2;
     int raw_zp;
   };
-  static constexpr bool kBias = true;
-  static constexpr int kQArrays = 2, kQBytes = 2;  // s, b2 in bf16
+  static constexpr bool kBias = true, kBlockScales = false;
+  static constexpr int kQArrays = 2, kQBytes = 2, kStageQ = 16;  // s, b2 in bf16
   __host__ __device__ static int setup_bytes(const Args&) { return 0; }
   __device__ static void setup(const Args&, uint8_t*, int, int) {}
 
@@ -93,8 +93,10 @@ struct GemvQ {
   }
 
   struct Slab {};
-  __device__ static Slab slab(const Args&, const uint8_t*, int) { return {}; }
-  __device__ static void decode(const Slab&, const uint4& w0, const uint4& w1,
+  __device__ static Slab slab(const Args&, const uint8_t*, int, const uint8_t*, int, int) {
+    return {};
+  }
+  __device__ static void decode(const Slab&, int, const uint4& w0, const uint4& w1,
                                 uint32_t (&a)[4][2][4]) {
     gv::by_plane(
         [](uint32_t w, int j) {
@@ -132,6 +134,8 @@ struct GemvQ {
         }
     }
   }
+
+  __device__ static float finish(const Args&, float v) { return v; }
 };
 
 // The prefill pre-pass: xs[G'][m] = the f32 sum of x[m, :] over group G'

@@ -95,8 +95,8 @@ struct GemvLut {
     int n_luts;
     int gpl;  // groups per codebook (0: one shared codebook)
   };
-  static constexpr bool kBias = false;
-  static constexpr int kQArrays = 1, kQBytes = 4;  // the scalers in f32
+  static constexpr bool kBias = false, kBlockScales = false;
+  static constexpr int kQArrays = 1, kQBytes = 4, kStageQ = 16;  // the scalers in f32
   __host__ __device__ static int setup_bytes(const Args& a) {
     return BYTES ? 16 * 1024 : 32 * a.n_luts;
   }
@@ -126,7 +126,8 @@ struct GemvLut {
   struct Slab {
     const void* tab[BYTES ? 1 : 4];  // this lane's copy of the pair table, or the codebooks
   };
-  __device__ static Slab slab(const Args& a, const uint8_t* tabs, int grp) {
+  __device__ static Slab slab(const Args& a, const uint8_t* tabs, int grp, const uint8_t*, int,
+                              int) {
     Slab sl;
     if (BYTES) {
       sl.tab[0] = tabs + 4 * (threadIdx.x % 16);
@@ -137,7 +138,7 @@ struct GemvLut {
     }
     return sl;
   }
-  __device__ static void decode(const Slab& sl, const uint4& w0, const uint4& w1,
+  __device__ static void decode(const Slab& sl, int, const uint4& w0, const uint4& w1,
                                 uint32_t (&a)[4][2][4]) {
     if constexpr (BYTES) {
       const uint32_t* tab = static_cast<const uint32_t*>(sl.tab[0]);
@@ -177,6 +178,8 @@ struct GemvLut {
         for (int e = 0; e < 4; ++e)
           acc[p][nt][e] = fmaf(sc[2 * p + (e >> 1)], tmp[p][nt][e], acc[p][nt][e]);
   }
+
+  __device__ static float finish(const Args&, float v) { return v; }
 };
 
 // K15's decode for MagicOp: the codebook lookup, and the fold acc += s *

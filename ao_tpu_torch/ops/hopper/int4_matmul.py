@@ -4,7 +4,7 @@
   (``int4_wo_magic_pallas``, kernel ``_magic_kernel``); CUDA source
   ``ao_tpu_torch/csrc/int4_matmul.cu``. Its decode form (M <= 16) runs on
   the weight-stream decode mainloop (``csrc/gemv_mainloop.cuh``; shared
-  with K15), one launch whose plan ``gemv_plan`` picks and ``gemv_mirror``
+  with K15 and K14), one launch whose plan ``gemv_plan`` picks and ``gemv_mirror``
   repeats in PyTorch; its prefill form (M > 16) on the shared wgmma
   mainloop with a per-group f32 fold (``csrc/mixed_gemm.cuh``,
   ``csrc/magic_op.cuh``; shared with K15), whose tiles ``launch_tiles``
@@ -200,17 +200,18 @@ def gemv_rows(group_size: int) -> int:
 
 
 def gemv_smem_bytes(m: int, wn: int, wk: int, stages: int, group_size: int,
-                    setup: int = 0) -> int:
+                    setup: int = 0, qcol: int = 16) -> int:
     """The dynamic shared memory of a decode launch (``gv::smem_bytes``):
     1024 bytes of alignment slack; the ring, each stage (1024-byte aligned)
     wn boxes of R word rows x 128 bytes, R / 8 boxes of x's 8 or 16 rows x
-    128 bytes and 16 BN bytes of qparams, or the warps along K's partials if
-    larger; ``setup`` bytes of tables (K15's codebooks); the cluster's
+    128 bytes and ``qcol`` BN bytes of side rows (16: the qparams; K14's
+    block scales, ``fp4_matmul.stage_q``), or the warps along K's partials
+    if larger; ``setup`` bytes of tables (K15's codebooks); the cluster's
     partials; two barriers a stage."""
     mp = 8 if m <= 8 else 16
     rows = gemv_rows(group_size)
     a16 = lambda b, a=16: -(-b // a) * a  # noqa: E731
-    ring = stages * a16(wn * rows * 128 + rows // 8 * mp * 128 + 512 * wn, 1024)
+    ring = stages * a16(wn * rows * 128 + rows // 8 * mp * 128 + qcol * 32 * wn, 1024)
     red = (wk - 1) * wn * mp * 32 * 4
     return 1024 + a16(max(ring, red)) + a16(setup) + (mp + 7) * 32 * wn * 4 + 16 * stages
 
@@ -221,10 +222,12 @@ def gemv_per(k: int, group_size: int, cluster: int) -> int:
     return -(-(k // (8 * gemv_rows(group_size))) // cluster)
 
 
-def gemv_plan_ok(m: int, k: int, n: int, group_size: int, plan, setup: int = 0) -> bool:
+def gemv_plan_ok(m: int, k: int, n: int, group_size: int, plan, setup: int = 0,
+                 qcol: int = 16) -> bool:
     """Whether the decode form takes ``plan`` (wn, wk, cluster, stages) at
-    (M, K, N, g) (``gv::plan_ok`` and its shared memory): every CTA along K
-    has slabs, the warps along K split a slab's steps evenly."""
+    (M, K, N, g) (``gv::plan_ok`` and its shared memory, ``qcol`` as
+    ``gemv_smem_bytes``): every CTA along K has slabs, the warps along K
+    split a slab's steps evenly."""
     wn, wk, cluster, stages = plan
     rows = gemv_rows(group_size)
     if not (1 <= m <= GEMV_MAX_M and wn in GEMV_WN and wk in GEMV_WK and wn * wk <= GEMV_MAX_WARPS
@@ -234,7 +237,7 @@ def gemv_plan_ok(m: int, k: int, n: int, group_size: int, plan, setup: int = 0) 
         return False
     slabs, per = k // (8 * rows), gemv_per(k, group_size, cluster)
     return ((cluster - 1) * per < slabs <= cluster * per
-            and gemv_smem_bytes(m, wn, wk, stages, group_size, setup) <= GEMV_MAX_SMEM)
+            and gemv_smem_bytes(m, wn, wk, stages, group_size, setup, qcol) <= GEMV_MAX_SMEM)
 
 
 def gemv_plan(m: int, k: int, n: int, group_size: int, sm_count: int):
@@ -278,16 +281,16 @@ def checked_gemv_plan(m: int, k: int, n: int, group_size: int, sm_count: int, pl
 
 
 def gemv_candidates(m: int, k: int, n: int, group_size: int, setup: int = 0,
-                    stages=(2, 3, 4, 6)):
+                    stages=(2, 3, 4, 6), qcol: int = 16):
     """Every plan (wn, wk, cluster, stages) the decode form takes at (M, K,
     N, g) with ``stages`` ring stages, each cluster as launched (so no two
-    plans run alike): what ``kernel_tiles.py time K1`` / ``K15`` sweep and
-    the card's tests run."""
+    plans run alike): what ``kernel_tiles.py time K1`` / ``K15`` / ``K14``
+    sweep and the card's tests run."""
     slabs = k // (8 * gemv_rows(group_size))
     clusters = sorted({-(-slabs // gemv_per(k, group_size, c))
                        for c in range(1, GEMV_MAX_CLUSTER + 1)})
     return [(wn, wk, c, st) for wn in GEMV_WN for wk in GEMV_WK for c in clusters for st in stages
-            if gemv_plan_ok(m, k, n, group_size, (wn, wk, c, st), setup)]
+            if gemv_plan_ok(m, k, n, group_size, (wn, wk, c, st), setup, qcol)]
 
 
 def gemv_mirror(x, word, group_size: int, plan, value, fold, bias=None) -> torch.Tensor:

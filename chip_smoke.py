@@ -412,6 +412,28 @@ def decode_kernels(torch, fails, name, m, launch, tiles):
     return f"{tiles}; {count} device kernel(s) a call"
 
 
+def fp4_tiles(torch, fails, name, m, k, n, launch):
+    """What a K14 launch at (M, K, N) runs: at decode (M <= 16) the decode
+    form's plan and the device kernels one launch runs (one, checked; a
+    parent checkout's K split and count, unchecked), else the prefill's
+    tiles and K split."""
+    from ao_tpu_torch.ops.hopper import fp4_matmul as k14
+    from ao_tpu_torch.ops.hopper import int4_matmul as k1
+
+    sms = k1._sm_count(torch.device(DEV, torch.cuda.current_device()))
+    if m > k14.GEMV_MAX_M:
+        bm, bn, splits, per = k14.pick_tiles(m, k, n, sms)
+        return f"tiles ({bm}, {bn}), {splits} splits of {per} stages"
+    count = device_kernels(torch, launch)
+    if not hasattr(k14, "gemv_plan"):
+        _, _, splits, per = k14.pick_tiles(m, k, n, sms)
+        return (f"decode kernel, {splits} splits of {per} units of 256 K; {count} device "
+                "kernel(s) a call")
+    fails.check(count == 1, f"{name} at M={m}: {count} device kernels a call, not 1")
+    return ("decode mainloop, (warps along N, warps along K, cluster, stages) "
+            f"{k14.gemv_plan(m, k, n, sms)}; {count} device kernel(s) a call")
+
+
 def launch_desc(torch, mod, m, k, n, stage):
     """What a K10 (``mod`` int8_matmul) or K17 (fp8_matmul) launch at (M, K,
     N) runs: the decode kernel's K split, or the prefill tiles and K split
@@ -943,7 +965,9 @@ def k14_phase(torch, fails, seed, kind):
         nbytes, flops = k14.traffic(m, k, n, k14.MX if kind == "mx" else k14.NV)
         rows[(m, k, n)] = kernel_row(f"K14 {name}", f"M={m} K={k} N={n}", got, ref,
                                      f"sqnr {sqnr:.2f} dB (> {need})", ms, plain_ms,
-                                     library_ms, nbytes, flops)
+                                     library_ms, nbytes, flops,
+                                     tiles=fp4_tiles(torch, fails, f"K14 {name}", m, k, n,
+                                                     lambda: k14._launch(*launch)))
         del qa, x, got, ref, args, launch
         torch.cuda.empty_cache()
     return rows
@@ -2743,13 +2767,15 @@ def w4a8_only(torch) -> int:
 
 def decode_only(torch) -> int:
     """Build, then run only Llama-3-8B's int4-WO path at 32 layers and its
-    NF4-WO path at CUT_LAYERS (the weight paths' depth): one greedy
-    ``generate`` each with the launch counts of K1 or K15 and K2 checked
-    exactly, then the profile of its prefill and of a decode step; what a
-    change to the weight kernels' decode form moves, with no other phase."""
+    NF4-WO, MXFP4-WO, NVFP4-WO and NVFP4-dyn paths at CUT_LAYERS (the weight
+    paths' depth): one greedy ``generate`` each with the launch counts of
+    K1, K15 or K14 and K2 checked exactly, then the profile of its prefill
+    and of a decode step; what a change to the weight kernels' decode form
+    moves, with no other phase."""
     import ao_tpu_torch
     from ao_tpu_torch.models import llama
     from ao_tpu_torch.ops.hopper import decode_attention as k2
+    from ao_tpu_torch.ops.hopper import fp4_matmul as k14
     from ao_tpu_torch.ops.hopper import int4_matmul as k1
     from ao_tpu_torch.ops.hopper import lut4_matmul as k15
 
@@ -2764,13 +2790,19 @@ def decode_only(torch) -> int:
     prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=DEV,
                            dtype=torch.int32)
     counters = {"int4_wo_magic": k1.int4_wo_magic, "lut4_wo_magic": k15.lut4_wo_magic,
+                "mxfp4_wo_matmul": k14.mxfp4_wo_matmul, "nvfp4_wo_matmul": k14.nvfp4_wo_matmul,
                 "decode_attention": k2.decode_attention}
-    for tag, c, config in (("int4-WO", cfg, ao_tpu_torch.Int4WeightOnlyConfig(group_size=GROUP)),
-                           ("NF4-WO", cut, ao_tpu_torch.NF4WeightOnlyConfig())):
+    kernels = {"int4-WO": "int4_wo_magic", "NF4-WO": "lut4_wo_magic",
+               "MXFP4-WO": "mxfp4_wo_matmul", "NVFP4-WO": "nvfp4_wo_matmul",
+               "NVFP4-dyn": "nvfp4_wo_matmul"}
+    paths = [("int4-WO", cfg, ao_tpu_torch.Int4WeightOnlyConfig(group_size=GROUP))]
+    paths += [(tag, cut, weight_config(ao_tpu_torch, tag))
+              for tag in ("NF4-WO", "MXFP4-WO", "NVFP4-WO", "NVFP4-dyn")]
+    for tag, c, config in paths:
         with phase(f"{tag} ({c.n_layers} layers) generate and profile"):
             qp = ao_tpu_torch.quantize_(dict(params, layers=params["layers"][:c.n_layers]),
                                         config)
-            kernel = "int4_wo_magic" if tag == "int4-WO" else "lut4_wo_magic"
+            kernel = kernels[tag]
             want = {name: 0 for name in counters}
             want.update({kernel: (7 * c.n_layers + 1) * STEPS,
                          "decode_attention": c.n_layers * (STEPS - 1)})
@@ -2823,8 +2855,9 @@ def main() -> int:
     parser.add_argument("--mixtral", action="store_true",
                         help="only the Mixtral-8x7B paths (generate and the slot engine)")
     parser.add_argument("--decode", action="store_true",
-                        help="only Llama-3-8B's int4-WO (32 layers) and NF4-WO (8 layers) "
-                             "paths (launch counts, prefill and decode profiles)")
+                        help="only Llama-3-8B's int4-WO (32 layers), NF4-WO, MXFP4-WO, "
+                             "NVFP4-WO and NVFP4-dyn (8 layers) paths (launch counts, prefill "
+                             "and decode profiles)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)

@@ -1,7 +1,7 @@
-"""Time the decode form of K1 (int4 weight-only) or K15 (NF4) at M = 8 over
-Llama-3-8B's five widths at every plan of the weight-stream decode mainloop
-(warps along N and K and the cluster at four stages, then the stages of
-the three fastest); the prefill launches of K10 (int8
+"""Time the decode form of K1 (int4 weight-only), K15 (NF4) or K14 (MXFP4 and
+NVFP4) at M = 8 over Llama-3-8B's five widths at every plan of the
+weight-stream decode mainloop (warps along N and K and the cluster at four
+stages, then the stages of the three fastest); the prefill launches of K10 (int8
 weight-only) or K17 (fp8 blockwise) at generate's five M = 1024 shapes over
 the same widths, at the tiles each wrapper picks and at every other
 unsplit tile it takes; K3 (W4A8) at
@@ -16,17 +16,19 @@ shapes at each cluster split and CTA count; or K4 (the magic8 -> int8
 requantization) at the W4A8 prefill's five (K, N) at its plan; or K12g
 (tanh-GELU + int8 row quantize) at SAM-B's rows in each form, with each
 form's differences from the plain version over every finite bf16 input;
-on one CUDA device; or the host's microseconds a call of K1's or K15's
-public wrapper at M = 8 over the same five widths, in this checkout or in
-another one (its ``ao_tpu_torch`` imported in place of this one's); or
+on one CUDA device; or the host's microseconds a call of K1's, K15's or
+K14's public wrappers at M = 8 over the same five widths, in this checkout
+or in another one (its ``ao_tpu_torch`` imported in place of this one's), or
+K14 there at the plans its wrapper picks (``pick``, trees in turns); or
 compare the
 SASS of each kernel in two builds, with names and addresses stripped: two
 libraries of one source, or two build directories source by source (K3
 and K4 in int4_w4a8, K13's two forms in grouped_matmul, K1's prefill and
 K11 in int4_matmul, K15's prefill in lut4_matmul, ...).
 
-    python3 kernel_tiles.py time K1  # or K15, K10, K17, K3, K4, K12g, K13, K2, K2v, K5, K6, K7, K9, K18
-    python3 kernel_tiles.py host K1 [TREE]  # or K15; TREE another checkout's root
+    python3 kernel_tiles.py time K1  # or K15, K14, K10, K17, K3, K4, K12g, K13, K2, K2v, K5, K6, K7, K9, K18
+    python3 kernel_tiles.py host K1 [TREE]  # or K15, K14; TREE another checkout's root
+    python3 kernel_tiles.py pick K14 [TREE]  # K14 at M = 8 at its picked plans, TREE's code
     python3 kernel_tiles.py sass LIB_A LIB_B  # two builds' lib<source>-*.so
     python3 kernel_tiles.py sass BUILD_A BUILD_B  # two ao_tpu_torch/_build directories
 
@@ -74,7 +76,7 @@ def time_tiles(kernel: str) -> int:
     if kernel == "K18":
         time_k18(torch, cuda_time_ms, dev, sms)
         return 0
-    if kernel in ("K1", "K15"):
+    if kernel in ("K1", "K15", "K14"):
         time_gemv(torch, cuda_time_ms, dev, sms, kernel)
         return 0
     if kernel in ("K3", "K4", "K12g", "K13"):
@@ -146,64 +148,89 @@ def time_k3(torch, cuda_time_ms, dev, sms) -> None:
 
 def time_gemv(torch, cuda_time_ms, dev, sms, kernel) -> None:
     """K1 (int4-WO, g = 128, bf16 tinygemm qparams as the main path sends
-    them) or K15 (NF4, block 64, the shared codebook) at M = 8 over
-    LLAMA_KN on the decode mainloop: every (wn, wk, cluster) at four
-    stages, then every stage count of the three fastest of those; each line
-    lists the plans fastest first, the one ``gemv_plan`` picks marked, and
-    those the profiler dropped and CUDA events timed (host gaps counted)
-    marked "events"."""
+    them), K15 (NF4, block 64, the shared codebook) or K14 (MXFP4 and NVFP4,
+    each a line) at M = 8 over LLAMA_KN on the decode mainloop: every (wn,
+    wk, cluster) at four stages, then every stage count of the three
+    fastest of those; each line lists the plans fastest first, the one
+    ``gemv_plan`` picks marked, and those the profiler dropped and CUDA
+    events timed (host gaps counted) marked "events"."""
     from ao_tpu_torch.ops.hopper import int4_matmul as k1
-    from ao_tpu_torch.ops.hopper import lut4_matmul as k15
-    from ao_tpu_torch.quantization.qarrays.int4 import Int4Array
-    from ao_tpu_torch.quantization.qarrays.nf4 import NF4_CODEBOOK, NF4Array
-    from ao_tpu_torch.utils import timing
 
     gen = torch.Generator(device=dev).manual_seed(0)
     m = 8
-    g = 128 if kernel == "K1" else 64
-    lut = NF4_CODEBOOK.to(dev).to(torch.bfloat16)
     for k, n in LLAMA_KN:
         w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(torch.bfloat16)
         x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-        if kernel == "K1":
-            qa = Int4Array.from_hp(w, group_size=g)
-            args, setup = (x, qa.qdata, qa.scale, qa.zero_point, g, True), 0
-
-            def run(plan):
-                return k1._launch(*args, plan=plan)
-        else:
-            qa = NF4Array.from_hp(w, g)
-            args, setup = (x, qa.qdata, qa._scalers(), lut, g), k15.gemv_tables(0)[1]
-
-            def run(plan):
-                return k15._launch(*args, plan=plan)
-        del w
-        picked = k1.gemv_plan(m, k, n, g, sms)
-        times, events = {}, set()
-
-        def timed(plans):
-            for plan in plans:
-                if plan not in times:
-                    before = timing.EVENT_FALLBACKS
-                    times[plan] = 1e3 * cuda_time_ms(lambda: run(plan), iters=20)
-                    if timing.EVENT_FALLBACKS != before:
-                        events.add(plan)
-
-        timed([picked] + k1.gemv_candidates(m, k, n, g, setup, stages=(4,)))
-        best = sorted(times, key=times.get)[:3]
-        timed([p for p in k1.gemv_candidates(m, k, n, g, setup, stages=(2, 3, 4, 6))
-               if p[:3] in {b[:3] for b in best}])
-        order = sorted(times, key=times.get)
-        print(f"{kernel} M={m} K={k} N={n} (wn, wk, cluster, stages), {len(order)} plans: "
-              + ", ".join(f"{p} {times[p]:.1f} us" + (" (picked)" if p == picked else "")
-                          + (" (events)" if p in events else "") for p in order), flush=True)
-        del qa, args
+        for label, run, picked, candidates in gemv_runs(torch, dev, sms, kernel, w, x):
+            time_plans(cuda_time_ms, f"{label} M={m} K={k} N={n}", run, picked, candidates)
+        del w, x
         torch.cuda.empty_cache()
+
+
+def gemv_runs(torch, dev, sms, kernel, w, x):
+    """(label, run(plan), the picked plan, candidates(stages)) of each
+    decode launch ``time_gemv`` sweeps for ``kernel`` at weight w and x."""
+    from ao_tpu_torch.ops.hopper import fp4_matmul as k14
+    from ao_tpu_torch.ops.hopper import int4_matmul as k1
+    from ao_tpu_torch.ops.hopper import lut4_matmul as k15
+    from ao_tpu_torch.quantization.qarrays.int4 import Int4Array
+    from ao_tpu_torch.quantization.qarrays.mx import MXArray
+    from ao_tpu_torch.quantization.qarrays.nf4 import NF4_CODEBOOK, NF4Array
+    from ao_tpu_torch.quantization.qarrays.nvfp4 import NVFP4Array
+
+    (m, k), n = x.shape, w.shape[1]
+    if kernel == "K14":
+        mx = MXArray.from_hp(w, elem_dtype="float4_e2m1fn")
+        nv = NVFP4Array.from_hp(w)
+        pts = nv.per_tensor_scale.to(torch.float32).reshape(())
+        for label, kind, qa, p in (("K14 mx", k14.MX, mx, None), ("K14 nv", k14.NV, nv, pts)):
+            yield (label,
+                   lambda plan, kind=kind, qa=qa, p=p, label=label: k14._launch(
+                       kind, x, qa.qdata, qa.scale, p, label, plan=plan),
+                   k14.gemv_plan(m, k, n, sms),
+                   lambda stages, kind=kind: k14.gemv_candidates(m, k, n, kind, stages=stages))
+        return
+    if kernel == "K1":
+        g, qa = 128, Int4Array.from_hp(w, group_size=128)
+        args, setup = (x, qa.qdata, qa.scale, qa.zero_point, g, True), 0
+        launch = k1._launch
+    else:
+        g, qa = 64, NF4Array.from_hp(w, 64)
+        lut = NF4_CODEBOOK.to(dev).to(torch.bfloat16)
+        args, setup = (x, qa.qdata, qa._scalers(), lut, g), k15.gemv_tables(0)[1]
+        launch = k15._launch
+    yield (kernel, lambda plan: launch(*args, plan=plan), k1.gemv_plan(m, k, n, g, sms),
+           lambda stages: k1.gemv_candidates(m, k, n, g, setup, stages=stages))
+
+
+def time_plans(cuda_time_ms, label, run, picked, candidates) -> None:
+    """One line of ``time_gemv``: every plan of candidates((4,)), then the
+    stage counts of the three fastest, fastest first."""
+    from ao_tpu_torch.utils import timing
+
+    times, events = {}, set()
+
+    def timed(plans):
+        for plan in plans:
+            if plan not in times:
+                before = timing.EVENT_FALLBACKS
+                times[plan] = 1e3 * cuda_time_ms(lambda: run(plan), iters=20)
+                if timing.EVENT_FALLBACKS != before:
+                    events.add(plan)
+
+    timed([picked] + candidates((4,)))
+    best = sorted(times, key=times.get)[:3]
+    timed([p for p in candidates((2, 3, 4, 6)) if p[:3] in {b[:3] for b in best}])
+    order = sorted(times, key=times.get)
+    print(f"{label} (wn, wk, cluster, stages), {len(order)} plans: "
+          + ", ".join(f"{p} {times[p]:.1f} us" + (" (picked)" if p == picked else "")
+                      + (" (events)" if p in events else "") for p in order), flush=True)
 
 
 def host_us(kernel: str, tree: str) -> int:
     """The host's microseconds a call of K1's (int4-WO, g = 128, bf16
-    tinygemm qparams) or K15's (NF4, block 64) public wrapper at M = 8 over
+    tinygemm qparams), K15's (NF4, block 64) or K14's (MXFP4 and NVFP4, a
+    line each) public wrapper at M = 8 over
     LLAMA_KN, with the ``ao_tpu_torch`` of checkout ``tree``: 20 calls to
     warm up, then 40 rounds of 25 calls issued without a synchronize (the
     launch queue does not fill); the median round and the fastest, which a
@@ -217,10 +244,13 @@ def host_us(kernel: str, tree: str) -> int:
         print("kernel_tiles: no CUDA device; times come only from a card", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(tree).resolve()))
+    from ao_tpu_torch.ops.hopper import fp4_matmul as k14
     from ao_tpu_torch.ops.hopper import int4_matmul as k1
     from ao_tpu_torch.ops.hopper import lut4_matmul as k15
     from ao_tpu_torch.quantization.qarrays.int4 import Int4Array
+    from ao_tpu_torch.quantization.qarrays.mx import MXArray
     from ao_tpu_torch.quantization.qarrays.nf4 import NF4_CODEBOOK, NF4Array
+    from ao_tpu_torch.quantization.qarrays.nvfp4 import NVFP4Array
 
     dev = torch.device("cuda")
     print(f"card: {torch.cuda.get_device_name(dev)}; tree {Path(k1.__file__).parents[3]}",
@@ -230,34 +260,84 @@ def host_us(kernel: str, tree: str) -> int:
     for k, n in LLAMA_KN:
         w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(torch.bfloat16)
         x = torch.randn((8, k), generator=gen, device=dev).to(torch.bfloat16)
+        calls = []
         if kernel == "K1":
             qa = Int4Array.from_hp(w, group_size=128)
-
-            def call():
-                k1.int4_wo_magic(x, qa.qdata, qa.scale, qa.zero_point, 128,
-                                 qa.zero_point_domain)
-        else:
+            calls.append((kernel, lambda: k1.int4_wo_magic(x, qa.qdata, qa.scale, qa.zero_point,
+                                                           128, qa.zero_point_domain)))
+        elif kernel == "K15":
             qa = NF4Array.from_hp(w, 64)
             scalers = qa._scalers()
-
-            def call():
-                k15.lut4_wo_magic(x, qa.qdata, scalers, lut, 64)
+            calls.append((kernel, lambda: k15.lut4_wo_magic(x, qa.qdata, scalers, lut, 64)))
+        else:
+            mx = MXArray.from_hp(w, elem_dtype="float4_e2m1fn")
+            nv = NVFP4Array.from_hp(w)
+            calls.append(("K14 mx", lambda: k14.mxfp4_wo_matmul(x, mx.qdata, mx.scale)))
+            calls.append(("K14 nv", lambda: k14.nvfp4_wo_matmul(x, nv.qdata, nv.scale,
+                                                                nv.per_tensor_scale)))
         del w
-        for _ in range(20):
-            call()
-        torch.cuda.synchronize()
-        rounds = []
-        for _ in range(40):
-            t0 = time.perf_counter()
-            for _ in range(25):
+        for label, call in calls:
+            for _ in range(20):
                 call()
-            rounds.append((time.perf_counter() - t0) / 25 * 1e6)
             torch.cuda.synchronize()
-        rounds.sort()
-        print(f"{kernel} M=8 K={k} N={n}: host us a call, median {rounds[20]:.2f}, "
-              f"fastest {rounds[0]:.2f}", flush=True)
-        del qa
+            rounds = []
+            for _ in range(40):
+                t0 = time.perf_counter()
+                for _ in range(25):
+                    call()
+                rounds.append((time.perf_counter() - t0) / 25 * 1e6)
+                torch.cuda.synchronize()
+            rounds.sort()
+            print(f"{label} M=8 K={k} N={n}: host us a call, median {rounds[20]:.2f}, "
+                  f"fastest {rounds[0]:.2f}", flush=True)
+        del calls
         torch.cuda.empty_cache()
+    return 0
+
+
+def pick_us(tree: str, m: int = 8) -> int:
+    """K14 (MX and NV, a random weight from seed 0 quantized as the paths
+    do) at M = ``m`` over LLAMA_KN at the plans its wrapper picks, with the
+    ``ao_tpu_torch`` of checkout ``tree``: one line of µs a call (50 timed
+    calls each), a width marked where the result misses the card's bound
+    against the plain version. Run in turns over trees (a parent, variants)
+    to compare them on one card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_tiles: no CUDA device; times come only from a card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(tree).resolve()))
+    from ao_tpu_torch.ops.hopper import fp4_matmul as k14
+    from ao_tpu_torch.quantization.primitives import compute_error
+    from ao_tpu_torch.quantization.qarrays.mx import MXArray
+    from ao_tpu_torch.quantization.qarrays.nvfp4 import NVFP4Array
+    from ao_tpu_torch.utils.timing import cuda_time_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {"mx": [], "nv": []}
+    for k, n in LLAMA_KN:
+        w = (torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5).to(torch.bfloat16)
+        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        for kind, qa in (("mx", MXArray.from_hp(w, elem_dtype="float4_e2m1fn")),
+                         ("nv", NVFP4Array.from_hp(w))):
+            if kind == "mx":
+                args = (k14.MX, x, qa.qdata, qa.scale, None, "mx")
+                ref = k14.mxfp4_wo_matmul_plain(x, qa.qdata, qa.scale)
+            else:
+                pts = qa.per_tensor_scale.to(torch.float32).reshape(())
+                args = (k14.NV, x, qa.qdata, qa.scale, pts, "nv")
+                ref = k14.nvfp4_wo_matmul_plain(x, qa.qdata, qa.scale, qa.per_tensor_scale)
+            got = k14._launch(*args)
+            torch.cuda.synchronize()
+            sqnr = float(compute_error(ref, got))
+            us = 1e3 * cuda_time_ms(lambda: k14._launch(*args), iters=50)
+            bad = sqnr <= (60 if kind == "mx" else 35)
+            out[kind].append(f"{us:.1f}" + (f" (sqnr {sqnr:.1f} dB)" if bad else ""))
+        del w, x
+        torch.cuda.empty_cache()
+    print(f"{Path(k14.__file__).parents[3]} M={m} mx " + " / ".join(out["mx"]) + " | nv "
+          + " / ".join(out["nv"]), flush=True)
     return 0
 
 
@@ -551,11 +631,14 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = parser.add_subparsers(dest="cmd", required=True)
     t = sub.add_parser("time", help="time a kernel's launch at each tile or plan")
-    t.add_argument("kernel", choices=("K1", "K15", "K10", "K17", "K3", "K4", "K12g", "K13", "K2",
-                                       "K2v", "K5", "K6", "K7", "K9", "K18"))
-    h = sub.add_parser("host", help="host us a call of K1's or K15's wrapper at M = 8")
-    h.add_argument("kernel", choices=("K1", "K15"))
+    t.add_argument("kernel", choices=("K1", "K15", "K14", "K10", "K17", "K3", "K4", "K12g", "K13",
+                                       "K2", "K2v", "K5", "K6", "K7", "K9", "K18"))
+    h = sub.add_parser("host", help="host us a call of K1's, K15's or K14's wrapper at M = 8")
+    h.add_argument("kernel", choices=("K1", "K15", "K14"))
     h.add_argument("tree", nargs="?", default=str(ROOT))
+    pk = sub.add_parser("pick", help="K14 at M = 8 at its picked plans, in this or another tree")
+    pk.add_argument("kernel", choices=("K14",))
+    pk.add_argument("tree", nargs="?", default=str(ROOT))
     s = sub.add_parser("sass", help="compare the SASS of two builds: two libraries of one "
                                     "source, or two build directories source by source")
     s.add_argument("lib_a")
@@ -565,6 +648,8 @@ def main() -> int:
         return time_tiles(args.kernel)
     if args.cmd == "host":
         return host_us(args.kernel, args.tree)
+    if args.cmd == "pick":
+        return pick_us(args.tree)
     return compare_sass(args.lib_a, args.lib_b)
 
 

@@ -1699,7 +1699,56 @@ def test_fp4_wo_matmul_matches_plain(dev, kind, m, k, n):
 
 
 @pytest.mark.parametrize("kind", ["mx", "nv"])
-@pytest.mark.parametrize("m", [8, 256], ids=["decode", "mainloop"])
+@pytest.mark.parametrize("m,k,n", [shape for shape in FP4_SHAPES if shape[0] <= 16])
+def test_fp4_wo_matmul_every_decode_plan(dev, kind, m, k, n):
+    """K14's decode form at every plan of ``gemv_candidates`` (warps along N
+    and K, cluster, stages), against the plain version at the card's bounds,
+    zero blocks exact; a plan it does not take is refused before the
+    launch."""
+    from ao_tpu_torch.ops.hopper import fp4_matmul as k14
+
+    qa, gen = _fp4_weight(dev, kind, k, n, seed=m * 3 + k + n)
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    ref = _fp4_call(k14, kind, x, qa, plain=True)
+    code = k14.MX if kind == "mx" else k14.NV
+    pts = None if kind == "mx" else qa.per_tensor_scale.to(torch.float32).reshape(())
+    need = 60 if kind == "mx" else 35
+    plans = k14.gemv_candidates(m, k, n, code, stages=(2, 3, 5))
+    assert len(plans) >= 3
+    for plan in plans:
+        got = k14._launch(code, x, qa.qdata, qa.scale, pts, "fp4", plan=plan)
+        torch.cuda.synchronize()
+        assert float(compute_error(ref, got)) > need, plan
+        assert bool((got[:, 3] == 0).all()) and bool((got[:, n - 1] == 0).all()), plan
+    with pytest.raises(ValueError, match="not the decode form's"):
+        k14._launch(code, x, qa.qdata, qa.scale, pts, "fp4", plan=(3, 1, 1, 3))
+
+
+@pytest.mark.parametrize("kind", ["mx", "nv"])
+@pytest.mark.parametrize("m", [1, 8, 16])
+@pytest.mark.parametrize("k,n", GEMV_KN)
+def test_fp4_wo_matmul_decode_form_at_llama_widths(dev, kind, m, k, n):
+    """K14's decode form at every decode width of the MXFP4-WO and NVFP4-WO
+    paths: one device kernel a call, no workspace, against the plain
+    version."""
+    from ao_tpu_torch.ops.hopper import fp4_matmul as k14
+
+    qa, gen = _fp4_weight(dev, kind, k, n, seed=m + k + n)
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    ref = _fp4_call(k14, kind, x, qa, plain=True)
+
+    def run():
+        return _fp4_call(k14, kind, x, qa)
+
+    got = run()
+    torch.cuda.synchronize()
+    assert float(compute_error(ref, got)) > (60 if kind == "mx" else 35)
+    assert _allocations(run) == 1  # the output: no f32 workspace
+    assert _device_kernels(run) == 1
+
+
+@pytest.mark.parametrize("kind", ["mx", "nv"])
+@pytest.mark.parametrize("m", [8, 256, 1, 16], ids=["decode", "mainloop", "decode1", "decode16"])
 def test_fp4_decode_every_code_and_scale_byte(dev, kind, m):
     """Column n of a (256, 256) weight has scale byte n in every block, its
     rows cycle through all 16 codes, and x is the identity's first m rows:

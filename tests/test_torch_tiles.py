@@ -1,4 +1,5 @@
-"""The tile choices of K14 (``fp4_matmul.pick_tiles``), K11
+"""The tile choices of K14 (``fp4_matmul.pick_tiles``, and its decode form's
+``fp4_matmul.gemv_plan`` with a PyTorch mirror of its summation order), K11
 (``int4_matmul.pick_tiles_halves``), K1 and K15 (the decode form's
 ``int4_matmul.gemv_plan`` with a PyTorch mirror of its summation order,
 ``int4_matmul.launch_tiles`` and ``lut4_matmul.launch_tiles`` above M = 16),
@@ -95,16 +96,27 @@ def _covers(units, splits, per):
 
 @pytest.mark.parametrize("m,k,n", K14_SHAPES)
 def test_k14_tiles_cover_k_and_fill_the_card(m, k, n):
-    bm, bn, splits, per = k14.pick_tiles(m, k, n, SM)
-    assert n % bn == 0
-    if m <= k14.GEMV_MAX_M:  # the decode kernel: units of 256, blocks of 128 columns
-        assert (bm, bn) == (k14.GEMV_MAX_M, k14.N_BLOCK)
-        units = k // k14.K_UNIT
-        assert _covers(units, splits, per)
-        ctas = n // bn * splits
-        # at least one block per SM, or every unit of K is a split of its own
-        assert ctas >= SM or splits == units, (bm, bn, splits, per, ctas)
+    if m <= k14.GEMV_MAX_M:  # the decode form: slabs of 256 K, K1's plan at g = K/4
+        plan = k14.gemv_plan(m, k, n, SM)
+        for kind in (k14.MX, k14.NV):
+            assert k14.checked_gemv_plan(m, k, n, kind, SM) == plan
+        wn, wk, cluster, stages = plan
+        slabs, per = k // k14.K_UNIT, k1.gemv_per(k, k // 4, cluster)
+        assert _covers(slabs, cluster, per)
+        ctas = n // (32 * wn) * cluster
+        if n // (32 * wn) >= 2 * SM:  # the lm_head: K1's one CTA a tile
+            assert plan == k1.gemv_plan(m, k, n, k // 4, SM)
+        elif wn == 2 and cluster > 1 and per * cluster == slabs and per <= 8 and ctas <= SM:
+            pass  # a CTA an SM, two warps wide, each with whole slabs
+        else:  # K1's plan
+            assert plan == k1.gemv_plan(m, k, n, k // 4, SM)
+            # a CTA an SM, or every slab a CTA of its own, or a cluster of 8
+            assert ctas >= SM or cluster in (slabs, k1.GEMV_MAX_CLUSTER), plan
+        with pytest.raises(ValueError, match="decode form"):
+            k14.pick_tiles(m, k, n, SM)
     else:
+        bm, bn, splits, per = k14.pick_tiles(m, k, n, SM)
+        assert n % bn == 0
         assert (bm, bn) in ((256, 128), (128, 128), (64, 128))
         units = k // k14.K_STAGE
         assert _covers(units, splits, per)
@@ -154,6 +166,26 @@ def test_fp4_decode_mirror_is_the_plain_decode(kind):
     nan = want.isnan()
     assert torch.equal(got.isnan(), nan)
     assert torch.equal(got.view(torch.int16)[~nan], want.view(torch.int16)[~nan])
+
+
+@pytest.mark.parametrize("kind", [k14.MX, k14.NV], ids=["mx", "nv"])
+def test_fp4_gemv_decode_mirror_is_the_plain_decode(kind):
+    """The decode form's table decode (``fp4_planes``, ``mx_scale2_byte``):
+    every code (its stored form) times every scale byte, bit for bit; NaN
+    where the plain decode is NaN."""
+    codes = torch.arange(16, dtype=torch.uint8)[:, None]
+    byte = torch.arange(256, dtype=torch.int32)[None, :]
+    got = k14.fp4_gemv_decode_mirror(_remap_fp4_magic(codes), byte, kind)
+    if kind == k14.MX:
+        scale = e8m0_decode(byte.to(torch.uint8))
+    else:
+        scale = byte.to(torch.uint8).view(torch.float8_e4m3fn).to(torch.float32)
+    want = (decode_fp4_e2m1(codes) * scale).to(torch.bfloat16)
+    nan = want.isnan()
+    assert torch.equal(got.isnan(), nan)
+    assert torch.equal(got.view(torch.int16)[~nan], want.view(torch.int16)[~nan])
+    # the zero codes' signs survive: -0 where the plain decode is -0
+    assert torch.equal(torch.signbit(got[~nan]), torch.signbit(want[~nan]))
 
 
 def test_tile_cache_round_trip(cache):
@@ -303,6 +335,105 @@ def test_gemv_plan_refuses_what_the_kernel_does_not_build():
     assert k1.gemv_plan_ok(16, 4096, 4096, 128, (4, 2, 1, 8))
     assert not k1.gemv_plan_ok(16, 4096, 4096, 128, (4, 2, 1, 8), 32 * 256)
     assert [k1.gemv_rows(g) for g in (16, 32, 64, 128)] == [8, 16, 32, 32]
+
+
+K14_DECODE = [shape for shape in K14_SHAPES if shape[0] <= k14.GEMV_MAX_M]
+
+
+def test_k14_decode_plans_at_llama_widths():
+    # Llama-3-8B's linears at decode (M = 1, 8, 16): wq / wo one CTA an SM
+    # two warps wide in clusters of 2, wk / wv in clusters of 8, w1 / w3, w2
+    # and the lm_head K1's plans (kernel_tiles.py time K14 on the H100)
+    want = {(4096, 4096): (2, 2, 2, 4), (4096, 1024): (2, 2, 8, 3),
+            (4096, 14336): (4, 1, 2, 4), (14336, 4096): (4, 1, 7, 4),
+            (4096, 128256): (4, 1, 1, 2)}
+    for m in (1, 8, 16):
+        assert {kn: k14.gemv_plan(m, *kn, SM) for kn in want} == want
+
+
+@pytest.mark.parametrize("m,k,n", K14_DECODE)
+def test_k14_decode_plans_take_every_slab_and_plane_once(m, k, n):
+    """Every plan K14's decode form takes at the shapes the smoke run and the
+    card's tests give it (``gemv_candidates``, each checked by
+    ``gemv_plan_ok`` for both kinds): each (word row, plane) in one (rank,
+    warp along K), the planes' K rows every K row once."""
+    plans = k14.gemv_candidates(m, k, n, k14.NV, stages=(3,))
+    assert k14.gemv_plan(m, k, n, SM) in k14.gemv_candidates(m, k, n, k14.NV)
+    assert plans
+    for plan in plans[::max(1, len(plans) // 12)]:
+        assert k14.gemv_plan_ok(m, k, n, k14.MX, plan) and k14.gemv_plan_ok(m, k, n, k14.NV, plan)
+        _, wk, cluster, _ = plan
+        per, owner = k1.gemv_per(k, k // 4, cluster), {}
+        for r in range(cluster):
+            for s in range(r * per, min((r + 1) * per, k // k14.K_UNIT)):
+                for w in range(wk):
+                    steps = k14.gemv_steps(wk, w)
+                    # a warp's steps cover whole 32-row scale blocks where wk <= 2
+                    assert wk == 4 or (steps.start % 2 == 0 and len(steps) % 2 == 0)
+                    for q in steps:
+                        for row in range(32 * s + 8 * q, 32 * s + 8 * q + 8):
+                            for j in range(4):
+                                assert (row, j) not in owner
+                                owner[(row, j)] = (r, w)
+        assert len(owner) == 4 * (k // 8)
+        # (word row r, plane j): K rows j K/4 + 2r and + 1
+        assert sorted(j * k // 4 + 2 * row for row, j in owner) == list(range(0, k, 2))
+
+
+def test_k14_decode_plan_refuses_what_the_kernel_does_not_build():
+    ok = (4, 1, 4, 4)
+    for kind in (k14.MX, k14.NV):
+        assert k14.gemv_plan_ok(8, 4096, 4096, kind, ok)
+        for bad in [(3, 1, 4, 4), (4, 8, 4, 4), (4, 4, 4, 4), (4, 1, 9, 4), (4, 1, 4, 1),
+                    (4, 1, 4, 9), (4, 1, 17, 4), (4, 1, 0, 4)]:
+            assert not k14.gemv_plan_ok(8, 4096, 4096, kind, bad), bad
+        assert not k14.gemv_plan_ok(17, 4096, 4096, kind, ok)  # M > 16: the prefill's tiles
+        assert not k14.gemv_plan_ok(8, 4096 + 128, 4096, kind, ok)  # K % 256
+        assert not k14.gemv_plan_ok(8, 4096, 4096 + 64, kind, (2, 1, 4, 4))  # N % 128
+        assert not k14.gemv_plan_ok(8, 512, 4096, kind, (4, 1, 4, 4))  # two slabs, four CTAs
+    # NV's stage holds four times MX's scale bytes: eight stages of 16 rows
+    # of x at wn = 4 fit beside MX's scales, not beside NV's
+    assert k14.gemv_plan_ok(16, 4096, 4096, k14.MX, (4, 1, 1, 8))
+    assert not k14.gemv_plan_ok(16, 4096, 4096, k14.NV, (4, 1, 1, 8))
+    assert (k1.gemv_smem_bytes(16, 4, 1, 8, 1024, qcol=k14.stage_q(k14.NV))
+            > k1.GEMV_MAX_SMEM >= k1.gemv_smem_bytes(16, 4, 1, 8, 1024, qcol=k14.stage_q(k14.MX)))
+
+
+@pytest.mark.parametrize("m", [1, 8, 16])
+@pytest.mark.parametrize("kind,pts", [(k14.MX, None), (k14.NV, 0.375), (k14.NV, None)],
+                         ids=["mx", "nv", "nv-no-pts"])
+def test_k14_decode_mirror_is_the_plain_version(m, kind, pts):
+    """K14's decode form's summation order (slab order, warps along K, the
+    cluster's ranks, every step into one acc) in PyTorch against the plain
+    version: the same exact bf16 weights, f32 sums in another order, then
+    one bf16 rounding (NV with a per-tensor scale: two), so at most two
+    bf16 ulps apart, and above the card's bounds (MX 60 dB, NV 35 dB)."""
+    from ao_tpu_torch.quantization.qarrays.fp4 import pack_fp4_magic, pack_nvfp4_scale_pairs
+
+    rng = np.random.default_rng(300 + 10 * m + kind + (pts is None))
+    k, n = 1024, 128
+    codes = torch.from_numpy(rng.integers(0, 16, (k, n)).astype(np.uint8))
+    word = pack_fp4_magic(codes)
+    if kind == k14.MX:
+        scale = torch.from_numpy(rng.integers(118, 131, (k // 32, n)).astype(np.uint8))
+        ref_fn = lambda x: k14.mxfp4_wo_matmul_plain(x, word, scale)  # noqa: E731
+    else:
+        e4m3 = torch.from_numpy(rng.random((k // 16, n)).astype(np.float32) * 4 + 0.01)
+        scale = pack_nvfp4_scale_pairs(e4m3.to(torch.float8_e4m3fn))
+        pts = None if pts is None else torch.tensor(pts, dtype=torch.float32)
+        ref_fn = lambda x: k14.nvfp4_wo_matmul_plain(x, word, scale, pts)  # noqa: E731
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(torch.bfloat16)
+    ref = ref_fn(x)
+    plans = [k14.gemv_plan(m, k, n, SM)] + [
+        p for p in [(1, 2, 3, 3), (2, 4, 1, 2), (4, 1, 4, 4), (1, 1, 2, 3)]
+        if k14.gemv_plan_ok(m, k, n, kind, p)]
+    assert len(plans) >= 4
+    for plan in plans:
+        got = k14.fp4_wo_gemv_mirror(x, word, scale, pts, kind, plan)
+        assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+        assert float(compute_error(ref, got)) > (60 if kind == k14.MX else 35), plan
+        torch.testing.assert_close(got.float(), ref.float(), rtol=2 ** -7,
+                                   atol=MIRROR_TOL * float(ref.float().abs().max()))
 
 
 @pytest.mark.parametrize("entry,taken", [((64, 128, 2), True), ((128, 128, 6), True),
